@@ -1,0 +1,103 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled by ``nvcc`` for sm_90a into one shared library
+with a plain C interface, at first use, into ``gpu_physics_engine_torch/
+_build/`` (listed in .gitignore).  The library's name carries a hash of
+the sources and flags, so an edited source is rebuilt and a current build
+is reused.  Nothing here runs at import: this module is imported on
+machines without nvcc or a GPU, where only the plain PyTorch versions run.
+A failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# -fmad=false: see csrc/tiled_kernels.cuh.  Never --use_fast_math.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "gpe_collide_integrate": [_P] * 11 + [_I] * 5 + [_P, _P],
+    "gpe_relocate_plan": [_P] * 4 + [_I] * 7 + [_F, _F, _P],
+    "gpe_relocate_apply": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cands.append(shutil.which("nvcc") or "")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgpe_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile the library if no current build exists.  Returns
+    {"path", "seconds" (0.0 when reused), "log" (nvcc/ptxas output)}."""
+    so = library_path()
+    if so.exists():
+        return {"path": str(so), "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)  # atomic: another process never sees a partial .so
+    return {"path": str(so), "seconds": seconds,
+            "log": proc.stdout + proc.stderr}
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed)."""
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launcher."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,356 @@
+"""The tiled pipeline's two hand kernels, their wrappers and their plain
+PyTorch versions (the counterpart of ``gpu_physics_engine_tpu.ops.tiled_pallas``).
+
+Each wrapper launches its CUDA kernel (csrc/tiled_kernels.cuh) for a CUDA
+tensor, runs the plain version for a CPU tensor, and raises for anything
+else; there is no fallback from a CUDA tensor to the plain version.  A
+wrapper adds one to ``LAUNCHES[name]`` each time it launches its kernel,
+so a run can show that it went through the kernels.
+
+K1 ``collide_integrate`` replaces ``collide_integrate_pallas``
+(gpu_physics_engine_tpu/ops/tiled_pallas.py:524).
+  Bound: on-chip loads and pair math, not device memory.  Each (slot,
+  tile) thread reads the 9 x CAP neighbour slots (pid, then x, y; radius
+  in the general variant); neighbouring threads share those tiles, so the
+  reads mostly hit L1/L2.  At 4M a launch moves ~0.35 GB of device memory
+  (~0.1 ms at 3.35 TB/s) yet measured 0.6 ms on an H100 80GB HBM3 at
+  700 W (PERF.md).
+  Design: one thread per (slot, tile) gathers its own half of every pair,
+  so it owns its output: no atomics and no carry between blocks (the TPU
+  Newton form's band-seam carry needs sequential grid steps, which CUDA
+  blocks are not).  Empty candidates and non-pairs are skipped before the
+  rsqrt.  Verlet runs in the same thread, reading [dt, mx, my, pressed]
+  from device memory, so a step never syncs with the host.
+
+K2 ``relocate_pull`` replaces ``relocate_pallas``
+(gpu_physics_engine_tpu/ops/tiled_pallas.py:945).
+  Bound: per-thread serial work.  One thread per tile: the plan reads
+  x, y, pid of the 8 neighbours' CAP slots and matches serially; the apply
+  reads the tile's own slots, the target tiles' plans and the pulled
+  slots, and writes six fresh planes.  Measured 0.42 ms (plan 0.15 +
+  apply 0.27) per launch at 4M on an H100 80GB HBM3 at 700 W (PERF.md).
+  Design: two launches, one thread per tile each.  The plan keeps every
+  neighbour's claims on this tile as a CAP-bit mask in registers and runs
+  the flip / flip2 / greedy matching of ``_plan_choose`` on them.  The
+  apply writes to new planes (neighbours read the inputs concurrently),
+  compacting survivors to the low slots.  Built with -fmad=false so the
+  tile-boundary decisions equal the plain version's bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from gpu_physics_engine_torch.core.config import SimConfig
+from gpu_physics_engine_torch.ops import _cuda
+from gpu_physics_engine_torch.ops.integrate import f32
+from gpu_physics_engine_torch.ops.tiled import (FIELDS, MIN_DISTANCE,
+                                                TileState, pair_sweep,
+                                                shift_tiles,
+                                                step_offsets, tile_geometry,
+                                                verlet)
+
+LAUNCHES = {"collide_integrate": 0, "relocate_pull": 0}
+
+MAX_CAP = 32  # the kernels' claim bitsets are 32 bits wide
+
+# fixed claim priority: the first matching neighbour wins a free slot
+NEIGHBORS = ((-1, -1), (-1, 0), (-1, 1), (0, -1),
+             (0, 1), (1, -1), (1, 0), (1, 1))
+_MATCH_CODE = {"flip": 0, "flip2": 1, "greedy": 2}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check_cuda_state(state: TileState, what: str) -> None:
+    if state.device.type != "cuda":
+        raise RuntimeError(f"{what}: the CUDA kernel needs CUDA tensors, "
+                           f"got {state.device}")
+    cap, TY, TX = state.dims
+    if not 1 <= cap <= MAX_CAP:
+        raise ValueError(f"{what}: tile_cap {cap} outside 1..{MAX_CAP}")
+    if cap * TY * TX >= 2 ** 31:
+        raise ValueError(f"{what}: {cap}x{TY}x{TX} slots overflow int32")
+    for name in FIELDS:
+        a = getattr(state, name)
+        want = torch.int32 if name == "pid" else torch.float32
+        if a.dtype != want or tuple(a.shape) != (cap, TY, TX):
+            raise ValueError(f"{what}: {name} must be {want} "
+                             f"[{cap}, {TY}, {TX}], got {a.dtype} "
+                             f"{list(a.shape)}")
+        if not a.is_contiguous() or a.device != state.device:
+            raise ValueError(f"{what}: {name} must be contiguous on "
+                             f"{state.device}")
+
+
+def _ptrs(*tensors) -> list:
+    """Device addresses, passed to the C entry points as void*."""
+    return [a.data_ptr() for a in tensors]
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: fused collide + integrate
+# ---------------------------------------------------------------------------
+
+def collide_integrate(state: TileState, prm: torch.Tensor,
+                      config: SimConfig) -> TileState:
+    """One fused substep (pair sweep + Verlet).  ``prm`` = f32[4]
+    [dt * dt_scale, mouse_x, mouse_y, pressed] on the state's device."""
+    if state.device.type == "cpu":
+        return collide_integrate_plain(state, prm, config)
+    return collide_integrate_cuda(state, prm, config)
+
+
+def collide_integrate_plain(state: TileState, prm: torch.Tensor,
+                            config: SimConfig) -> TileState:
+    """Plain PyTorch version of K1 (any device): the 9-offset gather
+    sweep of ``_pair_sweep`` (uniform-radius constants when
+    config.tiled_uniform_radius), then Verlet with the world constraint."""
+    r0 = config.initial_radius if config.tiled_uniform_radius else None
+    acc_x, acc_y = pair_sweep(state.x, state.y, state.radius, state.pid,
+                              config, r0=r0)
+    radius = f32(r0) if r0 is not None else state.radius
+    nx, ny, npx, npy = verlet(state.x + acc_x, state.y + acc_y, state.px,
+                              state.py, state.occupied(), radius, prm,
+                              config)
+    return state.replace(x=nx, y=ny, px=npx, py=npy)
+
+
+def _k1_consts(config: SimConfig) -> np.ndarray:
+    """Host float[14] in K1Consts order, each rounded to f32 the way the
+    JAX package rounds the same Python constants."""
+    r0 = config.initial_radius
+    return np.array([
+        r0, 2.0 * r0, (2.0 * r0) * (2.0 * r0), 0.5 * config.stiffness,
+        config.stiffness, MIN_DISTANCE * MIN_DISTANCE,
+        config.mouse_strength, config.gravity[0], config.gravity[1],
+        config.world_width, config.world_height,
+        config.world_width / 2.0, config.world_height / 2.0,
+        min(config.world_width, config.world_height) / 2.0,
+    ], np.float32)
+
+
+def collide_integrate_cuda(state: TileState, prm: torch.Tensor,
+                           config: SimConfig) -> TileState:
+    """Launch K1 on the state's CUDA device (raises for other tensors)."""
+    _check_cuda_state(state, "collide_integrate")
+    if (prm.dtype != torch.float32 or tuple(prm.shape) != (4,)
+            or prm.device != state.device or not prm.is_contiguous()):
+        raise ValueError("collide_integrate: prm must be a contiguous f32[4] "
+                         f"on {state.device}")
+    cap, TY, TX = state.dims
+    outs = [torch.empty_like(state.x) for _ in range(4)]
+    consts = _k1_consts(config)
+    lib = _cuda.library()
+    with torch.cuda.device(state.device):
+        rc = lib.gpe_collide_integrate(
+            *_ptrs(*(getattr(state, f) for f in FIELDS), prm, *outs),
+            cap, TY, TX,
+            int(config.tiled_uniform_radius),
+            int(config.world_shape == "circle"),
+            consts.ctypes.data, _stream(state.device))
+    _cuda.check(rc, "collide_integrate")
+    LAUNCHES["collide_integrate"] += 1
+    return state.replace(x=outs[0], y=outs[1], px=outs[2], py=outs[3])
+
+
+# ---------------------------------------------------------------------------
+# K2: pull relocation (plan, then apply)
+# ---------------------------------------------------------------------------
+
+def resolve_match(config: SimConfig, cap: int, TY: int, TX: int) -> str:
+    """tiled_match with "auto" resolved as the JAX package does: greedy on
+    grids of <= 800k tiles with cap <= 8, flip2 otherwise."""
+    if config.tiled_match != "auto":
+        return config.tiled_match
+    return "greedy" if (TY * TX <= 800_000 and cap <= 8) else "flip2"
+
+
+def _k2_args(state: TileState, config: SimConfig, global_rows):
+    cap, TY, TX = state.dims
+    return (resolve_match(config, cap, TY, TX), tile_geometry(config)[0],
+            config.hysteresis_delta, TY if global_rows is None
+            else int(global_rows))
+
+
+def relocate_pull(state: TileState, config: SimConfig, row0: int = 0,
+                  global_rows: int | None = None) -> TileState:
+    """Bufferless relocation: every mover takes at most one hop toward its
+    home tile; deferrals add to overflow_count.  ``row0`` (the slab's first
+    global tile row) and ``global_rows`` (the full grid's row count) are
+    0 and TY on one device."""
+    if state.device.type == "cpu":
+        return relocate_pull_plain(state, config, row0, global_rows)[0]
+    return relocate_pull_cuda(state, config, row0, global_rows)[0]
+
+
+def relocate_pull_cuda(state: TileState, config: SimConfig, row0: int = 0,
+                       global_rows: int | None = None
+                       ) -> Tuple[TileState, torch.Tensor]:
+    """Launch K2 (plan + apply) on the state's CUDA device.  Returns (new
+    state, defer i32 [TY, TX])."""
+    _check_cuda_state(state, "relocate_pull")
+    cap, TY, TX = state.dims
+    match, t, delta, gTY = _k2_args(state, config, global_rows)
+    plan = torch.empty_like(state.pid)
+    outs = [torch.empty_like(state.x) for _ in range(5)]
+    opid = torch.empty_like(state.pid)
+    defer = torch.empty((TY, TX), dtype=torch.int32, device=state.device)
+    lib = _cuda.library()
+    common = (cap, TY, TX, int(row0), gTY, TX, _MATCH_CODE[match], f32(t),
+              f32(delta), _stream(state.device))
+    with torch.cuda.device(state.device):
+        rc = lib.gpe_relocate_plan(
+            *_ptrs(state.x, state.y, state.pid, plan), *common)
+        _cuda.check(rc, "relocate_pull (plan)")
+        rc = lib.gpe_relocate_apply(
+            *_ptrs(*(getattr(state, f) for f in FIELDS), plan, *outs, opid,
+                   defer), *common)
+        _cuda.check(rc, "relocate_pull (apply)")
+    LAUNCHES["relocate_pull"] += 1
+    return _relocated(state, outs, opid, defer), defer
+
+
+def _relocated(state, outs, opid, defer) -> TileState:
+    return state.replace(
+        x=outs[0], y=outs[1], px=outs[2], py=outs[3], radius=outs[4],
+        pid=opid, overflow_count=state.overflow_count
+        + torch.sum(defer, dtype=torch.int32))
+
+
+def _grid_coords(shape, row0: int, device):
+    """(my_row, my_ty, my_tx): local row, global row, column index
+    tensors broadcastable to ``shape`` = (cap, TY, TX)."""
+    _, TY, TX = shape
+    my_row = torch.arange(TY, dtype=torch.int32, device=device).view(1, TY, 1)
+    my_tx = torch.arange(TX, dtype=torch.int32, device=device).view(1, 1, TX)
+    return my_row, my_row + int(row0), my_tx
+
+
+def relocate_plan_plain(state: TileState, config: SimConfig, row0: int = 0,
+                        global_rows: int | None = None) -> torch.Tensor:
+    """Plain version of K2's plan (``_relocate_plan_kernel`` +
+    ``_plan_choose``) over the whole grid: i32 [cap, TY, TX]."""
+    cap, TY, TX = state.dims
+    match, t, delta, gTY = _k2_args(state, config, global_rows)
+    my_row, my_ty, my_tx = _grid_coords(state.dims, row0, state.device)
+
+    # claims[e, s]: neighbour e's slot-s occupant hops to me this step
+    claims = []
+    for ey, ex in NEIGHBORS:
+        x_e = shift_tiles(state.x, ey, ex)
+        y_e = shift_tiles(state.y, ey, ex)
+        p_e = shift_tiles(state.pid, ey, ex)
+        valid = ((my_row + ey >= 0) & (my_row + ey <= TY - 1)
+                 & (my_tx + ex >= 0) & (my_tx + ex <= TX - 1))
+        dty, dtx = step_offsets(x_e, y_e, my_ty + ey, my_tx + ex, t=t,
+                                delta=delta, gTY=gTY, gTX=TX)
+        claims.append(valid & (p_e >= 0) & (dty == -ey) & (dtx == -ex))
+    claims = torch.stack(claims)                      # [8, cap, TY, TX]
+
+    free = state.pid < 0
+    chosen = torch.full_like(state.pid, -1)
+    if match == "flip":
+        for e in range(8):
+            # free slot k pulls the neighbour's slot cap-1-k mover
+            c = claims[e].flip(0)
+            chosen = torch.where(c & (chosen < 0),
+                                 torch.full_like(chosen, e), chosen)
+    else:
+        claimed = torch.zeros_like(claims)
+        for k in range(cap):
+            chosen_k = chosen[k]
+            if match == "flip2":
+                order = [(e, s, e + 8 * rule)
+                         for rule, s in ((0, cap - 1 - k), (1, k))
+                         for e in range(8)]
+            else:  # greedy
+                order = [(e, s, e * cap + s)
+                         for e in range(8) for s in range(cap)]
+            for e, s, code in order:
+                take = (free[k] & claims[e, s] & ~claimed[e, s]
+                        & (chosen_k < 0))
+                chosen_k = torch.where(take, torch.full_like(chosen_k, code),
+                                       chosen_k)
+                claimed[e, s] |= take
+            chosen[k] = chosen_k
+    interior = ((my_ty >= 1) & (my_ty <= gTY - 2) & (my_tx >= 1)
+                & (my_tx <= TX - 2) & (my_row <= TY - 1))
+    return torch.where(free & interior, chosen, torch.full_like(chosen, -1))
+
+
+def relocate_pull_plain(state: TileState, config: SimConfig, row0: int = 0,
+                        global_rows: int | None = None
+                        ) -> Tuple[TileState, torch.Tensor]:
+    """Plain PyTorch version of K2 on any device: the plan above, then
+    ``_relocate_apply_kernel`` + ``_apply_merge`` as whole-grid tensor
+    ops.  Returns (new state, defer i32 [TY, TX])."""
+    cap, TY, TX = state.dims
+    match, t, delta, gTY = _k2_args(state, config, global_rows)
+    plan = relocate_plan_plain(state, config, row0, global_rows)
+    my_row, my_ty, my_tx = _grid_coords(state.dims, row0, state.device)
+
+    fields = {n: getattr(state, n) for n in FIELDS}
+    dty, dtx = step_offsets(state.x, state.y, my_ty, my_tx, t=t,
+                            delta=delta, gTY=gTY, gTX=TX)
+    in_slab = (my_row + dty >= 0) & (my_row + dty <= TY - 1)
+    moving = (state.pid >= 0) & in_slab & ((dty != 0) | (dtx != 0))
+
+    accepted = torch.zeros_like(moving)
+    new = dict(fields)
+    slot_codes = torch.arange(cap, dtype=torch.int32,
+                              device=state.device).view(cap, 1, 1)
+    for e_idx, (ey, ex) in enumerate(NEIGHBORS):
+        me = NEIGHBORS.index((-ey, -ex))  # my index in the target's order
+        views = {n: shift_tiles(a, ey, ex) for n, a in fields.items()}
+        plan_e = shift_tiles(plan, ey, ex)
+        sel = moving & (dty == ey) & (dtx == ex)
+        if match == "flip":
+            accepted |= sel & (plan_e.flip(0) == me)
+            hit = plan == e_idx
+            for n in new:
+                new[n] = torch.where(hit, views[n].flip(0), new[n])
+        elif match == "flip2":
+            accepted |= sel & ((plan_e.flip(0) == me) | (plan_e == me + 8))
+            hit0 = plan == e_idx
+            hit1 = plan == e_idx + 8
+            for n in new:
+                new[n] = torch.where(
+                    hit1, views[n], torch.where(hit0, views[n].flip(0),
+                                                new[n]))
+        else:  # greedy: codes e*cap + source slot
+            named = (plan_e[None] == (me * cap + slot_codes)[:, None]).any(1)
+            accepted |= sel & named
+            for s in range(cap):
+                hit = plan == e_idx * cap + s
+                for n in new:
+                    new[n] = torch.where(hit, views[n][s:s + 1], new[n])
+
+    take_in = plan >= 0
+    new["pid"] = torch.where(accepted & ~take_in,
+                             torch.full_like(new["pid"], -1), new["pid"])
+    defer = torch.sum(moving & ~accepted, dim=0, dtype=torch.int32)
+
+    # compact occupants to the low slots, zero-fill the rest
+    occ = new["pid"] >= 0
+    rank = torch.cumsum(occ.to(torch.int32), dim=0) - occ.to(torch.int32)
+    ntiles = TY * TX
+    tile_lin = torch.arange(ntiles, device=state.device).view(1, TY, TX)
+    dst = (rank.long() * ntiles + tile_lin)[occ]
+    outs = []
+    for n in FIELDS:
+        o = torch.full((cap * ntiles,), -1 if n == "pid" else 0,
+                       dtype=new[n].dtype, device=state.device)
+        o[dst] = new[n][occ]
+        outs.append(o.view(cap, TY, TX))
+    return _relocated(state, outs[:5], outs[5], defer), defer
