@@ -9,9 +9,15 @@ the storage-jam watchdog at run() boundaries.  A step issues its kernels
 on the current CUDA stream and never waits for the device; the sweep and
 the watchdog synchronise once each.
 
+The engine runs on the CUDA card unless the caller passes a device;
+without a card and without ``device="cpu"`` it raises.  The
+reference-exact Gauss-Seidel solver (tiled_solver="gs") runs the same
+schedule with a relocate on every step.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-tiled_sweep="bands", tiled_rebuild_every > 0, spawns and the big-particle
-overlay, rendering, checkpoints.
+tiled_sweep="bands", tiled_rebuild_every > 0, the GS layouts "dec", "mx"
+and "par" and the GS mega kernels, spawns and the big-particle overlay,
+rendering, checkpoints.
 """
 
 from __future__ import annotations
@@ -37,6 +43,17 @@ def _auto_cap(config: SimConfig, positions) -> int:
     return max(8, int(-(-1.5 * occ // 4)) * 4)
 
 
+def default_device(device=None) -> torch.device:
+    """``device`` as given; else the CUDA card, and without one a
+    RuntimeError: the engine never falls back to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' to "
+                           "run the engine on the CPU")
+    return torch.device("cuda")
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet ({item})")
 
@@ -48,6 +65,7 @@ def _check_supported(config: SimConfig) -> None:
     if config.tiled_rebuild_every > 0:
         raise _not_ported("tiled_rebuild_every > 0 (the hybrid sweep)",
                           "ROADMAP.md queue 1, item 4: sweep modes")
+    tiled.check_gs_supported(config)
 
 
 class TiledEngine:
@@ -62,7 +80,7 @@ class TiledEngine:
         if initial_state is not None:
             self.device = initial_state.device
         else:
-            self.device = torch.device(device or "cpu")
+            self.device = default_device(device)
         self.config = config
         self._gen = torch.Generator().manual_seed(int(seed))
         if initial_state is None:
@@ -305,6 +323,9 @@ class TiledEngine:
     @classmethod
     def from_arrays(cls, config: SimConfig, positions, radii, device=None,
                     **kw):
+        """Engine over a given scene, on the CUDA card unless ``device``
+        says otherwise (raises without a card)."""
+        device = default_device(device)
         if config.tile_cap == 0:
             config = config.replace(tile_cap=_auto_cap(
                 config, np.asarray(positions, np.float32).reshape(-1, 2)))

@@ -105,3 +105,19 @@ def tuned_config(n_particles: int, max_particles: Optional[int] = None,
 def tuned_chunk(n_particles: int) -> int:
     """run() window depth paired with tuned_config."""
     return tuned_row(n_particles)[2]
+
+
+def gs_config(n_particles: int, **overrides) -> SimConfig:
+    """The reference-exact Gauss-Seidel configuration at this size, as the
+    JAX package's bench builds it (bench.py measure_gs): tiles are the
+    reference's cells (multiplier 2.2), the GS_TUNED storage cap, K = 8,
+    uniform radius, the GS_SWEEP cadence.  ``overrides`` win."""
+    cap, match = GS_TUNED(n_particles)
+    sweep_iv, sweep_mech = GS_SWEEP(n_particles)
+    kw = dict(max_particles=n_particles, initial_particles=n_particles,
+              pipeline="tiled", tiled_solver="gs", tile_multiplier=2.2,
+              tile_cap=cap, max_occupancy=8, tiled_uniform_radius=True,
+              tiled_match=match, sort_interval_steps=sweep_iv,
+              tiled_sweep=sweep_mech, **GS_FLAGS)
+    kw.update(overrides)
+    return SimConfig(**kw)

@@ -15,21 +15,50 @@ constexpr int kThreads = 256;
 
 int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
-template <bool UNIFORM, bool CIRCLE>
+template <bool UNIFORM, bool CIRCLE, bool INTEGRATE = true>
 void launch_k1(const float* x, const float* y, const float* px,
                const float* py, const float* rad, const int* pid,
                const float* prm, float* ox, float* oy, float* opx,
                float* opy, int cap, int TY, int TX, const gpe::K1Consts& c,
                cudaStream_t s) {
   const long long n = (long long)cap * TY * TX;
-  gpe::collide_integrate_kernel<UNIFORM, CIRCLE>
+  gpe::collide_integrate_kernel<UNIFORM, CIRCLE, INTEGRATE>
       <<<blocks_for(n), kThreads, 0, s>>>(x, y, px, py, rad, pid, prm, ox,
                                           oy, opx, opy, cap, TY, TX, c);
+}
+
+gpe::K1Consts k1_consts(const void* consts) {
+  const float* f = static_cast<const float*>(consts);
+  return gpe::K1Consts{f[0], f[1], f[2],  f[3],  f[4],  f[5],  f[6],
+                       f[7], f[8], f[9], f[10], f[11], f[12], f[13]};
 }
 
 }  // namespace
 
 extern "C" {
+
+// K3: the K1 sweep without the Verlet step; writes ox, oy only.
+int gpe_collide(const void* x, const void* y, const void* rad,
+                const void* pid, void* ox, void* oy, int cap, int TY, int TX,
+                int uniform, const void* consts, void* stream) {
+  const gpe::K1Consts c = k1_consts(consts);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* fx = static_cast<const float*>(x);
+  const auto* fy = static_cast<const float*>(y);
+  const auto* fr = static_cast<const float*>(rad);
+  const auto* ip = static_cast<const int*>(pid);
+  auto* gx = static_cast<float*>(ox);
+  auto* gy = static_cast<float*>(oy);
+  if (uniform)
+    launch_k1<true, false, false>(fx, fy, nullptr, nullptr, fr, ip, nullptr,
+                                  gx, gy, nullptr, nullptr, cap, TY, TX, c,
+                                  s);
+  else
+    launch_k1<false, false, false>(fx, fy, nullptr, nullptr, fr, ip,
+                                   nullptr, gx, gy, nullptr, nullptr, cap, TY,
+                                   TX, c, s);
+  return (int)cudaGetLastError();
+}
 
 // K1.  consts = host float[kK1NumConsts] in K1Consts order.
 int gpe_collide_integrate(const void* x, const void* y, const void* px,
@@ -37,9 +66,7 @@ int gpe_collide_integrate(const void* x, const void* y, const void* px,
                           const void* prm, void* ox, void* oy, void* opx,
                           void* opy, int cap, int TY, int TX, int uniform,
                           int circle, const void* consts, void* stream) {
-  const float* f = static_cast<const float*>(consts);
-  gpe::K1Consts c{f[0], f[1], f[2], f[3],  f[4],  f[5],  f[6],
-                  f[7], f[8], f[9], f[10], f[11], f[12], f[13]};
+  const gpe::K1Consts c = k1_consts(consts);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* fx = static_cast<const float*>(x);
   const auto* fy = static_cast<const float*>(y);

@@ -3,6 +3,9 @@
 // K1  collide_integrate_kernel  replaces gpu_physics_engine_tpu/ops/
 //     tiled_pallas.py::collide_integrate_pallas (:524, kernel
 //     _collide_integrate_band_kernel :388).
+// K3  collide_integrate_kernel<..., INTEGRATE = false>  replaces
+//     tiled_pallas.py::collide_pallas (:455, kernel _collide_band_kernel
+//     :355): the same sweep without the Verlet step.
 // K2  relocate_plan_kernel + relocate_apply_kernel  replace
 //     gpu_physics_engine_tpu/ops/tiled_pallas.py::relocate_pallas (:945,
 //     kernels _relocate_plan_kernel :647 / _plan_choose :713 and
@@ -64,7 +67,11 @@ constexpr int kK1NumConsts = 14;
 // order of the f32 sums.)  Out-of-grid neighbours are skipped; empty slots
 // and non-pairs add exactly zero in the plain version, so skipping them
 // changes no bit.
-template <bool UNIFORM, bool CIRCLE>
+//
+// K3 (collide_pallas, tiled_pallas.py:455, kernel _collide_band_kernel
+// :355) is this kernel with INTEGRATE = false: it writes x + acc_x, y +
+// acc_y for every slot and stops; px, py, prm, opx and opy are unused.
+template <bool UNIFORM, bool CIRCLE, bool INTEGRATE = true>
 __global__ void collide_integrate_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ px, const float* __restrict__ py,
@@ -130,11 +137,13 @@ __global__ void collide_integrate_kernel(
   }
   const float cx = xm + ax;
   const float cy = ym + ay;
-  if (!occ) {
+  if (!INTEGRATE || !occ) {
     ox[i] = cx;
     oy[i] = cy;
-    opx[i] = px[i];
-    opy[i] = py[i];
+    if (INTEGRATE) {
+      opx[i] = px[i];
+      opy[i] = py[i];
+    }
     return;
   }
 

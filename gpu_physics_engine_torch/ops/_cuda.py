@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for sm_90a into one shared library
-with a plain C interface, at first use, into ``gpu_physics_engine_torch/
-_build/`` (listed in .gitignore).  The library's name carries a hash of
-the sources and flags, so an edited source is rebuilt and a current build
-is reused.  Nothing here runs at import: this module is imported on
-machines without nvcc or a GPU, where only the plain PyTorch versions run.
-A failed build raises; nothing falls back.
+The sources are compiled by ``nvcc`` for sm_90a, one process per source
+and all started together, then linked into one shared library with a
+plain C interface, at first use, into ``gpu_physics_engine_torch/_build/``
+(listed in .gitignore).  The library's name carries a hash of the sources
+and flags, so an edited source is rebuilt and a current build is reused.
+Nothing here runs at import: this module is imported on machines without
+nvcc or a GPU, where only the plain PyTorch versions run.  A failed build
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,17 +27,20 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # -fmad=false: see csrc/tiled_kernels.cuh.  Never --use_fast_math.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+                     "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "gpe_collide_integrate": [_P] * 11 + [_I] * 5 + [_P, _P],
+    "gpe_collide": [_P] * 6 + [_I] * 4 + [_P, _P],
     "gpe_relocate_plan": [_P] * 4 + [_I] * 7 + [_F, _F, _P],
     "gpe_relocate_apply": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
+    "gpe_gs_rank": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "gpe_gs_color": [_P] * 4 + [_I] * 5 + [_F, _P],
 }
 
 
@@ -63,27 +67,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgpe_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands concurrently; raise on the first failure.
+    Returns their joined output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed ({proc.returncode}):\n"
+                      f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
 def build() -> dict:
-    """Compile the library if no current build exists.  Returns
-    {"path", "seconds" (0.0 when reused), "log" (nvcc/ptxas output)}."""
+    """Compile the library if no current build exists: one nvcc per source,
+    all started together, then one link.  Returns {"path", "seconds" (0.0
+    when reused), "log" (nvcc/ptxas output)}."""
     so = library_path()
     if so.exists():
         return {"path": str(so), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)  # atomic: another process never sees a partial .so
-    return {"path": str(so), "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        cus = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [os.path.join(work, s.stem + ".o") for s in cus]
+        log = _run_all([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                       for s, o in zip(cus, objs))
+        tmp = os.path.join(work, "lib.so")
+        log += _run_all([[nvcc, *ARCH, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so)  # atomic: no process sees a partial .so
+    return {"path": str(so), "seconds": time.perf_counter() - t0,
+            "log": log}
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,8 +10,9 @@ restores storage == home: the claim ``relocate`` or the wholesale
 ``rebuild``.
 
 Everything here is plain PyTorch and runs on whatever device the state
-lives on.  The two hot passes dispatch to hand-written CUDA kernels for
-CUDA tensors (``tiled_step_fn``).
+lives on.  The hot passes dispatch to hand-written CUDA kernels for CUDA
+tensors (``tiled_step_fn``): ops/tiled_kernels for the Jacobi sweep and
+the relocate, ops/gs_kernels for the Gauss-Seidel solve.
 """
 
 from __future__ import annotations
@@ -627,6 +628,24 @@ def _relocate_passes(relocate_fn, state: TileState,
     return state
 
 
+def check_gs_supported(config: SimConfig) -> None:
+    """Raise for the Gauss-Seidel options that are not ported yet.  The
+    flat layout ("flat", and "auto", which the JAX package resolves to
+    "flat" off the TPU) runs; every gs_rank value selects the same
+    occupants, so all of them run."""
+    if config.tiled_solver != "gs":
+        return
+    if config.gs_layout in ("dec", "mx", "par"):
+        raise NotImplementedError(
+            f"gs_layout={config.gs_layout!r} is not ported yet (ROADMAP.md "
+            "queue 2: K6-dec, K6-mx, K5-par, K6-par, K2-par); 'flat' and "
+            "'auto' run the flat GS kernels")
+    if config.gs_colors_mega or config.gs_relocate_mega:
+        raise NotImplementedError(
+            "gs_colors_mega / gs_relocate_mega are not ported yet "
+            "(ROADMAP.md queue 2, K11)")
+
+
 def _backend(choice: str, state: TileState, what: str) -> bool:
     """True = the hand-kernel route (ops/tiled_kernels), False = the
     plain tensor path the JAX package runs for ``"jnp"``.  ``"pallas"``
@@ -645,39 +664,50 @@ def tiled_step_fn(state: TileState, params: StepParams, config: SimConfig,
     """One frame: relocate (on relocating steps) -> collide -> integrate.
 
     Backends (config.tiled_collide / tiled_relocate):
-      * "auto": the wrappers in ops/tiled_kernels (K1 fused collide +
-        integrate, K2 pull relocate); each launches its CUDA kernel for a
-        CUDA tensor and runs its plain PyTorch version for a CPU tensor;
+      * "auto": the kernel wrappers (ops/tiled_kernels: K1 fused collide +
+        integrate, K3 collide, K2 pull relocate; ops/gs_kernels: K5 rank
+        and K6 color solve); each launches its CUDA kernel for a CUDA
+        tensor and runs its plain PyTorch version for a CPU tensor;
       * "pallas": the same wrappers, but a CPU tensor raises;
       * "jnp": what the JAX package runs under "jnp": separate plain
-        ``collide`` + ``integrate``, and the claim ``relocate``.
+        ``collide`` (or ``gs_tiled.gs_solve``) + ``integrate``, and the
+        claim ``relocate``.
+
+    tiled_solver="gs" is the reference-exact Gauss-Seidel solve: relocate
+    on every step (the config forbids a longer interval), then per
+    substep the 4-color solve and the plain ``integrate``.
 
     ``prm`` is a ready f32[4] device vector for ``params`` at this
     substep's dt (the engine caches it); built from ``params`` if None."""
-    # imported here: tiled_kernels imports this module
+    # imported here: the kernel modules import this module
+    from gpu_physics_engine_torch.ops import gs_kernels, gs_tiled
     from gpu_physics_engine_torch.ops import tiled_kernels
 
-    if config.tiled_solver == "gs":
-        raise NotImplementedError(
-            "tiled_solver='gs' is not ported yet (ROADMAP.md queue 1, "
-            "item 8: reference-exact Gauss-Seidel, kernels K5/K6)")
+    check_gs_supported(config)
     kernel_collide = _backend(config.tiled_collide, state, "tiled_collide")
     kernel_reloc = _backend(config.tiled_relocate, state, "tiled_relocate")
-    if kernel_collide and not config.tiled_fuse_integrate:
-        raise NotImplementedError(
-            "tiled_fuse_integrate=False needs the collide-only kernel K3, "
-            "not ported yet (ROADMAP.md queue 2, K3)")
-
-    if do_relocate:
-        reloc = tiled_kernels.relocate_pull if kernel_reloc else relocate
-        state = _relocate_passes(reloc, state, config)
+    reloc = tiled_kernels.relocate_pull if kernel_reloc else relocate
     dt_scale = 1.0 / config.substeps
     if prm is None:
         prm = params.as_tensor(state.device, dt_scale)
+
+    if config.tiled_solver == "gs":
+        solve = gs_kernels.gs_solve_flat if kernel_collide \
+            else gs_tiled.gs_solve
+        state = _relocate_passes(reloc, state, config)
+        for _ in range(config.substeps):
+            state = integrate(solve(state, config), params, config, prm=prm)
+        return state
+
+    if do_relocate:
+        state = _relocate_passes(reloc, state, config)
     for _ in range(config.substeps):
-        if kernel_collide:
-            state = tiled_kernels.collide_integrate(state, prm, config)
-        else:
+        if not kernel_collide:
             state = integrate(collide(state, config), params, config,
                               prm=prm)
+        elif config.tiled_fuse_integrate:
+            state = tiled_kernels.collide_integrate(state, prm, config)
+        else:
+            state = integrate(tiled_kernels.collide(state, config), params,
+                              config, prm=prm)
     return state

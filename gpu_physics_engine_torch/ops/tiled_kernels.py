@@ -1,4 +1,4 @@
-"""The tiled pipeline's two hand kernels, their wrappers and their plain
+"""The tiled pipeline's hand kernels K1-K3, their wrappers and their plain
 PyTorch versions (the counterpart of ``gpu_physics_engine_tpu.ops.tiled_pallas``).
 
 Each wrapper launches its CUDA kernel (csrc/tiled_kernels.cuh) for a CUDA
@@ -21,6 +21,17 @@ K1 ``collide_integrate`` replaces ``collide_integrate_pallas``
   blocks are not).  Empty candidates and non-pairs are skipped before the
   rsqrt.  Verlet runs in the same thread, reading [dt, mx, my, pressed]
   from device memory, so a step never syncs with the host.
+
+K3 ``collide`` replaces ``collide_pallas``
+(gpu_physics_engine_tpu/ops/tiled_pallas.py:455; kernel
+``_collide_band_kernel`` :355).
+  Bound: as K1's sweep.  At the 4M shape [8, 640, 1850] the function reads
+  x, y, pid (and radius in the general variant) and writes x, y: 0.19 GB,
+  0.06 ms at 3.35 TB/s; the pair loads mostly hit L1/L2.
+  Design: K1's kernel with its Verlet tail switched off at compile time
+  (INTEGRATE = false), so the two share one sweep; the step then runs the
+  plain ``integrate``.  Uniform and general radius as K1; the Newton flag
+  only changes the order of the sums, as for K1.
 
 K2 ``relocate_pull`` replaces ``relocate_pallas``
 (gpu_physics_engine_tpu/ops/tiled_pallas.py:945).
@@ -53,7 +64,7 @@ from gpu_physics_engine_torch.ops.tiled import (FIELDS, MIN_DISTANCE,
                                                 step_offsets, tile_geometry,
                                                 verlet)
 
-LAUNCHES = {"collide_integrate": 0, "relocate_pull": 0}
+LAUNCHES = {"collide_integrate": 0, "relocate_pull": 0, "collide": 0}
 
 MAX_CAP = 32  # the kernels' claim bitsets are 32 bits wide
 
@@ -162,6 +173,45 @@ def collide_integrate_cuda(state: TileState, prm: torch.Tensor,
     _cuda.check(rc, "collide_integrate")
     LAUNCHES["collide_integrate"] += 1
     return state.replace(x=outs[0], y=outs[1], px=outs[2], py=outs[3])
+
+
+# ---------------------------------------------------------------------------
+# K3: collide only (K1's sweep without the Verlet step)
+# ---------------------------------------------------------------------------
+
+def collide(state: TileState, config: SimConfig) -> TileState:
+    """One Jacobi relaxation over the 3x3 x CAP neighbourhood; positions
+    move, nothing else changes."""
+    if state.device.type == "cpu":
+        return collide_plain(state, config)
+    return collide_cuda(state, config)
+
+
+def collide_plain(state: TileState, config: SimConfig) -> TileState:
+    """Plain PyTorch version of K3 (any device): K1's sweep (uniform-radius
+    constants when config.tiled_uniform_radius), x + acc_x, y + acc_y."""
+    r0 = config.initial_radius if config.tiled_uniform_radius else None
+    acc_x, acc_y = pair_sweep(state.x, state.y, state.radius, state.pid,
+                              config, r0=r0)
+    return state.replace(x=state.x + acc_x, y=state.y + acc_y)
+
+
+def collide_cuda(state: TileState, config: SimConfig) -> TileState:
+    """Launch K3 on the state's CUDA device (raises for other tensors)."""
+    _check_cuda_state(state, "collide")
+    cap, TY, TX = state.dims
+    ox = torch.empty_like(state.x)
+    oy = torch.empty_like(state.y)
+    consts = _k1_consts(config)
+    lib = _cuda.library()
+    with torch.cuda.device(state.device):
+        rc = lib.gpe_collide(
+            *_ptrs(state.x, state.y, state.radius, state.pid, ox, oy),
+            cap, TY, TX, int(config.tiled_uniform_radius),
+            consts.ctypes.data, _stream(state.device))
+    _cuda.check(rc, "collide")
+    LAUNCHES["collide"] += 1
+    return state.replace(x=ox, y=oy)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
 """Where a step's time goes: a torch.profiler window over ``TiledEngine.run``.
 
     python -m gpu_physics_engine_torch.utils.profiling --particles 4194304 \\
-        --warmup 64 --steps 64 [--trace trace.json]
+        --warmup 64 --steps 64 [--gs] [--trace trace.json]
 
 prints one JSON object: the window's span from CUDA events, the device
 time per kernel (summed over launches, from a second, profiled window),
 the device busy time, and the idle share ``1 - busy / span``.  On a
 CPU-only engine the device fields are empty and the idle share is None.
+``--gs`` profiles the reference-exact Gauss-Seidel engine
+(core/tuned.gs_config) instead of the production Jacobi engine.
 """
 
 from __future__ import annotations
@@ -72,18 +74,26 @@ def profile_run(engine, steps: int, trace: str | None = None) -> dict:
 
 
 def main(argv=None) -> dict:
-    from gpu_physics_engine_torch import make_tuned_engine
+    from gpu_physics_engine_torch import TiledEngine, make_tuned_engine
+    from gpu_physics_engine_torch.core.tuned import gs_config
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--particles", type=int, default=4_194_304)
     ap.add_argument("--warmup", type=int, default=64)
     ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--gs", action="store_true",
+                    help="the Gauss-Seidel engine (tiled_solver='gs')")
     ap.add_argument("--device", default=None)
     ap.add_argument("--trace", default=None, help="chrome trace path")
     args = ap.parse_args(argv)
-    engine = make_tuned_engine(args.particles, device=args.device)
+    if args.gs:
+        engine = TiledEngine(gs_config(args.particles), chunk=64,
+                             device=args.device)
+    else:
+        engine = make_tuned_engine(args.particles, device=args.device)
     engine.run(args.warmup)
     out = profile_run(engine, args.steps, args.trace)
-    out.update(particles=args.particles, device=str(engine.device))
+    out.update(particles=args.particles, device=str(engine.device),
+               solver=engine.config.tiled_solver)
     for k in out["kernels"]:
         k["name"] = k["name"].split("(")[0][:80]
     print(json.dumps({**out, "kernels": out["kernels"][:10]}))

@@ -93,6 +93,21 @@ def test_tuned_functions_match(n):
             == dataclasses.asdict(ttuned.tuned_config(n, world_width=900.0)))
 
 
+@pytest.mark.parametrize("n", [1_048_576, 4_194_304])
+def test_gs_config_is_the_bench_recipe(n):
+    """gs_config(n) is the configuration bench.py's measure_gs builds."""
+    cap, match = jtuned.GS_TUNED(n)
+    sweep_iv, sweep_mech = jtuned.GS_SWEEP(n)
+    want = jconfig.SimConfig(
+        max_particles=n, initial_particles=n, pipeline="tiled",
+        tiled_solver="gs", tile_multiplier=2.2, tile_cap=cap,
+        max_occupancy=8, tiled_uniform_radius=True, tiled_match=match,
+        sort_interval_steps=sweep_iv, tiled_sweep=sweep_mech,
+        **jtuned.GS_FLAGS)
+    assert dataclasses.asdict(ttuned.gs_config(n)) == dataclasses.asdict(want)
+    assert ttuned.gs_config(n, tile_cap=9).tile_cap == 9
+
+
 def test_port_sources_do_not_import_jax():
     bad = []
     for path in PKG.rglob("*.py"):

@@ -41,7 +41,11 @@ def _jitted(fn):
 
 
 def j_relocate(state, config):
-    return _jitted(relocate_pallas)(state, config)
+    """The JAX package's pull relocate.  It reads neither the particle
+    counts nor the pass count, so those are normalised: scenes that differ
+    only there share one compile."""
+    return _jitted(relocate_pallas)(state, config.replace(
+        initial_particles=0, max_particles=0, tiled_relocate_passes=1))
 
 
 def tall(**kw):
@@ -132,7 +136,10 @@ def test_k2_hysteresis_keeps_boundary_dancers():
 
 
 def test_k2_multi_hop_converges():
-    jcfg, tcfg = cfgs(initial_particles=1, tile_cap=4, tiled_match="flip")
+    # a 3-tile jump is far past any hysteresis band; with none the test
+    # shares the compile of test_k2_contention's flip case
+    jcfg, tcfg = cfgs(initial_particles=1, tile_cap=4, tiled_match="flip",
+                      tiled_hysteresis=0.0)
     t, _, _ = tt.tile_geometry(tcfg)
     pos = np.array([[0.5 * t, 0.5 * t]], np.float32)
     a, b = both_states(jcfg, tcfg, pos, np.array([0.5], np.float32))
@@ -144,7 +151,10 @@ def test_k2_multi_hop_converges():
 
 
 def test_k2_full_target_defers():
-    jcfg, tcfg = cfgs(tile_cap=4, initial_particles=6, tiled_hysteresis=0.0)
+    # "auto" resolves to greedy here; naming it shares the compile of the
+    # greedy tests below
+    jcfg, tcfg = cfgs(tile_cap=4, initial_particles=6, tiled_hysteresis=0.0,
+                      tiled_match="greedy")
     t, _, _ = tt.tile_geometry(tcfg)
     fill = [[0.2 * t + 0.1 * i, 0.5 * t] for i in range(4)]
     movers = [[1.2 * t, 0.3 * t], [1.4 * t, 0.6 * t]]

@@ -6,6 +6,9 @@ f32 rounding (1e-6 world units: the worlds here are <= 64 units, where one
 f32 ulp is <= 3.8e-6, and the pair math differs only by rsqrt rounding).
 """
 
+import functools
+
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -19,6 +22,15 @@ from gpu_physics_engine_torch import StepParams as TParams
 from gpu_physics_engine_torch.ops import tiled as tt
 
 FIELDS = tt.FIELDS
+
+
+@functools.lru_cache(maxsize=None)
+def _jit(fn, *static):
+    """``fn`` compiled once per static arguments (a whole-function compile
+    costs a fraction of the op-by-op dispatch of the same ops).  Only for
+    functions that move data and decide tiles by floor(x / t): they have no
+    float mul+add for XLA to contract, so jit and eager agree exactly."""
+    return jax.jit(fn, static_argnums=static)
 
 
 def cfgs(**kw):
@@ -199,18 +211,21 @@ def test_claim_relocate_matches(case):
     if case == "overflow_offset":
         kw = dict(m_cap=24)  # the mover buffer overflows: deferrals
         for off in (0, 7, 123457):
-            ja = jt.relocate(a, jcfg, tile_offset=np.int32(off), **kw)
+            ja = _jit(jt.relocate, 1, 2)(a, jcfg, 24, np.int32(off))
             tb = tt.relocate(b, tcfg, tile_offset=off, **kw)
             assert_same(ja, tb)
             assert int(tb.overflow_count) > 0
         return
-    if case == "delta":
+    if case == "delta":  # eager: the band test multiplies and adds
         kw = dict(delta=jcfg.hysteresis_delta)
-    ja = jt.relocate(a, jcfg, **kw)
+        j_reloc = functools.partial(jt.relocate, config=jcfg, **kw)
+    else:
+        j_reloc = functools.partial(_jit(jt.relocate, 1), config=jcfg)
+    ja = j_reloc(a)
     tb = tt.relocate(b, tcfg, **kw)
     assert_same(ja, tb)
     # a second pass sees the first's leftovers identically
-    assert_same(jt.relocate(ja, jcfg, **kw), tt.relocate(tb, tcfg, **kw))
+    assert_same(j_reloc(ja), tt.relocate(tb, tcfg, **kw))
 
 
 @pytest.mark.parametrize("loser_cap", [1 << 16, 5])
@@ -226,7 +241,7 @@ def test_rebuild_matches(loser_cap):
     a, b = both_states(jcfg, tcfg, pos, rad)
     t = jt.tile_geometry(jcfg)[0]
     a, b = teleport(a, b, rng, 1.5 * t)
-    ja = jt.rebuild(a, jcfg, loser_cap=loser_cap)
+    ja = _jit(jt.rebuild, 1, 2)(a, jcfg, loser_cap)
     tb = tt.rebuild(b, tcfg, loser_cap=loser_cap)
     assert_same(ja, tb)
     if loser_cap == 5:
@@ -257,8 +272,8 @@ def test_jnp_step_matches_jax_jnp_step():
 
 
 @pytest.mark.parametrize("kw, exc", [
-    (dict(tiled_solver="gs"), NotImplementedError),
-    (dict(tiled_fuse_integrate=False), NotImplementedError),
+    (dict(tiled_solver="gs", gs_layout="par"), NotImplementedError),
+    (dict(tiled_solver="gs", gs_colors_mega=True), NotImplementedError),
     (dict(tiled_collide="pallas"), RuntimeError),
     (dict(tiled_relocate="pallas"), RuntimeError),
 ])
