@@ -9,14 +9,16 @@ non-zero with no result line:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
   2. build: the CUDA kernels from csrc/ (one nvcc per source, in parallel,
      sm_90a), with the time;
-  3. kernel vs plain on the card, every kernel run twice (bit-equal):
-     K1 (fused collide + integrate) and K3 (collide) for the uniform and
-     the general radius at a small shape and the 4M shape, within 1e-5
-     with pid equal; K2 (pull relocate) for flip / flip2 / greedy,
-     hysteresis on and off, cap 4 and cap 8, bit-equal; K5 (GS rank) and
-     K6 (GS color solve) on a small mixed-radius scene with a jammed
-     cluster (clamp overflow) and at the 1M-GS shape [4, 960, 2773]: rank
-     tables, x, y and overflow_count bit-equal;
+  3. kernel vs plain on the card, every kernel run twice (bit-equal), at
+     a small shape and at the shape and config of every path below that
+     launches it: K1 (fused collide + integrate) and K3 (collide) for the
+     uniform and the general radius at the 4M [8, 640, 1850] and 256k
+     [9, 176, 506] shapes, within 1e-5 with pid equal; K2 (pull relocate)
+     there for flip / flip2 / greedy, hysteresis on and off, and at the
+     GS shapes [4, 960, 2773] and [6, 960, 2773] with the GS config,
+     bit-equal; K5 (GS rank) and K6 (GS color solve) on a small
+     mixed-radius scene with a jammed cluster (clamp overflow) and at both
+     GS shapes: rank tables, x, y and overflow_count bit-equal;
   4. the Jacobi main path at 4,194,304 particles (make_tuned_engine, 150
      steps free then 150 with the mouse pressed, crossing the sweep at step
      240) and the rebuild-sweep path at 256,000 (250 steps): launch counts,
@@ -148,17 +150,47 @@ def _same(a, b, fields) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
 
 
-def phase_jacobi_kernels(big_cfg, big_state, errs: dict) -> None:
-    """K1, K3 and K2 against their plain versions on the card."""
+def check_relocate(label, cfg, st, modes, errs: dict) -> None:
+    """K2 (pull relocate) against its plain version on ``st`` with every
+    live particle jittered by up to 0.6 tile, for each (match, hysteresis)
+    of ``modes``: bit-equal, bit-equal on repeat, no pid lost."""
+    import torch
+    from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
+    moved = _jittered(st, 0.6 * tiled.tile_geometry(cfg)[0], seed=1)
+    for match, hyst in modes:
+        c = cfg.replace(tiled_match=match, tiled_hysteresis=hyst)
+        a, da = tk.relocate_pull_cuda(moved, c)
+        a2, da2 = tk.relocate_pull_cuda(moved, c)
+        b, db = tk.relocate_pull_plain(moved, c)
+        torch.cuda.synchronize()
+        eq = _same(a, b, tiled.FIELDS) and torch.equal(da, db)
+        errs["relocate_pull"] = max(
+            errs.get("relocate_pull", 0.0),
+            _max_err(a, b, ("x", "y", "px", "py", "radius")))
+        rep = _same(a, a2, tiled.FIELDS) and torch.equal(da, da2)
+        if not (eq and rep):
+            raise AssertionError(f"K2 {label} {match} hyst={hyst}: "
+                                 f"bit-equal {eq}, repeat {rep}")
+        n_live = int((a.pid >= 0).sum())
+        if n_live != int((moved.pid >= 0).sum()):
+            raise AssertionError(f"K2 {label} {match}: lost pids")
+        log(f"[k2] {label} {list(st.dims)} {match} "
+            f"hysteresis={c.hysteresis_delta:.3g}: bit-equal, "
+            f"repeat bit-equal, deferred {int(da.sum())} of {n_live}")
+
+
+def phase_jacobi_kernels(scenes, errs: dict) -> None:
+    """K1, K3 and K2 against their plain versions on the card, at a small
+    shape and at each Jacobi path's ``scenes`` [(label, config, state)]."""
     import torch
     from gpu_physics_engine_torch import StepParams
-    from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
+    from gpu_physics_engine_torch.ops import tiled_kernels as tk
     small_cfg, small_uniform = _small_state(4, uniform=True)
     _, small_mixed = _small_state(4, uniform=False)
     # (label, config, state for the uniform variant, for the general one);
     # the general variant reads the radius plane (mixed radii when small)
-    shapes = [("small", small_cfg, small_uniform, small_mixed),
-              ("4M", big_cfg, big_state, big_state)]
+    shapes = [("small", small_cfg, small_uniform, small_mixed)] + [
+        (label, cfg, st, st) for label, cfg, st in scenes]
     for label, cfg, st, st_general in shapes:
         prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
                                              0.5 * cfg.world_height),
@@ -183,29 +215,9 @@ def phase_jacobi_kernels(big_cfg, big_state, errs: dict) -> None:
                 log(f"[{tag}] {label} {list(s.dims)} uniform={uniform}: "
                     f"max_abs_err {err:.3g}, repeat bit-equal")
         # K2: every matching mode, hysteresis off and auto
-        moved = _jittered(st, 0.6 * tiled.tile_geometry(cfg)[0], seed=1)
-        for match in ("flip", "flip2", "greedy"):
-            for hyst in (0.0, -1.0):
-                c = cfg.replace(tiled_match=match, tiled_hysteresis=hyst)
-                a, da = tk.relocate_pull_cuda(moved, c)
-                a2, da2 = tk.relocate_pull_cuda(moved, c)
-                b, db = tk.relocate_pull_plain(moved, c)
-                torch.cuda.synchronize()
-                eq = _same(a, b, tiled.FIELDS) and torch.equal(da, db)
-                errs["relocate_pull"] = max(
-                    errs.get("relocate_pull", 0.0),
-                    _max_err(a, b, ("x", "y", "px", "py", "radius")))
-                rep = _same(a, a2, tiled.FIELDS) and torch.equal(da, da2)
-                if not (eq and rep):
-                    raise AssertionError(f"K2 {label} {match} hyst={hyst}: "
-                                         f"bit-equal {eq}, repeat {rep}")
-                n_live = int((a.pid >= 0).sum())
-                if n_live != int((moved.pid >= 0).sum()):
-                    raise AssertionError(f"K2 {label} {match}: lost pids")
-                log(f"[k2] {label} cap {c.tile_cap} {match} "
-                    f"hysteresis={c.hysteresis_delta:.3g}: bit-equal, "
-                    f"repeat bit-equal, deferred {int(da.sum())} of "
-                    f"{n_live}")
+        check_relocate(label, cfg, st, [(m, h) for m in ("flip", "flip2",
+                                                         "greedy")
+                                        for h in (0.0, -1.0)], errs)
 
 
 def _gs_small_state():
@@ -225,18 +237,19 @@ def _gs_small_state():
     return cfg, tiled.init_tiles(cfg, pos, rad, device="cuda")
 
 
-def phase_gs_kernels(gs_cfg, gs_state, errs: dict) -> None:
+def phase_gs_kernels(scenes, errs: dict) -> None:
     """K5 and K6 against their plain versions: the rank tables, and x, y
-    and overflow_count after the four colors, bit-equal; twice each."""
+    and overflow_count after the four colors, bit-equal; twice each.  At a
+    small scene and at each GS path's ``scenes`` [(label, config, state)],
+    where K2 is also held to its plain version with the path's config."""
     import torch
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import tiled
     small_cfg, small = _gs_small_state()
-    t = tiled.tile_geometry(small_cfg)[0]
-    small = _jittered(small, 0.3 * t, seed=4)  # storage off home, as in a run
-    big = _jittered(gs_state, 0.3 * tiled.tile_geometry(gs_cfg)[0], seed=5)
-    for label, cfg, st in (("small", small_cfg, small),
-                           ("1M-GS", gs_cfg, big)):
+    runs = [("small", small_cfg, small)] + list(scenes)
+    for i, (label, cfg, st) in enumerate(runs):
+        # storage off home, as in a run
+        st = _jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=4 + i)
         ka, ta = gk.solve_frame(st, cfg, gk.rank_cuda, gk.color_cuda_)
         ka2, ta2 = gk.solve_frame(st, cfg, gk.rank_cuda, gk.color_cuda_)
         pb, tb = gk.solve_frame(st, cfg, gk.rank_plain, gk.color_plain_)
@@ -262,6 +275,9 @@ def phase_gs_kernels(gs_cfg, gs_state, errs: dict) -> None:
             f"tables, x, y, overflow bit-equal and repeat bit-equal; "
             f"clamp overflow {frame} this frame, max count "
             f"{int(ta[3].max())}, {moved} slots moved")
+        if label != "small":
+            check_relocate(label, cfg, st, [(cfg.tiled_match,
+                                             cfg.tiled_hysteresis)], errs)
 
 
 def _check_engine(e, n, label) -> dict:
@@ -474,18 +490,27 @@ def main() -> int:
     smi = phase_environment()
     phase_build()
 
-    big = make_tuned_engine(4_194_304, device="cuda")
-    big_cfg, big_state = big.config, big.state
-    rng_prev = _jittered(big_state, 0.05, seed=3)  # some velocity
-    big_state = big_state.replace(px=rng_prev.x, py=rng_prev.y)
-    del big
     errs: dict = {}
-    phase_jacobi_kernels(big_cfg, big_state, errs)
+    jacobi = []
+    for label, n in (("4M", 4_194_304), ("256k", 256_000)):
+        e = make_tuned_engine(n, device="cuda")
+        moving = _jittered(e.state, 0.05, seed=3)  # some velocity
+        jacobi.append((label, e.config,
+                       e.state.replace(px=moving.x, py=moving.y)))
+        del e
+    phase_jacobi_kernels(jacobi, errs)
+    big_cfg, big_state = jacobi[0][1:]
+    del jacobi
 
-    gs1 = TiledEngine(gs_config(1_048_576), seed=0, chunk=64, device="cuda")
-    gs_cfg, gs_state = gs1.config, gs1.state
-    del gs1
-    phase_gs_kernels(gs_cfg, gs_state, errs)
+    gs = []
+    for label, n in (("1M-GS", 1_048_576), ("4M-GS", 4_194_304)):
+        e = TiledEngine(gs_config(n), seed=0, chunk=64, device="cuda")
+        gs.append((label, e.config, e.state))
+        del e
+    phase_gs_kernels(gs, errs)
+    gs_cfg, gs_state = gs[0][1:]
+    del gs
+    torch.cuda.empty_cache()
 
     paths = {}
     run = phase_engine(lambda: make_tuned_engine(4_194_304, device="cuda"),

@@ -183,11 +183,16 @@ class TiledEngine:
                                          do_relocate=relocate,
                                          prm=self._prm(params))
 
+    def sweep(self) -> None:
+        """Run the exact sweep now (the periodic sweep and the watchdog's
+        forced sweep both come through here)."""
+        self.state = self._sweep(self.state)
+        self._since_reloc = 0  # the exact sweep restores storage==home
+
     def _maybe_sweep(self) -> None:
         interval = self._sweep_interval
         if interval and self._steps_done and self._steps_done % interval == 0:
-            self.state = self._sweep(self.state)
-            self._since_reloc = 0  # the exact sweep restores storage==home
+            self.sweep()
 
     def step(self, params: Optional[StepParams] = None):
         self._maybe_sweep()
@@ -287,8 +292,7 @@ class TiledEngine:
             self._retile_cap(self.config.tile_cap + 1)
             self._wd_retile_pct = pct
             self._wd_level = 2  # cap growth is repeatable
-        self.state = self._sweep(self.state)
-        self._since_reloc = 0
+        self.sweep()
         self._wd_prev = float(
             tiled.stale_pair_fraction(self.state, self.config)) * 100.0
 

@@ -1,6 +1,8 @@
-"""The Gauss-Seidel path's two hand kernels, their wrappers, their plain
-PyTorch versions and the flat driver (the counterpart of the flat layout
-of ``gpu_physics_engine_tpu.ops.gs_pallas``).
+"""The Gauss-Seidel path's two hand kernels, their wrappers and the flat
+driver (the counterpart of the flat layout of
+``gpu_physics_engine_tpu.ops.gs_pallas``).  Their plain PyTorch versions,
+``rank_plain`` and ``color_plain_``, are the plain GS solve's own
+(ops/gs_tiled) and are imported here.
 
 Each wrapper launches its CUDA kernel (csrc/gs_kernels.cuh) for a CUDA
 tensor, runs the plain version for a CPU tensor, and raises for anything
@@ -46,13 +48,12 @@ K6 ``color_`` replaces ``gs_solve_pallas_flat`` (gs_pallas.py:543;
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
 from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.ops import _cuda
-from gpu_physics_engine_torch.ops import gs_tiled
+from gpu_physics_engine_torch.ops.gs_tiled import (  # the plain versions
+    color_plain_, rank_plain, solve_frame)
 from gpu_physics_engine_torch.ops.integrate import f32
 from gpu_physics_engine_torch.ops.tiled import TileState, tile_geometry
 from gpu_physics_engine_torch.ops.tiled_kernels import (MAX_CAP,
@@ -90,19 +91,6 @@ def rank(state: TileState, config: SimConfig):
     return rank_cuda(state, config)
 
 
-def rank_plain(state: TileState, config: SimConfig):
-    """Plain PyTorch version of K5 on any device: the membership masks and
-    a stable sort of the candidate pids (ops/gs_tiled)."""
-    t, TY, TX = tile_geometry(config)
-    cap = state.dims[0]
-    src, rpid, count = gs_tiled.rank_tables(
-        state, gs_tiled.memberships(state, t), config.max_occupancy)
-    ty = torch.arange(TY, device=state.device).view(1, TY, 1)
-    tx = torch.arange(TX, device=state.device).view(1, 1, TX)
-    idx, valid = gs_tiled.source_index(src, cap, TY, TX, ty, tx)
-    return src, rpid, gs_tiled.gather(state.radius, idx, valid), count
-
-
 def rank_cuda(state: TileState, config: SimConfig):
     """Launch K5 on the state's CUDA device."""
     _check_cuda_state(state, "gs rank")
@@ -137,25 +125,6 @@ def color_(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
     if x.device.type == "cpu":
         return color_plain_(x, y, src, rrad, config, color)
     return color_cuda_(x, y, src, rrad, config, color)
-
-
-def color_plain_(x, y, src, rrad, config: SimConfig, color: int) -> None:
-    """Plain PyTorch version of K6 on any device: the same sweep over the
-    color's cells (every second row and column), written back through
-    the source codes."""
-    cap, TY, TX = x.shape
-    ty0, tx0 = gs_tiled.color_origin(color)
-    sub = (slice(None), slice(ty0, None, 2), slice(tx0, None, 2))
-    ty = torch.arange(ty0, TY, 2, device=x.device).view(1, -1, 1)
-    tx = torch.arange(tx0, TX, 2, device=x.device).view(1, 1, -1)
-    idx, valid = gs_tiled.source_index(src[sub], cap, TY, TX, ty, tx)
-    lx, ly = gs_tiled.ordered_sweep(
-        list(gs_tiled.gather(x, idx, valid)),
-        list(gs_tiled.gather(y, idx, valid)), list(rrad[sub]), list(valid),
-        config.stiffness)
-    dst = idx[valid]
-    x.view(-1)[dst] = torch.stack(lx)[valid]
-    y.view(-1)[dst] = torch.stack(ly)[valid]
 
 
 def _check_color_args(x, y, src, rrad, K: int) -> None:
@@ -202,22 +171,3 @@ def color_cuda_(x, y, src, rrad, config: SimConfig, color: int) -> None:
 def gs_solve_flat(state: TileState, config: SimConfig) -> TileState:
     """One frame of the 4-color solve through the kernel wrappers."""
     return solve_frame(state, config, rank, color_)[0]
-
-
-def solve_frame(state: TileState, config: SimConfig, rank_fn=rank,
-                color_fn=color_) -> Tuple[TileState, tuple]:
-    """Rank once, then colors 1..4 on one copy of x and y; the occupants
-    clamped past K (sum of max(count - K, 0)) add to overflow_count.
-    Returns (new state, rank tables).  ``rank_fn``/``color_fn`` pick the
-    route (wrapper, kernel or plain), so the card checks can hold the
-    kernels against the plain versions on the same input."""
-    tables = rank_fn(state, config)
-    src, _, rrad, count = tables
-    overflow = torch.sum(torch.clamp(count - config.max_occupancy, min=0),
-                         dtype=torch.int32)
-    x = state.x.clone()
-    y = state.y.clone()
-    for c in (1, 2, 3, 4):
-        color_fn(x, y, src, rrad, config, c)
-    return state.replace(x=x, y=y, overflow_count=state.overflow_count
-                         + overflow), tables

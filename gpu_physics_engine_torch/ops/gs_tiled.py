@@ -6,17 +6,17 @@ Reference semantics: tiles are the reference's grid cells (tile_multiplier
 frozen at frame start, and four color passes each run, in every cell of
 their color, the sequential ascending-(a, b) pair sweep over the cell's
 <= K ascending-pid occupants with the scalar model's f32 op order.  Each
-particle then takes its updated position from the one cell of that color
-whose rank table names its pid (cells of one color are particle-disjoint:
-cell edge >= 2 r_max).  Occupants past K are clamped and counted in
-overflow_count.
+cell writes its updated occupants back to their storage slots (cells of
+one color are particle-disjoint: cell edge >= 2 r_max); the JAX package's
+pull by pid match gives the same positions.  Occupants past K are clamped
+and counted in overflow_count.
 
 PyTorch runs each op on its own and writes its result, so ``a*b + c`` is
 never contracted into a fused multiply-add: the JAX package's ``_noc``
 guard has no counterpart here, and the results are bit-equal to it.
 
-The helpers (membership, rank tables, source indices, the ordered sweep)
-are shared with the plain versions of the GS kernels (ops/gs_kernels).
+``rank_plain`` and ``color_plain_`` are also the plain versions of the GS
+kernels K5 and K6 (ops/gs_kernels), and ``solve_frame`` drives either.
 """
 
 from __future__ import annotations
@@ -36,21 +36,6 @@ _I32 = torch.int32
 # the 9 candidate offsets (dy, dx) in the fixed order of the source codes:
 # code = j * cap + s names slot s of the tile at OFFS[j] from the cell
 OFFS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
-
-
-def _shift2(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """Neighbour view a[ty+dy, tx+dx] of a [TY, TX] per-tile plane."""
-    if dy == 0 and dx == 0:
-        return a
-    return torch.roll(a, shifts=(-dy, -dx), dims=(0, 1))
-
-
-def cell_colors(TY: int, TX: int, device) -> torch.Tensor:
-    """Checkerboard color 1..4 per tile: tile (ty, tx) is cell
-    (ty-1, tx-1), color 1 + ((tx-1)&1) + 2*((ty-1)&1)."""
-    ty = torch.arange(TY, dtype=_I32, device=device).view(TY, 1)
-    tx = torch.arange(TX, dtype=_I32, device=device).view(1, TX)
-    return 1 + ((tx - 1) & 1) + 2 * ((ty - 1) & 1)
 
 
 def color_origin(color: int) -> Tuple[int, int]:
@@ -173,40 +158,60 @@ def ordered_sweep(lx: List, ly: List, lr: List, valid: List, stiffness,
     return lx, ly
 
 
-def gs_solve(state: TileState, config: SimConfig) -> TileState:
-    """One frame of the 4-color Gauss-Seidel solve.  Positions move; the
-    storage layout does not.  The whole grid is computed per color with a
-    checkerboard mask, and each particle pulls its update by pid match,
-    as the JAX package's jnp formulation does."""
+def rank_plain(state: TileState, config: SimConfig):
+    """The frame's frozen rank tables (src, rpid, rrad, count), as K5
+    (ops/gs_kernels) computes them: src, rpid and count of
+    ``rank_tables`` and rrad the radius of each rank (0 where empty)."""
     t, TY, TX = tile_geometry(config)
     cap = state.dims[0]
-    K = config.max_occupancy
-    dev = state.device
-    src, rpid, count = rank_tables(state, memberships(state, t), K)
-    overflow = torch.sum(torch.clamp(count - K, min=0), dtype=_I32)
-    ty = torch.arange(TY, device=dev).view(1, TY, 1)
-    tx = torch.arange(TX, device=dev).view(1, 1, TX)
+    src, rpid, count = rank_tables(state, memberships(state, t),
+                                   config.max_occupancy)
+    ty = torch.arange(TY, device=state.device).view(1, TY, 1)
+    tx = torch.arange(TX, device=state.device).view(1, 1, TX)
     idx, valid = source_index(src, cap, TY, TX, ty, tx)
-    lr = list(gather(state.radius, idx, valid))
-    ok = list(valid)
-    colors = cell_colors(TY, TX, dev)
-    occ = state.pid >= 0
+    return src, rpid, gather(state.radius, idx, valid), count
 
-    x, y = state.x, state.y
-    for color in (1, 2, 3, 4):
-        active = colors == color
-        lx, ly = ordered_sweep(list(gather(x, idx, valid)),
-                               list(gather(y, idx, valid)), lr, ok,
-                               config.stiffness, active)
-        # the cell at (dy, dx) from my tile holds my update if it is of
-        # this color and one of its ranks names my pid
-        newx, newy = x, y
-        for dy, dx in OFFS:
-            act = _shift2(active, dy, dx)
-            for q in range(K):
-                hit = occ & act & (_shift2(rpid[q], dy, dx) == state.pid)
-                newx = torch.where(hit, _shift2(lx[q], dy, dx), newx)
-                newy = torch.where(hit, _shift2(ly[q], dy, dx), newy)
-        x, y = newx, newy
-    return state.replace(x=x, y=y,
-                         overflow_count=state.overflow_count + overflow)
+
+def color_plain_(x, y, src, rrad, config: SimConfig, color: int) -> None:
+    """Color pass ``color`` (1..4) in place on x, y [cap, TY, TX], as K6
+    computes it: every cell of that color (every second row and column)
+    sweeps its ranked occupants at their current positions and writes them
+    back to their source slots."""
+    cap, TY, TX = x.shape
+    ty0, tx0 = color_origin(color)
+    sub = (slice(None), slice(ty0, None, 2), slice(tx0, None, 2))
+    ty = torch.arange(ty0, TY, 2, device=x.device).view(1, -1, 1)
+    tx = torch.arange(tx0, TX, 2, device=x.device).view(1, 1, -1)
+    idx, valid = source_index(src[sub], cap, TY, TX, ty, tx)
+    lx, ly = ordered_sweep(list(gather(x, idx, valid)),
+                           list(gather(y, idx, valid)), list(rrad[sub]),
+                           list(valid), config.stiffness)
+    dst = idx[valid]
+    x.view(-1)[dst] = torch.stack(lx)[valid]
+    y.view(-1)[dst] = torch.stack(ly)[valid]
+
+
+def solve_frame(state: TileState, config: SimConfig, rank_fn,
+                color_fn) -> Tuple[TileState, tuple]:
+    """Rank once, then colors 1..4 on one copy of x and y; the occupants
+    clamped past K (sum of max(count - K, 0)) add to overflow_count.
+    Returns (new state, rank tables).  ``rank_fn``/``color_fn`` pick the
+    route (the plain versions here, or ops/gs_kernels' kernels or
+    wrappers), so the card checks can hold the kernels against the plain
+    versions on the same input."""
+    tables = rank_fn(state, config)
+    src, _, rrad, count = tables
+    overflow = torch.sum(torch.clamp(count - config.max_occupancy, min=0),
+                         dtype=_I32)
+    x = state.x.clone()
+    y = state.y.clone()
+    for c in (1, 2, 3, 4):
+        color_fn(x, y, src, rrad, config, c)
+    return state.replace(x=x, y=y, overflow_count=state.overflow_count
+                         + overflow), tables
+
+
+def gs_solve(state: TileState, config: SimConfig) -> TileState:
+    """One frame of the 4-color Gauss-Seidel solve in plain tensor ops.
+    Positions move; the storage layout does not."""
+    return solve_frame(state, config, rank_plain, color_plain_)[0]

@@ -9,6 +9,14 @@ the device busy time, and the idle share ``1 - busy / span``.  On a
 CPU-only engine the device fields are empty and the idle share is None.
 ``--gs`` profiles the reference-exact Gauss-Seidel engine
 (core/tuned.gs_config) instead of the production Jacobi engine.
+
+    python -m gpu_physics_engine_torch.utils.profiling --gs \\
+        --particles 4194304 --steps 4800 --every 480 \\
+        --sweeps relocate rebuild
+
+instead follows the exact periodic sweep over a long horizon
+(``sweep_windows``), once per sweep mechanism, and prints one JSON line
+per window of ``--every`` steps.
 """
 
 from __future__ import annotations
@@ -73,6 +81,51 @@ def profile_run(engine, steps: int, trace: str | None = None) -> dict:
     }
 
 
+def sweep_windows(engine, steps: int, every: int, interval: int):
+    """Run ``steps`` free steps in windows of ``every`` and yield, per
+    window, the step, the stale-pair %, the overflow per step (clamp +
+    deferrals), ms/step (host clock after a device sync, sweeps included)
+    and each exact sweep's ms (host clock with a device sync on both sides:
+    the sweeps synchronise with the host).  The engine's own sweep cadence
+    must be off (``sort_interval_steps`` past ``steps``): this drives
+    ``engine.sweep()`` itself before every step that is a multiple of
+    ``interval``, the engine's schedule.  Turn the watchdog off too: its
+    forced sweeps and cap growth would mix a second mechanism into the one
+    measured."""
+    import torch
+    from gpu_physics_engine_torch.ops import tiled
+
+    def sync():
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+
+    done = 0
+    while done < steps:
+        k = min(every, steps - done)
+        of0 = int(engine.state.overflow_count)
+        sweep_ms, step_end = [], done + k
+        sync()
+        t0 = time.perf_counter()
+        while done < step_end:
+            if done and done % interval == 0:
+                sync()
+                ts = time.perf_counter()
+                engine.sweep()
+                sync()
+                sweep_ms.append((time.perf_counter() - ts) * 1e3)
+            span = min(step_end, (done // interval + 1) * interval) - done
+            engine.run(span)
+            done += span
+        sync()
+        yield {"step": done,
+               "stale_pct": float(tiled.stale_pair_fraction(
+                   engine.state, engine.config)) * 100.0,
+               "overflow_per_step": (int(engine.state.overflow_count)
+                                     - of0) / k,
+               "ms_per_step": (time.perf_counter() - t0) * 1e3 / k,
+               "sweep_ms": sweep_ms, "num_active": engine.num_particles()}
+
+
 def main(argv=None) -> dict:
     from gpu_physics_engine_torch import TiledEngine, make_tuned_engine
     from gpu_physics_engine_torch.core.tuned import gs_config
@@ -84,7 +137,15 @@ def main(argv=None) -> dict:
                     help="the Gauss-Seidel engine (tiled_solver='gs')")
     ap.add_argument("--device", default=None)
     ap.add_argument("--trace", default=None, help="chrome trace path")
+    ap.add_argument("--sweeps", nargs="+", default=None,
+                    choices=["relocate", "rebuild"],
+                    help="with --gs: the sweep study, --steps free steps "
+                         "per mechanism")
+    ap.add_argument("--every", type=int, default=480,
+                    help="steps per window of the sweep study")
     args = ap.parse_args(argv)
+    if args.sweeps:
+        return sweep_study(args)
     if args.gs:
         engine = TiledEngine(gs_config(args.particles), chunk=64,
                              device=args.device)
@@ -97,6 +158,37 @@ def main(argv=None) -> dict:
     for k in out["kernels"]:
         k["name"] = k["name"].split("(")[0][:80]
     print(json.dumps({**out, "kernels": out["kernels"][:10]}))
+    return out
+
+
+def sweep_study(args) -> dict:
+    """``sweep_windows`` for each of ``args.sweeps`` on the GS engine at
+    ``args.particles``, the watchdog off and the GS_SWEEP cadence driven
+    by the study; first line: the card's name and power limit."""
+    import subprocess
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.core.tuned import GS_SWEEP, gs_config
+    if not args.gs:
+        raise SystemExit("--sweeps needs --gs")
+    if args.device in (None, "cuda"):
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip(),
+              flush=True)
+    interval = GS_SWEEP(args.particles)[0]
+    out = {}
+    for sweep in args.sweeps:
+        engine = TiledEngine(
+            gs_config(args.particles, tiled_sweep=sweep,
+                      tiled_watchdog=False,
+                      sort_interval_steps=args.steps + 1),
+            seed=0, chunk=64, device=args.device)
+        out[sweep] = []
+        for row in sweep_windows(engine, args.steps, args.every, interval):
+            row = {"sweep": sweep, "particles": args.particles, **row}
+            print(json.dumps(row), flush=True)
+            out[sweep].append(row)
+        del engine
     return out
 
 

@@ -119,9 +119,9 @@ def test_gs_kernels_match_plain(cap, K):
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     cfg, st = _gs_scene(cap, K, seed=cap)
     n0 = dict(gk.LAUNCHES)
-    a, ta = gk.solve_frame(st, cfg)
+    a, ta = gk.solve_frame(st, cfg, gk.rank, gk.color_)
     b, tb = gk.solve_frame(st, cfg, gk.rank_plain, gk.color_plain_)
-    c, tc = gk.solve_frame(st, cfg)
+    c, tc = gk.solve_frame(st, cfg, gk.rank, gk.color_)
     torch.cuda.synchronize()
     assert gk.LAUNCHES["gs_rank"] == n0["gs_rank"] + 2
     assert gk.LAUNCHES["gs_color"] == n0["gs_color"] + 8

@@ -244,6 +244,29 @@ def test_gs_step_relocates_then_solves_then_integrates():
         assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
+@pytest.mark.parametrize("sweep", ["relocate", "rebuild"])
+def test_sweep_study_follows_the_engine_schedule(sweep):
+    """utils/profiling.sweep_windows drives engine.sweep() itself on an
+    engine whose own cadence is off; the states equal those of the
+    engine's own cadence (sweeps before steps 4 and 8 of 12)."""
+    from gpu_physics_engine_torch.utils.profiling import sweep_windows
+    pos, rad = gs_scene("random", 100, seed=11)
+    engines = []
+    for interval in (4, 13):
+        _, tcfg = gs_cfgs(100, gravity=(0.0, -20.0), tiled_sweep=sweep,
+                          sort_interval_steps=interval,
+                          tiled_watchdog=False)
+        engines.append(TEngine.from_arrays(tcfg, pos, rad, device="cpu"))
+    engines[0].run(12)
+    rows = list(sweep_windows(engines[1], steps=12, every=6, interval=4))
+    assert [r["step"] for r in rows] == [6, 12]
+    assert [len(r["sweep_ms"]) for r in rows] == [1, 1]
+    assert rows[-1]["num_active"] == 100
+    for f in tt.FIELDS + ("overflow_count",):
+        assert torch.equal(getattr(engines[0].state, f),
+                           getattr(engines[1].state, f)), f
+
+
 # ---------------------------------------------------------------------------
 # (e) K3: collide only
 # ---------------------------------------------------------------------------
