@@ -18,15 +18,25 @@ non-zero with no result line:
      GS shapes [4, 960, 2773] and [6, 960, 2773] with the GS config,
      bit-equal; K5 (GS rank) and K6 (GS color solve) on a small
      mixed-radius scene with a jammed cluster (clamp overflow) and at both
-     GS shapes: rank tables, x, y and overflow_count bit-equal;
+     GS shapes: rank tables, x, y and overflow_count bit-equal; the
+     parity-space kernels there too, on a small uniform scene as well, at
+     the parity shapes [4, 4, 480, 1387] and [4, 6, 480, 1387]: K5-par
+     (one launch for all parities and one per parity), K6-par for every
+     color on the par, mx and dec layouts, K2-par (both launch modes, the
+     config's match) and K6-par's Verlet tail, all bit-equal; the mx and
+     dec solves bit-equal to the flat solve;
   4. the Jacobi main path at 4,194,304 particles (make_tuned_engine, 150
      steps free then 150 with the mouse pressed, crossing the sweep at step
      240) and the rebuild-sweep path at 256,000 (250 steps): launch counts,
      conservation, bounds, ms/step and quality;
   5. the Gauss-Seidel path (tiled_solver="gs", the bench's GS config) at
      1,048,576 particles for 300 steps (150 free, 150 with the mouse at
-     the world centre) and at 4,194,304 (cap 6) for 100 steps: K5 once,
-     K6 four times and K2 once per step, the same checks;
+     the world centre) and at 4,194,304 (cap 6) for 100 steps, each in the
+     flat layout (K5 once, K6 four times and K2 once per step) and in the
+     parity layout "par" (K5-par once, K6-par four times, K2-par once and
+     the Verlet tail once per step; no flat K5/K6/K2), the same checks,
+     and the two layouts' final states bit-equal; then 32 steps at 1M in
+     the "mx" and "dec" layouts (K5, K6-par, K2), bit-equal to flat;
   6. the unfused path (tiled_fuse_integrate=False) at 4,194,304 for 64
      steps: K3 on every step;
   7. kernel times at the main paths' shapes against their plain versions,
@@ -72,14 +82,18 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def reset_launches() -> None:
-    from gpu_physics_engine_torch.ops import gs_kernels, tiled_kernels
+    from gpu_physics_engine_torch.ops import (gs_kernels, gs_parity,
+                                              tiled_kernels)
     tiled_kernels.reset_launches()
     gs_kernels.reset_launches()
+    gs_parity.reset_launches()
 
 
 def launches() -> dict:
-    from gpu_physics_engine_torch.ops import gs_kernels, tiled_kernels
-    return {**tiled_kernels.LAUNCHES, **gs_kernels.LAUNCHES}
+    from gpu_physics_engine_torch.ops import (gs_kernels, gs_parity,
+                                              tiled_kernels)
+    return {**tiled_kernels.LAUNCHES, **gs_kernels.LAUNCHES,
+            **gs_parity.LAUNCHES}
 
 
 def phase_environment() -> str:
@@ -280,6 +294,125 @@ def phase_gs_kernels(scenes, errs: dict) -> None:
                                              cfg.tiled_hysteresis)], errs)
 
 
+def _equal_or_raise(what, got, want, again=None) -> None:
+    """Tensors (or tuples of them) bit-equal, and ``again`` (a repeat of the
+    kernel) bit-equal to ``got``."""
+    import torch
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    if again is not None and not isinstance(again, tuple):
+        again = (again,)
+    torch.cuda.synchronize()
+    bad = [i for i, (u, v) in enumerate(zip(got, want))
+           if not torch.equal(u, v)]
+    if bad:
+        err = max(float((got[i].double() - want[i].double()).abs().max())
+                  for i in bad)
+        raise AssertionError(f"{what}: outputs {bad} differ from the plain "
+                             f"version (max err {err})")
+    if again is not None and not all(torch.equal(u, v)
+                                     for u, v in zip(got, again)):
+        raise AssertionError(f"{what}: not bit-equal on repeat")
+
+
+def _colors_lockstep(what, x, y, src, rrad, cfg, geo, errs, key) -> int:
+    """K6-par against its plain version, color after color, from the same
+    x, y; returns the number of slots the four colors moved."""
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    xk, yk, xp, yp = x.clone(), y.clone(), x.clone(), y.clone()
+    for color in (1, 2, 3, 4):
+        gp.color_par_cuda_(xk, yk, src, rrad, cfg, geo, color)
+        gp.color_par_plain_(xp, yp, src, rrad, cfg, geo, color)
+        _equal_or_raise(f"{what} color {color}", (xk, yk), (xp, yp))
+    errs[key] = max(errs.get(key, 0.0), float((xk - xp).abs().max()))
+    return int((xk != x).sum())
+
+
+def phase_par_kernels(scenes, errs: dict) -> None:
+    """The parity-space kernels against their plain versions, bit-equal and
+    bit-equal on repeat: K5-par in both launch modes, K6-par for every
+    color on the par layout (tables from K5-par) and on the mx and dec
+    layouts (K5's tables relayouted), K2-par in both launch modes with the
+    config's match and hysteresis, and the Verlet tail under the mouse;
+    the mx and dec solves against the flat solve.  On a small mixed-radius
+    scene (radius planes carried), a small uniform one and each GS path's
+    ``scenes`` [(label, config, state)]."""
+    import torch
+    from gpu_physics_engine_torch import StepParams
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
+    mixed_cfg, mixed = _gs_small_state()
+    ucfg = gs_config(4000, world_width=96.0, world_height=60.0, tile_cap=4)
+    uni = mixed.replace(radius=torch.where(
+        mixed.pid >= 0, torch.full_like(mixed.x, ucfg.initial_radius),
+        torch.zeros_like(mixed.x)))
+    runs = [("small", mixed_cfg, mixed), ("small-uniform", ucfg, uni)]
+    for i, (label, cfg, st) in enumerate(runs + list(scenes)):
+        t = tiled.tile_geometry(cfg)[0]
+        st = _jittered(st, 0.3 * t, seed=20 + i)  # storage off home
+        ps = gp.to_parity_state(st, cfg)
+        dims = list(ps.x.shape)
+        for fused in (True, False):
+            c = cfg.replace(gs_par_fused=fused)
+            ta, ta2 = gp.rank_par_cuda(ps, c), gp.rank_par_cuda(ps, c)
+            _equal_or_raise(f"K5-par {label} fused={fused}", ta,
+                            gp.rank_par_plain(ps, c), ta2)
+        src, _, rrad, count = ta
+        errs["gs_rank_par"] = 0.0
+        moved = _colors_lockstep(f"K6-par {label}", ps.x, ps.y, src, rrad,
+                                 cfg, ps.geo, errs, "gs_color_par")
+        fsrc, _, frrad, _ = gk.rank_cuda(st, cfg)
+        for name, origin in (("mx", 0), ("dec", -1)):
+            geo = gp.ParityGeometry(*st.dims[1:], origin)
+            _colors_lockstep(
+                f"K6-{name} {label}", gp.to_parity(st.x, geo, 0.0),
+                gp.to_parity(st.y, geo, 0.0), gp.to_parity(fsrc, geo, -1),
+                gp.to_parity(frrad, geo, 0.0), cfg, geo, errs,
+                f"gs_color_par[{name}]")
+            c = cfg.replace(gs_layout=name)
+            got, want = gp.gs_solve_layout(st, c), gk.gs_solve_flat(st, c)
+            _equal_or_raise(f"{name} solve {label} vs flat",
+                            (got.x, got.y, got.overflow_count),
+                            (want.x, want.y, want.overflow_count))
+        far = gp.to_parity_state(_jittered(st, 0.6 * t, seed=40 + i), cfg)
+        for fused in (True, False):
+            c = cfg.replace(gs_par_fused=fused)
+            a, da = gp.relocate_par_cuda(far, c)
+            a2, _ = gp.relocate_par_cuda(far, c)
+            b, db = gp.relocate_par_plain(far, c)
+            fields = ("x", "y", "px", "py", "pid", "overflow_count") + (
+                () if far.radius is None else ("radius",))
+            _equal_or_raise(f"K2-par {label} fused={fused}",
+                            tuple(getattr(a, f) for f in fields) + (da,),
+                            tuple(getattr(b, f) for f in fields) + (db,),
+                            tuple(getattr(a2, f) for f in fields))
+            errs["relocate_par"] = 0.0
+        verlet = ""
+        if cfg.tiled_uniform_radius:
+            prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
+                                                 0.5 * cfg.world_height),
+                                  pressed=True).as_tensor("cuda")
+            ka = [a.clone() for a in (ps.x, ps.y, ps.px, ps.py)]
+            kb = [a.clone() for a in ka]
+            pa = [a.clone() for a in ka]
+            gp.verlet_cuda_(*ka, ps.pid, prm, cfg)
+            gp.verlet_cuda_(*kb, ps.pid, prm, cfg)
+            gp.verlet_plain_(*pa, ps.pid, prm, cfg)
+            _equal_or_raise(f"Verlet tail {label}", tuple(ka), tuple(pa),
+                            tuple(kb))
+            errs["gs_verlet"] = max(errs.get("gs_verlet", 0.0), max(
+                float((u - v).abs().max()) for u, v in zip(ka, pa)))
+            verlet = ", Verlet tail"
+        log(f"[par] {label} {dims} match {tk.resolve_match(cfg, *st.dims)}: "
+            f"K5-par (fused and per parity), K6-par (par, mx, dec), K2-par "
+            f"(fused and per parity, deferred {int(da.sum())}){verlet} "
+            f"bit-equal and repeat bit-equal; mx and dec solves == flat; "
+            f"clamp overflow "
+            f"{int((count - cfg.max_occupancy).clamp(min=0).sum())}, "
+            f"{moved} slots moved")
+
+
 def _check_engine(e, n, label) -> dict:
     import numpy as np
     from gpu_physics_engine_torch.ops import tiled
@@ -316,7 +449,7 @@ def phase_engine(make, n, windows, label, expect) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = e.config
-    if e.num_particles() != n or int(e.state.overflow_count) != 0:
+    if e.num_particles() != n:
         raise AssertionError(f"{label}: init placed {e.num_particles()}")
     win_ms, win_of = [], []
     reset_launches()
@@ -389,9 +522,11 @@ def bounds(cfg, state, gs_cfg, gs_state) -> dict:
     """Per kernel (least ms, "bytes" or "operations"): each input read once,
     each output written once; operations counted from this run's data
     (5 flops per candidate pair's distance test, 25 per Verlet step, 9 per
-    membership test, 8 per GS pair)."""
+    membership test, 8 per GS pair).  The parity kernels at the 1M-GS
+    scene's parity shape: the same counts, no radius plane (uniform)."""
     import torch
     from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
     cap, TY, TX = state.dims
     S = cap * TY * TX * 4.0  # bytes of one plane
     n, box = _tile_counts(state)
@@ -406,23 +541,84 @@ def bounds(cfg, state, gs_cfg, gs_state) -> dict:
     }
     K = gs_cfg.max_occupancy
     gcap, GY, GX = gs_state.dims
+    gocc = float((gs_state.pid >= 0).sum())
     _, _, _, count = gk.rank_cuda(gs_state, gs_cfg)
     m = torch.clamp(count, max=K).double()
     out["gs_rank"] = _bound(4 * gcap * GY * GX * 4.0 + (3 * K + 1) * GY * GX
-                            * 4.0, 9 * 9 * float((gs_state.pid >= 0).sum()))
+                            * 4.0, 9 * 9 * gocc)
     # per launch (a quarter of the frame): each valid rank's code and
     # radius read, its x, y read and written; its pairs' sweep
     out["gs_color"] = _bound(24 * float(m.sum()) / 4,
                              8 * float((m * (m - 1) / 2).sum()) / 4)
+    ps = gp.to_parity_state(gs_state, gs_cfg)
+    P = float(ps.x.numel()) * 4.0  # bytes of one parity-space field
+    cells = float(ps.pid[:, 0].numel())
+    _, _, _, pcount = gp.rank_par_cuda(ps, gs_cfg)
+    pm = torch.clamp(pcount, max=K).double()
+    out["gs_rank_par"] = _bound(3 * P + (3 * K + 1) * cells * 4.0,
+                                9 * 9 * gocc)
+    out["gs_color_par"] = _bound(24 * float(pm.sum()) / 4,
+                                 8 * float((pm * (pm - 1) / 2).sum()) / 4)
+    out["gs_color_par[mx]"] = out["gs_color_par[dec]"] = out["gs_color"]
+    out["relocate_par"] = _bound(10 * P + cells * 4.0, 10 * gocc)
+    # in place: the pid plane is read, and x, y, px, py of occupied slots
+    # are read and written; empty slots keep their values
+    out["gs_verlet"] = _bound(P + 32 * gocc, 25 * gocc)
     return out
+
+
+def _par_runs(gs_cfg, gs_state) -> dict:
+    """The parity kernels' timing runs at the 1M-GS scene's parity shape:
+    name -> (kernel, plain, launches per call).  The colors run on the par
+    layout (K5-par's tables) and on the mx and dec layouts (K5's tables
+    relayouted); the relocate on a jittered copy; the Verlet tail with
+    the mouse pressed."""
+    from gpu_physics_engine_torch import StepParams
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.ops import tiled
+    cfg = gs_cfg
+    ps = gp.to_parity_state(gs_state, cfg)
+    far = gp.to_parity_state(_jittered(
+        gs_state, 0.3 * tiled.tile_geometry(cfg)[0], seed=2), cfg)
+    src, _, rrad, _ = gp.rank_par_cuda(ps, cfg)
+    fsrc, _, frrad, _ = gk.rank_cuda(gs_state, cfg)
+    prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
+                                         0.5 * cfg.world_height),
+                          pressed=True).as_tensor("cuda")
+    v = [a.clone() for a in (ps.x, ps.y, ps.px, ps.py)]
+
+    def colors(fn, geo, tables):
+        x, y = gp.to_parity(gs_state.x, geo, 0.0), gp.to_parity(
+            gs_state.y, geo, 0.0)
+        return lambda: [fn(x, y, *tables, cfg, geo, c) for c in (1, 2, 3, 4)]
+
+    runs = {
+        "gs_rank_par": (lambda: gp.rank_par_cuda(ps, cfg),
+                        lambda: gp.rank_par_plain(ps, cfg), 1),
+        "gs_color_par": (colors(gp.color_par_cuda_, ps.geo, (src, rrad)),
+                         colors(gp.color_par_plain_, ps.geo, (src, rrad)), 4),
+        "relocate_par": (lambda: gp.relocate_par_cuda(far, cfg),
+                         lambda: gp.relocate_par_plain(far, cfg), 1),
+        "gs_verlet": (lambda: gp.verlet_cuda_(*v, ps.pid, prm, cfg),
+                      lambda: gp.verlet_plain_(*v, ps.pid, prm, cfg), 1),
+    }
+    for name, origin in (("mx", 0), ("dec", -1)):
+        geo = gp.ParityGeometry(*gs_state.dims[1:], origin)
+        tables = (gp.to_parity(fsrc, geo, -1), gp.to_parity(frrad, geo, 0.0))
+        runs[f"gs_color_par[{name}]"] = (
+            colors(gp.color_par_cuda_, geo, tables),
+            colors(gp.color_par_plain_, geo, tables), 4)
+    return runs, list(ps.x.shape)
 
 
 def phase_times(cfg, state, gs_cfg, gs_state) -> dict:
     """Every kernel against its plain version at the main paths' shapes:
     K1, K2, K3 at the 4M shape, K5 and K6 (one color launch) at the
-    1M-GS shape, on the engines' initial scenes (after a mouse drag most
-    particles are members of no cell, and K6 would have little to do).
-    Turns: plain, kernel, kernel, plain."""
+    1M-GS shape, the parity kernels at its parity shape, on the engines'
+    initial scenes (after a mouse drag most particles are members of no
+    cell, and K6 would have little to do).  Turns: plain, kernel, kernel,
+    plain."""
     import torch
     from gpu_physics_engine_torch import StepParams
     from gpu_physics_engine_torch.ops import gs_kernels as gk
@@ -450,6 +646,11 @@ def phase_times(cfg, state, gs_cfg, gs_state) -> dict:
         "gs_color": (lambda: colors(gk.color_cuda_),
                      lambda: colors(gk.color_plain_), 4),
     }
+    shapes = {name: list(state.dims) for name in runs}
+    shapes.update(gs_rank=list(gs_state.dims), gs_color=list(gs_state.dims))
+    par, par_shape = _par_runs(gs_cfg, gs_state)
+    runs.update(par)
+    shapes.update({name: par_shape for name in par})
     out = {}
     for name, (kern, plain, per) in runs.items():
         p1 = cuda_ms(plain, reps=2) / per
@@ -457,25 +658,147 @@ def phase_times(cfg, state, gs_cfg, gs_state) -> dict:
         k2 = cuda_ms(kern, reps=20) / per
         p2 = cuda_ms(plain, reps=2) / per
         out[name] = (min(k1, k2), min(p1, p2))
-        shape = list((gs_state if name.startswith("gs") else state).dims)
-        log(f"[time] {name} {shape}: kernel {k1:.4f} / {k2:.4f} ms, plain "
-            f"{p1:.3f} / {p2:.3f} ms per launch")
+        log(f"[time] {name} {shapes[name]}: kernel {k1:.4f} / {k2:.4f} ms, "
+            f"plain {p1:.3f} / {p2:.3f} ms per launch")
     torch.cuda.synchronize()
     return out
 
 
-KERNELS = (  # name, source, the TPU kernel it replaces, its main path
-    ("collide_integrate", "csrc/tiled_kernels.cuh",
+def cross_check(label, flat, other, what) -> None:
+    """Two engines driven through the same steps from the same seed: the
+    full-space states bit-equal (x, y, px, py, pid, overflow_count) and the
+    same watchdog events."""
+    import torch
+    fields = ("x", "y", "px", "py", "pid", "overflow_count")
+    diff = [f for f in fields if not torch.equal(getattr(flat.state, f),
+                                                 getattr(other.state, f))]
+    if diff or flat.watchdog_events != other.watchdog_events:
+        errs = {f: float((getattr(flat.state, f).double()
+                          - getattr(other.state, f).double()).abs().max())
+                for f in diff}
+        raise AssertionError(f"{label}: the {what} engine differs from the "
+                             f"flat engine in {diff} (max err {errs}), "
+                             f"watchdog {other.watchdog_events} vs "
+                             f"{flat.watchdog_events}")
+    log(f"[xcheck] {label}: {what} == flat bit for bit ({', '.join(fields)})"
+        f" after {flat._steps_done} steps")
+
+
+KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
+    # the driven path whose launches it reports
+    ("collide_integrate", "collide_integrate", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "4M"),
-    ("relocate_pull", "csrc/tiled_kernels.cuh",
+    ("relocate_pull", "relocate_pull", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:945", "4M"),
-    ("collide", "csrc/tiled_kernels.cuh",
+    ("collide", "collide", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:455", "4M-unfused"),
-    ("gs_rank", "csrc/gs_kernels.cuh",
+    ("gs_rank", "gs_rank", "csrc/gs_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_pallas.py:467", "1M-GS"),
-    ("gs_color", "csrc/gs_kernels.cuh",
+    ("gs_color", "gs_color", "csrc/gs_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_pallas.py:543", "1M-GS"),
+    ("gs_rank_par", "gs_rank_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:275", "1M-GS-par"),
+    ("gs_color_par", "gs_color_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:433", "1M-GS-par"),
+    ("gs_verlet", "gs_verlet", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:353", "1M-GS-par"),
+    ("relocate_par", "relocate_par", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:689", "1M-GS-par"),
+    ("gs_color_par[mx]", "gs_color_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_pallas.py:1045", "1M-GS-mx"),
+    ("gs_color_par[dec]", "gs_color_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_pallas.py:783", "1M-GS-dec"),
 )
+
+FLAT_GS = ("gs_rank", "gs_color", "relocate_pull")
+PAR_GS = ("gs_rank_par", "gs_color_par", "relocate_par", "gs_verlet")
+
+
+def _gs_expect(steps: int, layout: str) -> dict:
+    """Launch counts of ``steps`` GS steps in ``layout``."""
+    per = {"flat": dict(gs_rank=1, gs_color=4, relocate_pull=1),
+           "par": dict(gs_rank_par=1, gs_color_par=4, relocate_par=1,
+                       gs_verlet=1),
+           "mx": dict(gs_rank=1, gs_color_par=4, relocate_pull=1)}
+    per["dec"] = per["mx"]
+    want = {k: 0 for k in FLAT_GS + PAR_GS + ("collide_integrate",)}
+    want.update({k: v * steps for k, v in per[layout].items()})
+    return want
+
+
+def _gs_start(n: int):
+    """The seeded GS scene at n after one flat frame, and how many
+    memberships the seeded scene has in border cells before that frame.
+
+    The seeded scene is uniform over [0, W) x [0, H), so some particles
+    lie closer than r to a wall; until the first Verlet step clamps them
+    into [r, W - r], their circles reach into the border cells.  The flat
+    rank counts such memberships; the parity rank keeps border cells
+    empty, as the JAX package's _rank_kernel_par does.  After that frame
+    the two layouts run the same function, so the layouts are compared
+    from there."""
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import gs_kernels as gk, tiled
+    cfg = gs_config(n, gs_layout="flat")
+    e = TiledEngine(cfg, seed=0, chunk=64, device="cuda")
+    count = gk.rank_cuda(e.state, cfg)[3]
+    border = int(count.sum()) - int(count[1:-1, 1:-1].sum())
+    return tiled.tiled_step_fn(e.state, e.params(), cfg), border
+
+
+def phase_gs_paths(paths: dict) -> None:
+    """The GS engine at 1M (150 free steps, 150 under the drag) and 4M cap
+    6 (100 steps), in the flat and the par layout from the same start
+    (``_gs_start``), each pair held bit-equal; then 32 steps at 1M in the
+    mx and dec layouts from the seeded scene, held to a flat engine over
+    the same steps.  Prints the par/flat ms/step."""
+    import torch
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    drag = (1524.0, 524.0)
+    for label, n, windows in (("1M-GS", 1_048_576, [(150, None),
+                                                    (150, drag)]),
+                              ("4M-GS", 4_194_304, [(100, None)])):
+        steps = sum(s for s, _ in windows)
+        start, border = _gs_start(n)
+        log(f"[{label}] start: the seeded scene after one flat frame (its "
+            f"{border} border-cell memberships are where flat and par "
+            f"differ: the par rank masks border cells)")
+        runs = {}
+        for layout in ("flat", "par"):
+            tag = label if layout == "flat" else f"{label}-{layout}"
+            runs[layout] = phase_engine(
+                lambda: TiledEngine(
+                    gs_config(n, gs_layout=layout), chunk=64,
+                    initial_state=start.replace(
+                        **{f: getattr(start, f).clone()
+                           for f in ("x", "y", "px", "py", "radius", "pid",
+                                     "num_active", "overflow_count")})),
+                n, windows, tag, _gs_expect(steps, layout))
+            paths[tag] = runs[layout]["launches"]
+        cross_check(label, runs["flat"]["engine"], runs["par"]["engine"],
+                    "par")
+        f, p = runs["flat"]["win_ms"], runs["par"]["win_ms"]
+        log(f"[layout] {label} ms/step per window: par "
+            f"{[round(w, 4) for w in p]} vs flat {[round(w, 4) for w in f]}"
+            f"; next 32 steps par {runs['par']['steady_ms']:.4f} vs flat "
+            f"{runs['flat']['steady_ms']:.4f}")
+        del runs, start
+        torch.cuda.empty_cache()
+    runs = {}
+    for layout in ("flat", "mx", "dec"):
+        tag = "1M-GS-32" if layout == "flat" else f"1M-GS-{layout}"
+        runs[layout] = phase_engine(
+            lambda: TiledEngine(gs_config(1_048_576, gs_layout=layout),
+                                seed=0, chunk=64, device="cuda"),
+            1_048_576, [(32, None)], tag, _gs_expect(32, layout))
+        paths[tag] = runs[layout]["launches"]
+    for layout in ("mx", "dec"):
+        cross_check("1M-GS", runs["flat"]["engine"], runs[layout]["engine"],
+                    layout)
+    del runs
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -508,6 +831,7 @@ def main() -> int:
         gs.append((label, e.config, e.state))
         del e
     phase_gs_kernels(gs, errs)
+    phase_par_kernels(gs, errs)
     gs_cfg, gs_state = gs[0][1:]
     del gs
     torch.cuda.empty_cache()
@@ -523,21 +847,7 @@ def main() -> int:
                  [(250, None)], "256k",
                  {"collide_integrate": 250, "relocate_pull": 125})
 
-    run = phase_engine(
-        lambda: TiledEngine(gs_config(1_048_576), seed=0, chunk=64,
-                            device="cuda"),
-        1_048_576, [(150, None), (150, (1524.0, 524.0))], "1M-GS",
-        {"gs_rank": 300, "gs_color": 1200, "relocate_pull": 300,
-         "collide_integrate": 0})
-    paths["1M-GS"] = run["launches"]
-    del run
-    torch.cuda.empty_cache()
-    phase_engine(
-        lambda: TiledEngine(gs_config(4_194_304), seed=0, chunk=64,
-                            device="cuda"),
-        4_194_304, [(100, None)], "4M-GS",
-        {"gs_rank": 100, "gs_color": 400, "relocate_pull": 100})
-    torch.cuda.empty_cache()
+    phase_gs_paths(paths)
     run = phase_engine(
         lambda: make_tuned_engine(4_194_304, device="cuda",
                                   tiled_fuse_integrate=False),
@@ -550,8 +860,8 @@ def main() -> int:
     times = phase_times(big_cfg, big_state, gs_cfg, gs_state)
     bound = bounds(big_cfg, big_state, gs_cfg, gs_state)
     kernels = []
-    for name, source, replaces, path in KERNELS:
-        n = paths[path][name]
+    for name, counter, source, replaces, path in KERNELS:
+        n = paths[path][counter]
         if n <= 0:
             raise AssertionError(f"{name}: not launched on the {path} path")
         kernels.append({

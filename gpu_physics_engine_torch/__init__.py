@@ -8,8 +8,10 @@ repository as the reference.  Module names mirror the JAX package's:
            tiled_kernels.py (wrappers of the Jacobi-path CUDA kernels +
            their plain versions), gs_tiled.py (the Gauss-Seidel solve as
            plain tensor ops), gs_kernels.py (the Gauss-Seidel rank and
-           color kernels' wrappers + plain versions), _cuda.py (nvcc
-           build + ctypes binding)
+           color kernels' wrappers + plain versions), gs_parity.py (the
+           parity-space GS pipeline and the mx/dec solves, with their
+           kernels' wrappers + plain versions), _cuda.py (nvcc build +
+           ctypes binding)
   csrc/    the CUDA C++ kernels (sm_90a)
   utils/   FrameTimer
 

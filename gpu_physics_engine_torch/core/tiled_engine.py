@@ -12,12 +12,15 @@ the watchdog synchronise once each.
 The engine runs on the CUDA card unless the caller passes a device;
 without a card and without ``device="cpu"`` it raises.  The
 reference-exact Gauss-Seidel solver (tiled_solver="gs") runs the same
-schedule with a relocate on every step.
+schedule with a relocate on every step, in any gs_layout.  Under "par"
+(ops/gs_parity) a run() window converts the state to parity space once,
+steps there and converts back at its end; single steps use the one-step
+facade.  The sweep, the watchdog and the downloads see the full-space
+state at window boundaries, as in the JAX package.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-tiled_sweep="bands", tiled_rebuild_every > 0, the GS layouts "dec", "mx"
-and "par" and the GS mega kernels, spawns and the big-particle overlay,
-rendering, checkpoints.
+tiled_sweep="bands", tiled_rebuild_every > 0, the GS mega kernels, spawns
+and the big-particle overlay, rendering, checkpoints.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.core.state import StepParams
-from gpu_physics_engine_torch.ops import tiled
+from gpu_physics_engine_torch.ops import gs_parity, tiled
 from gpu_physics_engine_torch.utils.timer import FrameTimer
 
 
@@ -136,6 +139,11 @@ class TiledEngine:
             self._sweep_interval = 240
         self._reloc_iv = max(1, config.tiled_relocate_interval)
         self._since_reloc = self._reloc_iv - 1  # relocate on the next step
+        # the parity-space GS pipeline: windows step in parity space
+        self._gs_par = (config.tiled_solver == "gs"
+                        and config.tiled_collide != "jnp"
+                        and gs_parity.resolve_gs_layout(
+                            config, self.device) == "par")
         self._prm_cache.clear()
 
     # ---- schedule ----
@@ -183,6 +191,16 @@ class TiledEngine:
                                          do_relocate=relocate,
                                          prm=self._prm(params))
 
+    def _par_window(self, params: StepParams, steps: int) -> None:
+        """``steps`` GS steps in parity space, converting once each way."""
+        cfg = self.config
+        tiled._backend(cfg.tiled_collide, self.state, "tiled_collide")
+        ps = gs_parity.to_parity_state(self.state, cfg)
+        for _ in range(steps):
+            ps = gs_parity.gs_parity_step_fn(ps, params, cfg,
+                                             prm=self._prm(params))
+        self.state = gs_parity.from_parity_state(ps, cfg)
+
     def sweep(self) -> None:
         """Run the exact sweep now (the periodic sweep and the watchdog's
         forced sweep both come through here)."""
@@ -221,8 +239,11 @@ class TiledEngine:
                 bound = min(bound, sync_every - done % sync_every
                             if done % sync_every else sync_every)
             if bound >= self.CHUNK:
-                for j in range(self.CHUNK):
-                    self._advance(p, relocate=(j % self._reloc_iv == 0))
+                if self._gs_par:  # GS relocates on every step
+                    self._par_window(p, self.CHUNK)
+                else:
+                    for j in range(self.CHUNK):
+                        self._advance(p, relocate=(j % self._reloc_iv == 0))
                 took = self.CHUNK
                 # a window's tail has (CHUNK-1) % iv un-relocated steps
                 self._since_reloc = ((took - 1) % self._reloc_iv

@@ -99,10 +99,12 @@ int gpe_relocate_plan(const void* x, const void* y, const void* pid,
                       void* plan, int cap, int TY, int TX, int row0, int gTY,
                       int gTX, int match, float t, float delta,
                       void* stream) {
-  gpe::relocate_plan_kernel<<<blocks_for((long long)TY * TX), kThreads, 0,
+  const gpe::FlatLayout lay{TY, TX, 0, 0, 1, TX};
+  const int n = TY * TX;
+  gpe::relocate_plan_kernel<gpe::FlatLayout><<<blocks_for(n), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const int*>(pid), static_cast<int*>(plan), cap, TY, TX,
+      static_cast<const int*>(pid), static_cast<int*>(plan), cap, lay, n,
       row0, gTY, gTX, match, t, delta);
   return (int)cudaGetLastError();
 }
@@ -114,7 +116,9 @@ int gpe_relocate_apply(const void* x, const void* y, const void* px,
                        void* opy, void* orad, void* opid, void* defer,
                        int cap, int TY, int TX, int row0, int gTY, int gTX,
                        int match, float t, float delta, void* stream) {
-  gpe::relocate_apply_kernel<<<blocks_for((long long)TY * TX), kThreads, 0,
+  const gpe::FlatLayout lay{TY, TX, 0, 0, 1, TX};
+  const int n = TY * TX;
+  gpe::relocate_apply_kernel<gpe::FlatLayout><<<blocks_for(n), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(px), static_cast<const float*>(py),
@@ -122,8 +126,53 @@ int gpe_relocate_apply(const void* x, const void* y, const void* px,
       static_cast<const int*>(plan), static_cast<float*>(ox),
       static_cast<float*>(oy), static_cast<float*>(opx),
       static_cast<float*>(opy), static_cast<float*>(orad),
-      static_cast<int*>(opid), static_cast<int*>(defer), cap, TY, TX, row0,
+      static_cast<int*>(opid), static_cast<int*>(defer), cap, lay, n, row0,
       gTY, gTX, match, t, delta);
+  return (int)cudaGetLastError();
+}
+
+// K2-par plan on the parity layout: fields and plan [4, cap, DY, DX], one
+// launch over parities p0 .. p0 + np - 1.  One device: row0 0, the grid's
+// own TY x TX as the global grid.
+int gpe_relocate_plan_par(const void* x, const void* y, const void* pid,
+                          void* plan, int cap, int TY, int TX, int DY,
+                          int DX, int origin, int p0, int np, int match,
+                          float t, float delta, void* stream) {
+  if (p0 < 0 || np < 1 || p0 + np > 4) return (int)cudaErrorInvalidValue;
+  const gpe::ParLayout lay{TY, TX, DY, DX, origin, p0};
+  const int n = np * DY * DX;
+  gpe::relocate_plan_kernel<gpe::ParLayout><<<blocks_for(n), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<const int*>(pid), static_cast<int*>(plan), cap, lay, n, 0,
+      TY, TX, match, t, delta);
+  return (int)cudaGetLastError();
+}
+
+// K2-par apply: fresh output planes [4, cap, DY, DX] (rad and orad null
+// under uniform radius) + defer int32 [4, DY, DX].
+int gpe_relocate_apply_par(const void* x, const void* y, const void* px,
+                           const void* py, const void* rad, const void* pid,
+                           const void* plan, void* ox, void* oy, void* opx,
+                           void* opy, void* orad, void* opid, void* defer,
+                           int cap, int TY, int TX, int DY, int DX,
+                           int origin, int p0, int np, int match, float t,
+                           float delta, void* stream) {
+  if (p0 < 0 || np < 1 || p0 + np > 4 ||
+      (rad == nullptr) != (orad == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const gpe::ParLayout lay{TY, TX, DY, DX, origin, p0};
+  const int n = np * DY * DX;
+  gpe::relocate_apply_kernel<gpe::ParLayout><<<blocks_for(n), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<const float*>(px), static_cast<const float*>(py),
+      static_cast<const float*>(rad), static_cast<const int*>(pid),
+      static_cast<const int*>(plan), static_cast<float*>(ox),
+      static_cast<float*>(oy), static_cast<float*>(opx),
+      static_cast<float*>(opy), static_cast<float*>(orad),
+      static_cast<int*>(opid), static_cast<int*>(defer), cap, lay, n, 0, TY,
+      TX, match, t, delta);
   return (int)cudaGetLastError();
 }
 

@@ -9,11 +9,15 @@
 // K2  relocate_plan_kernel + relocate_apply_kernel  replace
 //     gpu_physics_engine_tpu/ops/tiled_pallas.py::relocate_pallas (:945,
 //     kernels _relocate_plan_kernel :647 / _plan_choose :713 and
-//     _relocate_apply_kernel :780 / _apply_merge :841).
+//     _relocate_apply_kernel :780 / _apply_merge :841); on ParLayout they
+//     replace ops/gs_parity.py::relocate_parity (:689; _plan_kernel_par
+//     :539, _apply_kernel_par :573 and their _all variants :617, :651),
+//     "K2-par".
 //
 // Storage is slot-major [CAP, TY, TX]: slot k of tile (ty, tx) sits at
 // k*TY*TX + ty*TX + tx, so neighbouring threads (neighbouring tiles of one
-// slot) read neighbouring addresses.
+// slot) read neighbouring addresses.  K2 also runs on the parity layout
+// [4, CAP, DY, DX] of csrc/layout.cuh; the matching exists once.
 //
 // Build with -fmad=false: the integer decisions of K2 (which tile a
 // position falls in) must equal the plain PyTorch version's bit for bit,
@@ -22,6 +26,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include "layout.cuh"
 
 namespace gpe {
 
@@ -213,21 +219,23 @@ __device__ __forceinline__ void step_offsets(float x, float y, int sty,
 //   flip2:  code = e + 8*rule (source slot cap-1-k for rule 0, k for 1)
 //   greedy: code = e*cap + s
 // Each neighbour's claims on this tile are a CAP-bit mask, so the
-// sequential matching of _plan_choose runs on registers.
+// sequential matching of _plan_choose runs on registers.  One thread per
+// cell of the launch (parity pad cells are not interior: plan -1).
+template <class L>
 __global__ void relocate_plan_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
-    const int* __restrict__ pid, int* __restrict__ plan, int cap, int TY,
-    int TX, int row0, int gTY, int gTX, int match, float t, float delta) {
-  const int ntiles = TY * TX;
-  const int tile = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tile >= ntiles) return;
-  const int ty = tile / TX;
-  const int tx = tile - ty * TX;
+    const int* __restrict__ pid, int* __restrict__ plan, int cap, L lay,
+    int n, int row0, int gTY, int gTX, int match, float t, float delta) {
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i0 >= n) return;
+  const int TY = lay.TY;
+  int ty, tx;
+  lay.cell(i0, &ty, &tx);
   const int my_ty = ty + row0;
   const bool interior = my_ty >= 1 && my_ty <= gTY - 2 && tx >= 1 &&
                         tx <= gTX - 2 && ty <= TY - 1;
   if (!interior) {
-    for (int k = 0; k < cap; ++k) plan[k * ntiles + tile] = -1;
+    for (int k = 0; k < cap; ++k) plan[lay.at(k, cap, ty, tx)] = -1;
     return;
   }
 
@@ -238,9 +246,8 @@ __global__ void relocate_plan_kernel(
     const int nty = ty + ey, ntx = tx + ex;
     uint32_t m = 0;
     if (nty >= 0 && nty <= TY - 1 && ntx >= 0 && ntx <= gTX - 1) {
-      const int ntile = nty * TX + ntx;
       for (int s = 0; s < cap; ++s) {
-        const int j = s * ntiles + ntile;
+        const int j = lay.at(s, cap, nty, ntx);
         if (pid[j] < 0) continue;
         int dty, dtx;
         step_offsets(x[j], y[j], my_ty + ey, tx + ex, t, delta, gTY, gTX,
@@ -256,7 +263,8 @@ __global__ void relocate_plan_kernel(
   for (int e = 0; e < 8; ++e) claimed[e] = 0;
   for (int k = 0; k < cap; ++k) {
     int code = -1;
-    if (pid[k * ntiles + tile] < 0) {
+    const int mine = lay.at(k, cap, ty, tx);
+    if (pid[mine] < 0) {
       if (match == kFlip) {
         const int s = cap - 1 - k;
 #pragma unroll
@@ -286,7 +294,7 @@ __global__ void relocate_plan_kernel(
         }
       }
     }
-    plan[k * ntiles + tile] = code;
+    plan[mine] = code;
   }
 }
 
@@ -294,6 +302,9 @@ __global__ void relocate_plan_kernel(
 // plan names them, count the movers that found no slot, and write the
 // survivors compacted to the low slots (zero-filled above).  Writes go to
 // fresh output planes: neighbouring tiles read the inputs concurrently.
+// rad and orad may both be null (the parity state under uniform radius
+// carries no radius planes).
+template <class L>
 __global__ void relocate_apply_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ px, const float* __restrict__ py,
@@ -301,18 +312,18 @@ __global__ void relocate_apply_kernel(
     const int* __restrict__ plan, float* __restrict__ ox,
     float* __restrict__ oy, float* __restrict__ opx,
     float* __restrict__ opy, float* __restrict__ orad,
-    int* __restrict__ opid, int* __restrict__ defer, int cap, int TY,
-    int TX, int row0, int gTY, int gTX, int match, float t, float delta) {
-  const int ntiles = TY * TX;
-  const int tile = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tile >= ntiles) return;
-  const int ty = tile / TX;
-  const int tx = tile - ty * TX;
+    int* __restrict__ opid, int* __restrict__ defer, int cap, L lay, int n,
+    int row0, int gTY, int gTX, int match, float t, float delta) {
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i0 >= n) return;
+  const int TY = lay.TY;
+  int ty, tx;
+  lay.cell(i0, &ty, &tx);
   const int my_ty = ty + row0;
 
   int nout = 0, ndefer = 0;
   for (int k = 0; k < cap; ++k) {
-    const int i = k * ntiles + tile;
+    const int i = lay.at(k, cap, ty, tx);
     const int code = plan[i];
     int src = -1;  // slot whose particle lands in my output
     if (code >= 0) {
@@ -329,7 +340,7 @@ __global__ void relocate_apply_kernel(
         e = code / cap;
         s = code - e * cap;
       }
-      src = s * ntiles + (ty + nbr_dy(e)) * TX + (tx + nbr_dx(e));
+      src = lay.at(s, cap, ty + nbr_dy(e), tx + nbr_dx(e));
     } else if (pid[i] >= 0) {
       src = i;
       int dty, dtx;
@@ -338,17 +349,17 @@ __global__ void relocate_apply_kernel(
       if (in_slab && (dty != 0 || dtx != 0)) {
         // leave check: the target names me (offset -dty,-dtx from it)
         const int me = nbr_index(-dty, -dtx);
-        const int ttile = (ty + dty) * TX + (tx + dtx);
+        const int gy = ty + dty, gx = tx + dtx;
         bool accepted;
         if (match == kFlip) {
-          accepted = plan[(cap - 1 - k) * ntiles + ttile] == me;
+          accepted = plan[lay.at(cap - 1 - k, cap, gy, gx)] == me;
         } else if (match == kFlip2) {
-          accepted = plan[(cap - 1 - k) * ntiles + ttile] == me ||
-                     plan[k * ntiles + ttile] == me + 8;
+          accepted = plan[lay.at(cap - 1 - k, cap, gy, gx)] == me ||
+                     plan[lay.at(k, cap, gy, gx)] == me + 8;
         } else {
           accepted = false;
           for (int kd = 0; kd < cap; ++kd) {
-            accepted |= plan[kd * ntiles + ttile] == me * cap + k;
+            accepted |= plan[lay.at(kd, cap, gy, gx)] == me * cap + k;
           }
         }
         if (accepted) {
@@ -359,26 +370,26 @@ __global__ void relocate_apply_kernel(
       }
     }
     if (src >= 0) {
-      const int o = nout * ntiles + tile;
+      const int o = lay.at(nout, cap, ty, tx);
       ox[o] = x[src];
       oy[o] = y[src];
       opx[o] = px[src];
       opy[o] = py[src];
-      orad[o] = rad[src];
+      if (rad) orad[o] = rad[src];
       opid[o] = pid[src];
       ++nout;
     }
   }
   for (int k = nout; k < cap; ++k) {
-    const int o = k * ntiles + tile;
+    const int o = lay.at(k, cap, ty, tx);
     ox[o] = 0.0f;
     oy[o] = 0.0f;
     opx[o] = 0.0f;
     opy[o] = 0.0f;
-    orad[o] = 0.0f;
+    if (orad) orad[o] = 0.0f;
     opid[o] = -1;
   }
-  defer[tile] = ndefer;
+  defer[lay.at(0, 1, ty, tx)] = ndefer;
 }
 
 }  // namespace gpe

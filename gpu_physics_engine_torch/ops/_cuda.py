@@ -41,6 +41,11 @@ _SIGNATURES = {
     "gpe_relocate_apply": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
     "gpe_gs_rank": [_P] * 8 + [_I] * 4 + [_F, _P],
     "gpe_gs_color": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "gpe_gs_rank_par": [_P] * 8 + [_I] * 9 + [_F, _F, _P],
+    "gpe_gs_color_par": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "gpe_gs_verlet": [_P] * 6 + [_I] + [_P, _P],
+    "gpe_relocate_plan_par": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
+    "gpe_relocate_apply_par": [_P] * 14 + [_I] * 9 + [_F, _F, _P],
 }
 
 

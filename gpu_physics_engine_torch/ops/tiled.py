@@ -12,7 +12,7 @@ restores storage == home: the claim ``relocate`` or the wholesale
 Everything here is plain PyTorch and runs on whatever device the state
 lives on.  The hot passes dispatch to hand-written CUDA kernels for CUDA
 tensors (``tiled_step_fn``): ops/tiled_kernels for the Jacobi sweep and
-the relocate, ops/gs_kernels for the Gauss-Seidel solve.
+the relocate, ops/gs_kernels and ops/gs_parity for the Gauss-Seidel solve.
 """
 
 from __future__ import annotations
@@ -629,17 +629,11 @@ def _relocate_passes(relocate_fn, state: TileState,
 
 
 def check_gs_supported(config: SimConfig) -> None:
-    """Raise for the Gauss-Seidel options that are not ported yet.  The
-    flat layout ("flat", and "auto", which the JAX package resolves to
-    "flat" off the TPU) runs; every gs_rank value selects the same
-    occupants, so all of them run."""
+    """Raise for the Gauss-Seidel options that are not ported yet.  Every
+    gs_layout runs ("auto" resolves in ops/gs_parity.resolve_gs_layout);
+    every gs_rank value selects the same occupants, so all of them run."""
     if config.tiled_solver != "gs":
         return
-    if config.gs_layout in ("dec", "mx", "par"):
-        raise NotImplementedError(
-            f"gs_layout={config.gs_layout!r} is not ported yet (ROADMAP.md "
-            "queue 2: K6-dec, K6-mx, K5-par, K6-par, K2-par); 'flat' and "
-            "'auto' run the flat GS kernels")
     if config.gs_colors_mega or config.gs_relocate_mega:
         raise NotImplementedError(
             "gs_colors_mega / gs_relocate_mega are not ported yet "
@@ -666,8 +660,9 @@ def tiled_step_fn(state: TileState, params: StepParams, config: SimConfig,
     Backends (config.tiled_collide / tiled_relocate):
       * "auto": the kernel wrappers (ops/tiled_kernels: K1 fused collide +
         integrate, K3 collide, K2 pull relocate; ops/gs_kernels: K5 rank
-        and K6 color solve); each launches its CUDA kernel for a CUDA
-        tensor and runs its plain PyTorch version for a CPU tensor;
+        and K6 color solve; ops/gs_parity: their parity-space forms); each
+        launches its CUDA kernel for a CUDA tensor and runs its plain
+        PyTorch version for a CPU tensor;
       * "pallas": the same wrappers, but a CPU tensor raises;
       * "jnp": what the JAX package runs under "jnp": separate plain
         ``collide`` (or ``gs_tiled.gs_solve``) + ``integrate``, and the
@@ -675,12 +670,16 @@ def tiled_step_fn(state: TileState, params: StepParams, config: SimConfig,
 
     tiled_solver="gs" is the reference-exact Gauss-Seidel solve: relocate
     on every step (the config forbids a longer interval), then per
-    substep the 4-color solve and the plain ``integrate``.
+    substep the 4-color solve and the plain ``integrate``.  On the kernel
+    route the solve takes the resolved gs_layout (flat K5/K6, or the
+    mx/dec relayouts around K6-par); "par" runs the whole step in parity
+    space instead (ops/gs_parity: K2-par, K5-par, K6-par and its Verlet
+    tail), relayouting once around the step.
 
     ``prm`` is a ready f32[4] device vector for ``params`` at this
     substep's dt (the engine caches it); built from ``params`` if None."""
     # imported here: the kernel modules import this module
-    from gpu_physics_engine_torch.ops import gs_kernels, gs_tiled
+    from gpu_physics_engine_torch.ops import gs_parity, gs_tiled
     from gpu_physics_engine_torch.ops import tiled_kernels
 
     check_gs_supported(config)
@@ -692,7 +691,11 @@ def tiled_step_fn(state: TileState, params: StepParams, config: SimConfig,
         prm = params.as_tensor(state.device, dt_scale)
 
     if config.tiled_solver == "gs":
-        solve = gs_kernels.gs_solve_flat if kernel_collide \
+        if kernel_collide and gs_parity.resolve_gs_layout(
+                config, state.device) == "par":
+            return gs_parity.gs_parity_tile_step(state, params, config,
+                                                 prm=prm)
+        solve = gs_parity.gs_solve_layout if kernel_collide \
             else gs_tiled.gs_solve
         state = _relocate_passes(reloc, state, config)
         for _ in range(config.substeps):

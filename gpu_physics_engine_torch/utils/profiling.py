@@ -8,7 +8,8 @@ time per kernel (summed over launches, from a second, profiled window),
 the device busy time, and the idle share ``1 - busy / span``.  On a
 CPU-only engine the device fields are empty and the idle share is None.
 ``--gs`` profiles the reference-exact Gauss-Seidel engine
-(core/tuned.gs_config) instead of the production Jacobi engine.
+(core/tuned.gs_config) instead of the production Jacobi engine, in the
+solve layout ``--layout`` (default "auto").
 
     python -m gpu_physics_engine_torch.utils.profiling --gs \\
         --particles 4194304 --steps 4800 --every 480 \\
@@ -135,6 +136,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--gs", action="store_true",
                     help="the Gauss-Seidel engine (tiled_solver='gs')")
+    ap.add_argument("--layout", default="auto",
+                    choices=["auto", "flat", "par", "mx", "dec"],
+                    help="with --gs: gs_layout")
     ap.add_argument("--device", default=None)
     ap.add_argument("--trace", default=None, help="chrome trace path")
     ap.add_argument("--sweeps", nargs="+", default=None,
@@ -147,14 +151,16 @@ def main(argv=None) -> dict:
     if args.sweeps:
         return sweep_study(args)
     if args.gs:
-        engine = TiledEngine(gs_config(args.particles), chunk=64,
-                             device=args.device)
+        engine = TiledEngine(gs_config(args.particles,
+                                       gs_layout=args.layout),
+                             chunk=64, device=args.device)
     else:
         engine = make_tuned_engine(args.particles, device=args.device)
     engine.run(args.warmup)
     out = profile_run(engine, args.steps, args.trace)
     out.update(particles=args.particles, device=str(engine.device),
-               solver=engine.config.tiled_solver)
+               solver=engine.config.tiled_solver,
+               gs_layout=engine.config.gs_layout)
     for k in out["kernels"]:
         k["name"] = k["name"].split("(")[0][:80]
     print(json.dumps({**out, "kernels": out["kernels"][:10]}))

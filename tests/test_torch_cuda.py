@@ -4,7 +4,8 @@ Imports torch and the port only, so it also runs where jax is absent:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repository's conftest imports jax).  Without a CUDA device every test here
 skips.  K1 and K3 agree with their plain versions within 1e-5 (rsqrt
-rounding); K2, K5 and K6 bit for bit.
+rounding); K2, K5 and K6 bit for bit, on the flat and the parity layouts,
+and the Verlet tail too; the par engine equals the flat engine.
 """
 
 import numpy as np
@@ -135,11 +136,12 @@ def test_gs_kernels_match_plain(cap, K):
 
 
 def test_gs_engine_on_card_matches_cpu_engine():
-    """The GS step on the card (K2, K5, K6) against the same engine on the
-    CPU (plain versions): pid placement and counters exact, positions
+    """The flat GS step on the card (K2, K5, K6) against the same engine on
+    the CPU (plain versions): pid placement and counters exact, positions
     close (the plain integrate's sqrt may round apart on the CPU)."""
     from gpu_physics_engine_torch import TiledEngine
     cfg, st = _gs_scene(4, 8, seed=9)
+    cfg = cfg.replace(gs_layout="flat")
     pid, pos, _, rad = tt.export_particles(st)
     engines = [TiledEngine.from_arrays(cfg, pos, rad, device=d)
                for d in ("cpu", "cuda")]
@@ -176,3 +178,73 @@ def test_engine_on_card_matches_cpu_engine():
     assert int(a["overflow_count"]) == int(b["overflow_count"])
     for f in ("x", "y", "px", "py"):
         np.testing.assert_allclose(a[f], b[f], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("cap, K, uniform", [(4, 8, True), (2, 3, False)])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("origin", [0, -1])
+def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
+    """K5-par, K6-par (each color), K2-par and the Verlet tail bit-equal to
+    their plain versions on the parity layout (origin 0: mx/par, -1: dec),
+    in one launch over all parities and in one per parity."""
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    cfg, st = _gs_scene(cap, K, seed=cap + 20)
+    cfg = cfg.replace(gs_par_fused=fused, tiled_uniform_radius=uniform)
+    if uniform:
+        st = st.replace(radius=torch.where(st.pid >= 0, 0.5, 0.0))
+    ps = gp.to_parity_state(st, cfg, origin)
+    n0 = dict(gp.LAUNCHES)
+    ta, tb = gp.rank_par(ps, cfg), gp.rank_par_plain(ps, cfg)
+    per = 1 if fused else 4
+    assert gp.LAUNCHES["gs_rank_par"] == n0["gs_rank_par"] + per
+    for u, v in zip(ta, tb):
+        assert torch.equal(u, v)
+    xk, yk, xp, yp = ps.x.clone(), ps.y.clone(), ps.x.clone(), ps.y.clone()
+    for color in (1, 2, 3, 4):
+        gp.color_par_(xk, yk, ta[0], ta[2], cfg, ps.geo, color)
+        gp.color_par_plain_(xp, yp, tb[0], tb[2], cfg, ps.geo, color)
+        assert torch.equal(xk, xp) and torch.equal(yk, yp), color
+    assert int((xk != ps.x).sum()) > 0
+    moved = ps.replace(x=ps.x + torch.where(ps.pid >= 0, 0.6, 0.0))
+    a, da = gp.relocate_par_cuda(moved, cfg)
+    b, db = gp.relocate_par_plain(moved, cfg)
+    assert gp.LAUNCHES["relocate_par"] == n0["relocate_par"] + per
+    for f in ("x", "y", "px", "py", "pid", "overflow_count"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert (a.radius is None) == uniform
+    assert uniform or torch.equal(a.radius, b.radius)
+    assert torch.equal(da, db) and int(da.sum()) > 0
+    if uniform:
+        prm = StepParams.make(0.02, mouse=(20.0, 15.0), pressed=True
+                              ).as_tensor("cuda")
+        k = [t.clone() for t in (ps.x, ps.y, ps.px, ps.py)]
+        p = [t.clone() for t in k]
+        gp.verlet_(*k, ps.pid, prm, cfg)
+        gp.verlet_plain_(*p, ps.pid, prm, cfg)
+        for u, v in zip(k, p):
+            assert torch.equal(u, v)
+
+
+def test_par_engine_on_card_matches_flat_engine_on_card():
+    """The par engine (K2-par, K5-par, K6-par, the Verlet tail) and the flat
+    engine (K2, K5, K6, the plain integrate) on the card, mouse pressed:
+    bit-equal in full space.  Every particle starts inside [r, W - r]: the
+    par rank keeps border cells empty, as the JAX package's does."""
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    cfg, st = _gs_scene(4, 8, seed=9)
+    pid, pos, _, _ = tt.export_particles(st)
+    pos = np.clip(pos, 0.6, [39.4, 29.4])
+    rad = np.full(len(pid), 0.5, np.float32)
+    n0 = dict(gp.LAUNCHES)
+    engines = [TiledEngine.from_arrays(cfg.replace(gs_layout=lay), pos, rad,
+                                       device="cuda")
+               for lay in ("flat", "par")]
+    for e in engines:
+        e.CHUNK = 4
+        e.press_mouse((20.0, 15.0))
+        e.run(10)
+    assert gp.LAUNCHES["gs_verlet"] == n0["gs_verlet"] + 10
+    for f in FIELDS + ("overflow_count",):
+        assert torch.equal(getattr(engines[0].state, f),
+                           getattr(engines[1].state, f)), f

@@ -316,15 +316,25 @@ def test_unfused_step_is_k3_then_integrate():
     dict(gs_layout="dec"), dict(gs_layout="mx"), dict(gs_layout="par"),
     dict(gs_colors_mega=True), dict(gs_relocate_mega=True)])
 def test_unported_gs_options_raise(kw):
-    _, tcfg = gs_cfgs(30, **kw)
+    """The mega kernels (K11) are not ported and raise; the dec, mx and par
+    layouts are (ops/gs_parity) and step as the flat layout does."""
+    _, tcfg = gs_cfgs(30, tiled_collide="auto", tiled_relocate="auto", **kw)
     pos, rad = gs_scene("random", 30, seed=17)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine.from_arrays(tcfg, pos, rad, device="cpu")
     st = tt.init_tiles(tcfg, pos, rad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.tiled_step_fn(st, TParams.make(tcfg.dt), tcfg)
-    # "flat" and "auto" run
-    for layout in ("flat", "auto"):
+    p = TParams.make(tcfg.dt)
+    if "gs_layout" in kw:
+        TEngine.from_arrays(tcfg, pos, rad, device="cpu")
+        want = tt.tiled_step_fn(st, p, tcfg.replace(gs_layout="flat"))
+        got = tt.tiled_step_fn(st, p, tcfg)
+        for f in tt.FIELDS + ("overflow_count",):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        return
+    with pytest.raises(NotImplementedError, match="K11"):
+        TEngine.from_arrays(tcfg, pos, rad, device="cpu")
+    with pytest.raises(NotImplementedError, match="K11"):
+        tt.tiled_step_fn(st, p, tcfg)
+    # every layout runs without the mega flags
+    for layout in ("flat", "auto", "dec", "mx", "par"):
         c = tcfg.replace(gs_layout=layout, gs_colors_mega=False,
                          gs_relocate_mega=False)
         tt.tiled_step_fn(st, TParams.make(c.dt), c)

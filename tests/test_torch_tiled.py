@@ -272,7 +272,7 @@ def test_jnp_step_matches_jax_jnp_step():
 
 
 @pytest.mark.parametrize("kw, exc", [
-    (dict(tiled_solver="gs", gs_layout="par"), NotImplementedError),
+    (dict(tiled_solver="gs", gs_relocate_mega=True), NotImplementedError),
     (dict(tiled_solver="gs", gs_colors_mega=True), NotImplementedError),
     (dict(tiled_collide="pallas"), RuntimeError),
     (dict(tiled_relocate="pallas"), RuntimeError),
