@@ -37,10 +37,24 @@ non-zero with no result line:
      the Verlet tail once per step; no flat K5/K6/K2), the same checks,
      and the two layouts' final states bit-equal; then 32 steps at 1M in
      the "mx" and "dec" layouts (K5, K6-par, K2), bit-equal to flat;
-  6. the unfused path (tiled_fuse_integrate=False) at 4,194,304 for 64
+  6. the array Engine (pipeline "sorted", the 4-color Gauss-Seidel solve,
+     the Morton resort every 240 steps) at the README's 1,000,000
+     particles in 1,100,800 slots, sort_impl="radix": first K12 (the radix
+     sort's rank/histogram pass) against its plain version, twice,
+     bit-equal, for all 4 passes of a sort, on a 25,006-key reverse ramp
+     with duplicates and sentinels and on the scene's 4,403,200 pair keys,
+     each whole radix sort equal to torch.sort(stable=True); the scene's
+     candidate cells on the card equal to the CPU's; then 256 steps (128
+     free, 128 with the mouse at the world centre, crossing the resort at
+     step 240) with 4 x 256 + 4 K12 launches, the same run with
+     sort_impl="lax" (no K12 launch, final state bit-equal), and 64 steps
+     each of pipeline "bucket" and solver "jacobi";
+  7. the unfused path (tiled_fuse_integrate=False) at 4,194,304 for 64
      steps: K3 on every step;
-  7. kernel times at the main paths' shapes against their plain versions,
-     with each kernel's bound on this card.
+  8. kernel times at the main paths' shapes against their plain versions,
+     with each kernel's bound on this card (and, for K12, the time of
+     torch.sort(stable=True) of the same pairs beside the hand radix
+     sort's).
 
 Then a line {"kernels": [...]} and, last, the result line
 {"ok": true, "device": {...}}.  Without a CUDA device (or without the
@@ -81,19 +95,22 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def reset_launches() -> None:
+def _counted():
     from gpu_physics_engine_torch.ops import (gs_kernels, gs_parity,
-                                              tiled_kernels)
-    tiled_kernels.reset_launches()
-    gs_kernels.reset_launches()
-    gs_parity.reset_launches()
+                                              radix_sort, tiled_kernels)
+    return (tiled_kernels, gs_kernels, gs_parity, radix_sort)
+
+
+def reset_launches() -> None:
+    for m in _counted():
+        m.reset_launches()
 
 
 def launches() -> dict:
-    from gpu_physics_engine_torch.ops import (gs_kernels, gs_parity,
-                                              tiled_kernels)
-    return {**tiled_kernels.LAUNCHES, **gs_kernels.LAUNCHES,
-            **gs_parity.LAUNCHES}
+    out = {}
+    for m in _counted():
+        out.update(m.LAUNCHES)
+    return out
 
 
 def phase_environment() -> str:
@@ -499,6 +516,204 @@ def phase_engine(make, n, windows, label, expect) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the array Engine (sorted pairs, 4-color Gauss-Seidel, Morton resort)
+# ---------------------------------------------------------------------------
+
+ARRAY_N = 1_000_000
+CENTRE = (1524.0, 524.0)
+
+
+def _array_cfg(**kw):
+    """The README's first example: 1,000,000 particles in 1,100,800 slots,
+    world 3048 x 1048, radius 0.5 (cell 1.1, grid 2773 x 955)."""
+    from gpu_physics_engine_torch import SimConfig
+    return SimConfig(max_particles=1_100_000, initial_particles=ARRAY_N,
+                     **kw)
+
+
+def _ramp_keys(n=25_006, seed=12):
+    """The reference's 25,006-key reverse ramp, with duplicates and
+    0xFFFFFFFF sentinels: u32 values in int64 on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    keys = np.arange(n - 1, -1, -1, dtype=np.int64) * 40_503
+    keys[rng.random(n) < 0.3] = 7
+    keys[rng.random(n) < 0.1] = 0xFFFFFFFF
+    return torch.from_numpy(keys & 0xFFFFFFFF).cuda()
+
+
+def _pair_keys(state, cfg):
+    """(candidates, cell_ids) of ``state``: the slice's sort input."""
+    from gpu_physics_engine_torch.core import stepper
+    from gpu_physics_engine_torch.ops import grid
+    cand = grid.build_candidates(state.x, state.y, state.radius,
+                                 state.active_mask(),
+                                 stepper.cell_size(cfg, state))
+    return cand, grid.build_cell_ids(cand)[0]
+
+
+def check_radix(label, keys) -> "torch.Tensor":
+    """K12 against its plain version on each of the 4 passes' real inputs
+    (the keys after the earlier passes), twice, bit-equal; the whole radix
+    sort equal to torch.sort(stable=True).  Returns the padded int32 key
+    bits of the first pass."""
+    import torch
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    n = keys.shape[0]
+    bits = rs.as_i32_bits(torch.cat([keys, keys.new_full(
+        (-n % rs.BLOCK,), 0xFFFFFFFF)]))
+    first = bits
+    vals = torch.arange(bits.shape[0], dtype=torch.int32, device="cuda")
+    for p in range(4):
+        got, again = rs.rank_hist_cuda(bits, 8 * p), rs.rank_hist_cuda(
+            bits, 8 * p)
+        _equal_or_raise(f"K12 {label} pass {p}", got,
+                        rs.rank_hist_plain(bits, 8 * p), again)
+        bits, vals = rs.one_pass(bits, vals, 8 * p)
+    sk, sv = rs.radix_sort_pairs(
+        keys, torch.arange(n, dtype=torch.int32, device="cuda"))
+    wk, wi = torch.sort(keys, stable=True)
+    _equal_or_raise(f"radix sort {label} vs torch.sort", (sk, sv),
+                    (wk, wi.to(torch.int32)))
+    log(f"[k12] {label} {bits.shape[0]} keys ({bits.shape[0] // rs.BLOCK} "
+        f"blocks): 4 passes bit-equal to the plain version and on repeat; "
+        f"the radix sort == torch.sort(stable=True)")
+    return first
+
+
+def phase_array_kernels(errs: dict):
+    """K12 at a small shape and at both shapes the 1M engine gives it: the
+    scene's pair keys (each substep) and its home-cell codes over the
+    whole capacity, the inactive tail UNUSED (the Morton resort); and the
+    scene's candidate cells on the card against the CPU's.  Returns the
+    first pass's key bits at the pair keys' shape."""
+    from gpu_physics_engine_torch import Engine
+    from gpu_physics_engine_torch.core import stepper
+    from gpu_physics_engine_torch.ops import resort
+    check_radix("ramp", _ramp_keys())
+    cfg = _array_cfg(sort_impl="radix")
+    e = Engine(cfg, seed=0, device="cuda")
+    _, keys = _pair_keys(e.state, cfg)
+    big = check_radix("1M pairs", keys)
+    st = e.state
+    check_radix("1M resort codes", resort.home_cell_codes(
+        st.x, st.y, st.active_mask(), stepper.cell_size(cfg, st)))
+    errs["radix_rank_hist"] = 0.0
+    check_candidates("1M scene", e.state, cfg)
+    return big
+
+
+def check_candidates(label, state, cfg) -> None:
+    """The candidate cells (Morton codes, coords, valid) of ``state`` on
+    the card equal the CPU's: the grid build divides by the cell size
+    held as a tensor, so the card's division is IEEE as the CPU's."""
+    import torch
+    cand, _ = _pair_keys(state, cfg)
+    cpu = state.replace(**{f: getattr(state, f).cpu() for f in (
+        "x", "y", "radius", "num_active", "max_radius")})
+    ccand, _ = _pair_keys(cpu, cfg)
+    same = [torch.equal(getattr(cand, f).cpu(), getattr(ccand, f))
+            for f in ("cells", "coords", "valid")]
+    if not all(same):
+        raise AssertionError(f"{label} candidate cells: card != CPU "
+                             f"({same})")
+    log(f"[grid] {label}: candidate cells, coords and valid on the card == "
+        f"the CPU's ({int(cand.valid.sum())} candidates)")
+
+
+def phase_array_engine(make, windows, label, expect) -> dict:
+    """Drive the array Engine ``make()`` builds through ``windows`` =
+    [(steps, mouse or None)]: launch counts zeroed just before and equal
+    to ``expect`` just after; all particles live, finite, inside the
+    world; ms/step and overflow per frame per window."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    e = make()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    win_ms, win_of = [], []
+    reset_launches()
+    for steps, mouse in windows:
+        if mouse is not None:
+            e.press_mouse(mouse)
+        of0 = int(e.state.overflow_count)
+        win_ms.append(cuda_ms(lambda: e.run(steps), reps=1, warmup=0)
+                      / steps)
+        win_of.append((int(e.state.overflow_count) - of0) / steps)
+    torch.cuda.synchronize()
+    got = launches()
+    bad = {k: (got[k], v) for k, v in expect.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, expected) {bad}")
+    cfg = e.config
+    pos, rad = e.positions(), e.radii()
+    if e.num_particles() != cfg.initial_particles:
+        raise AssertionError(f"{label}: {e.num_particles()} live")
+    if not np.isfinite(pos).all():
+        raise AssertionError(f"{label}: non-finite positions")
+    inside = ((pos[:, 0] >= rad - 1e-4)
+              & (pos[:, 0] <= cfg.world_width - rad + 1e-4)
+              & (pos[:, 1] >= rad - 1e-4)
+              & (pos[:, 1] <= cfg.world_height - rad + 1e-4))
+    if not inside.all():
+        raise AssertionError(f"{label}: {int((~inside).sum())} particles "
+                             "outside [r, W-r] x [r, H-r]")
+    steps_total = sum(s for s, _ in windows)
+    log(f"[{label}] pipeline {cfg.pipeline} solver {cfg.solver} sort "
+        f"{cfg.sort_impl} K {cfg.max_occupancy} capacity {cfg.capacity} "
+        f"grid {list(cfg.grid_dims)}; init {init_s:.1f} s")
+    log(f"[{label}] launches {got} over {steps_total} steps; all "
+        f"{e.num_particles()} live, finite, inside the world")
+    log(f"[{label}] ms/step (CUDA events) windows "
+        f"{[round(w, 3) for w in win_ms]}; overflow per frame windows "
+        f"{[round(o, 1) for o in win_of]}")
+    return {"launches": got, "win_ms": win_ms, "engine": e}
+
+
+ARRAY_STATE = ("x", "y", "px", "py", "radius", "num_active",
+               "steps_since_sort", "max_radius", "overflow_count")
+
+
+def phase_array_paths(paths: dict) -> None:
+    """The radix engine at 1M for 256 steps (128 free, 128 under the drag,
+    the resort at step 240), the lax engine through the same steps from the
+    same seed (bit-equal, no K12 launch), then 64 steps each of the bucket
+    pipeline and the Jacobi solver."""
+    import torch
+    from gpu_physics_engine_torch import Engine
+    windows = [(128, None), (128, CENTRE)]
+    runs = {}
+    for impl, k12 in (("radix", 4 * 256 + 4), ("lax", 0)):
+        label = f"1M-array-{impl}"
+        runs[impl] = phase_array_engine(
+            lambda: Engine(_array_cfg(sort_impl=impl), seed=0,
+                           device="cuda"),
+            windows, label, {"radix_rank_hist": k12})
+        paths[label] = runs[impl]["launches"]
+    a, b = runs["radix"]["engine"].state, runs["lax"]["engine"].state
+    diff = [f for f in ARRAY_STATE
+            if not torch.equal(getattr(a, f), getattr(b, f))]
+    if diff:
+        raise AssertionError(f"1M array: radix != lax in {diff}")
+    log(f"[xcheck] 1M array: radix == lax bit for bit "
+        f"({', '.join(ARRAY_STATE)}) after 256 steps")
+    check_candidates("1M after 256 steps", a, runs["radix"]["engine"].config)
+    del runs, a, b
+    torch.cuda.empty_cache()
+    for label, kw in (("1M-array-bucket", dict(pipeline="bucket")),
+                      ("1M-array-jacobi", dict(solver="jacobi"))):
+        run = phase_array_engine(
+            lambda: Engine(_array_cfg(sort_impl="radix", **kw), seed=0,
+                           device="cuda"),
+            [(64, None)], label, {"radix_rank_hist": 0})
+        paths[label] = run["launches"]
+        del run
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # bounds: the least time the card could take for each kernel's work
 # ---------------------------------------------------------------------------
 
@@ -518,7 +733,7 @@ def _tile_counts(state):
     return n[0, 0], box[0, 0]
 
 
-def bounds(cfg, state, gs_cfg, gs_state) -> dict:
+def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     """Per kernel (least ms, "bytes" or "operations"): each input read once,
     each output written once; operations counted from this run's data
     (5 flops per candidate pair's distance test, 25 per Verlet step, 9 per
@@ -564,6 +779,10 @@ def bounds(cfg, state, gs_cfg, gs_state) -> dict:
     # in place: the pid plane is read, and x, y, px, py of occupied slots
     # are read and written; empty slots keep their values
     out["gs_verlet"] = _bound(P + 32 * gocc, 25 * gocc)
+    # K12: each key read once, each rank written once, one 256-bin
+    # histogram per 1024-key block; a handful of integer operations
+    nkeys = float(radix_bits.shape[0])
+    out["radix_rank_hist"] = _bound(8 * nkeys + nkeys / 1024 * 256 * 4, 0.0)
     return out
 
 
@@ -612,13 +831,16 @@ def _par_runs(gs_cfg, gs_state) -> dict:
     return runs, list(ps.x.shape)
 
 
-def phase_times(cfg, state, gs_cfg, gs_state) -> dict:
+def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
     """Every kernel against its plain version at the main paths' shapes:
     K1, K2, K3 at the 4M shape, K5 and K6 (one color launch) at the
     1M-GS shape, the parity kernels at its parity shape, on the engines'
     initial scenes (after a mouse drag most particles are members of no
-    cell, and K6 would have little to do).  Turns: plain, kernel, kernel,
-    plain."""
+    cell, and K6 would have little to do), K12 (one pass) at the 1M
+    array scene's 4,403,200 pair keys.  Turns: plain, kernel, kernel,
+    plain.  Returns ({name: (kernel ms, plain ms)}, {name: library ms}):
+    for K12 the library call is torch.sort(stable=True) of the same pairs,
+    which does the whole sort that K12's four passes serve."""
     import torch
     from gpu_physics_engine_torch import StepParams
     from gpu_physics_engine_torch.ops import gs_kernels as gk
@@ -651,6 +873,10 @@ def phase_times(cfg, state, gs_cfg, gs_state) -> dict:
     par, par_shape = _par_runs(gs_cfg, gs_state)
     runs.update(par)
     shapes.update({name: par_shape for name in par})
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    runs["radix_rank_hist"] = (lambda: rs.rank_hist_cuda(radix_bits, 0),
+                               lambda: rs.rank_hist_plain(radix_bits, 0), 1)
+    shapes["radix_rank_hist"] = list(radix_bits.shape)
     out = {}
     for name, (kern, plain, per) in runs.items():
         p1 = cuda_ms(plain, reps=2) / per
@@ -660,8 +886,22 @@ def phase_times(cfg, state, gs_cfg, gs_state) -> dict:
         out[name] = (min(k1, k2), min(p1, p2))
         log(f"[time] {name} {shapes[name]}: kernel {k1:.4f} / {k2:.4f} ms, "
             f"plain {p1:.3f} / {p2:.3f} ms per launch")
+    # the sort K12 serves: torch.sort of the pairs against the hand radix
+    # sort (4 K12 passes and their plain-PyTorch scans, scatters, gathers)
+    keys = rs.from_i32_bits(radix_bits)
+    obj = torch.arange(keys.shape[0], dtype=torch.int32, device="cuda")
+
+    def lib_sort():
+        sk, idx = torch.sort(keys, stable=True)
+        return sk, obj[idx]
+    lib = [cuda_ms(lib_sort, reps=10), None, None, cuda_ms(lib_sort, reps=10)]
+    lib[1] = cuda_ms(lambda: rs.radix_sort_pairs(keys, obj), reps=10)
+    lib[2] = cuda_ms(lambda: rs.radix_sort_pairs(keys, obj), reps=10)
+    log(f"[time] sort of {keys.shape[0]} pairs: torch.sort(stable=True) "
+        f"{lib[0]:.4f} / {lib[3]:.4f} ms, the hand radix sort (4 K12 "
+        f"passes) {lib[1]:.4f} / {lib[2]:.4f} ms")
     torch.cuda.synchronize()
-    return out
+    return out, {"radix_rank_hist": min(lib[0], lib[3])}
 
 
 def cross_check(label, flat, other, what) -> None:
@@ -708,6 +948,8 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
      "gpu_physics_engine_tpu/ops/gs_pallas.py:1045", "1M-GS-mx"),
     ("gs_color_par[dec]", "gs_color_par", "csrc/gs_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_pallas.py:783", "1M-GS-dec"),
+    ("radix_rank_hist", "radix_rank_hist", "csrc/radix_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/radix_sort.py:80", "1M-array-radix"),
 )
 
 FLAT_GS = ("gs_rank", "gs_color", "relocate_pull")
@@ -848,6 +1090,8 @@ def main() -> int:
                  {"collide_integrate": 250, "relocate_pull": 125})
 
     phase_gs_paths(paths)
+    radix_bits = phase_array_kernels(errs)
+    phase_array_paths(paths)
     run = phase_engine(
         lambda: make_tuned_engine(4_194_304, device="cuda",
                                   tiled_fuse_integrate=False),
@@ -857,8 +1101,9 @@ def main() -> int:
     del run
     torch.cuda.empty_cache()
 
-    times = phase_times(big_cfg, big_state, gs_cfg, gs_state)
-    bound = bounds(big_cfg, big_state, gs_cfg, gs_state)
+    times, library = phase_times(big_cfg, big_state, gs_cfg, gs_state,
+                                 radix_bits)
+    bound = bounds(big_cfg, big_state, gs_cfg, gs_state, radix_bits)
     kernels = []
     for name, counter, source, replaces, path in KERNELS:
         n = paths[path][counter]
@@ -870,7 +1115,7 @@ def main() -> int:
             "replaces": replaces, "launches": n,
             "max_abs_err": errs[name], "ms": times[name][0],
             "plain_ms": times[name][1], "bound_ms": bound[name][0],
-            "bound_by": bound[name][1], "library_ms": None})
+            "bound_by": bound[name][1], "library_ms": library.get(name)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

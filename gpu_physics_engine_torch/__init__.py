@@ -1,10 +1,15 @@
-"""gpu_physics_engine_torch — the tiled 2D particle engine on PyTorch and CUDA.
+"""gpu_physics_engine_torch — the 2D particle engine on PyTorch and CUDA.
 
 A port of ``gpu_physics_engine_tpu`` (JAX/Pallas), which stays in the
 repository as the reference.  Module names mirror the JAX package's:
 
-  core/    SimConfig, StepParams, tuned tables, TiledEngine
-  ops/     tiled.py (tile storage, plain tensor ops, sweeps, the step),
+  core/    SimConfig, StepParams, ParticleState, tuned tables, TiledEngine
+           (the tiled pipeline), Engine and stepper (the array pipelines:
+           pipeline "sorted" or "bucket", solver "colored" or "jacobi")
+  ops/     grid.py, sort.py, radix_sort.py (the hand radix sort: its
+           rank/histogram pass is a CUDA kernel), collision.py, resort.py,
+           spawn.py, morton.py, scan.py, integrate.py (the array
+           pipelines' stages), tiled.py (tile storage, plain tensor ops, sweeps, the step),
            tiled_kernels.py (wrappers of the Jacobi-path CUDA kernels +
            their plain versions), gs_tiled.py (the Gauss-Seidel solve as
            plain tensor ops), gs_kernels.py (the Gauss-Seidel rank and
@@ -16,6 +21,18 @@ repository as the reference.  Module names mirror the JAX package's:
   utils/   FrameTimer
 
 This package imports torch and numpy, never jax.
+
+Every engine runs on the CUDA card unless given ``device="cpu"``; without
+a card it raises.  On the CPU the kernel wrappers run their plain PyTorch
+versions:
+
+    from gpu_physics_engine_torch import SimConfig, make_engine
+    cfg = SimConfig(max_particles=600, initial_particles=512,
+                    world_width=64.0, world_height=32.0, sort_impl="radix")
+    eng = make_engine(cfg, device="cpu")   # the array Engine
+    eng.press_mouse((32.0, 16.0)); eng.run(20)
+
+On the card, drop ``device``: ``sort_impl="radix"`` then launches K12.
 """
 
 from __future__ import annotations
@@ -23,7 +40,8 @@ from __future__ import annotations
 from typing import Optional
 
 from gpu_physics_engine_torch.core.config import SimConfig
-from gpu_physics_engine_torch.core.state import StepParams
+from gpu_physics_engine_torch.core.engine import Engine
+from gpu_physics_engine_torch.core.state import ParticleState, StepParams
 from gpu_physics_engine_torch.core.tiled_engine import (TiledEngine,
                                                         default_device)
 from gpu_physics_engine_torch.core.tuned import (tuned_chunk, tuned_config,
@@ -33,13 +51,13 @@ __version__ = "0.1.0"
 
 
 def make_engine(config: SimConfig, seed: int = 0, device=None):
-    """The engine for config.pipeline; only "tiled" is ported.  Runs on the
-    CUDA card unless ``device`` says otherwise (raises without a card)."""
-    if config.pipeline != "tiled":
-        raise NotImplementedError(
-            f"pipeline={config.pipeline!r} is not ported yet (ROADMAP.md "
-            "queue 1, item 9: array pipelines)")
-    return TiledEngine(config, seed=seed, device=default_device(device))
+    """The engine for config.pipeline: TiledEngine for "tiled", the array
+    Engine for "sorted"/"bucket" (solver="fast" raises
+    NotImplementedError).  Runs on the CUDA card unless ``device`` says
+    otherwise (raises without a card)."""
+    if config.pipeline == "tiled":
+        return TiledEngine(config, seed=seed, device=default_device(device))
+    return Engine(config, seed=seed, device=default_device(device))
 
 
 def make_tuned_engine(n_particles: int, seed: int = 0,
@@ -52,6 +70,7 @@ def make_tuned_engine(n_particles: int, seed: int = 0,
                        device=default_device(device))
 
 
-__all__ = ["SimConfig", "StepParams", "TiledEngine", "make_engine",
+__all__ = ["SimConfig", "StepParams", "ParticleState", "Engine",
+           "TiledEngine", "make_engine",
            "make_tuned_engine", "tuned_config", "tuned_chunk", "tuned_row",
            "__version__"]

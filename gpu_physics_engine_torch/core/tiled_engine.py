@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from gpu_physics_engine_torch.core.config import SimConfig
-from gpu_physics_engine_torch.core.state import StepParams
+from gpu_physics_engine_torch.core.state import ParamCache, StepParams
 from gpu_physics_engine_torch.ops import gs_parity, tiled
 from gpu_physics_engine_torch.utils.timer import FrameTimer
 
@@ -120,7 +120,6 @@ class TiledEngine:
         self._wd_prev = None
         self._wd_retile_pct = None
         self._sweep_count = 0
-        self._prm_cache = {}
         self._configure()
         self.timer = FrameTimer().start()
         self.mouse_pos: Tuple[float, float] = (0.0, 0.0)
@@ -144,7 +143,7 @@ class TiledEngine:
                         and config.tiled_collide != "jnp"
                         and gs_parity.resolve_gs_layout(
                             config, self.device) == "par")
-        self._prm_cache.clear()
+        self._prm = ParamCache(self.device, 1.0 / config.substeps)
 
     # ---- schedule ----
 
@@ -174,17 +173,6 @@ class TiledEngine:
         return StepParams.make(
             self.config.dt if dt is None else dt,
             mouse=self.mouse_pos, pressed=self.mouse_pressed)
-
-    def _prm(self, params: StepParams) -> torch.Tensor:
-        """Device [dt/substeps, mx, my, pressed] for ``params``, built once
-        per distinct value so steps never copy it to the device."""
-        prm = self._prm_cache.get(params)
-        if prm is None:
-            if len(self._prm_cache) > 64:
-                self._prm_cache.clear()
-            prm = params.as_tensor(self.device, 1.0 / self.config.substeps)
-            self._prm_cache[params] = prm
-        return prm
 
     def _advance(self, params: StepParams, relocate: bool) -> None:
         self.state = tiled.tiled_step_fn(self.state, params, self.config,

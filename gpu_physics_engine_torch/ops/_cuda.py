@@ -46,6 +46,7 @@ _SIGNATURES = {
     "gpe_gs_verlet": [_P] * 6 + [_I] + [_P, _P],
     "gpe_relocate_plan_par": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
     "gpe_relocate_apply_par": [_P] * 14 + [_I] * 9 + [_F, _F, _P],
+    "gpe_radix_rank_hist": [_P] * 3 + [_I] * 2 + [_P],
 }
 
 

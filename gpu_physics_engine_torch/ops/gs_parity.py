@@ -21,7 +21,8 @@ K2 are the same kernels on FlatLayout).  Each wrapper launches its kernel
 for a CUDA tensor, runs its plain version for a CPU tensor, and raises for
 anything else; it adds one to ``LAUNCHES[name]`` per kernel launch.  The
 plain versions relayout to full space, run the flat plain versions and
-relayout back (the Verlet tail is elementwise and runs ``tiled.verlet``).
+relayout back (the Verlet tail is elementwise and runs
+``integrate.verlet_integrate``).
 
 K5-par ``rank_par`` replaces ``rank_parity``
 (gpu_physics_engine_tpu/ops/gs_parity.py:275; ``_rank_kernel_par`` :160,
@@ -81,8 +82,8 @@ from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.ops import _cuda, gs_kernels
 from gpu_physics_engine_torch.ops.gs_tiled import (BIGPID, color_plain_,
                                                    rank_plain)
-from gpu_physics_engine_torch.ops.integrate import f32
-from gpu_physics_engine_torch.ops.tiled import TileState, tile_geometry, verlet
+from gpu_physics_engine_torch.ops.integrate import f32, verlet_integrate
+from gpu_physics_engine_torch.ops.tiled import TileState, tile_geometry
 from gpu_physics_engine_torch.ops.tiled_kernels import (
     MAX_CAP, _MATCH_CODE, _ptrs, _stream, relocate_pull_plain, resolve_match)
 
@@ -393,9 +394,10 @@ def verlet_(x, y, px, py, pid, prm: torch.Tensor, config: SimConfig) -> None:
 
 
 def verlet_plain_(x, y, px, py, pid, prm, config: SimConfig) -> None:
-    """Plain version of the Verlet tail: ``tiled.verlet``, written back."""
-    out = verlet(x, y, px, py, pid >= 0, f32(config.initial_radius), prm,
-                 config)
+    """Plain version of the Verlet tail: ``verlet_integrate``, written
+    back."""
+    out = verlet_integrate(x, y, px, py, f32(config.initial_radius),
+                           pid >= 0, prm, config)
     for dst, v in zip((x, y, px, py), out):
         dst.copy_(v)
 
@@ -517,8 +519,8 @@ def integrate_parity(ps: ParityState, prm: torch.Tensor,
     """The plain Verlet step over parity space (elementwise)."""
     radius = (ps.radius if ps.radius is not None
               else f32(config.initial_radius))
-    x, y, px, py = verlet(ps.x, ps.y, ps.px, ps.py, ps.pid >= 0, radius, prm,
-                          config)
+    x, y, px, py = verlet_integrate(ps.x, ps.y, ps.px, ps.py, radius,
+                                    ps.pid >= 0, prm, config)
     return ps.replace(x=x, y=y, px=px, py=py)
 
 

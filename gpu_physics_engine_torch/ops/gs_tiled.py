@@ -26,7 +26,7 @@ from typing import List, Tuple
 import torch
 
 from gpu_physics_engine_torch.core.config import SimConfig
-from gpu_physics_engine_torch.ops.integrate import f32
+from gpu_physics_engine_torch.ops.integrate import f32, sqrt_rn
 from gpu_physics_engine_torch.ops.tiled import (MIN_DISTANCE, TileState,
                                                 shift_tiles, tile_geometry)
 
@@ -117,44 +117,46 @@ def gather(plane: torch.Tensor, idx: torch.Tensor,
     return torch.where(valid, v, torch.zeros_like(v))
 
 
-def sqrt_rn(a: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded f32 square root.  ``torch.sqrt`` of an f32
-    CPU tensor may take a vectorised path that is one ulp off for some
-    inputs; the f64 root of an f32 value, rounded to f32, is exact (f64
-    carries more than 2 x 24 + 2 bits)."""
-    return torch.sqrt(a.double()).float()
+def pair_correction(xa, ya, ra, xb, yb, rb, stiffness: float):
+    """The positional correction of the pair (a, b), in the scalar model's
+    f32 op order: the division by dist, corr = dir * pen * stiffness, then
+    the inverse-mass split.  Returns (dxa, dya, dxb, dyb, hit): a moves by
+    +(dxa, dya) and b by -(dxb, dyb) where ``hit``."""
+    mind = f32(MIN_DISTANCE)
+    dx = xa - xb
+    dy = ya - yb
+    dist = sqrt_rn(dx * dx + dy * dy)
+    rsum = ra + rb
+    hit = (rsum * rsum > dist * dist) & (dist > mind)
+    safe = torch.clamp(dist, min=mind)
+    pen = rsum - dist
+    cx = dx / safe * pen * stiffness
+    cy = dy / safe * pen * stiffness
+    rs = torch.clamp(rsum, min=mind)
+    wa = rb / rs
+    wb = ra / rs
+    return cx * wa, cy * wa, cx * wb, cy * wb, hit
 
 
 def ordered_sweep(lx: List, ly: List, lr: List, valid: List, stiffness,
                   active=None):
     """The reference's sequential ascending (a, b) pair sweep on rank-local
-    values, in the f32 op order of the scalar model (solve_colored): the
-    division by dist, corr = dir*pen*stiffness, then the inverse-mass
-    split.  Updates ``lx``/``ly`` (lists of tensors) and returns them."""
+    values (``pair_correction`` per pair, later pairs seeing earlier
+    corrections).  Updates ``lx``/``ly`` (lists of tensors) and returns
+    them."""
     K = len(lx)
-    mind = f32(MIN_DISTANCE)
     stiff = f32(stiffness)
     for a in range(K - 1):
         for b in range(a + 1, K):
-            dx = lx[a] - lx[b]
-            dy = ly[a] - ly[b]
-            dist = sqrt_rn(dx * dx + dy * dy)
-            rsum = lr[a] + lr[b]
-            hit = ((rsum * rsum > dist * dist) & (dist > mind)
-                   & valid[a] & valid[b])
+            dxa, dya, dxb, dyb, hit = pair_correction(
+                lx[a], ly[a], lr[a], lx[b], ly[b], lr[b], stiff)
+            hit = hit & valid[a] & valid[b]
             if active is not None:
                 hit = hit & active
-            safe = torch.clamp(dist, min=mind)
-            pen = rsum - dist
-            cx = dx / safe * pen * stiff
-            cy = dy / safe * pen * stiff
-            rs = torch.clamp(rsum, min=mind)
-            wa = lr[b] / rs
-            wb = lr[a] / rs
-            lx[a] = torch.where(hit, lx[a] + cx * wa, lx[a])
-            ly[a] = torch.where(hit, ly[a] + cy * wa, ly[a])
-            lx[b] = torch.where(hit, lx[b] - cx * wb, lx[b])
-            ly[b] = torch.where(hit, ly[b] - cy * wb, ly[b])
+            lx[a] = torch.where(hit, lx[a] + dxa, lx[a])
+            ly[a] = torch.where(hit, ly[a] + dya, ly[a])
+            lx[b] = torch.where(hit, lx[b] - dxb, lx[b])
+            ly[b] = torch.where(hit, ly[b] - dyb, ly[b])
     return lx, ly
 
 

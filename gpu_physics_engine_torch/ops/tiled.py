@@ -26,7 +26,7 @@ import torch
 
 from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.core.state import StepParams
-from gpu_physics_engine_torch.ops.integrate import apply_world_constraint, f32
+from gpu_physics_engine_torch.ops.integrate import f32, verlet_integrate
 
 MIN_DISTANCE = 1e-4
 _EMPTY = -1
@@ -335,39 +335,15 @@ def collide(state: TileState, config: SimConfig) -> TileState:
 # integration (position Verlet over tile slots)
 # ---------------------------------------------------------------------------
 
-def verlet(x, y, px, py, occ, radius, prm, config: SimConfig):
-    """Verlet step with gravity, the mouse attractor and the world
-    constraint.  ``prm`` = f32[4] [dt, mouse_x, mouse_y, pressed] on the
-    state's device; ``radius`` a tensor or the uniform Python float.
-    Returns (x, y, px, py); empty slots keep their values."""
-    vel_x = x - px
-    vel_y = y - py
-    dt, mx, my, pressed = prm[0], prm[1], prm[2], prm[3]
-    dxm = mx - x
-    dym = my - y
-    dist = torch.sqrt(dxm * dxm + dym * dym)
-    eps = f32(1e-6)
-    inv = torch.where(dist > eps, 1.0 / torch.clamp(dist, min=eps),
-                      torch.zeros_like(dist))
-    strength = f32(config.mouse_strength) * pressed
-    ax = f32(config.gravity[0]) + dxm * inv * strength
-    ay = f32(config.gravity[1]) + dym * inv * strength
-    dt2 = dt * dt
-    nx = x + vel_x + ax * dt2
-    ny = y + vel_y + ay * dt2
-    nx, ny = apply_world_constraint(nx, ny, radius, config)
-    return (torch.where(occ, nx, x), torch.where(occ, ny, y),
-            torch.where(occ, x, px), torch.where(occ, y, py))
-
-
 def integrate(state: TileState, params: StepParams, config: SimConfig,
               dt_scale: float = 1.0, prm=None) -> TileState:
     """Verlet integration over tile slots (``prm`` overrides ``params``
     with a ready device vector)."""
     if prm is None:
         prm = params.as_tensor(state.device, dt_scale)
-    nx, ny, npx, npy = verlet(state.x, state.y, state.px, state.py,
-                              state.occupied(), state.radius, prm, config)
+    nx, ny, npx, npy = verlet_integrate(state.x, state.y, state.px,
+                                        state.py, state.radius,
+                                        state.occupied(), prm, config)
     return state.replace(x=nx, y=ny, px=npx, py=npy)
 
 

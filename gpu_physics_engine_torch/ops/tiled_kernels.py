@@ -57,12 +57,11 @@ import torch
 
 from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.ops import _cuda
-from gpu_physics_engine_torch.ops.integrate import f32
+from gpu_physics_engine_torch.ops.integrate import f32, verlet_integrate
 from gpu_physics_engine_torch.ops.tiled import (FIELDS, MIN_DISTANCE,
                                                 TileState, pair_sweep,
                                                 shift_tiles,
-                                                step_offsets, tile_geometry,
-                                                verlet)
+                                                step_offsets, tile_geometry)
 
 LAUNCHES = {"collide_integrate": 0, "relocate_pull": 0, "collide": 0}
 
@@ -131,9 +130,9 @@ def collide_integrate_plain(state: TileState, prm: torch.Tensor,
     acc_x, acc_y = pair_sweep(state.x, state.y, state.radius, state.pid,
                               config, r0=r0)
     radius = f32(r0) if r0 is not None else state.radius
-    nx, ny, npx, npy = verlet(state.x + acc_x, state.y + acc_y, state.px,
-                              state.py, state.occupied(), radius, prm,
-                              config)
+    nx, ny, npx, npy = verlet_integrate(state.x + acc_x, state.y + acc_y,
+                                        state.px, state.py, radius,
+                                        state.occupied(), prm, config)
     return state.replace(x=nx, y=ny, px=npx, py=npy)
 
 

@@ -1,15 +1,21 @@
-"""Where a step's time goes: a torch.profiler window over ``TiledEngine.run``.
+"""Where a step's time goes: a torch.profiler window over an engine's ``run``.
 
     python -m gpu_physics_engine_torch.utils.profiling --particles 4194304 \\
-        --warmup 64 --steps 64 [--gs] [--trace trace.json]
+        --warmup 64 --steps 64 [--gs | --array] [--trace trace.json]
 
 prints one JSON object: the window's span from CUDA events, the device
 time per kernel (summed over launches, from a second, profiled window),
-the device busy time, and the idle share ``1 - busy / span``.  On a
+the device busy time, the idle share ``1 - busy / span``, the number of
+kernel launches, and the device time of the port's hand kernels (the rest
+is PyTorch's own kernels).  On a
 CPU-only engine the device fields are empty and the idle share is None.
 ``--gs`` profiles the reference-exact Gauss-Seidel engine
 (core/tuned.gs_config) instead of the production Jacobi engine, in the
-solve layout ``--layout`` (default "auto").
+solve layout ``--layout`` (default "auto").  ``--array`` profiles the array
+Engine (core/engine.py) with ``--particles`` in 1.1x as many slots, the
+README's default world, and ``--pipeline``, ``--solver`` and
+``--sort-impl`` (default sorted, colored, radix); keep warmup + 2 x steps
+inside one resort interval (240).
 
     python -m gpu_physics_engine_torch.utils.profiling --gs \\
         --particles 4194304 --steps 4800 --every 480 \\
@@ -77,6 +83,9 @@ def profile_run(engine, steps: int, trace: str | None = None) -> dict:
     return {
         "steps": steps, "host_wall_ms": wall_ms, "device_span_ms": span,
         "device_busy_ms": busy, "idle_share": 1.0 - busy / span,
+        "device_launches": sum(n for _, _, n in kernels),
+        # the port's hand kernels (namespace gpe); the rest is PyTorch's
+        "hand_kernel_ms": sum(ms for k, ms, _ in kernels if "gpe::" in k),
         "kernels": [{"name": k, "ms": ms, "calls": n}
                     for k, ms, n in kernels],
     }
@@ -128,7 +137,8 @@ def sweep_windows(engine, steps: int, every: int, interval: int):
 
 
 def main(argv=None) -> dict:
-    from gpu_physics_engine_torch import TiledEngine, make_tuned_engine
+    from gpu_physics_engine_torch import (Engine, SimConfig, TiledEngine,
+                                          make_tuned_engine)
     from gpu_physics_engine_torch.core.tuned import gs_config
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--particles", type=int, default=4_194_304)
@@ -139,6 +149,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--layout", default="auto",
                     choices=["auto", "flat", "par", "mx", "dec"],
                     help="with --gs: gs_layout")
+    ap.add_argument("--array", action="store_true",
+                    help="the array Engine (pipeline sorted/bucket)")
+    ap.add_argument("--pipeline", default="sorted",
+                    choices=["sorted", "bucket"])
+    ap.add_argument("--solver", default="colored",
+                    choices=["colored", "jacobi"])
+    ap.add_argument("--sort-impl", default="radix", choices=["lax", "radix"])
+    ap.add_argument("--mouse", action="store_true",
+                    help="with --array: the mouse held at the world centre")
     ap.add_argument("--device", default=None)
     ap.add_argument("--trace", default=None, help="chrome trace path")
     ap.add_argument("--sweeps", nargs="+", default=None,
@@ -150,7 +169,16 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.sweeps:
         return sweep_study(args)
-    if args.gs:
+    if args.array:
+        engine = Engine(SimConfig(
+            max_particles=args.particles * 11 // 10,
+            initial_particles=args.particles, pipeline=args.pipeline,
+            solver=args.solver, sort_impl=args.sort_impl),
+            device=args.device)
+        if args.mouse:
+            engine.press_mouse((0.5 * engine.config.world_width,
+                                0.5 * engine.config.world_height))
+    elif args.gs:
         engine = TiledEngine(gs_config(args.particles,
                                        gs_layout=args.layout),
                              chunk=64, device=args.device)
@@ -158,9 +186,13 @@ def main(argv=None) -> dict:
         engine = make_tuned_engine(args.particles, device=args.device)
     engine.run(args.warmup)
     out = profile_run(engine, args.steps, args.trace)
-    out.update(particles=args.particles, device=str(engine.device),
-               solver=engine.config.tiled_solver,
-               gs_layout=engine.config.gs_layout)
+    cfg = engine.config
+    out.update(particles=args.particles, device=str(engine.device))
+    if args.array:
+        out.update(pipeline=cfg.pipeline, solver=cfg.solver,
+                   sort_impl=cfg.sort_impl, mouse=args.mouse)
+    else:
+        out.update(solver=cfg.tiled_solver, gs_layout=cfg.gs_layout)
     for k in out["kernels"]:
         k["name"] = k["name"].split("(")[0][:80]
     print(json.dumps({**out, "kernels": out["kernels"][:10]}))

@@ -129,7 +129,10 @@ def test_port_imports_and_steps_with_jax_blocked():
         "import numpy as np\n"
         "import gpu_physics_engine_torch as g\n"
         "from gpu_physics_engine_torch.ops import tiled, tiled_kernels, _cuda\n"
-        "from gpu_physics_engine_torch.core import tiled_engine, tuned\n"
+        "from gpu_physics_engine_torch.ops import (collision, grid, morton,\n"
+        "    radix_sort, resort, scan, sort, spawn)\n"
+        "from gpu_physics_engine_torch.core import (engine, state, stepper,\n"
+        "    tiled_engine, tuned)\n"
         "from gpu_physics_engine_torch.utils import timer\n"
         "cfg = g.SimConfig(max_particles=64, initial_particles=64,\n"
         "    world_width=16.0, world_height=16.0, pipeline='tiled',\n"
@@ -137,6 +140,11 @@ def test_port_imports_and_steps_with_jax_blocked():
         "e = g.make_engine(cfg, seed=1, device='cpu')\n"
         "e.run(4)\n"
         "assert e.num_particles() == 64\n"
+        "a = g.make_engine(cfg.replace(pipeline='sorted', sort_impl='radix'),\n"
+        "    seed=1, device='cpu')\n"
+        "assert isinstance(a, g.Engine)\n"
+        "a.run(4)\n"
+        "assert a.num_particles() == 64\n"
         "assert not any(m == 'gpu_physics_engine_tpu' or\n"
         "    m.startswith('gpu_physics_engine_tpu.') for m in sys.modules)\n"
         "print('ok')\n")

@@ -5,7 +5,10 @@ Imports torch and the port only, so it also runs where jax is absent:
 repository's conftest imports jax).  Without a CUDA device every test here
 skips.  K1 and K3 agree with their plain versions within 1e-5 (rsqrt
 rounding); K2, K5 and K6 bit for bit, on the flat and the parity layouts,
-and the Verlet tail too; the par engine equals the flat engine.
+and the Verlet tail too; the par engine equals the flat engine.  K12 (the
+radix sort's rank/histogram pass) bit for bit, the radix sort equals
+torch.sort(stable=True), and the array Engine's radix run on the card
+equals its lax run bit for bit.
 """
 
 import numpy as np
@@ -248,3 +251,69 @@ def test_par_engine_on_card_matches_flat_engine_on_card():
     for f in FIELDS + ("overflow_count",):
         assert torch.equal(getattr(engines[0].state, f),
                            getattr(engines[1].state, f)), f
+
+
+def _radix_keys(n=25_006, seed=12):
+    """A reverse ramp with duplicates and 0xFFFFFFFF sentinels, as u32
+    values in int64."""
+    rng = np.random.default_rng(seed)
+    keys = np.arange(n - 1, -1, -1, dtype=np.int64) * 40_503
+    keys[rng.random(n) < 0.3] = 7
+    keys[rng.random(n) < 0.1] = 0xFFFFFFFF
+    return torch.from_numpy(keys & 0xFFFFFFFF)
+
+
+@pytest.mark.parametrize("shift", [0, 8, 16, 24])
+def test_k12_cuda_matches_plain(shift):
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    keys = _radix_keys()
+    bits = rs.as_i32_bits(torch.cat([keys, keys.new_full(
+        (-len(keys) % rs.BLOCK,), 0xFFFFFFFF)])).cuda()
+    n0 = rs.LAUNCHES["radix_rank_hist"]
+    a = rs.rank_hist(bits, shift)
+    c = rs.rank_hist(bits, shift)
+    b = rs.rank_hist_plain(bits, shift)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["radix_rank_hist"] == n0 + 2
+    for u, v, w in zip(a, b, c):
+        assert torch.equal(u, v) and torch.equal(u, w)
+
+
+def test_radix_sort_on_card_matches_torch_sort():
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    keys = _radix_keys().cuda()
+    vals = torch.arange(len(keys), dtype=torch.int32, device="cuda")
+    sk, sv = rs.radix_sort_pairs(keys, vals)
+    wk, wi = torch.sort(keys, stable=True)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, wk) and torch.equal(sv, wi.to(torch.int32))
+
+
+def test_array_engine_radix_equals_lax_on_card():
+    """The array Engine on the card: the radix run (K12) equals the lax run
+    bit for bit, and both stay close to the CPU run."""
+    from gpu_physics_engine_torch import Engine
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    base = dict(max_particles=3000, initial_particles=3000,
+                world_width=96.0, world_height=48.0, sort_interval_steps=5)
+    rng = np.random.default_rng(3)
+    pos = np.stack([rng.uniform(0.5, 95.5, 3000),
+                    rng.uniform(0.5, 47.5, 3000)], -1).astype(np.float32)
+    rad = np.full(3000, 0.5, np.float32)
+    runs = {}
+    for dev, impl in (("cuda", "radix"), ("cuda", "lax"), ("cpu", "lax")):
+        e = Engine.from_arrays(SimConfig(**base, sort_impl=impl), pos, rad,
+                               device=dev)
+        n0 = rs.LAUNCHES["radix_rank_hist"]
+        e.press_mouse((48.0, 24.0))
+        e.run(12)
+        runs[dev, impl] = (e.state, rs.LAUNCHES["radix_rank_hist"] - n0)
+    (a, na), (b, nb), (c, _) = (runs["cuda", "radix"], runs["cuda", "lax"],
+                                runs["cpu", "lax"])
+    assert na == 4 * 12 + 4 * 2 and nb == 0  # 4 passes per sort
+    for f in ("x", "y", "px", "py", "overflow_count", "steps_since_sort"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert int(a.overflow_count) == int(c.overflow_count)
+    for f in ("x", "y", "px", "py"):
+        np.testing.assert_allclose(getattr(a, f).cpu().numpy(),
+                                   getattr(c, f).numpy(), atol=1e-4, rtol=0)

@@ -133,7 +133,8 @@ def test_not_ported_paths_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(tcfg.replace(**kw), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_engine(tcfg.replace(pipeline="sorted"), device="cpu")
+        make_engine(tcfg.replace(pipeline="sorted", solver="fast"),
+                    device="cpu")
 
 
 def test_step_matches_run_single_steps():

@@ -90,7 +90,11 @@ SOLVES = {"gs_tiled": gt.gs_solve, "flat": gk.gs_solve_flat}
 
 @functools.lru_cache(maxsize=None)
 def _j_solve(config):
-    return jax.jit(lambda s: j_gs_solve(s, config))
+    # XLA:CPU's backend optimisation level 0: most of the compile of the
+    # interpret-mode program is LLVM's optimisation; the test holds the
+    # results bit for bit either way
+    return jax.jit(lambda s: j_gs_solve(s, config),
+                   compiler_options={"xla_backend_optimization_level": 0})
 
 
 # ---------------------------------------------------------------------------

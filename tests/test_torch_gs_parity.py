@@ -13,13 +13,14 @@ CPU, where the kernel wrappers run their plain versions.
     relocate, the rank tables, the par/mx/dec solves, the par step under
     every gs_par_fused / gs_fuse_integrate setting, and the par engine over
     several windows and a sweep.  All bit-equal.
-  * One JAX ``gs_parity_tile_step`` program (2 steps, gs_par_fused=False,
-    gs_fuse_integrate=True, K = 2; one compile, called with the mouse
-    released and pressed): pids and counters exact, and positions
-    bit-equal with the mouse released.  With the mouse pressed within
-    1e-4: the mouse term takes a square root, which torch.sqrt on some
-    CPUs rounds one ulp from XLA's (ROADMAP.md section 3), and the contact
-    sweep carries it on.
+  * The JAX ``gs_parity_tile_step`` (2 steps, gs_par_fused=False,
+    gs_fuse_integrate=True, K = 2; its relocate and solve stages compiled
+    once each, run with the mouse released and pressed): pids and
+    counters exact, and positions bit-equal with the mouse released.
+    With the mouse pressed within 1e-4: one particle's mouse term rounds
+    one ulp apart in the compiled JAX solve (the port's Verlet equals the
+    JAX function run op by op, tests/test_torch_array.py; ROADMAP.md
+    section 3), and the contact sweep carries it on.
 
 The scenes are tests/test_gs_parity.py's scale: cap 2, K 3 (K 2 for the
 JAX program), 64 particles in a 16 x 8 world, so that interpret-mode
@@ -28,6 +29,7 @@ versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import functools
+from unittest import mock
 
 import jax
 import numpy as np
@@ -294,28 +296,60 @@ def test_par_wrappers_raise_on_unsupported_tensors():
 # ---------------------------------------------------------------------------
 
 def _jax_par_cfgs():
-    """K = 2 and the minloop selection: the JAX parity program compiles in
-    about 60 s on the test machine this way, against about 85 s at K = 3
-    with the selection network (interpret-mode compiles grow with cap x K);
-    the port serves every gs_rank value with its one selection."""
+    """K = 2 and the minloop selection: interpret-mode compiles grow with
+    cap x K; the port serves every gs_rank value with its one selection,
+    and both launch modes with one plain version."""
     return dense_cfgs(tiled_uniform_radius=True, gs_par_fused=False,
                       gs_fuse_integrate=True, gs_layout="par",
                       max_occupancy=2, gs_rank="minloop")
 
 
+def _compiled_stages():
+    """The JAX package's parity relocate and solve, each compiled as a
+    program of its own at XLA:CPU backend optimisation level 0: the
+    interpret-mode step compiles superlinearly in its size, so its two
+    stages compile in about 60% of the whole step's time (the results are
+    the same; the assertions below hold them bit for bit)."""
+    opts = {"xla_backend_optimization_level": 0}
+    relocate = jax.jit(jgp.relocate_parity, static_argnums=(1, 2, 3, 4, 5),
+                       compiler_options=opts)
+    solve = jax.jit(
+        lambda subs, one, params, config, cap, K, t, gTY, gTX, dt_scale:
+        _solve_parity(subs, one, config, cap, K, t, gTY, gTX,
+                      integ=(params, dt_scale)),
+        static_argnums=tuple(range(3, 10)), compiler_options=opts)
+
+    def solve_parity(subs, one, config, cap, K, t, gTY, gTX, integ):
+        params, dt_scale = integ
+        return solve(subs, one, params, config, cap, K, t, gTY, gTX,
+                     dt_scale)
+    return relocate, solve_parity
+
+
+_solve_parity = jgp.solve_parity
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_par_steps():
-    """The JAX package's gs_parity_tile_step, 2 steps per call, compiled
-    once (the step parameters are traced) and run with the mouse released
-    and pressed; numpy states keyed by "released"/"pressed"."""
+    """The JAX package's gs_parity_tile_step, run for 2 single steps with
+    the mouse released and pressed; numpy states keyed by "released" /
+    "pressed".  The step runs op by op around its relocate and solve
+    stages, which are compiled once each (``_compiled_stages``; the step
+    parameters are traced)."""
     jcfg, _ = _jax_par_cfgs()
     pos, rad = dense_scene()
     a = jt.init_tiles(jcfg, pos, rad)
-    params = {mouse: JParams.make(jcfg.dt, mouse=(8.0, 4.0), pressed=pressed)
-              for mouse, pressed in (("released", False), ("pressed", True))}
-    fn = jax.jit(lambda s, p: jgp.gs_parity_tile_step(s, p, jcfg, n_steps=2))
-    return {mouse: {f: np.asarray(getattr(fn(a, p), f)) for f in STATE}
-            for mouse, p in params.items()}
+    relocate, solve = _compiled_stages()
+    out = {}
+    with mock.patch.object(jgp, "relocate_parity", relocate), \
+            mock.patch.object(jgp, "solve_parity", solve):
+        for mouse, pressed in (("released", False), ("pressed", True)):
+            p = JParams.make(jcfg.dt, mouse=(8.0, 4.0), pressed=pressed)
+            s = a
+            for _ in range(2):
+                s = jgp.gs_parity_tile_step(s, p, jcfg, n_steps=1)
+            out[mouse] = {f: np.asarray(getattr(s, f)) for f in STATE}
+    return out
 
 
 @pytest.mark.parametrize("mouse", ["released", "pressed"])
