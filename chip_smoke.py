@@ -24,7 +24,16 @@ non-zero with no result line:
      (one launch for all parities and one per parity), K6-par for every
      color on the par, mx and dec layouts, K2-par (both launch modes, the
      config's match) and K6-par's Verlet tail, all bit-equal; the mx and
-     dec solves bit-equal to the flat solve;
+     dec solves bit-equal to the flat solve; the fused kernels there too:
+     colors_mega (with and without the tail) == its plain version == four
+     K6-par launches + the tail, relocate_mega == K2-par, and K4 (the
+     one-launch relocate) == its plain version at the 4M shape and a small
+     mixed-radius one, and == K2 under flip with delta 0 away from
+     particles within an ulp of a tile edge (the rules part there);
+     before these, the tile division: ``tiled._tile_of`` on the card ==
+     numpy's f32 floor(x / t) on the 4M scene and on every tile-edge probe
+     (with the count the reciprocal forms would misplace), and one claim
+     relocate of the jittered 4M state on the card == the CPU's;
   4. the Jacobi main path at 4,194,304 particles (make_tuned_engine, 150
      steps free then 150 with the mouse pressed, crossing the sweep at step
      240) and the rebuild-sweep path at 256,000 (250 steps): launch counts,
@@ -32,11 +41,15 @@ non-zero with no result line:
   5. the Gauss-Seidel path (tiled_solver="gs", the bench's GS config) at
      1,048,576 particles for 300 steps (150 free, 150 with the mouse at
      the world centre) and at 4,194,304 (cap 6) for 100 steps, each in the
-     flat layout (K5 once, K6 four times and K2 once per step) and in the
+     flat layout (K5 once, K6 four times and K2 once per step), in the
      parity layout "par" (K5-par once, K6-par four times, K2-par once and
-     the Verlet tail once per step; no flat K5/K6/K2), the same checks,
-     and the two layouts' final states bit-equal; then 32 steps at 1M in
-     the "mx" and "dec" layouts (K5, K6-par, K2), bit-equal to flat;
+     the Verlet tail once per step; no flat K5/K6/K2) and in "par" with
+     gs_colors_mega and gs_relocate_mega ("mega": K5-par, colors_mega and
+     relocate_mega once per step; no K6-par, K2-par or tail launch), the
+     same checks, and the three final states bit-equal; then 32 steps at
+     1M in the "mx" and "dec" layouts (K5, K6-par, K2), bit-equal to flat;
+     then K4's path, the probe's 4M frame loop with K4 as the relocate
+     (32 steps), beside the same loop with K2;
   6. the array Engine (pipeline "sorted", the 4-color Gauss-Seidel solve,
      the Morton resort every 240 steps) at the README's 1,000,000
      particles in 1,100,800 slots, sort_impl="radix": first K12 (the radix
@@ -96,9 +109,9 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def _counted():
-    from gpu_physics_engine_torch.ops import (gs_kernels, gs_parity,
+    from gpu_physics_engine_torch.ops import (gs_kernels, gs_mega, gs_parity,
                                               radix_sort, tiled_kernels)
-    return (tiled_kernels, gs_kernels, gs_parity, radix_sort)
+    return (tiled_kernels, gs_kernels, gs_parity, gs_mega, radix_sort)
 
 
 def reset_launches() -> None:
@@ -428,6 +441,191 @@ def phase_par_kernels(scenes, errs: dict) -> None:
             f"clamp overflow "
             f"{int((count - cfg.max_occupancy).clamp(min=0).sum())}, "
             f"{moved} slots moved")
+
+
+def phase_tile_division(cfg, state) -> None:
+    """``tiled._tile_of`` on the card against numpy's f32 floor(x / t) + 1:
+    on the 4M scene's positions and on the edge probes k * t and their two
+    f32 neighbours for every k across the world.  Prints how many of them
+    the reciprocal forms would have put in another tile: numpy's
+    floor(x * f32(1 / t)) and the card's division by the Python float
+    (which PyTorch computes as a product by the reciprocal).  Then one
+    claim relocate of the jittered scene on the card against the CPU's."""
+    import numpy as np
+    import torch
+    from gpu_physics_engine_torch.ops import tiled
+    from gpu_physics_engine_torch.ops.integrate import f32
+    t, TY, TX = tiled.tile_geometry(cfg)
+    t32 = np.float32(t)
+    occ = state.pid >= 0
+    k = np.arange(TX + 2, dtype=np.float32)
+    p = k * t32
+    probes = np.concatenate([p, np.nextafter(p, np.float32(np.inf)),
+                             np.nextafter(p, np.float32(-np.inf))])
+    probes = probes[probes >= 0]
+    for label, x in (("4M scene x", state.x[occ]), ("4M scene y",
+                                                     state.y[occ]),
+                     ("edge probes", torch.from_numpy(probes).cuda())):
+        hx = x.cpu().numpy()
+        want = (np.floor(hx / t32) + 1).astype(np.int32)
+        got = tiled._tile_of(x, x, t)[1].cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"_tile_of on the card != f32 division on "
+                                 f"{label}: {int((got != want).sum())} of "
+                                 f"{len(want)}")
+        recip = int(((np.floor(hx * (np.float32(1) / t32)) + 1)
+                     .astype(np.int32) != want).sum())
+        byfloat = int(((torch.floor(x / f32(t)).to(torch.int32) + 1)
+                       .cpu().numpy() != want).sum())
+        log(f"[tile] {label}: _tile_of on the card == numpy f32 "
+            f"floor(x / t) + 1 on all {len(want)}; floor(x * (1/t)) would "
+            f"put {recip} elsewhere, the card's x / float(t) {byfloat}")
+    moved = _jittered(state, 0.6 * t, seed=11)
+    card = tiled.relocate(moved, cfg)
+    cpu = tiled.relocate(moved.replace(**{
+        f: getattr(moved, f).cpu() for f in tiled.FIELDS + (
+            "num_active", "overflow_count")}), cfg)
+    fields = tiled.FIELDS + ("overflow_count",)
+    diff = [f for f in fields
+            if not torch.equal(getattr(card, f).cpu(), getattr(cpu, f))]
+    if diff:
+        raise AssertionError(f"claim relocate of the jittered 4M state: "
+                             f"card != CPU in {diff}")
+    log(f"[tile] claim relocate of the jittered 4M state {list(state.dims)}:"
+        f" card == CPU bit for bit ({', '.join(fields)}; overflow "
+        f"{int(card.overflow_count) - int(moved.overflow_count)})")
+
+
+def _rule_mismatch(state, cfg):
+    """Occupied slots whose one-hop step differs between K4's rule (the
+    home tile by division) and K2's (products, delta 0), and a mask of the
+    tiles such a particle can touch (Chebyshev distance 2: its tile, its
+    target, and the target's other claimants)."""
+    import torch
+    from gpu_physics_engine_torch.ops import tiled
+    from gpu_physics_engine_torch.ops import tiled_kernels as tk
+    t, TY, TX = tiled.tile_geometry(cfg)
+    TY = state.dims[1]
+    sty = torch.arange(TY, device="cuda").view(1, TY, 1)
+    stx = torch.arange(TX, device="cuda").view(1, 1, TX)
+    a = tiled.step_offsets(state.x, state.y, sty, stx, t=t, delta=0.0,
+                           gTY=TY, gTX=TX)
+    b = tk.home_offsets(state.x, state.y, sty, stx, t=t, gTY=TY, gTX=TX)
+    bad = ((a[0] != b[0]) | (a[1] != b[1])) & (state.pid >= 0)
+    near = torch.nn.functional.max_pool2d(
+        bad.any(0).float()[None, None], 5, stride=1, padding=2)[0, 0] > 0
+    return int(bad.sum()), near
+
+
+def check_relocate_one(label, cfg, st, errs: dict) -> None:
+    """K4 against its plain version (twice, bit-equal) and against K2 under
+    flip with delta 0, on ``st`` jittered by up to 0.6 tile.  Where a
+    particle lies within an ulp of a tile edge the two rules part; then
+    K4 must equal K2 on every tile out of reach of those particles."""
+    import torch
+    from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
+    moved = _jittered(st, 0.6 * tiled.tile_geometry(cfg)[0], seed=7)
+    c = cfg.replace(tiled_match="greedy", tiled_hysteresis=-1.0)
+    a, da = tk.relocate_one_cuda(moved, c)
+    a2, da2 = tk.relocate_one_cuda(moved, c)
+    b, db = tk.relocate_one_plain(moved, c)
+    fields = tiled.FIELDS + ("overflow_count",)
+    _equal_or_raise(f"K4 {label}",
+                    tuple(getattr(a, f) for f in fields) + (da,),
+                    tuple(getattr(b, f) for f in fields) + (db,),
+                    tuple(getattr(a2, f) for f in fields) + (da2,))
+    errs["relocate_one"] = 0.0
+    k2, dk2 = tk.relocate_pull_cuda(moved, cfg.replace(tiled_match="flip",
+                                                       tiled_hysteresis=0.0))
+    n_rule, near = _rule_mismatch(moved, cfg)
+    if n_rule == 0:
+        _equal_or_raise(f"K4 {label} vs K2 flip",
+                        tuple(getattr(a, f) for f in fields) + (da,),
+                        tuple(getattr(k2, f) for f in fields) + (dk2,))
+        vs_k2 = "== K2 (flip, delta 0) bit for bit"
+    else:
+        far = ~near
+        same = all(torch.equal(getattr(a, f)[:, far], getattr(k2, f)[:, far])
+                   for f in tiled.FIELDS) and torch.equal(da[far], dk2[far])
+        if not same:
+            raise AssertionError(f"K4 {label}: differs from K2 (flip) away "
+                                 f"from the {n_rule} edge particles")
+        ndiff = int((a.pid != k2.pid).sum())
+        vs_k2 = (f"== K2 (flip, delta 0) on every tile out of reach of the "
+                 f"{n_rule} particles within an ulp of a tile edge (K4 "
+                 f"divides, K2 multiplies); {ndiff} pid slots differ near "
+                 f"them")
+    log(f"[k4] {label} {list(st.dims)}: bit-equal to the plain version and "
+        f"on repeat (config greedy, hysteresis auto: ignored), deferred "
+        f"{int(da.sum())}; {vs_k2}")
+
+
+def phase_fused_kernels(gs_scenes, cfg4m, st4m, errs: dict) -> None:
+    """The fused kernels against their plain versions and the sequential
+    kernels they fuse, bit-equal and on repeat: colors_mega with and
+    without the Verlet tail (== four K6-par launches + the tail),
+    relocate_mega (== K2-par) at a small uniform scene and the GS paths'
+    parity shapes; K4 at the 4M shape and at a small mixed-radius one."""
+    from gpu_physics_engine_torch import StepParams
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import gs_mega as gm
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.ops import tiled
+    import torch
+    small_cfg, small = _gs_small_state()
+    ucfg = gs_config(4000, world_width=96.0, world_height=60.0, tile_cap=4)
+    uni = small.replace(radius=torch.where(
+        small.pid >= 0, torch.full_like(small.x, ucfg.initial_radius),
+        torch.zeros_like(small.x)))
+    for i, (label, cfg, st) in enumerate([("small-uniform", ucfg, uni)]
+                                         + list(gs_scenes)):
+        t = tiled.tile_geometry(cfg)[0]
+        ps = gp.to_parity_state(_jittered(st, 0.3 * t, seed=60 + i), cfg)
+        src, _, rrad, _ = gp.rank_par_cuda(ps, cfg)
+        prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
+                                             0.5 * cfg.world_height),
+                              pressed=True).as_tensor("cuda")
+        for tail in (prm, None):
+            runs = [ps.replace(**{f: getattr(ps, f).clone()
+                                  for f in ("x", "y", "px", "py")})
+                    for _ in range(4)]
+            gm.colors_mega_cuda(runs[0], src, rrad, cfg, tail)
+            gm.colors_mega_cuda(runs[1], src, rrad, cfg, tail)
+            gm.colors_mega_plain(runs[2], src, rrad, cfg, tail)
+            seq = runs[3]
+            for color in (1, 2, 3, 4):
+                gp.color_par_cuda_(seq.x, seq.y, src, rrad, cfg, seq.geo,
+                                   color)
+            if tail is not None:
+                gp.verlet_cuda_(seq.x, seq.y, seq.px, seq.py, seq.pid, tail,
+                                cfg)
+            got = lambda r: tuple(getattr(r, f)  # noqa: E731
+                                  for f in ("x", "y", "px", "py"))
+            what = f"colors_mega {label} tail={tail is not None}"
+            _equal_or_raise(what, got(runs[0]), got(runs[2]), got(runs[1]))
+            _equal_or_raise(f"{what} vs K6-par x 4 + tail", got(runs[0]),
+                            got(seq))
+        errs["gs_colors_mega"] = 0.0
+        far = gp.to_parity_state(_jittered(st, 0.6 * t, seed=70 + i), cfg)
+        a, da = gm.relocate_mega_cuda(far, cfg)
+        a2, da2 = gm.relocate_mega_cuda(far, cfg)
+        fields = ("x", "y", "px", "py", "pid", "overflow_count")
+        for ref, (b, db) in (("plain", gp.relocate_par_plain(far, cfg)),
+                             ("K2-par", gp.relocate_par_cuda(far, cfg))):
+            _equal_or_raise(f"relocate_mega {label} vs {ref}",
+                            tuple(getattr(a, f) for f in fields) + (da,),
+                            tuple(getattr(b, f) for f in fields) + (db,),
+                            tuple(getattr(a2, f) for f in fields) + (da2,))
+        errs["relocate_mega"] = 0.0
+        log(f"[mega] {label} {list(ps.x.shape)}: colors_mega (with and "
+            f"without the tail) == plain == K6-par x 4 (+ tail), "
+            f"relocate_mega == plain == K2-par (match "
+            f"{gp.resolve_match(cfg, cfg.tile_cap, ps.geo.TY, ps.geo.TX)}, "
+            f"deferred {int(da.sum())}), bit for bit and on repeat")
+    mixed_cfg, mixed = _small_state(4, uniform=False)
+    for label, c, s in (("small-mixed", mixed_cfg, mixed),
+                        ("4M", cfg4m, st4m)):
+        check_relocate_one(label, c, s, errs)
 
 
 def _check_engine(e, n, label) -> dict:
@@ -779,6 +977,13 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     # in place: the pid plane is read, and x, y, px, py of occupied slots
     # are read and written; empty slots keep their values
     out["gs_verlet"] = _bound(P + 32 * gocc, 25 * gocc)
+    # the fused kernels compute the same functions: colors_mega the four
+    # colors and the tail, relocate_mega K2-par's, K4 K2's (at 4M)
+    out["gs_colors_mega"] = _bound(24 * float(pm.sum()) + P + 32 * gocc,
+                                   8 * float((pm * (pm - 1) / 2).sum())
+                                   + 25 * gocc)
+    out["relocate_mega"] = out["relocate_par"]
+    out["relocate_one"] = out["relocate_pull"]
     # K12: each key read once, each rank written once, one 256-bin
     # histogram per 1024-key block; a handful of integer operations
     nkeys = float(radix_bits.shape[0])
@@ -794,6 +999,7 @@ def _par_runs(gs_cfg, gs_state) -> dict:
     the mouse pressed."""
     from gpu_physics_engine_torch import StepParams
     from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_mega as gm
     from gpu_physics_engine_torch.ops import gs_parity as gp
     from gpu_physics_engine_torch.ops import tiled
     cfg = gs_cfg
@@ -812,9 +1018,16 @@ def _par_runs(gs_cfg, gs_state) -> dict:
             gs_state.y, geo, 0.0)
         return lambda: [fn(x, y, *tables, cfg, geo, c) for c in (1, 2, 3, 4)]
 
+    m = ps.replace(**{f: getattr(ps, f).clone()
+                      for f in ("x", "y", "px", "py")})
     runs = {
         "gs_rank_par": (lambda: gp.rank_par_cuda(ps, cfg),
                         lambda: gp.rank_par_plain(ps, cfg), 1),
+        "gs_colors_mega": (
+            lambda: gm.colors_mega_cuda(m, src, rrad, cfg, prm),
+            lambda: gm.colors_mega_plain(m, src, rrad, cfg, prm), 1),
+        "relocate_mega": (lambda: gm.relocate_mega_cuda(far, cfg),
+                          lambda: gm.relocate_mega_plain(far, cfg), 1),
         "gs_color_par": (colors(gp.color_par_cuda_, ps.geo, (src, rrad)),
                          colors(gp.color_par_plain_, ps.geo, (src, rrad)), 4),
         "relocate_par": (lambda: gp.relocate_par_cuda(far, cfg),
@@ -861,6 +1074,8 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
                                                                  cfg), 1),
         "relocate_pull": (lambda: tk.relocate_pull_cuda(moved, cfg),
                           lambda: tk.relocate_pull_plain(moved, cfg), 1),
+        "relocate_one": (lambda: tk.relocate_one_cuda(moved, cfg),
+                         lambda: tk.relocate_one_plain(moved, cfg), 1),
         "collide": (lambda: tk.collide_cuda(state, cfg),
                     lambda: tk.collide_plain(state, cfg), 1),
         "gs_rank": (lambda: gk.rank_cuda(gs_state, gs_cfg),
@@ -950,22 +1165,42 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
      "gpu_physics_engine_tpu/ops/gs_pallas.py:783", "1M-GS-dec"),
     ("radix_rank_hist", "radix_rank_hist", "csrc/radix_kernels.cuh",
      "gpu_physics_engine_tpu/ops/radix_sort.py:80", "1M-array-radix"),
+    ("gs_colors_mega", "gs_colors_mega", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_mega.py:503", "1M-GS-mega"),
+    ("relocate_mega", "relocate_mega", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_mega.py:443", "1M-GS-mega"),
+    ("relocate_one", "relocate_one", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:1187", "4M-one"),
 )
 
 FLAT_GS = ("gs_rank", "gs_color", "relocate_pull")
 PAR_GS = ("gs_rank_par", "gs_color_par", "relocate_par", "gs_verlet")
+MEGA_GS = ("gs_colors_mega", "relocate_mega")
 
 
 def _gs_expect(steps: int, layout: str) -> dict:
-    """Launch counts of ``steps`` GS steps in ``layout``."""
+    """Launch counts of ``steps`` GS steps (one substep each) in ``layout``
+    ("mega": par with gs_colors_mega and gs_relocate_mega)."""
     per = {"flat": dict(gs_rank=1, gs_color=4, relocate_pull=1),
            "par": dict(gs_rank_par=1, gs_color_par=4, relocate_par=1,
                        gs_verlet=1),
+           "mega": dict(gs_rank_par=1, gs_colors_mega=1, relocate_mega=1),
            "mx": dict(gs_rank=1, gs_color_par=4, relocate_pull=1)}
     per["dec"] = per["mx"]
-    want = {k: 0 for k in FLAT_GS + PAR_GS + ("collide_integrate",)}
+    want = {k: 0 for k in FLAT_GS + PAR_GS + MEGA_GS + ("collide_integrate",
+                                                       "relocate_one")}
     want.update({k: v * steps for k, v in per[layout].items()})
     return want
+
+
+def _gs_cfg(n: int, layout: str):
+    """The bench's GS config at n in ``layout``; "mega" is the par layout
+    with both fused kernels on."""
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    if layout == "mega":
+        return gs_config(n, gs_layout="par", gs_colors_mega=True,
+                         gs_relocate_mega=True)
+    return gs_config(n, gs_layout=layout)
 
 
 def _gs_start(n: int):
@@ -991,10 +1226,11 @@ def _gs_start(n: int):
 
 def phase_gs_paths(paths: dict) -> None:
     """The GS engine at 1M (150 free steps, 150 under the drag) and 4M cap
-    6 (100 steps), in the flat and the par layout from the same start
-    (``_gs_start``), each pair held bit-equal; then 32 steps at 1M in the
-    mx and dec layouts from the seeded scene, held to a flat engine over
-    the same steps.  Prints the par/flat ms/step."""
+    6 (100 steps), in the flat and the par layout and the par layout with
+    the fused kernels ("mega") from the same start (``_gs_start``), each
+    held bit-equal to flat; then 32 steps at 1M in the mx and dec layouts
+    from the seeded scene, held to a flat engine over the same steps.
+    Prints the par/flat and mega/par ms/step."""
     import torch
     from gpu_physics_engine_torch import TiledEngine
     from gpu_physics_engine_torch.core.tuned import gs_config
@@ -1008,24 +1244,29 @@ def phase_gs_paths(paths: dict) -> None:
             f"{border} border-cell memberships are where flat and par "
             f"differ: the par rank masks border cells)")
         runs = {}
-        for layout in ("flat", "par"):
+        for layout in ("flat", "par", "mega"):
             tag = label if layout == "flat" else f"{label}-{layout}"
             runs[layout] = phase_engine(
                 lambda: TiledEngine(
-                    gs_config(n, gs_layout=layout), chunk=64,
+                    _gs_cfg(n, layout), chunk=64,
                     initial_state=start.replace(
                         **{f: getattr(start, f).clone()
                            for f in ("x", "y", "px", "py", "radius", "pid",
                                      "num_active", "overflow_count")})),
                 n, windows, tag, _gs_expect(steps, layout))
             paths[tag] = runs[layout]["launches"]
-        cross_check(label, runs["flat"]["engine"], runs["par"]["engine"],
-                    "par")
-        f, p = runs["flat"]["win_ms"], runs["par"]["win_ms"]
+        for layout in ("par", "mega"):
+            cross_check(label, runs["flat"]["engine"],
+                        runs[layout]["engine"], layout)
+        f, p, m = (runs[k]["win_ms"] for k in ("flat", "par", "mega"))
         log(f"[layout] {label} ms/step per window: par "
             f"{[round(w, 4) for w in p]} vs flat {[round(w, 4) for w in f]}"
             f"; next 32 steps par {runs['par']['steady_ms']:.4f} vs flat "
             f"{runs['flat']['steady_ms']:.4f}")
+        log(f"[layout] {label} ms/step per window: mega "
+            f"{[round(w, 4) for w in m]} vs par {[round(w, 4) for w in p]}; "
+            f"next 32 steps mega {runs['mega']['steady_ms']:.4f} vs par "
+            f"{runs['par']['steady_ms']:.4f}")
         del runs, start
         torch.cuda.empty_cache()
     runs = {}
@@ -1040,6 +1281,61 @@ def phase_gs_paths(paths: dict) -> None:
         cross_check("1M-GS", runs["flat"]["engine"], runs[layout]["engine"],
                     layout)
     del runs
+    torch.cuda.empty_cache()
+
+
+def phase_k4_path(paths: dict) -> None:
+    """K4's path, the single-kernel relocate in a 4M frame loop as the JAX
+    package's probe drives it (scripts/tpu_probe_one.py): the tuned 4M
+    engine's first 16 steps, then 32 steps of ``relocate_one`` (every
+    ``tiled_relocate_interval``-th step) and K1, counts zeroed just
+    before; the same loop with K2 under flip and delta 0 beside it, and
+    how far the two loops part (K4 divides where K2 multiplies)."""
+    import torch
+    from gpu_physics_engine_torch import make_tuned_engine
+    from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
+    e = make_tuned_engine(4_194_304, device="cuda")
+    e.run(16)
+    cfg, start = e.config, e.state
+    prm = e.params().as_tensor("cuda", 1.0 / cfg.substeps)
+    flip = cfg.replace(tiled_match="flip", tiled_hysteresis=0.0)
+    every = max(1, cfg.tiled_relocate_interval)
+    ends, ms = {}, {}
+    for name, reloc in (("relocate_one", tk.relocate_one),
+                        ("relocate_pull", tk.relocate_pull)):
+        st = start
+        reset_launches()
+
+        def loop():
+            nonlocal st
+            for i in range(32):
+                if i % every == 0:
+                    st = reloc(st, flip)
+                for _ in range(cfg.substeps):
+                    st = tk.collide_integrate(st, prm, cfg)
+        ms[name] = cuda_ms(loop, reps=1, warmup=0) / 32
+        got = launches()
+        want = {"relocate_one": 0, "relocate_pull": 0,
+                "collide_integrate": 32 * cfg.substeps}
+        want[name] = 32 // every
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad:
+            raise AssertionError(f"4M-one ({name}): launches (got, "
+                                 f"expected) {bad}")
+        if name == "relocate_one":
+            paths["4M-one"] = got
+        ends[name] = st
+    a, b = ends["relocate_one"], ends["relocate_pull"]
+    pid, pos, _, _ = tiled.export_particles(a)
+    if len(pid) != 4_194_304 or not torch.isfinite(
+            torch.from_numpy(pos)).all():
+        raise AssertionError("4M-one: particles lost or non-finite")
+    differ = int((a.pid != b.pid).sum())
+    log(f"[4M-one] K4 + K1 loop, 32 steps: launches {paths['4M-one']}; all "
+        f"4194304 pids present, finite; ms/step {ms['relocate_one']:.4f} "
+        f"against {ms['relocate_pull']:.4f} with K2 (flip, delta 0); the "
+        f"loops' pid planes differ in {differ} slots (edge rule)")
+    del e, ends, a, b, start
     torch.cuda.empty_cache()
 
 
@@ -1066,6 +1362,7 @@ def main() -> int:
     phase_jacobi_kernels(jacobi, errs)
     big_cfg, big_state = jacobi[0][1:]
     del jacobi
+    phase_tile_division(big_cfg, big_state)
 
     gs = []
     for label, n in (("1M-GS", 1_048_576), ("4M-GS", 4_194_304)):
@@ -1074,6 +1371,7 @@ def main() -> int:
         del e
     phase_gs_kernels(gs, errs)
     phase_par_kernels(gs, errs)
+    phase_fused_kernels(gs, big_cfg, big_state, errs)
     gs_cfg, gs_state = gs[0][1:]
     del gs
     torch.cuda.empty_cache()
@@ -1090,6 +1388,7 @@ def main() -> int:
                  {"collide_integrate": 250, "relocate_pull": 125})
 
     phase_gs_paths(paths)
+    phase_k4_path(paths)
     radix_bits = phase_array_kernels(errs)
     phase_array_paths(paths)
     run = phase_engine(

@@ -19,8 +19,8 @@ facade.  The sweep, the watchdog and the downloads see the full-space
 state at window boundaries, as in the JAX package.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-tiled_sweep="bands", tiled_rebuild_every > 0, the GS mega kernels, spawns
-and the big-particle overlay, rendering, checkpoints.
+tiled_sweep="bands", tiled_rebuild_every > 0, spawns and the big-particle
+overlay, rendering, checkpoints.
 """
 
 from __future__ import annotations
@@ -68,7 +68,6 @@ def _check_supported(config: SimConfig) -> None:
     if config.tiled_rebuild_every > 0:
         raise _not_ported("tiled_rebuild_every > 0 (the hybrid sweep)",
                           "ROADMAP.md queue 1, item 4: sweep modes")
-    tiled.check_gs_supported(config)
 
 
 class TiledEngine:

@@ -7,6 +7,8 @@
 // reported at the call.
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include "gs_kernels.cuh"
 
 namespace {
@@ -38,6 +40,33 @@ void launch_color(float* x, float* y, const int* src, const float* rrad,
   else
     gpe::gs_color_kernel<16, L><<<blocks_for(n), kThreads, 0, s>>>(
         x, y, src, rrad, cap, lay, n, K, stiffness);
+}
+
+// Blocks of colors_mega's cooperative grid on device dev: as many as fit
+// on the card at once (resident blocks per SM x SMs).  Queried on the
+// first launch on each device and kept: the occupancy query costs host
+// time, and the step is short enough for the host to set its pace.
+template <int KMAX>
+cudaError_t mega_grid(int dev, int* blocks) {
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    cudaError_t rc =
+        cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (rc == cudaSuccess)
+      rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, gpe::gs_colors_mega_kernel<KMAX>, kThreads, 0);
+    if (rc != cudaSuccess) return rc;
+    if (!coop) return cudaErrorNotSupported;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    cached[dev] = per_sm * sms;
+  }
+  *blocks = cached[dev];
+  return cudaSuccess;
 }
 
 // The first full row (column) of color 1..4 is ty0 = 1 - ((color-1) >> 1)
@@ -137,6 +166,56 @@ int gpe_gs_verlet(void* x, void* y, void* px, void* py, const void* pid,
       static_cast<float*>(px), static_cast<float*>(py),
       static_cast<const int*>(pid), static_cast<const float*>(prm), n, c);
   return (int)cudaGetLastError();
+}
+
+// colors_mega: the four K6-par colors on the parity layout, then (integ
+// != 0) the Verlet tail, in one cooperative launch: in place on x, y (and
+// px, py) [4, cap, DY, DX], tables src/rrad [4, K, DY, DX]; consts = host
+// float[kVerletNumConsts].  The grid is as many blocks as fit on the card
+// at once (mega_grid), at most what the work needs.  A card without
+// cooperative launch gives cudaErrorNotSupported; a refused launch returns
+// its error.
+int gpe_gs_colors_mega(void* x, void* y, void* px, void* py, const void* pid,
+                       const void* src, const void* rrad, const void* prm,
+                       int cap, int TY, int TX, int DY, int DX, int origin,
+                       int K, float stiffness, int integ, const void* consts,
+                       void* stream) {
+  if (K < 1 || K > gpe::kGsMaxK || DY < 1 || DX < 1)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, resident = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = K <= 8 ? mega_grid<8>(dev, &resident)
+                : mega_grid<16>(dev, &resident);
+  if (rc != cudaSuccess) return (int)rc;
+  auto* fn = K <= 8 ? &gpe::gs_colors_mega_kernel<8>
+                    : &gpe::gs_colors_mega_kernel<16>;
+  const long long work = integ ? 4LL * cap * DY * DX : (long long)DY * DX;
+  const int blocks = (int)std::min<long long>(resident, blocks_for(work));
+  int pars = 0;
+  for (int color = 1; color <= 4; ++color) {
+    const int pa = (color_ty0(color) - origin) & 1;
+    const int pb = (color_tx0(color) - origin) & 1;
+    pars |= (2 * pa + pb) << (2 * (color - 1));
+  }
+  const float* f = static_cast<const float*>(consts);
+  gpe::VerletConsts c{f[0], f[1], f[2], f[3], f[4], f[5]};
+  gpe::ParLayout lay{TY, TX, DY, DX, origin, 0};
+  float* ax = static_cast<float*>(x);
+  float* ay = static_cast<float*>(y);
+  float* apx = static_cast<float*>(px);
+  float* apy = static_cast<float*>(py);
+  const int* apid = static_cast<const int*>(pid);
+  const int* asrc = static_cast<const int*>(src);
+  const float* arrad = static_cast<const float*>(rrad);
+  const float* aprm = static_cast<const float*>(prm);
+  void* args[] = {&ax,  &ay,  &apx,  &apy, &apid,      &asrc,  &arrad, &aprm,
+                  &cap, &lay, &pars, &K,   &stiffness, &integ, &c};
+  rc = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
+                                   dim3(blocks), dim3(kThreads), args, 0,
+                                   static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(rc != cudaSuccess ? rc : last);
 }
 
 }  // extern "C"

@@ -13,6 +13,9 @@
 // gs_verlet_kernel     is K6-par's Verlet tail: the Verlet step that
 //     ops/gs_parity.py::_apply_integrate_dec_kernel (:353) fuses into the
 //     color-4 apply, launched right after the color-4 pass.
+// gs_colors_mega_kernel replaces ops/gs_mega.py::colors_mega (:503, kernel
+//     _mega_kernel :136): the four K6-par colors and the Verlet tail in
+//     one cooperative launch.
 //
 // Storage is a layout of csrc/layout.cuh: slot-major [CAP, TY, TX] (flat)
 // or parity-major [4, CAP, DY, DX]; the rank tables are the same layout
@@ -27,6 +30,7 @@
 // never --use_fast_math).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "layout.cuh"
@@ -146,13 +150,15 @@ __global__ void gs_rank_kernel(const float* __restrict__ x,
 //   dist = sqrt(dx*dx + dy*dy), hit = rsum^2 > dist^2 && dist > 1e-4,
 //   c = ((d / max(dist, 1e-4)) * pen) * stiffness,
 //   w_a = r_b / max(rsum, 1e-4), x_a += c*w_a, x_b -= c*w_b.
+// gs_color_cell is the per-cell body; gs_color_kernel runs it once per
+// thread, gs_colors_mega_kernel for all four colors in one launch.
 template <int KMAX, class L>
-__global__ void gs_color_kernel(float* __restrict__ x, float* __restrict__ y,
-                                const int* __restrict__ src,
-                                const float* __restrict__ rrad, int cap,
-                                L lay, int n, int K, float stiffness) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__device__ __forceinline__ void gs_color_cell(float* __restrict__ x,
+                                              float* __restrict__ y,
+                                              const int* __restrict__ src,
+                                              const float* __restrict__ rrad,
+                                              int cap, const L& lay, int i,
+                                              int K, float stiffness) {
   int ty, tx;
   lay.cell(i, &ty, &tx);
   if (ty < 0 || ty >= lay.TY || tx < 0 || tx >= lay.TX) return;  // pad
@@ -221,6 +227,16 @@ __global__ void gs_color_kernel(float* __restrict__ x, float* __restrict__ y,
   }
 }
 
+template <int KMAX, class L>
+__global__ void gs_color_kernel(float* __restrict__ x, float* __restrict__ y,
+                                const int* __restrict__ src,
+                                const float* __restrict__ rrad, int cap,
+                                L lay, int n, int K, float stiffness) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  gs_color_cell<KMAX>(x, y, src, rrad, cap, lay, i, K, stiffness);
+}
+
 // ---------------------------------------------------------------------------
 // K6-par's Verlet tail: one substep's Verlet step, in place, after color 4.
 // ---------------------------------------------------------------------------
@@ -245,14 +261,14 @@ constexpr int kVerletNumConsts = 6;
 //   a = g + (d * inv) * (strength * pressed),
 //   x' = clamp((x + v) + a * dt^2, r0, world - r0), px' = x.
 // prm = [dt * dt_scale, mouse_x, mouse_y, pressed] in device memory.
-__global__ void gs_verlet_kernel(float* __restrict__ x, float* __restrict__ y,
-                                 float* __restrict__ px,
-                                 float* __restrict__ py,
-                                 const int* __restrict__ pid,
-                                 const float* __restrict__ prm, int n,
-                                 VerletConsts c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || pid[i] < 0) return;
+__device__ __forceinline__ void gs_verlet_slot(float* __restrict__ x,
+                                               float* __restrict__ y,
+                                               float* __restrict__ px,
+                                               float* __restrict__ py,
+                                               const int* __restrict__ pid,
+                                               const float* __restrict__ prm,
+                                               int i, const VerletConsts& c) {
+  if (pid[i] < 0) return;
   const float xi = x[i];
   const float yi = y[i];
   const float vel_x = __fsub_rn(xi, px[i]);
@@ -273,6 +289,61 @@ __global__ void gs_verlet_kernel(float* __restrict__ x, float* __restrict__ y,
   y[i] = fminf(fmaxf(ny, c.r0), c.ymax);
   px[i] = xi;
   py[i] = yi;
+}
+
+
+__global__ void gs_verlet_kernel(float* __restrict__ x, float* __restrict__ y,
+                                 float* __restrict__ px,
+                                 float* __restrict__ py,
+                                 const int* __restrict__ pid,
+                                 const float* __restrict__ prm, int n,
+                                 VerletConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  gs_verlet_slot(x, y, px, py, pid, prm, i, c);
+}
+
+// ---------------------------------------------------------------------------
+// colors_mega: the four colors (and the Verlet tail) in one launch.
+// ---------------------------------------------------------------------------
+
+// A persistent cooperative kernel on the parity layout: every thread runs
+// a grid-stride loop over the color's sub-grid (the cells of one color are
+// particle-disjoint, so a phase is race-free, as one K6-par launch is),
+// and the grid synchronises between colors and before the tail, which
+// runs the same grid-stride loop over every slot.  Each phase runs the
+// bodies of K6-par and the Verlet tail on the same cells in the same
+// order, so the result equals four K6-par launches plus the tail bit for
+// bit.  pars holds the parity of color c in bits 2(c-1), 2(c-1)+1.  Launch
+// only with cudaLaunchCooperativeKernel, with no more blocks than can be
+// resident at once.
+template <int KMAX>
+__global__ void gs_colors_mega_kernel(float* __restrict__ x,
+                                      float* __restrict__ y,
+                                      float* __restrict__ px,
+                                      float* __restrict__ py,
+                                      const int* __restrict__ pid,
+                                      const int* __restrict__ src,
+                                      const float* __restrict__ rrad,
+                                      const float* __restrict__ prm, int cap,
+                                      ParLayout lay, int pars, int K,
+                                      float stiffness, int integ,
+                                      VerletConsts c) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int cells = lay.DY * lay.DX;
+  for (int color = 0; color < 4; ++color) {
+    ParLayout cl = lay;
+    cl.p0 = (pars >> (2 * color)) & 3;
+    for (int i = i0; i < cells; i += stride)
+      gs_color_cell<KMAX>(x, y, src, rrad, cap, cl, i, K, stiffness);
+    if (color < 3 || integ) grid.sync();
+  }
+  if (!integ) return;
+  const int slots = 4 * cap * cells;
+  for (int i = i0; i < slots; i += stride)
+    gs_verlet_slot(x, y, px, py, pid, prm, i, c);
 }
 
 }  // namespace gpe

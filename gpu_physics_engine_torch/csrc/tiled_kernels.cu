@@ -7,6 +7,8 @@
 // reported at the call, not at some later synchronisation.
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include "tiled_kernels.cuh"
 
 namespace {
@@ -25,6 +27,48 @@ void launch_k1(const float* x, const float* y, const float* px,
   gpe::collide_integrate_kernel<UNIFORM, CIRCLE, INTEGRATE>
       <<<blocks_for(n), kThreads, 0, s>>>(x, y, px, py, rad, pid, prm, ox,
                                           oy, opx, opy, cap, TY, TX, c);
+}
+
+// One launch of the fused relocate over the storage extent [ylo, ylo + NY)
+// x [xlo, xlo + NX): one block per kRegionY x kRegionX tiles, with a
+// thread for every plan of the region and its ring (612 tiles at 16 x 32:
+// 640 threads), so the plan phase is one pass of the block; 512 of them
+// then apply.  Plans past the default 48 KB of dynamic shared memory
+// (cap > 20) raise the kernel's limit first.
+constexpr int kFusedThreads =
+    std::min(1024, (gpe::kRingTiles + 31) / 32 * 32);
+
+template <class L, class H>
+int launch_fused(const void* x, const void* y, const void* px,
+                 const void* py, const void* rad, const void* pid, void* ox,
+                 void* oy, void* opx, void* opy, void* orad, void* opid,
+                 void* defer, int cap, const L& lay, int ylo, int xlo, int NY,
+                 int NX, int row0, int gTY, int gTX, int match, const H& home,
+                 void* stream) {
+  if (cap < 1 || cap > gpe::kMaxCap || NY < 1 || NX < 1 ||
+      (rad == nullptr) != (orad == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((NX + gpe::kRegionX - 1) / gpe::kRegionX,
+                  (NY + gpe::kRegionY - 1) / gpe::kRegionY);
+  const int smem = gpe::fused_smem_bytes(cap);
+  if (smem > 48 * 1024) {  // past the default limit of dynamic shared memory
+    const cudaError_t rc = cudaFuncSetAttribute(
+        gpe::relocate_fused_kernel<L, H>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  gpe::relocate_fused_kernel<L, H>
+      <<<grid, kFusedThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x), static_cast<const float*>(y),
+          static_cast<const float*>(px), static_cast<const float*>(py),
+          static_cast<const float*>(rad), static_cast<const int*>(pid),
+          static_cast<float*>(ox), static_cast<float*>(oy),
+          static_cast<float*>(opx), static_cast<float*>(opy),
+          static_cast<float*>(orad), static_cast<int*>(opid),
+          static_cast<int*>(defer), cap, lay, ylo, xlo, NY, NX, row0, gTY,
+          gTX, match, home);
+  return (int)cudaGetLastError();
 }
 
 gpe::K1Consts k1_consts(const void* consts) {
@@ -174,6 +218,35 @@ int gpe_relocate_apply_par(const void* x, const void* y, const void* px,
       static_cast<int*>(opid), static_cast<int*>(defer), cap, lay, n, 0, TY,
       TX, match, t, delta);
   return (int)cudaGetLastError();
+}
+
+// K4: plan + apply in one launch on [cap, TY, TX]: flip matching, no
+// hysteresis, the home tile by division.  Six fresh output planes + defer
+// int32 [TY, TX].
+int gpe_relocate_one(const void* x, const void* y, const void* px,
+                     const void* py, const void* rad, const void* pid,
+                     void* ox, void* oy, void* opx, void* opy, void* orad,
+                     void* opid, void* defer, int cap, int TY, int TX,
+                     int row0, int gTY, int gTX, float t, void* stream) {
+  const gpe::FlatLayout lay{TY, TX, 0, 0, 1, TX};
+  return launch_fused(x, y, px, py, rad, pid, ox, oy, opx, opy, orad, opid,
+                      defer, cap, lay, 0, 0, TY, TX, row0, gTY, gTX,
+                      gpe::kFlip, gpe::DivHome{t, gTY, gTX}, stream);
+}
+
+// relocate_mega: K2-par's plan + apply in one launch on the parity layout
+// [4, cap, DY, DX] (rad and orad null under uniform radius); defer int32
+// [4, DY, DX].  One device: row0 0, the grid's own TY x TX.
+int gpe_relocate_mega(const void* x, const void* y, const void* px,
+                      const void* py, const void* rad, const void* pid,
+                      void* ox, void* oy, void* opx, void* opy, void* orad,
+                      void* opid, void* defer, int cap, int TY, int TX,
+                      int DY, int DX, int origin, int match, float t,
+                      float delta, void* stream) {
+  const gpe::ParLayout lay{TY, TX, DY, DX, origin, 0};
+  return launch_fused(x, y, px, py, rad, pid, ox, oy, opx, opy, orad, opid,
+                      defer, cap, lay, origin, origin, 2 * DY, 2 * DX, 0, TY,
+                      TX, match, gpe::StepHome{t, delta, TY, TX}, stream);
 }
 
 }  // extern "C"

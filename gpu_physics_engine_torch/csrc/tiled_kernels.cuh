@@ -13,6 +13,13 @@
 //     replace ops/gs_parity.py::relocate_parity (:689; _plan_kernel_par
 //     :539, _apply_kernel_par :573 and their _all variants :617, :651),
 //     "K2-par".
+// K4  relocate_fused_kernel<FlatLayout, DivHome>  replaces
+//     tiled_pallas.py::relocate_pallas_one (:1187, kernel
+//     _relocate_one_kernel :1068): K2 in one launch, flip matching, no
+//     hysteresis, the home tile by a correctly rounded division.
+// relocate_mega  relocate_fused_kernel<ParLayout, StepHome>  replaces
+//     ops/gs_mega.py::relocate_mega (:443, kernel _reloc_mega_kernel :311):
+//     K2-par in one launch, the config's matching and hysteresis.
 //
 // Storage is slot-major [CAP, TY, TX]: slot k of tile (ty, tx) sits at
 // k*TY*TX + ty*TX + tx, so neighbouring threads (neighbouring tiles of one
@@ -188,7 +195,8 @@ __global__ void collide_integrate_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K2: pull relocation.  Plan, then apply; one thread per tile in each.
+// K2: pull relocation.  Plan, then apply; one thread per tile in each.  The
+// per-tile bodies (plan_tile, apply_tile) also serve K4 and relocate_mega.
 // ---------------------------------------------------------------------------
 
 enum Match { kFlip = 0, kFlip2 = 1, kGreedy = 2 };
@@ -214,28 +222,59 @@ __device__ __forceinline__ void step_offsets(float x, float y, int sty,
   *dtx = b;
 }
 
-// plan[k] = code of the in-mover accepted for my free slot k, or -1:
+// K4's one-hop offsets (tiled_pallas._home_tile): the home tile
+// floor(pos / t) + 1 by a correctly rounded division, clipped to the
+// interior, and the clipped step toward it.  No hysteresis.
+__device__ __forceinline__ void home_offsets(float x, float y, int sty,
+                                             int stx, float t, int gTY,
+                                             int gTX, int* dty, int* dtx) {
+  const int wy = min(max((int)floorf(__fdiv_rn(y, t)) + 1, 1), gTY - 2);
+  const int wx = min(max((int)floorf(__fdiv_rn(x, t)) + 1, 1), gTX - 2);
+  *dty = min(max(wy - sty, -1), 1);
+  *dtx = min(max(wx - stx, -1), 1);
+}
+
+// Where a particle stored in global tile (sty, stx) steps: K2 and K2-par
+// take step_offsets with the config's hysteresis, K4 the home division.
+struct StepHome {
+  float t, delta;
+  int gTY, gTX;
+  __device__ __forceinline__ void operator()(float x, float y, int sty,
+                                             int stx, int* dty,
+                                             int* dtx) const {
+    step_offsets(x, y, sty, stx, t, delta, gTY, gTX, dty, dtx);
+  }
+};
+struct DivHome {
+  float t;
+  int gTY, gTX;
+  __device__ __forceinline__ void operator()(float x, float y, int sty,
+                                             int stx, int* dty,
+                                             int* dtx) const {
+    home_offsets(x, y, sty, stx, t, gTY, gTX, dty, dtx);
+  }
+};
+
+// The plan of tile (ty, tx) (local rows; global row ty + row0):
+// write(k, code) for every slot k, code = the in-mover accepted for my
+// free slot k, or -1:
 //   flip:   code = e (source slot cap-1-k)
 //   flip2:  code = e + 8*rule (source slot cap-1-k for rule 0, k for 1)
 //   greedy: code = e*cap + s
 // Each neighbour's claims on this tile are a CAP-bit mask, so the
-// sequential matching of _plan_choose runs on registers.  One thread per
-// cell of the launch (parity pad cells are not interior: plan -1).
-template <class L>
-__global__ void relocate_plan_kernel(
+// sequential matching of _plan_choose runs on registers.  Tiles that are
+// not interior (the border ring, parity pad cells) plan -1.
+template <class L, class H, class W>
+__device__ __forceinline__ void plan_tile(
     const float* __restrict__ x, const float* __restrict__ y,
-    const int* __restrict__ pid, int* __restrict__ plan, int cap, L lay,
-    int n, int row0, int gTY, int gTX, int match, float t, float delta) {
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i0 >= n) return;
+    const int* __restrict__ pid, int cap, const L& lay, int ty, int tx,
+    int row0, int gTY, int gTX, int match, const H& home, W write) {
   const int TY = lay.TY;
-  int ty, tx;
-  lay.cell(i0, &ty, &tx);
   const int my_ty = ty + row0;
   const bool interior = my_ty >= 1 && my_ty <= gTY - 2 && tx >= 1 &&
                         tx <= gTX - 2 && ty <= TY - 1;
   if (!interior) {
-    for (int k = 0; k < cap; ++k) plan[lay.at(k, cap, ty, tx)] = -1;
+    for (int k = 0; k < cap; ++k) write(k, -1);
     return;
   }
 
@@ -250,8 +289,7 @@ __global__ void relocate_plan_kernel(
         const int j = lay.at(s, cap, nty, ntx);
         if (pid[j] < 0) continue;
         int dty, dtx;
-        step_offsets(x[j], y[j], my_ty + ey, tx + ex, t, delta, gTY, gTX,
-                     &dty, &dtx);
+        home(x[j], y[j], my_ty + ey, tx + ex, &dty, &dtx);
         if (dty == -ey && dtx == -ex) m |= 1u << s;
       }
     }
@@ -263,8 +301,7 @@ __global__ void relocate_plan_kernel(
   for (int e = 0; e < 8; ++e) claimed[e] = 0;
   for (int k = 0; k < cap; ++k) {
     int code = -1;
-    const int mine = lay.at(k, cap, ty, tx);
-    if (pid[mine] < 0) {
+    if (pid[lay.at(k, cap, ty, tx)] < 0) {
       if (match == kFlip) {
         const int s = cap - 1 - k;
 #pragma unroll
@@ -294,37 +331,33 @@ __global__ void relocate_plan_kernel(
         }
       }
     }
-    plan[mine] = code;
+    write(k, code);
   }
 }
 
-// Apply: pull the planned in-movers, vacate my occupants whose target's
-// plan names them, count the movers that found no slot, and write the
-// survivors compacted to the low slots (zero-filled above).  Writes go to
-// fresh output planes: neighbouring tiles read the inputs concurrently.
-// rad and orad may both be null (the parity state under uniform radius
-// carries no radius planes).
-template <class L>
-__global__ void relocate_apply_kernel(
+// The apply of tile (ty, tx): pull the planned in-movers, vacate my
+// occupants whose target's plan names them, count the movers that found
+// no slot, and write the survivors compacted to the low slots (zero-filled
+// above).  plan_at(k, qy, qx) is the plan of slot k of tile (qy, qx),
+// which is the tile itself or a step target (an interior tile).  Writes
+// go to fresh output planes: neighbouring tiles read the inputs
+// concurrently.  rad and orad may both be null (the parity state under
+// uniform radius carries no radius planes).
+template <class L, class H, class P>
+__device__ __forceinline__ void apply_tile(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ rad, const int* __restrict__ pid,
-    const int* __restrict__ plan, float* __restrict__ ox,
-    float* __restrict__ oy, float* __restrict__ opx,
+    const float* __restrict__ rad, const int* __restrict__ pid, P plan_at,
+    float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ opx,
     float* __restrict__ opy, float* __restrict__ orad,
-    int* __restrict__ opid, int* __restrict__ defer, int cap, L lay, int n,
-    int row0, int gTY, int gTX, int match, float t, float delta) {
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i0 >= n) return;
+    int* __restrict__ opid, int* __restrict__ defer, int cap, const L& lay,
+    int ty, int tx, int row0, int match, const H& home) {
   const int TY = lay.TY;
-  int ty, tx;
-  lay.cell(i0, &ty, &tx);
   const int my_ty = ty + row0;
-
   int nout = 0, ndefer = 0;
   for (int k = 0; k < cap; ++k) {
     const int i = lay.at(k, cap, ty, tx);
-    const int code = plan[i];
+    const int code = plan_at(k, ty, tx);
     int src = -1;  // slot whose particle lands in my output
     if (code >= 0) {
       // pull: plans exist only for start-empty slots of interior tiles,
@@ -344,7 +377,7 @@ __global__ void relocate_apply_kernel(
     } else if (pid[i] >= 0) {
       src = i;
       int dty, dtx;
-      step_offsets(x[i], y[i], my_ty, tx, t, delta, gTY, gTX, &dty, &dtx);
+      home(x[i], y[i], my_ty, tx, &dty, &dtx);
       const bool in_slab = ty + dty >= 0 && ty + dty <= TY - 1;
       if (in_slab && (dty != 0 || dtx != 0)) {
         // leave check: the target names me (offset -dty,-dtx from it)
@@ -352,14 +385,14 @@ __global__ void relocate_apply_kernel(
         const int gy = ty + dty, gx = tx + dtx;
         bool accepted;
         if (match == kFlip) {
-          accepted = plan[lay.at(cap - 1 - k, cap, gy, gx)] == me;
+          accepted = plan_at(cap - 1 - k, gy, gx) == me;
         } else if (match == kFlip2) {
-          accepted = plan[lay.at(cap - 1 - k, cap, gy, gx)] == me ||
-                     plan[lay.at(k, cap, gy, gx)] == me + 8;
+          accepted = plan_at(cap - 1 - k, gy, gx) == me ||
+                     plan_at(k, gy, gx) == me + 8;
         } else {
           accepted = false;
           for (int kd = 0; kd < cap; ++kd) {
-            accepted |= plan[lay.at(kd, cap, gy, gx)] == me * cap + k;
+            accepted |= plan_at(kd, gy, gx) == me * cap + k;
           }
         }
         if (accepted) {
@@ -390,6 +423,108 @@ __global__ void relocate_apply_kernel(
     opid[o] = -1;
   }
   defer[lay.at(0, 1, ty, tx)] = ndefer;
+}
+
+// K2 plan: one thread per cell of the launch (parity pad cells included).
+template <class L>
+__global__ void relocate_plan_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const int* __restrict__ pid, int* __restrict__ plan, int cap, L lay,
+    int n, int row0, int gTY, int gTX, int match, float t, float delta) {
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i0 >= n) return;
+  int ty, tx;
+  lay.cell(i0, &ty, &tx);
+  plan_tile(x, y, pid, cap, lay, ty, tx, row0, gTY, gTX, match,
+            StepHome{t, delta, gTY, gTX},
+            [&](int k, int code) { plan[lay.at(k, cap, ty, tx)] = code; });
+}
+
+// K2 apply: one thread per cell, reading the plans K2 plan wrote.
+template <class L>
+__global__ void relocate_apply_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ rad, const int* __restrict__ pid,
+    const int* __restrict__ plan, float* __restrict__ ox,
+    float* __restrict__ oy, float* __restrict__ opx,
+    float* __restrict__ opy, float* __restrict__ orad,
+    int* __restrict__ opid, int* __restrict__ defer, int cap, L lay, int n,
+    int row0, int gTY, int gTX, int match, float t, float delta) {
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i0 >= n) return;
+  int ty, tx;
+  lay.cell(i0, &ty, &tx);
+  apply_tile(x, y, px, py, rad, pid,
+             [&](int k, int qy, int qx) {
+               return plan[lay.at(k, cap, qy, qx)];
+             },
+             ox, oy, opx, opy, orad, opid, defer, cap, lay, ty, tx, row0,
+             match, StepHome{t, delta, gTY, gTX});
+}
+
+// ---------------------------------------------------------------------------
+// K4 / relocate_mega: plan and apply in one launch.
+// ---------------------------------------------------------------------------
+
+constexpr int kRegionY = 16;  // tile rows of one block's region
+constexpr int kRegionX = 32;  // tile columns of one block's region
+constexpr int kRingTiles = (kRegionY + 2) * (kRegionX + 2);
+
+// Shared memory of one block: the plans of its region and a one-tile ring.
+__host__ __device__ constexpr int fused_smem_bytes(int cap) {
+  return kRingTiles * cap * (int)sizeof(int);
+}
+
+// One block owns the kRegionY x kRegionX tiles at full coordinates
+// (ylo + kRegionY*blockIdx.y, xlo + kRegionX*blockIdx.x) onwards, clipped to
+// the storage extent [ylo, ylo + NY) x [xlo, xlo + NX) (flat: the grid;
+// parity: every sub-grid cell, pad cells included).  It plans the region
+// and its one-tile ring into shared memory, then applies the region: a
+// step target is at most one tile away, so every plan the apply reads is
+// in shared memory.  The plan never goes through device memory; the ring's
+// plans are computed twice (by this block and by its neighbour: 20% more
+// plans at 16 x 32).  A region 32 tiles wide lets a warp of the apply read
+// one tile row: 32 consecutive flat words, or 16 of each of two parity
+// sub-grids; at 16 x 16 the kernel took 35-45% longer (PERF.md).  Both
+// loops stride by blockDim, so the kernel is right for any block size.
+// Shared plans are [k][tile], so the threads of a warp read neighbouring
+// words.
+template <class L, class H>
+__global__ void relocate_fused_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ rad, const int* __restrict__ pid,
+    float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ opx,
+    float* __restrict__ opy, float* __restrict__ orad,
+    int* __restrict__ opid, int* __restrict__ defer, int cap, L lay,
+    int ylo, int xlo, int NY, int NX, int row0, int gTY, int gTX, int match,
+    H home) {
+  extern __shared__ int splan[];
+  constexpr int W = kRegionX + 2;
+  const int by = ylo + kRegionY * (int)blockIdx.y;
+  const int bx = xlo + kRegionX * (int)blockIdx.x;
+  for (int i = threadIdx.x; i < kRingTiles; i += blockDim.x) {
+    const int qy = by - 1 + i / W, qx = bx - 1 + i % W;
+    if (qy < ylo || qy >= ylo + NY || qx < xlo || qx >= xlo + NX) {
+      for (int k = 0; k < cap; ++k) splan[k * kRingTiles + i] = -1;
+      continue;
+    }
+    plan_tile(x, y, pid, cap, lay, qy, qx, row0, gTY, gTX, match, home,
+              [&](int k, int code) { splan[k * kRingTiles + i] = code; });
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kRegionY * kRegionX; i += blockDim.x) {
+    const int ty = by + i / kRegionX, tx = bx + i % kRegionX;
+    if (ty >= ylo + NY || tx >= xlo + NX) continue;
+    apply_tile(x, y, px, py, rad, pid,
+               [&](int k, int qy, int qx) {
+                 return splan[k * kRingTiles + (qy - by + 1) * W +
+                              (qx - bx + 1)];
+               },
+               ox, oy, opx, opy, orad, opid, defer, cap, lay, ty, tx, row0,
+               match, home);
+  }
 }
 
 }  // namespace gpe

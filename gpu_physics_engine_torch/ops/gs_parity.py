@@ -434,7 +434,12 @@ def verlet_cuda_(x, y, px, py, pid, prm, config: SimConfig) -> None:
 
 def relocate_par(ps: ParityState, config: SimConfig) -> ParityState:
     """One pull-relocate pass in parity space (fresh tensors); deferrals
-    add to overflow_count."""
+    add to overflow_count.  Under gs_relocate_mega with a uniform radius
+    the plan and the apply run fused (``gs_mega.relocate_mega``), as in
+    the JAX package's ``relocate_parity``."""
+    if config.gs_relocate_mega and config.tiled_uniform_radius:
+        from gpu_physics_engine_torch.ops import gs_mega  # imports this one
+        return gs_mega.relocate_mega(ps, config)
     if ps.device.type == "cpu":
         return relocate_par_plain(ps, config)[0]
     return relocate_par_cuda(ps, config)[0]
@@ -503,14 +508,20 @@ def solve_parity(ps: ParityState, config: SimConfig,
     then K6-par for colors 1..4; the occupants clamped past K add to
     overflow_count.  With ``prm`` (f32[4], this substep's dt) the
     substep's Verlet step follows color 4 (the Verlet tail, in place on
-    x, y, px, py), which needs a uniform radius and a box world."""
+    x, y, px, py), which needs a uniform radius and a box world.  Under
+    gs_colors_mega with a uniform radius the colors and the tail run in
+    one launch (``gs_mega.colors_mega``), as in the JAX package."""
     src, _, rrad, count = rank_par(ps, config)
     overflow = torch.sum(torch.clamp(count - config.max_occupancy, min=0),
                          dtype=_I32)
-    for color in (1, 2, 3, 4):
-        color_par_(ps.x, ps.y, src, rrad, config, ps.geo, color)
-    if prm is not None:
-        verlet_(ps.x, ps.y, ps.px, ps.py, ps.pid, prm, config)
+    if config.gs_colors_mega and config.tiled_uniform_radius:
+        from gpu_physics_engine_torch.ops import gs_mega  # imports this one
+        gs_mega.colors_mega(ps, src, rrad, config, prm)
+    else:
+        for color in (1, 2, 3, 4):
+            color_par_(ps.x, ps.y, src, rrad, config, ps.geo, color)
+        if prm is not None:
+            verlet_(ps.x, ps.y, ps.px, ps.py, ps.pid, prm, config)
     return ps.replace(overflow_count=ps.overflow_count + overflow)
 
 

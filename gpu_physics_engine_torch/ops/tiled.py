@@ -115,8 +115,12 @@ def _iota(shape, dim: int, device) -> torch.Tensor:
 
 
 def _tile_of(x: torch.Tensor, y: torch.Tensor, tile_edge: float):
-    """Tile coords (+1 border offset) of world positions."""
-    t = f32(tile_edge)
+    """Tile coords (+1 border offset) of world positions: floor(pos / t)
+    by a correctly rounded f32 division.  The edge is a 0-d f32 tensor on
+    the positions' device: PyTorch's CUDA division by a Python float
+    multiplies by its reciprocal, which puts some positions within an ulp
+    of a tile edge in the neighbouring tile."""
+    t = torch.tensor(f32(tile_edge), dtype=torch.float32, device=x.device)
     tx = torch.floor(x / t).to(_I32) + 1
     ty = torch.floor(y / t).to(_I32) + 1
     return ty, tx
@@ -604,18 +608,6 @@ def _relocate_passes(relocate_fn, state: TileState,
     return state
 
 
-def check_gs_supported(config: SimConfig) -> None:
-    """Raise for the Gauss-Seidel options that are not ported yet.  Every
-    gs_layout runs ("auto" resolves in ops/gs_parity.resolve_gs_layout);
-    every gs_rank value selects the same occupants, so all of them run."""
-    if config.tiled_solver != "gs":
-        return
-    if config.gs_colors_mega or config.gs_relocate_mega:
-        raise NotImplementedError(
-            "gs_colors_mega / gs_relocate_mega are not ported yet "
-            "(ROADMAP.md queue 2, K11)")
-
-
 def _backend(choice: str, state: TileState, what: str) -> bool:
     """True = the hand-kernel route (ops/tiled_kernels), False = the
     plain tensor path the JAX package runs for ``"jnp"``.  ``"pallas"``
@@ -658,7 +650,6 @@ def tiled_step_fn(state: TileState, params: StepParams, config: SimConfig,
     from gpu_physics_engine_torch.ops import gs_parity, gs_tiled
     from gpu_physics_engine_torch.ops import tiled_kernels
 
-    check_gs_supported(config)
     kernel_collide = _backend(config.tiled_collide, state, "tiled_collide")
     kernel_reloc = _backend(config.tiled_relocate, state, "tiled_relocate")
     reloc = tiled_kernels.relocate_pull if kernel_reloc else relocate

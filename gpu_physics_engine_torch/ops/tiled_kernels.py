@@ -46,10 +46,28 @@ K2 ``relocate_pull`` replaces ``relocate_pallas``
   apply writes to new planes (neighbours read the inputs concurrently),
   compacting survivors to the low slots.  Built with -fmad=false so the
   tile-boundary decisions equal the plain version's bit for bit.
+
+K4 ``relocate_one`` replaces ``relocate_pallas_one``
+(gpu_physics_engine_tpu/ops/tiled_pallas.py:1187; kernel
+``_relocate_one_kernel`` :1068).
+  Bound: as K2: x, y, px, py, radius, pid read once and written once, and
+  the defer plane: 0.14 ms at the 4M shape [8, 640, 1850] (3.35 TB/s).
+  Design: ``relocate_fused_kernel`` on FlatLayout (csrc/tiled_kernels.cuh):
+  one block owns 16 x 32 tiles, plans them and a one-tile ring into shared
+  memory with K2's per-tile plan body, synchronises, and applies them with
+  K2's apply body.  The plan never goes through device memory, and 20% of
+  the plans (the ring) are computed twice, where the TPU kernel
+  recomputed every neighbour's plan (9x) from 5x5 views.  Its rule is the
+  JAX kernel's: flip matching, no hysteresis, and the home tile
+  floor(pos / t) by a correctly rounded division (``__fdiv_rn``), where K2
+  compares with products; the two part only for a particle within an ulp
+  of a tile edge.  The matching bodies are K2's, so K4 equals K2 under
+  flip with delta 0 everywhere else.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -59,11 +77,12 @@ from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.ops import _cuda
 from gpu_physics_engine_torch.ops.integrate import f32, verlet_integrate
 from gpu_physics_engine_torch.ops.tiled import (FIELDS, MIN_DISTANCE,
-                                                TileState, pair_sweep,
-                                                shift_tiles,
+                                                TileState, _tile_of,
+                                                pair_sweep, shift_tiles,
                                                 step_offsets, tile_geometry)
 
-LAUNCHES = {"collide_integrate": 0, "relocate_pull": 0, "collide": 0}
+LAUNCHES = {"collide_integrate": 0, "relocate_pull": 0, "collide": 0,
+            "relocate_one": 0}
 
 MAX_CAP = 32  # the kernels' claim bitsets are 32 bits wide
 
@@ -286,12 +305,24 @@ def _grid_coords(shape, row0: int, device):
     return my_row, my_row + int(row0), my_tx
 
 
-def relocate_plan_plain(state: TileState, config: SimConfig, row0: int = 0,
-                        global_rows: int | None = None) -> torch.Tensor:
+def home_offsets(x, y, sty, stx, *, t: float, gTY: int, gTX: int):
+    """K4's one-hop offsets (``tiled_pallas._home_tile``): the home tile
+    floor(pos / t) + 1 by a correctly rounded division, clipped to the
+    interior, and the step toward it clipped to one tile.  No
+    hysteresis."""
+    wy, wx = _tile_of(x, y, t)
+    wy = torch.clamp(wy, 1, gTY - 2)
+    wx = torch.clamp(wx, 1, gTX - 2)
+    return torch.clamp(wy - sty, -1, 1), torch.clamp(wx - stx, -1, 1)
+
+
+def _plan_plain(state: TileState, match: str, offsets, row0: int,
+                gTY: int) -> torch.Tensor:
     """Plain version of K2's plan (``_relocate_plan_kernel`` +
-    ``_plan_choose``) over the whole grid: i32 [cap, TY, TX]."""
+    ``_plan_choose``) over the whole grid, i32 [cap, TY, TX], under
+    ``match``; ``offsets(x, y, sty, stx)`` is where a particle stored in
+    global tile (sty, stx) steps."""
     cap, TY, TX = state.dims
-    match, t, delta, gTY = _k2_args(state, config, global_rows)
     my_row, my_ty, my_tx = _grid_coords(state.dims, row0, state.device)
 
     # claims[e, s]: neighbour e's slot-s occupant hops to me this step
@@ -302,8 +333,7 @@ def relocate_plan_plain(state: TileState, config: SimConfig, row0: int = 0,
         p_e = shift_tiles(state.pid, ey, ex)
         valid = ((my_row + ey >= 0) & (my_row + ey <= TY - 1)
                  & (my_tx + ex >= 0) & (my_tx + ex <= TX - 1))
-        dty, dtx = step_offsets(x_e, y_e, my_ty + ey, my_tx + ex, t=t,
-                                delta=delta, gTY=gTY, gTX=TX)
+        dty, dtx = offsets(x_e, y_e, my_ty + ey, my_tx + ex)
         claims.append(valid & (p_e >= 0) & (dty == -ey) & (dtx == -ex))
     claims = torch.stack(claims)                      # [8, cap, TY, TX]
 
@@ -344,14 +374,23 @@ def relocate_pull_plain(state: TileState, config: SimConfig, row0: int = 0,
     """Plain PyTorch version of K2 on any device: the plan above, then
     ``_relocate_apply_kernel`` + ``_apply_merge`` as whole-grid tensor
     ops.  Returns (new state, defer i32 [TY, TX])."""
-    cap, TY, TX = state.dims
     match, t, delta, gTY = _k2_args(state, config, global_rows)
-    plan = relocate_plan_plain(state, config, row0, global_rows)
+    offsets = functools.partial(step_offsets, t=t, delta=delta, gTY=gTY,
+                                gTX=state.dims[2])
+    return _pull_plain(state, match, offsets, row0, gTY)
+
+
+def _pull_plain(state: TileState, match: str, offsets, row0: int,
+                gTY: int) -> Tuple[TileState, torch.Tensor]:
+    """One pull relocate under ``match`` and ``offsets`` (as
+    ``_plan_plain``): the plan, then the apply.  Returns (new state, defer
+    i32 [TY, TX])."""
+    cap, TY, TX = state.dims
+    plan = _plan_plain(state, match, offsets, row0, gTY)
     my_row, my_ty, my_tx = _grid_coords(state.dims, row0, state.device)
 
     fields = {n: getattr(state, n) for n in FIELDS}
-    dty, dtx = step_offsets(state.x, state.y, my_ty, my_tx, t=t,
-                            delta=delta, gTY=gTY, gTX=TX)
+    dty, dtx = offsets(state.x, state.y, my_ty, my_tx)
     in_slab = (my_row + dty >= 0) & (my_row + dty <= TY - 1)
     moving = (state.pid >= 0) & in_slab & ((dty != 0) | (dtx != 0))
 
@@ -403,3 +442,53 @@ def relocate_pull_plain(state: TileState, config: SimConfig, row0: int = 0,
         o[dst] = new[n][occ]
         outs.append(o.view(cap, TY, TX))
     return _relocated(state, outs[:5], outs[5], defer), defer
+
+
+# ---------------------------------------------------------------------------
+# K4: the pull relocate in one launch (flip matching, no hysteresis)
+# ---------------------------------------------------------------------------
+
+def relocate_one(state: TileState, config: SimConfig, row0: int = 0,
+                 global_rows: int | None = None) -> TileState:
+    """``relocate_pallas_one``: one pull relocate with the plan and the
+    apply in one launch.  It matches by flip and steps toward the home
+    tile floor(pos / t) without hysteresis, whatever the config's
+    tiled_match and hysteresis say; deferrals add to overflow_count."""
+    if state.device.type == "cpu":
+        return relocate_one_plain(state, config, row0, global_rows)[0]
+    return relocate_one_cuda(state, config, row0, global_rows)[0]
+
+
+def relocate_one_plain(state: TileState, config: SimConfig, row0: int = 0,
+                       global_rows: int | None = None
+                       ) -> Tuple[TileState, torch.Tensor]:
+    """Plain version of K4: K2's plain plan and apply under flip matching,
+    with ``home_offsets`` (the home tile by division) for the steps.
+    Returns (new state, defer i32 [TY, TX])."""
+    gTY = state.dims[1] if global_rows is None else int(global_rows)
+    t = tile_geometry(config)[0]
+    offsets = functools.partial(home_offsets, t=t, gTY=gTY,
+                                gTX=state.dims[2])
+    return _pull_plain(state, "flip", offsets, row0, gTY)
+
+
+def relocate_one_cuda(state: TileState, config: SimConfig, row0: int = 0,
+                      global_rows: int | None = None
+                      ) -> Tuple[TileState, torch.Tensor]:
+    """Launch K4 on the state's CUDA device.  Returns (new state, defer
+    i32 [TY, TX])."""
+    _check_cuda_state(state, "relocate_one")
+    cap, TY, TX = state.dims
+    gTY = TY if global_rows is None else int(global_rows)
+    outs = [torch.empty_like(state.x) for _ in range(5)]
+    opid = torch.empty_like(state.pid)
+    defer = torch.empty((TY, TX), dtype=torch.int32, device=state.device)
+    lib = _cuda.library()
+    with torch.cuda.device(state.device):
+        rc = lib.gpe_relocate_one(
+            *_ptrs(*(getattr(state, f) for f in FIELDS), *outs, opid, defer),
+            cap, TY, TX, int(row0), gTY, TX, f32(tile_geometry(config)[0]),
+            _stream(state.device))
+    _cuda.check(rc, "relocate_one")
+    LAUNCHES["relocate_one"] += 1
+    return _relocated(state, outs, opid, defer), defer

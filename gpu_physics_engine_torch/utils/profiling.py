@@ -11,7 +11,9 @@ is PyTorch's own kernels).  On a
 CPU-only engine the device fields are empty and the idle share is None.
 ``--gs`` profiles the reference-exact Gauss-Seidel engine
 (core/tuned.gs_config) instead of the production Jacobi engine, in the
-solve layout ``--layout`` (default "auto").  ``--array`` profiles the array
+solve layout ``--layout`` (default "auto"), with ``--mega`` through the
+fused kernels (gs_colors_mega and gs_relocate_mega; the par layout).
+``--array`` profiles the array
 Engine (core/engine.py) with ``--particles`` in 1.1x as many slots, the
 README's default world, and ``--pipeline``, ``--solver`` and
 ``--sort-impl`` (default sorted, colored, radix); keep warmup + 2 x steps
@@ -149,6 +151,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--layout", default="auto",
                     choices=["auto", "flat", "par", "mx", "dec"],
                     help="with --gs: gs_layout")
+    ap.add_argument("--mega", action="store_true",
+                    help="with --gs: gs_colors_mega and gs_relocate_mega "
+                         "(the fused kernels of the par layout)")
     ap.add_argument("--array", action="store_true",
                     help="the array Engine (pipeline sorted/bucket)")
     ap.add_argument("--pipeline", default="sorted",
@@ -180,7 +185,9 @@ def main(argv=None) -> dict:
                                 0.5 * engine.config.world_height))
     elif args.gs:
         engine = TiledEngine(gs_config(args.particles,
-                                       gs_layout=args.layout),
+                                       gs_layout=args.layout,
+                                       gs_colors_mega=args.mega,
+                                       gs_relocate_mega=args.mega),
                              chunk=64, device=args.device)
     else:
         engine = make_tuned_engine(args.particles, device=args.device)
@@ -192,7 +199,8 @@ def main(argv=None) -> dict:
         out.update(pipeline=cfg.pipeline, solver=cfg.solver,
                    sort_impl=cfg.sort_impl, mouse=args.mouse)
     else:
-        out.update(solver=cfg.tiled_solver, gs_layout=cfg.gs_layout)
+        out.update(solver=cfg.tiled_solver, gs_layout=cfg.gs_layout,
+                   mega=cfg.gs_colors_mega and cfg.gs_relocate_mega)
     for k in out["kernels"]:
         k["name"] = k["name"].split("(")[0][:80]
     print(json.dumps({**out, "kernels": out["kernels"][:10]}))

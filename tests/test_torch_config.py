@@ -145,6 +145,13 @@ def test_port_imports_and_steps_with_jax_blocked():
         "assert isinstance(a, g.Engine)\n"
         "a.run(4)\n"
         "assert a.num_particles() == 64\n"
+        "from gpu_physics_engine_torch.ops import gs_mega, gs_parity\n"
+        "ge = g.TiledEngine(tuned.gs_config(64, world_width=16.0,\n"
+        "    world_height=16.0, tile_cap=4, gs_layout='par',\n"
+        "    gs_colors_mega=True, gs_relocate_mega=True), seed=1,\n"
+        "    device='cpu')\n"
+        "ge.run(3)\n"
+        "assert ge.num_particles() == 64\n"
         "assert not any(m == 'gpu_physics_engine_tpu' or\n"
         "    m.startswith('gpu_physics_engine_tpu.') for m in sys.modules)\n"
         "print('ok')\n")

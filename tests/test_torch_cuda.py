@@ -5,7 +5,9 @@ Imports torch and the port only, so it also runs where jax is absent:
 repository's conftest imports jax).  Without a CUDA device every test here
 skips.  K1 and K3 agree with their plain versions within 1e-5 (rsqrt
 rounding); K2, K5 and K6 bit for bit, on the flat and the parity layouts,
-and the Verlet tail too; the par engine equals the flat engine.  K12 (the
+and the Verlet tail too; the par engine equals the flat engine.  The
+fused kernels (colors_mega, relocate_mega, K4) bit for bit, and equal to
+the sequential kernels they fuse.  K12 (the
 radix sort's rank/histogram pass) bit for bit, the radix sort equals
 torch.sort(stable=True), and the array Engine's radix run on the card
 equals its lax run bit for bit.
@@ -251,6 +253,82 @@ def test_par_engine_on_card_matches_flat_engine_on_card():
     for f in FIELDS + ("overflow_count",):
         assert torch.equal(getattr(engines[0].state, f),
                            getattr(engines[1].state, f)), f
+
+
+@pytest.mark.parametrize("cap, K, uniform", [(4, 8, True), (2, 3, False)])
+@pytest.mark.parametrize("origin", [0, -1])
+def test_fused_gs_kernels_match_plain(cap, K, uniform, origin):
+    """colors_mega (with and without the Verlet tail) and relocate_mega
+    bit-equal to their plain versions and to the sequential kernels (four
+    K6-par launches plus the tail; K2-par), one launch each."""
+    from gpu_physics_engine_torch.ops import gs_mega as gm
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    cfg, st = _gs_scene(cap, K, seed=cap + 30)
+    cfg = cfg.replace(tiled_uniform_radius=uniform)
+    if uniform:
+        st = st.replace(radius=torch.where(st.pid >= 0, 0.5, 0.0))
+    ps = gp.to_parity_state(st, cfg, origin)
+    src, _, rrad, _ = gp.rank_par(ps, cfg)
+    prm = StepParams.make(0.02, mouse=(20.0, 15.0), pressed=True
+                          ).as_tensor("cuda")
+    for tail in ((None, prm) if uniform else (None,)):
+        runs = [ps.replace(**{f: getattr(ps, f).clone()
+                              for f in ("x", "y", "px", "py")})
+                for _ in range(3)]
+        n0 = gm.LAUNCHES["gs_colors_mega"]
+        gm.colors_mega(runs[0], src, rrad, cfg, tail)
+        assert gm.LAUNCHES["gs_colors_mega"] == n0 + 1
+        gm.colors_mega_plain(runs[1], src, rrad, cfg, tail)
+        for color in (1, 2, 3, 4):
+            gp.color_par_cuda_(runs[2].x, runs[2].y, src, rrad, cfg,
+                               runs[2].geo, color)
+        if tail is not None:
+            gp.verlet_cuda_(runs[2].x, runs[2].y, runs[2].px, runs[2].py,
+                            ps.pid, tail, cfg)
+        for f in ("x", "y", "px", "py"):
+            assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+            assert torch.equal(getattr(runs[0], f), getattr(runs[2], f)), f
+        assert int((runs[0].x != ps.x).sum()) > 0
+    moved = ps.replace(x=ps.x + torch.where(ps.pid >= 0, 0.6, 0.0))
+    n0 = gm.LAUNCHES["relocate_mega"]
+    a, da = gm.relocate_mega_cuda(moved, cfg)
+    assert gm.LAUNCHES["relocate_mega"] == n0 + 1
+    for b, db in (gp.relocate_par_plain(moved, cfg),
+                  gp.relocate_par_cuda(moved, cfg)):
+        for f in ("x", "y", "px", "py", "pid", "overflow_count"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert uniform or torch.equal(a.radius, b.radius)
+        assert torch.equal(da, db) and int(da.sum()) > 0
+
+
+@pytest.mark.parametrize("uniform, cap", [(False, 4), (True, 4),
+                                          (True, 32)])
+def test_k4_cuda_matches_plain(uniform, cap):
+    """K4 bit-equal to its plain version, whatever the config's matching
+    and hysteresis, and to K2 under flip with delta 0 where no particle
+    lies within an ulp of a tile edge (there the division and the products
+    part).  At cap 32 the block's plans pass 48 KB of shared memory."""
+    cfg, st = _scene(match="greedy", hysteresis=-1.0, uniform=uniform,
+                     cap=cap)
+    n0 = tk.LAUNCHES["relocate_one"]
+    a, da = tk.relocate_one_cuda(st, cfg)
+    assert tk.LAUNCHES["relocate_one"] == n0 + 1
+    b, db = tk.relocate_one_plain(st, cfg)
+    for f in FIELDS + ("overflow_count",):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(da, db) and int((a.pid != st.pid).sum()) > 0
+    flip = cfg.replace(tiled_match="flip", tiled_hysteresis=0.0)
+    t, TY, TX = tt.tile_geometry(cfg)
+    sty = torch.arange(TY, device="cuda").view(1, TY, 1)
+    stx = torch.arange(TX, device="cuda").view(1, 1, TX)
+    rule = [u != v for u, v in zip(
+        tt.step_offsets(st.x, st.y, sty, stx, t=t, delta=0.0, gTY=TY,
+                        gTX=TX),
+        tk.home_offsets(st.x, st.y, sty, stx, t=t, gTY=TY, gTX=TX))]
+    if not bool(((rule[0] | rule[1]) & (st.pid >= 0)).any()):
+        c, _ = tk.relocate_pull_cuda(st, flip)
+        for f in FIELDS + ("overflow_count",):
+            assert torch.equal(getattr(a, f), getattr(c, f)), f
 
 
 def _radix_keys(n=25_006, seed=12):

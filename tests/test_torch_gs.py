@@ -320,28 +320,39 @@ def test_unfused_step_is_k3_then_integrate():
     dict(gs_layout="dec"), dict(gs_layout="mx"), dict(gs_layout="par"),
     dict(gs_colors_mega=True), dict(gs_relocate_mega=True)])
 def test_unported_gs_options_raise(kw):
-    """The mega kernels (K11) are not ported and raise; the dec, mx and par
-    layouts are (ops/gs_parity) and step as the flat layout does."""
+    """Every GS option is ported now; none raises.  The dec, mx and par
+    layouts (ops/gs_parity) step as the flat layout does.  The mega flags
+    (ops/gs_mega, uniform radius in the par layout, where the JAX package
+    takes them) step as the par layout does without them, in the engine
+    and in tiled_step_fn."""
     _, tcfg = gs_cfgs(30, tiled_collide="auto", tiled_relocate="auto", **kw)
     pos, rad = gs_scene("random", 30, seed=17)
-    st = tt.init_tiles(tcfg, pos, rad)
-    p = TParams.make(tcfg.dt)
     if "gs_layout" in kw:
+        st = tt.init_tiles(tcfg, pos, rad)
+        p = TParams.make(tcfg.dt)
         TEngine.from_arrays(tcfg, pos, rad, device="cpu")
         want = tt.tiled_step_fn(st, p, tcfg.replace(gs_layout="flat"))
         got = tt.tiled_step_fn(st, p, tcfg)
         for f in tt.FIELDS + ("overflow_count",):
             assert torch.equal(getattr(got, f), getattr(want, f)), f
         return
-    with pytest.raises(NotImplementedError, match="K11"):
-        TEngine.from_arrays(tcfg, pos, rad, device="cpu")
-    with pytest.raises(NotImplementedError, match="K11"):
-        tt.tiled_step_fn(st, p, tcfg)
-    # every layout runs without the mega flags
-    for layout in ("flat", "auto", "dec", "mx", "par"):
-        c = tcfg.replace(gs_layout=layout, gs_colors_mega=False,
-                         gs_relocate_mega=False)
-        tt.tiled_step_fn(st, TParams.make(c.dt), c)
+    tcfg = tcfg.replace(gs_layout="par", tiled_uniform_radius=True)
+    rad = np.full_like(rad, 0.5)
+    st = tt.init_tiles(tcfg, pos, rad)
+    off = tcfg.replace(gs_colors_mega=False, gs_relocate_mega=False)
+    p = TParams.make(tcfg.dt, mouse=(8.0, 8.0), pressed=True)
+    want, got = tt.tiled_step_fn(st, p, off), tt.tiled_step_fn(st, p, tcfg)
+    for f in tt.FIELDS + ("overflow_count",):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    engines = [TEngine.from_arrays(c, pos, rad, device="cpu")
+               for c in (off, tcfg)]
+    for e in engines:
+        e.press_mouse((8.0, 8.0))
+        e.run(3)
+    for f in tt.FIELDS + ("overflow_count",):
+        assert torch.equal(getattr(engines[0].state, f),
+                           getattr(engines[1].state, f)), f
+    assert not torch.equal(engines[1].state.x, st.x)
 
 
 def test_gs_wrappers_raise_on_unsupported_tensors():

@@ -352,9 +352,19 @@ def _jax_par_steps():
     return out
 
 
-@pytest.mark.parametrize("mouse", ["released", "pressed"])
+@pytest.mark.parametrize("mouse", ["released", "pressed", "released-mega",
+                                   "pressed-mega"])
 def test_par_step_matches_jax_parity_step(mouse):
+    """The "-mega" cases run the port with gs_colors_mega and
+    gs_relocate_mega on (the fused route: ops/gs_mega) against the same
+    JAX result.  That is the JAX package's own answer for those flags off
+    its TPU: its gates (gs_parity.py:447-449, :695-697) take the
+    sequential branch there, and on the TPU the fused kernels are held
+    bit-exact to it (scripts/tpu_probe_gs_mega.py)."""
+    mouse, _, mega = mouse.partition("-")
     _, tcfg = _jax_par_cfgs()
+    if mega:
+        tcfg = tcfg.replace(gs_colors_mega=True, gs_relocate_mega=True)
     pos, rad = dense_scene()
     st = tstate(tcfg, pos, rad)
     p = TParams.make(tcfg.dt, mouse=(8.0, 4.0), pressed=mouse == "pressed")
