@@ -12,8 +12,10 @@ non-zero with no result line:
   3. kernel vs plain on the card, every kernel run twice (bit-equal), at
      a small shape and at the shape and config of every path below that
      launches it: K1 (fused collide + integrate) and K3 (collide) for the
-     uniform and the general radius at the 4M [8, 640, 1850] and 256k
-     [9, 176, 506] shapes, within 1e-5 with pid equal; K2 (pull relocate)
+     uniform and the general radius at small shapes (box and circle
+     worlds, and a [6, 21, 39] grid that is no multiple of K1's 8 x 32
+     region) and at the 4M [8, 640, 1850] and 256k [9, 176, 506] shapes,
+     bit-equal; K2 (pull relocate)
      there for flip / flip2 / greedy, hysteresis on and off, and at the
      GS shapes [4, 960, 2773] and [6, 960, 2773] with the GS config,
      bit-equal; K5 (GS rank) and K6 (GS color solve) on a small
@@ -52,21 +54,23 @@ non-zero with no result line:
      (32 steps), beside the same loop with K2;
   6. the array Engine (pipeline "sorted", the 4-color Gauss-Seidel solve,
      the Morton resort every 240 steps) at the README's 1,000,000
-     particles in 1,100,800 slots, sort_impl="radix": first K12 (the radix
-     sort's rank/histogram pass) against its plain version, twice,
-     bit-equal, for all 4 passes of a sort, on a 25,006-key reverse ramp
-     with duplicates and sentinels and on the scene's 4,403,200 pair keys,
-     each whole radix sort equal to torch.sort(stable=True); the scene's
-     candidate cells on the card equal to the CPU's; then 256 steps (128
-     free, 128 with the mouse at the world centre, crossing the resort at
-     step 240) with 4 x 256 + 4 K12 launches, the same run with
-     sort_impl="lax" (no K12 launch, final state bit-equal), and 64 steps
-     each of pipeline "bucket" and solver "jacobi";
+     particles in 1,100,800 slots, sort_impl="radix": first the radix
+     sort's three kernels, K12 (the rank/histogram pass), radix_offsets
+     (the digit-offset scan) and radix_scatter, against their plain
+     versions, twice, bit-equal, for all 4 passes of a sort, on a
+     25,006-key reverse ramp with duplicates and sentinels, on the scene's
+     4,403,200 pair keys and on its 1,100,800 resort codes, each whole
+     radix sort equal to torch.sort(stable=True); the scene's candidate
+     cells on the card equal to the CPU's; then 256 steps (128 free, 128
+     with the mouse at the world centre, crossing the resort at step 240)
+     with 4 x 256 + 4 launches of each radix kernel, the same run with
+     sort_impl="lax" (no radix launch, final state bit-equal), and 64
+     steps each of pipeline "bucket" and solver "jacobi";
   7. the unfused path (tiled_fuse_integrate=False) at 4,194,304 for 64
      steps: K3 on every step;
   8. kernel times at the main paths' shapes against their plain versions,
      with each kernel's bound on this card (and, for K12, the time of
-     torch.sort(stable=True) of the same pairs beside the hand radix
+     torch.sort(stable=True) of the same pairs beside the whole hand radix
      sort's).
 
 Then a line {"kernels": [...]} and, last, the result line
@@ -81,6 +85,8 @@ import subprocess
 import sys
 import time
 
+from gpu_physics_engine_torch.utils.profiling import cuda_ms
+
 # H100 SXM data-sheet peaks (dense): device memory bytes/s and f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -89,23 +95,6 @@ PEAK_F32 = 67e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device ms per call of ``fn`` over ``reps`` calls (CUDA
-    events around the whole batch, after ``warmup`` calls)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _counted():
@@ -223,17 +212,49 @@ def check_relocate(label, cfg, st, modes, errs: dict) -> None:
             f"repeat bit-equal, deferred {int(da.sum())} of {n_live}")
 
 
+def _ragged_state(cap, uniform):
+    """A small scene whose grid is no multiple of K1's 8 x 32 region: TX
+    39, and TY 21 (three of the empty rows above the world dropped; one
+    stays as the ring)."""
+    import numpy as np
+    from gpu_physics_engine_torch import SimConfig
+    from gpu_physics_engine_torch.ops import tiled
+    cfg = SimConfig(max_particles=1500, initial_particles=1500,
+                    world_width=80.0, world_height=33.0, pipeline="tiled",
+                    tile_cap=cap, tiled_uniform_radius=uniform)
+    rng = np.random.default_rng(11)
+    pos = np.stack([rng.uniform(0.6, 79.4, 1500),
+                    rng.uniform(0.6, 32.4, 1500)], -1).astype(np.float32)
+    rad = (np.full(1500, 0.5, np.float32) if uniform
+           else rng.uniform(0.3, 0.5, 1500).astype(np.float32))
+    prev = (pos + rng.normal(0, 0.05, pos.shape)).astype(np.float32)
+    st = tiled.init_tiles(cfg, pos, rad, previous_positions=prev,
+                          device="cuda")
+    ty = st.dims[1] - 3
+    if bool((st.pid[:, ty - 1:] >= 0).any()):
+        raise AssertionError("ragged scene: particles in the rows cut")
+    return cfg, st.replace(**{f: getattr(st, f)[:, :ty].contiguous()
+                              for f in tiled.FIELDS})
+
+
 def phase_jacobi_kernels(scenes, errs: dict) -> None:
-    """K1, K3 and K2 against their plain versions on the card, at a small
-    shape and at each Jacobi path's ``scenes`` [(label, config, state)]."""
+    """K1, K3 and K2 against their plain versions on the card, at small
+    shapes (box and circle worlds, a grid no multiple of K1's region) and
+    at each Jacobi path's ``scenes`` [(label, config, state)]: K1 and K3
+    bit-equal and bit-equal on repeat, uniform and general radius."""
     import torch
     from gpu_physics_engine_torch import StepParams
     from gpu_physics_engine_torch.ops import tiled_kernels as tk
     small_cfg, small_uniform = _small_state(4, uniform=True)
     _, small_mixed = _small_state(4, uniform=False)
+    ragged_cfg, ragged_uniform = _ragged_state(6, uniform=True)
+    _, ragged_mixed = _ragged_state(6, uniform=False)
     # (label, config, state for the uniform variant, for the general one);
     # the general variant reads the radius plane (mixed radii when small)
-    shapes = [("small", small_cfg, small_uniform, small_mixed)] + [
+    shapes = [("small", small_cfg, small_uniform, small_mixed),
+              ("small-circle", small_cfg.replace(world_shape="circle"),
+               small_uniform, small_mixed),
+              ("ragged", ragged_cfg, ragged_uniform, ragged_mixed)] + [
         (label, cfg, st, st) for label, cfg, st in scenes]
     for label, cfg, st, st_general in shapes:
         prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
@@ -251,17 +272,20 @@ def phase_jacobi_kernels(scenes, errs: dict) -> None:
                 a, a2, b = kern(), kern(), plain()
                 torch.cuda.synchronize()
                 err = _max_err(a, b, fields)
-                same = _same(a, a2, fields)
-                if not (err <= 1e-5 and same and torch.equal(a.pid, b.pid)):
-                    raise AssertionError(f"{tag} {label} uniform={uniform}: "
-                                         f"max err {err}, repeat {same}")
+                same, rep = _same(a, b, fields), _same(a, a2, fields)
+                if not (same and rep and torch.equal(a.pid, b.pid)):
+                    raise AssertionError(
+                        f"{tag} {label} uniform={uniform}: bit-equal "
+                        f"{same} (max err {err}), repeat {rep}")
                 errs[name] = max(errs.get(name, 0.0), err)
+                moved = int((a.x != s.x).sum())
                 log(f"[{tag}] {label} {list(s.dims)} uniform={uniform}: "
-                    f"max_abs_err {err:.3g}, repeat bit-equal")
+                    f"bit-equal and repeat bit-equal ({moved} slots moved)")
         # K2: every matching mode, hysteresis off and auto
-        check_relocate(label, cfg, st, [(m, h) for m in ("flip", "flip2",
-                                                         "greedy")
-                                        for h in (0.0, -1.0)], errs)
+        if not label.startswith(("small-", "ragged")):
+            check_relocate(label, cfg, st,
+                           [(m, h) for m in ("flip", "flip2", "greedy")
+                            for h in (0.0, -1.0)], errs)
 
 
 def _gs_small_state():
@@ -752,10 +776,11 @@ def _pair_keys(state, cfg):
 
 
 def check_radix(label, keys) -> "torch.Tensor":
-    """K12 against its plain version on each of the 4 passes' real inputs
-    (the keys after the earlier passes), twice, bit-equal; the whole radix
-    sort equal to torch.sort(stable=True).  Returns the padded int32 key
-    bits of the first pass."""
+    """K12, radix_offsets and radix_scatter against their plain versions
+    on each of the 4 passes' real inputs (the keys after the earlier
+    passes), twice, bit-equal; the whole radix sort equal to
+    torch.sort(stable=True).  Returns the padded int32 key bits of the
+    first pass."""
     import torch
     from gpu_physics_engine_torch.ops import radix_sort as rs
     n = keys.shape[0]
@@ -764,19 +789,30 @@ def check_radix(label, keys) -> "torch.Tensor":
     first = bits
     vals = torch.arange(bits.shape[0], dtype=torch.int32, device="cuda")
     for p in range(4):
-        got, again = rs.rank_hist_cuda(bits, 8 * p), rs.rank_hist_cuda(
-            bits, 8 * p)
+        shift = 8 * p
+        got, again = rs.rank_hist_cuda(bits, shift), rs.rank_hist_cuda(
+            bits, shift)
         _equal_or_raise(f"K12 {label} pass {p}", got,
-                        rs.rank_hist_plain(bits, 8 * p), again)
-        bits, vals = rs.one_pass(bits, vals, 8 * p)
+                        rs.rank_hist_plain(bits, shift), again)
+        rank, hist = got
+        off = rs.digit_offsets_cuda(hist)
+        _equal_or_raise(f"radix_offsets {label} pass {p}", off,
+                        rs.digit_offsets_plain(hist),
+                        rs.digit_offsets_cuda(hist))
+        out = rs.scatter_cuda(bits, vals, rank, hist, off, shift)
+        _equal_or_raise(f"radix_scatter {label} pass {p}", out,
+                        rs.scatter_plain(bits, vals, rank, off, shift),
+                        rs.scatter_cuda(bits, vals, rank, hist, off, shift))
+        bits, vals = out
     sk, sv = rs.radix_sort_pairs(
         keys, torch.arange(n, dtype=torch.int32, device="cuda"))
     wk, wi = torch.sort(keys, stable=True)
     _equal_or_raise(f"radix sort {label} vs torch.sort", (sk, sv),
                     (wk, wi.to(torch.int32)))
-    log(f"[k12] {label} {bits.shape[0]} keys ({bits.shape[0] // rs.BLOCK} "
-        f"blocks): 4 passes bit-equal to the plain version and on repeat; "
-        f"the radix sort == torch.sort(stable=True)")
+    log(f"[radix] {label} {bits.shape[0]} keys ({bits.shape[0] // rs.BLOCK}"
+        f" blocks): K12, radix_offsets and radix_scatter bit-equal to their "
+        f"plain versions and on repeat on all 4 passes; the radix sort == "
+        f"torch.sort(stable=True)")
     return first
 
 
@@ -797,7 +833,8 @@ def phase_array_kernels(errs: dict):
     st = e.state
     check_radix("1M resort codes", resort.home_cell_codes(
         st.x, st.y, st.active_mask(), stepper.cell_size(cfg, st)))
-    errs["radix_rank_hist"] = 0.0
+    for name in RADIX:
+        errs[name] = 0.0
     check_candidates("1M scene", e.state, cfg)
     return big
 
@@ -870,6 +907,7 @@ def phase_array_engine(make, windows, label, expect) -> dict:
     return {"launches": got, "win_ms": win_ms, "engine": e}
 
 
+RADIX = ("radix_rank_hist", "radix_offsets", "radix_scatter")
 ARRAY_STATE = ("x", "y", "px", "py", "radius", "num_active",
                "steps_since_sort", "max_radius", "overflow_count")
 
@@ -883,12 +921,12 @@ def phase_array_paths(paths: dict) -> None:
     from gpu_physics_engine_torch import Engine
     windows = [(128, None), (128, CENTRE)]
     runs = {}
-    for impl, k12 in (("radix", 4 * 256 + 4), ("lax", 0)):
+    for impl, count in (("radix", 4 * 256 + 4), ("lax", 0)):
         label = f"1M-array-{impl}"
         runs[impl] = phase_array_engine(
             lambda: Engine(_array_cfg(sort_impl=impl), seed=0,
                            device="cuda"),
-            windows, label, {"radix_rank_hist": k12})
+            windows, label, dict.fromkeys(RADIX, count))
         paths[label] = runs[impl]["launches"]
     a, b = runs["radix"]["engine"].state, runs["lax"]["engine"].state
     diff = [f for f in ARRAY_STATE
@@ -905,7 +943,7 @@ def phase_array_paths(paths: dict) -> None:
         run = phase_array_engine(
             lambda: Engine(_array_cfg(sort_impl="radix", **kw), seed=0,
                            device="cuda"),
-            [(64, None)], label, {"radix_rank_hist": 0})
+            [(64, None)], label, dict.fromkeys(RADIX, 0))
         paths[label] = run["launches"]
         del run
         torch.cuda.empty_cache()
@@ -985,9 +1023,16 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     out["relocate_mega"] = out["relocate_par"]
     out["relocate_one"] = out["relocate_pull"]
     # K12: each key read once, each rank written once, one 256-bin
-    # histogram per 1024-key block; a handful of integer operations
+    # histogram per 1024-key block; a handful of integer operations a key
     nkeys = float(radix_bits.shape[0])
-    out["radix_rank_hist"] = _bound(8 * nkeys + nkeys / 1024 * 256 * 4, 0.0)
+    hist_bytes = nkeys / 1024 * 256 * 4
+    out["radix_rank_hist"] = _bound(8 * nkeys + hist_bytes, 0.0)
+    # the offsets read the histogram and write the offsets; the scatter
+    # reads key, payload and rank and one offset row a block (1 KiB) and
+    # writes key and payload (the kernel also reads the block's histogram
+    # row to stage in digit order; the function does not need it)
+    out["radix_offsets"] = _bound(2 * hist_bytes, 0.0)
+    out["radix_scatter"] = _bound(20 * nkeys + hist_bytes, 0.0)
     return out
 
 
@@ -1089,9 +1134,19 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
     runs.update(par)
     shapes.update({name: par_shape for name in par})
     from gpu_physics_engine_torch.ops import radix_sort as rs
+    obj = torch.arange(radix_bits.shape[0], dtype=torch.int32,
+                       device="cuda")
+    rank, hist = rs.rank_hist_cuda(radix_bits, 0)
+    off = rs.digit_offsets_cuda(hist)
     runs["radix_rank_hist"] = (lambda: rs.rank_hist_cuda(radix_bits, 0),
                                lambda: rs.rank_hist_plain(radix_bits, 0), 1)
-    shapes["radix_rank_hist"] = list(radix_bits.shape)
+    runs["radix_offsets"] = (lambda: rs.digit_offsets_cuda(hist),
+                             lambda: rs.digit_offsets_plain(hist), 1)
+    runs["radix_scatter"] = (
+        lambda: rs.scatter_cuda(radix_bits, obj, rank, hist, off, 0),
+        lambda: rs.scatter_plain(radix_bits, obj, rank, off, 0), 1)
+    for name in RADIX:
+        shapes[name] = list(radix_bits.shape)
     out = {}
     for name, (kern, plain, per) in runs.items():
         p1 = cuda_ms(plain, reps=2) / per
@@ -1101,10 +1156,9 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
         out[name] = (min(k1, k2), min(p1, p2))
         log(f"[time] {name} {shapes[name]}: kernel {k1:.4f} / {k2:.4f} ms, "
             f"plain {p1:.3f} / {p2:.3f} ms per launch")
-    # the sort K12 serves: torch.sort of the pairs against the hand radix
-    # sort (4 K12 passes and their plain-PyTorch scans, scatters, gathers)
+    # the sort the radix kernels serve: torch.sort of the pairs against the
+    # hand radix sort (4 passes of K12, radix_offsets and radix_scatter)
     keys = rs.from_i32_bits(radix_bits)
-    obj = torch.arange(keys.shape[0], dtype=torch.int32, device="cuda")
 
     def lib_sort():
         sk, idx = torch.sort(keys, stable=True)
@@ -1113,8 +1167,8 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
     lib[1] = cuda_ms(lambda: rs.radix_sort_pairs(keys, obj), reps=10)
     lib[2] = cuda_ms(lambda: rs.radix_sort_pairs(keys, obj), reps=10)
     log(f"[time] sort of {keys.shape[0]} pairs: torch.sort(stable=True) "
-        f"{lib[0]:.4f} / {lib[3]:.4f} ms, the hand radix sort (4 K12 "
-        f"passes) {lib[1]:.4f} / {lib[2]:.4f} ms")
+        f"{lib[0]:.4f} / {lib[3]:.4f} ms, the hand radix sort (4 passes of "
+        f"K12, radix_offsets, radix_scatter) {lib[1]:.4f} / {lib[2]:.4f} ms")
     torch.cuda.synchronize()
     return out, {"radix_rank_hist": min(lib[0], lib[3])}
 
@@ -1165,6 +1219,11 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
      "gpu_physics_engine_tpu/ops/gs_pallas.py:783", "1M-GS-dec"),
     ("radix_rank_hist", "radix_rank_hist", "csrc/radix_kernels.cuh",
      "gpu_physics_engine_tpu/ops/radix_sort.py:80", "1M-array-radix"),
+    # the two below replace XLA steps of _one_pass, not a pallas_call
+    ("radix_offsets", "radix_offsets", "csrc/radix_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/radix_sort.py:111", "1M-array-radix"),
+    ("radix_scatter", "radix_scatter", "csrc/radix_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/radix_sort.py:114", "1M-array-radix"),
     ("gs_colors_mega", "gs_colors_mega", "csrc/gs_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_mega.py:503", "1M-GS-mega"),
     ("relocate_mega", "relocate_mega", "csrc/tiled_kernels.cuh",

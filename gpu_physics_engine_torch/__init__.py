@@ -6,8 +6,9 @@ repository as the reference.  Module names mirror the JAX package's:
   core/    SimConfig, StepParams, ParticleState, tuned tables, TiledEngine
            (the tiled pipeline), Engine and stepper (the array pipelines:
            pipeline "sorted" or "bucket", solver "colored" or "jacobi")
-  ops/     grid.py, sort.py, radix_sort.py (the hand radix sort: its
-           rank/histogram pass is a CUDA kernel), collision.py, resort.py,
+  ops/     grid.py, sort.py, radix_sort.py (the hand radix sort: each
+           pass is three CUDA kernels, the rank/histogram, the digit
+           offsets and the scatter), collision.py, resort.py,
            spawn.py, morton.py, scan.py, integrate.py (the array
            pipelines' stages), tiled.py (tile storage, plain tensor ops, sweeps, the step),
            tiled_kernels.py (wrappers of the Jacobi-path CUDA kernels +
@@ -18,7 +19,8 @@ repository as the reference.  Module names mirror the JAX package's:
            kernels' wrappers + plain versions), _cuda.py (nvcc build +
            ctypes binding)
   csrc/    the CUDA C++ kernels (sm_90a)
-  utils/   FrameTimer
+  utils/   FrameTimer, profiling.py (where a step's time goes),
+           kernel_study.py (K1 variants, the radix sort's pieces)
 
 This package imports torch and numpy, never jax.
 

@@ -17,24 +17,46 @@ constexpr int kThreads = 256;
 
 int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
+// Raise a kernel's limit of dynamic shared memory where a launch needs
+// more than the default 48 KB.  The call is made on every such launch: no
+// cell measured so far takes it (K1 past cap 9 uniform or cap 7 general,
+// the fused relocate past cap 20).  A size the card cannot give is refused
+// here, and the error returns to the caller.
+template <class Kernel>
+cudaError_t allow_smem(Kernel* kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// K1 / K3: one block of kK1Tiles threads per kK1RegionY x kK1RegionX tiles,
+// with the window's shared memory sized from cap (past 48 KB from cap 10
+// uniform, cap 8 general).
 template <bool UNIFORM, bool CIRCLE, bool INTEGRATE = true>
-void launch_k1(const float* x, const float* y, const float* px,
-               const float* py, const float* rad, const int* pid,
-               const float* prm, float* ox, float* oy, float* opx,
-               float* opy, int cap, int TY, int TX, const gpe::K1Consts& c,
-               cudaStream_t s) {
-  const long long n = (long long)cap * TY * TX;
+int launch_k1(const float* x, const float* y, const float* px,
+              const float* py, const float* rad, const int* pid,
+              const float* prm, float* ox, float* oy, float* opx, float* opy,
+              int cap, int TY, int TX, const gpe::K1Consts& c,
+              cudaStream_t s) {
+  if (cap < 1 || cap > gpe::kMaxCap || TY < 1 || TX < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((TX + gpe::kK1RegionX - 1) / gpe::kK1RegionX,
+                  (TY + gpe::kK1RegionY - 1) / gpe::kK1RegionY);
+  const int smem = gpe::k1_smem_bytes(cap, UNIFORM);
+  const cudaError_t rc = allow_smem(
+      gpe::collide_integrate_kernel<UNIFORM, CIRCLE, INTEGRATE>, smem);
+  if (rc != cudaSuccess) return (int)rc;
   gpe::collide_integrate_kernel<UNIFORM, CIRCLE, INTEGRATE>
-      <<<blocks_for(n), kThreads, 0, s>>>(x, y, px, py, rad, pid, prm, ox,
-                                          oy, opx, opy, cap, TY, TX, c);
+      <<<grid, gpe::kK1Tiles, smem, s>>>(x, y, px, py, rad, pid, prm, ox, oy,
+                                         opx, opy, cap, TY, TX, c);
+  return (int)cudaGetLastError();
 }
 
 // One launch of the fused relocate over the storage extent [ylo, ylo + NY)
 // x [xlo, xlo + NX): one block per kRegionY x kRegionX tiles, with a
 // thread for every plan of the region and its ring (612 tiles at 16 x 32:
 // 640 threads), so the plan phase is one pass of the block; 512 of them
-// then apply.  Plans past the default 48 KB of dynamic shared memory
-// (cap > 20) raise the kernel's limit first.
+// then apply (past 48 KB of shared memory from cap 21).
 constexpr int kFusedThreads =
     std::min(1024, (gpe::kRingTiles + 31) / 32 * 32);
 
@@ -51,12 +73,8 @@ int launch_fused(const void* x, const void* y, const void* px,
   const dim3 grid((NX + gpe::kRegionX - 1) / gpe::kRegionX,
                   (NY + gpe::kRegionY - 1) / gpe::kRegionY);
   const int smem = gpe::fused_smem_bytes(cap);
-  if (smem > 48 * 1024) {  // past the default limit of dynamic shared memory
-    const cudaError_t rc = cudaFuncSetAttribute(
-        gpe::relocate_fused_kernel<L, H>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
+  const cudaError_t rc = allow_smem(gpe::relocate_fused_kernel<L, H>, smem);
+  if (rc != cudaSuccess) return (int)rc;
   gpe::relocate_fused_kernel<L, H>
       <<<grid, kFusedThreads, smem,
          static_cast<cudaStream_t>(stream)>>>(
@@ -94,14 +112,12 @@ int gpe_collide(const void* x, const void* y, const void* rad,
   auto* gx = static_cast<float*>(ox);
   auto* gy = static_cast<float*>(oy);
   if (uniform)
-    launch_k1<true, false, false>(fx, fy, nullptr, nullptr, fr, ip, nullptr,
-                                  gx, gy, nullptr, nullptr, cap, TY, TX, c,
-                                  s);
-  else
-    launch_k1<false, false, false>(fx, fy, nullptr, nullptr, fr, ip,
-                                   nullptr, gx, gy, nullptr, nullptr, cap, TY,
-                                   TX, c, s);
-  return (int)cudaGetLastError();
+    return launch_k1<true, false, false>(fx, fy, nullptr, nullptr, fr, ip,
+                                         nullptr, gx, gy, nullptr, nullptr,
+                                         cap, TY, TX, c, s);
+  return launch_k1<false, false, false>(fx, fy, nullptr, nullptr, fr, ip,
+                                        nullptr, gx, gy, nullptr, nullptr,
+                                        cap, TY, TX, c, s);
 }
 
 // K1.  consts = host float[kK1NumConsts] in K1Consts order.
@@ -124,18 +140,16 @@ int gpe_collide_integrate(const void* x, const void* y, const void* px,
   auto* gpx = static_cast<float*>(opx);
   auto* gpy = static_cast<float*>(opy);
   if (uniform && circle)
-    launch_k1<true, true>(fx, fy, fpx, fpy, fr, ip, fp, gx, gy, gpx, gpy,
-                          cap, TY, TX, c, s);
-  else if (uniform)
-    launch_k1<true, false>(fx, fy, fpx, fpy, fr, ip, fp, gx, gy, gpx, gpy,
-                           cap, TY, TX, c, s);
-  else if (circle)
-    launch_k1<false, true>(fx, fy, fpx, fpy, fr, ip, fp, gx, gy, gpx, gpy,
-                           cap, TY, TX, c, s);
-  else
-    launch_k1<false, false>(fx, fy, fpx, fpy, fr, ip, fp, gx, gy, gpx, gpy,
-                            cap, TY, TX, c, s);
-  return (int)cudaGetLastError();
+    return launch_k1<true, true>(fx, fy, fpx, fpy, fr, ip, fp, gx, gy, gpx,
+                                 gpy, cap, TY, TX, c, s);
+  if (uniform)
+    return launch_k1<true, false>(fx, fy, fpx, fpy, fr, ip, fp, gx, gy, gpx,
+                                  gpy, cap, TY, TX, c, s);
+  if (circle)
+    return launch_k1<false, true>(fx, fy, fpx, fpy, fr, ip, fp, gx, gy, gpx,
+                                  gpy, cap, TY, TX, c, s);
+  return launch_k1<false, false>(fx, fy, fpx, fpy, fr, ip, fp, gx, gy, gpx,
+                                 gpy, cap, TY, TX, c, s);
 }
 
 // K2 plan: plan = int32 [cap, TY, TX].

@@ -70,64 +70,154 @@ struct K1Consts {
 };
 constexpr int kK1NumConsts = 14;
 
-// One thread per (slot, tile).  The thread gathers its own half of every
-// pair correction from all 9 neighbour tiles x CAP slots, in the order
-// (dy, dx, k) of the plain version, so it owns its output: no atomics, no
-// carry between blocks, deterministic.  (The TPU kernel's Newton form
-// evaluates each cross-tile pair once and carries band-seam reactions
-// between sequential grid steps; CUDA blocks run in no order, so this
-// gather form computes the same pair set and per-pair math with another
-// order of the f32 sums.)  Out-of-grid neighbours are skipped; empty slots
-// and non-pairs add exactly zero in the plain version, so skipping them
-// changes no bit.
+// One block owns a region of kK1RegionY x kK1RegionX tiles and works in
+// three phases, with a barrier between them:
+//
+//  1. stage: the region and a one-tile ring (the window) go to shared
+//     memory, every slot of x, y (and radius unless UNIFORM), each plane
+//     read once, coalesced along tx; per window tile a CAP-bit mask of
+//     its occupied slots (pid >= 0).  Tiles outside the grid keep an
+//     empty mask.
+//  2. sweep: the region's occupied (tile, slot) pairs, listed in tile-major
+//     order, are dealt to the threads, so no thread walks an empty slot and
+//     a warp works on neighbouring tiles (its shared-memory reads land on
+//     neighbouring words).  Each particle gathers its own half of every
+//     pair correction from the 9 window tiles, visiting the occupied
+//     candidates of each in ascending slot order: the order (dy, dx, k) of
+//     the plain version, so it owns its sums and they equal the plain
+//     version's bit for bit (no atomics, no carry between blocks).  Empty
+//     slots and out-of-grid tiles add exactly zero in the plain version,
+//     so skipping them changes no bit.  The sums go to shared memory.
+//  3. write: one thread per (slot, tile) of the region, coalesced along tx:
+//     x + sum, y + sum (x, y from the window), then (INTEGRATE) the Verlet
+//     step.
+//
+// A thread per (slot, tile) reading its 9 x CAP candidates from device
+// memory would fetch every slot's (x, y, pid) for 72 threads at cap 8 and
+// run whole warps for one occupied lane; the window reads each once and
+// deals out occupied particles only.  The region's shape and the dealing
+// were chosen by timing the alternatives (PERF.md).  (The TPU kernel's
+// Newton form evaluates each cross-tile pair once and carries band-seam
+// reactions between sequential grid steps; CUDA blocks run in no order,
+// so this gather form computes the same pair set and per-pair math with
+// another order of the f32 sums.)
 //
 // K3 (collide_pallas, tiled_pallas.py:455, kernel _collide_band_kernel
 // :355) is this kernel with INTEGRATE = false: it writes x + acc_x, y +
 // acc_y for every slot and stops; px, py, prm, opx and opy are unused.
+constexpr int kK1RegionY = 8;   // tile rows of one block's region
+constexpr int kK1RegionX = 32;  // tile columns: a warp writes one row
+constexpr int kK1Tiles = kK1RegionY * kK1RegionX;  // = threads per block
+constexpr int kK1WinX = kK1RegionX + 2;
+constexpr int kK1WinTiles = (kK1RegionY + 2) * kK1WinX;
+
+// Dynamic shared memory of one block: window x/y (float2) [cap][window],
+// the sums (float2) [cap][region], window radius [cap][window] (general
+// radius only), occupancy masks [window], the particle list (u16)
+// [cap * region].  213,840 bytes at cap 32 (kMaxCap), general radius.
+__host__ __device__ constexpr int k1_smem_bytes(int cap, bool uniform) {
+  return kK1WinTiles * cap * 8 + kK1Tiles * cap * 8 +
+         (uniform ? 0 : kK1WinTiles * cap * 4) + kK1WinTiles * 4 +
+         kK1Tiles * cap * 2;
+}
+
 template <bool UNIFORM, bool CIRCLE, bool INTEGRATE = true>
-__global__ void collide_integrate_kernel(
+__global__ void __launch_bounds__(kK1Tiles) collide_integrate_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ rad, const int* __restrict__ pid,
     const float* __restrict__ prm, float* __restrict__ ox,
     float* __restrict__ oy, float* __restrict__ opx,
     float* __restrict__ opy, int cap, int TY, int TX, K1Consts c) {
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  float2* wxy = reinterpret_cast<float2*>(k1_smem);  // [cap][window]
+  float2* acc = wxy + cap * kK1WinTiles;              // [cap][region]
+  float* wr = reinterpret_cast<float*>(acc + cap * kK1Tiles);
+  unsigned* wmask =
+      reinterpret_cast<unsigned*>(wr + (UNIFORM ? 0 : cap * kK1WinTiles));
+  unsigned short* plist =
+      reinterpret_cast<unsigned short*>(wmask + kK1WinTiles);
+  __shared__ int warp_total[kK1Tiles / 32];
+
   const int ntiles = TY * TX;
-  const long long gi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gi >= (long long)cap * ntiles) return;
-  const int i = (int)gi;
-  const int k = i / ntiles;
-  const int tile = i - k * ntiles;
-  const int ty = tile / TX;
-  const int tx = tile - ty * TX;
+  const int by = kK1RegionY * (int)blockIdx.y;
+  const int bx = kK1RegionX * (int)blockIdx.x;
+  const int tid = threadIdx.x;
 
-  const float xm = x[i];
-  const float ym = y[i];
-  const bool occ = pid[i] >= 0;
-  const float rm = UNIFORM ? c.r0 : rad[i];
+  // 1. stage the window
+  for (int w = tid; w < kK1WinTiles; w += kK1Tiles) wmask[w] = 0u;
+  __syncthreads();
+  // x, y (and radius) are read whatever the pid: with a few occupied
+  // slots in every 32-byte sector the empty ones cost no extra sector, and
+  // all loads of an iteration then go out together
+#pragma unroll 4
+  for (int i = tid; i < cap * kK1WinTiles; i += kK1Tiles) {
+    const int k = i / kK1WinTiles;
+    const int w = i - k * kK1WinTiles;
+    const int wy = w / kK1WinX;
+    const int ty = by - 1 + wy;
+    const int tx = bx - 1 + (w - wy * kK1WinX);
+    if (ty < 0 || ty >= TY || tx < 0 || tx >= TX) continue;
+    const int g = k * ntiles + ty * TX + tx;
+    const int p = pid[g];
+    wxy[i] = make_float2(x[g], y[g]);
+    if (!UNIFORM) wr[i] = rad[g];
+    if (p >= 0) atomicOr(&wmask[w], 1u << k);  // an OR: any order
+  }
+  __syncthreads();
 
-  float ax = 0.0f, ay = 0.0f;
-  if (occ) {
+  // 2a. list the region's occupied slots: thread tid owns region tile tid
+  {
+    const int ly = tid / kK1RegionX;
+    const int lx = tid - ly * kK1RegionX;
+    const unsigned own = wmask[(ly + 1) * kK1WinX + lx + 1];
+    const int cnt = __popc(own);
+    const int lane = tid & 31, warp = tid >> 5;
+    int inc = cnt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+      if (lane >= d) inc += u;
+    }
+    if (lane == 31) warp_total[warp] = inc;
+    __syncthreads();
+    int pos = inc - cnt;
+    for (int w = 0; w < warp; ++w) pos += warp_total[w];
+    for (unsigned m = own; m; m &= m - 1u)
+      plist[pos++] = (unsigned short)((tid << 5) | (__ffs(m) - 1));
+  }
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kK1Tiles / 32; ++w) total += warp_total[w];
+  __syncthreads();
+
+  // 2b. the sweep, one listed particle per thread at a time
+  for (int e = tid; e < total; e += kK1Tiles) {
+    const int code = plist[e];
+    const int lt = code >> 5, k = code & 31;
+    const int ly = lt / kK1RegionX;
+    const int wc = (ly + 1) * kK1WinX + (lt - ly * kK1RegionX) + 1;
+    const float2 pm = wxy[k * kK1WinTiles + wc];
+    const float xm = pm.x, ym = pm.y;
+    const float rm = UNIFORM ? c.r0 : wr[k * kK1WinTiles + wc];
+    float ax = 0.0f, ay = 0.0f;
     for (int dy = -1; dy <= 1; ++dy) {
-      const int nty = ty + dy;
-      if (nty < 0 || nty >= TY) continue;
       for (int dx = -1; dx <= 1; ++dx) {
-        const int ntx = tx + dx;
-        if (ntx < 0 || ntx >= TX) continue;
-        const int ntile = nty * TX + ntx;
-        const bool self_tile = (dy == 0 && dx == 0);
-        for (int kk = 0; kk < cap; ++kk) {
-          const int j = kk * ntiles + ntile;
-          if (pid[j] < 0 || (self_tile && kk == k)) continue;
-          const float ddx = xm - x[j];
-          const float ddy = ym - y[j];
+        const int w = wc + dy * kK1WinX + dx;
+        unsigned m = wmask[w];
+        if (dy == 0 && dx == 0) m &= ~(1u << k);
+        for (; m; m &= m - 1u) {
+          const int j = (__ffs(m) - 1) * kK1WinTiles + w;
+          const float2 q = wxy[j];
+          const float ddx = xm - q.x;
+          const float ddy = ym - q.y;
           const float d2 = ddx * ddx + ddy * ddy;
           float rk = 0.0f, rsum, rsum2;
           if (UNIFORM) {
             rsum = c.rsum_c;
             rsum2 = c.rsum2_c;
           } else {
-            rk = rad[j];
+            rk = wr[j];
             rsum = rm + rk;
             rsum2 = rsum * rsum;
           }
@@ -147,51 +237,70 @@ __global__ void collide_integrate_kernel(
         }
       }
     }
+    acc[k * kK1Tiles + lt] = make_float2(ax, ay);
   }
-  const float cx = xm + ax;
-  const float cy = ym + ay;
-  if (!INTEGRATE || !occ) {
-    ox[i] = cx;
-    oy[i] = cy;
-    if (INTEGRATE) {
-      opx[i] = px[i];
-      opy[i] = py[i];
-    }
-    return;
-  }
+  __syncthreads();
 
-  // position Verlet: gravity, mouse attractor, world constraint
-  const float vel_x = cx - px[i];
-  const float vel_y = cy - py[i];
-  const float dt = prm[0], mx = prm[1], my = prm[2], pressed = prm[3];
-  const float dxm = mx - cx;
-  const float dym = my - cy;
-  const float dist = sqrtf(dxm * dxm + dym * dym);
-  const float inv = dist > 1e-6f ? 1.0f / fmaxf(dist, 1e-6f) : 0.0f;
-  const float strength = c.mouse_strength * pressed;
-  const float axm = c.gx + dxm * inv * strength;
-  const float aym = c.gy + dym * inv * strength;
-  const float dt2 = dt * dt;
-  float nx = cx + vel_x + axm * dt2;
-  float ny = cy + vel_y + aym * dt2;
-  if (CIRCLE) {
-    const float dxc = nx - c.cx;
-    const float dyc = ny - c.cy;
-    const float d2c = dxc * dxc + dyc * dyc;
-    const float max_r = c.world_r - rm;
-    if (d2c > max_r * max_r) {
-      const float invc = 1.0f / sqrtf(fmaxf(d2c, 1e-12f));
-      nx = c.cx + max_r * dxc * invc;
-      ny = c.cy + max_r * dyc * invc;
+  // 3. write every slot of the region
+#pragma unroll 4
+  for (int i = tid; i < cap * kK1Tiles; i += kK1Tiles) {
+    const int k = i / kK1Tiles;
+    const int lt = i - k * kK1Tiles;
+    const int ly = lt / kK1RegionX;
+    const int lx = lt - ly * kK1RegionX;
+    const int ty = by + ly, tx = bx + lx;
+    if (ty >= TY || tx >= TX) continue;
+    const int g = k * ntiles + ty * TX + tx;
+    const int wi = k * kK1WinTiles + (ly + 1) * kK1WinX + lx + 1;
+    const bool occ = (wmask[(ly + 1) * kK1WinX + lx + 1] >> k) & 1u;
+    const float2 a = occ ? acc[i] : make_float2(0.0f, 0.0f);
+    const float2 p = wxy[wi];  // the slot's x, y, staged in phase 1
+    const float cx = p.x + a.x;
+    const float cy = p.y + a.y;
+    if (!INTEGRATE || !occ) {
+      ox[g] = cx;
+      oy[g] = cy;
+      if (INTEGRATE) {
+        opx[g] = px[g];
+        opy[g] = py[g];
+      }
+      continue;
     }
-  } else {
-    nx = fminf(fmaxf(nx, rm), c.world_w - rm);
-    ny = fminf(fmaxf(ny, rm), c.world_h - rm);
+    const float rm = UNIFORM ? c.r0 : wr[wi];
+
+    // position Verlet: gravity, mouse attractor, world constraint
+    const float vel_x = cx - px[g];
+    const float vel_y = cy - py[g];
+    const float dt = prm[0], mx = prm[1], my = prm[2], pressed = prm[3];
+    const float dxm = mx - cx;
+    const float dym = my - cy;
+    const float dist = sqrtf(dxm * dxm + dym * dym);
+    const float inv = dist > 1e-6f ? 1.0f / fmaxf(dist, 1e-6f) : 0.0f;
+    const float strength = c.mouse_strength * pressed;
+    const float axm = c.gx + dxm * inv * strength;
+    const float aym = c.gy + dym * inv * strength;
+    const float dt2 = dt * dt;
+    float nx = cx + vel_x + axm * dt2;
+    float ny = cy + vel_y + aym * dt2;
+    if (CIRCLE) {
+      const float dxc = nx - c.cx;
+      const float dyc = ny - c.cy;
+      const float d2c = dxc * dxc + dyc * dyc;
+      const float max_r = c.world_r - rm;
+      if (d2c > max_r * max_r) {
+        const float invc = 1.0f / sqrtf(fmaxf(d2c, 1e-12f));
+        nx = c.cx + max_r * dxc * invc;
+        ny = c.cy + max_r * dyc * invc;
+      }
+    } else {
+      nx = fminf(fmaxf(nx, rm), c.world_w - rm);
+      ny = fminf(fmaxf(ny, rm), c.world_h - rm);
+    }
+    ox[g] = nx;
+    oy[g] = ny;
+    opx[g] = cx;
+    opy[g] = cy;
   }
-  ox[i] = nx;
-  oy[i] = ny;
-  opx[i] = cx;
-  opy[i] = cy;
 }
 
 // ---------------------------------------------------------------------------

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "gpe_relocate_plan_par": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
     "gpe_relocate_apply_par": [_P] * 14 + [_I] * 9 + [_F, _F, _P],
     "gpe_radix_rank_hist": [_P] * 3 + [_I] * 2 + [_P],
+    "gpe_radix_offsets": [_P] * 3 + [_I] + [_P],
+    "gpe_radix_scatter": [_P] * 7 + [_I] * 2 + [_P],
     "gpe_relocate_one": [_P] * 13 + [_I] * 6 + [_F, _P],
     "gpe_relocate_mega": [_P] * 13 + [_I] * 7 + [_F, _F, _P],
     "gpe_gs_colors_mega": [_P] * 8 + [_I] * 7 + [_F, _I, _P, _P],

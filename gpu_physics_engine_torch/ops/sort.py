@@ -6,8 +6,9 @@ unsigned and the UNUSED sentinel 0xFFFFFFFF sinks to the end.
   * ``impl="lax"``: ``torch.sort(stable=True)``, the counterpart of the
     JAX package's ``jax.lax.sort(is_stable=True)`` (a library sort on
     both sides);
-  * ``impl="radix"``: the hand LSD radix sort of ops/radix_sort, whose
-    rank/histogram pass is the CUDA kernel K12.
+  * ``impl="radix"``: the hand LSD radix sort of ops/radix_sort, each of
+    whose passes is three CUDA kernels: K12 (ranks and histograms),
+    ``radix_offsets`` and ``radix_scatter``.
 
 Both are stable, so equal cell ids keep ascending object order, and their
 outputs are equal.

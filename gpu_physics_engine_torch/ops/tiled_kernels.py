@@ -9,29 +9,31 @@ so a run can show that it went through the kernels.
 
 K1 ``collide_integrate`` replaces ``collide_integrate_pallas``
 (gpu_physics_engine_tpu/ops/tiled_pallas.py:524).
-  Bound: on-chip loads and pair math, not device memory.  Each (slot,
-  tile) thread reads the 9 x CAP neighbour slots (pid, then x, y; radius
-  in the general variant); neighbouring threads share those tiles, so the
-  reads mostly hit L1/L2.  At 4M a launch moves ~0.35 GB of device memory
-  (~0.1 ms at 3.35 TB/s) yet measured 0.6 ms on an H100 80GB HBM3 at
-  700 W (PERF.md).
-  Design: one thread per (slot, tile) gathers its own half of every pair,
-  so it owns its output: no atomics and no carry between blocks (the TPU
-  Newton form's band-seam carry needs sequential grid steps, which CUDA
-  blocks are not).  Empty candidates and non-pairs are skipped before the
-  rsqrt.  Verlet runs in the same thread, reading [dt, mx, my, pressed]
-  from device memory, so a step never syncs with the host.
+  Bound: device memory.  At the 4M shape [8, 640, 1850] the function reads
+  x, y, px, py, pid and writes x, y, px, py: 0.34 GB, 0.10 ms at 3.35
+  TB/s.  Read from device memory by a thread per (slot, tile), the 9 x CAP
+  candidates would cost ~8 GB of L1/L2 traffic for that.
+  Design: one block per 8 x 32 tiles stages its region and a one-tile
+  ring in shared memory (each plane read once, coalesced), deals its
+  occupied particles to its threads, and each particle gathers its own
+  half of every pair from shared memory in the plain version's order
+  (dy, dx, k), so it owns its output and equals the plain version bit for
+  bit: no atomics, no carry between blocks (the TPU Newton form's
+  band-seam carry needs sequential grid steps, which CUDA blocks are not).
+  The write phase runs Verlet per slot, coalesced, reading [dt, mx, my,
+  pressed] from device memory, so a step never syncs with the host.
+  Its times, and what bounds it now: PERF.md (the kernel table) and
+  ``utils/kernel_study.py``.
 
 K3 ``collide`` replaces ``collide_pallas``
 (gpu_physics_engine_tpu/ops/tiled_pallas.py:455; kernel
 ``_collide_band_kernel`` :355).
   Bound: as K1's sweep.  At the 4M shape [8, 640, 1850] the function reads
   x, y, pid (and radius in the general variant) and writes x, y: 0.19 GB,
-  0.06 ms at 3.35 TB/s; the pair loads mostly hit L1/L2.
+  0.06 ms at 3.35 TB/s.
   Design: K1's kernel with its Verlet tail switched off at compile time
   (INTEGRATE = false), so the two share one sweep; the step then runs the
-  plain ``integrate``.  Uniform and general radius as K1; the Newton flag
-  only changes the order of the sums, as for K1.
+  plain ``integrate``.  Uniform and general radius as K1.
 
 K2 ``relocate_pull`` replaces ``relocate_pallas``
 (gpu_physics_engine_tpu/ops/tiled_pallas.py:945).

@@ -1,0 +1,155 @@
+"""Time K1 against variants of its input, and the radix sort's pieces
+against torch.sort, on the card.
+
+    python -m gpu_physics_engine_torch.utils.kernel_study [--k1] [--radix]
+
+prints the card's name and power limit, then one JSON line per study
+(isolated launches, CUDA events around 20 calls after a warm-up, ms per
+call):
+
+* ``--k1``: K1 (``collide_integrate_cuda``) and K3 on the tuned engine's
+  initial scene at ``--particles`` (default 4,194,304), and K1 on two
+  variants of it that tell load traffic from pair arithmetic: "no pairs"
+  (the uniform radius shrunk to 1e-3, so every candidate is loaded and
+  tested but none passes the distance test) and "empty" (every pid -1:
+  no candidate at all).  Whether K1 and K3 equal their plain versions
+  bit for bit, and their largest difference, go into the line too.
+* ``--radix``: the array Engine's 1M scene (the README's example) and its
+  4,403,200 pair keys: ``torch.sort(stable=True)`` of the keys with the
+  payload gathered, the hand ``radix_sort_pairs``, and its pieces (one
+  pass each of K12, ``radix_offsets`` and ``radix_scatter``, and the
+  int64 <-> int32 conversions), then the device time of each kernel of
+  the hand sort from a torch.profiler window over 10 sorts (isolated
+  pieces are paced by the host where a launch is shorter than its
+  enqueue); the hand sort is checked equal to torch.sort first.
+
+Without a CUDA device it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+from gpu_physics_engine_torch.utils.profiling import cuda_ms
+
+
+def k1_study(particles: int) -> dict:
+    import torch
+    from gpu_physics_engine_torch import StepParams, make_tuned_engine
+    from gpu_physics_engine_torch.ops import tiled_kernels as tk
+    e = make_tuned_engine(particles, device="cuda")
+    cfg, st = e.config, e.state
+    prm = StepParams.make(cfg.dt).as_tensor("cuda")
+    out = {"study": "k1", "particles": particles, "dims": list(st.dims)}
+    for name, kern, plain, fields in (
+            ("collide_integrate",
+             lambda: tk.collide_integrate_cuda(st, prm, cfg),
+             lambda: tk.collide_integrate_plain(st, prm, cfg),
+             ("x", "y", "px", "py")),
+            ("collide", lambda: tk.collide_cuda(st, cfg),
+             lambda: tk.collide_plain(st, cfg), ("x", "y"))):
+        a, b = kern(), plain()
+        out[f"{name}_bit_equal"] = all(
+            torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+        out[f"{name}_max_abs_err"] = max(
+            float((getattr(a, f) - getattr(b, f)).abs().max())
+            for f in fields)
+    no_pairs = cfg.replace(initial_radius=1e-3)
+    empty = st.replace(pid=torch.full_like(st.pid, -1))
+    for name, fn in (
+            ("k1", lambda: tk.collide_integrate_cuda(st, prm, cfg)),
+            ("k1_no_pairs",
+             lambda: tk.collide_integrate_cuda(st, prm, no_pairs)),
+            ("k1_empty", lambda: tk.collide_integrate_cuda(empty, prm, cfg)),
+            ("k3", lambda: tk.collide_cuda(st, cfg))):
+        out[name] = [cuda_ms(fn), cuda_ms(fn)]
+    return out
+
+
+def radix_study() -> dict:
+    import torch
+    from gpu_physics_engine_torch import Engine, SimConfig
+    from gpu_physics_engine_torch.core import stepper
+    from gpu_physics_engine_torch.ops import grid
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    e = Engine(SimConfig(max_particles=1_100_000, initial_particles=1_000_000,
+                         sort_impl="radix"), seed=0, device="cuda")
+    st = e.state
+    cand = grid.build_candidates(st.x, st.y, st.radius, st.active_mask(),
+                                 stepper.cell_size(e.config, st))
+    keys, obj = grid.build_cell_ids(cand)
+    n = keys.shape[0]
+
+    def lib_sort():
+        sk, idx = torch.sort(keys, stable=True)
+        return sk, obj[idx]
+
+    sk, sv = rs.radix_sort_pairs(keys, obj)
+    wk, wv = lib_sort()
+    if not (torch.equal(sk, wk) and torch.equal(sv, wv)):
+        raise AssertionError("radix sort != torch.sort(stable=True)")
+    bits = rs.as_i32_bits(keys)  # n is a BLOCK multiple here: no padding
+    rank, hist = rs.rank_hist_cuda(bits, 0)
+    offset = rs.digit_offsets_cuda(hist)
+    out = {"study": "radix", "keys": n, "blocks": n // rs.BLOCK}
+    for name, fn in (
+            ("torch_sort", lib_sort),
+            ("radix_sort_pairs", lambda: rs.radix_sort_pairs(keys, obj)),
+            ("rank_hist", lambda: rs.rank_hist_cuda(bits, 0)),
+            ("radix_offsets", lambda: rs.digit_offsets_cuda(hist)),
+            ("radix_scatter", lambda: rs.scatter_cuda(bits, obj, rank, hist,
+                                                      offset, 0)),
+            ("as_i32_bits", lambda: rs.as_i32_bits(keys)),
+            ("from_i32_bits", lambda: rs.from_i32_bits(bits))):
+        out[name] = [cuda_ms(fn), cuda_ms(fn)]
+    out["in_sort_device_ms"] = sort_kernels(lambda: rs.radix_sort_pairs(
+        keys, obj), 10)
+    return out
+
+
+def sort_kernels(fn, reps: int) -> dict:
+    """Device ms per call of ``fn`` for each kernel it launches (a
+    torch.profiler window over ``reps`` calls, CUDA activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gpu_physics_engine_torch.utils.profiling import _device_us
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0:
+            rows[evt.key.split("(")[0][:60]] = us / 1e3 / reps
+    rows["total"] = sum(rows.values())
+    return rows
+
+
+def main(argv=None) -> int:
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k1", action="store_true")
+    ap.add_argument("--radix", action="store_true")
+    ap.add_argument("--particles", type=int, default=4_194_304)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_study: no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    if args.k1:
+        print(json.dumps(k1_study(args.particles)), flush=True)
+    if args.radix:
+        print(json.dumps(radix_study()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

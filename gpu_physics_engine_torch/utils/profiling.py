@@ -35,6 +35,23 @@ import json
 import time
 
 
+def cuda_ms(fn, reps: int = 20, warmup: int = 1) -> float:
+    """Mean device ms per call of ``fn`` over ``reps`` calls (CUDA
+    events around the whole batch, after ``warmup`` calls)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _device_us(evt) -> float:
     """Self device time of a key_averages row in microseconds (the
     attribute is named per torch version)."""

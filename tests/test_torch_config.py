@@ -133,7 +133,7 @@ def test_port_imports_and_steps_with_jax_blocked():
         "    radix_sort, resort, scan, sort, spawn)\n"
         "from gpu_physics_engine_torch.core import (engine, state, stepper,\n"
         "    tiled_engine, tuned)\n"
-        "from gpu_physics_engine_torch.utils import timer\n"
+        "from gpu_physics_engine_torch.utils import kernel_study, timer\n"
         "cfg = g.SimConfig(max_particles=64, initial_particles=64,\n"
         "    world_width=16.0, world_height=16.0, pipeline='tiled',\n"
         "    tile_cap=4, sort_interval_steps=3)\n"

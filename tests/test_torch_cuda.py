@@ -3,14 +3,16 @@
 Imports torch and the port only, so it also runs where jax is absent:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repository's conftest imports jax).  Without a CUDA device every test here
-skips.  K1 and K3 agree with their plain versions within 1e-5 (rsqrt
-rounding); K2, K5 and K6 bit for bit, on the flat and the parity layouts,
-and the Verlet tail too; the par engine equals the flat engine.  The
-fused kernels (colors_mega, relocate_mega, K4) bit for bit, and equal to
-the sequential kernels they fuse.  K12 (the
-radix sort's rank/histogram pass) bit for bit, the radix sort equals
-torch.sort(stable=True), and the array Engine's radix run on the card
-equals its lax run bit for bit.
+skips.  K1 and K3 equal their plain versions bit for bit at every cap
+the engine can reach, in box and circle worlds, on grids smaller than one
+shared-memory region and not a multiple of it; K2, K5 and K6 bit for bit,
+on the flat and the parity layouts, and the Verlet tail too; the par
+engine equals the flat engine.  The fused kernels (colors_mega,
+relocate_mega, K4) bit for bit, and equal to the sequential kernels they
+fuse.  K12 (the radix sort's rank/histogram pass), the digit offsets and
+the scatter bit for bit on all four passes at 1, 3 and 1,075 blocks, the
+radix sort equals torch.sort(stable=True), and the array Engine's radix
+run on the card equals its lax run bit for bit.
 """
 
 import numpy as np
@@ -60,7 +62,7 @@ def test_k1_cuda_matches_plain(uniform, world):
     torch.cuda.synchronize()
     assert tk.LAUNCHES["collide_integrate"] == n0 + 2
     for f in ("x", "y", "px", "py"):
-        assert float((getattr(a, f) - getattr(b, f)).abs().max()) < 1e-5, f
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
         assert torch.equal(getattr(a, f), getattr(c, f)), f  # deterministic
     assert torch.equal(a.pid, b.pid)
 
@@ -93,10 +95,70 @@ def test_k3_cuda_matches_plain(uniform):
     torch.cuda.synchronize()
     assert tk.LAUNCHES["collide"] == n0 + 2
     for f in ("x", "y"):
-        assert float((getattr(a, f) - getattr(b, f)).abs().max()) < 1e-5, f
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
         assert torch.equal(getattr(a, f), getattr(c, f)), f
     for f in ("px", "py", "radius", "pid"):
         assert torch.equal(getattr(a, f), getattr(st, f)), f
+
+
+def _window_scene(cap, uniform, world, width, height, cut):
+    """A scene at ``cap`` in a ``width`` x ``height`` world, jittered off
+    home; ``cut`` drops that many of the empty rows above the world, so TY
+    is no multiple of 8 (one empty row stays, as the ring).  Density 0.6
+    per unit area, less at small caps (the tiles must hold the scene)."""
+    n = int(width * height * min(0.6, 0.12 * cap))
+    cfg = SimConfig(max_particles=n, initial_particles=n, world_width=width,
+                    world_height=height, pipeline="tiled", tile_cap=cap,
+                    tiled_uniform_radius=uniform, world_shape=world,
+                    gravity=(0.0, -9.8))
+    rng = np.random.default_rng(cap)
+    pos = np.stack([rng.uniform(0.6, width - 0.6, n),
+                    rng.uniform(0.6, height - 0.6, n)], -1).astype(np.float32)
+    rad = (np.full(n, 0.5, np.float32) if uniform
+           else rng.uniform(0.3, 0.5, n).astype(np.float32))
+    prev = (pos + rng.normal(0, 0.05, pos.shape)).astype(np.float32)
+    st = tt.init_tiles(cfg, pos, rad, previous_positions=prev, device="cuda")
+    if cut:
+        rows = (st.pid >= 0).any(0).any(1).nonzero().max().item() + 2
+        assert st.dims[1] - rows >= cut
+        st = st.replace(**{f: getattr(st, f)[:, :st.dims[1] - cut].contiguous()
+                           for f in FIELDS})
+    g = torch.Generator(device="cuda").manual_seed(cap)
+    occ = st.pid >= 0
+    d = (torch.rand(st.x.shape, generator=g, device="cuda") - 0.5) * 0.6
+    return cfg, st.replace(x=torch.where(occ, st.x + d, st.x),
+                           y=torch.where(occ, st.y - d, st.y))
+
+
+@pytest.mark.parametrize("cap", [2, 6, 9, 10, 16, 32])
+@pytest.mark.parametrize("shape", ["small", "ragged", "wide"])
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("world", ["box", "circle"])
+def test_k1_k3_window_matches_plain(cap, shape, uniform, world):
+    """K1 and K3 on the shared-memory window: bit-equal to the plain
+    versions and on repeat at caps from 2 to kMaxCap (past the tuned rows:
+    the watchdog grows cap), on a grid smaller than one 8 x 32 region
+    ("small"), one whose TY and TX are no multiples of it ("ragged") and
+    one several regions wide ("wide")."""
+    width, height, cut = {"small": (12.0, 5.0, 0), "ragged": (80.0, 33.0, 3),
+                          "wide": (150.0, 40.0, 0)}[shape]
+    cfg, st = _window_scene(cap, uniform, world, width, height, cut)
+    prm = StepParams.make(0.02, mouse=(0.3 * width, 0.6 * height),
+                          pressed=True).as_tensor("cuda")
+    n0 = dict(tk.LAUNCHES)
+    runs = ((tk.collide_integrate, lambda: tk.collide_integrate_plain(
+        st, prm, cfg), ("x", "y", "px", "py"), "collide_integrate",
+             (st, prm, cfg)),
+            (tk.collide, lambda: tk.collide_plain(st, cfg), ("x", "y"),
+             "collide", (st, cfg)))
+    for kern, plain, fields, name, args in runs:
+        a, c, b = kern(*args), kern(*args), plain()
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES[name] == n0[name] + 2
+        for f in fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (name, f)
+            assert torch.equal(getattr(a, f), getattr(c, f)), (name, f)
+        assert int((a.x != st.x).sum()) > 0
 
 
 def _gs_scene(cap, K, seed):
@@ -355,6 +417,62 @@ def test_k12_cuda_matches_plain(shift):
     assert rs.LAUNCHES["radix_rank_hist"] == n0 + 2
     for u, v, w in zip(a, b, c):
         assert torch.equal(u, v) and torch.equal(u, w)
+
+
+@pytest.mark.parametrize("nblocks", [1, 3, 1075])
+def test_radix_offsets_and_scatter_match_plain(nblocks):
+    """radix_offsets and radix_scatter bit-equal to their plain versions
+    and on repeat on each of the four passes' real inputs (keys with
+    duplicates and 0xFFFFFFFF sentinels), the last pass sorted."""
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    rng = np.random.default_rng(nblocks)
+    keys = rng.integers(0, 2 ** 32, nblocks * rs.BLOCK, dtype=np.int64)
+    keys[rng.random(keys.size) < 0.3] = 7
+    keys[rng.random(keys.size) < 0.1] = 0xFFFFFFFF
+    bits = rs.as_i32_bits(torch.from_numpy(keys)).cuda()
+    vals = torch.arange(bits.shape[0], dtype=torch.int32, device="cuda")
+    n0 = dict(rs.LAUNCHES)
+    for p in range(4):
+        rank, hist = rs.rank_hist(bits, 8 * p)
+        off, off2 = rs.digit_offsets(hist), rs.digit_offsets(hist)
+        assert torch.equal(off, rs.digit_offsets_plain(hist))
+        assert torch.equal(off, off2)
+        got = rs.scatter(bits, vals, rank, hist, off, 8 * p)
+        again = rs.scatter(bits, vals, rank, hist, off, 8 * p)
+        want = rs.scatter_plain(bits, vals, rank, off, 8 * p)
+        torch.cuda.synchronize()
+        for u, v, w in zip(got, want, again):
+            assert torch.equal(u, v) and torch.equal(u, w)
+        bits, vals = got
+    assert rs.LAUNCHES["radix_offsets"] == n0["radix_offsets"] + 8
+    assert rs.LAUNCHES["radix_scatter"] == n0["radix_scatter"] + 8
+    u = rs.from_i32_bits(bits)
+    assert bool((u[1:] >= u[:-1]).all())
+    with pytest.raises(ValueError, match="payload"):
+        rs.scatter(bits, vals.to(torch.int64), rank, hist, off, 0)
+
+
+def test_radix_one_pass_on_card_matches_plain():
+    """A pass on the card, with its own work tensors and with a sort's
+    (given once, reused), equals the plain pass; an int64 payload is
+    refused, not converted."""
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    keys = _radix_keys()
+    bits = rs.as_i32_bits(torch.cat([keys, keys.new_full(
+        (-len(keys) % rs.BLOCK,), 0xFFFFFFFF)])).cuda()
+    vals = torch.arange(bits.shape[0], dtype=torch.int32, device="cuda")
+    work = rs.pass_work(bits, vals)
+    for shift in (0, 8, 16, 24):
+        want = rs.one_pass(bits.cpu(), vals.cpu(), shift)
+        got = rs.one_pass(bits, vals, shift)
+        out = (torch.empty_like(bits), torch.empty_like(vals))
+        again = rs.one_pass(bits, vals, shift, work, out)
+        torch.cuda.synchronize()
+        assert again[0] is out[0] and again[1] is out[1]
+        for u, v, w in zip(got, want, again):
+            assert torch.equal(u.cpu(), v) and torch.equal(u, w)
+    with pytest.raises(ValueError, match="payload"):
+        rs.one_pass(bits, vals.to(torch.int64), 0)
 
 
 def test_radix_sort_on_card_matches_torch_sort():
