@@ -14,18 +14,21 @@ non-zero with no result line:
      launches it: K1 (fused collide + integrate) and K3 (collide) for the
      uniform and the general radius at small shapes (box and circle
      worlds, and a [6, 21, 39] grid that is no multiple of K1's 8 x 32
-     region) and at the 4M [8, 640, 1850] and 256k [9, 176, 506] shapes,
-     bit-equal; K2 (pull relocate)
-     there for flip / flip2 / greedy, hysteresis on and off, and at the
-     GS shapes [4, 960, 2773] and [6, 960, 2773] with the GS config,
+     region) and at the 4M [8, 640, 1850], 1M [6, 480, 1388] and 256k
+     [9, 176, 506] shapes, bit-equal; K2 (pull relocate, one launch on a
+     shared-memory window; its window bytes == the Python mirror
+     at every cap) there, on the ragged grid and on a small scene at cap 32
+     (K2-par too), for flip / flip2 / greedy, hysteresis on and off, and
+     at the GS shapes [4, 960, 2773] and [6, 960, 2773],
      bit-equal; K5 (GS rank) and K6 (GS color solve) on a small
      mixed-radius scene with a jammed cluster (clamp overflow) and at both
      GS shapes: rank tables, x, y and overflow_count bit-equal; the
      parity-space kernels there too, on a small uniform scene as well, at
      the parity shapes [4, 4, 480, 1387] and [4, 6, 480, 1387]: K5-par
      (one launch for all parities and one per parity), K6-par for every
-     color on the par, mx and dec layouts, K2-par (both launch modes, the
-     config's match) and K6-par's Verlet tail, all bit-equal; the mx and
+     color on the par, mx and dec layouts, K2-par (both launch modes,
+     origins 0 and -1, every matching mode) and K6-par's Verlet tail, all
+     bit-equal; the mx and
      dec solves bit-equal to the flat solve; the fused kernels there too:
      colors_mega (with and without the tail) == its plain version == four
      K6-par launches + the tail, relocate_mega == K2-par, and K4 (the
@@ -38,8 +41,10 @@ non-zero with no result line:
      relocate of the jittered 4M state on the card == the CPU's;
   4. the Jacobi main path at 4,194,304 particles (make_tuned_engine, 150
      steps free then 150 with the mouse pressed, crossing the sweep at step
-     240) and the rebuild-sweep path at 256,000 (250 steps): launch counts,
-     conservation, bounds, ms/step and quality;
+     240), at 1,048,576 (128 steps) and the rebuild-sweep path at 256,000
+     (250 steps): launch counts, conservation, bounds, ms/step and
+     quality; then K2 against its plain version on each engine's own
+     final state, in every matching mode;
   5. the Gauss-Seidel path (tiled_solver="gs", the bench's GS config) at
      1,048,576 particles for 300 steps (150 free, 150 with the mouse at
      the world centre) and at 4,194,304 (cap 6) for 100 steps, each in the
@@ -48,7 +53,9 @@ non-zero with no result line:
      the Verlet tail once per step; no flat K5/K6/K2) and in "par" with
      gs_colors_mega and gs_relocate_mega ("mega": K5-par, colors_mega and
      relocate_mega once per step; no K6-par, K2-par or tail launch), the
-     same checks, and the three final states bit-equal; then 32 steps at
+     same checks, and the three final states bit-equal, K2 and K2-par
+     held to their plain versions on the flat and par engines' final
+     states; then 32 steps at
      1M in the "mx" and "dec" layouts (K5, K6-par, K2), bit-equal to flat;
      then K4's path, the probe's 4M frame loop with K4 as the relocate
      (32 steps), beside the same loop with K2;
@@ -143,6 +150,25 @@ def phase_build() -> None:
         log(f"[build] {ln}")
 
 
+def check_window_formula() -> None:
+    """K2's shared-memory bytes, as the launches take them from
+    csrc/tiled_kernels.cuh, equal the Python mirror in ops/tiled_kernels.py
+    at every cap 1-32 on both layouts."""
+    from gpu_physics_engine_torch.ops import _cuda, tiled_kernels as tk
+    lib = _cuda.library()
+    most = {}
+    for par in (False, True):
+        for cap in range(1, tk.MAX_CAP + 1):
+            want = tk.k2_window_bytes(cap, par)
+            got = lib.gpe_relocate_window_bytes(cap, int(par))
+            if got != want:
+                raise AssertionError(f"K2 window at cap {cap} par={par}: "
+                                     f"launch {got} B, mirror {want} B")
+            most[par] = max(most.get(par, 0), want)
+    log(f"[k2] window bytes of the launches == the Python mirror at caps "
+        f"1-{tk.MAX_CAP}: most {most[False]} B flat, {most[True]} B parity")
+
+
 def _jittered(state, scale, seed):
     """``state`` with live x/y displaced by up to +-scale (on the card)."""
     import torch
@@ -183,13 +209,18 @@ def _same(a, b, fields) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
 
 
-def check_relocate(label, cfg, st, modes, errs: dict) -> None:
+MODES = [(m, h) for m in ("flip", "flip2", "greedy") for h in (0.0, -1.0)]
+
+
+def check_relocate(label, cfg, st, modes, errs: dict, jitter=0.6) -> None:
     """K2 (pull relocate) against its plain version on ``st`` with every
-    live particle jittered by up to 0.6 tile, for each (match, hysteresis)
-    of ``modes``: bit-equal, bit-equal on repeat, no pid lost."""
+    live particle jittered by up to ``jitter`` tile (0: ``st`` as it is),
+    for each (match, hysteresis) of ``modes``: bit-equal, bit-equal on
+    repeat, no pid lost."""
     import torch
     from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
-    moved = _jittered(st, 0.6 * tiled.tile_geometry(cfg)[0], seed=1)
+    moved = (_jittered(st, jitter * tiled.tile_geometry(cfg)[0], seed=1)
+             if jitter else st)
     for match, hyst in modes:
         c = cfg.replace(tiled_match=match, tiled_hysteresis=hyst)
         a, da = tk.relocate_pull_cuda(moved, c)
@@ -209,13 +240,51 @@ def check_relocate(label, cfg, st, modes, errs: dict) -> None:
             raise AssertionError(f"K2 {label} {match}: lost pids")
         log(f"[k2] {label} {list(st.dims)} {match} "
             f"hysteresis={c.hysteresis_delta:.3g}: bit-equal, "
-            f"repeat bit-equal, deferred {int(da.sum())} of {n_live}")
+            f"repeat bit-equal, deferred {int(da.sum())} of {n_live}, "
+            f"{int((a.pid != moved.pid).sum())} pid slots changed")
+
+
+def check_relocate_par(label, cfg, st, modes, errs: dict, jitter=0.6,
+                       seed=40) -> None:
+    """K2-par against its plain version on ``st`` (full space) with every
+    live particle jittered by up to ``jitter`` tile (0: as it is), at
+    origin 0 and -1, in one launch over all parities and in one per
+    parity (gs_par_fused=False), for each (match, hysteresis) of
+    ``modes``: bit-equal, bit-equal on repeat, no pid lost."""
+    from gpu_physics_engine_torch.ops import gs_parity as gp, tiled
+    moved = (_jittered(st, jitter * tiled.tile_geometry(cfg)[0], seed=seed)
+             if jitter else st)
+    n_live = int((moved.pid >= 0).sum())
+    for match, hyst in modes:
+        c0 = cfg.replace(tiled_match=match, tiled_hysteresis=hyst)
+        for origin in (0, -1):
+            far = gp.to_parity_state(moved, c0, origin)
+            b, db = gp.relocate_par_plain(far, c0)
+            fields = ("x", "y", "px", "py", "pid", "overflow_count") + (
+                () if far.radius is None else ("radius",))
+            for fused in (True, False):
+                c = c0.replace(gs_par_fused=fused)
+                a, da = gp.relocate_par_cuda(far, c)
+                a2, da2 = gp.relocate_par_cuda(far, c)
+                _equal_or_raise(
+                    f"K2-par {label} {match} hysteresis={hyst} origin="
+                    f"{origin} fused={fused}",
+                    tuple(getattr(a, f) for f in fields) + (da,),
+                    tuple(getattr(b, f) for f in fields) + (db,),
+                    tuple(getattr(a2, f) for f in fields) + (da2,))
+                if int((a.pid >= 0).sum()) != n_live:
+                    raise AssertionError(f"K2-par {label} {match}: lost pids")
+        log(f"[k2-par] {label} {list(far.x.shape)} {match} hysteresis="
+            f"{c0.hysteresis_delta:.3g}: origins 0 and -1, one launch and "
+            f"one per parity, bit-equal and repeat bit-equal, deferred "
+            f"{int(da.sum())} of {n_live}")
+    errs["relocate_par"] = 0.0
 
 
 def _ragged_state(cap, uniform):
-    """A small scene whose grid is no multiple of K1's 8 x 32 region: TX
-    39, and TY 21 (three of the empty rows above the world dropped; one
-    stays as the ring)."""
+    """A small scene whose grid is no multiple of K1's 8 x 32 region nor
+    K2's: TX 39, and TY 21 (three of the empty rows above the world
+    dropped; one stays as the ring)."""
     import numpy as np
     from gpu_physics_engine_torch import SimConfig
     from gpu_physics_engine_torch.ops import tiled
@@ -239,9 +308,11 @@ def _ragged_state(cap, uniform):
 
 def phase_jacobi_kernels(scenes, errs: dict) -> None:
     """K1, K3 and K2 against their plain versions on the card, at small
-    shapes (box and circle worlds, a grid no multiple of K1's region) and
-    at each Jacobi path's ``scenes`` [(label, config, state)]: K1 and K3
-    bit-equal and bit-equal on repeat, uniform and general radius."""
+    shapes (box and circle worlds, a grid no multiple of K1's or K2's
+    region) and at each Jacobi path's ``scenes`` [(label, config, state)]:
+    K1 and K3 bit-equal and bit-equal on repeat, uniform and general
+    radius; K2 in every matching mode, and at cap 32; K2-par on the ragged
+    grid and at cap 32."""
     import torch
     from gpu_physics_engine_torch import StepParams
     from gpu_physics_engine_torch.ops import tiled_kernels as tk
@@ -282,10 +353,15 @@ def phase_jacobi_kernels(scenes, errs: dict) -> None:
                 log(f"[{tag}] {label} {list(s.dims)} uniform={uniform}: "
                     f"bit-equal and repeat bit-equal ({moved} slots moved)")
         # K2: every matching mode, hysteresis off and auto
-        if not label.startswith(("small-", "ragged")):
-            check_relocate(label, cfg, st,
-                           [(m, h) for m in ("flip", "flip2", "greedy")
-                            for h in (0.0, -1.0)], errs)
+        if label != "small-circle":
+            check_relocate(label, cfg, st, MODES, errs)
+    # K2 at cap 32: the largest window; K2-par there and on the ragged grid
+    cap32_cfg, cap32 = _small_state(32, uniform=False)
+    check_relocate("small-cap32", cap32_cfg, cap32, MODES, errs)
+    for label, cfg, st in (("ragged", ragged_cfg, ragged_mixed),
+                           ("small-cap32", cap32_cfg, cap32)):
+        check_relocate_par(label, cfg.replace(tiled_uniform_radius=False),
+                           st, MODES, errs)
 
 
 def _gs_small_state():
@@ -309,7 +385,7 @@ def phase_gs_kernels(scenes, errs: dict) -> None:
     """K5 and K6 against their plain versions: the rank tables, and x, y
     and overflow_count after the four colors, bit-equal; twice each.  At a
     small scene and at each GS path's ``scenes`` [(label, config, state)],
-    where K2 is also held to its plain version with the path's config."""
+    where K2 is also held to its plain version in every matching mode."""
     import torch
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import tiled
@@ -344,8 +420,7 @@ def phase_gs_kernels(scenes, errs: dict) -> None:
             f"clamp overflow {frame} this frame, max count "
             f"{int(ta[3].max())}, {moved} slots moved")
         if label != "small":
-            check_relocate(label, cfg, st, [(cfg.tiled_match,
-                                             cfg.tiled_hysteresis)], errs)
+            check_relocate(label, cfg, st, MODES, errs)
 
 
 def _equal_or_raise(what, got, want, again=None) -> None:
@@ -385,8 +460,8 @@ def phase_par_kernels(scenes, errs: dict) -> None:
     """The parity-space kernels against their plain versions, bit-equal and
     bit-equal on repeat: K5-par in both launch modes, K6-par for every
     color on the par layout (tables from K5-par) and on the mx and dec
-    layouts (K5's tables relayouted), K2-par in both launch modes with the
-    config's match and hysteresis, and the Verlet tail under the mouse;
+    layouts (K5's tables relayouted), K2-par in both launch modes at both
+    origins in every matching mode, and the Verlet tail under the mouse;
     the mx and dec solves against the flat solve.  On a small mixed-radius
     scene (radius planes carried), a small uniform one and each GS path's
     ``scenes`` [(label, config, state)]."""
@@ -429,19 +504,7 @@ def phase_par_kernels(scenes, errs: dict) -> None:
             _equal_or_raise(f"{name} solve {label} vs flat",
                             (got.x, got.y, got.overflow_count),
                             (want.x, want.y, want.overflow_count))
-        far = gp.to_parity_state(_jittered(st, 0.6 * t, seed=40 + i), cfg)
-        for fused in (True, False):
-            c = cfg.replace(gs_par_fused=fused)
-            a, da = gp.relocate_par_cuda(far, c)
-            a2, _ = gp.relocate_par_cuda(far, c)
-            b, db = gp.relocate_par_plain(far, c)
-            fields = ("x", "y", "px", "py", "pid", "overflow_count") + (
-                () if far.radius is None else ("radius",))
-            _equal_or_raise(f"K2-par {label} fused={fused}",
-                            tuple(getattr(a, f) for f in fields) + (da,),
-                            tuple(getattr(b, f) for f in fields) + (db,),
-                            tuple(getattr(a2, f) for f in fields))
-            errs["relocate_par"] = 0.0
+        check_relocate_par(label, cfg, st, MODES, errs, seed=40 + i)
         verlet = ""
         if cfg.tiled_uniform_radius:
             prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
@@ -460,7 +523,7 @@ def phase_par_kernels(scenes, errs: dict) -> None:
             verlet = ", Verlet tail"
         log(f"[par] {label} {dims} match {tk.resolve_match(cfg, *st.dims)}: "
             f"K5-par (fused and per parity), K6-par (par, mx, dec), K2-par "
-            f"(fused and per parity, deferred {int(da.sum())}){verlet} "
+            f"(above){verlet} "
             f"bit-equal and repeat bit-equal; mx and dec solves == flat; "
             f"clamp overflow "
             f"{int((count - cfg.max_occupancy).clamp(min=0).sum())}, "
@@ -988,7 +1051,9 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
         "collide_integrate": _bound((5 + rplanes + 4) * S + 16,
                                     5 * pairs + 25 * occ),
         "collide": _bound((3 + rplanes + 2) * S, 5 * pairs),
-        "relocate_pull": _bound(12 * S + TY * TX * 4.0, 10 * occ),
+        # the pid plane read, x, y, px, py, radius of occupied slots read
+        # (an empty slot moves nothing), six planes and defer written
+        "relocate_pull": _bound(7 * S + 20 * occ + TY * TX * 4.0, 10 * occ),
     }
     K = gs_cfg.max_occupancy
     gcap, GY, GX = gs_state.dims
@@ -1011,7 +1076,11 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     out["gs_color_par"] = _bound(24 * float(pm.sum()) / 4,
                                  8 * float((pm * (pm - 1) / 2).sum()) / 4)
     out["gs_color_par[mx]"] = out["gs_color_par[dec]"] = out["gs_color"]
-    out["relocate_par"] = _bound(10 * P + cells * 4.0, 10 * gocc)
+    # as K2: pid read, the occupied slots' fields read, the fields and pid
+    # written (no radius plane under uniform radius), and the defer cells
+    nf = 4 + (ps.radius is not None)
+    out["relocate_par"] = _bound((nf + 2) * P + 4 * nf * gocc + cells * 4.0,
+                                 10 * gocc)
     # in place: the pid plane is read, and x, y, px, py of occupied slots
     # are read and written; empty slots keep their values
     out["gs_verlet"] = _bound(P + 32 * gocc, 25 * gocc)
@@ -1283,12 +1352,14 @@ def _gs_start(n: int):
     return tiled.tiled_step_fn(e.state, e.params(), cfg), border
 
 
-def phase_gs_paths(paths: dict) -> None:
+def phase_gs_paths(paths: dict, errs: dict) -> None:
     """The GS engine at 1M (150 free steps, 150 under the drag) and 4M cap
     6 (100 steps), in the flat and the par layout and the par layout with
     the fused kernels ("mega") from the same start (``_gs_start``), each
-    held bit-equal to flat; then 32 steps at 1M in the mx and dec layouts
-    from the seeded scene, held to a flat engine over the same steps.
+    held bit-equal to flat, and K2 and K2-par held to their plain versions
+    on the flat and par engines' final states; then 32 steps at 1M in the
+    mx and dec layouts from the seeded scene, held to a flat engine over
+    the same steps.
     Prints the par/flat and mega/par ms/step."""
     import torch
     from gpu_physics_engine_torch import TiledEngine
@@ -1317,6 +1388,13 @@ def phase_gs_paths(paths: dict) -> None:
         for layout in ("par", "mega"):
             cross_check(label, runs["flat"]["engine"],
                         runs[layout]["engine"], layout)
+        # K2 and K2-par on the engines' own states after the windows
+        flat_e, par_e = runs["flat"]["engine"], runs["par"]["engine"]
+        check_relocate(f"{label} in-step", flat_e.config, flat_e.state,
+                       [(flat_e.config.tiled_match,
+                         flat_e.config.tiled_hysteresis)], errs, jitter=0)
+        check_relocate_par(f"{label} in-step", par_e.config, par_e.state,
+                           MODES, errs, jitter=0)
         f, p, m = (runs[k]["win_ms"] for k in ("flat", "par", "mega"))
         log(f"[layout] {label} ms/step per window: par "
             f"{[round(w, 4) for w in p]} vs flat {[round(w, 4) for w in f]}"
@@ -1409,10 +1487,12 @@ def main() -> int:
 
     smi = phase_environment()
     phase_build()
+    check_window_formula()
 
     errs: dict = {}
     jacobi = []
-    for label, n in (("4M", 4_194_304), ("256k", 256_000)):
+    for label, n in (("4M", 4_194_304), ("1M", 1_048_576),
+                     ("256k", 256_000)):
         e = make_tuned_engine(n, device="cuda")
         moving = _jittered(e.state, 0.05, seed=3)  # some velocity
         jacobi.append((label, e.config,
@@ -1440,13 +1520,24 @@ def main() -> int:
                        4_194_304, [(150, None), (150, (1524.0, 524.0))],
                        "4M", {"collide_integrate": 300, "relocate_pull": 150})
     paths["4M"] = run["launches"]
+    # K2 on the engine's own state after its windows (no jitter)
+    check_relocate("4M in-step", run["engine"].config, run["engine"].state,
+                   MODES, errs, jitter=0)
     del run
     torch.cuda.empty_cache()
-    phase_engine(lambda: make_tuned_engine(256_000, device="cuda"), 256_000,
-                 [(250, None)], "256k",
-                 {"collide_integrate": 250, "relocate_pull": 125})
+    for label, n, steps, want in (
+            ("1M", 1_048_576, 128, {"collide_integrate": 128,
+                                    "relocate_pull": 32}),
+            ("256k", 256_000, 250, {"collide_integrate": 250,
+                                    "relocate_pull": 125})):
+        run = phase_engine(lambda: make_tuned_engine(n, device="cuda"), n,
+                           [(steps, None)], label, want)
+        paths[label] = run["launches"]
+        check_relocate(f"{label} in-step", run["engine"].config,
+                       run["engine"].state, MODES, errs, jitter=0)
+        del run
 
-    phase_gs_paths(paths)
+    phase_gs_paths(paths, errs)
     phase_k4_path(paths)
     radix_bits = phase_array_kernels(errs)
     phase_array_paths(paths)

@@ -13,15 +13,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
-int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
-
 // Raise a kernel's limit of dynamic shared memory where a launch needs
-// more than the default 48 KB.  The call is made on every such launch: no
-// cell measured so far takes it (K1 past cap 9 uniform or cap 7 general,
-// the fused relocate past cap 20).  A size the card cannot give is refused
-// here, and the error returns to the caller.
+// more than the default 48 KB.  The call is made on every such launch: K2
+// at every cap, K1 past cap 9 uniform or cap 7 general, the fused relocate
+// past cap 20.  A size the card cannot give is refused here, and the error
+// returns to the caller.
 template <class Kernel>
 cudaError_t allow_smem(Kernel* kernel, int smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -89,6 +85,36 @@ int launch_fused(const void* x, const void* y, const void* px,
   return (int)cudaGetLastError();
 }
 
+// One launch of K2's window kernel: one block of k2_threads per region,
+// shared memory sized from cap (past 48 KB at every cap: 53,568 bytes at
+// cap 1, 85,312 at cap 32, on either layout).
+template <class L>
+int launch_window(const void* x, const void* y, const void* px,
+                  const void* py, const void* rad, const void* pid, void* ox,
+                  void* oy, void* opx, void* opy, void* orad, void* opid,
+                  void* defer, int cap, const L& lay, dim3 grid, int p0,
+                  int np, int row0, int gTY, int gTX, int match, float t,
+                  float delta, void* stream) {
+  if (cap < 1 || cap > gpe::kMaxCap || match < gpe::kFlip ||
+      match > gpe::kGreedy || (rad == nullptr) != (orad == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int smem = gpe::k2_window_bytes(cap, gpe::k2_par<L>());
+  const cudaError_t rc = allow_smem(gpe::relocate_window_kernel<L>, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  gpe::relocate_window_kernel<L>
+      <<<grid, gpe::k2_threads<L>(), smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x), static_cast<const float*>(y),
+          static_cast<const float*>(px), static_cast<const float*>(py),
+          static_cast<const float*>(rad), static_cast<const int*>(pid),
+          static_cast<float*>(ox), static_cast<float*>(oy),
+          static_cast<float*>(opx), static_cast<float*>(opy),
+          static_cast<float*>(orad), static_cast<int*>(opid),
+          static_cast<int*>(defer), cap, lay, p0, np, row0, gTY, gTX, match,
+          gpe::StepHome{t, delta, gTY, gTX});
+  return (int)cudaGetLastError();
+}
+
 gpe::K1Consts k1_consts(const void* consts) {
   const float* f = static_cast<const float*>(consts);
   return gpe::K1Consts{f[0], f[1], f[2],  f[3],  f[4],  f[5],  f[6],
@@ -152,86 +178,46 @@ int gpe_collide_integrate(const void* x, const void* y, const void* px,
                                  gpy, cap, TY, TX, c, s);
 }
 
-// K2 plan: plan = int32 [cap, TY, TX].
-int gpe_relocate_plan(const void* x, const void* y, const void* pid,
-                      void* plan, int cap, int TY, int TX, int row0, int gTY,
-                      int gTX, int match, float t, float delta,
-                      void* stream) {
+// K2: six fresh output planes + defer int32 [TY, TX].
+int gpe_relocate_pull(const void* x, const void* y, const void* px,
+                      const void* py, const void* rad, const void* pid,
+                      void* ox, void* oy, void* opx, void* opy, void* orad,
+                      void* opid, void* defer, int cap, int TY, int TX,
+                      int row0, int gTY, int gTX, int match, float t,
+                      float delta, void* stream) {
+  if (TY < 1 || TX < 1) return (int)cudaErrorInvalidValue;
   const gpe::FlatLayout lay{TY, TX, 0, 0, 1, TX};
-  const int n = TY * TX;
-  gpe::relocate_plan_kernel<gpe::FlatLayout><<<blocks_for(n), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const int*>(pid), static_cast<int*>(plan), cap, lay, n,
-      row0, gTY, gTX, match, t, delta);
-  return (int)cudaGetLastError();
+  const dim3 grid((TX + gpe::kK2WidthFlat - 1) / gpe::kK2WidthFlat,
+                  (TY + gpe::kK2RowsFlat - 1) / gpe::kK2RowsFlat);
+  return launch_window(x, y, px, py, rad, pid, ox, oy, opx, opy, orad, opid,
+                       defer, cap, lay, grid, 0, 1, row0, gTY, gTX, match, t,
+                       delta, stream);
 }
 
-// K2 apply: six fresh output planes + defer int32 [TY, TX].
-int gpe_relocate_apply(const void* x, const void* y, const void* px,
-                       const void* py, const void* rad, const void* pid,
-                       const void* plan, void* ox, void* oy, void* opx,
-                       void* opy, void* orad, void* opid, void* defer,
-                       int cap, int TY, int TX, int row0, int gTY, int gTX,
-                       int match, float t, float delta, void* stream) {
-  const gpe::FlatLayout lay{TY, TX, 0, 0, 1, TX};
-  const int n = TY * TX;
-  gpe::relocate_apply_kernel<gpe::FlatLayout><<<blocks_for(n), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const float*>(px), static_cast<const float*>(py),
-      static_cast<const float*>(rad), static_cast<const int*>(pid),
-      static_cast<const int*>(plan), static_cast<float*>(ox),
-      static_cast<float*>(oy), static_cast<float*>(opx),
-      static_cast<float*>(opy), static_cast<float*>(orad),
-      static_cast<int*>(opid), static_cast<int*>(defer), cap, lay, n, row0,
-      gTY, gTX, match, t, delta);
-  return (int)cudaGetLastError();
-}
-
-// K2-par plan on the parity layout: fields and plan [4, cap, DY, DX], one
-// launch over parities p0 .. p0 + np - 1.  One device: row0 0, the grid's
-// own TY x TX as the global grid.
-int gpe_relocate_plan_par(const void* x, const void* y, const void* pid,
-                          void* plan, int cap, int TY, int TX, int DY,
-                          int DX, int origin, int p0, int np, int match,
-                          float t, float delta, void* stream) {
-  if (p0 < 0 || np < 1 || p0 + np > 4) return (int)cudaErrorInvalidValue;
-  const gpe::ParLayout lay{TY, TX, DY, DX, origin, p0};
-  const int n = np * DY * DX;
-  gpe::relocate_plan_kernel<gpe::ParLayout><<<blocks_for(n), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const int*>(pid), static_cast<int*>(plan), cap, lay, n, 0,
-      TY, TX, match, t, delta);
-  return (int)cudaGetLastError();
-}
-
-// K2-par apply: fresh output planes [4, cap, DY, DX] (rad and orad null
-// under uniform radius) + defer int32 [4, DY, DX].
-int gpe_relocate_apply_par(const void* x, const void* y, const void* px,
-                           const void* py, const void* rad, const void* pid,
-                           const void* plan, void* ox, void* oy, void* opx,
-                           void* opy, void* orad, void* opid, void* defer,
-                           int cap, int TY, int TX, int DY, int DX,
-                           int origin, int p0, int np, int match, float t,
-                           float delta, void* stream) {
-  if (p0 < 0 || np < 1 || p0 + np > 4 ||
-      (rad == nullptr) != (orad == nullptr))
+// K2-par on the parity layout: fields [4, cap, DY, DX], fresh output
+// planes (rad and orad null under uniform radius) + defer int32 [4, DY,
+// DX] for parities p0 .. p0 + np - 1.  One device: row0 0, the grid's own
+// TY x TX as the global grid.
+int gpe_relocate_par(const void* x, const void* y, const void* px,
+                     const void* py, const void* rad, const void* pid,
+                     void* ox, void* oy, void* opx, void* opy, void* orad,
+                     void* opid, void* defer, int cap, int TY, int TX,
+                     int DY, int DX, int origin, int p0, int np, int match,
+                     float t, float delta, void* stream) {
+  if (p0 < 0 || np < 1 || p0 + np > 4 || DY < 1 || DX < 1)
     return (int)cudaErrorInvalidValue;
-  const gpe::ParLayout lay{TY, TX, DY, DX, origin, p0};
-  const int n = np * DY * DX;
-  gpe::relocate_apply_kernel<gpe::ParLayout><<<blocks_for(n), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const float*>(px), static_cast<const float*>(py),
-      static_cast<const float*>(rad), static_cast<const int*>(pid),
-      static_cast<const int*>(plan), static_cast<float*>(ox),
-      static_cast<float*>(oy), static_cast<float*>(opx),
-      static_cast<float*>(opy), static_cast<float*>(orad),
-      static_cast<int*>(opid), static_cast<int*>(defer), cap, lay, n, 0, TY,
-      TX, match, t, delta);
-  return (int)cudaGetLastError();
+  const gpe::ParLayout lay{TY, TX, DY, DX, origin, 0};
+  const dim3 grid((DX + gpe::kK2WidthPar - 1) / gpe::kK2WidthPar,
+                  (DY + gpe::kK2RowsPar - 1) / gpe::kK2RowsPar);
+  return launch_window(x, y, px, py, rad, pid, ox, oy, opx, opy, orad, opid,
+                       defer, cap, lay, grid, p0, np, 0, TY, TX, match, t,
+                       delta, stream);
+}
+
+// K2's shared-memory bytes at cap on either layout, as the launches above
+// take them.
+int gpe_relocate_window_bytes(int cap, int par) {
+  return gpe::k2_window_bytes(cap, par != 0);
 }
 
 // K4: plan + apply in one launch on [cap, TY, TX]: flip matching, no

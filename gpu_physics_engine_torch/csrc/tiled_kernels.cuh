@@ -6,13 +6,17 @@
 // K3  collide_integrate_kernel<..., INTEGRATE = false>  replaces
 //     tiled_pallas.py::collide_pallas (:455, kernel _collide_band_kernel
 //     :355): the same sweep without the Verlet step.
-// K2  relocate_plan_kernel + relocate_apply_kernel  replace
+// K2  relocate_window_kernel<FlatLayout>  replaces
 //     gpu_physics_engine_tpu/ops/tiled_pallas.py::relocate_pallas (:945,
 //     kernels _relocate_plan_kernel :647 / _plan_choose :713 and
-//     _relocate_apply_kernel :780 / _apply_merge :841); on ParLayout they
-//     replace ops/gs_parity.py::relocate_parity (:689; _plan_kernel_par
+//     _relocate_apply_kernel :780 / _apply_merge :841); on ParLayout it
+//     replaces ops/gs_parity.py::relocate_parity (:689; _plan_kernel_par
 //     :539, _apply_kernel_par :573 and their _all variants :617, :651),
-//     "K2-par".
+//     "K2-par".  Bound: device memory: the pid plane read, and x, y, px,
+//     py, radius of the occupied slots only; six planes and the defer plane
+//     written (0.106 ms at the 4M shape with 4,194,304 particles on an H100
+//     at 3.35 TB/s).  Plan and apply in one launch on a shared-memory window
+//     (below).
 // K4  relocate_fused_kernel<FlatLayout, DivHome>  replaces
 //     tiled_pallas.py::relocate_pallas_one (:1187, kernel
 //     _relocate_one_kernel :1068): K2 in one launch, flip matching, no
@@ -33,6 +37,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "layout.cuh"
 
@@ -304,8 +310,9 @@ __global__ void __launch_bounds__(kK1Tiles) collide_integrate_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K2: pull relocation.  Plan, then apply; one thread per tile in each.  The
-// per-tile bodies (plan_tile, apply_tile) also serve K4 and relocate_mega.
+// The pull relocation: the step rule and the matching (K2, K2-par, K4 and
+// relocate_mega), the per-tile plan and apply bodies of K4 and
+// relocate_mega, and K2's window kernel.
 // ---------------------------------------------------------------------------
 
 enum Match { kFlip = 0, kFlip2 = 1, kGreedy = 2 };
@@ -364,15 +371,74 @@ struct DivHome {
   }
 };
 
-// The plan of tile (ty, tx) (local rows; global row ty + row0):
-// write(k, code) for every slot k, code = the in-mover accepted for my
-// free slot k, or -1:
-//   flip:   code = e (source slot cap-1-k)
-//   flip2:  code = e + 8*rule (source slot cap-1-k for rule 0, k for 1)
+// The sequential matching of _plan_choose on register masks: claims[e] =
+// the slots of neighbour e whose occupant hops to this tile.  For every
+// slot k in ascending order, write(k, code, e, s) with the in-mover
+// accepted for a free slot k (neighbour e, its slot s), code -1 if none:
+//   flip:   code = e (s = cap-1-k)
+//   flip2:  code = e + 8*rule (s = cap-1-k for rule 0, k for 1)
 //   greedy: code = e*cap + s
-// Each neighbour's claims on this tile are a CAP-bit mask, so the
-// sequential matching of _plan_choose runs on registers.  Tiles that are
-// not interior (the border ring, parity pad cells) plan -1.
+// claimed[e] ends as the slots of neighbour e that this tile took.
+template <class F, class W>
+__device__ __forceinline__ void match_claims(const uint32_t (&claims)[8],
+                                             int cap, int match, F is_free,
+                                             W write, uint32_t (&claimed)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) claimed[e] = 0;
+  for (int k = 0; k < cap; ++k) {
+    int code = -1, ce = 0, cs = 0;
+    if (is_free(k)) {
+      if (match == kFlip) {
+        const int s = cap - 1 - k;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (code < 0 && ((claims[e] >> s) & 1u)) {
+            code = e;
+            ce = e;
+            cs = s;
+            claimed[e] |= 1u << s;
+          }
+        }
+      } else if (match == kFlip2) {
+        for (int rule = 0; rule < 2 && code < 0; ++rule) {
+          const int s = rule == 0 ? cap - 1 - k : k;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (code < 0 && (((claims[e] & ~claimed[e]) >> s) & 1u)) {
+              code = e + 8 * rule;
+              ce = e;
+              cs = s;
+              claimed[e] |= 1u << s;
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const uint32_t avail = claims[e] & ~claimed[e];
+          if (code < 0 && avail) {
+            const int s = __ffs((int)avail) - 1;  // lowest free source slot
+            code = e * cap + s;
+            ce = e;
+            cs = s;
+            claimed[e] |= 1u << s;
+          }
+        }
+      }
+    }
+    write(k, code, ce, cs);
+  }
+}
+
+// The plan of tile (ty, tx) (local rows; global row ty + row0), for K4 and
+// relocate_mega: write(k, code) for every slot k, code = the in-mover
+// accepted for my free slot k, or -1, coded as by match_claims.  Each
+// neighbour's claims on this tile are a CAP-bit mask, so the sequential
+// matching of _plan_choose runs on registers.  Tiles that are not interior
+// (the border ring, parity pad cells) plan -1.  The matching is
+// match_claims's, written out here: through match_claims, ptxas gave the
+// fused kernels other code (K4 48 registers where 44) and they ran about
+// 1% slower (PERF.md Findings PR 7).
 template <class L, class H, class W>
 __device__ __forceinline__ void plan_tile(
     const float* __restrict__ x, const float* __restrict__ y,
@@ -534,42 +600,326 @@ __device__ __forceinline__ void apply_tile(
   defer[lay.at(0, 1, ty, tx)] = ndefer;
 }
 
-// K2 plan: one thread per cell of the launch (parity pad cells included).
+// K2 / K2-par: the pull relocate on a shared-memory tile window, one launch.
+//
+// One block owns a region of storage cells: 8 x 64 tiles on FlatLayout; on
+// ParLayout 4 x 32 sub-grid cells of each of the four parities, which is
+// the full-space 8 x 64 region.  Its window is the region and a two-tile
+// full-space halo (on ParLayout one sub-grid cell of each parity), indexed
+// in full space.  It works in four phases, with a barrier between them:
+//
+//  1. stage: a thread per window tile reads the pid of its slots, then
+//     x, y of the occupied ones, each plane once, neighbouring threads on
+//     neighbouring storage words (on ParLayout a warp walks one parity's
+//     sub-window), and computes every occupant's one-hop step once
+//     (StepHome, the products of step_offsets).  It keeps a CAP-bit mask
+//     of the occupied slots and one of the slots hopping in each of the
+//     eight directions.
+//  2. plan: a thread per tile of the region and its one-tile ring: the
+//     claims on the tile are eight masks of its neighbours' directions, and
+//     match_claims (the matching of plan_tile) runs on them.  A region
+//     tile keeps the source (neighbour, slot) of each free slot it fills;
+//     every planned tile keeps the masks of its neighbours' slots it took.
+//     The ring's plans are computed again by the neighbouring block.
+//  3. apply: a thread per region tile.  Its occupants taken by a neighbour
+//     leave; its movers not taken are deferred; the other occupants and the
+//     pulled sources, in slot order, are its outputs, ranked in place.
+//  4. write: a thread per (output slot, region tile), coalesced along tx:
+//     x, y, px, py, radius and pid of the source (read from device memory,
+//     mostly the same word it writes), or the zero fill.
+//
+// The plan never leaves shared memory, and no particle's step is computed
+// twice by one block (the TPU kernel recomputed every neighbour's plan).
+// Each output slot is written by one thread from the inputs, so the kernel
+// is deterministic without atomics and equals the plain version bit for
+// bit.  On ParLayout a launch applies parities p0 .. p0+np-1 of its region
+// (gs_par_fused=False launches one parity at a time) and plans all four.
+// Two launches (the plan through device memory, the apply staging the
+// region again) took 43-53% longer in the step state, and the region
+// shapes and block sizes were chosen by timing (PERF.md).
+// A region is 64 tiles wide on FlatLayout (two warps write a row: 12-13%
+// faster than 32 wide in the step state, whose write phase stored at about
+// half the card's rate) and 32 sub-grid cells wide on ParLayout (wider took
+// 15% longer there).  Threads: one per region tile on FlatLayout (512),
+// half that on ParLayout (256; 512 took 6% longer at 1M-GS par).
+constexpr int kK2WidthFlat = 64;
+constexpr int kK2WidthPar = 32;
+constexpr int kK2RowsFlat = 8;  // region rows, flat
+constexpr int kK2RowsPar = 4;   // region rows of each parity, parity
+__host__ __device__ constexpr int k2_width(bool par) {
+  return par ? kK2WidthPar : kK2WidthFlat;
+}
+__host__ __device__ constexpr int k2_rows(bool par) {
+  return par ? kK2RowsPar : kK2RowsFlat;
+}
 template <class L>
-__global__ void relocate_plan_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const int* __restrict__ pid, int* __restrict__ plan, int cap, L lay,
-    int n, int row0, int gTY, int gTX, int match, float t, float delta) {
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i0 >= n) return;
-  int ty, tx;
-  lay.cell(i0, &ty, &tx);
-  plan_tile(x, y, pid, cap, lay, ty, tx, row0, gTY, gTX, match,
-            StepHome{t, delta, gTY, gTX},
-            [&](int k, int code) { plan[lay.at(k, cap, ty, tx)] = code; });
+__host__ __device__ constexpr bool k2_par() {
+  return std::is_same<L, ParLayout>::value;
+}
+template <class L>
+__host__ __device__ constexpr int k2_threads() {
+  return k2_par<L>() ? 256 : 512;
+}
+constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block, sm_90
+constexpr unsigned short kNoSource = 0xFFFF;
+constexpr int kOwnTile = 8;  // source code e for the tile itself
+
+// Dynamic shared memory of one block: occupancy and eight direction masks
+// per window tile, eight taken masks per planned tile, the output count
+// and the source codes (u16) [cap] per region tile.
+__host__ __device__ constexpr int k2_window_bytes(int cap, bool par) {
+  const int ry = par ? 2 * kK2RowsPar : kK2RowsFlat;
+  const int rx = par ? 2 * kK2WidthPar : kK2WidthFlat;
+  return 36 * (ry + 4) * (rx + 4) + 32 * (ry + 2) * (rx + 2) +
+         (4 + 2 * cap) * ry * rx;
+}
+// Every cap fits a block (85,312 bytes at cap 32 on either layout).
+static_assert(k2_window_bytes(kMaxCap, false) <= kSmemLimit, "K2 window");
+static_assert(k2_window_bytes(kMaxCap, true) <= kSmemLimit, "K2-par window");
+
+// Full-space geometry of a block: region RY x RX from full tile (ty0, tx0),
+// window (RY + 4) x (RX + 4) from (ty0 - 2, tx0 - 2).
+struct K2Box {
+  int RY, RX, WY, WX, ty0, tx0;
+};
+__device__ __forceinline__ K2Box k2_box(const FlatLayout&) {
+  constexpr int R = kK2RowsFlat;
+  return K2Box{R, kK2WidthFlat, R + 4, kK2WidthFlat + 4,
+               R * (int)blockIdx.y, kK2WidthFlat * (int)blockIdx.x};
+}
+__device__ __forceinline__ K2Box k2_box(const ParLayout& l) {
+  constexpr int R = 2 * kK2RowsPar;
+  return K2Box{R, 2 * kK2WidthPar, R + 4, 2 * kK2WidthPar + 4,
+               R * (int)blockIdx.y + l.o,
+               2 * kK2WidthPar * (int)blockIdx.x + l.o};
 }
 
-// K2 apply: one thread per cell, reading the plans K2 plan wrote.
+// Window tile i of the stage, in window coordinates: row-major on
+// FlatLayout; on ParLayout parity-major, each parity's sub-window row-major,
+// so that neighbouring threads read neighbouring words of one sub-grid.
+__device__ __forceinline__ void k2_window_tile(const FlatLayout&,
+                                               const K2Box& b, int i,
+                                               int* wy, int* wx) {
+  *wy = i / b.WX;
+  *wx = i - *wy * b.WX;
+}
+__device__ __forceinline__ void k2_window_tile(const ParLayout&,
+                                               const K2Box& b, int i,
+                                               int* wy, int* wx) {
+  const int SX = b.WX / 2, A = (b.WY / 2) * SX;
+  const int p = i / A, r = i - p * A;
+  const int cy = r / SX;
+  *wy = 2 * cy + (p >> 1);
+  *wx = 2 * (r - cy * SX) + (p & 1);
+}
+
+// Region cell r of the applied parities (p0 .. p0 + np - 1), in region
+// coordinates, and back (-1 for a tile of a parity not applied).
+__device__ __forceinline__ void k2_region_tile(const FlatLayout&,
+                                               const K2Box&, int, int r,
+                                               int* ry, int* rx) {
+  *ry = r / kK2WidthFlat;
+  *rx = r - *ry * kK2WidthFlat;
+}
+__device__ __forceinline__ void k2_region_tile(const ParLayout&,
+                                               const K2Box& b, int p0, int r,
+                                               int* ry, int* rx) {
+  const int A = (b.RY / 2) * kK2WidthPar;
+  const int pl = r / A, q = r - pl * A, p = p0 + pl;
+  const int cy = q / kK2WidthPar;
+  *ry = 2 * cy + (p >> 1);
+  *rx = 2 * (q - cy * kK2WidthPar) + (p & 1);
+}
+__device__ __forceinline__ int k2_region_index(const FlatLayout&,
+                                               const K2Box&, int, int,
+                                               int ry, int rx) {
+  return ry * kK2WidthFlat + rx;
+}
+__device__ __forceinline__ int k2_region_index(const ParLayout&,
+                                               const K2Box& b, int p0, int np,
+                                               int ry, int rx) {
+  const int pl = (((ry & 1) << 1) | (rx & 1)) - p0;
+  if (pl < 0 || pl >= np) return -1;
+  return (pl * (b.RY / 2) + (ry >> 1)) * kK2WidthPar + (rx >> 1);
+}
+
+// Whether full tile (ty, tx) has a storage cell (ParLayout: pad cells too).
+__device__ __forceinline__ bool k2_stored(const FlatLayout& l, int ty,
+                                          int tx) {
+  return ty >= 0 && ty < l.TY && tx >= 0 && tx < l.TX;
+}
+__device__ __forceinline__ bool k2_stored(const ParLayout& l, int ty,
+                                          int tx) {
+  const int q = ty - l.o, r = tx - l.o;
+  return q >= 0 && r >= 0 && (q >> 1) < l.DY && (r >> 1) < l.DX;
+}
+
 template <class L>
-__global__ void relocate_apply_kernel(
+__global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ rad, const int* __restrict__ pid,
-    const int* __restrict__ plan, float* __restrict__ ox,
-    float* __restrict__ oy, float* __restrict__ opx,
+    float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ opx,
     float* __restrict__ opy, float* __restrict__ orad,
-    int* __restrict__ opid, int* __restrict__ defer, int cap, L lay, int n,
-    int row0, int gTY, int gTX, int match, float t, float delta) {
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i0 >= n) return;
-  int ty, tx;
-  lay.cell(i0, &ty, &tx);
-  apply_tile(x, y, px, py, rad, pid,
-             [&](int k, int qy, int qx) {
-               return plan[lay.at(k, cap, qy, qx)];
-             },
-             ox, oy, opx, opy, orad, opid, defer, cap, lay, ty, tx, row0,
-             match, StepHome{t, delta, gTY, gTX});
+    int* __restrict__ opid, int* __restrict__ defer, int cap, L lay, int p0,
+    int np, int row0, int gTY, int gTX, int match, StepHome home) {
+  extern __shared__ __align__(16) unsigned char k2_smem[];
+  const K2Box b = k2_box(lay);
+  const int Wn = b.WY * b.WX, PX = b.WX - 2, Pn = (b.WY - 2) * PX;
+  const int Rn = b.RY * b.RX;            // region cells, all parities
+  constexpr bool par = k2_par<L>();
+  const int Ra = np * k2_rows(par) * k2_width(par);  // region cells applied
+  uint32_t* occm = reinterpret_cast<uint32_t*>(k2_smem);  // [window]
+  uint32_t* dirm = occm + Wn;                             // [8][window]
+  uint32_t* taken = dirm + 8 * Wn;                        // [8][planned]
+  int* nout = reinterpret_cast<int*>(taken + 8 * Pn);     // [region]
+  unsigned short* src =
+      reinterpret_cast<unsigned short*>(nout + Rn);       // [cap][region]
+  const int TY = lay.TY, TX = lay.TX;
+  const int wy0 = b.ty0 - 2, wx0 = b.tx0 - 2;  // full tile of window (0, 0)
+
+  // 1. stage: occupancy and direction masks of every window tile
+  for (int i = threadIdx.x; i < Wn; i += blockDim.x) {
+    int wy, wx;
+    k2_window_tile(lay, b, i, &wy, &wx);
+    const int ty = wy0 + wy, tx = wx0 + wx;
+    uint32_t occ = 0, d[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) d[e] = 0;
+    if (ty >= 0 && ty < TY && tx >= 0 && tx < TX) {
+      // every pid first, then x, y of the occupied slots only: the upper
+      // slot planes are mostly empty, and their sectors are never fetched
+#pragma unroll 8
+      for (int k = 0; k < cap; ++k)
+        occ |= (uint32_t)(pid[lay.at(k, cap, ty, tx)] >= 0) << k;
+#pragma unroll 4
+      for (uint32_t m = occ; m; m &= m - 1u) {
+        const int k = __ffs((int)m) - 1;
+        const int g = lay.at(k, cap, ty, tx);
+        int dty, dtx;
+        home(x[g], y[g], ty + row0, tx, &dty, &dtx);
+        const int c = (dty | dtx) ? nbr_index(dty, dtx) : -1;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d[e] |= (uint32_t)(c == e) << k;
+      }
+    }
+    const int w = wy * b.WX + wx;
+    occm[w] = occ;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dirm[e * Wn + w] = d[e];
+  }
+  __syncthreads();
+
+  // 2. plan the region and its ring
+  const uint32_t all = cap == 32 ? 0xFFFFFFFFu : (1u << cap) - 1u;
+  for (int i = threadIdx.x; i < Pn; i += blockDim.x) {
+    const int wy = i / PX + 1, wx = i - (wy - 1) * PX + 1;
+    const int ty = wy0 + wy, tx = wx0 + wx;
+    const int w = wy * b.WX + wx;
+    const int ry = wy - 2, rx = wx - 2;
+    const int r = ry >= 0 && ry < b.RY && rx >= 0 && rx < b.RX
+                      ? k2_region_index(lay, b, p0, np, ry, rx)
+                      : -1;
+    const int my_ty = ty + row0;
+    const bool interior = ty >= 0 && ty <= TY - 1 && my_ty >= 1 &&
+                          my_ty <= gTY - 2 && tx >= 1 && tx <= gTX - 2;
+    // neighbour e's slots hopping to me: its direction 7 - e
+    uint32_t claims[8], any = 0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      claims[e] = interior
+                      ? dirm[(7 - e) * Wn + w + nbr_dy(e) * b.WX + nbr_dx(e)]
+                      : 0u;
+      any |= claims[e];
+    }
+    uint32_t took[8];
+    if (any) {
+      const uint32_t freem = ~occm[w] & all;
+      match_claims(
+          claims, cap, match, [&](int k) { return (freem >> k) & 1u; },
+          [&](int k, int code, int e, int s) {
+            if (r >= 0)
+              src[k * Ra + r] =
+                  code >= 0 ? (unsigned short)((e << 5) | s) : kNoSource;
+          },
+          took);
+    } else {  // no claims (most tiles): no matching
+#pragma unroll
+      for (int e = 0; e < 8; ++e) took[e] = 0;
+      if (r >= 0)
+        for (int k = 0; k < cap; ++k) src[k * Ra + r] = kNoSource;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) taken[e * Pn + i] = took[e];
+  }
+  __syncthreads();
+
+  // 3. apply: who leaves, who is deferred, the outputs in slot order
+  for (int r = threadIdx.x; r < Ra; r += blockDim.x) {
+    int ry, rx;
+    k2_region_tile(lay, b, p0, r, &ry, &rx);
+    const int wy = ry + 2, wx = rx + 2, ty = b.ty0 + ry, tx = b.tx0 + rx;
+    const int w = wy * b.WX + wx;
+    const uint32_t occ = occm[w];
+    uint32_t gone = 0, movers = 0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      // the neighbour at -offset(e) took my slots through its mask e
+      gone |= taken[e * Pn + (wy - 1 - nbr_dy(e)) * PX + (wx - 1 - nbr_dx(e))];
+      // movers whose target lies in the slab (the others stay, undeferred)
+      const int tr = ty + nbr_dy(e);
+      if (tr >= 0 && tr <= TY - 1) movers |= dirm[e * Wn + w];
+    }
+    const uint32_t keep = occ & ~gone;
+    int j = 0;
+    for (int k = 0; k < cap; ++k) {  // in place: j <= k
+      unsigned short c = kNoSource;
+      if ((keep >> k) & 1u) {
+        c = (unsigned short)((kOwnTile << 5) | k);
+      } else if (!((occ >> k) & 1u)) {
+        c = src[k * Ra + r];
+      }
+      if (c != kNoSource) src[j++ * Ra + r] = c;
+    }
+    nout[r] = j;
+    if (k2_stored(lay, ty, tx))
+      defer[lay.at(0, 1, ty, tx)] = __popc(movers & ~gone);
+  }
+  __syncthreads();
+
+  // 4. write every slot of the applied region: thread i takes output slot
+  // j = i / Ra of region cell r = i % Ra (stepped without a division)
+  int j = threadIdx.x / Ra, r = threadIdx.x - j * Ra;
+#pragma unroll 2
+  for (int i = threadIdx.x; i < cap * Ra; i += blockDim.x) {
+    int ry, rx;
+    k2_region_tile(lay, b, p0, r, &ry, &rx);
+    const int ty = b.ty0 + ry, tx = b.tx0 + rx;
+    if (k2_stored(lay, ty, tx)) {
+      const int o = lay.at(j, cap, ty, tx);
+      if (j < nout[r]) {
+        const int c = src[j * Ra + r];
+        const int e = c >> 5, s = c & 31;
+        const int g = e == kOwnTile
+                          ? lay.at(s, cap, ty, tx)
+                          : lay.at(s, cap, ty + nbr_dy(e), tx + nbr_dx(e));
+        ox[o] = x[g];
+        oy[o] = y[g];
+        opx[o] = px[g];
+        opy[o] = py[g];
+        if (rad) orad[o] = rad[g];
+        opid[o] = pid[g];
+      } else {
+        ox[o] = 0.0f;
+        oy[o] = 0.0f;
+        opx[o] = 0.0f;
+        opy[o] = 0.0f;
+        if (orad) orad[o] = 0.0f;
+        opid[o] = -1;
+      }
+    }
+    for (r += blockDim.x; r >= Ra; r -= Ra) ++j;
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -37,15 +37,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gpe_collide_integrate": [_P] * 11 + [_I] * 5 + [_P, _P],
     "gpe_collide": [_P] * 6 + [_I] * 4 + [_P, _P],
-    "gpe_relocate_plan": [_P] * 4 + [_I] * 7 + [_F, _F, _P],
-    "gpe_relocate_apply": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
+    "gpe_relocate_pull": [_P] * 13 + [_I] * 7 + [_F, _F, _P],
+    "gpe_relocate_window_bytes": [_I, _I],
     "gpe_gs_rank": [_P] * 8 + [_I] * 4 + [_F, _P],
     "gpe_gs_color": [_P] * 4 + [_I] * 5 + [_F, _P],
     "gpe_gs_rank_par": [_P] * 8 + [_I] * 9 + [_F, _F, _P],
     "gpe_gs_color_par": [_P] * 4 + [_I] * 8 + [_F, _P],
     "gpe_gs_verlet": [_P] * 6 + [_I] + [_P, _P],
-    "gpe_relocate_plan_par": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
-    "gpe_relocate_apply_par": [_P] * 14 + [_I] * 9 + [_F, _F, _P],
+    "gpe_relocate_par": [_P] * 13 + [_I] * 9 + [_F, _F, _P],
     "gpe_radix_rank_hist": [_P] * 3 + [_I] * 2 + [_P],
     "gpe_radix_offsets": [_P] * 3 + [_I] + [_P],
     "gpe_radix_scatter": [_P] * 7 + [_I] * 2 + [_P],

@@ -63,11 +63,18 @@ K6-par Verlet tail ``verlet_`` replaces the Verlet half of
 K2-par ``relocate_par`` replaces ``relocate_parity``
 (gs_parity.py:689; ``_plan_kernel_par``/``_apply_kernel_par`` :539/:573 and
 their ``_all`` variants :617/:651).
-  Bound: as K2, one thread per tile with serial slot loops.
-  Design: K2's plan and apply kernels on the parity layout; every plan is
-  written before any apply reads one (two launches, or four plus four per
-  parity when ``gs_par_fused`` is False).  The apply also rewrites the pad
-  cells (empty).  Under uniform radius no radius plane moves.
+  Bound: device memory, as K2: the pid plane read, and x, y, px, py (and
+  radius) of the occupied slots; the fields, pid and the defer cells
+  written: 0.085 ms at the 1M-GS parity shape [4, 4, 480, 1387] with
+  1,048,576 particles, uniform radius (H100, 3.35 TB/s).
+  Design: K2's window kernel on the parity layout.  A block's region is
+  4 x 32 cells of each of the four sub-grids (the full-space 8 x 64 tiles)
+  and its halo one cell of each: a warp stages 32 consecutive words of
+  one sub-grid, and the window is indexed in full space.  One launch
+  (gs_par_fused None/True) or one per parity (False): each launch reads
+  the inputs only, plans every parity of its window and applies and
+  writes its own parities.  Pad cells are written empty.  Under uniform
+  radius no radius plane moves.
 """
 
 from __future__ import annotations
@@ -462,26 +469,20 @@ def relocate_par_cuda(ps: ParityState, config: SimConfig
     geo, dev, cap = ps.geo, ps.device, ps.cap
     match = resolve_match(config, cap, geo.TY, geo.TX)  # full grid dims
     t, delta = tile_geometry(config)[0], config.hysteresis_delta
-    plan = torch.empty_like(ps.pid)
     outs = [torch.empty_like(ps.x) for _ in range(4)]
     orad = None if ps.radius is None else torch.empty_like(ps.radius)
     opid = torch.empty_like(ps.pid)
     defer = torch.empty((4, geo.DY, geo.DX), dtype=_I32, device=dev)
     groups = _groups(par_fused(config, dev))
-    tail = (_MATCH_CODE[match], f32(t), f32(delta), _stream(dev))
     lib = _cuda.library()
     with torch.cuda.device(dev):
-        for p0, n in groups:  # every plan before any apply
-            rc = lib.gpe_relocate_plan_par(
-                *_ptrs(ps.x, ps.y, ps.pid, plan), cap, *_geo_args(geo), p0,
-                n, *tail)
-            _cuda.check(rc, "relocate par (plan)")
-        for p0, n in groups:
-            rc = lib.gpe_relocate_apply_par(
+        for p0, n in groups:  # each reads the inputs only
+            rc = lib.gpe_relocate_par(
                 *_ptrs(ps.x, ps.y, ps.px, ps.py), _ptr(ps.radius),
-                *_ptrs(ps.pid, plan, *outs), _ptr(orad),
-                *_ptrs(opid, defer), cap, *_geo_args(geo), p0, n, *tail)
-            _cuda.check(rc, "relocate par (apply)")
+                *_ptrs(ps.pid, *outs), _ptr(orad), *_ptrs(opid, defer), cap,
+                *_geo_args(geo), p0, n, _MATCH_CODE[match], f32(t),
+                f32(delta), _stream(dev))
+            _cuda.check(rc, "relocate par")
     LAUNCHES["relocate_par"] += len(groups)
     return ps.replace(x=outs[0], y=outs[1], px=outs[2], py=outs[3],
                       radius=orad, pid=opid,

@@ -37,34 +37,43 @@ K3 ``collide`` replaces ``collide_pallas``
 
 K2 ``relocate_pull`` replaces ``relocate_pallas``
 (gpu_physics_engine_tpu/ops/tiled_pallas.py:945).
-  Bound: per-thread serial work.  One thread per tile: the plan reads
-  x, y, pid of the 8 neighbours' CAP slots and matches serially; the apply
-  reads the tile's own slots, the target tiles' plans and the pulled
-  slots, and writes six fresh planes.  Measured 0.42 ms (plan 0.15 +
-  apply 0.27) per launch at 4M on an H100 80GB HBM3 at 700 W (PERF.md).
-  Design: two launches, one thread per tile each.  The plan keeps every
-  neighbour's claims on this tile as a CAP-bit mask in registers and runs
-  the flip / flip2 / greedy matching of ``_plan_choose`` on them.  The
-  apply writes to new planes (neighbours read the inputs concurrently),
-  compacting survivors to the low slots.  Built with -fmad=false so the
-  tile-boundary decisions equal the plain version's bit for bit.
+  Bound: device memory.  The function reads the pid plane, and x, y,
+  px, py, radius of the occupied slots only (an empty slot moves
+  nothing), and writes six fresh planes and the defer plane: at the 4M
+  shape [8, 640, 1850] with 4,194,304 particles 0.35 GB, 0.106 ms on an
+  H100 at 3.35 TB/s (chip_smoke.py ``bounds``).
+  Design: one launch, ``relocate_window_kernel`` (csrc/tiled_kernels.cuh).
+  A block owns 8 x 64 tiles and stages the region and a two-tile halo:
+  per tile a mask of its occupied slots and one of the slots hopping in
+  each direction, each particle's step computed once (the plan of the
+  two launches it replaced computed it 8 times) and each plane read once,
+  coalesced.  It plans the region and a one-tile ring in shared memory
+  (the matching of ``_plan_choose`` on register masks), applies the region
+  (leavers, deferrals, the outputs in slot order), and writes a thread
+  per (output slot, tile), coalesced, with the zero fill in the same
+  pass.  The plan never goes through device memory.  Built with
+  -fmad=false so the tile-boundary decisions equal the plain version's
+  bit for bit.  Its times, what bounds it now, and the two-launch variant
+  it was chosen over: PERF.md and ``utils/kernel_study.py --k2``.
 
 K4 ``relocate_one`` replaces ``relocate_pallas_one``
 (gpu_physics_engine_tpu/ops/tiled_pallas.py:1187; kernel
 ``_relocate_one_kernel`` :1068).
-  Bound: as K2: x, y, px, py, radius, pid read once and written once, and
-  the defer plane: 0.14 ms at the 4M shape [8, 640, 1850] (3.35 TB/s).
+  Bound: as K2: the pid plane and the occupied slots' fields read, six
+  planes and the defer plane written: 0.106 ms at the 4M shape
+  [8, 640, 1850] (H100, 3.35 TB/s).
   Design: ``relocate_fused_kernel`` on FlatLayout (csrc/tiled_kernels.cuh):
   one block owns 16 x 32 tiles, plans them and a one-tile ring into shared
-  memory with K2's per-tile plan body, synchronises, and applies them with
-  K2's apply body.  The plan never goes through device memory, and 20% of
-  the plans (the ring) are computed twice, where the TPU kernel
-  recomputed every neighbour's plan (9x) from 5x5 views.  Its rule is the
-  JAX kernel's: flip matching, no hysteresis, and the home tile
-  floor(pos / t) by a correctly rounded division (``__fdiv_rn``), where K2
-  compares with products; the two part only for a particle within an ulp
-  of a tile edge.  The matching bodies are K2's, so K4 equals K2 under
-  flip with delta 0 everywhere else.
+  memory with a thread per tile reading its neighbours' slots from device
+  memory (``plan_tile``, K2's matching), synchronises, and applies them a
+  thread per tile (``apply_tile``).  The plan never goes through device
+  memory, and 20% of the plans (the ring) are computed twice, where the
+  TPU kernel recomputed every neighbour's plan (9x) from 5x5 views.  Its
+  rule is the JAX kernel's: flip matching, no hysteresis, and the home
+  tile floor(pos / t) by a correctly rounded division (``__fdiv_rn``),
+  where K2 compares with products; the two part only for a particle
+  within an ulp of a tile edge.  The matching is K2's, so K4 equals K2
+  under flip with delta 0 everywhere else.
 """
 
 from __future__ import annotations
@@ -87,6 +96,23 @@ LAUNCHES = {"collide_integrate": 0, "relocate_pull": 0, "collide": 0,
             "relocate_one": 0}
 
 MAX_CAP = 32  # the kernels' claim bitsets are 32 bits wide
+
+# K2's window (csrc/tiled_kernels.cuh k2_window_bytes): a block's region is
+# K2_REGION[par] = (rows, columns) storage cells (on the parity layout, of
+# each of the four sub-grids); keyed by par (False: flat, True: parity)
+K2_REGION = {False: (8, 64), True: (4, 32)}
+
+
+def k2_window_bytes(cap: int, par: bool) -> int:
+    """Shared memory of one K2 block: occupancy and eight direction masks
+    per window tile (the region and a two-tile full-space halo), eight
+    taken masks per planned tile (the region and a one-tile ring), and an
+    output count and cap u16 source codes per region tile."""
+    rows, cols = K2_REGION[par]
+    ry, rx = (2 * rows, 2 * cols) if par else (rows, cols)
+    return (36 * (ry + 4) * (rx + 4) + 32 * (ry + 2) * (rx + 2)
+            + (4 + 2 * cap) * ry * rx)
+
 
 # fixed claim priority: the first matching neighbour wins a free slot
 NEIGHBORS = ((-1, -1), (-1, 0), (-1, 1), (0, -1),
@@ -272,21 +298,16 @@ def relocate_pull_cuda(state: TileState, config: SimConfig, row0: int = 0,
     _check_cuda_state(state, "relocate_pull")
     cap, TY, TX = state.dims
     match, t, delta, gTY = _k2_args(state, config, global_rows)
-    plan = torch.empty_like(state.pid)
     outs = [torch.empty_like(state.x) for _ in range(5)]
     opid = torch.empty_like(state.pid)
     defer = torch.empty((TY, TX), dtype=torch.int32, device=state.device)
     lib = _cuda.library()
-    common = (cap, TY, TX, int(row0), gTY, TX, _MATCH_CODE[match], f32(t),
-              f32(delta), _stream(state.device))
     with torch.cuda.device(state.device):
-        rc = lib.gpe_relocate_plan(
-            *_ptrs(state.x, state.y, state.pid, plan), *common)
-        _cuda.check(rc, "relocate_pull (plan)")
-        rc = lib.gpe_relocate_apply(
-            *_ptrs(*(getattr(state, f) for f in FIELDS), plan, *outs, opid,
-                   defer), *common)
-        _cuda.check(rc, "relocate_pull (apply)")
+        rc = lib.gpe_relocate_pull(
+            *_ptrs(*(getattr(state, f) for f in FIELDS), *outs, opid, defer),
+            cap, TY, TX, int(row0), gTY, TX, _MATCH_CODE[match], f32(t),
+            f32(delta), _stream(state.device))
+    _cuda.check(rc, "relocate_pull")
     LAUNCHES["relocate_pull"] += 1
     return _relocated(state, outs, opid, defer), defer
 

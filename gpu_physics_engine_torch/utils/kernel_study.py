@@ -1,7 +1,8 @@
-"""Time K1 against variants of its input, and the radix sort's pieces
-against torch.sort, on the card.
+"""Time K1 and K2 against variants of their input, and the radix sort's
+pieces against torch.sort, on the card.
 
-    python -m gpu_physics_engine_torch.utils.kernel_study [--k1] [--radix]
+    python -m gpu_physics_engine_torch.utils.kernel_study [--k1] [--k2]
+        [--other-lib PATH] [--radix]
 
 prints the card's name and power limit, then one JSON line per study
 (isolated launches, CUDA events around 20 calls after a warm-up, ms per
@@ -14,6 +15,24 @@ call):
   tested but none passes the distance test) and "empty" (every pid -1:
   no candidate at all).  Whether K1 and K3 equal their plain versions
   bit for bit, and their largest difference, go into the line too.
+* ``--k2``: K2 (``relocate_pull_cuda``) on the tuned engine's scene at
+  ``--particles`` and K2-par (``relocate_par_cuda``) on the 1M-GS par
+  scene (``gs_config(1_048_576)``), each on four states: "in_step" (the
+  engine's own state after 64 steps), "jitter" (every live particle
+  displaced by up to 0.6 tile), "no_movers" (the initial scene as
+  ``init_tiles`` stores it: the particles at home, bar the few a full
+  tile put in a neighbour) and "empty" (every pid -1).  Per state the
+  ms of a call (CUDA events, twice), the device ms of each kernel it
+  launches (a torch.profiler window over 10 calls: the plan and the apply
+  apart where there are two launches), the particles deferred, and
+  whether the kernel equals its plain version bit for bit (on the
+  jittered state).  K4 (``relocate_one_cuda``) and relocate_mega
+  (``gs_mega.relocate_mega_cuda``), which share K2's matching, on the
+  jittered states beside them.  With ``--other-lib PATH`` (another build
+  of the kernel library, such as an earlier commit's ``_build/*.so``) K4
+  and relocate_mega are timed through both builds in one process on the
+  same inputs, in turns (this build, the other, the other, this): their
+  entry points are the same in both, so a difference is the kernels'.
 * ``--radix``: the array Engine's 1M scene (the README's example) and its
   4,403,200 pair keys: ``torch.sort(stable=True)`` of the keys with the
   payload gathered, the hand ``radix_sort_pairs``, and its pieces (one
@@ -69,6 +88,127 @@ def k1_study(particles: int) -> dict:
     return out
 
 
+def _jittered(state, scale, seed):
+    """``state`` with live x/y displaced by up to +-scale (on the card)."""
+    import torch
+    g = torch.Generator(device=state.device).manual_seed(seed)
+    occ = state.pid >= 0
+    d = [(torch.rand(state.x.shape, generator=g, device=state.device) - 0.5)
+         * 2 * scale for _ in range(2)]
+    return state.replace(x=torch.where(occ, state.x + d[0], state.x),
+                         y=torch.where(occ, state.y + d[1], state.y))
+
+
+def _k2_states(engine, steps: int) -> dict:
+    """The four states of ``--k2`` in full space, from ``engine``."""
+    import torch
+    from gpu_physics_engine_torch.ops import tiled
+    start = engine.state
+    t = tiled.tile_geometry(engine.config)[0]
+    states = {"jitter": _jittered(start, 0.6 * t, seed=1),
+              "no_movers": start,
+              "empty": start.replace(pid=torch.full_like(start.pid, -1))}
+    engine.run(steps)
+    states["in_step"] = engine.state
+    return states
+
+
+def _relocate_rows(fn, check) -> dict:
+    out = {"ms": [cuda_ms(fn), cuda_ms(fn)],
+           "device_ms": kernel_device_ms(fn, 10),
+           "deferred": int(fn()[1].sum())}
+    if check is not None:
+        out["bit_equal"] = check()
+    return out
+
+
+def _other_library(path: str):
+    """Another build of the kernel library, its entry points typed as this
+    tree's (those it has)."""
+    import ctypes
+    from gpu_physics_engine_torch.ops import _cuda
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _cuda._SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _through(lib, fn):
+    """``fn`` with the kernel wrappers bound to ``lib`` while it runs."""
+    from gpu_physics_engine_torch.ops import _cuda
+
+    def call():
+        own = _cuda.library
+        _cuda.library = lambda: lib
+        try:
+            return fn()
+        finally:
+            _cuda.library = own
+    return call
+
+
+def _fused_rows(fn, other) -> dict:
+    """K4's or relocate_mega's rows; with ``other`` also the other build's,
+    in turns: {"this": [row, row], "other": [row, row]}."""
+    if other is None:
+        return _relocate_rows(fn, None)
+    theirs = _through(other, fn)
+    a, b, c, d = (_relocate_rows(f, None) for f in (fn, theirs, theirs, fn))
+    return {"this": [a, d], "other": [b, c]}
+
+
+def k2_study(particles: int, other=None) -> dict:
+    import torch
+    from gpu_physics_engine_torch import TiledEngine, make_tuned_engine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import gs_mega as gm
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.ops import tiled_kernels as tk
+    out = {"study": "k2", "particles": particles}
+
+    def same(a, b, fields):
+        return all(torch.equal(getattr(a[0], f), getattr(b[0], f))
+                   for f in fields) and torch.equal(a[1], b[1])
+
+    e = make_tuned_engine(particles, device="cuda")
+    cfg = e.config
+    out["k2_dims"] = list(e.state.dims)
+    for name, st in _k2_states(e, 64).items():
+        check = None
+        if name == "jitter":
+            check = lambda: same(  # noqa: E731
+                tk.relocate_pull_cuda(st, cfg),
+                tk.relocate_pull_plain(st, cfg),
+                ("x", "y", "px", "py", "radius", "pid"))
+        out[f"k2_{name}"] = _relocate_rows(
+            lambda: tk.relocate_pull_cuda(st, cfg), check)
+        if name == "jitter":
+            out["k4_jitter"] = _fused_rows(
+                lambda: tk.relocate_one_cuda(st, cfg), other)
+    del e, st
+    torch.cuda.empty_cache()
+    e = TiledEngine(gs_config(1_048_576, gs_layout="par"), seed=0, chunk=64,
+                    device="cuda")
+    cfg = e.config
+    for name, st in _k2_states(e, 64).items():
+        ps = gp.to_parity_state(st, cfg)
+        out["k2_par_dims"] = list(ps.x.shape)
+        check = None
+        if name == "jitter":
+            check = lambda: same(  # noqa: E731
+                gp.relocate_par_cuda(ps, cfg), gp.relocate_par_plain(ps, cfg),
+                ("x", "y", "px", "py", "pid"))
+        out[f"k2_par_{name}"] = _relocate_rows(
+            lambda: gp.relocate_par_cuda(ps, cfg), check)
+        if name == "jitter":
+            out["mega_jitter"] = _fused_rows(
+                lambda: gm.relocate_mega_cuda(ps, cfg), other)
+    return out
+
+
 def radix_study() -> dict:
     import torch
     from gpu_physics_engine_torch import Engine, SimConfig
@@ -105,12 +245,12 @@ def radix_study() -> dict:
             ("as_i32_bits", lambda: rs.as_i32_bits(keys)),
             ("from_i32_bits", lambda: rs.from_i32_bits(bits))):
         out[name] = [cuda_ms(fn), cuda_ms(fn)]
-    out["in_sort_device_ms"] = sort_kernels(lambda: rs.radix_sort_pairs(
+    out["in_sort_device_ms"] = kernel_device_ms(lambda: rs.radix_sort_pairs(
         keys, obj), 10)
     return out
 
 
-def sort_kernels(fn, reps: int) -> dict:
+def kernel_device_ms(fn, reps: int) -> dict:
     """Device ms per call of ``fn`` for each kernel it launches (a
     torch.profiler window over ``reps`` calls, CUDA activity only)."""
     import torch
@@ -135,6 +275,10 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k1", action="store_true")
+    ap.add_argument("--k2", action="store_true")
+    ap.add_argument("--other-lib", default=None,
+                    help="with --k2: time K4 and relocate_mega through "
+                         "this build of the kernel library too")
     ap.add_argument("--radix", action="store_true")
     ap.add_argument("--particles", type=int, default=4_194_304)
     args = ap.parse_args(argv)
@@ -146,6 +290,9 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     if args.k1:
         print(json.dumps(k1_study(args.particles)), flush=True)
+    if args.k2:
+        other = _other_library(args.other_lib) if args.other_lib else None
+        print(json.dumps(k2_study(args.particles, other)), flush=True)
     if args.radix:
         print(json.dumps(radix_study()), flush=True)
     return 0

@@ -5,9 +5,10 @@ Imports torch and the port only, so it also runs where jax is absent:
 repository's conftest imports jax).  Without a CUDA device every test here
 skips.  K1 and K3 equal their plain versions bit for bit at every cap
 the engine can reach, in box and circle worlds, on grids smaller than one
-shared-memory region and not a multiple of it; K2, K5 and K6 bit for bit,
-on the flat and the parity layouts, and the Verlet tail too; the par
-engine equals the flat engine.  The fused kernels (colors_mega,
+shared-memory region and not a multiple of it; K2 and K2-par bit for bit
+up to cap 32 and on a ragged grid, K5 and K6 bit for bit, on the flat and
+the parity layouts, and the Verlet tail too; the par engine equals the
+flat engine.  The fused kernels (colors_mega,
 relocate_mega, K4) bit for bit, and equal to the sequential kernels they
 fuse.  K12 (the radix sort's rank/histogram pass), the digit offsets and
 the scatter bit for bit on all four passes at 1, 3 and 1,075 blocks, the
@@ -69,9 +70,21 @@ def test_k1_cuda_matches_plain(uniform, world):
 
 @pytest.mark.parametrize("match", ["flip", "flip2", "greedy"])
 @pytest.mark.parametrize("hysteresis", [0.0, -1.0])
-@pytest.mark.parametrize("cap", [4, 8])
-def test_k2_cuda_matches_plain(match, hysteresis, cap):
-    cfg, st = _scene(match=match, hysteresis=hysteresis, cap=cap)
+@pytest.mark.parametrize("cap", [4, 8, 32])
+@pytest.mark.parametrize("shape", ["square", "ragged"])
+def test_k2_cuda_matches_plain(match, hysteresis, cap, shape):
+    """K2 on its shared-memory window: bit-equal to the plain version and
+    on repeat, nothing lost, up to cap 32 (the largest window), on a 64 x 64
+    world and on a grid whose TY and TX are no multiples of the region
+    ("ragged": 21 x 39 at cap 6)."""
+    if shape == "square":
+        cfg, st = _scene(match=match, hysteresis=hysteresis, cap=cap)
+    else:
+        cfg, st = _window_scene(cap, True, "box", 80.0, 33.0, 3)
+        cfg = cfg.replace(tiled_match=match, tiled_hysteresis=hysteresis)
+        g = torch.Generator(device="cuda").manual_seed(cap + 1)
+        d = (torch.rand(st.x.shape, generator=g, device="cuda") - 0.5) * 1.6
+        st = st.replace(x=torch.where(st.pid >= 0, st.x + d, st.x))
     n0 = tk.LAUNCHES["relocate_pull"]
     a, da = tk.relocate_pull_cuda(st, cfg)
     b, db = tk.relocate_pull_plain(st, cfg)
@@ -82,7 +95,8 @@ def test_k2_cuda_matches_plain(match, hysteresis, cap):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
         assert torch.equal(getattr(a, f), getattr(c, f)), f
     assert torch.equal(da, db) and torch.equal(da, dc)
-    assert int((a.pid >= 0).sum()) == 500  # nothing lost
+    assert int((a.pid >= 0).sum()) == int((st.pid >= 0).sum())  # none lost
+    assert not torch.equal(a.pid, st.pid)  # particles moved
 
 
 @pytest.mark.parametrize("uniform", [False, True])
@@ -290,6 +304,42 @@ def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
         gp.verlet_plain_(*p, ps.pid, prm, cfg)
         for u, v in zip(k, p):
             assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("cap, shape", [(2, "square"), (32, "square"),
+                                        (6, "ragged")])
+@pytest.mark.parametrize("match", ["flip", "flip2", "greedy"])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("origin", [0, -1])
+def test_relocate_par_window_matches_plain(cap, shape, match, fused, origin):
+    """K2-par on its shared-memory window: bit-equal to its plain version
+    and on repeat, none lost, at cap 2 and cap 32 (the largest window) and
+    on the ragged 21 x 39 grid, in one launch over all parities and in one
+    per parity, for both origins."""
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    if shape == "square":
+        cfg, st = _gs_scene(cap, 8, seed=cap + 40)
+    else:
+        cfg, st = _window_scene(cap, False, "box", 80.0, 33.0, 3)
+    cfg = cfg.replace(tiled_match=match, gs_par_fused=fused)
+    g = torch.Generator(device="cuda").manual_seed(cap + 2)
+    d = (torch.rand(st.x.shape, generator=g, device="cuda") - 0.5) * 1.4
+    st = st.replace(y=torch.where(st.pid >= 0, st.y + d, st.y))
+    ps = gp.to_parity_state(st, cfg, origin)
+    n0 = gp.LAUNCHES["relocate_par"]
+    a, da = gp.relocate_par_cuda(ps, cfg)
+    b, db = gp.relocate_par_plain(ps, cfg)
+    c, dc = gp.relocate_par_cuda(ps, cfg)
+    torch.cuda.synchronize()
+    assert gp.LAUNCHES["relocate_par"] == n0 + (2 if fused else 8)
+    fields = ("x", "y", "px", "py", "pid", "overflow_count") + (
+        () if ps.radius is None else ("radius",))
+    for f in fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert torch.equal(getattr(a, f), getattr(c, f)), f
+    assert (a.radius is None) == (ps.radius is None)
+    assert torch.equal(da, db) and torch.equal(da, dc)
+    assert int((a.pid >= 0).sum()) == int((st.pid >= 0).sum())
 
 
 def test_par_engine_on_card_matches_flat_engine_on_card():

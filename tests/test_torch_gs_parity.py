@@ -166,7 +166,7 @@ def test_state_carried_from_jax_into_parity_space(uniform):
 # the parity kernels' plain versions against the flat path
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("match", ["flip", "greedy"])
+@pytest.mark.parametrize("match", ["flip", "flip2", "greedy"])
 def test_relocate_parity_matches_flat_pull(match):
     """K2-par (plain on the CPU) moves storage as the flat pull relocate
     does, deferrals included: a jammed cluster kicked ~0.8 tile, cap 2."""
