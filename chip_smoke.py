@@ -22,18 +22,24 @@ non-zero with no result line:
      at the GS shapes [4, 960, 2773] and [6, 960, 2773],
      bit-equal; K5 (GS rank) and K6 (GS color solve) on a small
      mixed-radius scene with a jammed cluster (clamp overflow) and at both
-     GS shapes: rank tables, x, y and overflow_count bit-equal; the
-     parity-space kernels there too, on a small uniform scene as well, at
-     the parity shapes [4, 4, 480, 1387] and [4, 6, 480, 1387]: K5-par
-     (one launch for all parities and one per parity), K6-par for every
+     GS shapes: rank tables, x, y and overflow_count bit-equal; K5 and
+     K5-par (the rank's shared-memory window; its bytes == the Python
+     mirror at every cap) also on a 40 x 30 world's ragged grid and at
+     cap 32 with K 16, with and without a radius plane, at origins 0 and
+     -1; the parity-space kernels there too, on a small uniform scene as
+     well, at the parity shapes [4, 4, 480, 1387] and [4, 6, 480, 1387]:
+     K5-par (origins 0 and -1, one launch for all parities and one per
+     parity), K6-par for every
      color on the par, mx and dec layouts, K2-par (both launch modes,
      origins 0 and -1, every matching mode) and K6-par's Verlet tail, all
      bit-equal; the mx and
      dec solves bit-equal to the flat solve; the fused kernels there too:
      colors_mega (with and without the tail) == its plain version == four
-     K6-par launches + the tail, relocate_mega == K2-par, and K4 (the
-     one-launch relocate) == its plain version at the 4M shape and a small
-     mixed-radius one, and == K2 under flip with delta 0 away from
+     K6-par launches + the tail, relocate_mega (K2's window over all four
+     parities) == K2-par, also on the ragged grid and at cap 32 in every
+     matching mode at origins 0 and -1, and K4 (K2's window with K4's step
+     rule) == its plain version at the 4M shape, a small mixed-radius one,
+     the ragged grid and cap 32, and == K2 under flip with delta 0 away from
      particles within an ulp of a tile edge (the rules part there);
      before these, the tile division: ``tiled._tile_of`` on the card ==
      numpy's f32 floor(x / t) on the 4M scene and on every tile-edge probe
@@ -151,22 +157,31 @@ def phase_build() -> None:
 
 
 def check_window_formula() -> None:
-    """K2's shared-memory bytes, as the launches take them from
-    csrc/tiled_kernels.cuh, equal the Python mirror in ops/tiled_kernels.py
-    at every cap 1-32 on both layouts."""
-    from gpu_physics_engine_torch.ops import _cuda, tiled_kernels as tk
+    """The shared-memory bytes of K2's and K5's windows, as the launches
+    take them from csrc/, equal the Python mirrors
+    (``tiled_kernels.k2_window_bytes``, ``gs_kernels.rank_window_bytes``)
+    at every cap 1-32 (K2 on both layouts; K5, whose geometry is one for
+    both, with and without a radius plane)."""
+    from gpu_physics_engine_torch.ops import _cuda, gs_kernels as gk
+    from gpu_physics_engine_torch.ops import tiled_kernels as tk
     lib = _cuda.library()
     most = {}
     for par in (False, True):
         for cap in range(1, tk.MAX_CAP + 1):
-            want = tk.k2_window_bytes(cap, par)
-            got = lib.gpe_relocate_window_bytes(cap, int(par))
-            if got != want:
-                raise AssertionError(f"K2 window at cap {cap} par={par}: "
-                                     f"launch {got} B, mirror {want} B")
-            most[par] = max(most.get(par, 0), want)
-    log(f"[k2] window bytes of the launches == the Python mirror at caps "
-        f"1-{tk.MAX_CAP}: most {most[False]} B flat, {most[True]} B parity")
+            pairs = [("K2", tk.k2_window_bytes(cap, par),
+                      lib.gpe_relocate_window_bytes(cap, int(par)))]
+            pairs += [("K5", gk.rank_window_bytes(cap, uniform),
+                       lib.gpe_gs_rank_window_bytes(cap, int(uniform)))
+                      for uniform in (False, True)]
+            for what, want, got in pairs:
+                if got != want:
+                    raise AssertionError(
+                        f"{what} window at cap {cap} par={par}: launch "
+                        f"{got} B, mirror {want} B")
+                most[what, par] = max(most.get((what, par), 0), want)
+    log(f"[window] bytes of the launches == the Python mirrors at caps "
+        f"1-{tk.MAX_CAP}: K2 most {most['K2', False]} B flat, "
+        f"{most['K2', True]} B parity; K5 most {most['K5', False]} B")
 
 
 def _jittered(state, scale, seed):
@@ -381,6 +396,54 @@ def _gs_small_state():
     return cfg, tiled.init_tiles(cfg, pos, rad, device="cuda")
 
 
+def _gs_ragged_state(cap, K, uniform, n=1500):
+    """A small GS scene on a 40 x 30 world: TX 39 is no multiple of K5's
+    32-wide flat region nor its parity sub-grids' 20 columns of one of
+    32, and at origin -1 DY 17 no multiple of two rows (TY itself is
+    padded to a multiple of 8 by the tile geometry, as in the JAX
+    package); mixed radii (or uniform) with a jammed cluster."""
+    import numpy as np
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import tiled
+    cfg = gs_config(n, world_width=40.0, world_height=30.0, tile_cap=cap,
+                    max_occupancy=K, tiled_uniform_radius=uniform)
+    rng = np.random.default_rng(cap)
+    spread = rng.uniform(0.6, [39.4, 29.4], (n - n // 3, 2))
+    jam = np.clip([20.0, 15.0] + rng.normal(0.0, 2.0, (n // 3, 2)), 0.6,
+                  [39.4, 29.4])
+    pos = np.concatenate([spread, jam]).astype(np.float32)
+    rad = (np.full(n, cfg.initial_radius, np.float32) if uniform
+           else rng.uniform(0.3, 0.5, n).astype(np.float32))
+    return cfg, tiled.init_tiles(cfg, pos, rad, device="cuda")
+
+
+def check_rank(label, cfg, st, errs: dict) -> None:
+    """K5 (flat) and K5-par at origins 0 and -1, in one launch over all
+    parities and one per parity, against their plain versions on ``st``
+    (its radius plane dropped in parity space under a uniform radius):
+    bit-equal and bit-equal on repeat."""
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    a, a2 = gk.rank_cuda(st, cfg), gk.rank_cuda(st, cfg)
+    _equal_or_raise(f"K5 {label}", a, gk.rank_plain(st, cfg), a2)
+    errs.setdefault("gs_rank", 0.0)
+    shapes = []
+    for origin in (0, -1):
+        ps = gp.to_parity_state(st, cfg, origin)
+        shapes.append(list(ps.x.shape))
+        for fused in (True, False):
+            c = cfg.replace(gs_par_fused=fused)
+            b, b2 = gp.rank_par_cuda(ps, c), gp.rank_par_cuda(ps, c)
+            _equal_or_raise(f"K5-par {label} origin={origin} fused={fused}",
+                            b, gp.rank_par_plain(ps, c), b2)
+    errs["gs_rank_par"] = 0.0
+    log(f"[k5] {label} {list(st.dims)} K={cfg.max_occupancy} uniform="
+        f"{cfg.tiled_uniform_radius}: K5 and K5-par at {shapes} (origins 0 "
+        f"and -1, one launch and one per parity) bit-equal and repeat "
+        f"bit-equal; max count {int(a[3].max())}, clamp overflow "
+        f"{int((a[3] - cfg.max_occupancy).clamp(min=0).sum())}")
+
+
 def phase_gs_kernels(scenes, errs: dict) -> None:
     """K5 and K6 against their plain versions: the rank tables, and x, y
     and overflow_count after the four colors, bit-equal; twice each.  At a
@@ -421,6 +484,14 @@ def phase_gs_kernels(scenes, errs: dict) -> None:
             f"{int(ta[3].max())}, {moved} slots moved")
         if label != "small":
             check_relocate(label, cfg, st, MODES, errs)
+    # K5's window where it is largest (cap 32, K 16) and on a ragged grid,
+    # with and without a radius plane
+    for uniform in (False, True):
+        for label, cap, K, n in (("ragged", 4, 8, 1500),
+                                 ("cap32-K16", 32, 16, 3000)):
+            cfg, st = _gs_ragged_state(cap, K, uniform, n)
+            st = _jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=cap)
+            check_rank(label, cfg, st, errs)
 
 
 def _equal_or_raise(what, got, want, again=None) -> None:
@@ -480,13 +551,15 @@ def phase_par_kernels(scenes, errs: dict) -> None:
     for i, (label, cfg, st) in enumerate(runs + list(scenes)):
         t = tiled.tile_geometry(cfg)[0]
         st = _jittered(st, 0.3 * t, seed=20 + i)  # storage off home
-        ps = gp.to_parity_state(st, cfg)
+        for origin in (-1, 0):  # the tables of origin 0 serve below
+            ps = gp.to_parity_state(st, cfg, origin)
+            for fused in (True, False):
+                c = cfg.replace(gs_par_fused=fused)
+                ta, ta2 = gp.rank_par_cuda(ps, c), gp.rank_par_cuda(ps, c)
+                _equal_or_raise(f"K5-par {label} origin={origin} "
+                                f"fused={fused}", ta,
+                                gp.rank_par_plain(ps, c), ta2)
         dims = list(ps.x.shape)
-        for fused in (True, False):
-            c = cfg.replace(gs_par_fused=fused)
-            ta, ta2 = gp.rank_par_cuda(ps, c), gp.rank_par_cuda(ps, c)
-            _equal_or_raise(f"K5-par {label} fused={fused}", ta,
-                            gp.rank_par_plain(ps, c), ta2)
         src, _, rrad, count = ta
         errs["gs_rank_par"] = 0.0
         moved = _colors_lockstep(f"K6-par {label}", ps.x, ps.y, src, rrad,
@@ -522,7 +595,8 @@ def phase_par_kernels(scenes, errs: dict) -> None:
                 float((u - v).abs().max()) for u, v in zip(ka, pa)))
             verlet = ", Verlet tail"
         log(f"[par] {label} {dims} match {tk.resolve_match(cfg, *st.dims)}: "
-            f"K5-par (fused and per parity), K6-par (par, mx, dec), K2-par "
+            f"K5-par (origins 0 and -1, fused and per parity), K6-par (par, "
+            f"mx, dec), K2-par "
             f"(above){verlet} "
             f"bit-equal and repeat bit-equal; mx and dec solves == flat; "
             f"clamp overflow "
@@ -647,12 +721,48 @@ def check_relocate_one(label, cfg, st, errs: dict) -> None:
         f"{int(da.sum())}; {vs_k2}")
 
 
+def check_relocate_mega(label, cfg, st, modes, errs: dict,
+                        seed=70) -> str:
+    """relocate_mega against its plain version and K2-par (one launch over
+    all parities) on ``st`` (full space) jittered by up to 0.6 tile, at
+    origins 0 and -1, for each (match, hysteresis) of ``modes``:
+    bit-equal and bit-equal on repeat.  Returns a summary for the log."""
+    from gpu_physics_engine_torch.ops import gs_mega as gm
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.ops import tiled
+    moved = _jittered(st, 0.6 * tiled.tile_geometry(cfg)[0], seed=seed)
+    deferred = []
+    for match, hyst in modes:
+        c = cfg.replace(tiled_match=match, tiled_hysteresis=hyst,
+                        gs_par_fused=True)
+        for origin in (0, -1):
+            far = gp.to_parity_state(moved, c, origin)
+            a, da = gm.relocate_mega_cuda(far, c)
+            a2, da2 = gm.relocate_mega_cuda(far, c)
+            fields = ("x", "y", "px", "py", "pid", "overflow_count") + (
+                () if far.radius is None else ("radius",))
+            for ref, (b, db) in (("plain", gp.relocate_par_plain(far, c)),
+                                 ("K2-par", gp.relocate_par_cuda(far, c))):
+                _equal_or_raise(
+                    f"relocate_mega {label} {match} hysteresis={hyst} "
+                    f"origin={origin} vs {ref}",
+                    tuple(getattr(a, f) for f in fields) + (da,),
+                    tuple(getattr(b, f) for f in fields) + (db,),
+                    tuple(getattr(a2, f) for f in fields) + (da2,))
+            deferred.append(int(da.sum()))
+    errs["relocate_mega"] = 0.0
+    return (f"relocate_mega == plain == K2-par ({len(modes)} mode(s), "
+            f"origins 0 and -1, deferred {deferred})")
+
+
 def phase_fused_kernels(gs_scenes, cfg4m, st4m, errs: dict) -> None:
     """The fused kernels against their plain versions and the sequential
     kernels they fuse, bit-equal and on repeat: colors_mega with and
     without the Verlet tail (== four K6-par launches + the tail),
     relocate_mega (== K2-par) at a small uniform scene and the GS paths'
-    parity shapes; K4 at the 4M shape and at a small mixed-radius one."""
+    parity shapes, and in every matching mode on the ragged grid and at
+    cap 32; K4 at the 4M shape, at a small mixed-radius one, on the
+    ragged grid and at cap 32."""
     from gpu_physics_engine_torch import StepParams
     from gpu_physics_engine_torch.core.tuned import gs_config
     from gpu_physics_engine_torch.ops import gs_mega as gm
@@ -693,24 +803,24 @@ def phase_fused_kernels(gs_scenes, cfg4m, st4m, errs: dict) -> None:
             _equal_or_raise(f"{what} vs K6-par x 4 + tail", got(runs[0]),
                             got(seq))
         errs["gs_colors_mega"] = 0.0
-        far = gp.to_parity_state(_jittered(st, 0.6 * t, seed=70 + i), cfg)
-        a, da = gm.relocate_mega_cuda(far, cfg)
-        a2, da2 = gm.relocate_mega_cuda(far, cfg)
-        fields = ("x", "y", "px", "py", "pid", "overflow_count")
-        for ref, (b, db) in (("plain", gp.relocate_par_plain(far, cfg)),
-                             ("K2-par", gp.relocate_par_cuda(far, cfg))):
-            _equal_or_raise(f"relocate_mega {label} vs {ref}",
-                            tuple(getattr(a, f) for f in fields) + (da,),
-                            tuple(getattr(b, f) for f in fields) + (db,),
-                            tuple(getattr(a2, f) for f in fields) + (da2,))
-        errs["relocate_mega"] = 0.0
+        mega = check_relocate_mega(
+            label, cfg, st, [(cfg.tiled_match, cfg.tiled_hysteresis)], errs,
+            seed=70 + i)
         log(f"[mega] {label} {list(ps.x.shape)}: colors_mega (with and "
-            f"without the tail) == plain == K6-par x 4 (+ tail), "
-            f"relocate_mega == plain == K2-par (match "
-            f"{gp.resolve_match(cfg, cfg.tile_cap, ps.geo.TY, ps.geo.TX)}, "
-            f"deferred {int(da.sum())}), bit for bit and on repeat")
+            f"without the tail) == plain == K6-par x 4 (+ tail), {mega} "
+            f"(match {gp.resolve_match(cfg, cfg.tile_cap, *st.dims[1:])}), "
+            f"bit for bit and on repeat")
+    ragged_cfg, ragged = _ragged_state(6, uniform=True)
+    cap32_cfg, cap32 = _small_state(32, uniform=False)
+    for label, c, s in (("ragged", ragged_cfg, ragged),
+                        ("small-cap32", cap32_cfg, cap32)):
+        log(f"[mega] {label} {list(s.dims)}: "
+            f"{check_relocate_mega(label, c, s, MODES, errs)}, bit for bit "
+            f"and on repeat")
     mixed_cfg, mixed = _small_state(4, uniform=False)
     for label, c, s in (("small-mixed", mixed_cfg, mixed),
+                        ("ragged", ragged_cfg, ragged),
+                        ("small-cap32", cap32_cfg, cap32),
                         ("4M", cfg4m, st4m)):
         check_relocate_one(label, c, s, errs)
 
@@ -1060,8 +1170,10 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     gocc = float((gs_state.pid >= 0).sum())
     _, _, _, count = gk.rank_cuda(gs_state, gs_cfg)
     m = torch.clamp(count, max=K).double()
-    out["gs_rank"] = _bound(4 * gcap * GY * GX * 4.0 + (3 * K + 1) * GY * GX
-                            * 4.0, 9 * 9 * gocc)
+    # the pid plane and the occupants' x, y, radius read (an empty slot is
+    # no candidate), three K-deep tables and the count written
+    out["gs_rank"] = _bound(gcap * GY * GX * 4.0 + 12 * gocc
+                            + (3 * K + 1) * GY * GX * 4.0, 9 * 9 * gocc)
     # per launch (a quarter of the frame): each valid rank's code and
     # radius read, its x, y read and written; its pairs' sweep
     out["gs_color"] = _bound(24 * float(m.sum()) / 4,
@@ -1071,8 +1183,9 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     cells = float(ps.pid[:, 0].numel())
     _, _, _, pcount = gp.rank_par_cuda(ps, gs_cfg)
     pm = torch.clamp(pcount, max=K).double()
-    out["gs_rank_par"] = _bound(3 * P + (3 * K + 1) * cells * 4.0,
-                                9 * 9 * gocc)
+    nr = 0 if ps.radius is None else 1  # no radius plane when uniform
+    out["gs_rank_par"] = _bound(P + 4 * (2 + nr) * gocc
+                                + (3 * K + 1) * cells * 4.0, 9 * 9 * gocc)
     out["gs_color_par"] = _bound(24 * float(pm.sum()) / 4,
                                  8 * float((pm * (pm - 1) / 2).sum()) / 4)
     out["gs_color_par[mx]"] = out["gs_color_par[dec]"] = out["gs_color"]

@@ -17,17 +17,48 @@ constexpr int kThreads = 256;
 
 int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
+// K5's grid: one block per region of kRankRows x kRankCols full-space
+// tiles (on ParLayout half as many cells of each sub-grid per axis).
+dim3 rank_grid(const gpe::FlatLayout& l) {
+  constexpr int RY = gpe::kRankRows, RX = gpe::kRankCols;
+  return dim3((l.TX + RX - 1) / RX, (l.TY + RY - 1) / RY);
+}
+dim3 rank_grid(const gpe::ParLayout& l) {
+  constexpr int SY = gpe::kRankRows / 2, SX = gpe::kRankCols / 2;
+  return dim3((l.DX + SX - 1) / SX, (l.DY + SY - 1) / SY);
+}
+
+template <int KMAX, class L, bool MASK>
+int launch_rank_k(const float* x, const float* y, const float* rad,
+                  const int* pid, int* src, int* rpid, float* rrad,
+                  int* count, int cap, const L& lay, int np, int K, float t,
+                  float r0, cudaStream_t s) {
+  const int smem = gpe::rank_window_bytes(cap, rad == nullptr);
+  // past the default 48 KB from cap 8 to 12, by layout and radius
+  const cudaError_t rc =
+      gpe::allow_smem(gpe::gs_rank_kernel<KMAX, L, MASK>, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  gpe::gs_rank_kernel<KMAX, L, MASK>
+      <<<rank_grid(lay), gpe::kRankThreads, smem, s>>>(
+          x, y, rad, pid, src, rpid, rrad, count, cap, lay, np, K, t, r0);
+  return (int)cudaGetLastError();
+}
+
 template <class L, bool MASK>
-void launch_rank(const float* x, const float* y, const float* rad,
-                 const int* pid, int* src, int* rpid, float* rrad, int* count,
-                 int cap, const L& lay, int n, int K, float t, float r0,
-                 cudaStream_t s) {
-  if (K <= 8)
-    gpe::gs_rank_kernel<8, L, MASK><<<blocks_for(n), kThreads, 0, s>>>(
-        x, y, rad, pid, src, rpid, rrad, count, cap, lay, n, K, t, r0);
-  else
-    gpe::gs_rank_kernel<16, L, MASK><<<blocks_for(n), kThreads, 0, s>>>(
-        x, y, rad, pid, src, rpid, rrad, count, cap, lay, n, K, t, r0);
+int launch_rank(const void* x, const void* y, const void* rad,
+                const void* pid, void* src, void* rpid, void* rrad,
+                void* count, int cap, const L& lay, int np, int K, float t,
+                float r0, void* stream) {
+  if (K < 1 || K > gpe::kGsMaxK || cap < 1 || cap > gpe::kMaxCap ||
+      lay.TY < 1 || lay.TX < 1)
+    return (int)cudaErrorInvalidValue;
+  auto* launch = K <= 8 ? &launch_rank_k<8, L, MASK>
+                        : &launch_rank_k<16, L, MASK>;
+  return launch(static_cast<const float*>(x), static_cast<const float*>(y),
+                static_cast<const float*>(rad), static_cast<const int*>(pid),
+                static_cast<int*>(src), static_cast<int*>(rpid),
+                static_cast<float*>(rrad), static_cast<int*>(count), cap,
+                lay, np, K, t, r0, static_cast<cudaStream_t>(stream));
 }
 
 template <class L>
@@ -79,20 +110,16 @@ int color_tx0(int color) { return 1 - ((color - 1) & 1); }
 extern "C" {
 
 // K5: src/rpid int32 [K, TY, TX], rrad float [K, TY, TX], count int32
-// [TY, TX].  1 <= K <= 16.
+// [TY, TX].  1 <= K <= 16, 1 <= cap <= 32.
 int gpe_gs_rank(const void* x, const void* y, const void* rad,
                 const void* pid, void* src, void* rpid, void* rrad,
                 void* count, int cap, int TY, int TX, int K, float t,
                 void* stream) {
-  if (K < 1 || K > gpe::kGsMaxK) return (int)cudaErrorInvalidValue;
+  if (rad == nullptr) return (int)cudaErrorInvalidValue;
   const gpe::FlatLayout lay{TY, TX, 0, 0, 1, TX};
-  launch_rank<gpe::FlatLayout, false>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const float*>(rad), static_cast<const int*>(pid),
-      static_cast<int*>(src), static_cast<int*>(rpid),
-      static_cast<float*>(rrad), static_cast<int*>(count), cap, lay,
-      TY * TX, K, t, 0.0f, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return launch_rank<gpe::FlatLayout, false>(x, y, rad, pid, src, rpid, rrad,
+                                             count, cap, lay, 1, K, t, 0.0f,
+                                             stream);
 }
 
 // K5-par: fields [4, cap, DY, DX] (rad may be null: uniform radius r0),
@@ -103,16 +130,18 @@ int gpe_gs_rank_par(const void* x, const void* y, const void* rad,
                     void* count, int cap, int TY, int TX, int DY, int DX,
                     int origin, int p0, int np, int K, float t, float r0,
                     void* stream) {
-  if (K < 1 || K > gpe::kGsMaxK || p0 < 0 || np < 1 || p0 + np > 4)
+  if (p0 < 0 || np < 1 || p0 + np > 4 || DY < 1 || DX < 1)
     return (int)cudaErrorInvalidValue;
   const gpe::ParLayout lay{TY, TX, DY, DX, origin, p0};
-  launch_rank<gpe::ParLayout, true>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const float*>(rad), static_cast<const int*>(pid),
-      static_cast<int*>(src), static_cast<int*>(rpid),
-      static_cast<float*>(rrad), static_cast<int*>(count), cap, lay,
-      np * DY * DX, K, t, r0, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return launch_rank<gpe::ParLayout, true>(x, y, rad, pid, src, rpid, rrad,
+                                           count, cap, lay, np, K, t, r0,
+                                           stream);
+}
+
+// K5's shared-memory bytes at cap, with or without a radius plane, as the
+// launches above take them (either layout).
+int gpe_gs_rank_window_bytes(int cap, int uniform) {
+  return gpe::rank_window_bytes(cap, uniform != 0);
 }
 
 // K6: one color pass (1..4), in place on x, y float [cap, TY, TX].

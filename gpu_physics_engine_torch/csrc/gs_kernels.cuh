@@ -45,32 +45,215 @@ constexpr float kGsMinDist = 1e-4f;  // f32 rounding of MIN_DISTANCE
 // K5: per cell, the K smallest member pids in ascending order.
 // ---------------------------------------------------------------------------
 
-// One thread per cell.  Candidate (j, s) is a member when its circle
-// strictly overlaps the cell's box [lo, lo + t) per axis (the full 2D clip:
-// under pull-relocate hysteresis a member may be stored one tile off its
-// home, so no per-offset shortcut is valid).  Out-of-grid neighbours are
-// empty; the border ring is empty too, so this equals the TPU kernel's
-// wrap-around views.  Members are inserted into a KMAX-deep ascending
-// register list; pids are unique, so its first K entries are exactly the
-// TPU's min-pid selection.
+// Candidate (j, s) of cell (ty, tx) is slot s of the tile at full offset
+// (j/3 - 1, j%3 - 1); it is a member when its circle strictly overlaps the
+// cell's box [lo, lo + t) per axis (the full 2D clip: under pull-relocate
+// hysteresis a member may be stored one tile off its home, so no
+// per-offset shortcut is valid).  Out-of-grid neighbours are empty; the
+// border ring is empty too, so this equals the TPU kernel's wrap-around
+// views.  Members are inserted into a KMAX-deep ascending register list;
+// pids are unique, so its first K entries are exactly the TPU's min-pid
+// selection, whatever order the candidates are visited in.
 //
-// MASK (the parity layouts, as _rank_kernel_par): border and pad cells keep
-// the fill tables and count 0.  rad == nullptr: every occupant has the
-// uniform radius r0 (the parity state drops the radius planes).
+// Bound: device memory.  The function reads the pid plane and the
+// occupants' x, y (and radius) and writes the K-deep tables and the count:
+// 0.096 ms at the 1M-GS shape [4, 960, 2773] with K = 8 on an H100 at
+// 3.35 TB/s, three quarters of it the table writes.
+//
+// One block owns a region of kRankRows x kRankCols full-space tiles (on
+// ParLayout 2 x 32 sub-grid cells of each parity, indexed in full space as
+// K2's window is) and works in two phases with one barrier:
+//
+//  1. stage: the threads take the tiles of the window (the region and a
+//     one-tile ring, the only halo the rank reads), neighbouring threads
+//     on neighbouring storage words (on ParLayout a warp walks one parity
+//     class of the window).  A thread loads the pid of every slot of its
+//     tiles, then x, y (and radius unless rad == nullptr) of the occupied
+//     ones, each as one batch of loads; each plane is read once.  Shared
+//     memory keeps the occupants' pid, x, y (radius) and a CAP-bit mask of
+//     the occupied slots per tile; out-of-grid tiles keep an empty mask.
+//  2. rank and write: a thread per region cell of the launch's parities
+//     (p0 .. p0 + np - 1; FlatLayout: every cell) walks its 9 window tiles
+//     in the order j, and in each only the occupied slots (the mask's bits),
+//     with the same IEEE-rounded clip-and-distance test and insertion as a
+//     thread reading its candidates from device memory would run, then
+//     writes its K table entries and count, coalesced along tx (a warp
+//     holds 32 cells of one row: two warps a region row on FlatLayout).
+//
+// A thread per cell reading its 9 x cap candidates from device memory
+// fetched every slot's pid, x, y and radius for 9 cells, mostly empty ones
+// (about 10% of the 1M-GS slots are occupied), and on ParLayout a warp's
+// +-1 neighbours lie in the other sub-grids.  The window reads the pid
+// plane and the occupants once, and the rank reads only shared memory.
+// What bounds it now is the table writes' pace (PERF.md).  The region
+// (4 x 64: 8 x 32 took 15% longer on FlatLayout, 26% on ParLayout), the
+// register list without radii and the launch bounds (five blocks an SM
+// for K <= 8, 48 registers; six, at 40, took 2-3% longer) were chosen by
+// timing in the 1M-GS step, as were a thread per cell writing its own
+// tables (a thread per table entry from shared memory took 15-26% longer)
+// and 256-thread blocks (128 gained 2% flat, lost 4% on ParLayout).
+// MASK (the parity layouts, as _rank_kernel_par): border and pad cells
+// keep the fill tables and count 0.  rad == nullptr: every occupant has
+// the uniform radius r0 (the parity state drops the radius planes).
+constexpr int kRankRows = 4;   // full-space tile rows of a region
+constexpr int kRankCols = 64;  // full-space tile columns of a region
+constexpr int kRankThreads = kRankRows * kRankCols;  // a thread per cell
+constexpr int kRankWinX = kRankCols + 2;
+constexpr int kRankWinTiles = (kRankRows + 2) * kRankWinX;
+
+// Dynamic shared memory of one block: per window tile and slot pid and
+// x, y (float2) (and radius unless uniform), and a mask per window tile.
+__host__ __device__ constexpr int rank_window_bytes(int cap, bool uniform) {
+  return kRankWinTiles * (cap * (uniform ? 12 : 16) + 4);
+}
+// Every cap fits a block (204,336 bytes at cap 32 with a radius plane).
+static_assert(rank_window_bytes(kMaxCap, false) <= kSmemLimit, "K5 window");
+
+// The region's first full tile (ty0, tx0): (ty0 - o, tx0 - o) is even on
+// ParLayout, so region row ry holds parity row (ry & 1).
+__device__ __forceinline__ void rank_origin(const FlatLayout&, int* ty0,
+                                            int* tx0) {
+  *ty0 = kRankRows * (int)blockIdx.y;
+  *tx0 = kRankCols * (int)blockIdx.x;
+}
+__device__ __forceinline__ void rank_origin(const ParLayout& l, int* ty0,
+                                            int* tx0) {
+  *ty0 = kRankRows * (int)blockIdx.y + l.o;
+  *tx0 = kRankCols * (int)blockIdx.x + l.o;
+}
+
+// Window tile i of the stage: row-major on FlatLayout; on ParLayout by
+// parity class of (wy, wx), each class row-major, so that neighbouring
+// threads read neighbouring words of one sub-grid.
+__device__ __forceinline__ void rank_window_tile(const FlatLayout&, int i,
+                                                 int* wy, int* wx) {
+  *wy = i / kRankWinX;
+  *wx = i - *wy * kRankWinX;
+}
+__device__ __forceinline__ void rank_window_tile(const ParLayout&, int i,
+                                                 int* wy, int* wx) {
+  constexpr int SX = kRankWinX / 2;
+  constexpr int A = (kRankRows + 2) / 2 * SX;
+  const int q = i / A, r = i - q * A;
+  const int cy = r / SX;
+  *wy = 2 * cy + (q >> 1);
+  *wx = 2 * (r - cy * SX) + (q & 1);
+}
+
+// Region cell r of the launch's parities, in region coordinates.
+__device__ __forceinline__ void rank_region_tile(const FlatLayout&, int r,
+                                                 int* ry, int* rx) {
+  *ry = r / kRankCols;
+  *rx = r - *ry * kRankCols;
+}
+__device__ __forceinline__ void rank_region_tile(const ParLayout& l, int r,
+                                                 int* ry, int* rx) {
+  constexpr int SX = kRankCols / 2;
+  constexpr int A = kRankRows / 2 * SX;
+  const int pl = r / A, q = r - pl * A, p = l.p0 + pl;
+  const int cy = q / SX;
+  *ry = 2 * cy + (p >> 1);
+  *rx = 2 * (q - cy * SX) + (p & 1);
+}
+
+// Region cells ranked by a launch over np parities (FlatLayout: all).
+__device__ __forceinline__ int rank_cells(const FlatLayout&, int) {
+  return kRankThreads;
+}
+__device__ __forceinline__ int rank_cells(const ParLayout&, int np) {
+  return np * (kRankThreads / 4);
+}
+
+// Whether full tile (ty, tx) of a region has a storage cell (ParLayout:
+// pad cells too).
+__device__ __forceinline__ bool rank_stored(const FlatLayout& l, int ty,
+                                            int tx) {
+  return ty < l.TY && tx < l.TX;
+}
+__device__ __forceinline__ bool rank_stored(const ParLayout& l, int ty,
+                                            int tx) {
+  return ((ty - l.o) >> 1) < l.DY && ((tx - l.o) >> 1) < l.DX;
+}
+
 template <int KMAX, class L, bool MASK>
-__global__ void gs_rank_kernel(const float* __restrict__ x,
-                               const float* __restrict__ y,
-                               const float* __restrict__ rad,
-                               const int* __restrict__ pid,
-                               int* __restrict__ src, int* __restrict__ rpid,
-                               float* __restrict__ rrad,
-                               int* __restrict__ count, int cap, L lay,
-                               int n, int K, float t, float r0) {
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i0 >= n) return;
+__global__ void __launch_bounds__(kRankThreads, KMAX <= 8 ? 5 : 1) gs_rank_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ rad, const int* __restrict__ pid,
+    int* __restrict__ src, int* __restrict__ rpid, float* __restrict__ rrad,
+    int* __restrict__ count, int cap, L lay, int np, int K, float t,
+    float r0) {
+  constexpr int WX = kRankWinX, Wn = kRankWinTiles;
+  extern __shared__ __align__(16) unsigned char rank_smem[];
+  float2* wxy = reinterpret_cast<float2*>(rank_smem);  // [cap][window]
+  int* wpid = reinterpret_cast<int*>(wxy + cap * Wn);  // [cap][window]
+  float* wr = reinterpret_cast<float*>(wpid + cap * Wn);
+  uint32_t* wmask = reinterpret_cast<uint32_t*>(
+      wr + (rad ? cap * Wn : 0));                       // [window]
   const int TY = lay.TY, TX = lay.TX;
-  int ty, tx;
-  lay.cell(i0, &ty, &tx);
+  int ty0, tx0;
+  rank_origin(lay, &ty0, &tx0);
+
+  // 1. stage the window: a thread takes window tiles tid, tid + T, ...;
+  // every pid of its tiles is loaded before any is used, then the
+  // occupants' x, y (radius), so a block waits for two loads, not 2 x kPer
+  constexpr int kPer = (Wn + kRankThreads - 1) / kRankThreads;
+  int sty[kPer], stx[kPer], sw[kPer];  // sw: window index, -1 past it
+  bool in[kPer];                       // the tile lies in the grid
+  uint32_t occ[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = threadIdx.x + u * kRankThreads;
+    int wy = 0, wx = 0;
+    if (i < Wn) rank_window_tile(lay, i, &wy, &wx);
+    sty[u] = ty0 - 1 + wy;
+    stx[u] = tx0 - 1 + wx;
+    sw[u] = i < Wn ? wy * WX + wx : -1;
+    in[u] = i < Wn && sty[u] >= 0 && sty[u] < TY && stx[u] >= 0 &&
+            stx[u] < TX;
+    occ[u] = 0;
+  }
+  for (int k0 = 0; k0 < cap; k0 += 4) {
+    int p[kPer][4];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        p[u][kk] = in[u] && k0 + kk < cap
+                       ? pid[lay.at(k0 + kk, cap, sty[u], stx[u])]
+                       : -1;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (in[u] && k0 + kk < cap) {
+          wpid[(k0 + kk) * Wn + sw[u]] = p[u][kk];
+          occ[u] |= (uint32_t)(p[u][kk] >= 0) << (k0 + kk);
+        }
+  }
+  for (int k0 = 0; k0 < cap; k0 += 4) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = k0 + kk;
+        if (k < cap && ((occ[u] >> k) & 1u)) {
+          const int g = lay.at(k, cap, sty[u], stx[u]);
+          wxy[k * Wn + sw[u]] = make_float2(x[g], y[g]);
+          if (rad) wr[k * Wn + sw[u]] = rad[g];
+        }
+      }
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u)
+    if (sw[u] >= 0) wmask[sw[u]] = occ[u];  // out of grid: empty
+  __syncthreads();
+
+  // 2. rank and write a region cell of the launch's parities per thread
+  if ((int)threadIdx.x >= rank_cells(lay, np)) return;
+  int ry, rx;
+  rank_region_tile(lay, threadIdx.x, &ry, &rx);
+  const int ty = ty0 + ry, tx = tx0 + rx;
+  if (!rank_stored(lay, ty, tx)) return;
   const bool live = !MASK || (ty >= 1 && ty <= TY - 2 && tx >= 1 &&
                               tx <= TX - 2);
   const float lox = __fmul_rn((float)(tx - 1), t);
@@ -78,47 +261,40 @@ __global__ void gs_rank_kernel(const float* __restrict__ x,
   const float hix = __fadd_rn(lox, t);
   const float hiy = __fadd_rn(loy, t);
 
+  // the list holds pid and (j << 5 | s); a member's radius is read back
+  // from the window when the tables are written (fewer live registers)
   int kp[KMAX], kc[KMAX];
-  float kr[KMAX];
 #pragma unroll
   for (int q = 0; q < KMAX; ++q) {
     kp[q] = kBigPid;
     kc[q] = -1;
-    kr[q] = 0.0f;
   }
   int members = 0;
+  const int wc = (ry + 1) * WX + rx + 1;
   for (int j = 0; j < (live ? 9 : 0); ++j) {
-    const int nty = ty + j / 3 - 1;
-    const int ntx = tx + j % 3 - 1;
-    if (nty < 0 || nty >= TY || ntx < 0 || ntx >= TX) continue;
-    for (int s = 0; s < cap; ++s) {
-      const int i = lay.at(s, cap, nty, ntx);
-      const int p = pid[i];
-      if (p < 0) continue;
-      const float cx = x[i];
-      const float cy = y[i];
-      const float r = rad ? rad[i] : r0;
-      const float px = fminf(fmaxf(cx, lox), hix);
-      const float py = fminf(fmaxf(cy, loy), hiy);
-      const float ddx = __fsub_rn(cx, px);
-      const float ddy = __fsub_rn(cy, py);
+    const int w = wc + (j / 3 - 1) * WX + (j % 3 - 1);
+    for (uint32_t m = wmask[w]; m; m &= m - 1u) {
+      const int s = __ffs((int)m) - 1;
+      const int i = s * Wn + w;
+      const float2 c = wxy[i];
+      const float r = rad ? wr[i] : r0;
+      const float px = fminf(fmaxf(c.x, lox), hix);
+      const float py = fminf(fmaxf(c.y, loy), hiy);
+      const float ddx = __fsub_rn(c.x, px);
+      const float ddy = __fsub_rn(c.y, py);
       const float d2 = __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
       if (!(d2 < __fmul_rn(r, r))) continue;
       ++members;
-      int cp = p, cc = j * cap + s;
-      float cr = r;
+      int cp = wpid[i], cc = (j << 5) | s;
 #pragma unroll
       for (int q = 0; q < KMAX; ++q) {
         if (cp < kp[q]) {
           const int tp = kp[q];
           const int tc = kc[q];
-          const float tr = kr[q];
           kp[q] = cp;
           kc[q] = cc;
-          kr[q] = cr;
           cp = tp;
           cc = tc;
-          cr = tr;
         }
       }
     }
@@ -127,9 +303,13 @@ __global__ void gs_rank_kernel(const float* __restrict__ x,
   for (int q = 0; q < KMAX; ++q) {
     if (q < K) {
       const int o = lay.at(q, K, ty, tx);
-      src[o] = kc[q];
+      const int c = kc[q], j = c >> 5, s = c & 31;
+      src[o] = c >= 0 ? j * cap + s : -1;
       rpid[o] = kp[q];
-      rrad[o] = kr[q];
+      rrad[o] = c < 0 ? 0.0f
+                      : (rad ? wr[s * Wn + wc + (j / 3 - 1) * WX +
+                                  (j % 3 - 1)]
+                             : r0);
     }
   }
   count[lay.at(0, 1, ty, tx)] = members;

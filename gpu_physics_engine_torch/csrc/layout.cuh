@@ -1,5 +1,6 @@
 // Storage layouts of the tile fields, for the kernels templated on them
-// (csrc/tiled_kernels.cuh, csrc/gs_kernels.cuh).
+// (csrc/tiled_kernels.cuh, csrc/gs_kernels.cuh), and the limits their
+// launchers share.
 //
 // A layout maps (plane s of C, full tile (ty, tx)) to a storage offset, and
 // thread i of a launch to the full tile it works on.  The sweeps, the rank
@@ -20,7 +21,23 @@
 // callers only ever add offsets in full space.
 #pragma once
 
+#include <cuda_runtime.h>
+
 namespace gpe {
+
+constexpr int kMaxCap = 32;  // slots of a tile: per-tile slot masks are 32 bits
+constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block, sm_90
+
+// Raise a kernel's limit of dynamic shared memory where a launch needs
+// more than the default 48 KB.  The launchers call it before every such
+// launch; a size the card cannot give is refused here, and the error
+// returns to the caller.
+template <class Kernel>
+cudaError_t allow_smem(Kernel* kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
 
 struct FlatLayout {
   int TY, TX;

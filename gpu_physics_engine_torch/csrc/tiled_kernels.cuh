@@ -17,13 +17,13 @@
 //     written (0.106 ms at the 4M shape with 4,194,304 particles on an H100
 //     at 3.35 TB/s).  Plan and apply in one launch on a shared-memory window
 //     (below).
-// K4  relocate_fused_kernel<FlatLayout, DivHome>  replaces
+// K4  relocate_window_kernel<FlatLayout, DivHome>  replaces
 //     tiled_pallas.py::relocate_pallas_one (:1187, kernel
-//     _relocate_one_kernel :1068): K2 in one launch, flip matching, no
-//     hysteresis, the home tile by a correctly rounded division.
-// relocate_mega  relocate_fused_kernel<ParLayout, StepHome>  replaces
+//     _relocate_one_kernel :1068): K2 with flip matching, no hysteresis,
+//     the home tile by a correctly rounded division.
+// relocate_mega  relocate_window_kernel<ParLayout, StepHome>  replaces
 //     ops/gs_mega.py::relocate_mega (:443, kernel _reloc_mega_kernel :311):
-//     K2-par in one launch, the config's matching and hysteresis.
+//     K2-par over all four parities, the config's matching and hysteresis.
 //
 // Storage is slot-major [CAP, TY, TX]: slot k of tile (ty, tx) sits at
 // k*TY*TX + ty*TX + tx, so neighbouring threads (neighbouring tiles of one
@@ -43,8 +43,6 @@
 #include "layout.cuh"
 
 namespace gpe {
-
-constexpr int kMaxCap = 32;  // K2's per-tile claim bitsets are 32 bits
 
 // Fixed claim priority of the eight neighbours (tiled_pallas._NEIGHBORS):
 // (-1,-1) (-1,0) (-1,1) (0,-1) (0,1) (1,-1) (1,0) (1,1)
@@ -310,9 +308,8 @@ __global__ void __launch_bounds__(kK1Tiles) collide_integrate_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The pull relocation: the step rule and the matching (K2, K2-par, K4 and
-// relocate_mega), the per-tile plan and apply bodies of K4 and
-// relocate_mega, and K2's window kernel.
+// The pull relocation: the step rules, the matching and the window kernel
+// of K2, K2-par, K4 and relocate_mega.
 // ---------------------------------------------------------------------------
 
 enum Match { kFlip = 0, kFlip2 = 1, kGreedy = 2 };
@@ -350,8 +347,9 @@ __device__ __forceinline__ void home_offsets(float x, float y, int sty,
   *dtx = min(max(wx - stx, -1), 1);
 }
 
-// Where a particle stored in global tile (sty, stx) steps: K2 and K2-par
-// take step_offsets with the config's hysteresis, K4 the home division.
+// Where a particle stored in global tile (sty, stx) steps: K2, K2-par and
+// relocate_mega take step_offsets with the config's hysteresis, K4 the home
+// division.
 struct StepHome {
   float t, delta;
   int gTY, gTX;
@@ -430,177 +428,8 @@ __device__ __forceinline__ void match_claims(const uint32_t (&claims)[8],
   }
 }
 
-// The plan of tile (ty, tx) (local rows; global row ty + row0), for K4 and
-// relocate_mega: write(k, code) for every slot k, code = the in-mover
-// accepted for my free slot k, or -1, coded as by match_claims.  Each
-// neighbour's claims on this tile are a CAP-bit mask, so the sequential
-// matching of _plan_choose runs on registers.  Tiles that are not interior
-// (the border ring, parity pad cells) plan -1.  The matching is
-// match_claims's, written out here: through match_claims, ptxas gave the
-// fused kernels other code (K4 48 registers where 44) and they ran about
-// 1% slower (PERF.md Findings PR 7).
-template <class L, class H, class W>
-__device__ __forceinline__ void plan_tile(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const int* __restrict__ pid, int cap, const L& lay, int ty, int tx,
-    int row0, int gTY, int gTX, int match, const H& home, W write) {
-  const int TY = lay.TY;
-  const int my_ty = ty + row0;
-  const bool interior = my_ty >= 1 && my_ty <= gTY - 2 && tx >= 1 &&
-                        tx <= gTX - 2 && ty <= TY - 1;
-  if (!interior) {
-    for (int k = 0; k < cap; ++k) write(k, -1);
-    return;
-  }
-
-  uint32_t claims[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int ey = nbr_dy(e), ex = nbr_dx(e);
-    const int nty = ty + ey, ntx = tx + ex;
-    uint32_t m = 0;
-    if (nty >= 0 && nty <= TY - 1 && ntx >= 0 && ntx <= gTX - 1) {
-      for (int s = 0; s < cap; ++s) {
-        const int j = lay.at(s, cap, nty, ntx);
-        if (pid[j] < 0) continue;
-        int dty, dtx;
-        home(x[j], y[j], my_ty + ey, tx + ex, &dty, &dtx);
-        if (dty == -ey && dtx == -ex) m |= 1u << s;
-      }
-    }
-    claims[e] = m;
-  }
-
-  uint32_t claimed[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) claimed[e] = 0;
-  for (int k = 0; k < cap; ++k) {
-    int code = -1;
-    if (pid[lay.at(k, cap, ty, tx)] < 0) {
-      if (match == kFlip) {
-        const int s = cap - 1 - k;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          if (code < 0 && ((claims[e] >> s) & 1u)) code = e;
-        }
-      } else if (match == kFlip2) {
-        for (int rule = 0; rule < 2 && code < 0; ++rule) {
-          const int s = rule == 0 ? cap - 1 - k : k;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            if (code < 0 && (((claims[e] & ~claimed[e]) >> s) & 1u)) {
-              code = e + 8 * rule;
-              claimed[e] |= 1u << s;
-            }
-          }
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const uint32_t avail = claims[e] & ~claimed[e];
-          if (code < 0 && avail) {
-            const int s = __ffs((int)avail) - 1;  // lowest free source slot
-            code = e * cap + s;
-            claimed[e] |= 1u << s;
-          }
-        }
-      }
-    }
-    write(k, code);
-  }
-}
-
-// The apply of tile (ty, tx): pull the planned in-movers, vacate my
-// occupants whose target's plan names them, count the movers that found
-// no slot, and write the survivors compacted to the low slots (zero-filled
-// above).  plan_at(k, qy, qx) is the plan of slot k of tile (qy, qx),
-// which is the tile itself or a step target (an interior tile).  Writes
-// go to fresh output planes: neighbouring tiles read the inputs
-// concurrently.  rad and orad may both be null (the parity state under
-// uniform radius carries no radius planes).
-template <class L, class H, class P>
-__device__ __forceinline__ void apply_tile(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ rad, const int* __restrict__ pid, P plan_at,
-    float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ opx,
-    float* __restrict__ opy, float* __restrict__ orad,
-    int* __restrict__ opid, int* __restrict__ defer, int cap, const L& lay,
-    int ty, int tx, int row0, int match, const H& home) {
-  const int TY = lay.TY;
-  const int my_ty = ty + row0;
-  int nout = 0, ndefer = 0;
-  for (int k = 0; k < cap; ++k) {
-    const int i = lay.at(k, cap, ty, tx);
-    const int code = plan_at(k, ty, tx);
-    int src = -1;  // slot whose particle lands in my output
-    if (code >= 0) {
-      // pull: plans exist only for start-empty slots of interior tiles,
-      // so the source neighbour is always inside the grid
-      int e, s;
-      if (match == kFlip) {
-        e = code;
-        s = cap - 1 - k;
-      } else if (match == kFlip2) {
-        e = code & 7;
-        s = code >= 8 ? k : cap - 1 - k;
-      } else {
-        e = code / cap;
-        s = code - e * cap;
-      }
-      src = lay.at(s, cap, ty + nbr_dy(e), tx + nbr_dx(e));
-    } else if (pid[i] >= 0) {
-      src = i;
-      int dty, dtx;
-      home(x[i], y[i], my_ty, tx, &dty, &dtx);
-      const bool in_slab = ty + dty >= 0 && ty + dty <= TY - 1;
-      if (in_slab && (dty != 0 || dtx != 0)) {
-        // leave check: the target names me (offset -dty,-dtx from it)
-        const int me = nbr_index(-dty, -dtx);
-        const int gy = ty + dty, gx = tx + dtx;
-        bool accepted;
-        if (match == kFlip) {
-          accepted = plan_at(cap - 1 - k, gy, gx) == me;
-        } else if (match == kFlip2) {
-          accepted = plan_at(cap - 1 - k, gy, gx) == me ||
-                     plan_at(k, gy, gx) == me + 8;
-        } else {
-          accepted = false;
-          for (int kd = 0; kd < cap; ++kd) {
-            accepted |= plan_at(kd, gy, gx) == me * cap + k;
-          }
-        }
-        if (accepted) {
-          src = -1;
-        } else {
-          ++ndefer;
-        }
-      }
-    }
-    if (src >= 0) {
-      const int o = lay.at(nout, cap, ty, tx);
-      ox[o] = x[src];
-      oy[o] = y[src];
-      opx[o] = px[src];
-      opy[o] = py[src];
-      if (rad) orad[o] = rad[src];
-      opid[o] = pid[src];
-      ++nout;
-    }
-  }
-  for (int k = nout; k < cap; ++k) {
-    const int o = lay.at(k, cap, ty, tx);
-    ox[o] = 0.0f;
-    oy[o] = 0.0f;
-    opx[o] = 0.0f;
-    opy[o] = 0.0f;
-    if (orad) orad[o] = 0.0f;
-    opid[o] = -1;
-  }
-  defer[lay.at(0, 1, ty, tx)] = ndefer;
-}
-
-// K2 / K2-par: the pull relocate on a shared-memory tile window, one launch.
+// K2 / K2-par / K4 / relocate_mega: the pull relocate on a shared-memory
+// tile window, one launch.
 //
 // One block owns a region of storage cells: 8 x 64 tiles on FlatLayout; on
 // ParLayout 4 x 32 sub-grid cells of each of the four parities, which is
@@ -611,15 +440,15 @@ __device__ __forceinline__ void apply_tile(
 //  1. stage: a thread per window tile reads the pid of its slots, then
 //     x, y of the occupied ones, each plane once, neighbouring threads on
 //     neighbouring storage words (on ParLayout a warp walks one parity's
-//     sub-window), and computes every occupant's one-hop step once
-//     (StepHome, the products of step_offsets).  It keeps a CAP-bit mask
-//     of the occupied slots and one of the slots hopping in each of the
-//     eight directions.
+//     sub-window), and computes every occupant's one-hop step once (H:
+//     StepHome, the products of step_offsets, or K4's DivHome).  It keeps
+//     a CAP-bit mask of the occupied slots and one of the slots hopping in
+//     each of the eight directions.
 //  2. plan: a thread per tile of the region and its one-tile ring: the
 //     claims on the tile are eight masks of its neighbours' directions, and
-//     match_claims (the matching of plan_tile) runs on them.  A region
-//     tile keeps the source (neighbour, slot) of each free slot it fills;
-//     every planned tile keeps the masks of its neighbours' slots it took.
+//     match_claims runs on them.  A region tile keeps the source
+//     (neighbour, slot) of each free slot it fills; every planned tile
+//     keeps the masks of its neighbours' slots it took.
 //     The ring's plans are computed again by the neighbouring block.
 //  3. apply: a thread per region tile.  Its occupants taken by a neighbour
 //     leave; its movers not taken are deferred; the other occupants and the
@@ -660,7 +489,6 @@ template <class L>
 __host__ __device__ constexpr int k2_threads() {
   return k2_par<L>() ? 256 : 512;
 }
-constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block, sm_90
 constexpr unsigned short kNoSource = 0xFFFF;
 constexpr int kOwnTile = 8;  // source code e for the tile itself
 
@@ -754,7 +582,7 @@ __device__ __forceinline__ bool k2_stored(const ParLayout& l, int ty,
   return q >= 0 && r >= 0 && (q >> 1) < l.DY && (r >> 1) < l.DX;
 }
 
-template <class L>
+template <class L, class H>
 __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ px, const float* __restrict__ py,
@@ -762,7 +590,7 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
     float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ opx,
     float* __restrict__ opy, float* __restrict__ orad,
     int* __restrict__ opid, int* __restrict__ defer, int cap, L lay, int p0,
-    int np, int row0, int gTY, int gTX, int match, StepHome home) {
+    int np, int row0, int gTY, int gTX, int match, H home) {
   extern __shared__ __align__(16) unsigned char k2_smem[];
   const K2Box b = k2_box(lay);
   const int Wn = b.WY * b.WX, PX = b.WX - 2, Pn = (b.WY - 2) * PX;
@@ -919,70 +747,6 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
       }
     }
     for (r += blockDim.x; r >= Ra; r -= Ra) ++j;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4 / relocate_mega: plan and apply in one launch.
-// ---------------------------------------------------------------------------
-
-constexpr int kRegionY = 16;  // tile rows of one block's region
-constexpr int kRegionX = 32;  // tile columns of one block's region
-constexpr int kRingTiles = (kRegionY + 2) * (kRegionX + 2);
-
-// Shared memory of one block: the plans of its region and a one-tile ring.
-__host__ __device__ constexpr int fused_smem_bytes(int cap) {
-  return kRingTiles * cap * (int)sizeof(int);
-}
-
-// One block owns the kRegionY x kRegionX tiles at full coordinates
-// (ylo + kRegionY*blockIdx.y, xlo + kRegionX*blockIdx.x) onwards, clipped to
-// the storage extent [ylo, ylo + NY) x [xlo, xlo + NX) (flat: the grid;
-// parity: every sub-grid cell, pad cells included).  It plans the region
-// and its one-tile ring into shared memory, then applies the region: a
-// step target is at most one tile away, so every plan the apply reads is
-// in shared memory.  The plan never goes through device memory; the ring's
-// plans are computed twice (by this block and by its neighbour: 20% more
-// plans at 16 x 32).  A region 32 tiles wide lets a warp of the apply read
-// one tile row: 32 consecutive flat words, or 16 of each of two parity
-// sub-grids; at 16 x 16 the kernel took 35-45% longer (PERF.md).  Both
-// loops stride by blockDim, so the kernel is right for any block size.
-// Shared plans are [k][tile], so the threads of a warp read neighbouring
-// words.
-template <class L, class H>
-__global__ void relocate_fused_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ rad, const int* __restrict__ pid,
-    float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ opx,
-    float* __restrict__ opy, float* __restrict__ orad,
-    int* __restrict__ opid, int* __restrict__ defer, int cap, L lay,
-    int ylo, int xlo, int NY, int NX, int row0, int gTY, int gTX, int match,
-    H home) {
-  extern __shared__ int splan[];
-  constexpr int W = kRegionX + 2;
-  const int by = ylo + kRegionY * (int)blockIdx.y;
-  const int bx = xlo + kRegionX * (int)blockIdx.x;
-  for (int i = threadIdx.x; i < kRingTiles; i += blockDim.x) {
-    const int qy = by - 1 + i / W, qx = bx - 1 + i % W;
-    if (qy < ylo || qy >= ylo + NY || qx < xlo || qx >= xlo + NX) {
-      for (int k = 0; k < cap; ++k) splan[k * kRingTiles + i] = -1;
-      continue;
-    }
-    plan_tile(x, y, pid, cap, lay, qy, qx, row0, gTY, gTX, match, home,
-              [&](int k, int code) { splan[k * kRingTiles + i] = code; });
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRegionY * kRegionX; i += blockDim.x) {
-    const int ty = by + i / kRegionX, tx = bx + i % kRegionX;
-    if (ty >= ylo + NY || tx >= xlo + NX) continue;
-    apply_tile(x, y, px, py, rad, pid,
-               [&](int k, int qy, int qx) {
-                 return splan[k * kRingTiles + (qy - by + 1) * W +
-                              (qx - bx + 1)];
-               },
-               ox, oy, opx, opy, orad, opid, defer, cap, lay, ty, tx, row0,
-               match, home);
   }
 }
 

@@ -12,18 +12,24 @@ wrapper adds one to ``LAUNCHES[name]`` each time it launches its kernel.
 K5 ``rank`` replaces ``_rank_full``
 (gpu_physics_engine_tpu/ops/gs_pallas.py:467; kernels ``_rank_kernel``
 :219 and ``_rank_kernel_net`` :362).
-  Bound: device memory.  The function reads x, y, radius and pid once and
+  Bound: device memory.  The function reads the pid plane and the
+  occupied slots' x, y and radius (an empty slot is no candidate), and
   writes three K-deep rank planes and the count: at the 1M-GS shape
-  [4, 960, 2773] with K = 8 that is 0.17 GB read and 0.26 GB written,
-  0.13 ms at 3.35 TB/s.  Its arithmetic (a box clip and a distance per
-  candidate) is far below the card's f32 rate.
-  Design: one thread per cell.  It tests the 9 x cap candidates in the
-  fixed offset order with the reference's strict circle-vs-box overlap
-  and keeps the K smallest member pids in registers by insertion.  pids
-  are unique, so every selection method picks the same occupants, and
-  gs_rank "minloop", "net" and "auto" all run this kernel.  Each slot is
-  a candidate of 9 cells; neighbouring threads are neighbouring cells, so
-  the re-reads hit L1/L2 and the rank-plane writes are coalesced.
+  [4, 960, 2773] with K = 8 and 1,048,576 particles that is 0.055 GB read
+  and 0.27 GB written, 0.096 ms at 3.35 TB/s (0.130 counting every slot's
+  four fields).  Its arithmetic (a box clip and a distance per candidate)
+  is far below the card's f32 rate.
+  Design: one block per 4 x 64 cells (``gs_rank_kernel`` in
+  csrc/gs_kernels.cuh) stages the region and a one-tile ring in shared
+  memory: each pid read once, and the occupants' x, y, radius, coalesced
+  along tx, with a mask of the occupied slots per tile.  A thread per cell
+  then walks only the occupied candidates of its 9 window tiles, tests
+  them with the reference's strict circle-vs-box overlap and keeps the K
+  smallest member pids in registers by insertion.  pids are unique, so
+  the visiting order cannot change the tables, and gs_rank "minloop",
+  "net" and "auto" all run this kernel.  The tables and the count are
+  written by the same thread, a warp per 32 cells of a row, coalesced.
+  Its times: PERF.md and ``utils/kernel_study.py --k5``.
 
 K6 ``color_`` replaces ``gs_solve_pallas_flat`` (gs_pallas.py:543;
 ``_solve_kernel`` :390 with ``_sweep`` :77, and ``_apply_kernel`` :431).
@@ -63,6 +69,20 @@ from gpu_physics_engine_torch.ops.tiled_kernels import (MAX_CAP,
 LAUNCHES = {"gs_rank": 0, "gs_color": 0}
 
 MAX_K = 16  # the kernels keep K occupants per cell in registers
+
+# K5's window (csrc/gs_kernels.cuh kRankRows, kRankCols,
+# rank_window_bytes): a block ranks RANK_REGION = (rows, columns)
+# full-space tiles on either layout (on the parity layout rows/2 x
+# columns/2 cells of each sub-grid)
+RANK_REGION = (4, 64)
+
+
+def rank_window_bytes(cap: int, uniform: bool) -> int:
+    """Shared memory of one K5 block: per tile of the window (the region
+    and a one-tile ring) cap slots of pid, x and y (and radius unless
+    ``uniform``), and an occupancy mask."""
+    rows, cols = RANK_REGION
+    return (rows + 2) * (cols + 2) * (cap * (12 if uniform else 16) + 4)
 
 
 def reset_launches() -> None:

@@ -35,13 +35,12 @@ relocate_mega (K11) replaces ``relocate_mega``
   Bound: device memory, as K2-par: the pid plane and the occupied slots'
   x, y, px, py read; the fields, pid and the defer plane written: 0.085 ms
   at the 1M-GS shape (H100, 3.35 TB/s).
-  Design: ``relocate_fused_kernel`` on ParLayout (csrc/tiled_kernels.cuh):
-  one block owns 16 x 32 full-space tiles, plans them and a one-tile ring
-  into shared memory with K2-par's per-tile plan body, synchronises, and
-  applies them with K2-par's apply body, pad cells included (written
-  empty).  The plan never round-trips through device memory; the ring's
-  plans (20%) are computed twice.  The config's matching ("auto" resolved
-  on the full grid) and hysteresis, as ``relocate_parity``.
+  Design: K2-par's kernel, ``relocate_window_kernel`` on ParLayout
+  (csrc/tiled_kernels.cuh), in one launch over all four parities, whatever
+  ``gs_par_fused`` says (the JAX kernel always fuses them): the shared-
+  memory window, the plan kept in shared memory, pad cells written empty.
+  The config's matching ("auto" resolved on the full grid) and
+  hysteresis, as ``relocate_parity``.
 """
 
 from __future__ import annotations

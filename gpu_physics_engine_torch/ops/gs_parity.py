@@ -27,14 +27,19 @@ relayout back (the Verlet tail is elementwise and runs
 K5-par ``rank_par`` replaces ``rank_parity``
 (gpu_physics_engine_tpu/ops/gs_parity.py:275; ``_rank_kernel_par`` :160,
 ``_rank_kernel_par_all`` :206).
-  Bound: device memory, as K5: x, y, pid read once, the K-deep tables and
-  the count written once: 0.13 GB read and 0.26 GB written at the 1M-GS
-  shape [4, 4, 480, 1387], K = 8 (0.12 ms at 3.35 TB/s).
-  Design: K5's kernel on the parity layout, one thread per sub-grid cell;
-  a neighbour at full offset (dy, dx) is read from parity ((pa+dy)&1,
-  (pb+dx)&1).  Border and pad cells keep the fill tables and count 0
-  (``_rank_kernel_par``'s interior mask).  ``gs_par_fused`` None/True: one
-  launch over all four parities; False: one per parity.
+  Bound: device memory, as K5: the pid plane and the occupied slots' x, y
+  (and radius where carried) read, the K-deep tables and the count
+  written: 0.051 GB read and 0.27 GB written at the 1M-GS shape
+  [4, 4, 480, 1387], K = 8, 1,048,576 particles, uniform radius (0.095 ms
+  at 3.35 TB/s; 0.118 counting every slot's x, y, pid).
+  Design: K5's window kernel on the parity layout.  A block's region is
+  2 x 32 cells of each of the four sub-grids (the full-space 4 x 64
+  tiles) and its ring one full-space tile, indexed in full space: a warp
+  stages consecutive words of one sub-grid, and the 9-neighbourhood reads
+  that cross sub-grids are shared-memory reads.  Border and pad cells keep
+  the fill tables and count 0 (``_rank_kernel_par``'s interior mask).
+  ``gs_par_fused`` None/True: one launch over all four parities; False:
+  one per parity, each staging the whole window and ranking its own cells.
 
 K6-par ``color_par_`` replaces the color passes of ``solve_parity``
 (gs_parity.py:433; ``_solve_dec_kernel`` and ``_apply_dec_kernel``), of

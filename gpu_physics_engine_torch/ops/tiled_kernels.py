@@ -62,18 +62,15 @@ K4 ``relocate_one`` replaces ``relocate_pallas_one``
   Bound: as K2: the pid plane and the occupied slots' fields read, six
   planes and the defer plane written: 0.106 ms at the 4M shape
   [8, 640, 1850] (H100, 3.35 TB/s).
-  Design: ``relocate_fused_kernel`` on FlatLayout (csrc/tiled_kernels.cuh):
-  one block owns 16 x 32 tiles, plans them and a one-tile ring into shared
-  memory with a thread per tile reading its neighbours' slots from device
-  memory (``plan_tile``, K2's matching), synchronises, and applies them a
-  thread per tile (``apply_tile``).  The plan never goes through device
-  memory, and 20% of the plans (the ring) are computed twice, where the
-  TPU kernel recomputed every neighbour's plan (9x) from 5x5 views.  Its
-  rule is the JAX kernel's: flip matching, no hysteresis, and the home
-  tile floor(pos / t) by a correctly rounded division (``__fdiv_rn``),
-  where K2 compares with products; the two part only for a particle
-  within an ulp of a tile edge.  The matching is K2's, so K4 equals K2
-  under flip with delta 0 everywhere else.
+  Design: K2's kernel, ``relocate_window_kernel`` on FlatLayout
+  (csrc/tiled_kernels.cuh), with K4's step rule (``DivHome``): the
+  shared-memory window, each particle's step computed once, the plan kept
+  in shared memory (the TPU kernel recomputed every neighbour's plan from
+  5x5 views).  Its rule is the JAX kernel's: flip matching, no
+  hysteresis, and the home tile floor(pos / t) by a correctly rounded
+  division (``__fdiv_rn``), where K2 compares with products; the two part
+  only for a particle within an ulp of a tile edge.  The matching is K2's,
+  so K4 equals K2 under flip with delta 0 everywhere else.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Time K1 and K2 against variants of their input, and the radix sort's
-pieces against torch.sort, on the card.
+"""Time K1, K2 and K5 against variants of their input, and the radix
+sort's pieces against torch.sort, on the card.
 
     python -m gpu_physics_engine_torch.utils.kernel_study [--k1] [--k2]
-        [--other-lib PATH] [--radix]
+        [--k5] [--other-lib PATH] [--radix]
 
 prints the card's name and power limit, then one JSON line per study
 (isolated launches, CUDA events around 20 calls after a warm-up, ms per
@@ -26,11 +26,22 @@ call):
   launches (a torch.profiler window over 10 calls: the plan and the apply
   apart where there are two launches), the particles deferred, and
   whether the kernel equals its plain version bit for bit (on the
-  jittered state).  K4 (``relocate_one_cuda``) and relocate_mega
-  (``gs_mega.relocate_mega_cuda``), which share K2's matching, on the
-  jittered states beside them.  With ``--other-lib PATH`` (another build
-  of the kernel library, such as an earlier commit's ``_build/*.so``) K4
-  and relocate_mega are timed through both builds in one process on the
+  jittered state).  K4 (``relocate_one_cuda``) beside K2 and relocate_mega
+  (``gs_mega.relocate_mega_cuda``) beside K2-par on the same four states:
+  the same window kernel with K4's step rule, and over all four parities.
+* ``--k5``: K5 (``gs_kernels.rank_cuda``) on the 1M-GS flat engine's
+  scene and K5-par (``gs_parity.rank_par_cuda``, one launch over all
+  parities) on the par engine's, each on three states: "initial" (the
+  seeded scene, as ``chip_smoke.py`` times it), "in_step" (the engine's
+  state after 64 steps, as the step finds it) and "empty" (every pid -1:
+  the pid plane staged and the fill written, no candidate); per state the
+  ms of a call, the device ms from the profiler, the bound (the pid plane
+  and the occupants' x, y, radius read, the tables and the count written,
+  at 3.35 TB/s) and whether the kernel equals its plain version bit for
+  bit.
+* ``--other-lib PATH`` (another build of the kernel library, such as an
+  earlier commit's ``_build/*.so``): with ``--k2`` and ``--k5`` every
+  kernel above is also timed through that build in one process on the
   same inputs, in turns (this build, the other, the other, this): their
   entry points are the same in both, so a difference is the kernels'.
 * ``--radix``: the array Engine's 1M scene (the README's example) and its
@@ -150,14 +161,20 @@ def _through(lib, fn):
     return call
 
 
-def _fused_rows(fn, other) -> dict:
-    """K4's or relocate_mega's rows; with ``other`` also the other build's,
-    in turns: {"this": [row, row], "other": [row, row]}."""
+def _turns(rows, fn, other) -> dict:
+    """``rows(fn)``; with ``other`` also through the other build, in turns:
+    {"this": [row, row], "other": [row, row]}."""
     if other is None:
-        return _relocate_rows(fn, None)
+        return rows(fn)
     theirs = _through(other, fn)
-    a, b, c, d = (_relocate_rows(f, None) for f in (fn, theirs, theirs, fn))
+    a, b, c, d = (rows(f) for f in (fn, theirs, theirs, fn))
     return {"this": [a, d], "other": [b, c]}
+
+
+def _same(a, b, fields) -> bool:
+    import torch
+    return all(torch.equal(getattr(a[0], f), getattr(b[0], f))
+               for f in fields) and torch.equal(a[1], b[1])
 
 
 def k2_study(particles: int, other=None) -> dict:
@@ -168,44 +185,92 @@ def k2_study(particles: int, other=None) -> dict:
     from gpu_physics_engine_torch.ops import gs_parity as gp
     from gpu_physics_engine_torch.ops import tiled_kernels as tk
     out = {"study": "k2", "particles": particles}
-
-    def same(a, b, fields):
-        return all(torch.equal(getattr(a[0], f), getattr(b[0], f))
-                   for f in fields) and torch.equal(a[1], b[1])
-
     e = make_tuned_engine(particles, device="cuda")
     cfg = e.config
     out["k2_dims"] = list(e.state.dims)
+    fields = ("x", "y", "px", "py", "radius", "pid")
     for name, st in _k2_states(e, 64).items():
-        check = None
-        if name == "jitter":
-            check = lambda: same(  # noqa: E731
-                tk.relocate_pull_cuda(st, cfg),
-                tk.relocate_pull_plain(st, cfg),
-                ("x", "y", "px", "py", "radius", "pid"))
-        out[f"k2_{name}"] = _relocate_rows(
-            lambda: tk.relocate_pull_cuda(st, cfg), check)
-        if name == "jitter":
-            out["k4_jitter"] = _fused_rows(
-                lambda: tk.relocate_one_cuda(st, cfg), other)
+        for tag, kern, plain in (
+                ("k2", tk.relocate_pull_cuda, tk.relocate_pull_plain),
+                ("k4", tk.relocate_one_cuda, tk.relocate_one_plain)):
+            check = None
+            if name == "jitter":
+                check = lambda: _same(  # noqa: E731
+                    kern(st, cfg), plain(st, cfg), fields)
+            out[f"{tag}_{name}"] = _turns(
+                lambda f: _relocate_rows(f, check),
+                lambda: kern(st, cfg), other)
     del e, st
     torch.cuda.empty_cache()
     e = TiledEngine(gs_config(1_048_576, gs_layout="par"), seed=0, chunk=64,
                     device="cuda")
     cfg = e.config
+    fields = ("x", "y", "px", "py", "pid")
     for name, st in _k2_states(e, 64).items():
         ps = gp.to_parity_state(st, cfg)
         out["k2_par_dims"] = list(ps.x.shape)
-        check = None
-        if name == "jitter":
-            check = lambda: same(  # noqa: E731
-                gp.relocate_par_cuda(ps, cfg), gp.relocate_par_plain(ps, cfg),
-                ("x", "y", "px", "py", "pid"))
-        out[f"k2_par_{name}"] = _relocate_rows(
-            lambda: gp.relocate_par_cuda(ps, cfg), check)
-        if name == "jitter":
-            out["mega_jitter"] = _fused_rows(
-                lambda: gm.relocate_mega_cuda(ps, cfg), other)
+        for tag, kern in (("k2_par", gp.relocate_par_cuda),
+                          ("mega", gm.relocate_mega_cuda)):
+            check = None
+            if name == "jitter":
+                check = lambda: _same(  # noqa: E731
+                    kern(ps, cfg), gp.relocate_par_plain(ps, cfg), fields)
+            out[f"{tag}_{name}"] = _turns(
+                lambda f: _relocate_rows(f, check),
+                lambda: kern(ps, cfg), other)
+    return out
+
+
+def _rank_bound_ms(pid, occupied: int, K: int, radius: bool) -> float:
+    """K5's bound: the pid plane and the occupants' x, y (radius) read,
+    three K-deep tables and the count written, at 3.35 TB/s."""
+    cells = pid.numel() // pid.shape[-3]
+    nbytes = (pid.numel() * 4 + occupied * (12 if radius else 8)
+              + (3 * K + 1) * cells * 4)
+    return nbytes / 3.35e12 * 1e3
+
+
+def k5_study(other=None) -> dict:
+    import torch
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    out = {"study": "k5", "particles": 1_048_576}
+    for layout in ("flat", "par"):
+        e = TiledEngine(gs_config(1_048_576, gs_layout=layout), seed=0,
+                        chunk=64, device="cuda")
+        cfg, K = e.config, e.config.max_occupancy
+        states = {"initial": e.state,
+                  "empty": e.state.replace(pid=torch.full_like(e.state.pid,
+                                                               -1))}
+        e.run(64)
+        states["in_step"] = e.state
+        for name, st in states.items():
+            occupied = int((st.pid >= 0).sum())
+            if layout == "flat":
+                tag, arg = "k5", st
+                kern = lambda a: gk.rank_cuda(a, cfg)  # noqa: E731
+                plain = lambda a: gk.rank_plain(a, cfg)  # noqa: E731
+                bound = _rank_bound_ms(st.pid, occupied, K, True)
+                out["k5_dims"] = list(st.dims)
+            else:
+                tag, arg = "k5_par", gp.to_parity_state(st, cfg)
+                kern = lambda a: gp.rank_par_cuda(a, cfg)  # noqa: E731
+                plain = lambda a: gp.rank_par_plain(a, cfg)  # noqa: E731
+                bound = _rank_bound_ms(arg.pid, occupied, K,
+                                       arg.radius is not None)
+                out["k5_par_dims"] = list(arg.x.shape)
+
+            def rows(fn):
+                return {"ms": [cuda_ms(fn), cuda_ms(fn)],
+                        "device_ms": kernel_device_ms(fn, 10)}
+            out[f"{tag}_{name}"] = _turns(rows, lambda: kern(arg), other)
+            out[f"{tag}_{name}_bound_ms"] = bound
+            out[f"{tag}_{name}_bit_equal"] = all(
+                torch.equal(u, v) for u, v in zip(kern(arg), plain(arg)))
+        del e, states, st, arg
+        torch.cuda.empty_cache()
     return out
 
 
@@ -276,9 +341,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k1", action="store_true")
     ap.add_argument("--k2", action="store_true")
+    ap.add_argument("--k5", action="store_true")
     ap.add_argument("--other-lib", default=None,
-                    help="with --k2: time K4 and relocate_mega through "
-                         "this build of the kernel library too")
+                    help="with --k2 and --k5: time the kernels through "
+                         "this build of the kernel library too, in turns")
     ap.add_argument("--radix", action="store_true")
     ap.add_argument("--particles", type=int, default=4_194_304)
     args = ap.parse_args(argv)
@@ -290,9 +356,11 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     if args.k1:
         print(json.dumps(k1_study(args.particles)), flush=True)
+    other = _other_library(args.other_lib) if args.other_lib else None
     if args.k2:
-        other = _other_library(args.other_lib) if args.other_lib else None
         print(json.dumps(k2_study(args.particles, other)), flush=True)
+    if args.k5:
+        print(json.dumps(k5_study(other)), flush=True)
     if args.radix:
         print(json.dumps(radix_study()), flush=True)
     return 0

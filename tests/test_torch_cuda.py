@@ -6,14 +6,16 @@ repository's conftest imports jax).  Without a CUDA device every test here
 skips.  K1 and K3 equal their plain versions bit for bit at every cap
 the engine can reach, in box and circle worlds, on grids smaller than one
 shared-memory region and not a multiple of it; K2 and K2-par bit for bit
-up to cap 32 and on a ragged grid, K5 and K6 bit for bit, on the flat and
-the parity layouts, and the Verlet tail too; the par engine equals the
-flat engine.  The fused kernels (colors_mega,
-relocate_mega, K4) bit for bit, and equal to the sequential kernels they
-fuse.  K12 (the radix sort's rank/histogram pass), the digit offsets and
-the scatter bit for bit on all four passes at 1, 3 and 1,075 blocks, the
-radix sort equals torch.sort(stable=True), and the array Engine's radix
-run on the card equals its lax run bit for bit.
+up to cap 32 and on a ragged grid, K5 and K5-par (the rank's window)
+bit for bit up to cap 32 with K 16, on a ragged grid, at both parity
+origins, K6 bit for bit, on the flat and the parity layouts, and the
+Verlet tail too; the par engine equals the flat engine.  colors_mega bit
+for bit and equal to the sequential kernels it fuses; relocate_mega and K4
+(K2's window) bit for bit, relocate_mega equal to K2-par, also at cap 32
+and on a ragged grid.  K12 (the radix sort's rank/histogram pass), the
+digit offsets and the scatter bit for bit on all four passes at 1, 3 and
+1,075 blocks, the radix sort equals torch.sort(stable=True), and the
+array Engine's radix run on the card equals its lax run bit for bit.
 """
 
 import numpy as np
@@ -175,16 +177,19 @@ def test_k1_k3_window_matches_plain(cap, shape, uniform, world):
         assert int((a.x != st.x).sum()) > 0
 
 
-def _gs_scene(cap, K, seed):
-    """Mixed radii over the world plus a jammed cluster (cells past K),
-    stored up to a third of a tile off home as after the pull relocate."""
+def _gs_scene(cap, K, seed, width=40.0):
+    """Mixed radii over a ``width`` x 30 world plus a jammed cluster (cells
+    past K), stored up to a third of a tile off home as after the pull
+    relocate."""
     from gpu_physics_engine_torch.core.tuned import gs_config
-    cfg = gs_config(1500, world_width=40.0, world_height=30.0, tile_cap=cap,
-                    max_occupancy=K)
+    cfg = gs_config(1500, world_width=width, world_height=30.0,
+                    tile_cap=cap, max_occupancy=K)
     rng = np.random.default_rng(seed)
-    pos = np.concatenate([rng.uniform(0.6, [39.4, 29.4], (1000, 2)),
-                          np.clip([20.0, 15.0] + rng.normal(0, 2.0, (500, 2)),
-                                  0.6, [39.4, 29.4])]).astype(np.float32)
+    hi = [width - 0.6, 29.4]
+    pos = np.concatenate([rng.uniform(0.6, hi, (1000, 2)),
+                          np.clip([width / 2, 15.0]
+                                  + rng.normal(0, 2.0, (500, 2)), 0.6,
+                                  hi)]).astype(np.float32)
     rad = rng.uniform(0.3, 0.5, 1500).astype(np.float32)
     st = tt.init_tiles(cfg, pos, rad, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -214,6 +219,44 @@ def test_gs_kernels_match_plain(cap, K):
         assert torch.equal(getattr(a, f), getattr(c, f)), f
     assert int(a.overflow_count) > 0  # the jammed cluster clamps
     assert int((a.x != st.x).sum()) > 0
+
+
+@pytest.mark.parametrize("cap, K", [(2, 3), (4, 8), (32, 16)])
+@pytest.mark.parametrize("width", [40.0, 150.0])
+@pytest.mark.parametrize("uniform", [False, True])
+def test_rank_window_matches_plain(cap, K, width, uniform):
+    """K5 and K5-par on the rank's shared-memory window: the tables
+    bit-equal to the plain versions and on repeat, up to cap 32 with K 16
+    (the largest window), on a ragged grid (width 40) and one several
+    regions wide (TX 39 and 139: no multiple of the 64-column region), with
+    and without a radius plane; K5-par at origins 0 and -1, in one launch
+    over all parities and in one per parity."""
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    cfg, st = _gs_scene(cap, K, seed=cap + K, width=width)
+    cfg = cfg.replace(tiled_uniform_radius=uniform)
+    if uniform:
+        st = st.replace(radius=torch.where(st.pid >= 0, 0.5, 0.0))
+    n0 = gk.LAUNCHES["gs_rank"]
+    a, b, c = gk.rank(st, cfg), gk.rank_plain(st, cfg), gk.rank(st, cfg)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["gs_rank"] == n0 + 2
+    for u, v, w in zip(a, b, c):
+        assert torch.equal(u, v) and torch.equal(u, w)
+    assert int((a[3] - K).clamp(min=0).sum()) > 0  # the jam clamps
+    for origin in (0, -1):
+        ps = gp.to_parity_state(st, cfg, origin)
+        assert (ps.radius is None) == uniform
+        for fused in (True, False):
+            c = cfg.replace(gs_par_fused=fused)
+            n0 = gp.LAUNCHES["gs_rank_par"]
+            a, b = gp.rank_par(ps, c), gp.rank_par_plain(ps, c)
+            again = gp.rank_par(ps, c)
+            torch.cuda.synchronize()
+            assert gp.LAUNCHES["gs_rank_par"] == n0 + (2 if fused else 8)
+            for u, v, w in zip(a, b, again):
+                assert torch.equal(u, v), (origin, fused)
+                assert torch.equal(u, w), (origin, fused)
 
 
 def test_gs_engine_on_card_matches_cpu_engine():
@@ -315,7 +358,9 @@ def test_relocate_par_window_matches_plain(cap, shape, match, fused, origin):
     """K2-par on its shared-memory window: bit-equal to its plain version
     and on repeat, none lost, at cap 2 and cap 32 (the largest window) and
     on the ragged 21 x 39 grid, in one launch over all parities and in one
-    per parity, for both origins."""
+    per parity, for both origins; relocate_mega (the same window over all
+    four parities, one launch) equal to both."""
+    from gpu_physics_engine_torch.ops import gs_mega as gm
     from gpu_physics_engine_torch.ops import gs_parity as gp
     if shape == "square":
         cfg, st = _gs_scene(cap, 8, seed=cap + 40)
@@ -340,6 +385,12 @@ def test_relocate_par_window_matches_plain(cap, shape, match, fused, origin):
     assert (a.radius is None) == (ps.radius is None)
     assert torch.equal(da, db) and torch.equal(da, dc)
     assert int((a.pid >= 0).sum()) == int((st.pid >= 0).sum())
+    n0 = gm.LAUNCHES["relocate_mega"]
+    m, dm = gm.relocate_mega_cuda(ps, cfg)
+    assert gm.LAUNCHES["relocate_mega"] == n0 + 1
+    for f in fields:
+        assert torch.equal(getattr(a, f), getattr(m, f)), f
+    assert torch.equal(da, dm)
 
 
 def test_par_engine_on_card_matches_flat_engine_on_card():
@@ -413,15 +464,24 @@ def test_fused_gs_kernels_match_plain(cap, K, uniform, origin):
         assert torch.equal(da, db) and int(da.sum()) > 0
 
 
-@pytest.mark.parametrize("uniform, cap", [(False, 4), (True, 4),
-                                          (True, 32)])
-def test_k4_cuda_matches_plain(uniform, cap):
-    """K4 bit-equal to its plain version, whatever the config's matching
-    and hysteresis, and to K2 under flip with delta 0 where no particle
-    lies within an ulp of a tile edge (there the division and the products
-    part).  At cap 32 the block's plans pass 48 KB of shared memory."""
-    cfg, st = _scene(match="greedy", hysteresis=-1.0, uniform=uniform,
-                     cap=cap)
+@pytest.mark.parametrize("uniform, cap, shape", [
+    (False, 4, "square"), (True, 4, "square"), (True, 32, "square"),
+    (True, 6, "ragged")])
+def test_k4_cuda_matches_plain(uniform, cap, shape):
+    """K4 (K2's window with K4's step rule) bit-equal to its plain version,
+    whatever the config's matching and hysteresis, and to K2 under flip
+    with delta 0 where no particle lies within an ulp of a tile edge (there
+    the division and the products part); at cap 32 (the largest window)
+    and on the ragged 21 x 39 grid."""
+    if shape == "square":
+        cfg, st = _scene(match="greedy", hysteresis=-1.0, uniform=uniform,
+                         cap=cap)
+    else:
+        cfg, st = _window_scene(cap, uniform, "box", 80.0, 33.0, 3)
+        cfg = cfg.replace(tiled_match="greedy", tiled_hysteresis=-1.0)
+        g = torch.Generator(device="cuda").manual_seed(cap + 1)
+        d = (torch.rand(st.x.shape, generator=g, device="cuda") - 0.5) * 1.6
+        st = st.replace(x=torch.where(st.pid >= 0, st.x + d, st.x))
     n0 = tk.LAUNCHES["relocate_one"]
     a, da = tk.relocate_one_cuda(st, cfg)
     assert tk.LAUNCHES["relocate_one"] == n0 + 1
@@ -430,7 +490,8 @@ def test_k4_cuda_matches_plain(uniform, cap):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert torch.equal(da, db) and int((a.pid != st.pid).sum()) > 0
     flip = cfg.replace(tiled_match="flip", tiled_hysteresis=0.0)
-    t, TY, TX = tt.tile_geometry(cfg)
+    t, _, TX = tt.tile_geometry(cfg)
+    TY = st.dims[1]  # the ragged grid's rows
     sty = torch.arange(TY, device="cuda").view(1, TY, 1)
     stx = torch.arange(TX, device="cuda").view(1, 1, TX)
     rule = [u != v for u, v in zip(

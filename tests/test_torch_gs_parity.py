@@ -28,6 +28,7 @@ Pallas compiles stay short.  The CUDA kernels are held to these plain
 versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import dataclasses
 import functools
 from unittest import mock
 
@@ -304,6 +305,7 @@ def _jax_par_cfgs():
                       max_occupancy=2, gs_rank="minloop")
 
 
+@functools.lru_cache(maxsize=None)
 def _compiled_stages():
     """The JAX package's parity relocate and solve, each compiled as a
     program of its own at XLA:CPU backend optimisation level 0: the
@@ -327,6 +329,71 @@ def _compiled_stages():
 
 
 _solve_parity = jgp.solve_parity
+
+
+def _jax_carry(jcfg, kick):
+    """The jammed scene (uniform radius, cap 2) as the JAX package stores
+    it, every live x moved by ``kick`` (storage off home, as after a
+    relocate), its parity sub-grids, and the same state in the port."""
+    pos, rad = jammed_scene()
+    a = jt.init_tiles(jcfg, pos, np.full_like(rad, 0.5))
+    arrays = {f: np.asarray(getattr(a, f)) for f in STATE}
+    live = arrays["pid"] >= 0
+    arrays["x"] = np.where(live, np.clip(arrays["x"] + np.float32(kick),
+                                         0.0, 16.0), arrays["x"])
+    a = dataclasses.replace(a, x=jax.numpy.asarray(arrays["x"]))
+    return a, jgp.to_parity(a, jcfg)[0], tt.from_numpy(arrays)
+
+
+def test_rank_par_matches_jax_rank_parity():
+    """K5-par's plain version against the JAX package's ``rank_parity``
+    (interpret mode, one kernel per parity) on the jammed scene with its
+    storage up to half a tile off home: the tables on every cell the two
+    layouts share and the clamp overflow equal."""
+    jcfg, tcfg = _jax_par_cfgs()
+    a, subs, st = _jax_carry(jcfg, 0.5)
+    t, TY, TX = jt.tile_geometry(jcfg)
+    K = jcfg.max_occupancy
+    rank = jax.jit(jgp.rank_parity, static_argnums=tuple(range(2, 8)),
+                   compiler_options={"xla_backend_optimization_level": 0})
+    tables, overflow = rank(subs, jax.numpy.ones((1,), jax.numpy.float32),
+                            jcfg, a.dims[0], K, t, TY, TX)
+    ps = gp.to_parity_state(st, tcfg)
+    src, rpid, _, count = gp.rank_par(ps, tcfg)
+    DY, DX = ps.geo.DY, ps.geo.DX
+    for p, par in enumerate(gp.PARS):
+        for name, got, want in (("src", src, tables[par][0]),
+                                ("rpid", rpid, tables[par][1])):
+            np.testing.assert_array_equal(
+                got[p].numpy(), np.asarray(want)[:, :DY, :DX],
+                err_msg=f"{name} {par}")
+    clamp = int(torch.clamp(count - K, min=0).sum())
+    assert clamp == int(overflow) > 0
+
+
+def test_relocate_mega_plain_matches_jax_relocate_parity():
+    """relocate_mega's plain version (K2-par's) against the JAX package's
+    ``relocate_parity`` (interpret mode; the JAX ``relocate_mega`` itself
+    runs only on its TPU) on the jammed scene kicked 0.6 tile: every field
+    on the cells the two layouts share, and the deferrals, equal."""
+    from gpu_physics_engine_torch.ops import gs_mega as gm
+    jcfg, tcfg = _jax_par_cfgs()
+    tcfg = tcfg.replace(gs_relocate_mega=True)
+    a, subs, st = _jax_carry(jcfg, 0.66)
+    t, TY, TX = jt.tile_geometry(jcfg)
+    relocate, _ = _compiled_stages()
+    subs2, defer = relocate(subs, jcfg, a.dims[0], t, TY, TX)
+    ps = gp.to_parity_state(st, tcfg)
+    got, gdefer = gm.relocate_mega_plain(ps, tcfg)
+    assert torch.equal(gm.relocate_mega(ps, tcfg).pid, got.pid)
+    DY, DX = ps.geo.DY, ps.geo.DX
+    for f in ("x", "y", "px", "py", "pid"):
+        for p, par in enumerate(gp.PARS):
+            np.testing.assert_array_equal(
+                getattr(got, f)[p].numpy(),
+                np.asarray(subs2[f][par])[:, :DY, :DX], err_msg=f"{f} {par}")
+    assert int(gdefer.sum()) == int(defer) > 0
+    assert not torch.equal(got.pid, ps.pid)
 
 
 @functools.lru_cache(maxsize=None)
