@@ -20,22 +20,26 @@ non-zero with no result line:
      at every cap) there, on the ragged grid and on a small scene at cap 32
      (K2-par too), for flip / flip2 / greedy, hysteresis on and off, and
      at the GS shapes [4, 960, 2773] and [6, 960, 2773],
-     bit-equal; K5 (GS rank) and K6 (GS color solve) on a small
-     mixed-radius scene with a jammed cluster (clamp overflow) and at both
-     GS shapes: rank tables, x, y and overflow_count bit-equal; K5 and
+     bit-equal; K5 (GS rank) and K6 (GS color solve, one launch of the
+     color window a solve) on a small mixed-radius scene with a jammed
+     cluster (clamp overflow) and at both GS shapes: rank tables, x, y and
+     overflow_count bit-equal; K6's window alone with colors 1..c for
+     c = 1..4 and, under a uniform radius, with the Verlet tail (alone and
+     after each c), bit-equal and on repeat, there and below; K5 and
      K5-par (the rank's shared-memory window; its bytes == the Python
-     mirror at every cap) also on a 40 x 30 world's ragged grid and at
-     cap 32 with K 16, with and without a radius plane, at origins 0 and
-     -1; the parity-space kernels there too, on a small uniform scene as
-     well, at the parity shapes [4, 4, 480, 1387] and [4, 6, 480, 1387]:
-     K5-par (origins 0 and -1, one launch for all parities and one per
-     parity), K6-par for every
-     color on the par, mx and dec layouts, K2-par (both launch modes,
-     origins 0 and -1, every matching mode) and K6-par's Verlet tail, all
-     bit-equal; the mx and
-     dec solves bit-equal to the flat solve; the fused kernels there too:
-     colors_mega (with and without the tail) == its plain version == four
-     K6-par launches + the tail, relocate_mega (K2's window over all four
+     mirror at every cap) and K6 and K6-par (the color window; its bytes
+     == the mirror at every cap and number of colors) also on a 40 x 30
+     world's ragged grid and at cap 32 with K 16, with and without a
+     radius plane, at origins 0 and -1, and K6 on a 20 x 12 world's grid
+     smaller than one window; the parity-space kernels there too, on a
+     small uniform scene as well, at the parity shapes [4, 4, 480, 1387]
+     and [4, 6, 480, 1387]: K5-par (origins 0 and -1, one launch for all
+     parities and one per parity), K6-par's window on the par layout at
+     both origins and on the mx and dec layouts, K2-par (both launch
+     modes, origins 0 and -1, every matching mode), all bit-equal; the mx
+     and dec solves bit-equal to the flat solve; the fused kernels there
+     too: colors_mega (with and without the tail) == its plain version ==
+     K6-par's launch, relocate_mega (K2's window over all four
      parities) == K2-par, also on the ragged grid and at cap 32 in every
      matching mode at origins 0 and -1, and K4 (K2's window with K4's step
      rule) == its plain version at the 4M shape, a small mixed-radius one,
@@ -54,9 +58,9 @@ non-zero with no result line:
   5. the Gauss-Seidel path (tiled_solver="gs", the bench's GS config) at
      1,048,576 particles for 300 steps (150 free, 150 with the mouse at
      the world centre) and at 4,194,304 (cap 6) for 100 steps, each in the
-     flat layout (K5 once, K6 four times and K2 once per step), in the
-     parity layout "par" (K5-par once, K6-par four times, K2-par once and
-     the Verlet tail once per step; no flat K5/K6/K2) and in "par" with
+     flat layout (K5, K6 and K2 once per step), in the parity layout
+     "par" (K5-par, K6-par with the Verlet tail fused and K2-par once per
+     step; no flat K5/K6/K2) and in "par" with
      gs_colors_mega and gs_relocate_mega ("mega": K5-par, colors_mega and
      relocate_mega once per step; no K6-par, K2-par or tail launch), the
      same checks, and the three final states bit-equal, K2 and K2-par
@@ -157,11 +161,12 @@ def phase_build() -> None:
 
 
 def check_window_formula() -> None:
-    """The shared-memory bytes of K2's and K5's windows, as the launches
-    take them from csrc/, equal the Python mirrors
-    (``tiled_kernels.k2_window_bytes``, ``gs_kernels.rank_window_bytes``)
-    at every cap 1-32 (K2 on both layouts; K5, whose geometry is one for
-    both, with and without a radius plane)."""
+    """The shared-memory bytes of K2's, K5's and K6's windows, as the
+    launches take them from csrc/, equal the Python mirrors
+    (``tiled_kernels.k2_window_bytes``, ``gs_kernels.rank_window_bytes``,
+    ``gs_kernels.colors_window_bytes``) at every cap 1-32 (K2 on both
+    layouts; K5, whose geometry is one for both, with and without a radius
+    plane; K6, one geometry too, for 0-4 colors a launch)."""
     from gpu_physics_engine_torch.ops import _cuda, gs_kernels as gk
     from gpu_physics_engine_torch.ops import tiled_kernels as tk
     lib = _cuda.library()
@@ -173,6 +178,9 @@ def check_window_formula() -> None:
             pairs += [("K5", gk.rank_window_bytes(cap, uniform),
                        lib.gpe_gs_rank_window_bytes(cap, int(uniform)))
                       for uniform in (False, True)]
+            pairs += [("K6", gk.colors_window_bytes(cap, colors),
+                       lib.gpe_gs_colors_window_bytes(cap, colors))
+                      for colors in range(5)]
             for what, want, got in pairs:
                 if got != want:
                     raise AssertionError(
@@ -181,7 +189,8 @@ def check_window_formula() -> None:
                 most[what, par] = max(most.get((what, par), 0), want)
     log(f"[window] bytes of the launches == the Python mirrors at caps "
         f"1-{tk.MAX_CAP}: K2 most {most['K2', False]} B flat, "
-        f"{most['K2', True]} B parity; K5 most {most['K5', False]} B")
+        f"{most['K2', True]} B parity; K5 most {most['K5', False]} B; K6 "
+        f"most {most['K6', False]} B")
 
 
 def _jittered(state, scale, seed):
@@ -396,25 +405,68 @@ def _gs_small_state():
     return cfg, tiled.init_tiles(cfg, pos, rad, device="cuda")
 
 
-def _gs_ragged_state(cap, K, uniform, n=1500):
+def _gs_ragged_state(cap, K, uniform, n=1500, world=(40.0, 30.0)):
     """A small GS scene on a 40 x 30 world: TX 39 is no multiple of K5's
     32-wide flat region nor its parity sub-grids' 20 columns of one of
-    32, and at origin -1 DY 17 no multiple of two rows (TY itself is
-    padded to a multiple of 8 by the tile geometry, as in the JAX
-    package); mixed radii (or uniform) with a jammed cluster."""
+    32, nor of K6's regions, and at origin -1 DY 17 no multiple of two
+    rows (TY itself is padded to a multiple of 8 by the tile geometry, as
+    in the JAX package); a 20 x 12 world's [cap, 16, 21] grid is smaller
+    than one K6 window; mixed radii (or uniform) with a jammed cluster."""
     import numpy as np
     from gpu_physics_engine_torch.core.tuned import gs_config
     from gpu_physics_engine_torch.ops import tiled
-    cfg = gs_config(n, world_width=40.0, world_height=30.0, tile_cap=cap,
+    w, h = world
+    cfg = gs_config(n, world_width=w, world_height=h, tile_cap=cap,
                     max_occupancy=K, tiled_uniform_radius=uniform)
     rng = np.random.default_rng(cap)
-    spread = rng.uniform(0.6, [39.4, 29.4], (n - n // 3, 2))
-    jam = np.clip([20.0, 15.0] + rng.normal(0.0, 2.0, (n // 3, 2)), 0.6,
-                  [39.4, 29.4])
+    spread = rng.uniform(0.6, [w - 0.6, h - 0.6], (n - n // 3, 2))
+    jam = np.clip([w / 2, h / 2] + rng.normal(0.0, 2.0, (n // 3, 2)), 0.6,
+                  [w - 0.6, h - 0.6])
     pos = np.concatenate([spread, jam]).astype(np.float32)
     rad = (np.full(n, cfg.initial_radius, np.float32) if uniform
            else rng.uniform(0.3, 0.5, n).astype(np.float32))
     return cfg, tiled.init_tiles(cfg, pos, rad, device="cuda")
+
+
+def _prm(cfg):
+    """A substep's Verlet parameters with the mouse pressed at the world's
+    centre (on the card), where the config allows the fused tail (uniform
+    radius, box world), else None."""
+    from gpu_physics_engine_torch import StepParams
+    if not (cfg.tiled_uniform_radius and cfg.world_shape == "box"):
+        return None
+    return StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
+                                          0.5 * cfg.world_height),
+                           pressed=True).as_tensor("cuda")
+
+
+def _tails(cfg) -> str:
+    return ", with and without the tail" if _prm(cfg) is not None else ""
+
+
+def check_window(label, cfg, st, errs: dict) -> None:
+    """K6's window on ``st`` with its own rank's tables, flat and on the
+    parity layout at origins 0 and -1 (no radius table read where the
+    parity state drops the radius plane, as the par route does):
+    ``_colors_lockstep`` on each."""
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    src, _, rrad, _ = gk.rank_cuda(st, cfg)
+    _colors_lockstep(f"K6 {label}", (st.x, st.y, st.px, st.py, st.pid),
+                     (src, rrad), cfg, None, errs, "gs_color", _prm(cfg))
+    shapes = []
+    for origin in (0, -1):
+        ps = gp.to_parity_state(st, cfg, origin)
+        shapes.append(list(ps.x.shape))
+        psrc, _, prrad, _ = gp.rank_par_cuda(ps, cfg)
+        _colors_lockstep(f"K6-par {label} origin={origin}",
+                         (ps.x, ps.y, ps.px, ps.py, ps.pid), (psrc, prrad),
+                         cfg, ps.geo, errs, "gs_color_par", _prm(cfg),
+                         uniform=ps.radius is None)
+    log(f"[k6] {label} {list(st.dims)} and {shapes} K={cfg.max_occupancy} "
+        f"uniform={cfg.tiled_uniform_radius}: K6's window, colors 1..c (c = "
+        f"1..4{_tails(cfg)}), flat and parity (origins 0 and -1) bit-equal "
+        f"and repeat bit-equal")
 
 
 def check_rank(label, cfg, st, errs: dict) -> None:
@@ -457,9 +509,9 @@ def phase_gs_kernels(scenes, errs: dict) -> None:
     for i, (label, cfg, st) in enumerate(runs):
         # storage off home, as in a run
         st = _jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=4 + i)
-        ka, ta = gk.solve_frame(st, cfg, gk.rank_cuda, gk.color_cuda_)
-        ka2, ta2 = gk.solve_frame(st, cfg, gk.rank_cuda, gk.color_cuda_)
-        pb, tb = gk.solve_frame(st, cfg, gk.rank_plain, gk.color_plain_)
+        ka, ta = gk.solve_frame(st, cfg, gk.rank_cuda, gk.colors_cuda)
+        ka2, ta2 = gk.solve_frame(st, cfg, gk.rank_cuda, gk.colors_cuda)
+        pb, tb = gk.solve_frame(st, cfg, gk.rank_plain, gk.colors_plain)
         torch.cuda.synchronize()
         names = ("src", "rpid", "rrad", "count")
         rank_eq = [n for n, u, v in zip(names, ta, tb)
@@ -477,21 +529,29 @@ def phase_gs_kernels(scenes, errs: dict) -> None:
         errs["gs_color"] = max(errs.get("gs_color", 0.0),
                                _max_err(ka, pb, ("x", "y")))
         frame = int(ka.overflow_count) - int(st.overflow_count)
-        moved = int((ka.x != st.x).sum())
+        moved = _colors_lockstep(
+            f"K6 {label}", (st.x, st.y, st.px, st.py, st.pid),
+            (ta[0], ta[2]), cfg, None, errs, "gs_color", _prm(cfg))
         log(f"[k5/k6] {label} {list(st.dims)} K={cfg.max_occupancy}: rank "
-            f"tables, x, y, overflow bit-equal and repeat bit-equal; "
-            f"clamp overflow {frame} this frame, max count "
-            f"{int(ta[3].max())}, {moved} slots moved")
+            f"tables, x, y, overflow bit-equal and repeat bit-equal; K6's "
+            f"window colors 1..c (c = 1..4{_tails(cfg)}) too; clamp "
+            f"overflow {frame} this frame, max count {int(ta[3].max())}, "
+            f"{moved} slots moved")
         if label != "small":
             check_relocate(label, cfg, st, MODES, errs)
-    # K5's window where it is largest (cap 32, K 16) and on a ragged grid,
-    # with and without a radius plane
+    # K5's and K6's windows where they are largest (cap 32, K 16), on a
+    # ragged grid and on one smaller than a K6 window, with and without a
+    # radius plane
     for uniform in (False, True):
-        for label, cap, K, n in (("ragged", 4, 8, 1500),
-                                 ("cap32-K16", 32, 16, 3000)):
-            cfg, st = _gs_ragged_state(cap, K, uniform, n)
+        for label, cap, K, n, world in (("ragged", 4, 8, 1500, (40.0, 30.0)),
+                                        ("tiny", 4, 8, 200, (20.0, 12.0)),
+                                        ("cap32-K16", 32, 16, 3000,
+                                         (40.0, 30.0))):
+            cfg, st = _gs_ragged_state(cap, K, uniform, n, world)
             st = _jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=cap)
-            check_rank(label, cfg, st, errs)
+            if label != "tiny":
+                check_rank(label, cfg, st, errs)
+            check_window(label, cfg, st, errs)
 
 
 def _equal_or_raise(what, got, want, again=None) -> None:
@@ -514,30 +574,62 @@ def _equal_or_raise(what, got, want, again=None) -> None:
         raise AssertionError(f"{what}: not bit-equal on repeat")
 
 
-def _colors_lockstep(what, x, y, src, rrad, cfg, geo, errs, key) -> int:
-    """K6-par against its plain version, color after color, from the same
-    x, y; returns the number of slots the four colors moved."""
+def _colors_lockstep(what, fields, tables, cfg, geo, errs, key, prm=None,
+                     uniform=False) -> int:
+    """K6's window against the plain passes from the same inputs: colors
+    1..c for c = 1..4 and, with ``prm`` (uniform radius, box world), the
+    Verlet tail alone and after each c; bit-equal and bit-equal on repeat.
+    ``fields`` = (x, y, px, py, pid) and ``tables`` = (src, rrad) in the
+    layout of ``geo`` (None: flat); ``uniform``: the kernel reads no radius
+    table, as on the par route.  Returns the number of slots the four
+    colors moved."""
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import gs_parity as gp
-    xk, yk, xp, yp = x.clone(), y.clone(), x.clone(), y.clone()
-    for color in (1, 2, 3, 4):
-        gp.color_par_cuda_(xk, yk, src, rrad, cfg, geo, color)
-        gp.color_par_plain_(xp, yp, src, rrad, cfg, geo, color)
-        _equal_or_raise(f"{what} color {color}", (xk, yk), (xp, yp))
-    errs[key] = max(errs.get(key, 0.0), float((xk - xp).abs().max()))
-    return int((xk != x).sum())
+    x, y, px, py, pid = fields
+    src, rrad = tables
+    grid = (tuple(x.shape[1:]) + (0, 0, 0, 0) if geo is None
+            else gp._geo_args(geo) + (1,))
+    moved, tails = 0, (False, True) if prm is not None else (False,)
+    for c1 in range(5):
+        for tail in tails:
+            if c1 == 0 and not tail:
+                continue
+            runs = []
+            for _ in range(3):
+                q, r = px.clone(), py.clone()
+                runs.append((q, r, (q, r, pid, prm) if tail else None))
+            got = [gk.window_cuda(what, x, y, src, None if uniform else rrad,
+                                  cfg, grid, c1, t,
+                                  gp._verlet_consts(cfg) if tail else None,
+                                  cfg.initial_radius) + (q, r)
+                   for q, r, t in runs[:2]]
+            q, r, t = runs[2]
+            if geo is None:
+                a, b = gk.colors_plain(x, y, src, rrad, cfg, c1)
+                if tail:
+                    gp.verlet_plain_(a, b, q, r, pid, prm, cfg)
+            else:
+                a, b = gp.colors_par_plain(x, y, src, rrad, cfg, geo, c1, t)
+            _equal_or_raise(f"{what} colors 1..{c1} tail={tail}", got[0],
+                            (a, b, q, r), got[1])
+            if c1 == 4 and not tail:
+                moved = int((got[0][0] != x).sum())
+    errs[key] = 0.0
+    return moved
 
 
 def phase_par_kernels(scenes, errs: dict) -> None:
     """The parity-space kernels against their plain versions, bit-equal and
-    bit-equal on repeat: K5-par in both launch modes, K6-par for every
-    color on the par layout (tables from K5-par) and on the mx and dec
-    layouts (K5's tables relayouted), K2-par in both launch modes at both
-    origins in every matching mode, and the Verlet tail under the mouse;
-    the mx and dec solves against the flat solve.  On a small mixed-radius
+    bit-equal on repeat: K5-par in both launch modes, K6-par's window
+    (colors 1..c for each c, and under a uniform radius the Verlet tail,
+    mouse pressed, alone and after each c) on the par layout (tables from
+    K5-par, no radius table read where the state drops the radius plane)
+    and on the mx and dec layouts (K5's tables relayouted), K2-par in both
+    launch modes at both origins in every matching mode; the mx and dec
+    solves against the flat solve.  On a small mixed-radius
     scene (radius planes carried), a small uniform one and each GS path's
     ``scenes`` [(label, config, state)]."""
     import torch
-    from gpu_physics_engine_torch import StepParams
     from gpu_physics_engine_torch.core.tuned import gs_config
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import gs_parity as gp
@@ -551,7 +643,8 @@ def phase_par_kernels(scenes, errs: dict) -> None:
     for i, (label, cfg, st) in enumerate(runs + list(scenes)):
         t = tiled.tile_geometry(cfg)[0]
         st = _jittered(st, 0.3 * t, seed=20 + i)  # storage off home
-        for origin in (-1, 0):  # the tables of origin 0 serve below
+        prm = _prm(cfg)
+        for origin in (-1, 0):
             ps = gp.to_parity_state(st, cfg, origin)
             for fused in (True, False):
                 c = cfg.replace(gs_par_fused=fused)
@@ -559,18 +652,24 @@ def phase_par_kernels(scenes, errs: dict) -> None:
                 _equal_or_raise(f"K5-par {label} origin={origin} "
                                 f"fused={fused}", ta,
                                 gp.rank_par_plain(ps, c), ta2)
+            src, _, rrad, count = ta
+            moved = _colors_lockstep(
+                f"K6-par {label} origin={origin}",
+                (ps.x, ps.y, ps.px, ps.py, ps.pid), (src, rrad), cfg,
+                ps.geo, errs, "gs_color_par", prm, uniform=ps.radius is None)
         dims = list(ps.x.shape)
-        src, _, rrad, count = ta
         errs["gs_rank_par"] = 0.0
-        moved = _colors_lockstep(f"K6-par {label}", ps.x, ps.y, src, rrad,
-                                 cfg, ps.geo, errs, "gs_color_par")
+        if prm is not None:  # the par route's tail is this launch's
+            errs["gs_verlet"] = 0.0
         fsrc, _, frrad, _ = gk.rank_cuda(st, cfg)
         for name, origin in (("mx", 0), ("dec", -1)):
             geo = gp.ParityGeometry(*st.dims[1:], origin)
+            to = lambda a, fill: gp.to_parity(a, geo, fill)  # noqa: E731
             _colors_lockstep(
-                f"K6-{name} {label}", gp.to_parity(st.x, geo, 0.0),
-                gp.to_parity(st.y, geo, 0.0), gp.to_parity(fsrc, geo, -1),
-                gp.to_parity(frrad, geo, 0.0), cfg, geo, errs,
+                f"K6-{name} {label}", (to(st.x, 0.0), to(st.y, 0.0),
+                                       to(st.px, 0.0), to(st.py, 0.0),
+                                       to(st.pid, -1)),
+                (to(fsrc, -1), to(frrad, 0.0)), cfg, geo, errs,
                 f"gs_color_par[{name}]")
             c = cfg.replace(gs_layout=name)
             got, want = gp.gs_solve_layout(st, c), gk.gs_solve_flat(st, c)
@@ -578,28 +677,12 @@ def phase_par_kernels(scenes, errs: dict) -> None:
                             (got.x, got.y, got.overflow_count),
                             (want.x, want.y, want.overflow_count))
         check_relocate_par(label, cfg, st, MODES, errs, seed=40 + i)
-        verlet = ""
-        if cfg.tiled_uniform_radius:
-            prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
-                                                 0.5 * cfg.world_height),
-                                  pressed=True).as_tensor("cuda")
-            ka = [a.clone() for a in (ps.x, ps.y, ps.px, ps.py)]
-            kb = [a.clone() for a in ka]
-            pa = [a.clone() for a in ka]
-            gp.verlet_cuda_(*ka, ps.pid, prm, cfg)
-            gp.verlet_cuda_(*kb, ps.pid, prm, cfg)
-            gp.verlet_plain_(*pa, ps.pid, prm, cfg)
-            _equal_or_raise(f"Verlet tail {label}", tuple(ka), tuple(pa),
-                            tuple(kb))
-            errs["gs_verlet"] = max(errs.get("gs_verlet", 0.0), max(
-                float((u - v).abs().max()) for u, v in zip(ka, pa)))
-            verlet = ", Verlet tail"
         log(f"[par] {label} {dims} match {tk.resolve_match(cfg, *st.dims)}: "
-            f"K5-par (origins 0 and -1, fused and per parity), K6-par (par, "
-            f"mx, dec), K2-par "
-            f"(above){verlet} "
-            f"bit-equal and repeat bit-equal; mx and dec solves == flat; "
-            f"clamp overflow "
+            f"K5-par (origins 0 and -1, fused and per parity), K6-par's "
+            f"window (par at origins 0 and -1, mx, dec; colors 1..c for c = "
+            f"1..4{_tails(cfg)}), "
+            f"K2-par (above) bit-equal and repeat bit-equal; mx and dec "
+            f"solves == flat; clamp overflow "
             f"{int((count - cfg.max_occupancy).clamp(min=0).sum())}, "
             f"{moved} slots moved")
 
@@ -758,7 +841,7 @@ def check_relocate_mega(label, cfg, st, modes, errs: dict,
 def phase_fused_kernels(gs_scenes, cfg4m, st4m, errs: dict) -> None:
     """The fused kernels against their plain versions and the sequential
     kernels they fuse, bit-equal and on repeat: colors_mega with and
-    without the Verlet tail (== four K6-par launches + the tail),
+    without the Verlet tail (== K6-par's launch on the par route),
     relocate_mega (== K2-par) at a small uniform scene and the GS paths'
     parity shapes, and in every matching mode on the ragged grid and at
     cap 32; K4 at the 4M shape, at a small mixed-radius one, on the
@@ -784,30 +867,31 @@ def phase_fused_kernels(gs_scenes, cfg4m, st4m, errs: dict) -> None:
                               pressed=True).as_tensor("cuda")
         for tail in (prm, None):
             runs = [ps.replace(**{f: getattr(ps, f).clone()
-                                  for f in ("x", "y", "px", "py")})
+                                  for f in ("px", "py")})
                     for _ in range(4)]
-            gm.colors_mega_cuda(runs[0], src, rrad, cfg, tail)
-            gm.colors_mega_cuda(runs[1], src, rrad, cfg, tail)
+            runs[0] = gm.colors_mega_cuda(runs[0], src, rrad, cfg, tail)
+            runs[1] = gm.colors_mega_cuda(runs[1], src, rrad, cfg, tail)
+            runs[2] = runs[2].replace(x=ps.x.clone(), y=ps.y.clone())
             gm.colors_mega_plain(runs[2], src, rrad, cfg, tail)
             seq = runs[3]
-            for color in (1, 2, 3, 4):
-                gp.color_par_cuda_(seq.x, seq.y, src, rrad, cfg, seq.geo,
-                                   color)
-            if tail is not None:
-                gp.verlet_cuda_(seq.x, seq.y, seq.px, seq.py, seq.pid, tail,
-                                cfg)
+            x, y = gp.colors_par_cuda(
+                seq.x, seq.y, src, rrad, cfg, seq.geo,
+                tail=None if tail is None else (seq.px, seq.py, seq.pid,
+                                                tail),
+                uniform=True)
+            seq = seq.replace(x=x, y=y)
             got = lambda r: tuple(getattr(r, f)  # noqa: E731
                                   for f in ("x", "y", "px", "py"))
             what = f"colors_mega {label} tail={tail is not None}"
             _equal_or_raise(what, got(runs[0]), got(runs[2]), got(runs[1]))
-            _equal_or_raise(f"{what} vs K6-par x 4 + tail", got(runs[0]),
+            _equal_or_raise(f"{what} vs K6-par's launch", got(runs[0]),
                             got(seq))
         errs["gs_colors_mega"] = 0.0
         mega = check_relocate_mega(
             label, cfg, st, [(cfg.tiled_match, cfg.tiled_hysteresis)], errs,
             seed=70 + i)
         log(f"[mega] {label} {list(ps.x.shape)}: colors_mega (with and "
-            f"without the tail) == plain == K6-par x 4 (+ tail), {mega} "
+            f"without the tail) == plain == K6-par's launch, {mega} "
             f"(match {gp.resolve_match(cfg, cfg.tile_cap, *st.dims[1:])}), "
             f"bit for bit and on repeat")
     ragged_cfg, ragged = _ragged_state(6, uniform=True)
@@ -1147,10 +1231,13 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     each output written once; operations counted from this run's data
     (5 flops per candidate pair's distance test, 25 per Verlet step, 9 per
     membership test, 8 per GS pair).  The parity kernels at the 1M-GS
-    scene's parity shape: the same counts, no radius plane (uniform)."""
+    scene's parity shape: the same counts, no radius plane (uniform).  The
+    GS colors per solve: K6 and K6-mx/dec the four colors, K6-par and
+    colors_mega the four colors and the Verlet tail."""
     import torch
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.ops import gs_tiled as gt
     cap, TY, TX = state.dims
     S = cap * TY * TX * 4.0  # bytes of one plane
     n, box = _tile_counts(state)
@@ -1174,10 +1261,17 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     # no candidate), three K-deep tables and the count written
     out["gs_rank"] = _bound(gcap * GY * GX * 4.0 + 12 * gocc
                             + (3 * K + 1) * GY * GX * 4.0, 9 * 9 * gocc)
-    # per launch (a quarter of the frame): each valid rank's code and
-    # radius read, its x, y read and written; its pairs' sweep
-    out["gs_color"] = _bound(24 * float(m.sum()) / 4,
-                             8 * float((m * (m - 1) / 2).sum()) / 4)
+    # per solve (four colors): each valid rank's code and radius read, the
+    # x, y of the slots the ranks name read once and written once; the
+    # pairs' sweep.  (The window also copies every empty slot into its new
+    # planes; the function needs no such bytes.)
+    src = gk.rank_cuda(gs_state, gs_cfg)[0]
+    ty = torch.arange(GY, device=src.device).view(1, GY, 1)
+    tx = torch.arange(GX, device=src.device).view(1, 1, GX)
+    idx, valid = gt.source_index(src, gcap, GY, GX, ty, tx)
+    members = float(torch.unique(idx[valid]).numel())
+    ranks, pairs = float(m.sum()), float((m * (m - 1) / 2).sum())
+    out["gs_color"] = _bound(8 * ranks + 16 * members, 8 * pairs)
     ps = gp.to_parity_state(gs_state, gs_cfg)
     P = float(ps.x.numel()) * 4.0  # bytes of one parity-space field
     cells = float(ps.pid[:, 0].numel())
@@ -1186,22 +1280,25 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     nr = 0 if ps.radius is None else 1  # no radius plane when uniform
     out["gs_rank_par"] = _bound(P + 4 * (2 + nr) * gocc
                                 + (3 * K + 1) * cells * 4.0, 9 * 9 * gocc)
-    out["gs_color_par"] = _bound(24 * float(pm.sum()) / 4,
-                                 8 * float((pm * (pm - 1) / 2).sum()) / 4)
+    # the par route's solve: four colors and the tail; no radius table
+    # (every valid rank has radius r0), each valid rank's code read, the
+    # pid plane read, x, y, px, py of the occupied slots read and written
+    pranks = float(pm.sum())
+    ppairs = float((pm * (pm - 1) / 2).sum())
+    out["gs_color_par"] = _bound(4 * pranks + P + 32 * gocc,
+                                 8 * ppairs + 25 * gocc)
     out["gs_color_par[mx]"] = out["gs_color_par[dec]"] = out["gs_color"]
     # as K2: pid read, the occupied slots' fields read, the fields and pid
     # written (no radius plane under uniform radius), and the defer cells
     nf = 4 + (ps.radius is not None)
     out["relocate_par"] = _bound((nf + 2) * P + 4 * nf * gocc + cells * 4.0,
                                  10 * gocc)
-    # in place: the pid plane is read, and x, y, px, py of occupied slots
-    # are read and written; empty slots keep their values
+    # the tail alone: the pid plane is read, and x, y, px, py of occupied
+    # slots are read and written; empty slots keep their values
     out["gs_verlet"] = _bound(P + 32 * gocc, 25 * gocc)
-    # the fused kernels compute the same functions: colors_mega the four
-    # colors and the tail, relocate_mega K2-par's, K4 K2's (at 4M)
-    out["gs_colors_mega"] = _bound(24 * float(pm.sum()) + P + 32 * gocc,
-                                   8 * float((pm * (pm - 1) / 2).sum())
-                                   + 25 * gocc)
+    # the fused kernels compute the same functions: colors_mega the par
+    # route's solve, relocate_mega K2-par's, K4 K2's (at 4M)
+    out["gs_colors_mega"] = out["gs_color_par"]
     out["relocate_mega"] = out["relocate_par"]
     out["relocate_one"] = out["relocate_pull"]
     # K12: each key read once, each rank written once, one 256-bin
@@ -1220,10 +1317,11 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
 
 def _par_runs(gs_cfg, gs_state) -> dict:
     """The parity kernels' timing runs at the 1M-GS scene's parity shape:
-    name -> (kernel, plain, launches per call).  The colors run on the par
-    layout (K5-par's tables) and on the mx and dec layouts (K5's tables
-    relayouted); the relocate on a jittered copy; the Verlet tail with
-    the mouse pressed."""
+    name -> (kernel, plain, launches per call).  K6-par's window runs a
+    solve on the par layout (K5-par's tables, the Verlet tail fused, mouse
+    pressed) and on the mx and dec layouts (K5's tables relayouted); the
+    tail's row is the window with no color; the relocate on a jittered
+    copy."""
     from gpu_physics_engine_torch import StepParams
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import gs_mega as gm
@@ -1238,15 +1336,16 @@ def _par_runs(gs_cfg, gs_state) -> dict:
     prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
                                          0.5 * cfg.world_height),
                           pressed=True).as_tensor("cuda")
-    v = [a.clone() for a in (ps.x, ps.y, ps.px, ps.py)]
+    tail = (ps.px.clone(), ps.py.clone(), ps.pid, prm)
 
-    def colors(fn, geo, tables):
+    def colors(fn, geo, tables, c1=4, tail=None, **kw):
         x, y = gp.to_parity(gs_state.x, geo, 0.0), gp.to_parity(
             gs_state.y, geo, 0.0)
-        return lambda: [fn(x, y, *tables, cfg, geo, c) for c in (1, 2, 3, 4)]
+        return lambda: fn(x, y, *tables, cfg, geo, c1, tail, **kw)
 
     m = ps.replace(**{f: getattr(ps, f).clone()
                       for f in ("x", "y", "px", "py")})
+    par = (src, rrad)
     runs = {
         "gs_rank_par": (lambda: gp.rank_par_cuda(ps, cfg),
                         lambda: gp.rank_par_plain(ps, cfg), 1),
@@ -1255,30 +1354,34 @@ def _par_runs(gs_cfg, gs_state) -> dict:
             lambda: gm.colors_mega_plain(m, src, rrad, cfg, prm), 1),
         "relocate_mega": (lambda: gm.relocate_mega_cuda(far, cfg),
                           lambda: gm.relocate_mega_plain(far, cfg), 1),
-        "gs_color_par": (colors(gp.color_par_cuda_, ps.geo, (src, rrad)),
-                         colors(gp.color_par_plain_, ps.geo, (src, rrad)), 4),
+        # the par route's solve: four colors and the tail, no radius table
+        "gs_color_par": (
+            colors(gp.colors_par_cuda, ps.geo, par, tail=tail, uniform=True),
+            colors(gp.colors_par_plain, ps.geo, par, tail=tail), 1),
         "relocate_par": (lambda: gp.relocate_par_cuda(far, cfg),
                          lambda: gp.relocate_par_plain(far, cfg), 1),
-        "gs_verlet": (lambda: gp.verlet_cuda_(*v, ps.pid, prm, cfg),
-                      lambda: gp.verlet_plain_(*v, ps.pid, prm, cfg), 1),
+        # the window with no color: the tail alone
+        "gs_verlet": (
+            colors(gp.colors_par_cuda, ps.geo, par, 0, tail, uniform=True),
+            colors(gp.colors_par_plain, ps.geo, par, 0, tail), 1),
     }
     for name, origin in (("mx", 0), ("dec", -1)):
         geo = gp.ParityGeometry(*gs_state.dims[1:], origin)
         tables = (gp.to_parity(fsrc, geo, -1), gp.to_parity(frrad, geo, 0.0))
         runs[f"gs_color_par[{name}]"] = (
-            colors(gp.color_par_cuda_, geo, tables),
-            colors(gp.color_par_plain_, geo, tables), 4)
+            colors(gp.colors_par_cuda, geo, tables),
+            colors(gp.colors_par_plain, geo, tables), 1)
     return runs, list(ps.x.shape)
 
 
 def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
     """Every kernel against its plain version at the main paths' shapes:
-    K1, K2, K3 at the 4M shape, K5 and K6 (one color launch) at the
-    1M-GS shape, the parity kernels at its parity shape, on the engines'
-    initial scenes (after a mouse drag most particles are members of no
-    cell, and K6 would have little to do), K12 (one pass) at the 1M
-    array scene's 4,403,200 pair keys.  Turns: plain, kernel, kernel,
-    plain.  Returns ({name: (kernel ms, plain ms)}, {name: library ms}):
+    K1, K2, K3 at the 4M shape, K5 and K6 (one launch: a solve's four
+    colors) at the 1M-GS shape, the parity kernels at its parity shape, on
+    the engines' initial scenes (after a mouse drag most particles are
+    members of no cell, and K6 would have little to do), K12 (one pass) at
+    the 1M array scene's 4,403,200 pair keys.  Turns: plain, kernel,
+    kernel, plain.  Returns ({name: (kernel ms, plain ms)}, {name: library ms}):
     for K12 the library call is torch.sort(stable=True) of the same pairs,
     which does the whole sort that K12's four passes serve."""
     import torch
@@ -1288,11 +1391,9 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
     prm = StepParams.make(cfg.dt).as_tensor("cuda")
     moved = _jittered(state, 0.3 * tiled.tile_geometry(cfg)[0], seed=2)
     src, _, rrad, _ = gk.rank_cuda(gs_state, gs_cfg)
-    gx, gy = gs_state.x.clone(), gs_state.y.clone()
 
     def colors(fn):
-        for c in (1, 2, 3, 4):
-            fn(gx, gy, src, rrad, gs_cfg, c)
+        return lambda: fn(gs_state.x, gs_state.y, src, rrad, gs_cfg)
 
     runs = {  # name: (kernel, plain, launches per call)
         "collide_integrate": (lambda: tk.collide_integrate_cuda(state, prm,
@@ -1307,8 +1408,7 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
                     lambda: tk.collide_plain(state, cfg), 1),
         "gs_rank": (lambda: gk.rank_cuda(gs_state, gs_cfg),
                     lambda: gk.rank_plain(gs_state, gs_cfg), 1),
-        "gs_color": (lambda: colors(gk.color_cuda_),
-                     lambda: colors(gk.color_plain_), 4),
+        "gs_color": (colors(gk.colors_cuda), colors(gk.colors_plain), 1),
     }
     shapes = {name: list(state.dims) for name in runs}
     shapes.update(gs_rank=list(gs_state.dims), gs_color=list(gs_state.dims))
@@ -1422,11 +1522,11 @@ MEGA_GS = ("gs_colors_mega", "relocate_mega")
 def _gs_expect(steps: int, layout: str) -> dict:
     """Launch counts of ``steps`` GS steps (one substep each) in ``layout``
     ("mega": par with gs_colors_mega and gs_relocate_mega)."""
-    per = {"flat": dict(gs_rank=1, gs_color=4, relocate_pull=1),
-           "par": dict(gs_rank_par=1, gs_color_par=4, relocate_par=1,
+    per = {"flat": dict(gs_rank=1, gs_color=1, relocate_pull=1),
+           "par": dict(gs_rank_par=1, gs_color_par=1, relocate_par=1,
                        gs_verlet=1),
            "mega": dict(gs_rank_par=1, gs_colors_mega=1, relocate_mega=1),
-           "mx": dict(gs_rank=1, gs_color_par=4, relocate_pull=1)}
+           "mx": dict(gs_rank=1, gs_color_par=1, relocate_pull=1)}
     per["dec"] = per["mx"]
     want = {k: 0 for k in FLAT_GS + PAR_GS + MEGA_GS + ("collide_integrate",
                                                        "relocate_one")}

@@ -7,15 +7,9 @@
 // reported at the call.
 #include <cuda_runtime.h>
 
-#include <algorithm>
-
 #include "gs_kernels.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
 // K5's grid: one block per region of kRankRows x kRankCols full-space
 // tiles (on ParLayout half as many cells of each sub-grid per axis).
@@ -61,49 +55,41 @@ int launch_rank(const void* x, const void* y, const void* rad,
                 lay, np, K, t, r0, static_cast<cudaStream_t>(stream));
 }
 
+// The window's grid: one block per region of the cap's class (on
+// ParLayout half as many cells of each sub-grid per axis).
+dim3 window_grid(const gpe::FlatLayout& l, int RY, int RX) {
+  return dim3((l.TX + RX - 1) / RX, (l.TY + RY - 1) / RY);
+}
+dim3 window_grid(const gpe::ParLayout& l, int RY, int RX) {
+  const int SY = RY / 2, SX = RX / 2;
+  return dim3((l.DX + SX - 1) / SX, (l.DY + SY - 1) / SY);
+}
+
+template <int KMAX, int CLS, class L>
+int launch_window_k(const gpe::GsWindowArgs& a, const L& lay,
+                    cudaStream_t s) {
+  const int smem = gpe::gs_window_bytes(a.cap, a.c1);
+  // past the default 48 KB from cap 3 of the smallest class, by class
+  const cudaError_t rc =
+      gpe::allow_smem(gpe::gs_colors_window_kernel<KMAX, CLS, L>, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  gpe::gs_colors_window_kernel<KMAX, CLS, L>
+      <<<window_grid(lay, gpe::gs_window_ry(CLS), gpe::gs_window_rx(CLS)),
+         gpe::kGsWinThreads, smem, s>>>(a, lay);
+  return (int)cudaGetLastError();
+}
+
 template <class L>
-void launch_color(float* x, float* y, const int* src, const float* rrad,
-                  int cap, const L& lay, int n, int K, float stiffness,
-                  cudaStream_t s) {
-  if (K <= 8)
-    gpe::gs_color_kernel<8, L><<<blocks_for(n), kThreads, 0, s>>>(
-        x, y, src, rrad, cap, lay, n, K, stiffness);
-  else
-    gpe::gs_color_kernel<16, L><<<blocks_for(n), kThreads, 0, s>>>(
-        x, y, src, rrad, cap, lay, n, K, stiffness);
+int launch_window(const gpe::GsWindowArgs& a, const L& lay, void* stream) {
+  using Fn = int (*)(const gpe::GsWindowArgs&, const L&, cudaStream_t);
+  static constexpr Fn table[2][4] = {
+      {&launch_window_k<8, 0, L>, &launch_window_k<8, 1, L>,
+       &launch_window_k<8, 2, L>, &launch_window_k<8, 3, L>},
+      {&launch_window_k<16, 0, L>, &launch_window_k<16, 1, L>,
+       &launch_window_k<16, 2, L>, &launch_window_k<16, 3, L>}};
+  return table[a.K <= 8 ? 0 : 1][gpe::gs_window_class(a.cap)](
+      a, lay, static_cast<cudaStream_t>(stream));
 }
-
-// Blocks of colors_mega's cooperative grid on device dev: as many as fit
-// on the card at once (resident blocks per SM x SMs).  Queried on the
-// first launch on each device and kept: the occupancy query costs host
-// time, and the step is short enough for the host to set its pace.
-template <int KMAX>
-cudaError_t mega_grid(int dev, int* blocks) {
-  constexpr int kMaxDevices = 64;
-  static int cached[kMaxDevices] = {};
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (cached[dev] == 0) {
-    int coop = 0, sms = 0, per_sm = 0;
-    cudaError_t rc =
-        cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (rc == cudaSuccess)
-      rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, gpe::gs_colors_mega_kernel<KMAX>, kThreads, 0);
-    if (rc != cudaSuccess) return rc;
-    if (!coop) return cudaErrorNotSupported;
-    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    cached[dev] = per_sm * sms;
-  }
-  *blocks = cached[dev];
-  return cudaSuccess;
-}
-
-// The first full row (column) of color 1..4 is ty0 = 1 - ((color-1) >> 1)
-// (tx0 = 1 - ((color-1) & 1)): color = 1 + ((tx-1)&1) + 2*((ty-1)&1).
-int color_ty0(int color) { return 1 - ((color - 1) >> 1); }
-int color_tx0(int color) { return 1 - ((color - 1) & 1); }
 
 }  // namespace
 
@@ -116,7 +102,7 @@ int gpe_gs_rank(const void* x, const void* y, const void* rad,
                 void* count, int cap, int TY, int TX, int K, float t,
                 void* stream) {
   if (rad == nullptr) return (int)cudaErrorInvalidValue;
-  const gpe::FlatLayout lay{TY, TX, 0, 0, 1, TX};
+  const gpe::FlatLayout lay{TY, TX};
   return launch_rank<gpe::FlatLayout, false>(x, y, rad, pid, src, rpid, rrad,
                                              count, cap, lay, 1, K, t, 0.0f,
                                              stream);
@@ -144,107 +130,57 @@ int gpe_gs_rank_window_bytes(int cap, int uniform) {
   return gpe::rank_window_bytes(cap, uniform != 0);
 }
 
-// K6: one color pass (1..4), in place on x, y float [cap, TY, TX].
-int gpe_gs_color(void* x, void* y, const void* src, const void* rrad,
-                 int cap, int TY, int TX, int K, int color, float stiffness,
-                 void* stream) {
-  if (K < 1 || K > gpe::kGsMaxK || color < 1 || color > 4)
+// K6, K6-par (K6-mx, K6-dec) and colors_mega: colors 1..c1 (0 <= c1 <=
+// 4; c1 = 4: a whole solve) in one launch of the window kernel,
+// then (integ != 0) the substep's Verlet step.  Reads x, y and writes
+// every slot to ox, oy (new planes, never x or y); with integ, px, py in
+// place.  par == 0: fields [cap, TY, TX], tables src/rrad [K, TY, TX];
+// par != 0: fields [4, cap, DY, DX], tables [4, K, DY, DX] with the given
+// origin.  rrad may be null: every valid rank has radius r0.  With integ,
+// pid, prm (device float[4]) and consts (host float[kVerletNumConsts] in
+// VerletConsts order) are read.  1 <= K <= 16, 1 <= cap <= 32.
+int gpe_gs_colors_window(const void* x, const void* y, void* px, void* py,
+                         const void* pid, const void* src, const void* rrad,
+                         const void* prm, void* ox, void* oy, int cap,
+                         int TY, int TX, int DY, int DX, int origin, int par,
+                         int K, int c1, float r0, float stiffness,
+                         int integ, const void* consts, void* stream) {
+  if (K < 1 || K > gpe::kGsMaxK || cap < 1 || cap > gpe::kMaxCap ||
+      c1 < 0 || c1 > gpe::kGsWinMaxColors || TY < 1 ||
+      TX < 1 || (par && (DY < 1 || DX < 1)) ||
+      (integ && (!px || !py || !pid || !prm || !consts)))
     return (int)cudaErrorInvalidValue;
-  const int ty0 = color_ty0(color);
-  const int tx0 = color_tx0(color);
-  const int HY = (TY - ty0 + 1) / 2;
-  const int HX = (TX - tx0 + 1) / 2;
-  const int n = HY * HX;
-  if (n <= 0) return (int)cudaGetLastError();
-  const gpe::FlatLayout lay{TY, TX, ty0, tx0, 2, HX};
-  launch_color(static_cast<float*>(x), static_cast<float*>(y),
-               static_cast<const int*>(src), static_cast<const float*>(rrad),
-               cap, lay, n, K, stiffness, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
-}
-
-// K6-par (and K6-mx, K6-dec): one color pass on the parity layout, in
-// place on x, y [4, cap, DY, DX], tables src/rrad [4, K, DY, DX].  The
-// color's cells are the whole sub-grid of one parity.
-int gpe_gs_color_par(void* x, void* y, const void* src, const void* rrad,
-                     int cap, int TY, int TX, int DY, int DX, int origin,
-                     int K, int color, float stiffness, void* stream) {
-  if (K < 1 || K > gpe::kGsMaxK || color < 1 || color > 4)
-    return (int)cudaErrorInvalidValue;
-  // parity (ty - origin) & 1 of the color's first row and column
-  const int pa = (color_ty0(color) - origin) & 1;
-  const int pb = (color_tx0(color) - origin) & 1;
-  const gpe::ParLayout lay{TY, TX, DY, DX, origin, 2 * pa + pb};
-  launch_color(static_cast<float*>(x), static_cast<float*>(y),
-               static_cast<const int*>(src), static_cast<const float*>(rrad),
-               cap, lay, DY * DX, K, stiffness,
-               static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
-}
-
-// K6-par's Verlet tail: in place on x, y, px, py float [n] (any layout);
-// consts = host float[kVerletNumConsts] in VerletConsts order.
-int gpe_gs_verlet(void* x, void* y, void* px, void* py, const void* pid,
-                  const void* prm, int n, const void* consts, void* stream) {
-  const float* f = static_cast<const float*>(consts);
-  const gpe::VerletConsts c{f[0], f[1], f[2], f[3], f[4], f[5]};
-  if (n <= 0) return (int)cudaGetLastError();
-  gpe::gs_verlet_kernel<<<blocks_for(n), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(x), static_cast<float*>(y),
-      static_cast<float*>(px), static_cast<float*>(py),
-      static_cast<const int*>(pid), static_cast<const float*>(prm), n, c);
-  return (int)cudaGetLastError();
-}
-
-// colors_mega: the four K6-par colors on the parity layout, then (integ
-// != 0) the Verlet tail, in one cooperative launch: in place on x, y (and
-// px, py) [4, cap, DY, DX], tables src/rrad [4, K, DY, DX]; consts = host
-// float[kVerletNumConsts].  The grid is as many blocks as fit on the card
-// at once (mega_grid), at most what the work needs.  A card without
-// cooperative launch gives cudaErrorNotSupported; a refused launch returns
-// its error.
-int gpe_gs_colors_mega(void* x, void* y, void* px, void* py, const void* pid,
-                       const void* src, const void* rrad, const void* prm,
-                       int cap, int TY, int TX, int DY, int DX, int origin,
-                       int K, float stiffness, int integ, const void* consts,
-                       void* stream) {
-  if (K < 1 || K > gpe::kGsMaxK || DY < 1 || DX < 1)
-    return (int)cudaErrorInvalidValue;
-  int dev = 0, resident = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc == cudaSuccess)
-    rc = K <= 8 ? mega_grid<8>(dev, &resident)
-                : mega_grid<16>(dev, &resident);
-  if (rc != cudaSuccess) return (int)rc;
-  auto* fn = K <= 8 ? &gpe::gs_colors_mega_kernel<8>
-                    : &gpe::gs_colors_mega_kernel<16>;
-  const long long work = integ ? 4LL * cap * DY * DX : (long long)DY * DX;
-  const int blocks = (int)std::min<long long>(resident, blocks_for(work));
-  int pars = 0;
-  for (int color = 1; color <= 4; ++color) {
-    const int pa = (color_ty0(color) - origin) & 1;
-    const int pb = (color_tx0(color) - origin) & 1;
-    pars |= (2 * pa + pb) << (2 * (color - 1));
+  gpe::GsWindowArgs a{};
+  a.x = static_cast<const float*>(x);
+  a.y = static_cast<const float*>(y);
+  a.px = static_cast<float*>(px);
+  a.py = static_cast<float*>(py);
+  a.pid = static_cast<const int*>(pid);
+  a.prm = static_cast<const float*>(prm);
+  a.src = static_cast<const int*>(src);
+  a.rrad = static_cast<const float*>(rrad);
+  a.ox = static_cast<float*>(ox);
+  a.oy = static_cast<float*>(oy);
+  a.cap = cap;
+  a.K = K;
+  a.c1 = c1;
+  a.integ = integ != 0;
+  a.r0 = r0;
+  a.stiffness = stiffness;
+  if (integ) {
+    const float* f = static_cast<const float*>(consts);
+    a.vc = gpe::VerletConsts{f[0], f[1], f[2], f[3], f[4], f[5]};
   }
-  const float* f = static_cast<const float*>(consts);
-  gpe::VerletConsts c{f[0], f[1], f[2], f[3], f[4], f[5]};
-  gpe::ParLayout lay{TY, TX, DY, DX, origin, 0};
-  float* ax = static_cast<float*>(x);
-  float* ay = static_cast<float*>(y);
-  float* apx = static_cast<float*>(px);
-  float* apy = static_cast<float*>(py);
-  const int* apid = static_cast<const int*>(pid);
-  const int* asrc = static_cast<const int*>(src);
-  const float* arrad = static_cast<const float*>(rrad);
-  const float* aprm = static_cast<const float*>(prm);
-  void* args[] = {&ax,  &ay,  &apx,  &apy, &apid,      &asrc,  &arrad, &aprm,
-                  &cap, &lay, &pars, &K,   &stiffness, &integ, &c};
-  rc = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
-                                   dim3(blocks), dim3(kThreads), args, 0,
-                                   static_cast<cudaStream_t>(stream));
-  const cudaError_t last = cudaGetLastError();
-  return (int)(rc != cudaSuccess ? rc : last);
+  if (par)
+    return launch_window(a, gpe::ParLayout{TY, TX, DY, DX, origin, 0},
+                         stream);
+  return launch_window(a, gpe::FlatLayout{TY, TX}, stream);
+}
+
+// The window's shared-memory bytes at cap for a launch of `colors` colors,
+// as the launches above take them (either layout).
+int gpe_gs_colors_window_bytes(int cap, int colors) {
+  return gpe::gs_window_bytes(cap, colors);
 }
 
 }  // extern "C"

@@ -4,18 +4,15 @@
 //     _rank_full (:467; kernels _rank_kernel :219, _rank_kernel_net :362);
 //     on ParLayout it also replaces ops/gs_parity.py::rank_parity (:275;
 //     _rank_kernel_par :160, _rank_kernel_par_all :206), "K5-par".
-// K6  gs_color_kernel  replaces gpu_physics_engine_tpu/ops/gs_pallas.py::
-//     gs_solve_pallas_flat (:543; _solve_kernel :390 with _sweep :77, and
-//     _apply_kernel :431); on ParLayout it replaces the color passes of
-//     gs_solve_pallas_dec (:783), gs_solve_pallas_mx (:1045) and
-//     ops/gs_parity.py::solve_parity (:433; _solve_dec_kernel,
-//     _apply_dec_kernel), "K6-dec", "K6-mx", "K6-par".
-// gs_verlet_kernel     is K6-par's Verlet tail: the Verlet step that
-//     ops/gs_parity.py::_apply_integrate_dec_kernel (:353) fuses into the
-//     color-4 apply, launched right after the color-4 pass.
-// gs_colors_mega_kernel replaces ops/gs_mega.py::colors_mega (:503, kernel
-//     _mega_kernel :136): the four K6-par colors and the Verlet tail in
-//     one cooperative launch.
+// K6  gs_colors_window_kernel replaces gpu_physics_engine_tpu/ops/
+//     gs_pallas.py::gs_solve_pallas_flat (:543; _solve_kernel :390 with
+//     _sweep :77, and _apply_kernel :431), one launch a solve; on ParLayout
+//     it replaces the color passes of gs_solve_pallas_dec (:783),
+//     gs_solve_pallas_mx (:1045) and ops/gs_parity.py::solve_parity (:433;
+//     _solve_dec_kernel, _apply_dec_kernel), "K6-dec", "K6-mx", "K6-par",
+//     with the Verlet half of _apply_integrate_dec_kernel (:353) fused as
+//     K6-par's tail, and ops/gs_mega.py::colors_mega (:503, kernel
+//     _mega_kernel :136): the four colors and the tail in one launch.
 //
 // Storage is a layout of csrc/layout.cuh: slot-major [CAP, TY, TX] (flat)
 // or parity-major [4, CAP, DY, DX]; the rank tables are the same layout
@@ -30,7 +27,6 @@
 // never --use_fast_math).
 #pragma once
 
-#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "layout.cuh"
@@ -315,111 +311,145 @@ __global__ void __launch_bounds__(kRankThreads, KMAX <= 8 ? 5 : 1) gs_rank_kerne
   count[lay.at(0, 1, ty, tx)] = members;
 }
 
+
 // ---------------------------------------------------------------------------
-// K6: one color pass, written back through the source codes.
+// K6 (flat, mx, dec, par) and colors_mega: the color solve on a window.
 // ---------------------------------------------------------------------------
 
-// One thread per cell of this color: flat, cells (ty0 + 2*cy, tx0 + 2*cx);
-// parity, every cell of the color's sub-grid, which is contiguous, so the
-// table and slot accesses of neighbouring threads coalesce.  Valid ranks
-// are a prefix (the rank fills them in ascending pid order), so the thread
-// loads ranks 0..nv-1 at their current positions, runs the ordered a < b
-// sweep on registers, and stores them back to their slots.  Cells of one
-// color are particle-disjoint, so no slot is written twice or read by
-// another cell of the launch.  The pair math follows _sweep's f32 order:
+// The per-color pair math follows _sweep's f32 order:
 //   dist = sqrt(dx*dx + dy*dy), hit = rsum^2 > dist^2 && dist > 1e-4,
 //   c = ((d / max(dist, 1e-4)) * pen) * stiffness,
 //   w_a = r_b / max(rsum, 1e-4), x_a += c*w_a, x_b -= c*w_b.
-// gs_color_cell is the per-cell body; gs_color_kernel runs it once per
-// thread, gs_colors_mega_kernel for all four colors in one launch.
-template <int KMAX, class L>
-__device__ __forceinline__ void gs_color_cell(float* __restrict__ x,
-                                              float* __restrict__ y,
-                                              const int* __restrict__ src,
-                                              const float* __restrict__ rrad,
-                                              int cap, const L& lay, int i,
-                                              int K, float stiffness) {
-  int ty, tx;
-  lay.cell(i, &ty, &tx);
-  if (ty < 0 || ty >= lay.TY || tx < 0 || tx >= lay.TX) return;  // pad
-
-  int slot[KMAX];
-  float lx[KMAX], ly[KMAX], lr[KMAX];
-  int nv = 0;
-#pragma unroll
-  for (int q = 0; q < KMAX; ++q) {
-    slot[q] = 0;
-    lx[q] = 0.0f;
-    ly[q] = 0.0f;
-    lr[q] = 0.0f;
-    if (q < K && q == nv) {
-      const int tq = lay.at(q, K, ty, tx);
-      const int code = src[tq];
-      if (code >= 0) {
-        const int j = code / cap;
-        const int s = code - j * cap;
-        const int at = lay.at(s, cap, ty + j / 3 - 1, tx + j % 3 - 1);
-        slot[q] = at;
-        lx[q] = x[at];
-        ly[q] = y[at];
-        lr[q] = rrad[tq];
-        nv = q + 1;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < KMAX - 1; ++a) {
-#pragma unroll
-    for (int b = a + 1; b < KMAX; ++b) {
-      if (b < nv) {
-        const float dx = __fsub_rn(lx[a], lx[b]);
-        const float dy = __fsub_rn(ly[a], ly[b]);
-        const float dist =
-            __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
-        const float rsum = __fadd_rn(lr[a], lr[b]);
-        if (__fmul_rn(rsum, rsum) > __fmul_rn(dist, dist) &&
-            dist > kGsMinDist) {
-          const float safe = fmaxf(dist, kGsMinDist);
-          const float pen = __fsub_rn(rsum, dist);
-          const float cxp =
-              __fmul_rn(__fmul_rn(__fdiv_rn(dx, safe), pen), stiffness);
-          const float cyp =
-              __fmul_rn(__fmul_rn(__fdiv_rn(dy, safe), pen), stiffness);
-          const float rs = fmaxf(rsum, kGsMinDist);
-          const float wa = __fdiv_rn(lr[b], rs);
-          const float wb = __fdiv_rn(lr[a], rs);
-          lx[a] = __fadd_rn(lx[a], __fmul_rn(cxp, wa));
-          ly[a] = __fadd_rn(ly[a], __fmul_rn(cyp, wa));
-          lx[b] = __fsub_rn(lx[b], __fmul_rn(cxp, wb));
-          ly[b] = __fsub_rn(ly[b], __fmul_rn(cyp, wb));
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int q = 0; q < KMAX; ++q) {
-    if (q < nv) {
-      x[slot[q]] = lx[q];
-      y[slot[q]] = ly[q];
-    }
-  }
+// Valid ranks are a prefix (the rank fills them in ascending pid order).
+//
+// gs_colors_window_kernel computes colors 1..c1 (a whole solve: 1..4) of
+// one frame, then, with integ, the substep's Verlet step, and writes x and
+// y to new planes.  A block owns a region of RY x RX full-space tiles (on
+// ParLayout RY/2 x RX/2 cells of each sub-grid, indexed in full space as
+// K5's window is) and works on a window of the region and a halo of H
+// tiles on every side, in three phases:
+//
+//  1. stage: x and y of every slot of every stored window tile, coalesced
+//     along tx (on ParLayout a warp walks one parity class), into shared
+//     memory.  Tiles outside the grid (ParLayout: pad cells stay stored)
+//     are skipped; no cell reaches them.
+//  2. colors: for c = 1..c1 a thread per cell of color c runs one cell:
+//     it loads the cell's K source codes from device memory as one batch
+//     (no chain through "rank q-1 was valid"); a cell with fewer than two
+//     valid ranks is done.  Otherwise it loads the valid ranks' radii (or
+//     takes r0 when rrad == nullptr: the uniform-radius tables hold r0 for
+//     every valid rank), decodes each code to a (window tile, slot),
+//     sweeps in registers with the __f*_rn intrinsics (the warp leaves the
+//     unrolled pair loop past its largest member count) and writes back to
+//     shared memory.  A barrier separates the colors.  Cells of one color
+//     are particle-disjoint (cell edge >= 2 r_max, and the frozen tables
+//     name each slot from at most one cell of a color), so no shared slot
+//     has two writers within a color.
+//  3. write: a thread per (slot, region tile) writes every slot of the
+//     region's stored tiles to ox, oy, coalesced; empty slots (and pad
+//     cells) keep their input values.  With integ, an occupied slot
+//     (pid >= 0) first takes the Verlet step (gs_verlet_slot), reading and
+//     writing px, py in place: only the region's owner touches them.
+//
+// The halo.  A color-c cell reads and writes only slots stored within one
+// tile of it (the source codes name the 3 x 3 tiles around the cell), so
+// after color c a slot's value depends on cells within one tile of its
+// tile, and those on slots within one tile of them: the correct part of
+// the window shrinks by 2 tiles on every side that faces unstaged tiles,
+// per color.  Inductively, if every tile at least 2k tiles inside the
+// window's inner edges is correct before the k-th color (k = 0 .. n-1 for
+// n = c1 colors; true at k = 0), the block sweeps the cells at
+// least 2k + 1 inside: their 3 x 3 lies in the correct part (and in the
+// window), and every cell within one tile of a tile 2k + 2 inside is among
+// them, so tiles 2(k + 1) inside are correct after it.  After n colors the
+// region is correct when H = 2n: 8 tiles for a solve.  At the grid's edges
+// the window is clipped (tiles outside [0, TY) x [0, TX) do not exist), so
+// nothing shrinks there.  The halo's cells are computed again by every
+// block that stages them: the cost of needing no grid synchronisation.
+// x and y are written out of place because a neighbour's halo reads the
+// region's input values: in place, a block could read a neighbour's final
+// values.  Regions are disjoint: no slot is written twice, no atomics.
+//
+// Bound: device memory.  The function reads each valid rank's code (and
+// radius), the occupied slots' x, y (and px, py, the pid plane with the
+// tail) and writes them.  What sets the kernel's time is elsewhere
+// (PERF.md, utils/kernel_study.py --k6): the sweeps, which the halo's
+// cells make 1.5-1.6x as many as the grid's at the 1M-GS and 4M-GS caps,
+// and the out-of-place copy of every empty slot.  The regions by cap class
+// (GPE_GSW_RY<c>, GPE_GSW_RX<c>: near-square, the most tiles that leave
+// two blocks an SM), the block size (kGsWinThreads) and the launch bounds
+// (GPE_GSW_MINB) were chosen by timing in the 1M-GS and 4M-GS steps; a
+// study build may override them.
+#ifndef GPE_GSW_THREADS
+#define GPE_GSW_THREADS 512
+#endif
+#ifndef GPE_GSW_MINB  // resident blocks an SM the launch bounds ask, K <= 8
+#define GPE_GSW_MINB 2
+#endif
+// RY, RX of the regions of the classes cap <= 4, 8, 16, 32
+#ifndef GPE_GSW_RY0
+#define GPE_GSW_RY0 32
+#endif
+#ifndef GPE_GSW_RX0
+#define GPE_GSW_RX0 48
+#endif
+#ifndef GPE_GSW_RY1
+#define GPE_GSW_RY1 32
+#endif
+#ifndef GPE_GSW_RX1
+#define GPE_GSW_RX1 32
+#endif
+#ifndef GPE_GSW_RY2
+#define GPE_GSW_RY2 8
+#endif
+#ifndef GPE_GSW_RX2
+#define GPE_GSW_RX2 32
+#endif
+#ifndef GPE_GSW_RY3
+#define GPE_GSW_RY3 8
+#endif
+#ifndef GPE_GSW_RX3
+#define GPE_GSW_RX3 16
+#endif
+constexpr int kGsWinThreads = GPE_GSW_THREADS;
+constexpr int kGsWinMaxColors = 4;
+constexpr int kGsWinMaxHalo = 2 * kGsWinMaxColors;
+// Region class of a cap, and its region's sides (device code calls them
+// with a constant class only).
+constexpr int gs_window_class(int cap) {
+  return cap <= 4 ? 0 : cap <= 8 ? 1 : cap <= 16 ? 2 : 3;
+}
+__host__ __device__ constexpr int gs_window_side(int cls, int axis) {
+  constexpr int sides[4][2] = {{GPE_GSW_RY0, GPE_GSW_RX0},
+                               {GPE_GSW_RY1, GPE_GSW_RX1},
+                               {GPE_GSW_RY2, GPE_GSW_RX2},
+                               {GPE_GSW_RY3, GPE_GSW_RX3}};
+  return sides[cls][axis];
+}
+__host__ __device__ constexpr int gs_window_ry(int cls) {
+  return gs_window_side(cls, 0);
+}
+__host__ __device__ constexpr int gs_window_rx(int cls) {
+  return gs_window_side(cls, 1);
 }
 
-template <int KMAX, class L>
-__global__ void gs_color_kernel(float* __restrict__ x, float* __restrict__ y,
-                                const int* __restrict__ src,
-                                const float* __restrict__ rrad, int cap,
-                                L lay, int n, int K, float stiffness) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  gs_color_cell<KMAX>(x, y, src, rrad, cap, lay, i, K, stiffness);
+// Dynamic shared memory of one block: x, y (float2) of every slot of the
+// window, the region and a halo of 2 tiles per color.
+constexpr int gs_window_bytes(int cap, int colors) {
+  return (gs_window_ry(gs_window_class(cap)) + 4 * colors) *
+         (gs_window_rx(gs_window_class(cap)) + 4 * colors) * cap * 8;
 }
-
-// ---------------------------------------------------------------------------
-// K6-par's Verlet tail: one substep's Verlet step, in place, after color 4.
-// ---------------------------------------------------------------------------
+// Every class fits a block at its largest cap and a whole solve; regions
+// have even sides, so a ParLayout window keeps each sub-grid's parity.
+static_assert(gs_window_bytes(4, kGsWinMaxColors) <= kSmemLimit, "cap 4");
+static_assert(gs_window_bytes(8, kGsWinMaxColors) <= kSmemLimit, "cap 8");
+static_assert(gs_window_bytes(16, kGsWinMaxColors) <= kSmemLimit, "cap 16");
+static_assert(gs_window_bytes(32, kGsWinMaxColors) <= kSmemLimit, "cap 32");
+constexpr bool gs_window_even(int cls) {
+  return cls == 4 || (gs_window_ry(cls) % 2 == 0 &&
+                      gs_window_rx(cls) % 2 == 0 && gs_window_even(cls + 1));
+}
+static_assert(gs_window_even(0), "regions need even sides");
 
 struct VerletConsts {
   float r0;              // uniform radius: the box clamp's lower bound
@@ -429,31 +459,192 @@ struct VerletConsts {
 };
 constexpr int kVerletNumConsts = 6;
 
-// One thread per slot, any layout (the step is elementwise): occupied
-// slots take the step, empty ones keep their values.  The TPU fuses this
-// into the color-4 pull-apply, which holds every particle's final
-// position; K6 writes in place and a color-4 cell does not own every
-// slot, so the step runs as its own launch right after the color-4 pass.
-// Op order of ops/tiled.py::integrate (box world, uniform radius), every
-// operation IEEE-rounded and uncontracted:
+struct GsWindowArgs {
+  const float* x;  // inputs: read only
+  const float* y;
+  float* px;  // the tail's, in place (integ only)
+  float* py;
+  const int* pid;    // integ only
+  const float* prm;  // integ only: [dt, mouse_x, mouse_y, pressed]
+  const int* src;
+  const float* rrad;  // nullptr: every valid rank has radius r0
+  float* ox;          // outputs: every stored slot
+  float* oy;
+  int cap, K, c1, integ;
+  float r0, stiffness;
+  VerletConsts vc;
+};
+
+// Whether full tile (ty, tx) has a storage cell (ParLayout: pad cells too).
+__device__ __forceinline__ bool gs_stored(const FlatLayout& l, int ty,
+                                          int tx) {
+  return ty >= 0 && ty < l.TY && tx >= 0 && tx < l.TX;
+}
+__device__ __forceinline__ bool gs_stored(const ParLayout& l, int ty,
+                                          int tx) {
+  const int q = ty - l.o, r = tx - l.o;
+  return q >= 0 && r >= 0 && (q >> 1) < l.DY && (r >> 1) < l.DX;
+}
+
+// Tile i of a WY x WX block of full-space tiles whose corner has even
+// (ty - o, tx - o): row-major on FlatLayout; on ParLayout by parity class,
+// each class row-major, so that neighbouring threads touch neighbouring
+// words of one sub-grid.
+__device__ __forceinline__ void gs_block_tile(const FlatLayout&, int i,
+                                              int WY, int WX, int* wy,
+                                              int* wx) {
+  (void)WY;
+  *wy = i / WX;
+  *wx = i - *wy * WX;
+}
+__device__ __forceinline__ void gs_block_tile(const ParLayout&, int i,
+                                              int WY, int WX, int* wy,
+                                              int* wx) {
+  const int SX = WX >> 1, A = (WY >> 1) * SX;
+  const int q = i / A, r = i - q * A;
+  const int cy = r / SX;
+  *wy = 2 * cy + (q >> 1);
+  *wx = 2 * (r - cy * SX) + (q & 1);
+}
+
+// The region's first full tile: (ty0 - o, tx0 - o) is even on ParLayout.
+template <int RY, int RX>
+__device__ __forceinline__ void gs_region_origin(const FlatLayout&, int* ty0,
+                                                 int* tx0) {
+  *ty0 = RY * (int)blockIdx.y;
+  *tx0 = RX * (int)blockIdx.x;
+}
+template <int RY, int RX>
+__device__ __forceinline__ void gs_region_origin(const ParLayout& l, int* ty0,
+                                                 int* tx0) {
+  *ty0 = RY * (int)blockIdx.y + l.o;
+  *tx0 = RX * (int)blockIdx.x + l.o;
+}
+
+// One cell (ty, tx) of a color on the window: w holds x, y of slot s of
+// window tile t at w[s * WN + t], window tile (0, 0) being full tile
+// (wy0, wx0).
+// The cells of color c = k + 1 that the window sweeps: those at least
+// 2k + 1 tiles inside its inner edges, from (fy, fx), ny x nx.
+struct GsColorCells {
+  int fy, fx, ny, nx;
+};
+__device__ __forceinline__ GsColorCells gs_color_cells(int k, int wy0,
+                                                       int wx0, int WY,
+                                                       int WX, int TY,
+                                                       int TX) {
+  const int c = k + 1, m = 2 * k + 1;
+  // color c = 1 + ((tx-1)&1) + 2*((ty-1)&1): its rows' (columns') parity
+  // in full space
+  const int pa = ((c - 1) >> 1) ^ 1, pb = ((c - 1) & 1) ^ 1;
+  const int ylo = wy0 > 0 ? wy0 + m : 0;
+  const int yhi = wy0 + WY < TY ? wy0 + WY - m : TY;
+  const int xlo = wx0 > 0 ? wx0 + m : 0;
+  const int xhi = wx0 + WX < TX ? wx0 + WX - m : TX;
+  GsColorCells g;
+  g.fy = ylo + ((pa - ylo) & 1);
+  g.fx = xlo + ((pb - xlo) & 1);
+  g.ny = yhi > g.fy ? (yhi - g.fy + 1) >> 1 : 0;
+  g.nx = xhi > g.fx ? (xhi - g.fx + 1) >> 1 : 0;
+  return g;
+}
+
+template <int KMAX, class L>
+__device__ __forceinline__ void gs_color_cell(float2* __restrict__ w, int WN,
+                                              int WX, int wy0, int wx0,
+                                              const GsWindowArgs& a,
+                                              const L& lay, int ty,
+                                              int tx) {
+  const int K = a.K, cap = a.cap;
+  int code[KMAX];  // one batch of loads, not a chain through rank q - 1
+#pragma unroll
+  for (int q = 0; q < KMAX; ++q)
+    code[q] = q < K ? __ldg(a.src + lay.at(q, K, ty, tx)) : -1;
+  int nv = 0;
+#pragma unroll
+  for (int q = 0; q < KMAX; ++q)
+    if (q == nv && code[q] >= 0) nv = q + 1;
+  if (nv < 2) return;  // no pair: the members stay where they are
+
+  int wi[KMAX];
+  float lx[KMAX], ly[KMAX], lr[KMAX];
+#pragma unroll
+  for (int q = 0; q < KMAX; ++q) {
+    wi[q] = 0;
+    lx[q] = 0.0f;
+    ly[q] = 0.0f;
+    lr[q] = 0.0f;
+    if (q < nv) {
+      lr[q] = a.rrad ? __ldg(a.rrad + lay.at(q, K, ty, tx)) : a.r0;
+      const int j = code[q] / cap;
+      const int s = code[q] - j * cap;
+      wi[q] = s * WN + (ty + j / 3 - 1 - wy0) * WX + (tx + j % 3 - 1 - wx0);
+      const float2 v = w[wi[q]];
+      lx[q] = v.x;
+      ly[q] = v.y;
+    }
+  }
+
+  // the warp's largest nv: the pairs past it are skipped by a branch the
+  // whole warp takes (a lane still sweeps only its own b < nv)
+  const int nvw = __reduce_max_sync(__activemask(), nv);
+#pragma unroll
+  for (int p = 0; p < KMAX - 1; ++p) {
+    if (p + 1 >= nvw) break;
+#pragma unroll
+    for (int b = p + 1; b < KMAX; ++b) {
+      if (b >= nvw) break;
+      if (b < nv) {
+        const float dx = __fsub_rn(lx[p], lx[b]);
+        const float dy = __fsub_rn(ly[p], ly[b]);
+        const float dist =
+            __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
+        const float rsum = __fadd_rn(lr[p], lr[b]);
+        if (__fmul_rn(rsum, rsum) > __fmul_rn(dist, dist) &&
+            dist > kGsMinDist) {
+          const float safe = fmaxf(dist, kGsMinDist);
+          const float pen = __fsub_rn(rsum, dist);
+          const float cxp =
+              __fmul_rn(__fmul_rn(__fdiv_rn(dx, safe), pen), a.stiffness);
+          const float cyp =
+              __fmul_rn(__fmul_rn(__fdiv_rn(dy, safe), pen), a.stiffness);
+          const float rs = fmaxf(rsum, kGsMinDist);
+          const float wa = __fdiv_rn(lr[b], rs);
+          const float wb = __fdiv_rn(lr[p], rs);
+          lx[p] = __fadd_rn(lx[p], __fmul_rn(cxp, wa));
+          ly[p] = __fadd_rn(ly[p], __fmul_rn(cyp, wa));
+          lx[b] = __fsub_rn(lx[b], __fmul_rn(cxp, wb));
+          ly[b] = __fsub_rn(ly[b], __fmul_rn(cyp, wb));
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int q = 0; q < KMAX; ++q)
+    if (q < nv) w[wi[q]] = make_float2(lx[q], ly[q]);
+}
+
+// One substep's Verlet step of an occupied slot at (x, y) with previous
+// position (px, py); returns the new position.  Op order of
+// ops/tiled.py::integrate (box world, uniform radius), every operation
+// IEEE-rounded and uncontracted:
 //   v = x - px, d = (mx, my) - x, dist = sqrt(d.d),
 //   inv = dist > 1e-6 ? 1 / max(dist, 1e-6) : 0,
 //   a = g + (d * inv) * (strength * pressed),
 //   x' = clamp((x + v) + a * dt^2, r0, world - r0), px' = x.
-// prm = [dt * dt_scale, mouse_x, mouse_y, pressed] in device memory.
-__device__ __forceinline__ void gs_verlet_slot(float* __restrict__ x,
-                                               float* __restrict__ y,
-                                               float* __restrict__ px,
-                                               float* __restrict__ py,
-                                               const int* __restrict__ pid,
-                                               const float* __restrict__ prm,
-                                               int i, const VerletConsts& c) {
-  if (pid[i] < 0) return;
-  const float xi = x[i];
-  const float yi = y[i];
-  const float vel_x = __fsub_rn(xi, px[i]);
-  const float vel_y = __fsub_rn(yi, py[i]);
-  const float dt = prm[0], mx = prm[1], my = prm[2], pressed = prm[3];
+// prm = [dt * dt_scale, mouse_x, mouse_y, pressed] in device memory.  The
+// TPU fuses this into the color-4 pull-apply (ops/gs_parity.py::
+// _apply_integrate_dec_kernel :353); here it runs on the region's slots
+// after the last color.
+__device__ __forceinline__ float2 gs_verlet_slot(float xi, float yi,
+                                                 float pxi, float pyi,
+                                                 const float* __restrict__ prm,
+                                                 const VerletConsts& c) {
+  const float vel_x = __fsub_rn(xi, pxi);
+  const float vel_y = __fsub_rn(yi, pyi);
+  const float dt = __ldg(prm), mx = __ldg(prm + 1), my = __ldg(prm + 2);
+  const float pressed = __ldg(prm + 3);
   const float dxm = __fsub_rn(mx, xi);
   const float dym = __fsub_rn(my, yi);
   const float dist =
@@ -465,65 +656,122 @@ __device__ __forceinline__ void gs_verlet_slot(float* __restrict__ x,
   const float dt2 = __fmul_rn(dt, dt);
   const float nx = __fadd_rn(__fadd_rn(xi, vel_x), __fmul_rn(ax, dt2));
   const float ny = __fadd_rn(__fadd_rn(yi, vel_y), __fmul_rn(ay, dt2));
-  x[i] = fminf(fmaxf(nx, c.r0), c.xmax);
-  y[i] = fminf(fmaxf(ny, c.r0), c.ymax);
-  px[i] = xi;
-  py[i] = yi;
+  return make_float2(fminf(fmaxf(nx, c.r0), c.xmax),
+                     fminf(fmaxf(ny, c.r0), c.ymax));
 }
 
+template <int KMAX, int CLS, class L>
+__global__ void __launch_bounds__(kGsWinThreads, KMAX <= 8 ? GPE_GSW_MINB : 1)
+    gs_colors_window_kernel(GsWindowArgs a, L lay) {
+  constexpr int RY = gs_window_ry(CLS), RX = gs_window_rx(CLS);
+  constexpr int T = kGsWinThreads;
+  constexpr int kPer = ((RY + 2 * kGsWinMaxHalo) * (RX + 2 * kGsWinMaxHalo) +
+                        T - 1) / T;  // window tiles a thread stages, at most
+  extern __shared__ __align__(16) unsigned char gs_window_smem[];
+  float2* w = reinterpret_cast<float2*>(gs_window_smem);  // [cap][window]
+  const int cap = a.cap;
+  const int nc = a.c1;  // colors of this launch, 0 .. 4
+  const int H = 2 * nc;
+  const int WY = RY + 2 * H, WX = RX + 2 * H, WN = WY * WX;
+  int ty0, tx0;
+  gs_region_origin<RY, RX>(lay, &ty0, &tx0);
+  const int wy0 = ty0 - H, wx0 = tx0 - H;  // the window's full tile (0, 0)
 
-__global__ void gs_verlet_kernel(float* __restrict__ x, float* __restrict__ y,
-                                 float* __restrict__ px,
-                                 float* __restrict__ py,
-                                 const int* __restrict__ pid,
-                                 const float* __restrict__ prm, int n,
-                                 VerletConsts c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  gs_verlet_slot(x, y, px, py, pid, prm, i, c);
-}
-
-// ---------------------------------------------------------------------------
-// colors_mega: the four colors (and the Verlet tail) in one launch.
-// ---------------------------------------------------------------------------
-
-// A persistent cooperative kernel on the parity layout: every thread runs
-// a grid-stride loop over the color's sub-grid (the cells of one color are
-// particle-disjoint, so a phase is race-free, as one K6-par launch is),
-// and the grid synchronises between colors and before the tail, which
-// runs the same grid-stride loop over every slot.  Each phase runs the
-// bodies of K6-par and the Verlet tail on the same cells in the same
-// order, so the result equals four K6-par launches plus the tail bit for
-// bit.  pars holds the parity of color c in bits 2(c-1), 2(c-1)+1.  Launch
-// only with cudaLaunchCooperativeKernel, with no more blocks than can be
-// resident at once.
-template <int KMAX>
-__global__ void gs_colors_mega_kernel(float* __restrict__ x,
-                                      float* __restrict__ y,
-                                      float* __restrict__ px,
-                                      float* __restrict__ py,
-                                      const int* __restrict__ pid,
-                                      const int* __restrict__ src,
-                                      const float* __restrict__ rrad,
-                                      const float* __restrict__ prm, int cap,
-                                      ParLayout lay, int pars, int K,
-                                      float stiffness, int integ,
-                                      VerletConsts c) {
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
-  const int cells = lay.DY * lay.DX;
-  for (int color = 0; color < 4; ++color) {
-    ParLayout cl = lay;
-    cl.p0 = (pars >> (2 * color)) & 3;
-    for (int i = i0; i < cells; i += stride)
-      gs_color_cell<KMAX>(x, y, src, rrad, cap, cl, i, K, stiffness);
-    if (color < 3 || integ) grid.sync();
+  // 1. stage: a thread takes window tiles tid, tid + T, ...; the loads of
+  // four slots of all its tiles are issued before any is stored
+  int sat[kPer], sw[kPer];  // slot 0's storage offset (-1: none), window
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = threadIdx.x + u * T;
+    sat[u] = -1;
+    sw[u] = 0;
+    if (i < WN) {
+      int wy, wx;
+      gs_block_tile(lay, i, WY, WX, &wy, &wx);
+      if (gs_stored(lay, wy0 + wy, wx0 + wx)) {
+        sat[u] = lay.at(0, cap, wy0 + wy, wx0 + wx);
+        sw[u] = wy * WX + wx;
+      }
+    }
   }
-  if (!integ) return;
-  const int slots = 4 * cap * cells;
-  for (int i = i0; i < slots; i += stride)
-    gs_verlet_slot(x, y, px, py, pid, prm, i, c);
+  const int plane = lay.plane();  // storage offset from slot s to s + 1
+  for (int k0 = 0; k0 < cap; k0 += 4) {
+    float2 v[kPer][4];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (sat[u] >= 0 && k0 + kk < cap) {
+          const int g = sat[u] + (k0 + kk) * plane;
+          v[u][kk] = make_float2(__ldg(a.x + g), __ldg(a.y + g));
+        }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (sat[u] >= 0 && k0 + kk < cap) w[(k0 + kk) * WN + sw[u]] = v[u][kk];
+  }
+  __syncthreads();
+
+  // 2. colors 1 .. c1: the k-th sweeps the cells of its color at least
+  // 2k + 1 tiles inside the window's inner edges
+  const int TY = lay.TY, TX = lay.TX;
+  for (int k = 0; k < nc; ++k) {
+    const GsColorCells g =
+        gs_color_cells(k, wy0, wx0, WY, WX, TY, TX);
+    for (int i = threadIdx.x; i < g.ny * g.nx; i += T) {
+      const int cy = i / g.nx;
+      gs_color_cell<KMAX>(w, WN, WX, wy0, wx0, a, lay, g.fy + 2 * cy,
+                          g.fx + 2 * (i - cy * g.nx));
+    }
+    __syncthreads();
+  }
+
+  // 3. write the region's stored tiles (the tail first where asked): a
+  // thread per (slot, region tile), four a round; pid, px and py of all
+  // four are loaded as one batch, px and py whatever pid says (a thread
+  // per tile walking its slots, px and py after pid, took several times
+  // as long: PERF.md)
+  constexpr int RN = RY * RX, U = 4;
+  for (int e0 = threadIdx.x; e0 < cap * RN; e0 += T * U) {
+    int g[U], t[U], p[U];
+    float2 q[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * T;
+      g[u] = -1;
+      t[u] = 0;
+      if (e < cap * RN) {
+        const int s = e / RN, i = e - s * RN;
+        int ry, rx;
+        gs_block_tile(lay, i, RY, RX, &ry, &rx);
+        if (gs_stored(lay, ty0 + ry, tx0 + rx)) {
+          g[u] = lay.at(s, cap, ty0 + ry, tx0 + rx);
+          t[u] = s * WN + (ry + H) * WX + rx + H;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      p[u] = -1;
+      if (a.integ && g[u] >= 0) {
+        p[u] = __ldg(a.pid + g[u]);
+        q[u] = make_float2(a.px[g[u]], a.py[g[u]]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (g[u] < 0) continue;
+      float2 v = w[t[u]];
+      if (p[u] >= 0) {
+        a.px[g[u]] = v.x;
+        a.py[g[u]] = v.y;
+        v = gs_verlet_slot(v.x, v.y, q[u].x, q[u].y, a.prm, a.vc);
+      }
+      a.ox[g[u]] = v.x;
+      a.oy[g[u]] = v.y;
+    }
+  }
 }
 
 }  // namespace gpe

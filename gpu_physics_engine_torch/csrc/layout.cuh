@@ -2,9 +2,9 @@
 // (csrc/tiled_kernels.cuh, csrc/gs_kernels.cuh), and the limits their
 // launchers share.
 //
-// A layout maps (plane s of C, full tile (ty, tx)) to a storage offset, and
-// thread i of a launch to the full tile it works on.  The sweeps, the rank
-// selection and the relocate matching then exist once and run on either:
+// A layout maps (plane s of C, full tile (ty, tx)) to a storage offset.
+// The sweeps, the rank selection and the relocate matching then exist once
+// and run on either:
 //
 //   FlatLayout  slot-major [C, TY, TX] (the persistent tile storage);
 //   ParLayout   four parity sub-grids, parity-major [4, C, DY, DX]: full
@@ -41,34 +41,21 @@ cudaError_t allow_smem(Kernel* kernel, int smem) {
 
 struct FlatLayout {
   int TY, TX;
-  // this launch's cells: (ty0 + step*cy, tx0 + step*cx), cx < W
-  int ty0, tx0, step, W;
 
-  __device__ __forceinline__ void cell(int i, int* ty, int* tx) const {
-    const int cy = i / W;
-    *ty = ty0 + step * cy;
-    *tx = tx0 + step * (i - cy * W);
-  }
   __device__ __forceinline__ int at(int s, int C, int ty, int tx) const {
     (void)C;  // every plane has the same stride
     return (s * TY + ty) * TX + tx;
   }
+  // the storage offset from plane s to s + 1
+  __device__ __forceinline__ int plane() const { return TY * TX; }
 };
 
 struct ParLayout {
   int TY, TX, DY, DX;
   int o;   // origin: 0 (mx/par) or -1 (dec)
-  int p0;  // this launch's first parity; it covers every cell from there
+  int p0;  // K5-par: the launch's first parity; it covers every cell from
+           // there
 
-  __device__ __forceinline__ void cell(int i, int* ty, int* tx) const {
-    const int A = DY * DX;
-    const int pl = i / A;
-    const int r = i - pl * A;
-    const int si = r / DX;
-    const int p = p0 + pl;
-    *ty = 2 * si + (p >> 1) + o;
-    *tx = 2 * (r - si * DX) + (p & 1) + o;
-  }
   // (ty - o, tx - o) >= 0 for every in-grid tile and every pad cell
   __device__ __forceinline__ int at(int s, int C, int ty, int tx) const {
     const int q = ty - o;
@@ -76,6 +63,8 @@ struct ParLayout {
     const int p = ((q & 1) << 1) | (r & 1);
     return ((p * C + s) * DY + (q >> 1)) * DX + (r >> 1);
   }
+  // the storage offset from plane s to s + 1 (within one parity)
+  __device__ __forceinline__ int plane() const { return DY * DX; }
 };
 
 }  // namespace gpe

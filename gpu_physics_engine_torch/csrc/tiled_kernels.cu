@@ -148,7 +148,7 @@ int gpe_relocate_pull(const void* x, const void* y, const void* px,
                       int row0, int gTY, int gTX, int match, float t,
                       float delta, void* stream) {
   if (TY < 1 || TX < 1) return (int)cudaErrorInvalidValue;
-  const gpe::FlatLayout lay{TY, TX, 0, 0, 1, TX};
+  const gpe::FlatLayout lay{TY, TX};
   return launch_window(x, y, px, py, rad, pid, ox, oy, opx, opy, orad, opid,
                        defer, cap, lay, 0, 1, row0, gTY, gTX, match,
                        gpe::StepHome{t, delta, gTY, gTX}, stream);
@@ -187,7 +187,7 @@ int gpe_relocate_one(const void* x, const void* y, const void* px,
                      void* opid, void* defer, int cap, int TY, int TX,
                      int row0, int gTY, int gTX, float t, void* stream) {
   if (TY < 1 || TX < 1) return (int)cudaErrorInvalidValue;
-  const gpe::FlatLayout lay{TY, TX, 0, 0, 1, TX};
+  const gpe::FlatLayout lay{TY, TX};
   return launch_window(x, y, px, py, rad, pid, ox, oy, opx, opy, orad, opid,
                        defer, cap, lay, 0, 1, row0, gTY, gTX, gpe::kFlip,
                        gpe::DivHome{t, gTY, gTX}, stream);

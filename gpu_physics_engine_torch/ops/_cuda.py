@@ -40,18 +40,16 @@ _SIGNATURES = {
     "gpe_relocate_pull": [_P] * 13 + [_I] * 7 + [_F, _F, _P],
     "gpe_relocate_window_bytes": [_I, _I],
     "gpe_gs_rank": [_P] * 8 + [_I] * 4 + [_F, _P],
-    "gpe_gs_color": [_P] * 4 + [_I] * 5 + [_F, _P],
     "gpe_gs_rank_par": [_P] * 8 + [_I] * 9 + [_F, _F, _P],
     "gpe_gs_rank_window_bytes": [_I, _I],
-    "gpe_gs_color_par": [_P] * 4 + [_I] * 8 + [_F, _P],
-    "gpe_gs_verlet": [_P] * 6 + [_I] + [_P, _P],
     "gpe_relocate_par": [_P] * 13 + [_I] * 9 + [_F, _F, _P],
     "gpe_radix_rank_hist": [_P] * 3 + [_I] * 2 + [_P],
     "gpe_radix_offsets": [_P] * 3 + [_I] + [_P],
     "gpe_radix_scatter": [_P] * 7 + [_I] * 2 + [_P],
     "gpe_relocate_one": [_P] * 13 + [_I] * 6 + [_F, _P],
     "gpe_relocate_mega": [_P] * 13 + [_I] * 7 + [_F, _F, _P],
-    "gpe_gs_colors_mega": [_P] * 8 + [_I] * 7 + [_F, _I, _P, _P],
+    "gpe_gs_colors_window": [_P] * 10 + [_I] * 9 + [_F, _F, _I, _P, _P],
+    "gpe_gs_colors_window_bytes": [_I, _I],
 }
 
 
@@ -70,8 +68,13 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines) -> tuple:
+    """NVCC_FLAGS with a -D per entry of ``defines`` ("NAME=VALUE")."""
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(defines=()) -> Path:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -96,11 +99,13 @@ def _run_all(cmds) -> str:
     return "".join(logs)
 
 
-def build() -> dict:
+def build(defines=()) -> dict:
     """Compile the library if no current build exists: one nvcc per source,
-    all started together, then one link.  Returns {"path", "seconds" (0.0
+    all started together, then one link.  ``defines`` ("NAME=VALUE") build
+    a variant of the sources' tunables (utils/kernel_study.py); the
+    library the wrappers load has none.  Returns {"path", "seconds" (0.0
     when reused), "log" (nvcc/ptxas output)}."""
-    so = library_path()
+    so = library_path(defines)
     if so.exists():
         return {"path": str(so), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -109,7 +114,7 @@ def build() -> dict:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         cus = [s for s in _sources() if s.suffix == ".cu"]
         objs = [os.path.join(work, s.stem + ".o") for s in cus]
-        log = _run_all([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+        log = _run_all([nvcc, *_flags(defines), "-c", str(s), "-o", o]
                        for s, o in zip(cus, objs))
         tmp = os.path.join(work, "lib.so")
         log += _run_all([[nvcc, *ARCH, "-shared", "-o", tmp, *objs]])

@@ -1,7 +1,7 @@
 """The Gauss-Seidel path's two hand kernels, their wrappers and the flat
 driver (the counterpart of the flat layout of
 ``gpu_physics_engine_tpu.ops.gs_pallas``).  Their plain PyTorch versions,
-``rank_plain`` and ``color_plain_``, are the plain GS solve's own
+``rank_plain`` and ``colors_plain``, are the plain GS solve's own
 (ops/gs_tiled) and are imported here.
 
 Each wrapper launches its CUDA kernel (csrc/gs_kernels.cuh) for a CUDA
@@ -31,25 +31,31 @@ K5 ``rank`` replaces ``_rank_full``
   written by the same thread, a warp per 32 cells of a row, coalesced.
   Its times: PERF.md and ``utils/kernel_study.py --k5``.
 
-K6 ``color_`` replaces ``gs_solve_pallas_flat`` (gs_pallas.py:543;
+K6 ``colors`` replaces ``gs_solve_pallas_flat`` (gs_pallas.py:543;
 ``_solve_kernel`` :390 with ``_sweep`` :77, and ``_apply_kernel`` :431).
-  Bound: per launch, the active quarter's rank entries (source code and
-  radius) and its occupants' x, y, read once and written once: about 0.1 GB
-  per launch at the 1M-GS shape, 0.03 ms.  The sweep itself is a chain of
-  dependent f32 operations per cell (up to K(K-1)/2 pairs, each with an
-  IEEE sqrt and four IEEE divisions), so latency, not bytes, sets the
-  kernel's time.
-  Design: one launch per color over that color's cells only (a quarter of
-  the grid).  Each thread loads its <= K occupants' current x, y straight
-  from their source slots (the TPU's 36-way select exists only because
-  Mosaic has no dynamic indexing), runs the sweep in registers with the
-  __f*_rn intrinsics (no FMA contraction, IEEE division and sqrt), and
-  writes each updated position back to its source slot, in place.  Cells
-  of one color are particle-disjoint (cell edge >= 2 r_max), so every slot
-  has at most one writer per launch and no cell reads a slot that another
-  cell writes: race-free and deterministic.  This one kernel replaces the
-  TPU's solve + pid-matched pull-apply pair.  The driver copies x and y
-  once per frame, so the caller's state is never written.
+  Bound: device memory, per solve.  The function reads each valid rank's
+  source code and radius and its occupant's x, y, and writes the x, y of
+  the occupants: at the 1M-GS shape [4, 960, 2773] with K = 8 about 3.6 M
+  valid ranks (8 B each) and 1,048,576 occupants (16 B each), 0.046 GB,
+  0.014 ms at 3.35 TB/s (``chip_smoke.py``'s ``bounds`` counts this run's
+  data).
+  Design: one launch of ``gs_colors_window_kernel`` on FlatLayout per
+  solve, for colors 1..4 (csrc/gs_kernels.cuh).  A block stages x and y of
+  every slot of its region (32 x 48 tiles at cap <= 4) and an 8-tile halo
+  in shared memory, runs the four colors there with a barrier between
+  them (a thread per cell: its K source codes loaded as one batch, the
+  sweep in registers with the __f*_rn intrinsics, written back to shared
+  memory), and writes the region's slots to new planes.  Each color
+  shrinks the part of the window that is right by two tiles a side, so
+  the halo is recomputed by the neighbours and no grid synchronisation is
+  needed; x and y are written out of place because the neighbours' halos
+  read the region's inputs.  Cells of one color are particle-disjoint
+  (cell edge >= 2 r_max), so every slot has at most one writer per color.
+  The tables are read from device memory once, by the color that sweeps
+  the cell.  The sweeps (the halo makes 1.5x as many cells) and the copy
+  of every empty slot set its time, not the bound's bytes: it is slower
+  than the per-color kernel it replaced (PERF.md;
+  ``utils/kernel_study.py --k6``).
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ import torch
 from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.ops import _cuda
 from gpu_physics_engine_torch.ops.gs_tiled import (  # the plain versions
-    color_plain_, rank_plain, solve_frame)
+    colors_plain, rank_plain, solve_frame)
 from gpu_physics_engine_torch.ops.integrate import f32
 from gpu_physics_engine_torch.ops.tiled import TileState, tile_geometry
 from gpu_physics_engine_torch.ops.tiled_kernels import (MAX_CAP,
@@ -75,6 +81,24 @@ MAX_K = 16  # the kernels keep K occupants per cell in registers
 # full-space tiles on either layout (on the parity layout rows/2 x
 # columns/2 cells of each sub-grid)
 RANK_REGION = (4, 64)
+
+
+# K6's window (csrc/gs_kernels.cuh kGsWinRegions, gs_window_bytes): the
+# region (rows, columns) of full-space tiles a block owns, by the largest
+# cap of its class
+WINDOW_REGIONS = ((4, (32, 48)), (8, (32, 32)), (16, (8, 32)), (32, (8, 16)))
+
+
+def window_region(cap: int):
+    """The (rows, columns) region of K6's window at ``cap``."""
+    return next(r for top, r in WINDOW_REGIONS if cap <= top)
+
+
+def colors_window_bytes(cap: int, colors: int = 4) -> int:
+    """Shared memory of one K6 window block: x and y of every slot of the
+    region and a halo of two tiles per color on every side."""
+    rows, cols = window_region(cap)
+    return (rows + 4 * colors) * (cols + 4 * colors) * cap * 8
 
 
 def rank_window_bytes(cap: int, uniform: bool) -> int:
@@ -134,17 +158,17 @@ def rank_cuda(state: TileState, config: SimConfig):
 
 
 # ---------------------------------------------------------------------------
-# K6: one color pass (four per frame)
+# K6: the four colors of a solve, one launch
 # ---------------------------------------------------------------------------
 
-def color_(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
-           rrad: torch.Tensor, config: SimConfig, color: int) -> None:
-    """Color pass ``color`` (1..4) in place on x, y [cap, TY, TX]: every
-    cell of that color sweeps its ranked occupants at their current
-    positions and writes them back to their source slots."""
+def colors(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
+           rrad: torch.Tensor, config: SimConfig, c1: int = 4):
+    """Colors 1..c1 of one solve on x, y [cap, TY, TX]: every cell of each
+    color sweeps its ranked occupants at their current positions.
+    Returns the new (x, y); x and y are not written."""
     if x.device.type == "cpu":
-        return color_plain_(x, y, src, rrad, config, color)
-    return color_cuda_(x, y, src, rrad, config, color)
+        return colors_plain(x, y, src, rrad, config, c1)
+    return colors_cuda(x, y, src, rrad, config, c1)
 
 
 def _check_color_args(x, y, src, rrad, K: int) -> None:
@@ -166,8 +190,34 @@ def _check_color_args(x, y, src, rrad, K: int) -> None:
         raise ValueError(f"gs color: {cap}x{TY}x{TX} overflows int32")
 
 
-def color_cuda_(x, y, src, rrad, config: SimConfig, color: int) -> None:
-    """Launch K6 for one color on x's CUDA device."""
+def window_cuda(what: str, x, y, src, rrad, config: SimConfig, grid,
+                c1: int, tail=None, consts=None, r0: float = 0.0):
+    """One launch of the window kernel on checked CUDA tensors: colors
+    1..c1 of x, y, then with ``tail`` = (px, py, pid, prm) the Verlet step
+    (``consts``: the host float[6] of ``gs_parity._verlet_consts``; px, py
+    in place).  ``grid`` = (TY, TX, DY, DX, origin, par) with par 0 for
+    FlatLayout; ``rrad`` None: every valid rank has radius ``r0``.
+    Returns the new (x, y)."""
+    cap, K = int(x.shape[-3]), config.max_occupancy
+    ox, oy = torch.empty_like(x), torch.empty_like(y)
+    px = py = pid = prm = None
+    if tail is not None:
+        px, py, pid, prm = tail
+    ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
+    lib = _cuda.library()
+    with torch.cuda.device(x.device):
+        rc = lib.gpe_gs_colors_window(
+            *_ptrs(x, y), ptr(px), ptr(py), ptr(pid), src.data_ptr(),
+            ptr(rrad), ptr(prm), *_ptrs(ox, oy), cap, *grid, K, int(c1),
+            f32(r0), f32(config.stiffness), int(tail is not None),
+            None if consts is None else consts.ctypes.data,
+            _stream(x.device))
+    _cuda.check(rc, what)
+    return ox, oy
+
+
+def colors_cuda(x, y, src, rrad, config: SimConfig, c1: int = 4):
+    """Launch K6 (the window, colors 1..c1) on x's CUDA device."""
     if x.device.type != "cuda":
         raise RuntimeError(f"gs color: the CUDA kernel needs CUDA tensors, "
                            f"got {x.device}")
@@ -175,13 +225,10 @@ def color_cuda_(x, y, src, rrad, config: SimConfig, color: int) -> None:
     K = config.max_occupancy
     _check_k(K, cap, "gs color")
     _check_color_args(x, y, src, rrad, K)
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
-        rc = lib.gpe_gs_color(*_ptrs(x, y, src, rrad), cap, TY, TX, K,
-                              int(color), f32(config.stiffness),
-                              _stream(x.device))
-    _cuda.check(rc, "gs color")
+    out = window_cuda("gs color", x, y, src, rrad, config,
+                      (TY, TX, 0, 0, 0, 0), c1)
     LAUNCHES["gs_color"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -190,4 +237,4 @@ def color_cuda_(x, y, src, rrad, config: SimConfig, color: int) -> None:
 
 def gs_solve_flat(state: TileState, config: SimConfig) -> TileState:
     """One frame of the 4-color solve through the kernel wrappers."""
-    return solve_frame(state, config, rank, color_)[0]
+    return solve_frame(state, config, rank, colors)[0]

@@ -6,28 +6,29 @@ launch.  ``ops/gs_parity`` takes them where the JAX package does: under
 
 Each wrapper launches its kernel for a CUDA tensor, runs its plain version
 for a CPU tensor, and raises for anything else; there is no fallback from
-a CUDA tensor to the plain version, nor to the per-color kernels.  A
-wrapper adds one to ``LAUNCHES[name]`` each time it launches its kernel.
+a CUDA tensor to the plain version.  A wrapper adds one to
+``LAUNCHES[name]`` each time it launches its kernel.
 The plain versions are the sequential path's plain versions, in order:
 the fused kernels change how the work is launched, not one operation.
 
 colors_mega (K11) replaces ``colors_mega``
 (gpu_physics_engine_tpu/ops/gs_mega.py:503; kernel ``_mega_kernel`` :136).
-  Bound: device memory.  The function reads each valid rank's code and
-  radius and its occupant's x, y once and writes x, y once per color, and
-  the tail reads pid and reads and writes the occupied slots' x, y, px,
-  py: 4 x 0.0065 + 0.023 ms at the 1M-GS shape [4, 4, 480, 1387] (3.35
-  TB/s), as four K6-par launches and the tail.
-  Design: a persistent cooperative kernel (``gs_colors_mega_kernel`` in
-  csrc/gs_kernels.cuh), launched with cudaLaunchCooperativeKernel on as
-  many blocks as the card holds at once.  Each color is a grid-stride loop
-  of K6-par's per-cell body over the color's sub-grid, and the grid
-  synchronises between colors and before the tail (K6-par's per-slot
-  Verlet body), so the result equals four K6-par launches plus the tail
-  bit for bit.  It saves the launch gaps, not bytes.  The TPU's VMEM
-  window with its 8-sub-row halo was a VMEM artifact and is not carried
-  over; a shared-memory window is later work (ROADMAP).  A refused launch
-  (too many blocks, or a card without cooperative launch) raises.
+  Bound: device memory, per solve: each valid rank's source code (under
+  the uniform-radius gate every valid rank has radius r0, so no radius is
+  read) and its occupant's x, y read, the occupants' x, y written, and for
+  the tail the pid plane read and the occupied slots' px, py read and
+  written: about 0.09 GB at the 1M-GS shape [4, 4, 480, 1387], 0.027 ms at
+  3.35 TB/s (``chip_smoke.py``'s ``bounds`` counts this run's data).
+  Design: K6-par's window kernel (``gs_colors_window_kernel`` on
+  ParLayout, csrc/gs_kernels.cuh), as the TPU kernel does it: a block
+  stages its region and a halo of 8 tiles on every side once (the JAX
+  kernel keeps 8 sub-rows, 16 full rows, for its solve and pull-apply;
+  the in-place cell body needs two tiles a color), runs the four colors
+  and the Verlet tail there, and writes the region's x and y out of place;
+  the halo is recomputed by the neighbouring blocks, so no grid
+  synchronisation is needed.  Par and mega run the same kernels: this
+  route differs from K6-par's only in its gate and in reading no radius
+  table.
 
 relocate_mega (K11) replaces ``relocate_mega``
 (gpu_physics_engine_tpu/ops/gs_mega.py:443; kernel ``_reloc_mega_kernel``
@@ -73,20 +74,22 @@ def reset_launches() -> None:
 
 def colors_mega(ps: gp.ParityState, src: torch.Tensor, rrad: torch.Tensor,
                 config: SimConfig, prm: Optional[torch.Tensor] = None
-                ) -> None:
-    """Colors 1..4 in place on ps.x, ps.y with the rank tables src, rrad
-    [4, K, DY, DX]; with ``prm`` (f32[4], this substep's dt) the substep's
-    Verlet step follows in place on x, y, px, py (uniform radius, box
-    world)."""
+                ) -> gp.ParityState:
+    """Colors 1..4 with the rank tables src, rrad [4, K, DY, DX]; with
+    ``prm`` (f32[4], this substep's dt) the substep's Verlet step follows
+    (uniform radius, box world).  Returns the state with new x, y; ps.x
+    and ps.y are not written, ps.px and ps.py are (the tail)."""
     if ps.device.type == "cpu":
-        return colors_mega_plain(ps, src, rrad, config, prm)
+        out = ps.replace(x=ps.x.clone(), y=ps.y.clone())
+        colors_mega_plain(out, src, rrad, config, prm)
+        return out
     return colors_mega_cuda(ps, src, rrad, config, prm)
 
 
 def colors_mega_plain(ps: gp.ParityState, src, rrad, config: SimConfig,
                       prm=None) -> None:
-    """Plain version: the four ``color_par_plain_`` passes, then
-    ``verlet_plain_``."""
+    """Plain version, in place on ps.x, ps.y (ps.px, ps.py): the four
+    ``color_par_plain_`` passes, then ``verlet_plain_``."""
     for color in (1, 2, 3, 4):
         gp.color_par_plain_(ps.x, ps.y, src, rrad, config, ps.geo, color)
     if prm is not None:
@@ -95,27 +98,28 @@ def colors_mega_plain(ps: gp.ParityState, src, rrad, config: SimConfig,
 
 
 def colors_mega_cuda(ps: gp.ParityState, src, rrad, config: SimConfig,
-                     prm=None) -> None:
-    """Launch the cooperative colors kernel on the state's CUDA device."""
+                     prm=None) -> gp.ParityState:
+    """Launch the window on the state's CUDA device (without a radius
+    plane in the state every valid rank has radius r0, and no radius
+    table is read)."""
     gp._check_par_state(ps, "gs colors mega")
     cap, K, geo = ps.cap, config.max_occupancy, ps.geo
     gs_kernels._check_k(K, cap, "gs colors mega")
     tables = (4, K, geo.DY, geo.DX)
     gp._check_cuda("gs colors mega", ps.device, src=(src, _I32, tables),
                    rrad=(rrad, torch.float32, tables))
+    tail = consts = None
     if prm is not None:
         gp._check_fusable(config)
         gp._check_cuda("gs colors mega", ps.device,
                        prm=(prm, torch.float32, (4,)))
-    consts = gp._verlet_consts(config)
-    lib = _cuda.library()
-    with torch.cuda.device(ps.device):
-        rc = lib.gpe_gs_colors_mega(
-            *_ptrs(ps.x, ps.y, ps.px, ps.py, ps.pid, src, rrad),
-            gp._ptr(prm), cap, *gp._geo_args(geo), K, f32(config.stiffness),
-            int(prm is not None), consts.ctypes.data, _stream(ps.device))
-    _cuda.check(rc, "gs colors mega")
+        tail, consts = (ps.px, ps.py, ps.pid, prm), gp._verlet_consts(config)
+    x, y = gs_kernels.window_cuda(
+        "gs colors mega", ps.x, ps.y, src,
+        None if ps.radius is None else rrad, config,
+        gp._geo_args(geo) + (1,), 4, tail, consts, config.initial_radius)
     LAUNCHES["gs_colors_mega"] += 1
+    return ps.replace(x=x, y=y)
 
 
 # ---------------------------------------------------------------------------

@@ -41,29 +41,27 @@ K5-par ``rank_par`` replaces ``rank_parity``
   ``gs_par_fused`` None/True: one launch over all four parities; False:
   one per parity, each staging the whole window and ranking its own cells.
 
-K6-par ``color_par_`` replaces the color passes of ``solve_parity``
+K6-par ``colors_par`` replaces the color passes of ``solve_parity``
 (gs_parity.py:433; ``_solve_dec_kernel`` and ``_apply_dec_kernel``), of
 ``gs_solve_pallas_mx`` (gs_pallas.py:1045) and of ``gs_solve_pallas_dec``
-(gs_pallas.py:783).
-  Bound: as K6, the active cells' rank entries and their occupants' x, y,
-  read and written once per launch; the sweep's dependent IEEE divisions
-  and roots set the time.
-  Design: K6's kernel on the parity layout.  A color is one contiguous
-  sub-grid, so neighbouring threads read neighbouring table entries (flat
-  K6 strides by 2).  Written back in place through the source codes; cells
-  of one color are particle-disjoint, so the launch is race-free.
-
-K6-par Verlet tail ``verlet_`` replaces the Verlet half of
+(gs_pallas.py:783), and with the tail the Verlet half of
 ``_apply_integrate_dec_kernel`` (gs_parity.py:353).
-  Bound: device memory: the pid plane read, and the occupied slots' x, y,
-  px, py read and written: 0.08 GB at the 1M-GS shape (0.023 ms); the
-  kernel takes 0.063 ms in the step on an H100 80GB HBM3 at 700 W
-  (PERF.md).
-  Design: one thread per slot, in place, launched right after the color-4
-  pass (a color-4 cell owns only its members' slots, and every occupied
-  slot must step).  ``ops/tiled.integrate``'s op order with IEEE-rounded,
-  uncontracted operations; box world and uniform radius only, as the TPU's
-  fusion.  One launch replaces about 30 PyTorch elementwise passes.
+  Bound: device memory, per solve: each valid rank's source code (and
+  radius, unless the tables come from a state without a radius plane,
+  whose valid ranks all have radius r0) and its occupant's x, y read and
+  the occupants' x, y written; with the tail also the pid plane, and the
+  occupied slots' px, py read and written.  At the 1M-GS parity shape
+  [4, 4, 480, 1387] that is about 0.09 GB, 0.027 ms at 3.35 TB/s (the
+  count of this run's data: ``chip_smoke.py``'s ``bounds``).
+  Design: K6's window kernel on the parity layout, one launch per solve
+  for colors 1..4 and, where ``fuse_integrate`` allows, the substep's
+  Verlet step on the region's occupied slots before its write (px, py in
+  place: only the region's owner touches them).  The window is indexed in
+  full space, a warp staging and writing one sub-grid row, and a color's
+  cells of a block are contiguous in its sub-grid, so neighbouring
+  threads read neighbouring table entries.  The mx and dec layouts run it
+  on K5's tables relayouted (origin 0 and -1).  ``LAUNCHES["gs_verlet"]``
+  counts the launches that ran the tail.
 
 K2-par ``relocate_par`` replaces ``relocate_parity``
 (gs_parity.py:689; ``_plan_kernel_par``/``_apply_kernel_par`` :539/:573 and
@@ -345,48 +343,7 @@ def rank_par_cuda(ps: ParityState, config: SimConfig):
 
 
 # ---------------------------------------------------------------------------
-# K6-par: one color pass on the color's sub-grid
-# ---------------------------------------------------------------------------
-
-def color_par_(x, y, src, rrad, config: SimConfig, geo: ParityGeometry,
-               color: int) -> None:
-    """Color pass ``color`` (1..4) in place on x, y [4, cap, DY, DX], with
-    the tables src, rrad [4, K, DY, DX]."""
-    if x.device.type == "cpu":
-        return color_par_plain_(x, y, src, rrad, config, geo, color)
-    return color_par_cuda_(x, y, src, rrad, config, geo, color)
-
-
-def color_par_plain_(x, y, src, rrad, config: SimConfig,
-                     geo: ParityGeometry, color: int) -> None:
-    """Plain version of K6-par: relayout, ``color_plain_``, relayout back."""
-    fx, fy = from_parity(x, geo), from_parity(y, geo)
-    color_plain_(fx, fy, from_parity(src, geo), from_parity(rrad, geo),
-                 config, color)
-    _assign_parity(x, fx, geo)
-    _assign_parity(y, fy, geo)
-
-
-def color_par_cuda_(x, y, src, rrad, config: SimConfig, geo: ParityGeometry,
-                    color: int) -> None:
-    """Launch K6-par for one color on x's CUDA device."""
-    cap, K = int(x.shape[1]), config.max_occupancy
-    gs_kernels._check_k(K, cap, "gs color par")
-    planes, tables = (4, cap, geo.DY, geo.DX), (4, K, geo.DY, geo.DX)
-    _check_cuda("gs color par", x.device,
-                x=(x, torch.float32, planes), y=(y, torch.float32, planes),
-                src=(src, _I32, tables), rrad=(rrad, torch.float32, tables))
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
-        rc = lib.gpe_gs_color_par(*_ptrs(x, y, src, rrad), cap,
-                                  *_geo_args(geo), K, int(color),
-                                  f32(config.stiffness), _stream(x.device))
-    _cuda.check(rc, "gs color par")
-    LAUNCHES["gs_color_par"] += 1
-
-
-# ---------------------------------------------------------------------------
-# K6-par's Verlet tail
+# K6-par: the colors of a solve (and the Verlet tail) on the window
 # ---------------------------------------------------------------------------
 
 def _check_fusable(config: SimConfig) -> None:
@@ -395,19 +352,49 @@ def _check_fusable(config: SimConfig) -> None:
                          "a box world")
 
 
-def verlet_(x, y, px, py, pid, prm: torch.Tensor, config: SimConfig) -> None:
-    """One Verlet step in place on x, y, px, py (any layout, uniform radius,
-    box world); ``prm`` = f32[4] [dt * dt_scale, mouse_x, mouse_y,
-    pressed] on their device."""
-    _check_fusable(config)
+def colors_par(x, y, src, rrad, config: SimConfig, geo: ParityGeometry,
+               c1: int = 4, tail=None, uniform: bool = False):
+    """Colors 1..c1 of one solve on x, y [4, cap, DY, DX] with the tables
+    src, rrad [4, K, DY, DX]; with ``tail`` = (px, py, pid, prm) the
+    substep's Verlet step follows (``prm`` = f32[4] [dt * dt_scale,
+    mouse_x, mouse_y, pressed]; px, py in place; uniform radius, box
+    world).  ``uniform``: every valid rank of the tables has radius r0 (a
+    state without a radius plane), so the kernel need not read rrad.
+    Returns the new (x, y); x and y are not written."""
+    if tail is not None:
+        _check_fusable(config)
     if x.device.type == "cpu":
-        return verlet_plain_(x, y, px, py, pid, prm, config)
-    return verlet_cuda_(x, y, px, py, pid, prm, config)
+        return colors_par_plain(x, y, src, rrad, config, geo, c1, tail)
+    return colors_par_cuda(x, y, src, rrad, config, geo, c1, tail, uniform)
+
+
+def colors_par_plain(x, y, src, rrad, config: SimConfig,
+                     geo: ParityGeometry, c1: int = 4, tail=None):
+    """Plain version of K6-par: ``color_par_plain_`` per color on copies of
+    x, y, then ``verlet_plain_``."""
+    x, y = x.clone(), y.clone()
+    for color in range(1, c1 + 1):
+        color_par_plain_(x, y, src, rrad, config, geo, color)
+    if tail is not None:
+        px, py, pid, prm = tail
+        verlet_plain_(x, y, px, py, pid, prm, config)
+    return x, y
+
+
+def color_par_plain_(x, y, src, rrad, config: SimConfig,
+                     geo: ParityGeometry, color: int) -> None:
+    """One color pass in place on x, y [4, cap, DY, DX]: relayout,
+    ``color_plain_``, relayout back."""
+    fx, fy = from_parity(x, geo), from_parity(y, geo)
+    color_plain_(fx, fy, from_parity(src, geo), from_parity(rrad, geo),
+                 config, color)
+    _assign_parity(x, fx, geo)
+    _assign_parity(y, fy, geo)
 
 
 def verlet_plain_(x, y, px, py, pid, prm, config: SimConfig) -> None:
-    """Plain version of the Verlet tail: ``verlet_integrate``, written
-    back."""
+    """Plain version of the Verlet tail, in place on x, y, px, py (any
+    layout): ``verlet_integrate``, written back."""
     out = verlet_integrate(x, y, px, py, f32(config.initial_radius),
                            pid >= 0, prm, config)
     for dst, v in zip((x, y, px, py), out):
@@ -424,20 +411,31 @@ def _verlet_consts(config: SimConfig) -> np.ndarray:
                      config.mouse_strength], np.float32)
 
 
-def verlet_cuda_(x, y, px, py, pid, prm, config: SimConfig) -> None:
-    """Launch the Verlet tail on x's CUDA device."""
-    shape = tuple(x.shape)
+def colors_par_cuda(x, y, src, rrad, config: SimConfig, geo: ParityGeometry,
+                    c1: int = 4, tail=None, uniform: bool = False):
+    """Launch K6-par (the window on the parity layout) on x's CUDA
+    device."""
+    cap, K = int(x.shape[1]), config.max_occupancy
+    gs_kernels._check_k(K, cap, "gs color par")
+    planes, tables = (4, cap, geo.DY, geo.DX), (4, K, geo.DY, geo.DX)
     f = torch.float32
-    _check_cuda("gs verlet", x.device, x=(x, f, shape), y=(y, f, shape),
-                px=(px, f, shape), py=(py, f, shape),
-                pid=(pid, _I32, shape), prm=(prm, f, (4,)))
-    consts = _verlet_consts(config)
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
-        rc = lib.gpe_gs_verlet(*_ptrs(x, y, px, py, pid, prm), x.numel(),
-                               consts.ctypes.data, _stream(x.device))
-    _cuda.check(rc, "gs verlet")
-    LAUNCHES["gs_verlet"] += 1
+    args = dict(x=(x, f, planes), y=(y, f, planes), src=(src, _I32, tables),
+                rrad=(rrad, f, tables))
+    consts = None
+    if tail is not None:
+        _check_fusable(config)
+        px, py, pid, prm = tail
+        args.update(px=(px, f, planes), py=(py, f, planes),
+                    pid=(pid, _I32, planes), prm=(prm, f, (4,)))
+        consts = _verlet_consts(config)
+    _check_cuda("gs color par", x.device, **args)
+    out = gs_kernels.window_cuda(
+        "gs color par", x, y, src, None if uniform else rrad, config,
+        _geo_args(geo) + (1,), c1, tail, consts, config.initial_radius)
+    LAUNCHES["gs_color_par"] += 1
+    if tail is not None:
+        LAUNCHES["gs_verlet"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -510,24 +508,24 @@ def fuse_integrate(config: SimConfig, device: torch.device) -> bool:
 
 def solve_parity(ps: ParityState, config: SimConfig,
                  prm=None) -> ParityState:
-    """One GS solve in parity space, in place on ps's x and y: K5-par once,
-    then K6-par for colors 1..4; the occupants clamped past K add to
+    """One GS solve in parity space: K5-par once, then K6-par's one launch
+    for colors 1..4 into new x and y; the occupants clamped past K add to
     overflow_count.  With ``prm`` (f32[4], this substep's dt) the
-    substep's Verlet step follows color 4 (the Verlet tail, in place on
-    x, y, px, py), which needs a uniform radius and a box world.  Under
-    gs_colors_mega with a uniform radius the colors and the tail run in
-    one launch (``gs_mega.colors_mega``), as in the JAX package."""
+    substep's Verlet step follows in the same launch (px, py in place),
+    which needs a uniform radius and a box world.  Under gs_colors_mega
+    with a uniform radius the launch goes through ``gs_mega.colors_mega``,
+    as in the JAX package."""
     src, _, rrad, count = rank_par(ps, config)
     overflow = torch.sum(torch.clamp(count - config.max_occupancy, min=0),
                          dtype=_I32)
     if config.gs_colors_mega and config.tiled_uniform_radius:
         from gpu_physics_engine_torch.ops import gs_mega  # imports this one
-        gs_mega.colors_mega(ps, src, rrad, config, prm)
+        ps = gs_mega.colors_mega(ps, src, rrad, config, prm)
     else:
-        for color in (1, 2, 3, 4):
-            color_par_(ps.x, ps.y, src, rrad, config, ps.geo, color)
-        if prm is not None:
-            verlet_(ps.x, ps.y, ps.px, ps.py, ps.pid, prm, config)
+        tail = None if prm is None else (ps.px, ps.py, ps.pid, prm)
+        x, y = colors_par(ps.x, ps.y, src, rrad, config, ps.geo, tail=tail,
+                          uniform=ps.radius is None)
+        ps = ps.replace(x=x, y=y)
     return ps.replace(overflow_count=ps.overflow_count + overflow)
 
 
@@ -545,8 +543,8 @@ def gs_parity_step_fn(ps: ParityState, params, config: SimConfig,
                       prm=None) -> ParityState:
     """One GS frame in parity space: K2-par, then per substep the solve and
     the Verlet step (fused as the Verlet tail where ``fuse_integrate``
-    allows, else the plain integrate).  The solve works in place on the
-    relocate's fresh tensors.  ``prm`` = the substep's f32[4] on the
+    allows, else the plain integrate).  The tail works in place on the
+    relocate's fresh px, py.  ``prm`` = the substep's f32[4] on the
     device (built from ``params`` if None)."""
     if prm is None:
         prm = params.as_tensor(ps.device, 1.0 / config.substeps)
@@ -570,7 +568,7 @@ def gs_parity_tile_step(state: TileState, params, config: SimConfig,
 
 def gs_solve_parity_full(state: TileState, config: SimConfig) -> TileState:
     """Solve-only full-space facade of the par layout: relayout, K5-par and
-    the K6-par colors, relayout back (positions move, nothing else)."""
+    K6-par, relayout back (positions move, nothing else)."""
     out = solve_parity(to_parity_state(state, config), config)
     return state.replace(x=from_parity(out.x, out.geo),
                          y=from_parity(out.y, out.geo),
@@ -580,16 +578,15 @@ def gs_solve_parity_full(state: TileState, config: SimConfig) -> TileState:
 def gs_solve_sub(state: TileState, config: SimConfig,
                  origin: int) -> TileState:
     """The "mx" (origin 0) and "dec" (origin -1) solves: rank in full space
-    (K5), relayout x, y and the tables, the K6-par colors, relayout back."""
+    (K5), relayout x, y and the tables, K6-par's launch, relayout back."""
     src, _, rrad, count = gs_kernels.rank(state, config)
     overflow = torch.sum(torch.clamp(count - config.max_occupancy, min=0),
                          dtype=_I32)
     _, TY, TX = state.dims
     geo = ParityGeometry(TY, TX, origin)
-    x, y = to_parity(state.x, geo, 0.0), to_parity(state.y, geo, 0.0)
-    psrc, prrad = to_parity(src, geo, -1), to_parity(rrad, geo, 0.0)
-    for color in (1, 2, 3, 4):
-        color_par_(x, y, psrc, prrad, config, geo, color)
+    x, y = colors_par(to_parity(state.x, geo, 0.0),
+                      to_parity(state.y, geo, 0.0), to_parity(src, geo, -1),
+                      to_parity(rrad, geo, 0.0), config, geo)
     return state.replace(x=from_parity(x, geo), y=from_parity(y, geo),
                          overflow_count=state.overflow_count + overflow)
 

@@ -15,8 +15,9 @@ PyTorch runs each op on its own and writes its result, so ``a*b + c`` is
 never contracted into a fused multiply-add: the JAX package's ``_noc``
 guard has no counterpart here, and the results are bit-equal to it.
 
-``rank_plain`` and ``color_plain_`` are also the plain versions of the GS
-kernels K5 and K6 (ops/gs_kernels), and ``solve_frame`` drives either.
+``rank_plain`` and ``colors_plain`` (color passes of ``color_plain_``) are
+also the plain versions of the GS kernels K5 and K6 (ops/gs_kernels), and
+``solve_frame`` drives either.
 """
 
 from __future__ import annotations
@@ -193,22 +194,29 @@ def color_plain_(x, y, src, rrad, config: SimConfig, color: int) -> None:
     y.view(-1)[dst] = torch.stack(ly)[valid]
 
 
+def colors_plain(x, y, src, rrad, config: SimConfig, c1: int = 4):
+    """Colors 1..c1 of one solve on copies of x, y [cap, TY, TX] (the
+    inputs are not written), as K6 computes them: ``color_plain_`` per
+    color.  Returns the new (x, y)."""
+    x, y = x.clone(), y.clone()
+    for c in range(1, c1 + 1):
+        color_plain_(x, y, src, rrad, config, c)
+    return x, y
+
+
 def solve_frame(state: TileState, config: SimConfig, rank_fn,
-                color_fn) -> Tuple[TileState, tuple]:
-    """Rank once, then colors 1..4 on one copy of x and y; the occupants
-    clamped past K (sum of max(count - K, 0)) add to overflow_count.
-    Returns (new state, rank tables).  ``rank_fn``/``color_fn`` pick the
-    route (the plain versions here, or ops/gs_kernels' kernels or
-    wrappers), so the card checks can hold the kernels against the plain
-    versions on the same input."""
+                colors_fn) -> Tuple[TileState, tuple]:
+    """Rank once, then colors 1..4 into new x and y; the occupants clamped
+    past K (sum of max(count - K, 0)) add to overflow_count.  Returns (new
+    state, rank tables).  ``rank_fn``/``colors_fn`` pick the route (the
+    plain versions here, or ops/gs_kernels' kernels or wrappers), so the
+    card checks can hold the kernels against the plain versions on the
+    same input."""
     tables = rank_fn(state, config)
     src, _, rrad, count = tables
     overflow = torch.sum(torch.clamp(count - config.max_occupancy, min=0),
                          dtype=_I32)
-    x = state.x.clone()
-    y = state.y.clone()
-    for c in (1, 2, 3, 4):
-        color_fn(x, y, src, rrad, config, c)
+    x, y = colors_fn(state.x, state.y, src, rrad, config)
     return state.replace(x=x, y=y, overflow_count=state.overflow_count
                          + overflow), tables
 
@@ -216,4 +224,4 @@ def solve_frame(state: TileState, config: SimConfig, rank_fn,
 def gs_solve(state: TileState, config: SimConfig) -> TileState:
     """One frame of the 4-color Gauss-Seidel solve in plain tensor ops.
     Positions move; the storage layout does not."""
-    return solve_frame(state, config, rank_plain, color_plain_)[0]
+    return solve_frame(state, config, rank_plain, colors_plain)[0]

@@ -1,8 +1,8 @@
-"""Time K1, K2 and K5 against variants of their input, and the radix
-sort's pieces against torch.sort, on the card.
+"""Time K1, K2, K5 and K6 against variants of their input or of their
+build, and the radix sort's pieces against torch.sort, on the card.
 
     python -m gpu_physics_engine_torch.utils.kernel_study [--k1] [--k2]
-        [--k5] [--other-lib PATH] [--radix]
+        [--k5] [--other-lib PATH] [--k6 [--parent DIR]] [--radix]
 
 prints the card's name and power limit, then one JSON line per study
 (isolated launches, CUDA events around 20 calls after a warm-up, ms per
@@ -44,6 +44,23 @@ call):
   kernel above is also timed through that build in one process on the
   same inputs, in turns (this build, the other, the other, this): their
   entry points are the same in both, so a difference is the kernels'.
+* ``--k6``: K6's color window (``gs_colors_window_kernel``) on the 1M-GS
+  and 4M-GS scenes, one solve through each route: "flat" (``colors_cuda``
+  on K5's tables), "par" (``colors_par_cuda`` with the Verlet tail, no
+  radius table) and "mega" (``colors_mega_cuda``), on the seeded scene
+  ("initial") and on the engines' states after 64 steps ("in_step"); also
+  the window with no color and no tail ("write_only": the stage and the
+  copy of every slot) and, on par, its four colors and its tail alone.
+  Beside it, in turns (in order, then in reverse), the builds of
+  ``K6_VARIANTS`` (this tree's sources with its tunables overridden by
+  ``-D``: block size, launch bounds, regions) and, with ``--parent DIR``
+  (a checkout of the parent commit, e.g. an unpacked ``git archive`` in a
+  git-ignored directory), the parent's kernels built from DIR: its four
+  per-color K6 launches (and the Verlet tail on par), its cooperative
+  colors_mega, and its per-color K6 with the K source codes loaded as one
+  batch ("parent_batched").  Per row the ms of a call (CUDA events, twice)
+  and the device ms per kernel from the profiler; each build's registers
+  and spills from ptxas.
 * ``--radix``: the array Engine's 1M scene (the README's example) and its
   4,403,200 pair keys: ``torch.sort(stable=True)`` of the keys with the
   payload gathered, the hand ``radix_sort_pairs``, and its pieces (one
@@ -274,6 +291,314 @@ def k5_study(other=None) -> dict:
     return out
 
 
+# --k6: the color window against the parent's kernels and its variants
+
+# builds of this tree's sources with the window's tunables overridden
+# (csrc/gs_kernels.cuh GPE_GSW_THREADS, GPE_GSW_MINB: the launch bounds'
+# blocks an SM, and GPE_GSW_RY<c>/RX<c>: the region of the class c of caps
+# <= 4, 8, 16, 32)
+K6_VARIANTS = {
+    "threads256": ("GPE_GSW_THREADS=256",),
+    "minblocks1": ("GPE_GSW_MINB=1",),
+    "regions_16x64_8x64": ("GPE_GSW_RY0=16", "GPE_GSW_RX0=64",
+                           "GPE_GSW_RY1=8", "GPE_GSW_RX1=64"),
+    "regions_24x48_24x32": ("GPE_GSW_RY0=24", "GPE_GSW_RY1=24"),
+}
+
+# the parent's per-color K6 loads rank q only once rank q - 1 proved valid
+# (csrc/gs_kernels.cuh gs_color_cell); the "batched" build loads the K
+# codes as one batch, then the valid ranks' slots
+_CHAIN = """    if (q < K && q == nv) {
+      const int tq = lay.at(q, K, ty, tx);
+      const int code = src[tq];
+      if (code >= 0) {
+        const int j = code / cap;
+        const int s = code - j * cap;
+        const int at = lay.at(s, cap, ty + j / 3 - 1, tx + j % 3 - 1);
+        slot[q] = at;
+        lx[q] = x[at];
+        ly[q] = y[at];
+        lr[q] = rrad[tq];
+        nv = q + 1;
+      }
+    }
+  }
+"""
+_BATCHED = """    code[q] = q < K ? src[lay.at(q, K, ty, tx)] : -1;
+  }
+#pragma unroll
+  for (int q = 0; q < KMAX; ++q)
+    if (q == nv && code[q] >= 0) nv = q + 1;
+#pragma unroll
+  for (int q = 0; q < KMAX; ++q) {
+    if (q < nv) {
+      const int j = code[q] / cap;
+      const int s = code[q] - j * cap;
+      const int at = lay.at(s, cap, ty + j / 3 - 1, tx + j % 3 - 1);
+      slot[q] = at;
+      lx[q] = x[at];
+      ly[q] = y[at];
+      lr[q] = rrad[lay.at(q, K, ty, tx)];
+    }
+  }
+"""
+
+# the parent's entry points (this tree has the window's instead)
+_PARENT_SIGNATURES = {
+    "gpe_gs_color": ["p"] * 4 + ["i"] * 5 + ["f", "p"],
+    "gpe_gs_color_par": ["p"] * 4 + ["i"] * 8 + ["f", "p"],
+    "gpe_gs_verlet": ["p"] * 6 + ["i", "p", "p"],
+    "gpe_gs_colors_mega": ["p"] * 8 + ["i"] * 7 + ["f", "i", "p", "p"],
+}
+
+
+def _build_from(csrc: str, out_dir: str, patch: bool) -> str:
+    """Build the kernel library from another tree's ``csrc`` into
+    ``out_dir`` (with ``patch``: the parent's K6 with batched loads).
+    Returns the library's path."""
+    import os
+    import shutil
+    from pathlib import Path
+    from gpu_physics_engine_torch.ops import _cuda
+    os.makedirs(out_dir, exist_ok=True)
+    src = Path(out_dir) / "csrc"
+    if src.exists():
+        shutil.rmtree(src)
+    shutil.copytree(csrc, src)
+    if patch:
+        f = src / "gs_kernels.cuh"
+        text = f.read_text()
+        if _CHAIN not in text:
+            raise RuntimeError("the parent's gs_color_cell chain not found")
+        text = text.replace(_CHAIN, _BATCHED).replace(
+            "  int slot[KMAX];\n  float lx[KMAX], ly[KMAX], lr[KMAX];",
+            "  int slot[KMAX], code[KMAX];\n"
+            "  float lx[KMAX], ly[KMAX], lr[KMAX];")
+        f.write_text(text)
+    nvcc = _cuda._nvcc()
+    cus = sorted(src.glob("*.cu"))
+    objs = [os.path.join(out_dir, c.stem + ".o") for c in cus]
+    _cuda._run_all([nvcc, *_cuda.NVCC_FLAGS, "-c", str(c), "-o", o]
+                   for c, o in zip(cus, objs))
+    so = os.path.join(out_dir, "lib.so")
+    _cuda._run_all([[nvcc, *_cuda.ARCH, "-shared", "-o", so, *objs]])
+    return so
+
+
+def _window_ptxas(log: str) -> dict:
+    """{kernel instance: "N registers ...; S bytes stack frame ..."} of the
+    window kernels in an nvcc -Xptxas -v log."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"gs_colors_window_kernelILi(\d+)ELi(\d)ENS_\d+"
+                          r"(Flat|Par)Layout", line)
+            name = f"K{m.group(1)}-class{m.group(2)}-{m.group(3)}" if m \
+                else None
+        elif name and "Used" in line:
+            out[name] = line.split(":", 1)[1].strip() + "; " + out.get(
+                name, "")
+        elif name and "spill" in line:
+            out[name] = out.get(name, "") + line.strip()
+    return out
+
+
+def _parent_library(path: str):
+    import ctypes
+    lib = ctypes.CDLL(path)
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    for name, sig in _PARENT_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [kinds[k] for k in sig]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _parent_calls(lib, route: str, a: dict):
+    """The parent's kernels for a solve of ``route`` on the inputs ``a``
+    (in place on clones of x, y, px, py): "flat" four K6 launches, "par"
+    four K6-par launches and the Verlet tail, "mega" the cooperative
+    kernel."""
+    import torch
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.ops.integrate import f32
+    cfg = a["cfg"]
+    K, stiff = cfg.max_occupancy, f32(cfg.stiffness)
+    x, y, px, py = (a[k].clone() for k in ("x", "y", "px", "py"))
+    consts = gp._verlet_consts(cfg)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = lambda t: t.data_ptr()  # noqa: E731
+
+    def check(rc):
+        if rc:
+            raise RuntimeError(f"parent {route}: CUDA error {rc}")
+    if route == "flat":
+        cap, TY, TX = x.shape
+
+        def run():
+            for c in (1, 2, 3, 4):
+                check(lib.gpe_gs_color(ptr(x), ptr(y), ptr(a["src"]),
+                                       ptr(a["rrad"]), cap, TY, TX, K, c,
+                                       stiff, stream))
+        return run
+    geo = a["geo"]
+    cap = int(x.shape[1])
+    geo_args = gp._geo_args(geo)
+    if route == "par":
+        def run():
+            for c in (1, 2, 3, 4):
+                check(lib.gpe_gs_color_par(ptr(x), ptr(y), ptr(a["src"]),
+                                           ptr(a["rrad"]), cap, *geo_args,
+                                           K, c, stiff, stream))
+            check(lib.gpe_gs_verlet(ptr(x), ptr(y), ptr(px), ptr(py),
+                                    ptr(a["pid"]), ptr(a["prm"]), x.numel(),
+                                    consts.ctypes.data, stream))
+        return run
+
+    def run():
+        check(lib.gpe_gs_colors_mega(
+            ptr(x), ptr(y), ptr(px), ptr(py), ptr(a["pid"]), ptr(a["src"]),
+            ptr(a["rrad"]), ptr(a["prm"]), cap, *geo_args, K, stiff, 1,
+            consts.ctypes.data, stream))
+    return run
+
+
+def _window_calls(route: str, a: dict, colors: int = 4, tail: bool = True):
+    """This tree's window for a solve of ``route`` (the wrappers: flat
+    ``colors_cuda``, par ``colors_par_cuda`` with the tail unless ``tail``
+    is False and no radius table, mega ``colors_mega_cuda``); ``colors``
+    0 with no tail: the stage and the full-plane write alone."""
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_mega as gm
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    cfg = a["cfg"]
+    px, py = a["px"].clone(), a["py"].clone()
+    if route == "flat":
+        return lambda: gk.colors_cuda(a["x"], a["y"], a["src"], a["rrad"],
+                                      cfg, colors)
+    if route == "par":
+        t = (px, py, a["pid"], a["prm"]) if tail else None
+        return lambda: gp.colors_par_cuda(a["x"], a["y"], a["src"],
+                                          a["rrad"], cfg, a["geo"], colors,
+                                          t, uniform=True)
+    ps = a["ps"].replace(px=px, py=py)
+    return lambda: gm.colors_mega_cuda(ps, a["src"], a["rrad"], cfg,
+                                       a["prm"])
+
+
+def _k6_inputs(n: int, steps: int) -> dict:
+    """{(route, state): inputs} at the GS scene of n particles: "flat"
+    full-space planes and K5's tables, "par" and "mega" the parity state
+    and K5-par's tables, on the seeded scene ("initial") and on the
+    engines' states after ``steps`` steps ("in_step")."""
+    from gpu_physics_engine_torch import StepParams, TiledEngine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    out = {}
+    for layout in ("flat", "par"):
+        e = TiledEngine(gs_config(n, gs_layout=layout), seed=0, chunk=64,
+                        device="cuda")
+        cfg = e.config
+        prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
+                                             0.5 * cfg.world_height),
+                              pressed=True).as_tensor("cuda")
+        for state in ("initial", "in_step"):
+            if state == "in_step":
+                e.run(steps)
+            st = e.state
+            if layout == "flat":
+                src, _, rrad, _ = gk.rank_cuda(st, cfg)
+                out["flat", state] = dict(cfg=cfg, x=st.x, y=st.y, px=st.px,
+                                          py=st.py, pid=st.pid, src=src,
+                                          rrad=rrad, prm=prm)
+                continue
+            ps = gp.to_parity_state(st, cfg)
+            src, _, rrad, _ = gp.rank_par_cuda(ps, cfg)
+            for route in ("par", "mega"):
+                out[route, state] = dict(cfg=cfg, x=ps.x, y=ps.y, px=ps.px,
+                                         py=ps.py, pid=ps.pid, src=src,
+                                         rrad=rrad, prm=prm, geo=ps.geo,
+                                         ps=ps)
+        del e
+    return out
+
+
+def k6_study(parent=None) -> dict:
+    """K6's window (flat, par with the tail, mega) at each GS scene on the
+    initial and the in-step state: the ms of a call (CUDA events, twice)
+    and the device ms per kernel from the profiler, through this build,
+    the K6_VARIANTS builds and, with ``parent`` (a checkout of the parent
+    commit), the parent's per-color and cooperative kernels and its
+    per-color kernel with batched loads; all in turns (in order, then in
+    reverse).  Also the window with no color ("write_only": the stage and
+    the full-plane write) and, on par, its colors and its tail alone."""
+    import tempfile
+    import threading
+    import torch
+    from gpu_physics_engine_torch.ops import _cuda
+    builds, errors = {}, []
+
+    def build(name, fn):
+        try:
+            builds[name] = fn()
+        except Exception as exc:  # reported below, the study stops
+            errors.append(f"{name}: {exc}")
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(dir=str(_cuda.BUILD_DIR), prefix="k6_")
+    jobs = []
+    jobs += [(name, lambda d=d: _cuda.build(d))
+             for name, d in K6_VARIANTS.items()]
+    if parent:
+        csrc = f"{parent}/gpu_physics_engine_torch/csrc"
+        jobs += [(name, lambda d=f"{work}/{name}", p=p:
+                  _build_from(csrc, d, p))
+                 for name, p in (("parent", False), ("parent_batched", True))]
+    threads = [threading.Thread(target=build, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError("; ".join(errors))
+    libs = {name: (_parent_library(b) if name.startswith("parent")
+                   else _other_library(b["path"]))
+            for name, b in builds.items()}
+    out = {"study": "k6",
+           "variants": {k: list(v) for k, v in K6_VARIANTS.items()}}
+    # registers and spills of each build's window kernels (ptxas -v)
+    out["ptxas"] = {name: _window_ptxas(b["log"])
+                    for name, b in builds.items() if isinstance(b, dict)}
+    for n in (1_048_576, 4_194_304):
+        inputs = _k6_inputs(n, 64)
+        for (route, state), a in inputs.items():
+            fns = {"window": _window_calls(route, a)}
+            if route != "mega":
+                fns["write_only"] = _window_calls(route, a, 0, False)
+            if route == "par":
+                fns["colors_only"] = _window_calls(route, a, 4, False)
+                fns["tail_only"] = _window_calls(route, a, 0, True)
+            for name, lib in libs.items():
+                if name.startswith("parent"):
+                    if name == "parent" or route != "mega":
+                        fns[name] = _parent_calls(lib, route, a)
+                else:
+                    fns[name] = _through(lib, fns["window"])
+            rows = {k: [] for k in fns}
+            order = list(fns)
+            for name in order + order[::-1]:
+                rows[name].append(cuda_ms(fns[name]))
+            dev = {name: kernel_device_ms(fn, 10) for name, fn in fns.items()}
+            out[f"{n}_{route}_{state}"] = {
+                "dims": list(a["x"].shape),
+                "ms": rows, "device_ms": dev}
+            torch.cuda.synchronize()
+        del inputs
+        torch.cuda.empty_cache()
+    return out
+
+
 def radix_study() -> dict:
     import torch
     from gpu_physics_engine_torch import Engine, SimConfig
@@ -345,6 +670,11 @@ def main(argv=None) -> int:
     ap.add_argument("--other-lib", default=None,
                     help="with --k2 and --k5: time the kernels through "
                          "this build of the kernel library too, in turns")
+    ap.add_argument("--k6", action="store_true")
+    ap.add_argument("--parent", default=None,
+                    help="with --k6: a checkout of the parent commit, whose "
+                         "kernels (and its K6 with batched loads) are built "
+                         "and timed in turns")
     ap.add_argument("--radix", action="store_true")
     ap.add_argument("--particles", type=int, default=4_194_304)
     args = ap.parse_args(argv)
@@ -361,6 +691,8 @@ def main(argv=None) -> int:
         print(json.dumps(k2_study(args.particles, other)), flush=True)
     if args.k5:
         print(json.dumps(k5_study(other)), flush=True)
+    if args.k6:
+        print(json.dumps(k6_study(args.parent)), flush=True)
     if args.radix:
         print(json.dumps(radix_study()), flush=True)
     return 0

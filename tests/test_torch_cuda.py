@@ -8,9 +8,11 @@ the engine can reach, in box and circle worlds, on grids smaller than one
 shared-memory region and not a multiple of it; K2 and K2-par bit for bit
 up to cap 32 and on a ragged grid, K5 and K5-par (the rank's window)
 bit for bit up to cap 32 with K 16, on a ragged grid, at both parity
-origins, K6 bit for bit, on the flat and the parity layouts, and the
-Verlet tail too; the par engine equals the flat engine.  colors_mega bit
-for bit and equal to the sequential kernels it fuses; relocate_mega and K4
+origins, K6's window (colors 1..c for each c, with and without the Verlet
+tail) bit for bit on the flat and the parity layouts, up to cap 32, on a
+grid smaller than one window and one several windows wide; the par engine
+equals the flat engine.  colors_mega bit for bit and equal to the par
+route's K6-par launch; relocate_mega and K4
 (K2's window) bit for bit, relocate_mega equal to K2-par, also at cap 32
 and on a ragged grid.  K12 (the radix sort's rank/histogram pass), the
 digit offsets and the scatter bit for bit on all four passes at 1, 3 and
@@ -201,17 +203,18 @@ def _gs_scene(cap, K, seed, width=40.0):
 
 @pytest.mark.parametrize("cap, K", [(4, 8), (6, 12), (2, 3)])
 def test_gs_kernels_match_plain(cap, K):
-    """K5's rank tables and K6's four colors bit-equal to the plain
-    versions, clamp overflow included; deterministic on repeat."""
+    """K5's rank tables and K6's four colors (one window launch)
+    bit-equal to the plain versions, clamp overflow included;
+    deterministic on repeat."""
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     cfg, st = _gs_scene(cap, K, seed=cap)
     n0 = dict(gk.LAUNCHES)
-    a, ta = gk.solve_frame(st, cfg, gk.rank, gk.color_)
-    b, tb = gk.solve_frame(st, cfg, gk.rank_plain, gk.color_plain_)
-    c, tc = gk.solve_frame(st, cfg, gk.rank, gk.color_)
+    a, ta = gk.solve_frame(st, cfg, gk.rank, gk.colors)
+    b, tb = gk.solve_frame(st, cfg, gk.rank_plain, gk.colors_plain)
+    c, tc = gk.solve_frame(st, cfg, gk.rank, gk.colors)
     torch.cuda.synchronize()
     assert gk.LAUNCHES["gs_rank"] == n0["gs_rank"] + 2
-    assert gk.LAUNCHES["gs_color"] == n0["gs_color"] + 8
+    assert gk.LAUNCHES["gs_color"] == n0["gs_color"] + 2
     for u, v, w in zip(ta, tb, tc):
         assert torch.equal(u, v) and torch.equal(u, w)
     for f in ("x", "y", "overflow_count"):
@@ -257,6 +260,84 @@ def test_rank_window_matches_plain(cap, K, width, uniform):
             for u, v, w in zip(a, b, again):
                 assert torch.equal(u, v), (origin, fused)
                 assert torch.equal(u, w), (origin, fused)
+
+
+def _window_cases(cfg, st, layout, prm):
+    """(label, kernel, plain) of K6's window on ``st``: colors 1..c for
+    each c, and with a uniform radius the Verlet tail alone and after each
+    c; flat (layout None, through ``window_cuda``) or parity at that
+    origin.  Each call returns (x, y, px, py) from clones of px, py."""
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    uniform = cfg.tiled_uniform_radius
+    if layout is None:
+        src, _, rrad, _ = gk.rank(st, cfg)
+        x, y, px, py, pid = st.x, st.y, st.px, st.py, st.pid
+        geo, grid = None, tuple(st.dims[1:]) + (0, 0, 0, 0)
+    else:
+        ps = gp.to_parity_state(st, cfg, layout)
+        src, _, rrad, _ = gp.rank_par(ps, cfg)
+        x, y, px, py, pid, geo = ps.x, ps.y, ps.px, ps.py, ps.pid, ps.geo
+        grid = gp._geo_args(geo) + (1,)
+    cases = []
+    for c1 in (0, 1, 2, 3, 4):
+        for tail in ((False, True) if uniform else (False,)):
+            if c1 == 0 and not tail:
+                continue
+
+            def kern(c1=c1, tail=tail):
+                q, r = px.clone(), py.clone()
+                t = (q, r, pid, prm) if tail else None
+                out = gk.window_cuda(
+                    "window", x, y, src, rrad, cfg, grid, c1, t,
+                    gp._verlet_consts(cfg) if tail else None)
+                return out + (q, r)
+
+            def plain(c1=c1, tail=tail):
+                q, r = px.clone(), py.clone()
+                if geo is None:
+                    a, b = gk.colors_plain(x, y, src, rrad, cfg, c1)
+                    if tail:
+                        gp.verlet_plain_(a, b, q, r, pid, prm, cfg)
+                else:
+                    a, b = gp.colors_par_plain(x, y, src, rrad, cfg, geo, c1,
+                                               (q, r, pid, prm) if tail
+                                               else None)
+                return a, b, q, r
+            cases.append((f"c1={c1} tail={tail}", kern, plain))
+    return cases
+
+
+@pytest.mark.parametrize("cap, K, width", [(2, 3, 20.0), (4, 8, 40.0),
+                                           (6, 8, 150.0), (32, 16, 40.0)])
+@pytest.mark.parametrize("layout", [None, 0, -1])
+def test_colors_window_matches_plain(cap, K, width, layout):
+    """K6's window kernel: colors 1..c for each c, with and without the
+    Verlet tail, bit-equal to the plain passes and on repeat, on a grid
+    smaller than one window (width 20 and 40: TX 21 and 39), one several
+    regions wide (150: TX 139), at cap 32 with K 16, general and uniform
+    radius, flat and parity (origins 0 and -1); its shared-memory bytes
+    equal the Python mirror."""
+    from gpu_physics_engine_torch.ops import _cuda
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    cfg, st = _gs_scene(cap, K, seed=cap + 50, width=width)
+    prm = StepParams.make(0.02, mouse=(width / 2, 15.0), pressed=True
+                          ).as_tensor("cuda")
+    st = st.replace(px=st.x - 0.01, py=st.y + 0.02)
+    for uniform in (False, True):
+        c = cfg.replace(tiled_uniform_radius=uniform)
+        s = st
+        if uniform:
+            s = st.replace(radius=torch.where(st.pid >= 0, 0.5, 0.0))
+        for label, kern, plain in _window_cases(c, s, layout, prm):
+            a, b, again = kern(), plain(), kern()
+            torch.cuda.synchronize()
+            for u, v, w in zip(a, b, again):
+                assert torch.equal(u, v), (uniform, label)
+                assert torch.equal(u, w), (uniform, label)
+    for colors in range(5):
+        assert _cuda.library().gpe_gs_colors_window_bytes(cap, colors) \
+            == gk.colors_window_bytes(cap, colors)
 
 
 def test_gs_engine_on_card_matches_cpu_engine():
@@ -308,9 +389,10 @@ def test_engine_on_card_matches_cpu_engine():
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("origin", [0, -1])
 def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
-    """K5-par, K6-par (each color), K2-par and the Verlet tail bit-equal to
-    their plain versions on the parity layout (origin 0: mx/par, -1: dec),
-    in one launch over all parities and in one per parity."""
+    """K5-par, K6-par (the window with colors 1..c for each c, and with the
+    Verlet tail alone and after the four colors), K2-par bit-equal to their
+    plain versions on the parity layout (origin 0: mx/par, -1: dec), in
+    one launch over all parities and in one per parity."""
     from gpu_physics_engine_torch.ops import gs_parity as gp
     cfg, st = _gs_scene(cap, K, seed=cap + 20)
     cfg = cfg.replace(gs_par_fused=fused, tiled_uniform_radius=uniform)
@@ -323,11 +405,12 @@ def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
     assert gp.LAUNCHES["gs_rank_par"] == n0["gs_rank_par"] + per
     for u, v in zip(ta, tb):
         assert torch.equal(u, v)
-    xk, yk, xp, yp = ps.x.clone(), ps.y.clone(), ps.x.clone(), ps.y.clone()
-    for color in (1, 2, 3, 4):
-        gp.color_par_(xk, yk, ta[0], ta[2], cfg, ps.geo, color)
-        gp.color_par_plain_(xp, yp, tb[0], tb[2], cfg, ps.geo, color)
-        assert torch.equal(xk, xp) and torch.equal(yk, yp), color
+    for c1 in (1, 2, 3, 4):
+        xk, yk = gp.colors_par(ps.x, ps.y, ta[0], ta[2], cfg, ps.geo, c1)
+        xp, yp = gp.colors_par_plain(ps.x, ps.y, tb[0], tb[2], cfg, ps.geo,
+                                     c1)
+        assert torch.equal(xk, xp) and torch.equal(yk, yp), c1
+    assert gp.LAUNCHES["gs_color_par"] == n0["gs_color_par"] + 4
     assert int((xk != ps.x).sum()) > 0
     moved = ps.replace(x=ps.x + torch.where(ps.pid >= 0, 0.6, 0.0))
     a, da = gp.relocate_par_cuda(moved, cfg)
@@ -341,12 +424,15 @@ def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
     if uniform:
         prm = StepParams.make(0.02, mouse=(20.0, 15.0), pressed=True
                               ).as_tensor("cuda")
-        k = [t.clone() for t in (ps.x, ps.y, ps.px, ps.py)]
-        p = [t.clone() for t in k]
-        gp.verlet_(*k, ps.pid, prm, cfg)
-        gp.verlet_plain_(*p, ps.pid, prm, cfg)
-        for u, v in zip(k, p):
-            assert torch.equal(u, v)
+        for c1 in (0, 4):  # the tail alone, and after the four colors
+            k = [t.clone() for t in (ps.px, ps.py)]
+            p = [t.clone() for t in k]
+            got = gp.colors_par(ps.x, ps.y, ta[0], ta[2], cfg, ps.geo, c1,
+                                tail=(*k, ps.pid, prm))
+            want = gp.colors_par_plain(ps.x, ps.y, tb[0], tb[2], cfg,
+                                       ps.geo, c1, tail=(*p, ps.pid, prm))
+            for u, v in zip(tuple(got) + tuple(k), tuple(want) + tuple(p)):
+                assert torch.equal(u, v), c1
 
 
 @pytest.mark.parametrize("cap, shape", [(2, "square"), (32, "square"),
@@ -422,8 +508,8 @@ def test_par_engine_on_card_matches_flat_engine_on_card():
 @pytest.mark.parametrize("origin", [0, -1])
 def test_fused_gs_kernels_match_plain(cap, K, uniform, origin):
     """colors_mega (with and without the Verlet tail) and relocate_mega
-    bit-equal to their plain versions and to the sequential kernels (four
-    K6-par launches plus the tail; K2-par), one launch each."""
+    bit-equal to their plain versions and to the par route's kernels
+    (K6-par's launch with the tail; K2-par), one launch each."""
     from gpu_physics_engine_torch.ops import gs_mega as gm
     from gpu_physics_engine_torch.ops import gs_parity as gp
     cfg, st = _gs_scene(cap, K, seed=cap + 30)
@@ -439,15 +525,14 @@ def test_fused_gs_kernels_match_plain(cap, K, uniform, origin):
                               for f in ("x", "y", "px", "py")})
                 for _ in range(3)]
         n0 = gm.LAUNCHES["gs_colors_mega"]
-        gm.colors_mega(runs[0], src, rrad, cfg, tail)
+        runs[0] = gm.colors_mega(runs[0], src, rrad, cfg, tail)
         assert gm.LAUNCHES["gs_colors_mega"] == n0 + 1
         gm.colors_mega_plain(runs[1], src, rrad, cfg, tail)
-        for color in (1, 2, 3, 4):
-            gp.color_par_cuda_(runs[2].x, runs[2].y, src, rrad, cfg,
-                               runs[2].geo, color)
-        if tail is not None:
-            gp.verlet_cuda_(runs[2].x, runs[2].y, runs[2].px, runs[2].py,
-                            ps.pid, tail, cfg)
+        seq = runs[2]
+        x, y = gp.colors_par_cuda(
+            seq.x, seq.y, src, rrad, cfg, seq.geo,
+            tail=None if tail is None else (seq.px, seq.py, ps.pid, tail))
+        runs[2] = seq.replace(x=x, y=y)
         for f in ("x", "y", "px", "py"):
             assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
             assert torch.equal(getattr(runs[0], f), getattr(runs[2], f)), f

@@ -363,7 +363,7 @@ def test_gs_wrappers_raise_on_unsupported_tensors():
     with pytest.raises(RuntimeError, match="CUDA"):
         gk.rank_cuda(st, tcfg)
     with pytest.raises(RuntimeError, match="CUDA"):
-        gk.color_cuda_(st.x.clone(), st.y.clone(), src, rrad, tcfg, 1)
+        gk.colors_cuda(st.x, st.y, src, rrad, tcfg)
     meta = st.replace(**{f: getattr(st, f).to("meta") for f in tt.FIELDS})
     with pytest.raises(RuntimeError, match="CUDA"):
         gk.rank(meta, tcfg)

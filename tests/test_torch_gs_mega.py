@@ -50,30 +50,31 @@ def _refuse(monkeypatch, module, *names):
 
 def test_mega_flags_take_the_fused_route(monkeypatch):
     """Uniform radius, par layout: per step one ``relocate_mega`` and, per
-    substep, one ``colors_mega`` with the Verlet tail; no K6-par color, no
-    separate tail, no K2-par.  The result equals the flags-off step."""
+    substep, one ``colors_mega`` with the Verlet tail; no K6-par launch, no
+    K2-par.  The result equals the flags-off step."""
     cfg, st, p = _state(tiled_uniform_radius=True, substeps=2)
     want = tt.tiled_step_fn(st, p, cfg)
     calls = []
     _spy(monkeypatch, gm, "colors_mega", calls)
     _spy(monkeypatch, gm, "relocate_mega", calls)
-    _refuse(monkeypatch, gp, "color_par_", "verlet_", "relocate_par_cuda")
+    _refuse(monkeypatch, gp, "colors_par", "relocate_par_cuda")
     got = tt.tiled_step_fn(st, p, cfg.replace(**MEGA))
     assert calls == ["relocate_mega", "colors_mega", "colors_mega"]
     assert_states_equal(want, got)
 
 
 def test_mega_flags_need_a_uniform_radius(monkeypatch):
-    """Without a uniform radius the K6-par colors and K2-par run, as the
-    JAX gates (``r0 is not None``, ``tiled_uniform_radius``) decide."""
+    """Without a uniform radius K6-par (one launch a solve) and K2-par run,
+    as the JAX gates (``r0 is not None``, ``tiled_uniform_radius``)
+    decide."""
     cfg, st, p = _state(tiled_uniform_radius=False)
     want = tt.tiled_step_fn(st, p, cfg)
     calls = []
-    _spy(monkeypatch, gp, "color_par_", calls)
+    _spy(monkeypatch, gp, "colors_par", calls)
     _spy(monkeypatch, gp, "relocate_par_plain", calls)
     _refuse(monkeypatch, gm, "colors_mega", "relocate_mega")
     got = tt.tiled_step_fn(st, p, cfg.replace(**MEGA))
-    assert calls == ["relocate_par_plain"] + ["color_par_"] * 4
+    assert calls == ["relocate_par_plain", "colors_par"]
     assert_states_equal(want, got)
 
 

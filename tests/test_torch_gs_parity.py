@@ -280,13 +280,14 @@ def test_par_wrappers_raise_on_unsupported_tensors():
         gp.relocate_par_cuda(ps, tcfg)
     src, _, rrad, _ = gp.rank_par(ps, tcfg)
     with pytest.raises(RuntimeError, match="CUDA"):
-        gp.color_par_cuda_(ps.x, ps.y, src, rrad, tcfg, ps.geo, 1)
+        gp.colors_par_cuda(ps.x, ps.y, src, rrad, tcfg, ps.geo)
     prm = TParams.make(tcfg.dt).as_tensor("cpu")
+    tail = (ps.px, ps.py, ps.pid, prm)
     with pytest.raises(RuntimeError, match="CUDA"):
-        gp.verlet_cuda_(ps.x, ps.y, ps.px, ps.py, ps.pid, prm, tcfg)
+        gp.colors_par_cuda(ps.x, ps.y, src, rrad, tcfg, ps.geo, tail=tail)
     with pytest.raises(ValueError, match="uniform radius"):
-        gp.verlet_(ps.x, ps.y, ps.px, ps.py, ps.pid, prm,
-                   tcfg.replace(world_shape="circle"))
+        gp.colors_par(ps.x, ps.y, src, rrad,
+                      tcfg.replace(world_shape="circle"), ps.geo, tail=tail)
     meta = ps.replace(x=ps.x.to("meta"))
     with pytest.raises(RuntimeError, match="CUDA"):
         gp.rank_par(meta, tcfg)
