@@ -69,6 +69,19 @@ non-zero with no result line:
      1M in the "mx" and "dec" layouts (K5, K6-par, K2), bit-equal to flat;
      then K4's path, the probe's 4M frame loop with K4 as the relocate
      (32 steps), beside the same loop with K2;
+  5b. the device compositor (render/device.py, plain PyTorch: no kernel
+     of its own): ``render_core`` on the card within one u8 of the CPU's
+     on the initial 4M scene (S = 1, the auto-fit and a zoomed,
+     off-centre rect) and a jittered 256k scene (S = 2); then the frame
+     loop, ``render_run`` (a step and a 1280 x 720 frame) at 4M, 1M and
+     1M-GS par, 64 frames after 64 of warm-up, beside ``run()`` over the
+     same steps on a twin engine (the same launch counts, the states bit
+     for bit after), with frame ms, ms/step and ``render_throughput_ms``
+     (the frames as ``render_run`` draws them, from parity space under
+     "par"); ``step_render_frame`` == ``step()`` + ``render_frame()`` at 1M
+     over 3 frames; at 1M-GS par the parity frame within one u8 of the
+     full-space frame, and its time beside ``from_parity_state`` +
+     ``render_core``'s;
   6. the array Engine (pipeline "sorted", the 4-color Gauss-Seidel solve,
      the Morton resort every 240 steps) at the README's 1,000,000
      particles in 1,100,800 slots, sort_impl="radix": first the radix
@@ -204,6 +217,13 @@ def _jittered(state, scale, seed):
           - 0.5) * 2 * scale
     return state.replace(x=torch.where(occ, state.x + dx, state.x),
                          y=torch.where(occ, state.y + dy, state.y))
+
+
+def _clone(state):
+    """A TileState with every tensor copied."""
+    return state.replace(**{f: getattr(state, f).clone() for f in (
+        "x", "y", "px", "py", "radius", "pid", "num_active",
+        "overflow_count")})
 
 
 def _small_state(cap, uniform=True):
@@ -1590,12 +1610,8 @@ def phase_gs_paths(paths: dict, errs: dict) -> None:
         for layout in ("flat", "par", "mega"):
             tag = label if layout == "flat" else f"{label}-{layout}"
             runs[layout] = phase_engine(
-                lambda: TiledEngine(
-                    _gs_cfg(n, layout), chunk=64,
-                    initial_state=start.replace(
-                        **{f: getattr(start, f).clone()
-                           for f in ("x", "y", "px", "py", "radius", "pid",
-                                     "num_active", "overflow_count")})),
+                lambda: TiledEngine(_gs_cfg(n, layout), chunk=64,
+                                    initial_state=_clone(start)),
                 n, windows, tag, _gs_expect(steps, layout))
             paths[tag] = runs[layout]["launches"]
         for layout in ("par", "mega"):
@@ -1689,6 +1705,198 @@ def phase_k4_path(paths: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the device compositor (render/device.py) and the frame loop
+# ---------------------------------------------------------------------------
+
+RENDER_FRAMES = 64
+
+
+def _planes(state):
+    from gpu_physics_engine_torch.ops import tiled
+    return [getattr(state, f) for f in tiled.FIELDS]
+
+
+def _within_one(label, got, want, what) -> None:
+    """u8 frames within one step on every value, or raise; prints the
+    largest difference and how many values differ."""
+    import torch
+    d = (got.cpu().to(torch.int32) - want.cpu().to(torch.int32)).abs()
+    worst, n = int(d.max()), int((d > 0).sum())
+    log(f"[render] {label}: {what}: largest difference {worst} u8, {n} of "
+        f"{d.numel()} values differ; {int((want > 0).any(-1).sum())} pixels "
+        "lit")
+    if worst > 1:
+        raise AssertionError(f"{label}: {what}: {int((d > 1).sum())} values "
+                             f"differ by more than 1 u8 (largest {worst})")
+
+
+def _render_vs_cpu(label, cfg, state, rect) -> None:
+    """render_core on the card against render_core of the same planes
+    copied to the CPU (the plain path the CPU tests hold to the JAX
+    package), 1280 x 720."""
+    from gpu_physics_engine_torch.render import device as rd
+    got = rd.render_core(*_planes(state), rect, cfg, 1280, 720)
+    want = rd.render_core(*[p.cpu() for p in _planes(state)], rect, cfg,
+                          1280, 720)
+    rect_s = ", ".join(f"{v:.2f}" for v in rect)
+    _within_one(label, got, want, f"card vs CPU, S = "
+                f"{cfg.render_supersample}, rect ({rect_s})")
+
+
+PEAK_TF32 = 495e12  # H100 SXM TF32 tensor-core FLOP/s (dense)
+
+
+def _render_bound(planes, S: int, width: int, height: int) -> str:
+    """The least time of one frame: every input plane ([P, CAP, R, C]: P
+    sub-grids) read once and the u8 image written once over the memory
+    rate, against the two resample products of each sub-grid and sample
+    grid (3 channels) over the TF32 tensor-core rate."""
+    nbytes = sum(p.numel() * p.element_size() for p in planes)
+    nbytes += height * width * 3
+    P, _, R, C = planes[0].shape
+    flops = P * S * S * 2 * 3 * (R * C * width + height * R * width)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_TF32 * 1e3
+    return (f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e9:.3f} GB: "
+            f"{t_bytes:.4f} ms; {flops / 1e9:.1f} TF32 GFLOP: {t_ops:.4f})")
+
+
+def _parity_vs_relayout(label, smi, cfg, ps) -> None:
+    """A parity-space state's frame two ways, timed in turns over
+    ``RENDER_FRAMES`` frames each (weights built once, before the timing):
+    ``render_parity_core``, and ``from_parity_state`` + ``render_core``."""
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.render import device as rd
+    parity = rd.frame_drawer(cfg, 1280, 720, "cuda", parity=True)
+    full = rd.frame_drawer(cfg, 1280, 720, "cuda")
+    ways = {"render_parity_core": lambda: parity(ps),
+            "from_parity_state + render_core":
+                lambda: full(gp.from_parity_state(ps, cfg))}
+    times = {k: [] for k in ways}
+    for _ in range(3):
+        for k, fn in ways.items():
+            times[k].append(cuda_ms(fn, reps=RENDER_FRAMES, warmup=1))
+    log(f"[render] {label} ({smi}): a parity-space frame, ms over "
+        f"{RENDER_FRAMES} frames in turns: " + "; ".join(
+            f"{k} {', '.join(f'{t:.4f}' for t in v)}"
+            for k, v in times.items()))
+
+
+def phase_render(smi: str, paths: dict) -> None:
+    """The compositor on the card, then the frame loop.
+
+    Card against CPU: the initial 4M scene (its previous positions
+    jittered, so slots differ in color) at S = 1 and the auto-fit and a
+    zoomed, off-centre rect, and a jittered 256k scene at S = 2, within one
+    u8.  Frames, free (no mouse: a drag trips run()'s watchdog, which
+    render_run does not have): at 4M, 1M and 1M-GS par, a warm-up window of
+    ``RENDER_FRAMES`` frames of ``render_run`` and one timed between CUDA
+    events, beside ``run()`` over the same steps on a twin engine (launch
+    counts zeroed just before each timed window and equal after it), and
+    ``render_throughput_ms`` of the state ``render_run`` draws from; then
+    the two engines' states bit-equal.  At 1M, 3 frames of
+    ``step_render_frame`` against ``step()`` + ``render_frame()`` on the
+    twin, image and state bit-equal; at 1M-GS par ``render_parity_core`` of
+    the final state against ``render_core`` of it in full space, within one
+    u8, and the two ways timed."""
+    import torch
+    from gpu_physics_engine_torch import TiledEngine, make_tuned_engine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import gs_parity as gp, tiled
+    from gpu_physics_engine_torch.render import device as rd
+    t0 = time.perf_counter()
+    e = make_tuned_engine(256_000, device="cuda")
+    moving = _jittered(e.state, 0.3, seed=5)
+    moving = moving.replace(px=_jittered(moving, 0.1, seed=6).x)
+    cfg = e.config.replace(render_supersample=2)
+    _render_vs_cpu("256k", cfg, moving, rd.autofit_rect(cfg, 1280, 720))
+    del e, moving
+
+    fields = tiled.FIELDS + ("num_active", "overflow_count")
+    cases = (
+        ("4M", lambda: make_tuned_engine(4_194_304, device="cuda")),
+        ("1M", lambda: make_tuned_engine(1_048_576, device="cuda")),
+        ("1M-GS-par", lambda: TiledEngine(
+            gs_config(1_048_576, gs_layout="par"), seed=0, chunk=64,
+            device="cuda")))
+    frames = RENDER_FRAMES
+    for label, make in cases:
+        e = make()
+        cfg = e.config
+        if label == "4M":
+            moving = e.state.replace(
+                px=_jittered(e.state, 0.1, seed=7).x,
+                py=_jittered(e.state, 0.1, seed=8).y)
+            _render_vs_cpu("4M", cfg, moving,
+                           rd.autofit_rect(cfg, 1280, 720))
+            _render_vs_cpu("4M", cfg, moving, (1100.0, 300.0, 1420.0, 480.0))
+            del moving
+        twin = TiledEngine(cfg, initial_state=_clone(e.state), chunk=e.CHUNK)
+        e.render_run(frames)
+        twin.run(frames)
+        torch.cuda.synchronize()
+        reset_launches()
+        frame_ms = cuda_ms(lambda: e.render_run(frames), reps=1,
+                           warmup=0) / frames
+        got = launches()
+        reset_launches()
+        step_ms = cuda_ms(lambda: twin.run(frames), reps=1,
+                          warmup=0) / frames
+        want = launches()
+        if got != want or not any(want.values()):
+            raise AssertionError(f"{label}: render_run launches {got}, run()"
+                                 f" launches {want}")
+        paths[f"{label}-render"] = got
+        diff = [f for f in fields if not torch.equal(getattr(e.state, f),
+                                                     getattr(twin.state, f))]
+        if diff:
+            raise AssertionError(
+                f"{label}: after {e._steps_done} steps render_run's state "
+                f"differs from run()'s in {diff} (watchdog events "
+                f"{twin.watchdog_events})")
+        if e.parity_space:
+            ps = gp.to_parity_state(e.state, cfg)
+            render_ms = rd.render_throughput_ms(ps, cfg)
+            drawn = [ps.x, ps.y, ps.px, ps.py, ps.pid]
+        else:
+            render_ms = rd.render_throughput_ms(e.state, cfg)
+            drawn = [p[None] for p in _planes(e.state)]
+        bound = _render_bound(drawn, cfg.render_supersample, 1280, 720)
+        busy = {k: v for k, v in got.items() if v}
+        log(f"[render] {label} ({smi}): frame (step + render, 1280 x 720) "
+            f"{frame_ms:.4f} ms over {frames} frames; run() {step_ms:.4f} "
+            f"ms/step on the twin; render_throughput_ms {render_ms:.4f}; "
+            f"launches {busy} in both; the frame's render {bound}")
+        log(f"[render] {label}: render_run == run() bit for bit after "
+            f"{e._steps_done} steps ({', '.join(fields)})")
+        if label == "1M":
+            for _ in range(3):
+                img = e.step_render_frame()
+                twin.step()
+                if not (img == twin.render_frame()).all():
+                    raise AssertionError("1M: step_render_frame differs from "
+                                         "step() + render_frame()")
+            if not all(torch.equal(getattr(e.state, f),
+                                   getattr(twin.state, f)) for f in fields):
+                raise AssertionError("1M: step_render_frame's state differs "
+                                     "from step()'s")
+            log("[render] 1M: step_render_frame == step() + render_frame() "
+                "over 3 frames, image and state bit for bit")
+        if label == "1M-GS-par":
+            ps = gp.to_parity_state(e.state, cfg)
+            rect = rd.autofit_rect(cfg, 1280, 720)
+            _within_one(label, rd.render_parity_core(ps, rect, cfg, 1280,
+                                                     720),
+                        rd.render_core(
+                            *_planes(gp.from_parity_state(ps, cfg)), rect,
+                            cfg, 1280, 720),
+                        "parity frame vs full-space frame on the card")
+            _parity_vs_relayout(label, smi, cfg, ps)
+        del e, twin
+        torch.cuda.empty_cache()
+    log(f"[render] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1752,6 +1960,7 @@ def main() -> int:
 
     phase_gs_paths(paths, errs)
     phase_k4_path(paths)
+    phase_render(smi, paths)
     radix_bits = phase_array_kernels(errs)
     phase_array_paths(paths)
     run = phase_engine(

@@ -18,6 +18,8 @@ repository as the reference.  Module names mirror the JAX package's:
            parity-space GS pipeline and the mx/dec solves, with their
            kernels' wrappers + plain versions), _cuda.py (nvcc build +
            ctypes binding)
+  render/  device.py (the device compositor: TiledEngine.render_frame,
+           step_render_frame, render_run), colormap.py (the velocity ramp)
   csrc/    the CUDA C++ kernels (sm_90a)
   utils/   FrameTimer, profiling.py (where a step's time goes),
            kernel_study.py (K1 variants, the radix sort's pieces)

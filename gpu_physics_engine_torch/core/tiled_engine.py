@@ -18,9 +18,14 @@ steps there and converts back at its end; single steps use the one-step
 facade.  The sweep, the watchdog and the downloads see the full-space
 state at window boundaries, as in the JAX package.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-tiled_sweep="bands", tiled_rebuild_every > 0, spawns and the big-particle
-overlay, rendering, checkpoints.
+The device compositor (render/device.py) draws frames on the engine's
+device: ``render_frame``, ``step_render_frame`` (one step, then a frame)
+and ``render_run`` (``run``'s windows with a frame after every step, the
+reference's frame loop), which returns a checksum of its frames.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP item
+by number and title): tiled_sweep="bands", tiled_rebuild_every > 0, spawns
+and the big-particle overlay, checkpoints.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.core.state import ParamCache, StepParams
 from gpu_physics_engine_torch.ops import gs_parity, tiled
+from gpu_physics_engine_torch.render import device as render
 from gpu_physics_engine_torch.utils.timer import FrameTimer
 
 
@@ -57,17 +63,22 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+# ROADMAP.md queue 1 items, by number and title
+_SPAWNS = "item 3, spawns and the big-particle overlay on TiledEngine"
+_OPTIONS = "item 5, the remaining tiled-engine options"
+
+
 def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet ({item})")
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
 
 
 def _check_supported(config: SimConfig) -> None:
     if config.tiled_sweep == "bands":
-        raise _not_ported("tiled_sweep='bands'",
-                          "ROADMAP.md queue 1, item 2: rebuild_band")
+        raise _not_ported("tiled_sweep='bands'", _OPTIONS)
     if config.tiled_rebuild_every > 0:
         raise _not_ported("tiled_rebuild_every > 0 (the hybrid sweep)",
-                          "ROADMAP.md queue 1, item 4: sweep modes")
+                          _OPTIONS)
 
 
 class TiledEngine:
@@ -144,6 +155,12 @@ class TiledEngine:
                             config, self.device) == "par")
         self._prm = ParamCache(self.device, 1.0 / config.substeps)
 
+    @property
+    def parity_space(self) -> bool:
+        """True when windows step, and ``render_run`` draws, in parity
+        space (the GS "par" layout)."""
+        return self._gs_par
+
     # ---- schedule ----
 
     def _sweep(self, state: tiled.TileState) -> tiled.TileState:
@@ -178,15 +195,30 @@ class TiledEngine:
                                          do_relocate=relocate,
                                          prm=self._prm(params))
 
-    def _par_window(self, params: StepParams, steps: int) -> None:
-        """``steps`` GS steps in parity space, converting once each way."""
+    def _window(self, params: StepParams, steps: int, frame=None) -> None:
+        """``steps`` steps as one window: relocate-first groups of the
+        relocate interval, or under "par" the parity-space GS steps, which
+        relocate on every step (converting once each way).  ``frame(s)``
+        runs after every step on the full-space TileState, or under "par"
+        on the ParityState.  The window's tail leaves (steps - 1) % iv
+        un-relocated steps."""
         cfg = self.config
-        tiled._backend(cfg.tiled_collide, self.state, "tiled_collide")
-        ps = gs_parity.to_parity_state(self.state, cfg)
-        for _ in range(steps):
-            ps = gs_parity.gs_parity_step_fn(ps, params, cfg,
-                                             prm=self._prm(params))
-        self.state = gs_parity.from_parity_state(ps, cfg)
+        if self._gs_par:
+            tiled._backend(cfg.tiled_collide, self.state, "tiled_collide")
+            ps = gs_parity.to_parity_state(self.state, cfg)
+            for _ in range(steps):
+                ps = gs_parity.gs_parity_step_fn(ps, params, cfg,
+                                                 prm=self._prm(params))
+                if frame is not None:
+                    frame(ps)
+            self.state = gs_parity.from_parity_state(ps, cfg)
+        else:
+            for j in range(steps):
+                self._advance(params, relocate=(j % self._reloc_iv == 0))
+                if frame is not None:
+                    frame(self.state)
+        self._since_reloc = ((steps - 1) % self._reloc_iv
+                             if self._reloc_iv > 1 else 0)
 
     def sweep(self) -> None:
         """Run the exact sweep now (the periodic sweep and the watchdog's
@@ -198,6 +230,13 @@ class TiledEngine:
         interval = self._sweep_interval
         if interval and self._steps_done and self._steps_done % interval == 0:
             self.sweep()
+
+    def _to_sweep(self, left: int) -> int:
+        """``left`` steps, cut at the next periodic sweep."""
+        interval = self._sweep_interval
+        if not interval:
+            return left
+        return min(left, interval - self._steps_done % interval)
 
     def step(self, params: Optional[StepParams] = None):
         self._maybe_sweep()
@@ -212,29 +251,18 @@ class TiledEngine:
         where the sweep cadence leaves room, single steps otherwise; then
         the cap-growth check and the watchdog."""
         p = self.params()
-        interval = self._sweep_interval
         done = 0
         of_before = (int(self.state.overflow_count)
                      if self.config.tiled_auto_cap_pct else 0)
         while done < n_steps:
             self._maybe_sweep()
-            bound = n_steps - done
-            if interval:
-                bound = min(bound, interval - self._steps_done % interval
-                            if self._steps_done % interval else interval)
+            bound = self._to_sweep(n_steps - done)
             if sync_every:
                 bound = min(bound, sync_every - done % sync_every
                             if done % sync_every else sync_every)
             if bound >= self.CHUNK:
-                if self._gs_par:  # GS relocates on every step
-                    self._par_window(p, self.CHUNK)
-                else:
-                    for j in range(self.CHUNK):
-                        self._advance(p, relocate=(j % self._reloc_iv == 0))
                 took = self.CHUNK
-                # a window's tail has (CHUNK-1) % iv un-relocated steps
-                self._since_reloc = ((took - 1) % self._reloc_iv
-                                     if self._reloc_iv > 1 else 0)
+                self._window(p, took)
             else:
                 off = self._reloc_off()
                 self._advance(p, relocate=not off)
@@ -357,8 +385,7 @@ class TiledEngine:
         self.mouse_pos = tuple(map(float, world_pos))
 
     def spawn_at(self, *args, **kwargs):
-        raise _not_ported("spawn_at (spawns and the big-particle overlay)",
-                          "ROADMAP.md queue 1, item 7")
+        raise _not_ported("spawn_at", _SPAWNS)
 
     # ---- downloads ----
 
@@ -381,20 +408,61 @@ class TiledEngine:
     def cell_size(self) -> float:
         return tiled.tile_geometry(self.config)[0]
 
+    # ---- device rendering (render/device.py) ----
+
+    def render_frame(self, rect=None, width: int = 1280,
+                     height: int = 720) -> np.ndarray:
+        """The state's velocity-colormap frame, drawn on the engine's
+        device -> host u8 [height, width, 3]; ``rect`` = (x0, y0, x1, y1),
+        the world window (default: the 90% auto-fit).  The JAX engine
+        splats big overlay particles over it on the host; the port has no
+        overlay yet (ROADMAP.md queue 1, item 3), so that branch waits for
+        it."""
+        return render.render_tiles_device(self.state, self.config,
+                                          rect=rect, width=width,
+                                          height=height)
+
+    def step_render_frame(self, rect=None, width: int = 1280,
+                          height: int = 720) -> np.ndarray:
+        """One step, then a frame of the state it left: the sweep check,
+        the step and the relocate-interval bookkeeping of ``step()``, and
+        ``render_frame``.  (The JAX engine compiles the two into one
+        program to save a dispatch; eager PyTorch issues the same work.)"""
+        self.step()
+        return self.render_frame(rect=rect, width=width, height=height)
+
+    def render_run(self, n_steps: int, width: int = 1280,
+                   height: int = 720) -> int:
+        """``run()`` with a frame drawn after every step, the reference's
+        frame loop (sim and render each frame), at the auto-fit rect.
+        Windows of up to CHUNK steps, cut at the periodic sweep, each in
+        relocate-first groups; under "par" each window steps in parity
+        space and draws each frame from there (``render_parity_core``).
+        No watchdog and no cap growth, as in the JAX package.  Returns the
+        sum of every pixel of every frame, wrapped to a signed int32; it is
+        summed on the device and read once, at the end."""
+        draw = render.frame_drawer(self.config, width, height, self.device,
+                                   parity=self._gs_par)
+        acc = torch.zeros((), dtype=torch.int64, device=self.device)
+
+        def frame(s):
+            acc.add_(draw(s).sum(dtype=torch.int64))
+
+        p = self.params()
+        done = 0
+        while done < n_steps:
+            self._maybe_sweep()
+            took = min(self._to_sweep(n_steps - done), self.CHUNK)
+            self._window(p, took, frame)
+            self._steps_done += took
+            done += took
+        return (int(acc) + (1 << 31)) % (1 << 32) - (1 << 31)
+
     # ---- not ported yet ----
 
     def save_checkpoint(self, path: str) -> None:
-        raise _not_ported("checkpoints", "ROADMAP.md queue 1, item 4")
+        raise _not_ported("checkpoints", _OPTIONS)
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "TiledEngine":
-        raise _not_ported("checkpoints", "ROADMAP.md queue 1, item 4")
-
-    def render_frame(self, *args, **kwargs):
-        raise _not_ported("render_frame", "ROADMAP.md queue 1, item 5")
-
-    def render_run(self, *args, **kwargs):
-        raise _not_ported("render_run", "ROADMAP.md queue 1, item 5")
-
-    def step_render_frame(self, *args, **kwargs):
-        raise _not_ported("step_render_frame", "ROADMAP.md queue 1, item 5")
+        raise _not_ported("checkpoints", _OPTIONS)

@@ -13,6 +13,10 @@ CPU-only engine the device fields are empty and the idle share is None.
 (core/tuned.gs_config) instead of the production Jacobi engine, in the
 solve layout ``--layout`` (default "auto"), with ``--mega`` through the
 fused kernels (gs_colors_mega and gs_relocate_mega; the par layout).
+``--render`` profiles ``render_run`` (a step and a 1280 x 720 frame)
+in place of ``run``, and adds ``render_only``:
+the same profile of ``--steps`` frames drawn as ``render_run`` draws them,
+with no step (per frame: device ms, launches, the largest PyTorch ops).
 ``--array`` profiles the array
 Engine (core/engine.py) with ``--particles`` in 1.1x as many slots, the
 README's default world, and ``--pipeline``, ``--solver`` and
@@ -62,8 +66,10 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_run(engine, steps: int, trace: str | None = None) -> dict:
-    """Two passes of ``engine.run(steps)``: one timed with CUDA events and
+def profile_run(engine, steps: int, trace: str | None = None,
+                advance=None) -> dict:
+    """Two passes of ``advance(steps)`` (default ``engine.run``): one
+    timed with CUDA events and
     no profiler (its span is the window's device time; the profiler's own
     host overhead would inflate a host-bound window), then one under
     torch.profiler tracing CUDA activity only, for the device time of each
@@ -72,6 +78,7 @@ def profile_run(engine, steps: int, trace: str | None = None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    advance = advance or engine.run
     cuda = engine.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(engine.device)
@@ -79,7 +86,7 @@ def profile_run(engine, steps: int, trace: str | None = None) -> dict:
         end = torch.cuda.Event(enable_timing=True)
         start.record()
     t0 = time.perf_counter()
-    engine.run(steps)
+    advance(steps)
     if cuda:
         end.record()
         end.synchronize()
@@ -91,7 +98,7 @@ def profile_run(engine, steps: int, trace: str | None = None) -> dict:
     span = start.elapsed_time(end)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        engine.run(steps)
+        advance(steps)
         torch.cuda.synchronize(engine.device)
     if trace:
         prof.export_chrome_trace(trace)
@@ -108,6 +115,31 @@ def profile_run(engine, steps: int, trace: str | None = None) -> dict:
         "kernels": [{"name": k, "ms": ms, "calls": n}
                     for k, ms, n in kernels],
     }
+
+
+def frames_only(engine):
+    """``advance(n)`` drawing n 1280 x 720 frames of the engine's current
+    state as ``render_run`` draws them (weights built once; under "par"
+    from the parity-space state), with no step."""
+    from gpu_physics_engine_torch.ops import gs_parity
+    from gpu_physics_engine_torch.render.device import frame_drawer
+    draw = frame_drawer(engine.config, 1280, 720, engine.device,
+                        parity=engine.parity_space)
+    s = (gs_parity.to_parity_state(engine.state, engine.config)
+         if engine.parity_space else engine.state)
+
+    def advance(n: int) -> None:
+        for _ in range(n):
+            draw(s)
+    return advance
+
+
+def _short(out: dict, top: int = 10) -> dict:
+    """``out`` with its kernel names cut to 80 characters and only the
+    ``top`` largest kept."""
+    kernels = [dict(k, name=k["name"].split("(")[0][:80])
+               for k in out["kernels"][:top]]
+    return {**out, "kernels": kernels}
 
 
 def sweep_windows(engine, steps: int, every: int, interval: int):
@@ -180,6 +212,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--sort-impl", default="radix", choices=["lax", "radix"])
     ap.add_argument("--mouse", action="store_true",
                     help="with --array: the mouse held at the world centre")
+    ap.add_argument("--render", action="store_true",
+                    help="profile render_run (a step and a frame) and "
+                         "the frames alone")
     ap.add_argument("--device", default=None)
     ap.add_argument("--trace", default=None, help="chrome trace path")
     ap.add_argument("--sweeps", nargs="+", default=None,
@@ -208,8 +243,15 @@ def main(argv=None) -> dict:
                              chunk=64, device=args.device)
     else:
         engine = make_tuned_engine(args.particles, device=args.device)
-    engine.run(args.warmup)
-    out = profile_run(engine, args.steps, args.trace)
+    if args.render:
+        engine.render_run(args.warmup)
+        out = profile_run(engine, args.steps, args.trace,
+                          advance=engine.render_run)
+        out["render_only"] = _short(profile_run(
+            engine, args.steps, advance=frames_only(engine)))
+    else:
+        engine.run(args.warmup)
+        out = profile_run(engine, args.steps, args.trace)
     cfg = engine.config
     out.update(particles=args.particles, device=str(engine.device))
     if args.array:
@@ -217,10 +259,9 @@ def main(argv=None) -> dict:
                    sort_impl=cfg.sort_impl, mouse=args.mouse)
     else:
         out.update(solver=cfg.tiled_solver, gs_layout=cfg.gs_layout,
-                   mega=cfg.gs_colors_mega and cfg.gs_relocate_mega)
-    for k in out["kernels"]:
-        k["name"] = k["name"].split("(")[0][:80]
-    print(json.dumps({**out, "kernels": out["kernels"][:10]}))
+                   mega=cfg.gs_colors_mega and cfg.gs_relocate_mega,
+                   render=args.render)
+    print(json.dumps(_short(out)))
     return out
 
 

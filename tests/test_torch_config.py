@@ -152,6 +152,10 @@ def test_port_imports_and_steps_with_jax_blocked():
         "    device='cpu')\n"
         "ge.run(3)\n"
         "assert ge.num_particles() == 64\n"
+        "from gpu_physics_engine_torch.render import colormap, device\n"
+        "img = e.render_frame(width=32, height=16)\n"
+        "assert img.shape == (16, 32, 3) and img.max() > 0\n"
+        "assert isinstance(ge.render_run(2, width=32, height=16), int)\n"
         "assert not any(m == 'gpu_physics_engine_tpu' or\n"
         "    m.startswith('gpu_physics_engine_tpu.') for m in sys.modules)\n"
         "print('ok')\n")

@@ -17,7 +17,9 @@ route's K6-par launch; relocate_mega and K4
 and on a ragged grid.  K12 (the radix sort's rank/histogram pass), the
 digit offsets and the scatter bit for bit on all four passes at 1, 3 and
 1,075 blocks, the radix sort equals torch.sort(stable=True), and the
-array Engine's radix run on the card equals its lax run bit for bit.
+array Engine's radix run on the card equals its lax run bit for bit.  The
+device compositor's frames on the card (full space and parity space)
+within one u8 of the CPU's, and render_run equal to run() there.
 """
 
 import numpy as np
@@ -709,3 +711,78 @@ def test_array_engine_radix_equals_lax_on_card():
     for f in ("x", "y", "px", "py"):
         np.testing.assert_allclose(getattr(a, f).cpu().numpy(),
                                    getattr(c, f).numpy(), atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the device compositor (render/device.py)
+# ---------------------------------------------------------------------------
+
+def _render_state(S, dev, n=6000, seed=4):
+    """A jittered, moving scene over a 192 x 96 world at cap 8 on ``dev``
+    (the same numpy scene on every device)."""
+    cfg = SimConfig(max_particles=n, initial_particles=n, world_width=192.0,
+                    world_height=96.0, pipeline="tiled", tile_cap=8,
+                    render_supersample=S)
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.6, [191.4, 95.4], (n, 2)).astype(np.float32)
+    prev = (pos + rng.normal(0, 0.12, pos.shape)).astype(np.float32)
+    rad = rng.uniform(0.3, 0.5, n).astype(np.float32)
+    return cfg, tt.init_tiles(cfg, pos, rad, previous_positions=prev,
+                              device=dev)
+
+
+def _within_one(a, b):
+    d = (a.cpu().to(torch.int32) - b.cpu().to(torch.int32)).abs()
+    assert int(d.max()) <= 1, f"{int((d > 1).sum())} pixels differ by more " \
+                              f"than 1"
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_render_core_on_card_matches_cpu(S):
+    """render_core and render_parity_core on the card within one u8 step of
+    the CPU's on the same state (auto-fit and a zoomed, off-centre rect);
+    the parity frame also within one of the full-space frame."""
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.render import device
+    cfg, st = _render_state(S, "cuda")
+    _, cpu = _render_state(S, "cpu")
+    for rect in (device.autofit_rect(cfg, 320, 180), (40.3, 20.7, 90.1, 48.2)):
+        planes = [getattr(st, f) for f in FIELDS]
+        got = device.render_core(*planes, rect, cfg, 320, 180)
+        assert got.is_cuda and got.dtype == torch.uint8
+        _within_one(got, device.render_core(
+            *[getattr(cpu, f) for f in FIELDS], rect, cfg, 320, 180))
+        par = device.render_parity_core(gp.to_parity_state(st, cfg), rect,
+                                        cfg, 320, 180)
+        _within_one(par, got)
+        _within_one(par, device.render_parity_core(
+            gp.to_parity_state(cpu, cfg), rect, cfg, 320, 180))
+        assert int(got.max()) > 0
+
+
+@pytest.mark.parametrize("layout", ["jacobi", "par"])
+def test_render_run_on_card_matches_run(layout):
+    """render_run on the card leaves the state bit-equal to run() over two
+    windows, and the render entry points keep the state on the card."""
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    if layout == "jacobi":
+        cfg = SimConfig(max_particles=6000, initial_particles=6000,
+                        world_width=192.0, world_height=96.0,
+                        pipeline="tiled", tile_cap=8,
+                        tiled_relocate_interval=2, sort_interval_steps=16)
+    else:
+        cfg = gs_config(6000, world_width=120.0, world_height=60.0,
+                        gs_layout="par", sort_interval_steps=16)
+    a, b = (TiledEngine(cfg, seed=2, chunk=8, device="cuda")
+            for _ in range(2))
+    for _ in range(2):
+        a.run(16)
+        assert b.render_run(16, width=320, height=180) > 0
+    for f in FIELDS + ("num_active", "overflow_count"):
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+    img = b.step_render_frame(width=320, height=180)
+    a.step()
+    np.testing.assert_array_equal(img, a.render_frame(width=320, height=180))
+    assert isinstance(img, np.ndarray) and img.shape == (180, 320, 3)
+    assert all(getattr(b.state, f).is_cuda for f in FIELDS)
