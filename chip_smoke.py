@@ -55,6 +55,16 @@ non-zero with no result line:
      (250 steps): launch counts, conservation, bounds, ms/step and
      quality; then K2 against its plain version on each engine's own
      final state, in every matching mode;
+  4b. spawns and the big-particle overlay on the 4M engine: three
+     ``spawn_at`` bursts of 100 (every radius 1-3 to the overlay, which
+     grows 128 -> 512 slots; the tile edge kept, tiled_uniform_radius
+     off), then the 4M windows with the hybrid step (K1's general-radius
+     form 300 times, K2 150; the merged pids arange(n + 300), finite,
+     inside the world), ms/step beside the 4M run's; on its final state
+     K1's general form bit-equal to its plain version at [8, 640, 1850]
+     and on repeat, ``couple_bigs`` card == CPU bit for bit and on
+     repeat, ``render_frame`` with the overlay within one u8 of the CPU's,
+     and a jammed 3 x 3 block's far-spill insert card == CPU;
   5. the Gauss-Seidel path (tiled_solver="gs", the bench's GS config) at
      1,048,576 particles for 300 steps (150 free, 150 with the mouse at
      the world centre) and at 4,194,304 (cap 6) for 100 steps, each in the
@@ -930,9 +940,11 @@ def phase_fused_kernels(gs_scenes, cfg4m, st4m, errs: dict) -> None:
 
 
 def _check_engine(e, n, label) -> dict:
+    """Conservation over the tiles and any overlay: the merged pids are
+    arange(n), every position finite and inside [r, W - r] x [r, H - r]."""
     import numpy as np
     from gpu_physics_engine_torch.ops import tiled
-    pid, pos, _, rad = tiled.export_particles(e.state)
+    pid, pos, _, rad = e._export()
     if not np.array_equal(pid, np.arange(n)):
         raise AssertionError(f"{label}: pid set is not arange({n}) "
                              f"({len(pid)} live)")
@@ -1246,6 +1258,19 @@ def _tile_counts(state):
     return n[0, 0], box[0, 0]
 
 
+def _k1_bound(cfg, state):
+    """K1's least time on ``state``: x, y, px, py, pid (and the radius
+    plane under a general radius) read, x, y, px, py written; 5 flops a
+    candidate pair's distance test and 25 a Verlet step."""
+    cap, TY, TX = state.dims
+    S = cap * TY * TX * 4.0  # bytes of one plane
+    n, box = _tile_counts(state)
+    occ = float(n.sum())
+    pairs = float((n * box).sum()) - occ  # occupied (slot, candidate) pairs
+    rplanes = 0 if cfg.tiled_uniform_radius else 1
+    return _bound((5 + rplanes + 4) * S + 16, 5 * pairs + 25 * occ)
+
+
 def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     """Per kernel (least ms, "bytes" or "operations"): each input read once,
     each output written once; operations counted from this run's data
@@ -1265,8 +1290,7 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     pairs = float((n * box).sum()) - occ  # occupied (slot, candidate) pairs
     rplanes = 0 if cfg.tiled_uniform_radius else 1
     out = {
-        "collide_integrate": _bound((5 + rplanes + 4) * S + 16,
-                                    5 * pairs + 25 * occ),
+        "collide_integrate": _k1_bound(cfg, state),
         "collide": _bound((3 + rplanes + 2) * S, 5 * pairs),
         # the pid plane read, x, y, px, py, radius of occupied slots read
         # (an empty slot moves nothing), six planes and defer written
@@ -1499,6 +1523,10 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
     # the driven path whose launches it reports
     ("collide_integrate", "collide_integrate", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "4M"),
+    # K1's general-radius form: the 4M engine after a big spawn
+    ("collide_integrate[general]", "collide_integrate",
+     "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "4M-spawn"),
     ("relocate_pull", "relocate_pull", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:945", "4M"),
     ("collide", "collide", "csrc/tiled_kernels.cuh",
@@ -1703,6 +1731,189 @@ def phase_k4_path(paths: dict) -> None:
         f"loops' pid planes differ in {differ} slots (edge rule)")
     del e, ends, a, b, start
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# spawns and the big-particle overlay (ops/bigs.py) on the 4M engine
+# ---------------------------------------------------------------------------
+
+SPAWN_N = 4_194_304
+SPAWN_POINTS = ((1024.0, 524.0), (1524.0, 700.0), (2024.0, 400.0))
+
+
+def _spawned_4m():
+    """The tuned 4M engine after three ``spawn_at`` bursts of spawn_burst
+    (100) at ``SPAWN_POINTS``: every radius 1-3 goes to the overlay (the
+    tiles are sized for 0.5), which grows 128 -> 256 -> 512 slots; the
+    tile geometry stays and tiled_uniform_radius turns off."""
+    from gpu_physics_engine_torch import make_tuned_engine
+    e = make_tuned_engine(SPAWN_N, device="cuda")
+    edge, caps = e.cell_size(), []
+    if not e.config.tiled_uniform_radius:
+        raise AssertionError("4M-spawn: the tuned engine is not uniform")
+    for p in SPAWN_POINTS:
+        e.spawn_at(p, verbose=False)
+        caps.append(e.big.capacity)
+    if (caps != [128, 256, 512] or e.cell_size() != edge
+            or e.config.tiled_uniform_radius
+            or int(e.big.num_active) != 300):
+        raise AssertionError(
+            f"4M-spawn: overlay capacities {caps}, cell {e.cell_size()} "
+            f"(was {edge}), uniform radius {e.config.tiled_uniform_radius}, "
+            f"{int(e.big.num_active)} bigs")
+    log(f"[4M-spawn] 3 bursts of {e.config.spawn_burst}: overlay "
+        f"{' -> '.join(map(str, caps))} slots, {int(e.big.num_active)} bigs "
+        f"(radii {sorted(set(e.big.radius[e.big.pid >= 0].tolist()))}); "
+        f"tile edge {edge:.3f} kept; tiled_uniform_radius off")
+    return e
+
+
+def _twin_on_cpu(e):
+    """A CPU engine holding a copy of ``e``'s tiles and overlay."""
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.ops import bigs, tiled
+    twin = TiledEngine(e.config, initial_state=tiled.from_numpy(
+        tiled.to_numpy(e.state)))
+    twin.big = bigs.from_numpy(bigs.to_numpy(e.big))
+    return twin
+
+
+def _jam_and_burst(e, rng):
+    """A 3 x 3 block of tiles around the first spawn point jammed full
+    (each free slot takes a particle whose home it is), then 100 radius-0.5
+    entries aimed at its centre tile: (block home (ty, tx), jam arrays,
+    burst arrays), each (positions, radii, pids)."""
+    import numpy as np
+    from gpu_physics_engine_torch.ops import tiled
+    cfg = e.config
+    t, _, _ = tiled.tile_geometry(cfg)
+    cx, cy = SPAWN_POINTS[0]
+    hty, htx = int(cy // t) + 1, int(cx // t) + 1
+    free = (e.state.pid[:, hty - 1:hty + 2, htx - 1:htx + 2] < 0).sum(0)
+    pos = []
+    for dy in range(3):
+        for dx in range(3):
+            ty, tx = hty - 1 + dy, htx - 1 + dx
+            k = int(free[dy, dx])
+            u = rng.uniform(0.25, 0.75, (k, 2))
+            pos.append(np.stack([(tx - 1 + u[:, 0]) * t,
+                                 (ty - 1 + u[:, 1]) * t], -1))
+    jam = np.concatenate(pos).astype(np.float32)
+    u = rng.uniform(0.1, 0.9, (100, 2))
+    burst = np.stack([(htx - 1 + u[:, 0]) * t, (hty - 1 + u[:, 1]) * t],
+                     -1).astype(np.float32)
+    first = e._next_pid
+    jam_ids = np.arange(first, first + len(jam), dtype=np.int32)
+    ids = np.arange(first + len(jam), first + len(jam) + 100,
+                    dtype=np.int32)
+    return ((hty, htx), (jam, np.full(len(jam), 0.5, np.float32), jam_ids),
+            (burst, np.full(100, 0.5, np.float32), ids))
+
+
+def phase_spawn(smi: str, paths: dict, errs: dict, plain_ms: float):
+    """The spawn path on the production 4M engine.
+
+    ``_spawned_4m``, then 150 steps free and 150 with the mouse pressed
+    (crossing the claim sweep at step 240) and 32 more (``phase_engine``:
+    launch counts zeroed just before, K1 300 and K2 150, the merged pids
+    arange(n + 300), finite, inside the world); ms/step beside the 4M
+    engine's without an overlay (``plain_ms``, the same windows).  On the
+    engine's own state after them: K1's general-radius form (the first
+    engine path that launches it) against its plain version at
+    [8, 640, 1850], bit-equal and on repeat, with its time; the overlay's
+    coupling pass (``couple_bigs``, plain PyTorch) on the card twice,
+    bit-equal, and against the CPU's from the same state, bit-equal (both
+    sum in one fixed order); ``render_frame`` with the overlay within one
+    u8 of the CPU twin's; last, the tile insert with the far spill:
+    a 3 x 3 block jammed, 100 radius-0.5 spawns at its centre through
+    ``_spawn_insert``, the card's TileState bit-equal to the CPU twin's.
+    Returns (config, state) of the engine after its windows."""
+    import numpy as np
+    import torch
+    from gpu_physics_engine_torch import StepParams
+    from gpu_physics_engine_torch.ops import bigs, tiled
+    from gpu_physics_engine_torch.ops import tiled_kernels as tk
+    n = SPAWN_N + 300
+    run = phase_engine(_spawned_4m, n, [(150, None), (150, CENTRE)],
+                       "4M-spawn", {"collide_integrate": 300,
+                                    "relocate_pull": 150})
+    paths["4M-spawn"] = run["launches"]
+    e = run["engine"]
+    cfg, st = e.config, e.state
+    log(f"[4M-spawn] ({smi}) ms/step with the overlay: windows "
+        f"{[round(w, 4) for w in run['win_ms']]}, next 32 steps "
+        f"{run['steady_ms']:.4f}; without it (the 4M run, same windows) "
+        f"next 32 steps {plain_ms:.4f}; hand-kernel launches a step "
+        f"{sum(run['launches'].values()) / 300:.2f}")
+
+    # K1's general form on the engine's own state
+    prm = e.params().as_tensor("cuda", 1.0 / cfg.substeps)
+    fields = ("x", "y", "px", "py")
+    a, a2, b = (tk.collide_integrate_cuda(st, prm, cfg),
+                tk.collide_integrate_cuda(st, prm, cfg),
+                tk.collide_integrate_plain(st, prm, cfg))
+    _equal_or_raise("k1 4M-spawn general", tuple(getattr(a, f) for f in
+                                                 fields),
+                    tuple(getattr(b, f) for f in fields),
+                    tuple(getattr(a2, f) for f in fields))
+    errs["collide_integrate[general]"] = _max_err(a, b, fields)
+    log(f"[k1] 4M-spawn {list(st.dims)} uniform=False (the engine's state "
+        f"after its {e._steps_done} steps): bit-equal and repeat bit-equal "
+        f"({int((a.x != st.x).sum())} slots moved)")
+    k1 = [cuda_ms(lambda: tk.collide_integrate_plain(st, prm, cfg), reps=2),
+          cuda_ms(lambda: tk.collide_integrate_cuda(st, prm, cfg), reps=20),
+          cuda_ms(lambda: tk.collide_integrate_cuda(st, prm, cfg), reps=20),
+          cuda_ms(lambda: tk.collide_integrate_plain(st, prm, cfg), reps=2)]
+    log(f"[time] collide_integrate[general] {list(st.dims)}: kernel "
+        f"{k1[1]:.4f} / {k1[2]:.4f} ms, plain {k1[0]:.3f} / {k1[3]:.3f} ms "
+        "per launch")
+    del a, a2, b
+
+    # the coupling pass: card twice, against the CPU
+    twin = _twin_on_cpu(e)
+    c1 = bigs.couple_bigs(st, e.big, cfg)
+    c2 = bigs.couple_bigs(st, e.big, cfg)
+    cc = bigs.couple_bigs(twin.state, twin.big, cfg)
+    pairs = [(c1[0].x, c2[0].x, cc[0].x), (c1[0].y, c2[0].y, cc[0].y),
+             (c1[1].x, c2[1].x, cc[1].x), (c1[1].y, c2[1].y, cc[1].y)]
+    for got, again, want in pairs:
+        _equal_or_raise("couple_bigs card vs CPU", got.cpu(), want,
+                        again.cpu())
+    moved = int((c1[0].x != st.x).sum()) + int((c1[1].x != e.big.x).sum())
+    ms_couple = cuda_ms(lambda: bigs.couple_bigs(st, e.big, cfg), reps=10)
+    log(f"[4M-spawn] couple_bigs (W {bigs.window_halfwidth(cfg)}, "
+        f"{e.big.capacity} slots): card == CPU bit for bit and on repeat "
+        f"(x, y of the tiles and the bigs; {moved} values moved); "
+        f"{ms_couple:.4f} ms a pass")
+    del c1, c2, cc
+
+    # render_frame with the overlay: card against the CPU twin
+    got, want = e.render_frame(), twin.render_frame()
+    _within_one("4M-spawn", torch.from_numpy(got), torch.from_numpy(want),
+                "render_frame with the overlay, card vs CPU")
+
+    # the tile insert with the far spill: card against the CPU twin
+    home, jam, burst = _jam_and_burst(e, np.random.default_rng(5))
+    for eng in (e, twin):
+        eng.state = tiled.insert_particles(eng.state, cfg, *jam)
+        eng._spawn_insert(*burst)
+    da, db = tiled.to_numpy(e.state), tiled.to_numpy(twin.state)
+    bad = [f for f in da if not np.array_equal(da[f], db[f])]
+    where = np.argwhere(da["pid"] >= burst[2][0])[:, 1:]
+    ring = np.abs(where - np.asarray(home)).max(1)
+    rings = {int(k): int(c) for k, c in zip(*np.unique(ring,
+                                                       return_counts=True))}
+    if bad or len(where) != 100 or ring.max() < 2:
+        raise AssertionError(f"4M-spawn insert: card != CPU in {bad}; "
+                             f"{len(where)} placed, rings {rings}")
+    log(f"[4M-spawn] insert: {len(jam[0])} particles jam the 3 x 3 block "
+        f"at tile {home}, then 100 spawns at its centre land at rings "
+        f"{rings} "
+        "(far spill); card == CPU bit for bit (every TileState field)")
+    out = (cfg, st, (min(k1[1], k1[2]), min(k1[0], k1[3])))
+    del e, twin, run
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1944,8 +2155,11 @@ def main() -> int:
     # K2 on the engine's own state after its windows (no jitter)
     check_relocate("4M in-step", run["engine"].config, run["engine"].state,
                    MODES, errs, jitter=0)
+    plain_4m_ms = run["steady_ms"]
     del run
     torch.cuda.empty_cache()
+    spawn_cfg, spawn_state, spawn_times = phase_spawn(smi, paths, errs,
+                                                      plain_4m_ms)
     for label, n, steps, want in (
             ("1M", 1_048_576, 128, {"collide_integrate": 128,
                                     "relocate_pull": 32}),
@@ -1975,6 +2189,8 @@ def main() -> int:
     times, library = phase_times(big_cfg, big_state, gs_cfg, gs_state,
                                  radix_bits)
     bound = bounds(big_cfg, big_state, gs_cfg, gs_state, radix_bits)
+    times["collide_integrate[general]"] = spawn_times
+    bound["collide_integrate[general]"] = _k1_bound(spawn_cfg, spawn_state)
     kernels = []
     for name, counter, source, replaces, path in KERNELS:
         n = paths[path][counter]

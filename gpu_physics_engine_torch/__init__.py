@@ -10,7 +10,9 @@ repository as the reference.  Module names mirror the JAX package's:
            pass is three CUDA kernels, the rank/histogram, the digit
            offsets and the scatter), collision.py, resort.py,
            spawn.py, morton.py, scan.py, integrate.py (the array
-           pipelines' stages), tiled.py (tile storage, plain tensor ops, sweeps, the step),
+           pipelines' stages), tiled.py (tile storage, plain tensor ops,
+           sweeps, spawn inserts, the step), bigs.py (the big-particle
+           overlay for spawns too large for the tiles),
            tiled_kernels.py (wrappers of the Jacobi-path CUDA kernels +
            their plain versions), gs_tiled.py (the Gauss-Seidel solve as
            plain tensor ops), gs_kernels.py (the Gauss-Seidel rank and
@@ -19,7 +21,8 @@ repository as the reference.  Module names mirror the JAX package's:
            kernels' wrappers + plain versions), _cuda.py (nvcc build +
            ctypes binding)
   render/  device.py (the device compositor: TiledEngine.render_frame,
-           step_render_frame, render_run), colormap.py (the velocity ramp)
+           step_render_frame, render_run), colormap.py (the velocity ramp),
+           rasterizer.py (the host splat of the overlay's bigs)
   csrc/    the CUDA C++ kernels (sm_90a)
   utils/   FrameTimer, profiling.py (where a step's time goes),
            kernel_study.py (K1 variants, the radix sort's pieces)

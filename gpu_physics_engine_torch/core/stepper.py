@@ -26,8 +26,8 @@ def check_supported(config: SimConfig) -> None:
     """Raise for array-pipeline options the port does not run yet."""
     if config.solver == "fast":
         raise NotImplementedError(
-            "solver='fast' is not ported yet (ROADMAP.md queue 1, item 9: "
-            "ops/fast_solve.py)")
+            "solver='fast' is not ported yet (ROADMAP.md queue 1, "
+            "\"solver='fast'\": ops/fast_solve.py)")
 
 
 def cell_size(config: SimConfig, state: ParticleState) -> torch.Tensor:

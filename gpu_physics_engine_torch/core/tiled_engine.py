@@ -18,14 +18,24 @@ steps there and converts back at its end; single steps use the one-step
 facade.  The sweep, the watchdog and the downloads see the full-space
 state at window boundaries, as in the JAX package.
 
+``spawn_at`` makes the reference's ring burst of radius 1-3 particles.
+Those that fit the tile geometry go into the tiles (home tile, ring 1,
+then the nearest free tile the host finds); the larger ones go into the
+big-particle overlay (ops/bigs.py), which from then on couples to the
+tiles in every step (``hybrid_step_fn``); with tiled_spawn="retile" the
+engine re-tiles for the largest radius instead.  The overlay survives the
+sweeps, the watchdog's re-tiles and the cap growth; the downloads merge
+it with the tiles by pid.
+
 The device compositor (render/device.py) draws frames on the engine's
-device: ``render_frame``, ``step_render_frame`` (one step, then a frame)
-and ``render_run`` (``run``'s windows with a frame after every step, the
-reference's frame loop), which returns a checksum of its frames.
+device: ``render_frame`` (the overlay splatted over it on the host),
+``step_render_frame`` (one step, then a frame) and ``render_run``
+(``run``'s windows with a frame after every step, the reference's frame
+loop; it raises with an overlay, as in the JAX package), which returns a
+checksum of its frames.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item
-by number and title): tiled_sweep="bands", tiled_rebuild_every > 0, spawns
-and the big-particle overlay, checkpoints.
+by title): tiled_sweep="bands", tiled_rebuild_every > 0, checkpoints.
 """
 
 from __future__ import annotations
@@ -37,7 +47,9 @@ import torch
 
 from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.core.state import ParamCache, StepParams
-from gpu_physics_engine_torch.ops import gs_parity, tiled
+from gpu_physics_engine_torch.ops import bigs, gs_parity, tiled
+from gpu_physics_engine_torch.ops.spawn import ring_burst
+from gpu_physics_engine_torch.render import colormap, rasterizer
 from gpu_physics_engine_torch.render import device as render
 from gpu_physics_engine_torch.utils.timer import FrameTimer
 
@@ -63,9 +75,8 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-# ROADMAP.md queue 1 items, by number and title
-_SPAWNS = "item 3, spawns and the big-particle overlay on TiledEngine"
-_OPTIONS = "item 5, the remaining tiled-engine options"
+# a ROADMAP.md queue 1 item, by title
+_OPTIONS = "the remaining tiled-engine options"
 
 
 def _not_ported(what: str, item: str):
@@ -123,6 +134,7 @@ class TiledEngine:
                       "tiled_uniform_radius")
                 self.config = config = config.replace(
                     tiled_uniform_radius=False)
+        self.big: Optional[bigs.BigState] = None  # made by a big spawn
         self._next_pid = int(self.state.num_active)
         self._steps_done = 0
         self.watchdog_events = 0
@@ -191,19 +203,26 @@ class TiledEngine:
             mouse=self.mouse_pos, pressed=self.mouse_pressed)
 
     def _advance(self, params: StepParams, relocate: bool) -> None:
+        """One step: with an overlay the hybrid step over (tiles, bigs)."""
+        if self.big is not None:
+            self.state, self.big = bigs.hybrid_step_fn(
+                self.state, self.big, params, self.config,
+                do_relocate=relocate, prm=self._prm(params))
+            return
         self.state = tiled.tiled_step_fn(self.state, params, self.config,
                                          do_relocate=relocate,
                                          prm=self._prm(params))
 
     def _window(self, params: StepParams, steps: int, frame=None) -> None:
         """``steps`` steps as one window: relocate-first groups of the
-        relocate interval, or under "par" the parity-space GS steps, which
-        relocate on every step (converting once each way).  ``frame(s)``
+        relocate interval (hybrid steps with an overlay), or under "par"
+        without an overlay the parity-space GS steps, which relocate on
+        every step (converting once each way).  ``frame(s)``
         runs after every step on the full-space TileState, or under "par"
         on the ParityState.  The window's tail leaves (steps - 1) % iv
         un-relocated steps."""
         cfg = self.config
-        if self._gs_par:
+        if self._gs_par and self.big is None:
             tiled._backend(cfg.tiled_collide, self.state, "tiled_collide")
             ps = gs_parity.to_parity_state(self.state, cfg)
             for _ in range(steps):
@@ -332,17 +351,33 @@ class TiledEngine:
         self._wd_prev = float(
             tiled.stale_pair_fraction(self.state, self.config)) * 100.0
 
-    def _retile_cap(self, new_cap: int):
-        """Re-tile at the same geometry with a bigger slot capacity."""
+    def _retile_as(self, config: SimConfig) -> None:
+        """Re-tile every tile particle under ``config`` (positions,
+        previous positions, pids and the overflow count carried; the
+        overlay is untouched)."""
         pids, pos, prev, radii = tiled.export_particles(self.state)
         overflow = int(self.state.overflow_count)
-        self.config = self.config.replace(tile_cap=int(new_cap))
-        self.state = tiled.init_tiles(self.config, pos, radii, pids=pids,
+        if config.tile_cap == 0:
+            config = config.replace(tile_cap=_auto_cap(config, pos))
+        self.config = config
+        self.state = tiled.init_tiles(config, pos, radii, pids=pids,
                                       previous_positions=prev,
                                       device=self.device)
         self.state = self.state.replace(
             overflow_count=self.state.overflow_count + overflow)
         self._configure()
+
+    def _retile_cap(self, new_cap: int):
+        """Re-tile at the same geometry with a bigger slot capacity."""
+        self._retile_as(self.config.replace(tile_cap=int(new_cap)))
+
+    def _retile(self, tile_max_radius: float):
+        """Re-tile so that particles up to ``tile_max_radius`` fit: the
+        reference's cell sizing (edge 2.2 x the radius) and a cap sized
+        from the scene, as its grid rebuild after a spawn does."""
+        self._retile_as(self.config.replace(
+            tile_max_radius=float(tile_max_radius), tile_multiplier=2.2,
+            tile_cap=0))
 
     def _maybe_grow_cap(self, steps: int, overflow_before: int):
         """config.tiled_auto_cap_pct: re-tile with +1 slot capacity when the
@@ -384,25 +419,147 @@ class TiledEngine:
     def move_mouse(self, world_pos):
         self.mouse_pos = tuple(map(float, world_pos))
 
-    def spawn_at(self, *args, **kwargs):
-        raise _not_ported("spawn_at", _SPAWNS)
+    def _spawn_insert(self, pos, radii, ids) -> None:
+        """Insert particles that fit the tiles: home tile, ring 1, then
+        the nearest free tile (``tiled.spawn_insert_into``)."""
+        self.state = tiled.spawn_insert_into(self.state, self.config, pos,
+                                             radii, ids)
+
+    def spawn_at(self, world_pos, count: Optional[int] = None,
+                 verbose: bool = True):
+        """The reference's ring burst of ``count`` (default spawn_burst)
+        particles of radius 1-3 around ``world_pos``, drawn from the
+        engine's generator.  Radii the tiles fit go into the tiles, larger
+        ones into the overlay (or, with tiled_spawn="retile", the engine
+        re-tiles first); a radius that breaks the uniform-radius premise
+        turns tiled_uniform_radius off."""
+        cfg = self.config
+        count = count or cfg.spawn_burst
+        needed = float(min(cfg.spawn_radius_max, 3.0))
+        if cfg.tile_max_radius is not None:
+            # an explicit geometry caps the spawn radii
+            if cfg.tile_max_radius_effective < 1.0:
+                raise ValueError(
+                    "spawning needs SimConfig.tile_max_radius >= spawn "
+                    f"radius (min 1.0); tiling was sized for "
+                    f"{cfg.tile_max_radius_effective}")
+            fits_tiles = True
+        else:
+            fits_tiles = cfg.tile_max_radius_effective >= needed
+            if not fits_tiles and cfg.tiled_spawn == "retile":
+                self._retile(needed)
+                fits_tiles = True
+        cfg = self.config
+        if not fits_tiles and cfg.tiled_solver == "gs":
+            raise ValueError(
+                "tiled_solver='gs' requires tile == reference cell "
+                "geometry; size tile_max_radius for the spawn radii or "
+                "use tiled_spawn='retile'")
+        r_max = max(1, int(min(3.0, cfg.tile_max_radius_effective))
+                    if fits_tiles else int(needed))
+        sx, sy, radii = ring_burst(self._gen, world_pos[0], world_pos[1],
+                                   count, max_spawn_radius=r_max)
+        sx = torch.clamp(sx, 0.0, cfg.world_width - 1e-3)
+        sy = torch.clamp(sy, 0.0, cfg.world_height - 1e-3)
+        pos = torch.stack([sx, sy], -1).numpy()
+        radii = radii.numpy()
+        ids = np.arange(count, dtype=np.int32) + np.int32(self._next_pid)
+        self._next_pid += count
+        if cfg.tiled_uniform_radius and bool(np.any(
+                radii != np.float32(cfg.initial_radius))):
+            print("[tiled] spawn with non-uniform radii: disabling "
+                  "tiled_uniform_radius")
+            self.config = cfg.replace(tiled_uniform_radius=False)
+            self._configure()
+        if fits_tiles:
+            self._spawn_insert(pos, radii, ids)
+        else:
+            small = radii <= self.config.tile_max_radius_effective
+            if small.any():
+                self._spawn_insert(pos[small], radii[small], ids[small])
+            if (~small).any():
+                self._insert_bigs(pos[~small], radii[~small], ids[~small])
+        if verbose:
+            print(f"Total particles: {self.num_particles()}")
+        return self.state
+
+    def _insert_bigs(self, pos: np.ndarray, radii: np.ndarray,
+                     ids: np.ndarray, prev: np.ndarray = None) -> None:
+        """Insert into the overlay, made on first use with 128 slots
+        (doubled past a burst) and doubled on demand up to big_capacity;
+        entries past that count in overflow_count.  ``prev`` gives
+        previous positions (a velocity) instead of a spawn at rest.  Reads
+        the overlay's pids once."""
+        cfg = self.config
+        pos = np.asarray(pos, np.float32).reshape(-1, 2)
+        prev = pos if prev is None else np.asarray(prev,
+                                                   np.float32).reshape(-1, 2)
+        m = len(ids)
+        if self.big is None:
+            cap0 = 128
+            while cap0 < m:
+                cap0 *= 2
+            self.big = bigs.init_bigs(min(cap0, cfg.big_capacity),
+                                      device=self.device)
+        pid = self.big.pid.cpu().numpy()
+        free = np.nonzero(pid < 0)[0]
+        if len(free) < m and self.big.capacity < cfg.big_capacity:
+            cap = self.big.capacity
+            new_cap = cap
+            while new_cap < int((pid >= 0).sum()) + m:
+                new_cap *= 2
+            new_cap = min(new_cap, cfg.big_capacity)
+            self.big = bigs.grow_bigs(self.big, new_cap)
+            free = np.concatenate([free, np.arange(cap, new_cap)])
+        n = min(len(free), m)
+        slots = torch.as_tensor(free[:n]).to(self.device)
+        vals = {"x": pos[:n, 0], "y": pos[:n, 1], "px": prev[:n, 0],
+                "py": prev[:n, 1],
+                "radius": np.asarray(radii, np.float32)[:n],
+                "pid": np.asarray(ids, np.int32)[:n]}
+        upd = {}
+        for f, v in vals.items():
+            a = getattr(self.big, f).clone()
+            a[slots] = torch.as_tensor(v).to(self.device)
+            upd[f] = a
+        self.big = self.big.replace(num_active=self.big.num_active + n,
+                                    **upd)
+        if n < m:
+            self.state = self.state.replace(
+                overflow_count=self.state.overflow_count + (m - n))
 
     # ---- downloads ----
 
     def num_particles(self) -> int:
-        return int(self.state.num_active)
+        n = int(self.state.num_active)
+        if self.big is not None:
+            n += int(self.big.num_active)
+        return n
+
+    def _export(self):
+        """(pid, positions, previous positions, radii) of the tiles and
+        the overlay, by ascending pid."""
+        pid, pos, prev, rad = tiled.export_particles(self.state)
+        if self.big is None or int(self.big.num_active) == 0:
+            return pid, pos, prev, rad
+        bpid, bpos, bprev, brad = bigs.export_bigs(self.big)
+        pid = np.concatenate([pid, bpid])
+        order = np.argsort(pid, kind="stable")
+        return (pid[order], np.concatenate([pos, bpos])[order],
+                np.concatenate([prev, bprev])[order],
+                np.concatenate([rad, brad])[order])
 
     def positions(self) -> np.ndarray:
-        return tiled.export_particles(self.state)[1]
+        return self._export()[1]
 
     def previous_positions(self) -> np.ndarray:
-        return tiled.export_particles(self.state)[2]
+        return self._export()[2]
 
     def radii(self) -> np.ndarray:
-        return tiled.export_particles(self.state)[3]
+        return self._export()[3]
 
     def velocities(self) -> np.ndarray:
-        _, pos, prev, _ = tiled.export_particles(self.state)
+        _, pos, prev, _ = self._export()
         return pos - prev
 
     def cell_size(self) -> float:
@@ -414,13 +571,26 @@ class TiledEngine:
                      height: int = 720) -> np.ndarray:
         """The state's velocity-colormap frame, drawn on the engine's
         device -> host u8 [height, width, 3]; ``rect`` = (x0, y0, x1, y1),
-        the world window (default: the 90% auto-fit).  The JAX engine
-        splats big overlay particles over it on the host; the port has no
-        overlay yet (ROADMAP.md queue 1, item 3), so that branch waits for
-        it."""
-        return render.render_tiles_device(self.state, self.config,
-                                          rect=rect, width=width,
-                                          height=height)
+        the world window (default: the 90% auto-fit).  The overlay's bigs
+        are splatted over it on the host (render/rasterizer.py): they are
+        few and large, and the tile-centred device path would distort
+        them."""
+        if rect is None:
+            rect = render.autofit_rect(self.config, width, height)
+        frame = render.render_tiles_device(self.state, self.config,
+                                           rect=rect, width=width,
+                                           height=height)
+        if self.big is None or int(self.big.num_active) == 0:
+            return frame
+        _, bpos, bprev, brad = bigs.export_bigs(self.big)
+        x0, y0, x1, y1 = rect
+        sx = (bpos[:, 0] - x0) * width / (x1 - x0)
+        sy = (y1 - bpos[:, 1]) * height / (y1 - y0)  # world y points up
+        sr = brad * width / (x1 - x0)
+        rgb = colormap.velocity_colors(bpos - bprev)
+        f32 = frame.astype(np.float32) / 255.0
+        rasterizer.splat(f32, sx, sy, sr, rgb)
+        return (np.clip(f32, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
     def step_render_frame(self, rect=None, width: int = 1280,
                           height: int = 720) -> np.ndarray:
@@ -438,9 +608,13 @@ class TiledEngine:
         Windows of up to CHUNK steps, cut at the periodic sweep, each in
         relocate-first groups; under "par" each window steps in parity
         space and draws each frame from there (``render_parity_core``).
-        No watchdog and no cap growth, as in the JAX package.  Returns the
-        sum of every pixel of every frame, wrapped to a signed int32; it is
-        summed on the device and read once, at the end."""
+        No watchdog and no cap growth, and no overlay (it raises), as in
+        the JAX package.  Returns the sum of every pixel of every frame,
+        wrapped to a signed int32; it is summed on the device and read
+        once, at the end."""
+        if self.big is not None:
+            raise NotImplementedError(
+                "render_run does not cover big-overlay scenes")
         draw = render.frame_drawer(self.config, width, height, self.device,
                                    parity=self._gs_par)
         acc = torch.zeros((), dtype=torch.int64, device=self.device)

@@ -7,7 +7,8 @@ each particle's home tile (ops/tiled_kernels.relocate_pull), then one fused
 pass runs the 3x3 x CAP Jacobi pair sweep and the Verlet integration
 (ops/tiled_kernels.collide_integrate).  Periodically an exact sweep
 restores storage == home: the claim ``relocate`` or the wholesale
-``rebuild``.
+``rebuild``.  Spawns enter through ``spawn_insert_into``: the home tile,
+ring 1, then the nearest free tile the host finds.
 
 Everything here is plain PyTorch and runs on whatever device the state
 lives on.  The hot passes dispatch to hand-written CUDA kernels for CUDA
@@ -18,6 +19,7 @@ the relocate, ops/gs_kernels and ops/gs_parity for the Gauss-Seidel solve.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -500,14 +502,12 @@ def _home_lin(state: TileState, config: SimConfig):
 
 def _group_rank(key_sorted: torch.Tensor) -> torch.Tensor:
     """Rank of each entry within its equal-key group of an ascending
-    stably-sorted key vector: a running max over group-start indices."""
+    stably-sorted key vector: its index less its group's first index (a
+    binary search; PyTorch's CUDA cummax of one long row runs in one
+    block)."""
     n = key_sorted.shape[0]
     idx = torch.arange(n, dtype=torch.int64, device=key_sorted.device)
-    first = torch.ones(n, dtype=torch.bool, device=key_sorted.device)
-    first[1:] = key_sorted[1:] != key_sorted[:-1]
-    start = torch.cummax(torch.where(first, idx, torch.zeros_like(idx)),
-                         dim=0).values
-    return idx - start
+    return idx - torch.searchsorted(key_sorted, key_sorted, side="left")
 
 
 def rebuild(state: TileState, config: SimConfig,
@@ -564,6 +564,165 @@ def rebuild(state: TileState, config: SimConfig,
         radius=outs[4].view(shape), pid=outs[5].view(shape),
         num_active=state.num_active - lost,
         overflow_count=state.overflow_count + lost)
+
+
+# ---------------------------------------------------------------------------
+# spawn inserts: home tile, then ring 1, then the host's far spill
+# ---------------------------------------------------------------------------
+
+# The reference never refuses a spawn (its arrays grow and its grid is
+# rebuilt), so a spawn whose home tile is storage-full goes to a nearby
+# tile: off-home storage is a deferred mover that the pull relocate walks
+# home.  Only a full interior grid refuses, into overflow_count.
+INSERT_OFFSETS = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1),
+                  (-1, -1), (-1, 1), (1, -1), (1, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def ring_offsets(ring: int):
+    """(dy, dx) offsets at Chebyshev distance exactly ``ring``, row-major
+    (the init tiler's spill order).  Cached: ``far_targets`` walks the same
+    rings for every entry."""
+    if ring == 0:
+        return ((0, 0),)
+    return tuple((dy, dx)
+                 for dy in range(-ring, ring + 1)
+                 for dx in range(-ring, ring + 1)
+                 if max(abs(dy), abs(dx)) == ring)
+
+
+def _entries(state: TileState, positions, radii, pids):
+    """The insert's fields (x, y, px, py, radius, pid) on the state's
+    device from host or device arrays; a spawn starts at rest."""
+    dev = state.device
+    pos = torch.as_tensor(np.asarray(positions, np.float32)).reshape(-1, 2)
+    x = pos[:, 0].contiguous().to(dev)
+    y = pos[:, 1].contiguous().to(dev)
+    r = torch.as_tensor(np.asarray(radii, np.float32)).reshape(-1).to(dev)
+    ids = torch.as_tensor(np.asarray(pids, np.int32)).reshape(-1).to(dev)
+    return x, y, (x, y, x, y, r, ids)
+
+
+def insert_batch(state: TileState, config: SimConfig, positions, radii,
+                 pids, placed: torch.Tensor, offsets):
+    """One fallback round: each (dy, dx) of ``offsets`` in turn, for every
+    entry not yet ``placed`` (a bool tensor on the state's device).  Rows
+    are clipped to 1..TY-2, the init tiler's spill bound: the pad rows
+    above the world house storage overflow like any other tile.  Returns
+    (state, placed'); num_active and overflow_count are the caller's."""
+    t, TY, TX = tile_geometry(config)
+    x, y, fields = _entries(state, positions, radii, pids)
+    ty_t, tx_t = _tile_of(x, y, t)
+    ty_t = torch.clamp(ty_t, 1, TY - 2)
+    tx_t = torch.clamp(tx_t, 1, TX - 2)
+    for dy, dx in offsets:
+        ty_o = torch.clamp(ty_t + dy, 1, TY - 2)
+        tx_o = torch.clamp(tx_t + dx, 1, TX - 2)
+        state, won = _insert_compacted(state, ty_o, tx_o, fields, ~placed)
+        placed = placed | won
+    return state, placed
+
+
+def insert_at_tiles(state: TileState, positions, radii, pids, ty_t, tx_t,
+                    placed: torch.Tensor):
+    """Place the entries not yet ``placed`` at the host-chosen tiles
+    (ty_t, tx_t) (the far spill).  Returns (state, placed')."""
+    _, _, fields = _entries(state, positions, radii, pids)
+    dev = state.device
+    ty_t = torch.as_tensor(np.asarray(ty_t, np.int32)).to(dev)
+    tx_t = torch.as_tensor(np.asarray(tx_t, np.int32)).to(dev)
+    state, won = _insert_compacted(state, ty_t, tx_t, fields, ~placed)
+    return state, placed | won
+
+
+def far_targets(free_counts, ty_t, tx_t, todo, ty_hi, TX):
+    """Nearest tile with a free slot for each ``todo`` entry, on the host
+    (numpy; the init tiler's widening ring scan).  ``free_counts`` is the
+    [TY, TX] free-slot count, taken greedily in ascending entry order.
+    Returns (ty, tx, found); ``found`` is False only where the whole
+    interior grid is full."""
+    free = np.array(free_counts, np.int64, copy=True)
+    TY = free.shape[0]
+    hty = np.asarray(ty_t, np.int64)
+    htx = np.asarray(tx_t, np.int64)
+    oty = hty.copy()
+    otx = htx.copy()
+    found = np.zeros(oty.shape[0], bool)
+    # a full interior grid places nobody: decided in O(grid), up front
+    interior_free = int(free[1:ty_hi + 1, 1:TX - 1].sum())
+    if interior_free == 0:
+        return oty, otx, found
+    for i in np.nonzero(np.asarray(todo))[0]:
+        if interior_free == 0:
+            break
+        dest = None
+        for ring in range(0, max(TY, TX)):
+            for dy, dx in ring_offsets(ring):
+                sy, sx = hty[i] + dy, htx[i] + dx
+                if not (1 <= sy <= ty_hi and 1 <= sx <= TX - 2):
+                    continue
+                if free[sy, sx] > 0:
+                    dest = (sy, sx)
+                    break
+            if dest is not None:
+                break
+        if dest is None:
+            continue
+        free[dest] -= 1
+        interior_free -= 1
+        oty[i], otx[i] = dest
+        found[i] = True
+    return oty, otx, found
+
+
+def _counted(state: TileState, placed: torch.Tensor) -> TileState:
+    """num_active grows by the entries placed, overflow_count by the rest
+    (one read of the count)."""
+    n_placed = int(placed.sum())
+    return state.replace(
+        num_active=state.num_active + n_placed,
+        overflow_count=state.overflow_count + (placed.shape[0] - n_placed))
+
+
+def spawn_insert_into(state: TileState, config: SimConfig, positions, radii,
+                      pids) -> TileState:
+    """The engine's spawn insert: home and ring 1 on the device, then the
+    entries still unplaced at the nearest free tiles the host finds in the
+    downloaded occupancy (``far_targets``).  Only a full interior grid
+    refuses an entry, counted in overflow_count."""
+    n = np.asarray(radii).reshape(-1).shape[0]
+    placed = torch.zeros(n, dtype=torch.bool, device=state.device)
+    state, placed = insert_batch(state, config, positions, radii, pids,
+                                 placed, INSERT_OFFSETS)
+    if not bool(placed.all()):
+        t, TY, TX = tile_geometry(config)
+        ty_hi = TY - 2
+        free = (state.pid < 0).sum(dim=0).cpu().numpy()
+        p_np = np.asarray(positions, np.float32).reshape(-1, 2)
+        hty = np.clip((p_np[:, 1] // t).astype(np.int64) + 1, 1, ty_hi)
+        htx = np.clip((p_np[:, 0] // t).astype(np.int64) + 1, 1, TX - 2)
+        todo = ~placed.cpu().numpy()
+        ty2, tx2, found = far_targets(free, hty, htx, todo, ty_hi, TX)
+        if found.any():
+            # entries without a target count as placed for this call, so
+            # that it skips them; only real placements are kept after
+            skip = torch.as_tensor(~found).to(state.device)
+            state, placed2 = insert_at_tiles(state, positions, radii, pids,
+                                             ty2, tx2, placed | skip)
+            placed = placed | (placed2 & ~skip)
+    return _counted(state, placed)
+
+
+def insert_particles(state: TileState, config: SimConfig, positions, radii,
+                     pids) -> TileState:
+    """Place new particles at their home tile or ring 1 around it (no far
+    spill: the engine's ``spawn_insert_into`` adds it); the rest count in
+    overflow_count."""
+    n = np.asarray(radii).reshape(-1).shape[0]
+    placed = torch.zeros(n, dtype=torch.bool, device=state.device)
+    state, placed = insert_batch(state, config, positions, radii, pids,
+                                 placed, INSERT_OFFSETS)
+    return _counted(state, placed)
 
 
 # ---------------------------------------------------------------------------

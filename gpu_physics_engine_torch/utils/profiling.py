@@ -13,6 +13,10 @@ CPU-only engine the device fields are empty and the idle share is None.
 (core/tuned.gs_config) instead of the production Jacobi engine, in the
 solve layout ``--layout`` (default "auto"), with ``--mega`` through the
 fused kernels (gs_colors_mega and gs_relocate_mega; the par layout).
+``--spawn`` first makes that many ``spawn_at`` bursts (spawn_burst
+particles each, at points spread across the world), so the Jacobi engine
+steps with the big-particle overlay (ops/bigs.py), and adds the overlay's
+size and ``couple_bigs`` ms a pass.
 ``--render`` profiles ``render_run`` (a step and a 1280 x 720 frame)
 in place of ``run``, and adds ``render_only``:
 the same profile of ``--steps`` frames drawn as ``render_run`` draws them,
@@ -212,6 +216,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--sort-impl", default="radix", choices=["lax", "radix"])
     ap.add_argument("--mouse", action="store_true",
                     help="with --array: the mouse held at the world centre")
+    ap.add_argument("--spawn", type=int, default=0,
+                    help="spawn_at bursts before the warm-up (Jacobi)")
     ap.add_argument("--render", action="store_true",
                     help="profile render_run (a step and a frame) and "
                          "the frames alone")
@@ -243,6 +249,10 @@ def main(argv=None) -> dict:
                              chunk=64, device=args.device)
     else:
         engine = make_tuned_engine(args.particles, device=args.device)
+        cfg = engine.config
+        for k in range(args.spawn):
+            engine.spawn_at(((k + 1) / (args.spawn + 1) * cfg.world_width,
+                             0.5 * cfg.world_height), verbose=False)
     if args.render:
         engine.render_run(args.warmup)
         out = profile_run(engine, args.steps, args.trace,
@@ -254,6 +264,13 @@ def main(argv=None) -> dict:
         out = profile_run(engine, args.steps, args.trace)
     cfg = engine.config
     out.update(particles=args.particles, device=str(engine.device))
+    if getattr(engine, "big", None) is not None:
+        from gpu_physics_engine_torch.ops.bigs import couple_bigs
+        out.update(bigs=int(engine.big.num_active),
+                   big_capacity=engine.big.capacity)
+        if engine.device.type == "cuda":
+            out["couple_bigs_ms"] = cuda_ms(
+                lambda: couple_bigs(engine.state, engine.big, cfg), reps=10)
     if args.array:
         out.update(pipeline=cfg.pipeline, solver=cfg.solver,
                    sort_impl=cfg.sort_impl, mouse=args.mouse)

@@ -19,7 +19,9 @@ digit offsets and the scatter bit for bit on all four passes at 1, 3 and
 1,075 blocks, the radix sort equals torch.sort(stable=True), and the
 array Engine's radix run on the card equals its lax run bit for bit.  The
 device compositor's frames on the card (full space and parity space)
-within one u8 of the CPU's, and render_run equal to run() there.
+within one u8 of the CPU's, and render_run equal to run() there.  The
+big-particle overlay's coupling pass on the card equals the CPU's bit for
+bit, and the spawn engine's hybrid step on the card follows the CPU's.
 """
 
 import numpy as np
@@ -786,3 +788,56 @@ def test_render_run_on_card_matches_run(layout):
     np.testing.assert_array_equal(img, a.render_frame(width=320, height=180))
     assert isinstance(img, np.ndarray) and img.shape == (180, 320, 3)
     assert all(getattr(b.state, f).is_cuda for f in FIELDS)
+
+
+def _spawn_engines(seed=3):
+    """The same scene with three bursts in the overlay, on the CPU and on
+    the card (the bursts drawn once, on the CPU engine's generator)."""
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.ops import bigs
+    cfg = SimConfig(max_particles=6000, initial_particles=6000,
+                    world_width=192.0, world_height=96.0, pipeline="tiled",
+                    tile_cap=8, tile_multiplier=3.3,
+                    tiled_uniform_radius=True, tiled_relocate_interval=2,
+                    sort_interval_steps=16)
+    cpu = TiledEngine(cfg, seed=seed, chunk=8, device="cpu")
+    for p in ((48.0, 48.0), (96.0, 60.0), (144.0, 40.0)):
+        cpu.spawn_at(p, count=60, verbose=False)
+    card = TiledEngine(cpu.config, chunk=8, initial_state=tt.from_numpy(
+        tt.to_numpy(cpu.state), device="cuda"))
+    card.big = bigs.from_numpy(bigs.to_numpy(cpu.big), device="cuda")
+    return cpu, card
+
+
+def test_couple_bigs_on_card_equals_cpu():
+    """The overlay's coupling pass sums in one fixed order on every device:
+    the card equals the CPU bit for bit, and itself on repeat."""
+    from gpu_physics_engine_torch.ops import bigs
+    cpu, card = _spawn_engines()
+    want = bigs.couple_bigs(cpu.state, cpu.big, cpu.config)
+    got = bigs.couple_bigs(card.state, card.big, card.config)
+    again = bigs.couple_bigs(card.state, card.big, card.config)
+    for w, g, a in zip(want, got, again):
+        for f in ("x", "y"):
+            assert torch.equal(getattr(g, f).cpu(), getattr(w, f)), f
+            assert torch.equal(getattr(g, f), getattr(a, f)), f
+
+
+def test_spawn_engine_on_card_matches_cpu_engine():
+    """The hybrid step on the card (K1's general form, K2) against the same
+    engine on the CPU over a relocating and an off step: pids exact,
+    positions close (the plain sweep's rsqrt rounds apart on the CPU, and
+    the scene amplifies that past 1e-4 within 12 steps); the frame with
+    the overlay within one u8."""
+    cpu, card = _spawn_engines()
+    assert not card.config.tiled_uniform_radius
+    for e in (cpu, card):
+        e.press_mouse((96.0, 48.0))
+        e.run(2)
+    a, b = cpu._export(), card._export()
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[0], np.arange(6180))
+    np.testing.assert_allclose(a[1], b[1], atol=1e-4, rtol=0)
+    d = np.abs(cpu.render_frame(width=320, height=180).astype(int)
+               - card.render_frame(width=320, height=180).astype(int))
+    assert d.max() <= 1

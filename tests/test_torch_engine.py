@@ -123,8 +123,7 @@ def test_watchdog_escalates_on_growing_stale_population():
 def test_not_ported_paths_raise():
     _, tcfg = cfgs(tile_cap=4, initial_particles=16)
     e = make_engine(tcfg.replace(pipeline="tiled"), device="cpu")
-    for call in (lambda: e.spawn_at((5.0, 5.0)),
-                 lambda: e.save_checkpoint("x"),
+    for call in (lambda: e.save_checkpoint("x"),
                  lambda: TEngine.from_checkpoint("x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
