@@ -106,6 +106,22 @@ non-zero with no result line:
      with 4 x 256 + 4 launches of each radix kernel, the same run with
      sort_impl="lax" (no radix launch, final state bit-equal), and 64
      steps each of pipeline "bucket" and solver "jacobi";
+  6b. the engine options that raised before (phase_options): the fast
+     solver (solver="fast", the sort + shift Jacobi) on the 1M array
+     Engine with fast_pack_bf16 on and off, the windows of the radix
+     engine (256 steps, the resort at step 240 launching K12 and the radix
+     pass 4 times), and card == CPU bit for bit for both packings on a
+     10,000-particle scene over 8 steps; the 4M-GS engine (the card's par
+     layout: K5-par, K6-par's window, K2-par) with tiled_sweep="bands"
+     for 1,232 steps (5 periodic sweeps, at least 10 band drains) beside
+     the claim sweep from the same start, with the stale % after each
+     sweep and the band drains' ms, then ``rebuild_band`` on the card ==
+     the CPU's at three row starts of its final state; the hybrid sweep
+     (make_tuned_engine(512_000), claim sweep, tiled_rebuild_every=4) for
+     1,000 steps, the 4th sweep the rebuild; the 4M-spawn engine's
+     checkpoint (saved after its windows in phase 4b, 300 bigs) loaded on
+     the card equal to the saved engine and to a CPU load bit for bit,
+     then 64 steps with the seconds of each;
   7. the unfused path (tiled_fuse_integrate=False) at 4,194,304 for 64
      steps: K3 on every step;
   8. kernel times at the main paths' shapes against their plain versions,
@@ -1827,7 +1843,9 @@ def phase_spawn(smi: str, paths: dict, errs: dict, plain_ms: float):
     u8 of the CPU twin's; last, the tile insert with the far spill:
     a 3 x 3 block jammed, 100 radius-0.5 spawns at its centre through
     ``_spawn_insert``, the card's TileState bit-equal to the CPU twin's.
-    Returns (config, state) of the engine after its windows."""
+    Returns (config, state) of the engine after its windows, K1's times
+    and the checkpoint saved after the windows (path, export, the bigs'
+    export, seconds)."""
     import numpy as np
     import torch
     from gpu_physics_engine_torch import StepParams
@@ -1840,6 +1858,13 @@ def phase_spawn(smi: str, paths: dict, errs: dict, plain_ms: float):
     paths["4M-spawn"] = run["launches"]
     e = run["engine"]
     cfg, st = e.config, e.state
+    # the checkpoint phase_options resumes, saved before anything below
+    # changes the state
+    ckpt = f"{_scratch_dir()}/spawn4m.npz"
+    t0 = time.perf_counter()
+    e.save_checkpoint(ckpt)
+    saved = (ckpt, e._export(), bigs.export_bigs(e.big),
+             time.perf_counter() - t0)
     log(f"[4M-spawn] ({smi}) ms/step with the overlay: windows "
         f"{[round(w, 4) for w in run['win_ms']]}, next 32 steps "
         f"{run['steady_ms']:.4f}; without it (the 4M run, same windows) "
@@ -1910,10 +1935,249 @@ def phase_spawn(smi: str, paths: dict, errs: dict, plain_ms: float):
         f"at tile {home}, then 100 spawns at its centre land at rings "
         f"{rings} "
         "(far spill); card == CPU bit for bit (every TileState field)")
-    out = (cfg, st, (min(k1[1], k1[2]), min(k1[0], k1[3])))
+    out = (cfg, st, (min(k1[1], k1[2]), min(k1[0], k1[3])), saved)
     del e, twin, run
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the remaining engine options: solver="fast", the band drain, the hybrid
+# sweep, checkpoints
+# ---------------------------------------------------------------------------
+
+def _scratch_dir():
+    """A fresh directory under the package's git-ignored build directory
+    (the 4M checkpoint is too large to bring back)."""
+    import tempfile
+    from gpu_physics_engine_torch.ops import _cuda
+    root = _cuda.BUILD_DIR
+    root.mkdir(parents=True, exist_ok=True)
+    return tempfile.mkdtemp(prefix="smoke_", dir=root)
+
+
+def _fast_card_vs_cpu() -> None:
+    """The fast solver's engine at 10,000 particles (the 1M scene's
+    density: a 304.8 x 104.8 world), 8 steps under the drag with a resort
+    at step 5, on the card and on the CPU, both packings: bit-equal."""
+    import numpy as np
+    import torch
+    from gpu_physics_engine_torch import Engine, SimConfig
+    rng = np.random.default_rng(12)
+    pos = rng.uniform(0.5, [304.3, 104.3], (10_000, 2)).astype(np.float32)
+    rad = np.full(10_000, 0.5, np.float32)
+    for pack in (True, False):
+        cfg = SimConfig(max_particles=10_000, initial_particles=10_000,
+                        world_width=304.8, world_height=104.8,
+                        solver="fast", sort_impl="radix",
+                        sort_interval_steps=5, fast_pack_bf16=pack)
+        ends = []
+        for dev in ("cuda", "cpu"):
+            e = Engine.from_arrays(cfg, pos, rad, device=dev)
+            e.press_mouse((152.4, 52.4))
+            e.run(8)
+            ends.append(e.state)
+        bad = [f for f in ARRAY_STATE if not torch.equal(
+            getattr(ends[0], f).cpu(), getattr(ends[1], f))]
+        if bad:
+            raise AssertionError(f"fast 10k (pack {pack}): card != CPU in "
+                                 f"{bad}")
+        moved = int((ends[1].x[:10_000] != torch.from_numpy(pos[:, 0]))
+                    .sum())
+        log(f"[fast] 10k, fast_pack_bf16={pack}: card == CPU bit for bit "
+            f"after 8 steps (resort at 5; {moved} of 10000 moved; overflow "
+            f"{int(ends[1].overflow_count)})")
+
+
+def _timed_sweeps(e):
+    """Wrap ``e``'s periodic sweep and band drains to record, per sweep,
+    its ms (host clock, a device sync on both sides) and the stale % just
+    after it, and each sweep's band drains' ms.  The records are the
+    engine's ``sweep_log`` dict."""
+    import torch
+    from gpu_physics_engine_torch.ops import tiled
+    rec = {"sweep_ms": [], "stale_pct": [], "band_ms": []}
+    run_sweep, apply_bands = e._run_sweep, e._apply_bands
+
+    def timed(fn, key, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        rec[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def sweep():
+        out = timed(run_sweep, "sweep_ms")
+        rec["stale_pct"].append(
+            float(tiled.stale_pair_fraction(out, e.config)) * 100.0)
+        return out
+    e._run_sweep = sweep
+    e._apply_bands = lambda state: timed(apply_bands, "band_ms", state)
+    e.sweep_log = rec
+    return e
+
+
+def _bands_4m_gs(paths: dict) -> None:
+    """4M-GS with tiled_sweep="bands" (the card's par layout) for 1,232
+    steps, 5 periodic sweeps with 2 band drains each, beside the claim
+    sweep from the same start; then ``rebuild_band`` on the card against
+    the CPU's at three row starts of the bands engine's final state."""
+    import torch
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import tiled
+    n, steps = 4_194_304, 1232
+    start = TiledEngine(gs_config(n), seed=0, chunk=64,
+                        device="cuda").state
+    runs = {}
+    for label, sweep in (("4M-GS-bands", "bands"),
+                         ("4M-GS-claim", "relocate")):
+        runs[sweep] = phase_engine(
+            lambda: _timed_sweeps(TiledEngine(
+                gs_config(n, tiled_sweep=sweep), chunk=64,
+                initial_state=_clone(start))),
+            n, [(steps, None)], label, _gs_expect(steps, "par"))
+        paths[label] = runs[sweep]["launches"]
+        e = runs[sweep]["engine"]
+        rec = e.sweep_log
+        log(f"[{label}] sweeps {e._sweep_count} (watchdog events "
+            f"{e.watchdog_events}); band drains {e.band_rebuilds}; stale % "
+            f"after each sweep {[round(v, 4) for v in rec['stale_pct']]}; "
+            f"ms a sweep {[round(v, 2) for v in rec['sweep_ms']]}")
+    e = runs["bands"]["engine"]
+    band_ms = e.sweep_log["band_ms"]
+    if e.band_rebuilds < 10 or len(band_ms) < 5:
+        raise AssertionError(f"4M-GS-bands: {e.band_rebuilds} band drains "
+                             f"in {len(band_ms)} sweeps")
+    log(f"[4M-GS-bands] the band drains' ms per sweep "
+        f"({e.config.tiled_band_k} bands of {e.config.tiled_band_rows} "
+        f"rows, the histogram read included) "
+        f"{[round(v, 3) for v in band_ms]}")
+    st = e.state
+    cpu = tiled.from_numpy(tiled.to_numpy(st))
+    TY = st.dims[1]
+    rows = e.config.tiled_band_rows
+    moved = []
+    for r0 in (0, (TY - rows) // 2, TY - rows):
+        got = tiled.rebuild_band(st, e.config, r0, rows=rows)
+        want = tiled.rebuild_band(cpu, e.config, r0, rows=rows)
+        bad = [f for f in tiled.FIELDS
+               if not torch.equal(getattr(got, f).cpu(), getattr(want, f))]
+        if bad:
+            raise AssertionError(f"4M-GS rebuild_band at row {r0}: card != "
+                                 f"CPU in {bad}")
+        moved.append(int((got.pid != st.pid).sum()))
+    log(f"[4M-GS-bands] rebuild_band at rows 0, {(TY - rows) // 2}, "
+        f"{TY - rows} of the final state: card == CPU bit for bit (every "
+        f"plane; {moved} slots changed)")
+    del runs, e, st, cpu, start
+    torch.cuda.empty_cache()
+
+
+def _hybrid_512k(paths: dict) -> None:
+    """make_tuned_engine(512_000) with the claim sweep and
+    tiled_rebuild_every=4 for 1,000 steps: sweeps 1-3 claims, sweep 4 the
+    wholesale rebuild."""
+    from gpu_physics_engine_torch import make_tuned_engine
+    n = 512_000
+    run = phase_engine(
+        lambda: make_tuned_engine(n, device="cuda", tiled_sweep="relocate",
+                                  tiled_rebuild_every=4),
+        n, [(1000, None)], "512k-hybrid", {"collide_integrate": 1000})
+    paths["512k-hybrid"] = run["launches"]
+    e = run["engine"]
+    if run["launches"]["relocate_pull"] <= 0 or e.rebuild_sweeps < 1 or (
+            e.watchdog_events == 0
+            and e.rebuild_sweeps != e._sweep_count // 4):
+        raise AssertionError(
+            f"512k-hybrid: sweeps {e._sweep_count}, rebuilds "
+            f"{e.rebuild_sweeps}, watchdog events {e.watchdog_events}, "
+            f"launches {run['launches']}")
+    log(f"[512k-hybrid] _sweep_count {e._sweep_count}, rebuild_sweeps "
+        f"{e.rebuild_sweeps}, watchdog_events {e.watchdog_events} (after "
+        f"the 1000 steps and 32 more); all {n} pids present")
+
+
+def _resume_4m_spawn(saved, paths: dict) -> None:
+    """The 4M-spawn engine's checkpoint (saved after its windows, 300 bigs
+    in the overlay) loaded on the card: its export and bigs equal the
+    saved engine's bit for bit, and a CPU load's tiles and overlay equal
+    the card's; then 64 steps with every pid kept."""
+    import numpy as np
+    import torch
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.ops import bigs, tiled
+    path, export, big_export, save_s = saved
+    t0 = time.perf_counter()
+    e = TiledEngine.from_checkpoint(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for got, want, what in ((e._export(), export, "export"),
+                            (bigs.export_bigs(e.big), big_export, "bigs")):
+        if not all(np.array_equal(u, v) for u, v in zip(got, want)):
+            raise AssertionError(f"4M-spawn-resume: the card's {what} != "
+                                 "the saved engine's")
+    c = TiledEngine.from_checkpoint(path, device="cpu")
+    a, b = tiled.to_numpy(e.state), tiled.to_numpy(c.state)
+    ab, bb = bigs.to_numpy(e.big), bigs.to_numpy(c.big)
+    bad = [f for f in a if not np.array_equal(a[f], b[f])] + [
+        f"big.{f}" for f in ab if not np.array_equal(ab[f], bb[f])]
+    if bad:
+        raise AssertionError(f"4M-spawn-resume: card load != CPU load in "
+                             f"{bad}")
+    del c
+    n = len(export[0])
+    reset_launches()
+    secs = []
+    for _ in range(64):
+        t0 = time.perf_counter()
+        e.step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    got = launches()
+    paths["4M-spawn-resume"] = got
+    if got["collide_integrate"] != 64 or got["relocate_pull"] <= 0:
+        raise AssertionError(f"4M-spawn-resume: launches {got}")
+    _check_engine(e, n, "4M-spawn-resume")
+    log(f"[4M-spawn-resume] saved in {save_s:.1f} s, loaded on the card in "
+        f"{load_s:.1f} s ({int(e.big.num_active)} bigs, next pid "
+        f"{e._next_pid}): export and bigs == the saved engine's, the CPU "
+        f"load == the card's (every plane) bit for bit")
+    log(f"[4M-spawn-resume] 64 steps (step(), a sync after each), all {n} "
+        f"pids present, finite, inside; launches {got}; seconds a step: "
+        f"first {secs[0]:.4f}, median {sorted(secs)[32]:.5f}, max "
+        f"{max(secs):.4f}, all {[round(v, 5) for v in secs]}")
+    del e
+    torch.cuda.empty_cache()
+
+
+def phase_options(paths: dict, saved) -> None:
+    """The options that raised before this slice, each on the card at full
+    width: the fast solver at 1M (both packings, 256 steps with the resort
+    at step 240: K12 and the radix pass), with card == CPU at 10k; the band
+    drain at 4M-GS beside the claim sweep; the hybrid sweep at 512k; the
+    4M-spawn checkpoint resumed."""
+    import shutil
+    import torch
+    from gpu_physics_engine_torch import Engine
+    t0 = time.perf_counter()
+    for label, pack in (("1M-array-fast", True),
+                        ("1M-array-fast-f32", False)):
+        run = phase_array_engine(
+            lambda: Engine(_array_cfg(solver="fast", sort_impl="radix",
+                                      fast_pack_bf16=pack), seed=0,
+                           device="cuda"),
+            [(128, None), (128, CENTRE)], label, dict.fromkeys(RADIX, 4))
+        paths[label] = run["launches"]
+        del run
+        torch.cuda.empty_cache()
+    _fast_card_vs_cpu()
+    _bands_4m_gs(paths)
+    _hybrid_512k(paths)
+    _resume_4m_spawn(saved, paths)
+    shutil.rmtree(saved[0].rsplit("/", 1)[0], ignore_errors=True)
+    log(f"[options] phase {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2158,8 +2422,8 @@ def main() -> int:
     plain_4m_ms = run["steady_ms"]
     del run
     torch.cuda.empty_cache()
-    spawn_cfg, spawn_state, spawn_times = phase_spawn(smi, paths, errs,
-                                                      plain_4m_ms)
+    spawn_cfg, spawn_state, spawn_times, saved = phase_spawn(
+        smi, paths, errs, plain_4m_ms)
     for label, n, steps, want in (
             ("1M", 1_048_576, 128, {"collide_integrate": 128,
                                     "relocate_pull": 32}),
@@ -2177,6 +2441,7 @@ def main() -> int:
     phase_render(smi, paths)
     radix_bits = phase_array_kernels(errs)
     phase_array_paths(paths)
+    phase_options(paths, saved)
     run = phase_engine(
         lambda: make_tuned_engine(4_194_304, device="cuda",
                                   tiled_fuse_integrate=False),

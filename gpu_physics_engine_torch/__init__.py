@@ -5,11 +5,12 @@ repository as the reference.  Module names mirror the JAX package's:
 
   core/    SimConfig, StepParams, ParticleState, tuned tables, TiledEngine
            (the tiled pipeline), Engine and stepper (the array pipelines:
-           pipeline "sorted" or "bucket", solver "colored" or "jacobi")
+           pipeline "sorted" or "bucket", solver "colored", "jacobi" or
+           "fast")
   ops/     grid.py, sort.py, radix_sort.py (the hand radix sort: each
            pass is three CUDA kernels, the rank/histogram, the digit
-           offsets and the scatter), collision.py, resort.py,
-           spawn.py, morton.py, scan.py, integrate.py (the array
+           offsets and the scatter), collision.py, fast_solve.py (the
+           sort + shift Jacobi solve), resort.py, spawn.py, morton.py, scan.py, integrate.py (the array
            pipelines' stages), tiled.py (tile storage, plain tensor ops,
            sweeps, spawn inserts, the step), bigs.py (the big-particle
            overlay for spawns too large for the tiles),
@@ -19,12 +20,15 @@ repository as the reference.  Module names mirror the JAX package's:
            color kernels' wrappers + plain versions), gs_parity.py (the
            parity-space GS pipeline and the mx/dec solves, with their
            kernels' wrappers + plain versions), _cuda.py (nvcc build +
-           ctypes binding)
+           ctypes binding), _native.py (g++ builds of the host C++: the
+           overlay's rasterizer and init_tiles' spill pass,
+           native/tiler.cpp)
   render/  device.py (the device compositor: TiledEngine.render_frame,
            step_render_frame, render_run), colormap.py (the velocity ramp),
            rasterizer.py (the host splat of the overlay's bigs)
   csrc/    the CUDA C++ kernels (sm_90a)
-  utils/   FrameTimer, profiling.py (where a step's time goes),
+  utils/   FrameTimer, checkpoint.py (the JAX package's .npz format, both
+           engines), profiling.py (where a step's time goes),
            kernel_study.py (K1 variants, the radix sort's pieces)
 
 This package imports torch and numpy, never jax.
@@ -59,9 +63,8 @@ __version__ = "0.1.0"
 
 def make_engine(config: SimConfig, seed: int = 0, device=None):
     """The engine for config.pipeline: TiledEngine for "tiled", the array
-    Engine for "sorted"/"bucket" (solver="fast" raises
-    NotImplementedError).  Runs on the CUDA card unless ``device`` says
-    otherwise (raises without a card)."""
+    Engine for "sorted"/"bucket".  Runs on the CUDA card unless ``device``
+    says otherwise (raises without a card)."""
     if config.pipeline == "tiled":
         return TiledEngine(config, seed=seed, device=default_device(device))
     return Engine(config, seed=seed, device=default_device(device))

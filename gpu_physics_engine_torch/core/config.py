@@ -97,6 +97,9 @@ class SimConfig:
     gs_relocate_mega: bool = False
     render_supersample: int = 1
     tiled_fuse_integrate: bool = True
+    # the port computes the same pair set in the gather form either way
+    # (csrc/tiled_kernels.cuh, K1's note): the flag changes the f32 sum
+    # order of the JAX package's kernel only
     tiled_newton: bool = False
     tiled_uniform_radius: bool = False
     # storage-jam watchdog at run() boundaries

@@ -8,8 +8,11 @@ device and ``run`` synchronises only where ``sync_every`` says and once
 at its end.
 
 Runs on the CUDA card unless the caller passes a device; without a card
-and without ``device="cpu"`` it raises.  solver="fast" is not ported yet
-and raises NotImplementedError.
+and without ``device="cpu"`` it raises.  Checkpoints: utils/checkpoint
+(``save_checkpoint(path, eng.state, eng.config)``, then
+``Engine(config, initial_state=state)`` from ``load_checkpoint``) resume
+with the same resort step as an engine that never stopped: the host
+counter starts from the state's steps_since_sort.
 
     eng = Engine(SimConfig(initial_particles=100_000))  # on the card
     eng.run(600)
@@ -37,7 +40,6 @@ from gpu_physics_engine_torch.utils.timer import FrameTimer
 class Engine:
     def __init__(self, config: SimConfig, seed: int = 0,
                  initial_state: Optional[ParticleState] = None, device=None):
-        stepper.check_supported(config)
         self.config = config
         self._gen = torch.Generator().manual_seed(int(seed))
         if initial_state is None:

@@ -3,9 +3,11 @@
 The reference's frame: the Morton resort (every sort interval), then per
 substep the grid build, the stable sort of the (cell, object) pairs or the
 bucket table, the collision-cell extraction, the 4-color Gauss-Seidel
-solve (or the Jacobi solve), and Verlet.  Plain functions on tensors; the
-only hand kernel on this path is the radix sort's rank/histogram pass
-(sort_impl="radix", ops/radix_sort).  Nothing here reads a value back to
+solve (or the Jacobi solve), and Verlet; solver="fast" replaces all but
+Verlet by the sort + shift Jacobi solve (ops/fast_solve), which builds its
+own candidate entries.  Plain functions on tensors; the only hand kernels
+on this path are the radix sort's passes (sort_impl="radix",
+ops/radix_sort).  Nothing here reads a value back to
 the host: ``step_fn`` takes the resort decision from its caller (the
 Engine keeps the cadence in a host-side counter).
 """
@@ -18,16 +20,8 @@ import torch
 
 from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.core.state import ParticleState
-from gpu_physics_engine_torch.ops import collision, grid, resort
+from gpu_physics_engine_torch.ops import collision, fast_solve, grid, resort
 from gpu_physics_engine_torch.ops.integrate import f32, verlet_integrate
-
-
-def check_supported(config: SimConfig) -> None:
-    """Raise for array-pipeline options the port does not run yet."""
-    if config.solver == "fast":
-        raise NotImplementedError(
-            "solver='fast' is not ported yet (ROADMAP.md queue 1, "
-            "\"solver='fast'\": ops/fast_solve.py)")
 
 
 def cell_size(config: SimConfig, state: ParticleState) -> torch.Tensor:
@@ -39,12 +33,15 @@ def substep(state: ParticleState, prm: torch.Tensor,
             config: SimConfig) -> ParticleState:
     """One collision solve + integrate pass; ``prm`` = f32[4] [dt (scaled
     for the substep), mouse_x, mouse_y, pressed] on the state's device."""
-    check_supported(config)
     active = state.active_mask()
     x, y = state.x, state.y
-    cand = grid.build_candidates(x, y, state.radius, active,
-                                 cell_size(config, state))
-    if config.solver == "colored":
+    cs = cell_size(config, state)
+    if config.solver == "fast":
+        # builds its own candidate entries (positions ride the sort)
+        x, y, overflow = fast_solve.solve_fast(x, y, state.radius, active,
+                                               cs, config)
+    elif config.solver == "colored":
+        cand = grid.build_candidates(x, y, state.radius, active, cs)
         if config.pipeline == "sorted":
             sc, so = grid.sort_map(*grid.build_cell_ids(cand),
                                    impl=config.sort_impl)
@@ -57,6 +54,7 @@ def substep(state: ParticleState, prm: torch.Tensor,
                                        f32(config.stiffness))
         overflow = table.overflow
     else:  # jacobi
+        cand = grid.build_candidates(x, y, state.radius, active, cs)
         home = grid.build_buckets(cand, config, home_only=True)
         x, y = collision.solve_jacobi(x, y, state.radius, home, cand,
                                       config, active)

@@ -9,6 +9,16 @@ the storage-jam watchdog at run() boundaries.  A step issues its kernels
 on the current CUDA stream and never waits for the device; the sweep and
 the watchdog synchronise once each.
 
+The periodic sweep is the claim relocate or the wholesale rebuild
+(tiled_sweep); with tiled_rebuild_every = k (the hybrid) every k-th sweep
+is the rebuild instead; tiled_sweep="bands" follows each claim sweep with
+tiled_band_k band drains (``tiled.rebuild_band``) placed where
+``tiled.stale_per_row`` finds the most drainable stale slots (one
+[TY]-int host read a sweep).  The watchdog drains through the rebuild
+when the hybrid is configured, else through the configured sweep, then
+the bands.  ``save_checkpoint`` / ``from_checkpoint`` write and read the
+JAX package's .npz format (utils/checkpoint), the overlay included.
+
 The engine runs on the CUDA card unless the caller passes a device;
 without a card and without ``device="cpu"`` it raises.  The
 reference-exact Gauss-Seidel solver (tiled_solver="gs") runs the same
@@ -33,13 +43,11 @@ device: ``render_frame`` (the overlay splatted over it on the host),
 (``run``'s windows with a frame after every step, the reference's frame
 loop; it raises with an overlay, as in the JAX package), which returns a
 checksum of its frames.
-
-Not ported yet (each raises NotImplementedError naming its ROADMAP item
-by title): tiled_sweep="bands", tiled_rebuild_every > 0, checkpoints.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -75,30 +83,12 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-# a ROADMAP.md queue 1 item, by title
-_OPTIONS = "the remaining tiled-engine options"
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
-
-
-def _check_supported(config: SimConfig) -> None:
-    if config.tiled_sweep == "bands":
-        raise _not_ported("tiled_sweep='bands'", _OPTIONS)
-    if config.tiled_rebuild_every > 0:
-        raise _not_ported("tiled_rebuild_every > 0 (the hybrid sweep)",
-                          _OPTIONS)
-
-
 class TiledEngine:
     CHUNK = 16  # steps per run() window
 
     def __init__(self, config: SimConfig, seed: int = 0,
                  initial_state: Optional[tiled.TileState] = None,
                  chunk: Optional[int] = None, device=None):
-        _check_supported(config)
         if chunk is not None:
             self.CHUNK = int(chunk)
         if initial_state is not None:
@@ -141,7 +131,12 @@ class TiledEngine:
         self._wd_level = 0
         self._wd_prev = None
         self._wd_retile_pct = None
+        # sweep counters: they survive _configure(), as the schedule and
+        # the hybrid's rebuild phase must across a watchdog re-tile
         self._sweep_count = 0
+        self.rebuild_sweeps = 0
+        self.band_rebuilds = 0
+        self._band_rot = 0
         self._configure()
         self.timer = FrameTimer().start()
         self.mouse_pos: Tuple[float, float] = (0.0, 0.0)
@@ -151,13 +146,15 @@ class TiledEngine:
         """Derive the step schedule from self.config; called at
         construction and after a watchdog config change or re-tile."""
         config = self.config
-        _check_supported(config)
         # the pull relocate moves one hop per step, so the exact sweep is
         # not optional when it is active
         pull_reloc = config.tiled_relocate in ("pallas", "auto")
         self._sweep_interval = config.sort_interval_steps
         if pull_reloc and not self._sweep_interval:
             self._sweep_interval = 240
+        # the hybrid: every k-th periodic sweep is the wholesale rebuild
+        self._rebuild_every = (config.tiled_rebuild_every
+                               if config.tiled_sweep != "rebuild" else 0)
         self._reloc_iv = max(1, config.tiled_relocate_interval)
         self._since_reloc = self._reloc_iv - 1  # relocate on the next step
         # the parity-space GS pipeline: windows step in parity space
@@ -175,22 +172,69 @@ class TiledEngine:
 
     # ---- schedule ----
 
-    def _sweep(self, state: tiled.TileState) -> tiled.TileState:
-        """The exact periodic sweep: wholesale rebuild, or the claim
-        relocate with a population-sized buffer and a rotating tile-scan
-        start."""
+    def _sweep(self, state: tiled.TileState, off: int) -> tiled.TileState:
+        """The configured exact sweep: the wholesale rebuild, or the claim
+        relocate with a population-sized buffer and the tile-scan start
+        ``off``.  tiled_rebuild_impl="gather" runs ``rebuild`` too: its
+        placement is bit-identical to the JAX package's gather form."""
         cfg = self.config
         if cfg.tiled_sweep == "rebuild":
             return tiled.rebuild(state, cfg)
         sweep_cap = cfg.sweep_mover_capacity or max(
             cfg.mover_capacity, cfg.max_particles // 16)
-        return tiled.relocate(state, cfg, m_cap=sweep_cap,
-                              tile_offset=self._sweep_off())
+        return tiled.relocate(state, cfg, m_cap=sweep_cap, tile_offset=off)
 
     def _sweep_off(self) -> int:
-        """Rotating tile-scan start (golden-ratio stride)."""
+        """Count a sweep and return its rotating tile-scan start
+        (golden-ratio stride); every sweep calls it, the rebuild's too."""
         self._sweep_count += 1
         return (self._sweep_count * 2654435761) & 0x7FFFFFFF
+
+    def _run_sweep(self) -> tiled.TileState:
+        """One periodic sweep: the configured one, the wholesale rebuild
+        on every k-th (tiled_rebuild_every = k, the hybrid; no bands
+        then), the band drains after it under "bands"."""
+        off = self._sweep_off()
+        k = self._rebuild_every
+        if k and self._sweep_count % k == 0:
+            self.rebuild_sweeps += 1
+            return tiled.rebuild(self.state, self.config)
+        state = self._sweep(self.state, off)
+        if self.config.tiled_sweep == "bands":
+            state = self._apply_bands(state)
+        return state
+
+    def _apply_bands(self, state: tiled.TileState) -> tiled.TileState:
+        """tiled_band_k band drains: greedy windows of the most drainable
+        stale mass in the ``stale_per_row`` histogram (one host read),
+        overlapping windows suppressed; a flat histogram's leftover bands
+        rotate through the rows with a stride coprime to their number, so
+        successive sweeps cover the grid."""
+        cfg = self.config
+        _, TY, _ = tiled.tile_geometry(cfg)
+        B = min(cfg.tiled_band_rows, TY)
+        hist = tiled.stale_per_row(state, cfg,
+                                   max_dy=cfg.tiled_band_rows).cpu().numpy()
+        w = np.convolve(hist, np.ones(B, np.int64), mode="valid")
+        starts = []
+        for _ in range(cfg.tiled_band_k):
+            i = int(w.argmax())
+            if w[i] <= 0:
+                break
+            starts.append(i)
+            w[max(0, i - B + 1):i + B] = -1  # suppress overlaps
+        M = max(TY - B + 1, 1)
+        stride = B
+        while math.gcd(stride, M) != 1:
+            stride += 1
+        while len(starts) < cfg.tiled_band_k:
+            self._band_rot = (self._band_rot + stride) % M
+            starts.append(self._band_rot)
+        for r0 in starts:
+            state = tiled.rebuild_band(state, cfg, r0,
+                                       rows=cfg.tiled_band_rows)
+        self.band_rebuilds += len(starts)
+        return state
 
     def _reloc_off(self) -> bool:
         """True when this step may skip the relocate."""
@@ -240,9 +284,8 @@ class TiledEngine:
                              if self._reloc_iv > 1 else 0)
 
     def sweep(self) -> None:
-        """Run the exact sweep now (the periodic sweep and the watchdog's
-        forced sweep both come through here)."""
-        self.state = self._sweep(self.state)
+        """Run the periodic sweep now (``_run_sweep``)."""
+        self.state = self._run_sweep()
         self._since_reloc = 0  # the exact sweep restores storage==home
 
     def _maybe_sweep(self) -> None:
@@ -347,7 +390,16 @@ class TiledEngine:
             self._retile_cap(self.config.tile_cap + 1)
             self._wd_retile_pct = pct
             self._wd_level = 2  # cap growth is repeatable
-        self.sweep()
+        # drain with the strongest sweep there is: the rebuild when the
+        # hybrid is configured, else the configured sweep, then the bands
+        off = self._sweep_off()
+        if self._rebuild_every:
+            self.state = tiled.rebuild(self.state, self.config)
+        else:
+            self.state = self._sweep(self.state, off)
+        if self.config.tiled_sweep == "bands":
+            self.state = self._apply_bands(self.state)
+        self._since_reloc = 0
         self._wd_prev = float(
             tiled.stale_pair_fraction(self.state, self.config)) * 100.0
 
@@ -632,11 +684,35 @@ class TiledEngine:
             done += took
         return (int(acc) + (1 << 31)) % (1 << 32) - (1 << 31)
 
-    # ---- not ported yet ----
+    # ---- checkpoints (utils/checkpoint.py: the JAX package's format) ----
 
     def save_checkpoint(self, path: str) -> None:
-        raise _not_ported("checkpoints", _OPTIONS)
+        """The tile particles by pid and the overlay's bigs, with the
+        config as JSON."""
+        from gpu_physics_engine_torch.utils.checkpoint import (
+            save_tiled_checkpoint)
+        save_tiled_checkpoint(path, self.state, self.config, big=self.big)
 
     @classmethod
-    def from_checkpoint(cls, path: str, **kw) -> "TiledEngine":
-        raise _not_ported("checkpoints", _OPTIONS)
+    def from_checkpoint(cls, path: str, seed: int = 0, config=None,
+                        device=None, **config_overrides) -> "TiledEngine":
+        """An engine resumed from ``path``, on the CUDA card unless
+        ``device`` says otherwise.  ``config`` replaces the stored one
+        wholesale, ``config_overrides`` patch fields of it; the particles
+        re-tile under the result, so geometry changes are safe.  The
+        overlay's bigs are re-inserted with their previous positions, and
+        new pids start past them."""
+        from gpu_physics_engine_torch.utils.checkpoint import (
+            load_tiled_bigs, load_tiled_checkpoint, peek_tiled_config)
+        if config is None:
+            config = peek_tiled_config(path)
+        if config_overrides:
+            config = config.replace(**config_overrides)
+        state, _ = load_tiled_checkpoint(path, config=config, device=device)
+        eng = cls(config, seed=seed, initial_state=state)
+        stored = load_tiled_bigs(path)
+        if stored is not None:
+            bpid, bpos, bprev, brad = stored
+            eng._insert_bigs(bpos, brad, bpid, prev=bprev)
+            eng._next_pid = max(eng._next_pid, int(np.max(bpid)) + 1)
+        return eng

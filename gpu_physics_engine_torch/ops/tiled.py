@@ -134,8 +134,9 @@ def init_tiles(config: SimConfig, positions, radii, pids=None,
 
     A stable sort by tile gives each particle its rank in its tile; the
     ones past ``tile_cap`` spill, in ascending particle order, to the
-    nearest tile with room (rings widening out to the whole grid).  This
-    is the JAX package's numpy path, whose layout equals its native
+    nearest tile with room (rings widening out to the whole grid; the
+    spill pass is C++, ops/native/tiler.cpp, for a dense pile's spills).
+    This is the JAX package's numpy path, whose layout equals its native
     tiler's."""
     t, TY, TX = tile_geometry(config)
     cap = config.tile_cap
@@ -175,18 +176,17 @@ def init_tiles(config: SimConfig, positions, radii, pids=None,
 
     fill = np.bincount(tile, minlength=TY * TX)
     np.minimum(fill, cap, out=fill)
-    dropped = 0
-    spill_flat, spill_src = [], []
-    for i in np.sort(order[~keep]):  # ascending particle order
-        dest = _nearest_free(fill, int(ty[i]), int(tx[i]), cap, TY, TX)
-        if dest < 0:
-            dropped += 1
-            continue
-        spill_flat.append(fill[dest] * (TY * TX) + dest)
-        spill_src.append(i)
-        fill[dest] += 1
-    flat = np.concatenate(flat + [np.asarray(spill_flat, np.int64)])
-    src = np.concatenate(src + [np.asarray(spill_src, np.int64)])
+    spilled = np.sort(order[~keep])  # ascending particle order
+    dest = np.full(len(spilled), -1, np.int64)
+    if len(spilled):
+        _tiler().gpe_spill_tiles(
+            np.ascontiguousarray(ty[spilled]),
+            np.ascontiguousarray(tx[spilled]), len(spilled), fill, cap, TY,
+            TX, dest)
+    placed = dest >= 0
+    dropped = int((~placed).sum())
+    flat = np.concatenate(flat + [dest[placed]])
+    src = np.concatenate(src + [spilled[placed]])
 
     def place(vals, fill_value=0.0, dtype=np.float32):
         a = np.full(size, fill_value, dtype)
@@ -202,21 +202,19 @@ def init_tiles(config: SimConfig, positions, radii, pids=None,
         overflow_count=_scalar(dropped, device))
 
 
-def _nearest_free(fill, ty: int, tx: int, cap: int, TY: int, TX: int) -> int:
-    """First interior tile with room on the Chebyshev rings around
-    (ty, tx), rows then columns in ascending order; -1 if none."""
-    for ring in range(1, max(TY, TX)):
-        for dy in range(-ring, ring + 1):
-            for dx in range(-ring, ring + 1):
-                if max(abs(dy), abs(dx)) != ring:
-                    continue  # ring boundary only
-                sy, sx = ty + dy, tx + dx
-                if not (1 <= sy <= TY - 2 and 1 <= sx <= TX - 2):
-                    continue
-                cand = sy * TX + sx
-                if fill[cand] < cap:
-                    return cand
-    return -1
+@functools.lru_cache(maxsize=None)
+def _tiler():
+    """The spill pass of ``init_tiles`` (ops/native/tiler.cpp), built with
+    g++ at first use."""
+    import ctypes
+    from gpu_physics_engine_torch.ops import _native
+    lib = _native.load(_native.PKG / "ops" / "native" / "tiler.cpp")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    lib.gpe_spill_tiles.argtypes = [i64p, i64p, ctypes.c_int64, i64p,
+                                    ctypes.c_int32, ctypes.c_int32,
+                                    ctypes.c_int32, i64p]
+    lib.gpe_spill_tiles.restype = ctypes.c_int64
+    return lib
 
 
 def _displacement(state: TileState, config: SimConfig) -> torch.Tensor:
@@ -564,6 +562,101 @@ def rebuild(state: TileState, config: SimConfig,
         radius=outs[4].view(shape), pid=outs[5].view(shape),
         num_active=state.num_active - lost,
         overflow_count=state.overflow_count + lost)
+
+
+# ---------------------------------------------------------------------------
+# the band drain (tiled_sweep="bands"): stale slots moved home, row band by
+# row band
+# ---------------------------------------------------------------------------
+
+def stale_per_row(state: TileState, config: SimConfig,
+                  max_dy: int = 0) -> torch.Tensor:
+    """i32 [TY]: live slots per storage row whose home tile is not their
+    storage tile.  ``max_dy`` > 0 counts only those whose home row lies
+    less than ``max_dy`` rows from the storage row: the stale mass a band
+    of ``max_dy`` rows can hold at both ends."""
+    t, TY, TX = tile_geometry(config)
+    shape = state.dims
+    ty_h, tx_h = _tile_of(state.x, state.y, t)
+    ty_h = torch.clamp(ty_h, 1, TY - 2)
+    tx_h = torch.clamp(tx_h, 1, TX - 2)
+    ty_s = _iota(shape, 1, state.device)
+    stale = state.occupied() & ((ty_h != ty_s)
+                                | (tx_h != _iota(shape, 2, state.device)))
+    if max_dy > 0:
+        stale = stale & (torch.abs(ty_h - ty_s) < max_dy)
+    return torch.sum(stale, dim=(0, 2), dtype=_I32)
+
+
+def rebuild_band(state: TileState, config: SimConfig, row0: int,
+                 rows: int = 16) -> TileState:
+    """The drain of the ``rows`` tile rows from ``row0`` (clamped to
+    [0, TY - rows]): every stale slot of the band whose home tile lies in
+    the band and has a dead slot moves home; every other slot stays where
+    it is, so num_active and overflow_count do not change.
+
+    The movers are ranked within their home tile by a stable sort of
+    (home tile, source slot); the j-th mover of a tile takes the tile's
+    j-th dead slot (ascending k), as in the JAX package.  Chains resolve
+    over successive drains: a departing slot is a dead slot for the next.
+    Rows outside the band are untouched.  Plain PyTorch; nothing is read
+    back to the host."""
+    t, TY, TX = tile_geometry(config)
+    cap = state.dims[0]
+    rows = min(rows, TY)
+    row0 = min(max(int(row0), 0), TY - rows)
+    NT = rows * TX
+    S = cap * NT
+    dev = state.device
+    bands = [getattr(state, f)[:, row0:row0 + rows].reshape(-1)
+             for f in FIELDS]
+    bx, by, bpid = bands[0], bands[1], bands[5]
+
+    live = (bpid >= 0).view(cap, NT)
+    ty_h, tx_h = _tile_of(bx, by, t)
+    ty_h = torch.clamp(ty_h, 1, TY - 2)
+    tx_h = torch.clamp(tx_h, 1, TX - 2)
+    bty = (ty_h - row0).view(cap, NT)  # band-local home row
+    lin_home = bty * TX + tx_h.view(cap, NT)
+    t_store = torch.arange(NT, dtype=_I32, device=dev)[None, :]
+    mover = live & (bty >= 0) & (bty < rows) & (lin_home != t_store)
+
+    key = torch.where(mover, lin_home, NT).reshape(-1).long()
+    key_s, src_s = torch.sort(key, stable=True)
+    rank = _group_rank(key_s)
+    in_band = key_s < NT
+
+    # slot_of[tile * cap + j] = k of the tile's j-th dead slot
+    dead = ~live
+    dead_i = dead.to(_I32)
+    deadrank = torch.cumsum(dead_i, dim=0, dtype=_I32) - dead_i
+    ndead = torch.sum(dead_i, dim=0, dtype=_I32)
+    slot_pos = torch.where(dead, t_store * cap + deadrank, NT * cap)
+    slot_src = torch.arange(cap, dtype=_I32, device=dev)[:, None].expand(
+        cap, NT)
+    slot_of = torch.zeros(NT * cap + 1, dtype=_I32, device=dev)
+    slot_of[slot_pos.reshape(-1).long()] = slot_src.reshape(-1)
+
+    key_c = torch.clamp(key_s, max=NT - 1)
+    win = in_band & (rank < ndead[key_c])
+    dst_k = slot_of[key_c * cap + torch.clamp(rank, max=cap - 1)].long()
+    # a winner's source is live and its destination dead: disjoint, so
+    # clearing the sources and then filling the destinations never
+    # collides; the losers' writes go to the spare slot S
+    dst = torch.where(win, dst_k * NT + key_c, S)
+    win_src = torch.where(win, src_s, S)
+    src_g = torch.where(win, src_s, 0)
+
+    out = {}
+    for f, flat in zip(FIELDS, bands):
+        vals = flat[src_g]
+        moved = torch.cat([flat, flat.new_zeros(1)])
+        moved[win_src] = _EMPTY if f == "pid" else 0
+        moved[dst] = vals
+        plane = getattr(state, f).clone()
+        plane[:, row0:row0 + rows] = moved[:S].view(cap, rows, TX)
+        out[f] = plane
+    return state.replace(**out)
 
 
 # ---------------------------------------------------------------------------

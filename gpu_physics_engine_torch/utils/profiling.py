@@ -212,7 +212,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--pipeline", default="sorted",
                     choices=["sorted", "bucket"])
     ap.add_argument("--solver", default="colored",
-                    choices=["colored", "jacobi"])
+                    choices=["colored", "jacobi", "fast"])
     ap.add_argument("--sort-impl", default="radix", choices=["lax", "radix"])
     ap.add_argument("--mouse", action="store_true",
                     help="with --array: the mouse held at the world centre")
@@ -224,7 +224,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None)
     ap.add_argument("--trace", default=None, help="chrome trace path")
     ap.add_argument("--sweeps", nargs="+", default=None,
-                    choices=["relocate", "rebuild"],
+                    choices=["relocate", "rebuild", "bands"],
                     help="with --gs: the sweep study, --steps free steps "
                          "per mechanism")
     ap.add_argument("--every", type=int, default=480,

@@ -22,6 +22,9 @@ device compositor's frames on the card (full space and parity space)
 within one u8 of the CPU's, and render_run equal to run() there.  The
 big-particle overlay's coupling pass on the card equals the CPU's bit for
 bit, and the spawn engine's hybrid step on the card follows the CPU's.
+The fast solver's engine (both packings), ``rebuild_band`` and
+``stale_per_row`` on the card equal the CPU's bit for bit, and a tiled
+checkpoint with an overlay loads on the card as on the CPU.
 """
 
 import numpy as np
@@ -841,3 +844,58 @@ def test_spawn_engine_on_card_matches_cpu_engine():
     d = np.abs(cpu.render_frame(width=320, height=180).astype(int)
                - card.render_frame(width=320, height=180).astype(int))
     assert d.max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# solver="fast", the band drain and checkpoints
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pack", [True, False], ids=["bf16", "f32"])
+def test_fast_engine_on_card_equals_cpu(pack):
+    """The sort + shift Jacobi engine sorts stably and folds in one order:
+    the card equals the CPU bit for bit over 8 steps (a resort at 5, the
+    radix sort's kernels on the card)."""
+    from gpu_physics_engine_torch import Engine
+    base = dict(max_particles=3000, initial_particles=3000,
+                world_width=96.0, world_height=32.0, sort_interval_steps=5,
+                solver="fast", sort_impl="radix", fast_pack_bf16=pack)
+    rng = np.random.default_rng(6)
+    pos = rng.uniform(0.5, [95.5, 31.5], (3000, 2)).astype(np.float32)
+    rad = np.full(3000, 0.5, np.float32)
+    states = []
+    for dev in ("cuda", "cpu"):
+        e = Engine.from_arrays(SimConfig(**base), pos, rad, device=dev)
+        e.press_mouse((48.0, 16.0))
+        e.run(8)
+        states.append(e.state)
+    for f in ("x", "y", "px", "py", "overflow_count", "steps_since_sort"):
+        assert torch.equal(getattr(states[0], f).cpu(),
+                           getattr(states[1], f)), f
+
+
+def test_rebuild_band_on_card_equals_cpu():
+    cfg, st = _scene(cap=4, jitter=3.0)
+    _, TY, _ = tt.tile_geometry(cfg)
+    cpu = st.replace(**{f: getattr(st, f).cpu() for f in FIELDS})
+    for r0 in (0, TY // 2, TY - 8):
+        got = tt.rebuild_band(st, cfg, r0, rows=8)
+        want = tt.rebuild_band(cpu, cfg, r0, rows=8)
+        for f in FIELDS:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    np.testing.assert_array_equal(tt.stale_per_row(st, cfg).cpu().numpy(),
+                                  tt.stale_per_row(cpu, cfg).numpy())
+
+
+def test_tiled_checkpoint_loads_on_card_as_on_cpu(tmp_path):
+    cpu, card = _spawn_engines()
+    path = str(tmp_path / "spawn.npz")
+    card.save_checkpoint(path)
+    a = type(card).from_checkpoint(path, device="cuda")
+    b = type(card).from_checkpoint(path, device="cpu")
+    for u, v, w in zip(a._export(), b._export(), card._export()):
+        np.testing.assert_array_equal(u, v)
+        np.testing.assert_array_equal(u, w)
+    for f in FIELDS:
+        assert torch.equal(getattr(a.state, f).cpu(), getattr(b.state, f)), f
+    a.run(4)
+    assert a.num_particles() == card.num_particles()

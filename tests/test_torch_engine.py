@@ -7,6 +7,8 @@ overflow_count must match exactly, positions within 1e-4 world units
 (Newton vs gather sum order, compounded over the steps).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,7 @@ from gpu_physics_engine_tpu.core.tiled_engine import TiledEngine as JEngine
 from gpu_physics_engine_torch import make_engine, make_tuned_engine
 from gpu_physics_engine_torch.core.tiled_engine import TiledEngine as TEngine
 from gpu_physics_engine_torch.ops import tiled as tt
-from test_torch_tiled import assert_same, cfgs, scene
+from test_torch_tiled import assert_same, cfgs, jnp_state, scene
 
 
 def _slice_cfgs(**kw):
@@ -120,19 +122,73 @@ def test_watchdog_escalates_on_growing_stale_population():
     assert e.num_particles() == 300
 
 
-def test_not_ported_paths_raise():
-    _, tcfg = cfgs(tile_cap=4, initial_particles=16)
-    e = make_engine(tcfg.replace(pipeline="tiled"), device="cpu")
-    for call in (lambda: e.save_checkpoint("x"),
-                 lambda: TEngine.from_checkpoint("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    for kw in (dict(tiled_sweep="bands"), dict(tiled_rebuild_every=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TEngine(tcfg.replace(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_engine(tcfg.replace(pipeline="sorted", solver="fast"),
-                    device="cpu")
+def _wd_engines():
+    """The JAX package's watchdog scene (tests/test_watchdog.py: 48
+    particles in the left half of a 96 x 8 world, cap 3, flip, hysteresis
+    0.2, bound 4%) under the hybrid (tiled_rebuild_every=2), in both
+    packages, on the "jnp" step with a one-mover relocate buffer, so a
+    teleported population stays stale until the watchdog drains it."""
+    jcfg, tcfg = cfgs(max_particles=64, initial_particles=64,
+                      world_width=96.0, world_height=8.0, tile_cap=3,
+                      max_occupancy=4, tile_multiplier=2.2,
+                      tiled_match="flip", tiled_hysteresis=0.2,
+                      tiled_watchdog_pct=4.0, sweep_mover_capacity=64,
+                      mover_capacity=1, tiled_collide="jnp",
+                      tiled_relocate="jnp", tiled_rebuild_every=2,
+                      sort_interval_steps=240)
+    rng = np.random.default_rng(0)
+    pos = np.stack([rng.uniform(1.0, 40.0, 48),
+                    rng.uniform(1.0, 7.0, 48)], -1).astype(np.float32)
+    rad = np.full(48, 0.5, np.float32)
+    return (JEngine.from_arrays(jcfg, pos, rad),
+            TEngine.from_arrays(tcfg, pos, rad, device="cpu"))
+
+
+def _inject(je, te, count, hops=5.0):
+    """Teleport the first ``count`` live slots +hops tiles in x, storage
+    kept (px moves too: no velocity), in both engines alike."""
+    import jax.numpy as jnp
+    d = jnp_state(je.state)
+    t = te.cell_size()
+    x, px = d["x"].copy(), d["px"].copy()
+    idx = np.nonzero(d["pid"].ravel() >= 0)[0][:count]
+    xf, pf = x.reshape(-1), px.reshape(-1)
+    shift = np.minimum(xf[idx] + hops * t, 95.0) - xf[idx]
+    xf[idx] += shift
+    pf[idx] += shift
+    je.state = dataclasses.replace(je.state, x=jnp.asarray(x),
+                                   px=jnp.asarray(px))
+    te.state = te.state.replace(x=torch.from_numpy(x),
+                                px=torch.from_numpy(px))
+
+
+def test_watchdog_matches_jax():
+    """The port's escalation against JAX TiledEngine._watchdog on one
+    scene: the forced sweep, hysteresis off, +1 slot capacity, then the
+    futility self-disarm when the re-tile did not cut the stale
+    population; each drain through the hybrid's rebuild.  Levels,
+    events, configs, sweep counters and states must agree."""
+    je, te = _wd_engines()
+    levels = []
+    for count in (0, 16, 24, 32, 40):
+        if count:
+            _inject(je, te, count)
+        for e in (je, te):
+            e.run(2)
+        for f in ("watchdog_events", "_wd_level", "_wd_prev",
+                  "_wd_retile_pct", "_sweep_count", "rebuild_sweeps"):
+            assert getattr(te, f) == getattr(je, f), (count, f)
+        for k in ("tile_cap", "tiled_hysteresis"):
+            assert getattr(te.config, k) == getattr(je.config, k), k
+        assert_same(je.state, te.state, atol=1e-4)
+        levels.append((te.watchdog_events, te._wd_level,
+                       te.config.tile_cap))
+    # baseline; forced sweep; hysteresis off; cap 3 -> 4; futility
+    assert levels == [(0, 0, 3), (1, 1, 3), (2, 2, 3), (3, 2, 4),
+                      (4, 1, 4)]
+    assert te.config.tiled_hysteresis == 0.0
+    assert te._sweep_count == 4 and te.rebuild_sweeps == 0
+    assert te.num_particles() == 48
 
 
 def test_step_matches_run_single_steps():

@@ -103,10 +103,10 @@ def test_tile_geometry_matches(kw):
     assert jt.tile_geometry(jcfg) == tt.tile_geometry(tcfg)
 
 
-@pytest.mark.parametrize("case", ["random", "spill", "pids_prev"])
+@pytest.mark.parametrize("case", ["random", "spill", "pids_prev", "pile"])
 def test_init_tiles_matches_native_tiler(case):
-    """The port's numpy tiler lays particles out exactly as the JAX
-    package's native tiler does, spills included."""
+    """The port's tiler (numpy, its spill pass in C++) lays particles out
+    exactly as the JAX package's native tiler does, spills included."""
     if case == "random":
         jcfg, tcfg = cfgs(tile_cap=4)
         pos, rad, prev = scene(300, 1)
@@ -120,6 +120,19 @@ def test_init_tiles_matches_native_tiler(case):
         rad = np.full(120, 0.3, np.float32)
         a, b = both_states(jcfg, tcfg, pos, rad)
         assert int(b.num_active) == 120
+    elif case == "pile":
+        # a pile against a wall, past the grid's room: spills out to far
+        # rings (through the neighbours' cursors), then drops
+        jcfg, tcfg = cfgs(tile_cap=2, world_width=20.0, world_height=12.0,
+                          tile_multiplier=2.2, max_particles=2000,
+                          initial_particles=2000)
+        rng = np.random.default_rng(4)
+        pos = np.clip(np.array([2.0, 6.0]) + rng.normal(0, 2.0, (2000, 2)),
+                      0.01, [19.99, 11.99]).astype(np.float32)
+        a, b = both_states(jcfg, tcfg, pos, np.full(2000, 0.3, np.float32))
+        _, TY, TX = tt.tile_geometry(tcfg)
+        full = 2 * (TY - 2) * (TX - 2)  # every interior slot
+        assert int(b.num_active) == full and int(b.overflow_count) > 0
     else:
         jcfg, tcfg = cfgs(tile_cap=3)
         pos, rad, prev = scene(200, 3)
