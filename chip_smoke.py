@@ -124,6 +124,27 @@ non-zero with no result line:
      then 64 steps with the seconds of each;
   7. the unfused path (tiled_fuse_integrate=False) at 4,194,304 for 64
      steps: K3 on every step;
+  7b. the apps layer (phase_apps): each of the five scenes (tiny,
+     interactive, million, four_million, sixteen_million) through the
+     headless CLI, ``headless.main([--scene, name, --device cuda, ...])``,
+     at its own step count (four_million with ``--tilemap --render-every
+     50`` and a chrome trace; sixteen_million, 16,777,216 particles on one
+     card, with ``--render-every 50`` through the Viewer's device path;
+     million with ``--render-every 300`` through the host splat), each
+     with its summary, ms/step from CUDA events, construction seconds,
+     peak device memory and launch counts (four_million K1 400 times at
+     substeps=2 and K2 100; sixteen_million K1 and K2 100 each), the
+     particle count, the bounds and the PNG frames checked; on the
+     four_million and sixteen_million states (their shapes and configs),
+     K1 at the scene's dt_scale (0.5 at four_million) and K2 under its
+     match and hysteresis on a jittered copy, each bit-equal to its plain
+     version, twice; the phase breakdowns (``tiled_phase_breakdown`` of the 4M
+     engine: K2, K3, K1; of the 1M-GS engine in the par layout: K5-par and
+     the color window; ``phase_breakdown`` of the 1M array Engine with
+     sort_impl="radix": K12 and the radix pass), every phase finite and
+     positive; the web app on make_tuned_engine(1_048_576) through
+     ``make_server(port=0)``: the page, PNG frames, a move, a press and
+     release and the key p, then 1,048,676 particles in /stats;
   8. kernel times at the main paths' shapes against their plain versions,
      with each kernel's bound on this card (and, for K12, the time of
      torch.sort(stable=True) of the same pairs beside the whole hand radix
@@ -141,6 +162,7 @@ import subprocess
 import sys
 import time
 
+from gpu_physics_engine_torch.utils.kernel_study import jittered
 from gpu_physics_engine_torch.utils.profiling import cuda_ms
 
 # H100 SXM data-sheet peaks (dense): device memory bytes/s and f32 FLOP/s
@@ -232,19 +254,6 @@ def check_window_formula() -> None:
         f"most {most['K6', False]} B")
 
 
-def _jittered(state, scale, seed):
-    """``state`` with live x/y displaced by up to +-scale (on the card)."""
-    import torch
-    g = torch.Generator(device=state.device).manual_seed(seed)
-    occ = state.pid >= 0
-    dx = (torch.rand(state.x.shape, generator=g, device=state.device)
-          - 0.5) * 2 * scale
-    dy = (torch.rand(state.x.shape, generator=g, device=state.device)
-          - 0.5) * 2 * scale
-    return state.replace(x=torch.where(occ, state.x + dx, state.x),
-                         y=torch.where(occ, state.y + dy, state.y))
-
-
 def _clone(state):
     """A TileState with every tensor copied."""
     return state.replace(**{f: getattr(state, f).clone() for f in (
@@ -289,7 +298,7 @@ def check_relocate(label, cfg, st, modes, errs: dict, jitter=0.6) -> None:
     repeat, no pid lost."""
     import torch
     from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
-    moved = (_jittered(st, jitter * tiled.tile_geometry(cfg)[0], seed=1)
+    moved = (jittered(st, jitter * tiled.tile_geometry(cfg)[0], seed=1)
              if jitter else st)
     for match, hyst in modes:
         c = cfg.replace(tiled_match=match, tiled_hysteresis=hyst)
@@ -322,7 +331,7 @@ def check_relocate_par(label, cfg, st, modes, errs: dict, jitter=0.6,
     parity (gs_par_fused=False), for each (match, hysteresis) of
     ``modes``: bit-equal, bit-equal on repeat, no pid lost."""
     from gpu_physics_engine_torch.ops import gs_parity as gp, tiled
-    moved = (_jittered(st, jitter * tiled.tile_geometry(cfg)[0], seed=seed)
+    moved = (jittered(st, jitter * tiled.tile_geometry(cfg)[0], seed=seed)
              if jitter else st)
     n_live = int((moved.pid >= 0).sum())
     for match, hyst in modes:
@@ -554,7 +563,7 @@ def phase_gs_kernels(scenes, errs: dict) -> None:
     runs = [("small", small_cfg, small)] + list(scenes)
     for i, (label, cfg, st) in enumerate(runs):
         # storage off home, as in a run
-        st = _jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=4 + i)
+        st = jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=4 + i)
         ka, ta = gk.solve_frame(st, cfg, gk.rank_cuda, gk.colors_cuda)
         ka2, ta2 = gk.solve_frame(st, cfg, gk.rank_cuda, gk.colors_cuda)
         pb, tb = gk.solve_frame(st, cfg, gk.rank_plain, gk.colors_plain)
@@ -594,7 +603,7 @@ def phase_gs_kernels(scenes, errs: dict) -> None:
                                         ("cap32-K16", 32, 16, 3000,
                                          (40.0, 30.0))):
             cfg, st = _gs_ragged_state(cap, K, uniform, n, world)
-            st = _jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=cap)
+            st = jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=cap)
             if label != "tiny":
                 check_rank(label, cfg, st, errs)
             check_window(label, cfg, st, errs)
@@ -688,7 +697,7 @@ def phase_par_kernels(scenes, errs: dict) -> None:
     runs = [("small", mixed_cfg, mixed), ("small-uniform", ucfg, uni)]
     for i, (label, cfg, st) in enumerate(runs + list(scenes)):
         t = tiled.tile_geometry(cfg)[0]
-        st = _jittered(st, 0.3 * t, seed=20 + i)  # storage off home
+        st = jittered(st, 0.3 * t, seed=20 + i)  # storage off home
         prm = _prm(cfg)
         for origin in (-1, 0):
             ps = gp.to_parity_state(st, cfg, origin)
@@ -770,7 +779,7 @@ def phase_tile_division(cfg, state) -> None:
         log(f"[tile] {label}: _tile_of on the card == numpy f32 "
             f"floor(x / t) + 1 on all {len(want)}; floor(x * (1/t)) would "
             f"put {recip} elsewhere, the card's x / float(t) {byfloat}")
-    moved = _jittered(state, 0.6 * t, seed=11)
+    moved = jittered(state, 0.6 * t, seed=11)
     card = tiled.relocate(moved, cfg)
     cpu = tiled.relocate(moved.replace(**{
         f: getattr(moved, f).cpu() for f in tiled.FIELDS + (
@@ -814,7 +823,7 @@ def check_relocate_one(label, cfg, st, errs: dict) -> None:
     K4 must equal K2 on every tile out of reach of those particles."""
     import torch
     from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
-    moved = _jittered(st, 0.6 * tiled.tile_geometry(cfg)[0], seed=7)
+    moved = jittered(st, 0.6 * tiled.tile_geometry(cfg)[0], seed=7)
     c = cfg.replace(tiled_match="greedy", tiled_hysteresis=-1.0)
     a, da = tk.relocate_one_cuda(moved, c)
     a2, da2 = tk.relocate_one_cuda(moved, c)
@@ -859,7 +868,7 @@ def check_relocate_mega(label, cfg, st, modes, errs: dict,
     from gpu_physics_engine_torch.ops import gs_mega as gm
     from gpu_physics_engine_torch.ops import gs_parity as gp
     from gpu_physics_engine_torch.ops import tiled
-    moved = _jittered(st, 0.6 * tiled.tile_geometry(cfg)[0], seed=seed)
+    moved = jittered(st, 0.6 * tiled.tile_geometry(cfg)[0], seed=seed)
     deferred = []
     for match, hyst in modes:
         c = cfg.replace(tiled_match=match, tiled_hysteresis=hyst,
@@ -906,7 +915,7 @@ def phase_fused_kernels(gs_scenes, cfg4m, st4m, errs: dict) -> None:
     for i, (label, cfg, st) in enumerate([("small-uniform", ucfg, uni)]
                                          + list(gs_scenes)):
         t = tiled.tile_geometry(cfg)[0]
-        ps = gp.to_parity_state(_jittered(st, 0.3 * t, seed=60 + i), cfg)
+        ps = gp.to_parity_state(jittered(st, 0.3 * t, seed=60 + i), cfg)
         src, _, rrad, _ = gp.rank_par_cuda(ps, cfg)
         prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
                                              0.5 * cfg.world_height),
@@ -1389,7 +1398,7 @@ def _par_runs(gs_cfg, gs_state) -> dict:
     from gpu_physics_engine_torch.ops import tiled
     cfg = gs_cfg
     ps = gp.to_parity_state(gs_state, cfg)
-    far = gp.to_parity_state(_jittered(
+    far = gp.to_parity_state(jittered(
         gs_state, 0.3 * tiled.tile_geometry(cfg)[0], seed=2), cfg)
     src, _, rrad, _ = gp.rank_par_cuda(ps, cfg)
     fsrc, _, frrad, _ = gk.rank_cuda(gs_state, cfg)
@@ -1449,7 +1458,7 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
     prm = StepParams.make(cfg.dt).as_tensor("cuda")
-    moved = _jittered(state, 0.3 * tiled.tile_geometry(cfg)[0], seed=2)
+    moved = jittered(state, 0.3 * tiled.tile_geometry(cfg)[0], seed=2)
     src, _, rrad, _ = gk.rank_cuda(gs_state, gs_cfg)
 
     def colors(fn):
@@ -2281,8 +2290,8 @@ def phase_render(smi: str, paths: dict) -> None:
     from gpu_physics_engine_torch.render import device as rd
     t0 = time.perf_counter()
     e = make_tuned_engine(256_000, device="cuda")
-    moving = _jittered(e.state, 0.3, seed=5)
-    moving = moving.replace(px=_jittered(moving, 0.1, seed=6).x)
+    moving = jittered(e.state, 0.3, seed=5)
+    moving = moving.replace(px=jittered(moving, 0.1, seed=6).x)
     cfg = e.config.replace(render_supersample=2)
     _render_vs_cpu("256k", cfg, moving, rd.autofit_rect(cfg, 1280, 720))
     del e, moving
@@ -2300,8 +2309,8 @@ def phase_render(smi: str, paths: dict) -> None:
         cfg = e.config
         if label == "4M":
             moving = e.state.replace(
-                px=_jittered(e.state, 0.1, seed=7).x,
-                py=_jittered(e.state, 0.1, seed=8).y)
+                px=jittered(e.state, 0.1, seed=7).x,
+                py=jittered(e.state, 0.1, seed=8).y)
             _render_vs_cpu("4M", cfg, moving,
                            rd.autofit_rect(cfg, 1280, 720))
             _render_vs_cpu("4M", cfg, moving, (1100.0, 300.0, 1420.0, 480.0))
@@ -2372,6 +2381,359 @@ def phase_render(smi: str, paths: dict) -> None:
     log(f"[render] phase {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the apps layer: the scenes through the headless CLI, the phase
+# breakdowns, the web app
+# ---------------------------------------------------------------------------
+
+# scene -> (extra CLI flags, the launch counts its run must give)
+APP_SCENES = (
+    ("tiny", [], {}),
+    ("interactive", [], {}),
+    ("million", ["--render-every", "300"], {}),
+    ("four_million", ["--tilemap", "--render-every", "50"],
+     {"collide_integrate": 400, "relocate_pull": 100}),
+    ("sixteen_million", ["--render-every", "50"],
+     {"collide_integrate": 100, "relocate_pull": 100}),
+)
+
+
+def _check_particles(e, n, label) -> None:
+    """``n`` particles, every position finite and inside [r, W - r] x
+    [r, H - r]; on the tiled engine also the pid set arange(n)."""
+    import numpy as np
+    if hasattr(e, "_export"):
+        _check_engine(e, n, label)
+        return
+    if e.num_particles() != n:
+        raise AssertionError(f"{label}: {e.num_particles()} particles, "
+                             f"expected {n}")
+    pos, rad, cfg = e.positions(), e.radii(), e.config
+    inside = (np.isfinite(pos).all(1)
+              & (pos[:, 0] >= rad - 1e-4)
+              & (pos[:, 0] <= cfg.world_width - rad + 1e-4)
+              & (pos[:, 1] >= rad - 1e-4)
+              & (pos[:, 1] <= cfg.world_height - rad + 1e-4))
+    if not inside.all():
+        raise AssertionError(f"{label}: {int((~inside).sum())} particles "
+                             "not finite or outside [r, W-r] x [r, H-r]")
+
+
+def _cli_scene(name, extra, want, out_root, paths: dict):
+    """``headless.main`` on the scene with ``--device cuda``: construction
+    seconds (from the call to the built engine), ms/step from CUDA events
+    around the CLI's step loop (its ``around_run`` hook; the frames drawn
+    between steps included, the summary's downloads not), the peak of
+    allocated device memory, the launch counts (zeroed just before the
+    loop, read just after the run), then the particle count, the bounds
+    and the frames; last, ``step()`` alone over up to 50 more steps (CUDA
+    events)."""
+    import contextlib
+    import os
+    import torch
+    from gpu_physics_engine_torch.app import headless
+    from gpu_physics_engine_torch.scenes import get_scene
+    scene = get_scene(name)
+    out = os.path.join(out_root, name)
+    argv = ["--scene", name, "--device", "cuda", "--summary-json",
+            "--out", out] + extra
+    if name == "four_million":
+        argv += ["--chrometrace", os.path.join(out_root, f"{name}.json")]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    built = {}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    @contextlib.contextmanager
+    def around_run(e):
+        torch.cuda.synchronize()
+        built["s"] = time.perf_counter() - t0
+        built["engine"] = e
+        reset_launches()
+        start.record()
+        yield
+        end.record()
+
+    t0 = time.perf_counter()
+    summary = headless.main(argv, around_run=around_run)
+    end.synchronize()
+    got = launches()
+    e = built["engine"]
+    n = scene.config.initial_particles + e.config.spawn_burst * sum(
+        ev.kind == "spawn" for ev in scene.events)
+    peak = torch.cuda.max_memory_allocated()
+    ms = start.elapsed_time(end) / scene.steps
+    log(f"[apps] {name}: {summary}")
+    log(f"[apps] {name}: {type(e).__name__} pipeline "
+        f"{e.config.pipeline}, {scene.steps} steps, construction "
+        f"{built['s']:.2f} s, {ms:.4f} ms/step (CUDA events over the run, "
+        f"frames included), peak allocated {peak / 2**30:.3f} GiB "
+        f"({(peak - base) / 2**30:.3f} GiB above the "
+        f"{base / 2**30:.3f} GiB held before), launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    for k, v in want.items():
+        if got[k] != v:
+            raise AssertionError(f"{name}: {k} launched {got[k]} times, "
+                                 f"expected {v}")
+    if summary["particles"] != n or not summary["finite"]:
+        raise AssertionError(f"{name}: summary {summary}, expected {n}")
+    _check_particles(e, n, f"apps {name}")
+    every = int(extra[extra.index("--render-every") + 1]) \
+        if "--render-every" in extra else 0
+    frames = sorted(os.listdir(out)) if every else []
+    if len(frames) != (-(-scene.steps // every) if every else 0):
+        raise AssertionError(f"{name}: frames {frames}")
+    for f in frames:
+        with open(os.path.join(out, f), "rb") as fh:
+            if fh.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"{name}: {f} is not a PNG")
+    if frames:
+        log(f"[apps] {name}: {len(frames)} PNG frames written")
+    if name == "four_million":
+        with open(os.path.join(out_root, f"{name}.json")) as fh:
+            trace = json.load(fh)["traceEvents"]
+        steps = [ev for ev in trace if ev["name"].startswith("frame ")]
+        if len(steps) != scene.steps or not all(
+                ev["ph"] == "X" and ev["dur"] >= 0 for ev in trace):
+            raise AssertionError(f"{name}: chrome trace {len(trace)} events")
+        log(f"[apps] {name}: chrome trace with {len(trace)} events")
+    paths[f"{name}-cli"] = got
+    more = min(scene.steps, 50)
+    alone = cuda_ms(e.step, reps=more, warmup=0)
+    log(f"[apps] {name}: step() alone {alone:.4f} ms/step over {more} more "
+        f"steps (CUDA events)")
+    return e, ms, alone, built["s"], peak
+
+
+def _tile_stats_probe(e, label) -> None:
+    """``tile_stats`` (plain PyTorch, the tile map's device half) on the
+    scene's state: device ms (CUDA events, 20 calls), the launches and
+    device time of one call (torch.profiler, CUDA activity), and its bound
+    (x, y, px, py and pid read once, the two [TY, TX] maps written)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gpu_physics_engine_torch.render.tilemap import tile_stats
+    from gpu_physics_engine_torch.utils.profiling import _device_us
+    ms = cuda_ms(lambda: tile_stats(e.state))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tile_stats(e.state)
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages() if _device_us(r) > 0]
+    cap, TY, TX = e.state.dims
+    nbytes = 5 * 4 * cap * TY * TX + 2 * 4 * TY * TX
+    log(f"[apps] tile_stats {label} [{cap}, {TY}, {TX}]: {ms:.4f} ms "
+        f"(CUDA events), one call {sum(r.count for r in rows)} launches "
+        f"{sum(_device_us(r) for r in rows) / 1e3:.4f} device-ms; bound "
+        f"{nbytes / PEAK_BYTES * 1e3:.4f} ms (bytes)")
+
+
+def _scene_kernels(name, e, errs: dict) -> None:
+    """K1 and K2 against their plain versions at the scene's own shape and
+    config, each bit-equal and bit-equal on repeat: K1 with the scene's
+    dt_scale (1 / substeps: 0.5 at four_million) and params on its state
+    with velocity added (x, y displaced by up to 0.05 as the previous
+    positions), then K2 under the scene's match and hysteresis on its
+    state jittered by up to 0.6 tile (``check_relocate``)."""
+    import torch
+    from gpu_physics_engine_torch.ops import tiled_kernels as tk
+    cfg = e.config
+    moving = jittered(e.state, 0.05, seed=3)
+    st = e.state.replace(px=moving.x, py=moving.y)
+    prm = e.params().as_tensor("cuda", 1.0 / cfg.substeps)
+    a = tk.collide_integrate_cuda(st, prm, cfg)
+    a2 = tk.collide_integrate_cuda(st, prm, cfg)
+    b = tk.collide_integrate_plain(st, prm, cfg)
+    torch.cuda.synchronize()
+    fields = ("x", "y", "px", "py")
+    err = _max_err(a, b, fields)
+    if not (_same(a, b, fields) and _same(a, a2, fields)):
+        raise AssertionError(f"K1 {name} dt_scale {1.0 / cfg.substeps}: "
+                             f"max err {err}")
+    errs["collide_integrate"] = max(errs.get("collide_integrate", 0.0), err)
+    log(f"[k1] {name} {list(st.dims)} substeps {cfg.substeps} "
+        f"(dt_scale {1.0 / cfg.substeps}): bit-equal and repeat bit-equal "
+        f"({int((a.x != st.x).sum())} slots moved)")
+    del a, a2, b, st, moving
+    check_relocate(name, cfg, e.state,
+                   [(cfg.tiled_match, cfg.tiled_hysteresis)], errs)
+
+
+def _breakdown(label, fn, engine, expect) -> None:
+    """One phase breakdown on ``engine``'s state: every phase printed,
+    finite and positive; the kernels in ``expect`` launched."""
+    import math
+    reset_launches()
+    out = fn(engine.config, engine.state, engine.params())
+    got = launches()
+    for phase, ms in out.items():
+        log(f"[breakdown] {label} {phase}: {ms:.4f} ms")
+    bad = [p for p, ms in out.items() if not (math.isfinite(ms) and ms > 0)]
+    if bad:
+        raise AssertionError(f"{label}: phases {bad} not finite and positive")
+    missing = [k for k in expect if got[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} not launched ({got})")
+    log(f"[breakdown] {label}: launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+
+
+def _web_app(paths: dict) -> None:
+    """The web app in-process on make_tuned_engine(1_048_576): the page, at
+    least 5 PNG frames, a move, a press and release and the key p (a
+    spawn burst of radius 1-3 into the overlay, splatted on the host);
+    /stats then shows the frames advanced and 1,048,676 particles.  The
+    app's frames/s is read over 120 frames before the spawn and 120
+    after, while a client fetches /frame.png back to back as the page
+    does (wall clock: the sim thread's step, frame, PNG and count)."""
+    import http.client
+    import threading
+    import torch
+    from gpu_physics_engine_torch import make_tuned_engine
+    from gpu_physics_engine_torch.app.web import WebApp, make_server
+    from gpu_physics_engine_torch.render.viewer import Viewer
+
+    def request(port, method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request(method, path, body)
+        r = conn.getresponse()
+        got = r.status, r.read()
+        conn.close()
+        return got
+
+    def wait(cond, seconds=120.0):
+        deadline = time.time() + seconds
+        while time.time() < deadline and not cond():
+            time.sleep(0.05)
+        return cond()
+
+    def rate(label, frames=120, seconds=120.0):
+        f0, t0, fetched = app.stats()["frame"], time.perf_counter(), 0
+        while app.stats()["frame"] < f0 + frames:
+            if time.perf_counter() - t0 > seconds:
+                got = app.stats()["frame"] - f0
+                raise AssertionError(f"web: {label}, {got} frames in "
+                                     f"{seconds} s")
+            status, png = request(port, "GET", "/frame.png")
+            if status != 200 or not png.startswith(b"\x89PNG\r\n\x1a\n"):
+                raise AssertionError(f"web: frame {status} {label}")
+            fetched += 1
+        f, took = app.stats()["frame"] - f0, time.perf_counter() - t0
+        log(f"[apps] web {label}: {f} frames in {took:.3f} s, "
+            f"{f / took:.3f} frames/s ({fetched} PNGs fetched meanwhile)")
+        return f / took
+
+    e = make_tuned_engine(1_048_576, device="cuda")
+    cfg = e.config
+    app = WebApp(e, Viewer((cfg.world_width, cfg.world_height), (1280, 720)))
+    reset_launches()
+    app.start()
+    srv = make_server(app, port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_address[1]
+    try:
+        status, page = request(port, "GET", "/")
+        if status != 200 or b"<canvas" not in page:
+            raise AssertionError(f"web: page {status}")
+        if not wait(lambda: request(port, "GET", "/frame.png")[0] == 200):
+            raise AssertionError("web: no frame within 120 s")
+        sizes = []
+        for _ in range(5):
+            idx = app.stats()["frame"]
+            wait(lambda: app.stats()["frame"] > idx)
+            status, png = request(port, "GET", "/frame.png")
+            if status != 200 or not png.startswith(b"\x89PNG\r\n\x1a\n"):
+                raise AssertionError(f"web: frame {status}")
+            sizes.append(len(png))
+        before = rate("before the spawn")
+        for ev in ({"type": "move", "x": 640, "y": 360},
+                   {"type": "button", "pressed": True}):
+            request(port, "POST", "/event", json.dumps(ev))
+        if not wait(lambda: e.mouse_pressed):
+            raise AssertionError("web: the press never reached the engine")
+        for ev in ({"type": "button", "pressed": False},
+                   {"type": "key", "key": "p", "pressed": True}):
+            request(port, "POST", "/event", json.dumps(ev))
+        n = 1_048_576 + cfg.spawn_burst
+        f1 = app.stats()["frame"]
+        if not wait(lambda: app.stats()["particles"] == n
+                    and app.stats()["frame"] > f1 + 5):
+            raise AssertionError(f"web: stats {app.stats()}, expected {n}")
+        after = rate("after the spawn")
+        stats = json.loads(request(port, "GET", "/stats")[1])
+    finally:
+        app.stop()
+        srv.shutdown()
+        srv.server_close()
+        app.join(60)
+        th.join(60)
+    if app._thread.is_alive() or th.is_alive():
+        raise AssertionError("web: a thread did not stop")
+    torch.cuda.synchronize()
+    got = launches()
+    for k in ("collide_integrate", "relocate_pull"):
+        if got[k] <= 0:
+            raise AssertionError(f"web: {k} not launched ({got})")
+    log(f"[apps] web: {before:.3f} frames/s before the spawn, {after:.3f} "
+        f"after (120 frames each); PNG {min(sizes)}-{max(sizes)} B; after "
+        f"the spawn {stats} (the app's own fps average); overlay "
+        f"{int(e.big.num_active) if e.big is not None else 0} bigs; "
+        f"launches {got['collide_integrate']} K1, {got['relocate_pull']} K2")
+    paths["1M-web"] = got
+
+
+def phase_apps(smi: str, paths: dict, errs: dict) -> None:
+    """The apps phase: the five scenes through the CLI, K1 and K2 on the
+    four_million and sixteen_million states (K1 at their dt_scale), the
+    three phase breakdowns, the web app."""
+    import shutil
+    import torch
+    from gpu_physics_engine_torch import Engine, TiledEngine
+    from gpu_physics_engine_torch import make_tuned_engine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.utils.device import device_info
+    from gpu_physics_engine_torch.utils.profiling import (
+        phase_breakdown, tiled_phase_breakdown)
+    t0 = time.perf_counter()
+    log(f"[apps] {device_info()} {smi}")
+    out_root = _scratch_dir()
+    rows = []
+    for name, extra, want in APP_SCENES:
+        e, *row = _cli_scene(name, extra, want, out_root, paths)
+        rows.append((name, *row))
+        if name in ("four_million", "sixteen_million"):
+            _scene_kernels(name, e, errs)
+            _tile_stats_probe(e, name)
+        del e
+        torch.cuda.empty_cache()
+    shutil.rmtree(out_root, ignore_errors=True)
+    for name, ms, alone, build_s, peak in rows:
+        log(f"[apps] scene {name}: {ms:.4f} ms/step over the CLI run, "
+            f"step() alone {alone:.4f}, construction {build_s:.2f} s, peak "
+            f"{peak / 2**30:.3f} GiB ({smi})")
+
+    e = make_tuned_engine(4_194_304, device="cuda")
+    e.run(32)
+    _breakdown("4M", tiled_phase_breakdown, e,
+               ("collide_integrate", "collide", "relocate_pull"))
+    del e
+    e = TiledEngine(gs_config(1_048_576), device="cuda", chunk=64)
+    e.run(16)
+    _breakdown("1M-GS par", tiled_phase_breakdown, e,
+               ("gs_rank_par", "gs_color_par"))
+    del e
+    e = Engine(_array_cfg(sort_impl="radix"), device="cuda")
+    e.run(4)
+    _breakdown("1M-array radix", phase_breakdown, e,
+               ("radix_rank_hist", "radix_offsets", "radix_scatter"))
+    del e
+    torch.cuda.empty_cache()
+    _web_app(paths)
+    torch.cuda.empty_cache()
+    log(f"[apps] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2390,7 +2752,7 @@ def main() -> int:
     for label, n in (("4M", 4_194_304), ("1M", 1_048_576),
                      ("256k", 256_000)):
         e = make_tuned_engine(n, device="cuda")
-        moving = _jittered(e.state, 0.05, seed=3)  # some velocity
+        moving = jittered(e.state, 0.05, seed=3)  # some velocity
         jacobi.append((label, e.config,
                        e.state.replace(px=moving.x, py=moving.y)))
         del e
@@ -2450,6 +2812,7 @@ def main() -> int:
     paths["4M-unfused"] = run["launches"]
     del run
     torch.cuda.empty_cache()
+    phase_apps(smi, paths, errs)
 
     times, library = phase_times(big_cfg, big_state, gs_cfg, gs_state,
                                  radix_bits)

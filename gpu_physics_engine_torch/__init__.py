@@ -25,11 +25,17 @@ repository as the reference.  Module names mirror the JAX package's:
            native/tiler.cpp)
   render/  device.py (the device compositor: TiledEngine.render_frame,
            step_render_frame, render_run), colormap.py (the velocity ramp),
-           rasterizer.py (the host splat of the overlay's bigs)
+           rasterizer.py (the host splat and the grid lines), viewer.py
+           (Viewer: an engine's frame), camera.py, lines.py, tilemap.py
+  app/     headless.py (the scripted CLI), web.py (the browser front
+           end), interactive.py (the matplotlib window)
+  scenes.py  the five BASELINE scenes for ``app.headless --scene``
   csrc/    the CUDA C++ kernels (sm_90a)
   utils/   FrameTimer, checkpoint.py (the JAX package's .npz format, both
-           engines), profiling.py (where a step's time goes),
-           kernel_study.py (K1 variants, the radix sort's pieces)
+           engines), profiling.py (where a step's time goes; Profiler
+           scopes, phase breakdowns), input.py (the keymap), png.py,
+           device.py, kernel_study.py (K1 variants, the radix sort's
+           pieces)
 
 This package imports torch and numpy, never jax.
 

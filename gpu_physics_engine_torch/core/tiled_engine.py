@@ -73,14 +73,17 @@ def _auto_cap(config: SimConfig, positions) -> int:
 
 
 def default_device(device=None) -> torch.device:
-    """``device`` as given; else the CUDA card, and without one a
-    RuntimeError: the engine never falls back to the CPU on its own."""
+    """``device`` as given; else the CUDA card.  Without a card, no device
+    or a CUDA one is a RuntimeError: the engine never falls back to the
+    CPU on its own."""
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        if device.type != "cuda":
+            return device
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible; pass device='cpu' to "
                            "run the engine on the CPU")
-    return torch.device("cuda")
+    return torch.device("cuda") if device is None else device
 
 
 class TiledEngine:

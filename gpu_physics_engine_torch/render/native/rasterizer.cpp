@@ -1,10 +1,11 @@
 // Native point-splat rasterizer: the port's copy of
-// gpu_physics_engine_tpu/render/native/rasterizer.cpp (splat only).
+// gpu_physics_engine_tpu/render/native/rasterizer.cpp.
 //
 // Each particle is a soft-edged circle: alpha = 1 - smoothstep(0.2304, 0.25,
 // d^2) in quad-local coordinates (particle_drawer.wgsl:69-81), alpha-blended
 // in draw order over the existing framebuffer contents.  TiledEngine
-// splats the big-particle overlay over the device frame with it.
+// splats the big-particle overlay over the device frame with it, and the
+// host viewer (render/viewer.py) whole frames; draw_lines draws the grid.
 //
 // Build: render/rasterizer.py runs g++ with the JAX package's Makefile
 // flags at first use, into gpu_physics_engine_torch/_build/.
@@ -96,6 +97,36 @@ void splat_particles(float* __restrict fb, int width, int height,
 #else
     splat_band(fb, width, height, 0, height - 1, sx, sy, sr, rgb, n);
 #endif
+}
+
+// Axis-aligned line list: each line k covers pixels along x (horizontal=1)
+// or y, with the given color and 1px thickness.  Used by the grid drawer.
+void draw_lines(float* __restrict fb, int width, int height,
+                const float* __restrict a, const float* __restrict b,
+                const float* __restrict rgb, const uint8_t* __restrict horiz,
+                int64_t n) {
+    for (int64_t i = 0; i < n; ++i) {
+        const float cr = rgb[3 * i], cg = rgb[3 * i + 1], cb = rgb[3 * i + 2];
+        if (horiz[i]) {
+            const int y = (int)std::lround(a[2 * i + 1]);
+            if (y < 0 || y >= height) continue;
+            int x0 = std::max((int)std::lround(a[2 * i]), 0);
+            int x1 = std::min((int)std::lround(b[2 * i]), width - 1);
+            float* row = fb + (int64_t)3 * ((int64_t)y * width);
+            for (int x = x0; x <= x1; ++x) {
+                row[3 * x] = cr; row[3 * x + 1] = cg; row[3 * x + 2] = cb;
+            }
+        } else {
+            const int x = (int)std::lround(a[2 * i]);
+            if (x < 0 || x >= width) continue;
+            int y0 = std::max((int)std::lround(a[2 * i + 1]), 0);
+            int y1 = std::min((int)std::lround(b[2 * i + 1]), height - 1);
+            for (int y = y0; y <= y1; ++y) {
+                float* px = fb + (int64_t)3 * ((int64_t)y * width + x);
+                px[0] = cr; px[1] = cg; px[2] = cb;
+            }
+        }
+    }
 }
 
 }  // extern "C"

@@ -116,8 +116,10 @@ def k1_study(particles: int) -> dict:
     return out
 
 
-def _jittered(state, scale, seed):
-    """``state`` with live x/y displaced by up to +-scale (on the card)."""
+def jittered(state, scale, seed):
+    """``state`` with live x/y displaced by up to +-scale, drawn from a
+    generator on the state's device seeded with ``seed`` (chip_smoke.py
+    and the studies here take their in-step stand-ins from it)."""
     import torch
     g = torch.Generator(device=state.device).manual_seed(seed)
     occ = state.pid >= 0
@@ -133,7 +135,7 @@ def _k2_states(engine, steps: int) -> dict:
     from gpu_physics_engine_torch.ops import tiled
     start = engine.state
     t = tiled.tile_geometry(engine.config)[0]
-    states = {"jitter": _jittered(start, 0.6 * t, seed=1),
+    states = {"jitter": jittered(start, 0.6 * t, seed=1),
               "no_movers": start,
               "empty": start.replace(pid=torch.full_like(start.pid, -1))}
     engine.run(steps)

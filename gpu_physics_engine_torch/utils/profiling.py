@@ -34,13 +34,30 @@ inside one resort interval (240).
 instead follows the exact periodic sweep over a long horizon
 (``sweep_windows``), once per sweep mechanism, and prints one JSON line
 per window of ``--every`` steps.
+
+The rest of ``gpu_physics_engine_tpu.utils.profiling``, for the apps:
+
+  * ``Profiler``: host-side named scopes, exported in the chrome://tracing
+    JSON format (``export_chrometrace``; the reference's benchmark.json,
+    state.rs:108-112).  A scope around an engine call measures the host's
+    enqueue unless it is given ``sync=``.
+  * ``device_trace``: a torch.profiler trace of a block (CPU ops, and the
+    CUDA kernels when a card is visible) as a chrome trace.
+  * ``phase_breakdown`` / ``tiled_phase_breakdown``: each stage of the
+    array pipeline / the tiled pipeline timed on its own (ms a call: CUDA
+    events on the card, the host clock on the CPU).  A stage that fails
+    to build or launch raises; no phase is reported as NaN.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
+import tempfile
 import time
+from typing import Callable, Dict, List, Optional
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 1) -> float:
@@ -58,6 +75,169 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class Profiler:
+    """Host-side named scopes and their chrome-trace export."""
+
+    def __init__(self):
+        self.events: List[dict] = []
+        self._t0 = time.perf_counter()
+
+    @contextlib.contextmanager
+    def scope(self, name: str, sync: Optional[Callable[[], None]] = None):
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            if sync is not None:
+                sync()
+            end = time.perf_counter()
+            self.events.append({
+                "name": name, "ph": "X", "pid": 0, "tid": 0,
+                "ts": (start - self._t0) * 1e6,
+                "dur": (end - start) * 1e6,
+            })
+
+    def export_chrometrace(self, path: str = "benchmark.json") -> str:
+        """Write the scopes in chrome://tracing format (the reference's
+        benchmark.json artifact, state.rs:108-112)."""
+        with open(path, "w") as f:
+            json.dump({"traceEvents": self.events,
+                       "displayTimeUnit": "ms"}, f)
+        return path
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str] = None):
+    """A torch.profiler trace of the block: CPU ops, and the CUDA kernels
+    when a card is visible; written to ``log_dir``/trace.json (chrome
+    trace, for chrome://tracing or Perfetto) when the block ends.  Yields
+    ``log_dir`` (default: gpe_torch_trace under the temporary directory)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "gpe_torch_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _phase_ms(fn, device, repeats: int):
+    """(ms a call of ``fn``, the output of its warm-up call): CUDA events on
+    a card (``cuda_ms``), the host clock on the CPU (where a call is
+    synchronous)."""
+    import torch
+    out = fn()
+    if torch.device(device).type == "cuda":
+        return cuda_ms(fn, reps=repeats, warmup=0), out
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    return (time.perf_counter() - t0) / repeats * 1e3, out
+
+
+def phase_breakdown(config, state, params, repeats: int = 10
+                    ) -> Dict[str, float]:
+    """ms a call of each stage of the array pipeline on ``state``, each
+    stage on its own inputs.  The names are the JAX package's, after the
+    reference's profiler scopes (grid.rs:324, collision_cell_builder.rs:
+    227, collision_solver.rs:226-229, particle_integration.rs:81):
+    "(dispatch overhead)" (a one-element add), "build_cell_ids",
+    "sort_map" (the hand radix sort's passes under sort_impl="radix") or
+    "build_buckets", "build_collision_cells", "solve_collisions" (the
+    colored solve), "particle_integration", "morton_resort"."""
+    import torch
+    from gpu_physics_engine_torch.core.stepper import cell_size
+    from gpu_physics_engine_torch.ops import collision, grid, resort
+    from gpu_physics_engine_torch.ops.integrate import f32, verlet_integrate
+
+    dev = state.x.device
+    active = state.active_mask()
+    cs = cell_size(config, state)
+    timings: Dict[str, float] = {}
+
+    def timeit(name, fn):
+        timings[name], out = _phase_ms(fn, dev, repeats)
+        return out
+
+    one = torch.zeros((), dtype=torch.float32, device=dev)
+    timeit("(dispatch overhead)", lambda: one + 1.0)
+    cand = timeit("build_cell_ids", lambda: grid.build_candidates(
+        state.x, state.y, state.radius, active, cs))
+    if config.pipeline == "sorted":
+        sc, so = timeit("sort_map", lambda: grid.sort_map(
+            *grid.build_cell_ids(cand), impl=config.sort_impl))
+        table = timeit("build_collision_cells",
+                       lambda: collision.occupants_from_sorted(
+                           sc, so, config.max_occupancy))
+    else:
+        buckets = timeit("build_buckets",
+                         lambda: grid.build_buckets(cand, config))
+        table = timeit("build_collision_cells",
+                       lambda: collision.occupants_from_buckets(buckets,
+                                                                config))
+    timeit("solve_collisions", lambda: collision.solve_colored(
+        state.x, state.y, state.radius, table, f32(config.stiffness)))
+    prm = params.as_tensor(dev)
+    timeit("particle_integration", lambda: verlet_integrate(
+        state.x, state.y, state.px, state.py, state.radius, active, prm,
+        config))
+    timeit("morton_resort", lambda: resort.morton_resort(
+        state, cs, sort_impl=config.sort_impl))
+    return timings
+
+
+def tiled_phase_breakdown(config, state, params, repeats: int = 5
+                          ) -> Dict[str, float]:
+    """ms a call of each stage of the tiled pipeline on ``state``.  The
+    names are the JAX package's with "pallas" replaced by "cuda" where a
+    hand kernel runs (on a CPU state those wrappers run their plain
+    versions):
+
+      "(dispatch overhead)"         a plane add
+      "relocate (claim/jnp)"        ops/tiled.relocate (plain, one sync)
+      "relocate (pull/pallas)"  ->  "relocate (pull/cuda)": K2
+      "collide (jnp)"               ops/tiled.collide (plain)
+      "collide (pallas)"        ->  "collide (cuda)": K3
+      "collide+integrate (fused)"   K1
+      "particle_integration"        ops/tiled.integrate (plain)
+      "gs_solve (pallas, gs_layout=L)" -> "gs_solve (cuda, gs_layout=L)",
+                                    tiled_solver="gs" only: the solve in
+                                    the configured layout (par on the
+                                    card: the relayout, K5-par and K6-par's
+                                    color window; flat: K5 and K6)
+
+    Unlike the JAX package's, a phase that fails raises: none is reported
+    as NaN."""
+    from gpu_physics_engine_torch.ops import gs_parity, tiled
+    from gpu_physics_engine_torch.ops import tiled_kernels as tk
+
+    dev = state.device
+    prm = params.as_tensor(dev)
+    timings: Dict[str, float] = {}
+
+    def timeit(name, fn):
+        timings[name] = _phase_ms(fn, dev, repeats)[0]
+
+    timeit("(dispatch overhead)", lambda: state.x + 1.0)
+    timeit("relocate (claim/jnp)", lambda: tiled.relocate(state, config))
+    timeit("relocate (pull/cuda)", lambda: tk.relocate_pull(state, config))
+    timeit("collide (jnp)", lambda: tiled.collide(state, config))
+    timeit("collide (cuda)", lambda: tk.collide(state, config))
+    timeit("collide+integrate (fused)",
+           lambda: tk.collide_integrate(state, prm, config))
+    timeit("particle_integration",
+           lambda: tiled.integrate(state, params, config, prm=prm))
+    if config.tiled_solver == "gs":
+        timeit("gs_solve (cuda, gs_layout=%s)" % config.gs_layout,
+               lambda: gs_parity.gs_solve_layout(state, config))
+    return timings
 
 
 def _device_us(evt) -> float:

@@ -156,6 +156,24 @@ def test_port_imports_and_steps_with_jax_blocked():
         "img = e.render_frame(width=32, height=16)\n"
         "assert img.shape == (16, 32, 3) and img.max() > 0\n"
         "assert isinstance(ge.render_run(2, width=32, height=16), int)\n"
+        "from gpu_physics_engine_torch import scenes\n"
+        "from gpu_physics_engine_torch.app import headless, interactive, web\n"
+        "from gpu_physics_engine_torch.render import (camera, lines,\n"
+        "    rasterizer, tilemap, viewer)\n"
+        "from gpu_physics_engine_torch.utils import (device as udev, input,\n"
+        "    png, profiling)\n"
+        "assert len(scenes.SCENES) == 5 and udev.device_info('cpu')\n"
+        "s = headless.main(['--device', 'cpu', '--particles', '64',\n"
+        "    '--world', '16', '16', '--steps', '2', '--pipeline', 'tiled',\n"
+        "    '--set', 'tile_cap=4'])\n"
+        "assert s['particles'] == 64 and s['finite']\n"
+        "v = viewer.Viewer((16.0, 16.0), (32, 16))\n"
+        "v.toggle_grid()\n"
+        "assert v.render_engine(e).shape == (16, 32, 3)\n"
+        "assert tilemap.render_tilemap(e.state).max() > 0\n"
+        "assert png.encode_png(img).startswith(b'\\x89PNG')\n"
+        "assert 'sort_map' in profiling.phase_breakdown(a.config, a.state,\n"
+        "    a.params(), repeats=1)\n"
         "assert not any(m == 'gpu_physics_engine_tpu' or\n"
         "    m.startswith('gpu_physics_engine_tpu.') for m in sys.modules)\n"
         "print('ok')\n")

@@ -24,7 +24,10 @@ big-particle overlay's coupling pass on the card equals the CPU's bit for
 bit, and the spawn engine's hybrid step on the card follows the CPU's.
 The fast solver's engine (both packings), ``rebuild_band`` and
 ``stale_per_row`` on the card equal the CPU's bit for bit, and a tiled
-checkpoint with an overlay loads on the card as on the CPU.
+checkpoint with an overlay loads on the card as on the CPU.  The apps
+layer: ``tile_stats`` (the tile map) on the card equals the CPU's bit for
+bit, ``Viewer.render_engine`` on the card is within one u8 of the CPU's,
+and the headless CLI runs a small world with ``--device cuda``.
 """
 
 import numpy as np
@@ -899,3 +902,73 @@ def test_tiled_checkpoint_loads_on_card_as_on_cpu(tmp_path):
         assert torch.equal(getattr(a.state, f).cpu(), getattr(b.state, f)), f
     a.run(4)
     assert a.num_particles() == card.num_particles()
+
+
+def _apps_scene():
+    """1,500 particles in a 96 x 48 world with some velocity, storage
+    jittered up to 0.6 of a tile: the config, the state on the card and
+    the same tensors on the CPU."""
+    n = 1500
+    cfg = SimConfig(max_particles=n, initial_particles=n, world_width=96.0,
+                    world_height=48.0, pipeline="tiled", tile_cap=6)
+    rng = np.random.default_rng(17)
+    pos = np.stack([rng.uniform(0.6, 95.4, n),
+                    rng.uniform(0.6, 47.4, n)], -1).astype(np.float32)
+    prev = (pos + rng.normal(0, 0.1, pos.shape)).astype(np.float32)
+    cpu = tt.init_tiles(cfg, pos, np.full(n, 0.5, np.float32),
+                        previous_positions=prev)
+    live = cpu.pid >= 0
+    g = torch.Generator().manual_seed(17)
+    d = (torch.rand(cpu.x.shape, generator=g) - 0.5) * 1.2 * \
+        tt.tile_geometry(cfg)[0]
+    cpu = cpu.replace(x=torch.where(live, cpu.x + d, cpu.x))
+    card = tt.TileState(**{f: getattr(cpu, f).cuda() for f in FIELDS + (
+        "num_active", "overflow_count")})
+    return cfg, card, cpu
+
+
+def test_tile_stats_on_card_equals_cpu():
+    from gpu_physics_engine_torch.render import tilemap
+    _, card, cpu = _apps_scene()
+    count, mean_v = tilemap.tile_stats(card)
+    want_count, want_v = tilemap.tile_stats(cpu)
+    assert torch.equal(count.cpu(), want_count)
+    assert torch.equal(mean_v.cpu(), want_v)
+    assert float(want_v.max()) > 0
+    np.testing.assert_array_equal(tilemap.render_tilemap(card),
+                                  tilemap.render_tilemap(cpu))
+
+
+def test_viewer_render_engine_on_card_within_one_u8_of_cpu():
+    from gpu_physics_engine_torch.core.tiled_engine import TiledEngine
+    from gpu_physics_engine_torch.render.viewer import Viewer
+    cfg, card, cpu = _apps_scene()
+    frames = []
+    for st in (card, cpu):
+        v = Viewer((cfg.world_width, cfg.world_height), (321, 160))
+        v.toggle_grid()
+        v.camera.set_mouse_position((200.0, 50.0))
+        v.camera.zoom_camera(2.0)
+        v.camera.update(1 / 60)
+        frames.append(v.render_engine(TiledEngine(cfg, initial_state=st),
+                                      preview_scale=2))
+    d = np.abs(frames[0] - frames[1]) * 255.0
+    assert frames[0].shape == (160, 321, 3) and d.max() <= 1.0 + 1e-4
+    assert frames[0].max() > 0.3
+
+
+def test_headless_cli_runs_on_card(tmp_path):
+    from gpu_physics_engine_torch.app import headless
+    out = str(tmp_path / "frames")
+    s = headless.main(["--device", "cuda", "--particles", "3000",
+                       "--world", "96", "48", "--steps", "12",
+                       "--pipeline", "tiled", "--set", "tile_cap=6",
+                       "--spawn", "2", "48", "24", "--attract", "4", "48",
+                       "24", "--release", "9", "--render-every", "6",
+                       "--tilemap", "--out", out,
+                       "--chrometrace", str(tmp_path / "trace.json"),
+                       "--summary-json"])
+    assert s["particles"] == 3100 and s["finite"]
+    import os
+    assert sorted(os.listdir(out)) == ["frame_000000.png",
+                                       "frame_000006.png"]

@@ -13,7 +13,7 @@ CPU, where the kernel wrappers run their plain versions.
     relocate, the rank tables, the par/mx/dec solves, the par step under
     every gs_par_fused / gs_fuse_integrate setting, and the par engine over
     several windows and a sweep.  All bit-equal.
-  * The JAX ``gs_parity_tile_step`` (2 steps, gs_par_fused=False,
+  * The JAX ``gs_parity_tile_step`` (2 steps, gs_par_fused=True,
     gs_fuse_integrate=True, K = 2; its relocate and solve stages compiled
     once each, run with the mouse released and pressed): pids and
     counters exact, and positions bit-equal with the mouse released.
@@ -30,6 +30,7 @@ versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
 import dataclasses
 import functools
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import jax
@@ -300,19 +301,27 @@ def test_par_wrappers_raise_on_unsupported_tensors():
 def _jax_par_cfgs():
     """K = 2 and the minloop selection: interpret-mode compiles grow with
     cap x K; the port serves every gs_rank value with its one selection,
-    and both launch modes with one plain version."""
-    return dense_cfgs(tiled_uniform_radius=True, gs_par_fused=False,
+    and both launch modes with one plain version.  The fused launch (one
+    kernel for the four parities; tests/test_gs_parity.py holds it equal
+    to one kernel per parity): its interpret-mode programs lower in about
+    two thirds of the time of the per-parity ones."""
+    return dense_cfgs(tiled_uniform_radius=True, gs_par_fused=True,
                       gs_fuse_integrate=True, gs_layout="par",
                       max_occupancy=2, gs_rank="minloop")
 
 
 @functools.lru_cache(maxsize=None)
 def _compiled_stages():
-    """The JAX package's parity relocate and solve, each compiled as a
-    program of its own at XLA:CPU backend optimisation level 0: the
+    """The JAX package's parity relocate, solve and rank, each compiled as
+    a program of its own at XLA:CPU backend optimisation level 0: the
     interpret-mode step compiles superlinearly in its size, so its two
     stages compile in about 60% of the whole step's time (the results are
-    the same; the assertions below hold them bit for bit)."""
+    the same; the assertions below hold them bit for bit).  The three are
+    built together, each first called in a thread of its own on the
+    shapes the tests give them: their lowering is Python, but XLA's
+    compile releases the interpreter lock, so one program's compile runs
+    beside the next one's lowering.  Returns (relocate, solve_parity,
+    rank)."""
     opts = {"xla_backend_optimization_level": 0}
     relocate = jax.jit(jgp.relocate_parity, static_argnums=(1, 2, 3, 4, 5),
                        compiler_options=opts)
@@ -321,12 +330,28 @@ def _compiled_stages():
         _solve_parity(subs, one, config, cap, K, t, gTY, gTX,
                       integ=(params, dt_scale)),
         static_argnums=tuple(range(3, 10)), compiler_options=opts)
+    rank = jax.jit(jgp.rank_parity, static_argnums=tuple(range(2, 8)),
+                   compiler_options=opts)
+
+    jcfg, _ = _jax_par_cfgs()
+    a, subs, _ = _jax_carry(jcfg, 0.5)
+    t, TY, TX = jt.tile_geometry(jcfg)
+    cap, K = a.dims[0], jcfg.max_occupancy
+    one = jax.numpy.ones((1,), jax.numpy.float32)
+    params = JParams.make(jcfg.dt, mouse=(8.0, 4.0), pressed=False)
+    with ThreadPoolExecutor(3) as pool:
+        warm = [pool.submit(relocate, subs, jcfg, cap, t, TY, TX),
+                pool.submit(solve, subs, one, params, jcfg, cap, K, t, TY,
+                            TX, 1.0 / jcfg.substeps),
+                pool.submit(rank, subs, one, jcfg, cap, K, t, TY, TX)]
+        for f in warm:
+            jax.block_until_ready(f.result())
 
     def solve_parity(subs, one, config, cap, K, t, gTY, gTX, integ):
         params, dt_scale = integ
         return solve(subs, one, params, config, cap, K, t, gTY, gTX,
                      dt_scale)
-    return relocate, solve_parity
+    return relocate, solve_parity, rank
 
 
 _solve_parity = jgp.solve_parity
@@ -355,8 +380,7 @@ def test_rank_par_matches_jax_rank_parity():
     a, subs, st = _jax_carry(jcfg, 0.5)
     t, TY, TX = jt.tile_geometry(jcfg)
     K = jcfg.max_occupancy
-    rank = jax.jit(jgp.rank_parity, static_argnums=tuple(range(2, 8)),
-                   compiler_options={"xla_backend_optimization_level": 0})
+    rank = _compiled_stages()[2]
     tables, overflow = rank(subs, jax.numpy.ones((1,), jax.numpy.float32),
                             jcfg, a.dims[0], K, t, TY, TX)
     ps = gp.to_parity_state(st, tcfg)
@@ -382,7 +406,7 @@ def test_relocate_mega_plain_matches_jax_relocate_parity():
     tcfg = tcfg.replace(gs_relocate_mega=True)
     a, subs, st = _jax_carry(jcfg, 0.66)
     t, TY, TX = jt.tile_geometry(jcfg)
-    relocate, _ = _compiled_stages()
+    relocate = _compiled_stages()[0]
     subs2, defer = relocate(subs, jcfg, a.dims[0], t, TY, TX)
     ps = gp.to_parity_state(st, tcfg)
     got, gdefer = gm.relocate_mega_plain(ps, tcfg)
@@ -407,7 +431,7 @@ def _jax_par_steps():
     jcfg, _ = _jax_par_cfgs()
     pos, rad = dense_scene()
     a = jt.init_tiles(jcfg, pos, rad)
-    relocate, solve = _compiled_stages()
+    relocate, solve, _ = _compiled_stages()
     out = {}
     with mock.patch.object(jgp, "relocate_parity", relocate), \
             mock.patch.object(jgp, "solve_parity", solve):
