@@ -95,23 +95,27 @@ non-zero with no result line:
   6. the array Engine (pipeline "sorted", the 4-color Gauss-Seidel solve,
      the Morton resort every 240 steps) at the README's 1,000,000
      particles in 1,100,800 slots, sort_impl="radix": first the radix
-     sort's three kernels, K12 (the rank/histogram pass), radix_offsets
-     (the digit-offset scan) and radix_scatter, against their plain
-     versions, twice, bit-equal, for all 4 passes of a sort, on a
+     sort's two kernels, radix_digit_hist (the four digit histograms, once
+     a sort) and radix_onesweep (rank, look-back and store, once a pass),
+     against their plain versions, twice, bit-equal, for all 4 passes of a
+     sort, with each pass's look-back prefixes == ``lookback_plain``, on a
      25,006-key reverse ramp with duplicates and sentinels, on the scene's
      4,403,200 pair keys and on its 1,100,800 resort codes, each whole
-     radix sort equal to torch.sort(stable=True); the scene's candidate
+     radix sort equal to torch.sort(stable=True); the stress sorts (the
+     pairs 50 times, identical; 2^26 random keys; all-equal keys; all
+     0xFFFFFFFF; n = 1, 4,095, 4,097 and 4,403,201, each ==
+     torch.sort(stable=True)); the scene's candidate
      cells on the card equal to the CPU's; then 256 steps (128 free, 128
      with the mouse at the world centre, crossing the resort at step 240)
-     with 4 x 256 + 4 launches of each radix kernel, the same run with
+     with 257 histogram and 1,028 pass launches, the same run with
      sort_impl="lax" (no radix launch, final state bit-equal), and 64
      steps each of pipeline "bucket" and solver "jacobi";
   6b. the engine options that raised before (phase_options): the fast
      solver (solver="fast", the sort + shift Jacobi) on the 1M array
      Engine with fast_pack_bf16 on and off, the windows of the radix
-     engine (256 steps, the resort at step 240 launching K12 and the radix
-     pass 4 times), and card == CPU bit for bit for both packings on a
-     10,000-particle scene over 8 steps; the 4M-GS engine (the card's par
+     engine (256 steps, the resort at step 240 launching the histogram
+     once and the radix pass 4 times), and card == CPU bit for bit for
+     both packings on a 10,000-particle scene over 8 steps; the 4M-GS engine (the card's par
      layout: K5-par, K6-par's window, K2-par) with tiled_sweep="bands"
      for 1,232 steps (5 periodic sweeps, at least 10 band drains) beside
      the claim sweep from the same start, with the stale % after each
@@ -141,14 +145,15 @@ non-zero with no result line:
      version, twice; the phase breakdowns (``tiled_phase_breakdown`` of the 4M
      engine: K2, K3, K1; of the 1M-GS engine in the par layout: K5-par and
      the color window; ``phase_breakdown`` of the 1M array Engine with
-     sort_impl="radix": K12 and the radix pass), every phase finite and
+     sort_impl="radix": the histogram and the radix pass), every phase
+     finite and
      positive; the web app on make_tuned_engine(1_048_576) through
      ``make_server(port=0)``: the page, PNG frames, a move, a press and
      release and the key p, then 1,048,676 particles in /stats;
   8. kernel times at the main paths' shapes against their plain versions,
-     with each kernel's bound on this card (and, for K12, the time of
-     torch.sort(stable=True) of the same pairs beside the whole hand radix
-     sort's).
+     with each kernel's bound on this card (and, for the radix pass, the
+     time of torch.sort(stable=True) of the same pairs beside the whole
+     hand radix sort's).
 
 Then a line {"kernels": [...]} and, last, the result line
 {"ok": true, "device": {...}}.  Without a CUDA device (or without the
@@ -162,7 +167,8 @@ import subprocess
 import sys
 import time
 
-from gpu_physics_engine_torch.utils.kernel_study import jittered
+from gpu_physics_engine_torch.utils.kernel_study import (jittered,
+                                                      kernel_device_ms)
 from gpu_physics_engine_torch.utils.profiling import cuda_ms
 
 # H100 SXM data-sheet peaks (dense): device memory bytes/s and f32 FLOP/s
@@ -248,10 +254,17 @@ def check_window_formula() -> None:
                         f"{what} window at cap {cap} par={par}: launch "
                         f"{got} B, mirror {want} B")
                 most[what, par] = max(most.get((what, par), 0), want)
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    for ntiles in (0, 1, 1075, 16_384, rs.num_tiles(2 ** 31 - 1)):
+        got = lib.gpe_radix_scratch_bytes(ntiles)
+        if got != 8 * rs.scratch_words(ntiles):
+            raise AssertionError(f"radix scratch at {ntiles} tiles: launch "
+                                 f"{got} B, mirror "
+                                 f"{8 * rs.scratch_words(ntiles)} B")
     log(f"[window] bytes of the launches == the Python mirrors at caps "
         f"1-{tk.MAX_CAP}: K2 most {most['K2', False]} B flat, "
         f"{most['K2', True]} B parity; K5 most {most['K5', False]} B; K6 "
-        f"most {most['K6', False]} B")
+        f"most {most['K6', False]} B; the radix sort's scratch")
 
 
 def _clone(state):
@@ -1089,53 +1102,103 @@ def _pair_keys(state, cfg):
     return cand, grid.build_cell_ids(cand)[0]
 
 
-def check_radix(label, keys) -> "torch.Tensor":
-    """K12, radix_offsets and radix_scatter against their plain versions
-    on each of the 4 passes' real inputs (the keys after the earlier
-    passes), twice, bit-equal; the whole radix sort equal to
-    torch.sort(stable=True).  Returns the padded int32 key bits of the
-    first pass."""
+def _sort_vs_torch(label, keys) -> None:
+    """The hand radix sort of ``keys`` (u32 values in int64 on the card)
+    with the payload arange(n) equal to torch.sort(stable=True)."""
     import torch
     from gpu_physics_engine_torch.ops import radix_sort as rs
     n = keys.shape[0]
-    bits = rs.as_i32_bits(torch.cat([keys, keys.new_full(
-        (-n % rs.BLOCK,), 0xFFFFFFFF)]))
-    first = bits
-    vals = torch.arange(bits.shape[0], dtype=torch.int32, device="cuda")
-    for p in range(4):
-        shift = 8 * p
-        got, again = rs.rank_hist_cuda(bits, shift), rs.rank_hist_cuda(
-            bits, shift)
-        _equal_or_raise(f"K12 {label} pass {p}", got,
-                        rs.rank_hist_plain(bits, shift), again)
-        rank, hist = got
-        off = rs.digit_offsets_cuda(hist)
-        _equal_or_raise(f"radix_offsets {label} pass {p}", off,
-                        rs.digit_offsets_plain(hist),
-                        rs.digit_offsets_cuda(hist))
-        out = rs.scatter_cuda(bits, vals, rank, hist, off, shift)
-        _equal_or_raise(f"radix_scatter {label} pass {p}", out,
-                        rs.scatter_plain(bits, vals, rank, off, shift),
-                        rs.scatter_cuda(bits, vals, rank, hist, off, shift))
-        bits, vals = out
     sk, sv = rs.radix_sort_pairs(
-        keys, torch.arange(n, dtype=torch.int32, device="cuda"))
+        keys, torch.arange(n, dtype=torch.int32, device=keys.device))
     wk, wi = torch.sort(keys, stable=True)
     _equal_or_raise(f"radix sort {label} vs torch.sort", (sk, sv),
                     (wk, wi.to(torch.int32)))
-    log(f"[radix] {label} {bits.shape[0]} keys ({bits.shape[0] // rs.BLOCK}"
-        f" blocks): K12, radix_offsets and radix_scatter bit-equal to their "
-        f"plain versions and on repeat on all 4 passes; the radix sort == "
+
+
+def check_radix(label, keys) -> None:
+    """radix_digit_hist and radix_onesweep against their plain versions:
+    the histogram of the caller's int64 keys, then each of the 4 passes on
+    its real input (the keys after the earlier passes; pass 0 reads int64,
+    pass 3 writes int64), twice, bit-equal, and each pass's look-back
+    array ending as ``lookback_plain`` of its tiles' counts, every word
+    flagged inclusive; the whole radix sort equal to
+    torch.sort(stable=True)."""
+    import torch
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    vals = torch.arange(keys.shape[0], dtype=torch.int32, device="cuda")
+    hist = rs.digit_hist_cuda(keys)
+    _equal_or_raise(f"radix_digit_hist {label}", hist,
+                    rs.digit_hist_plain(keys), rs.digit_hist_cuda(keys))
+    bits = keys
+    for p in range(4):
+        shift = 8 * p
+        od = torch.int64 if p == 3 else torch.int32
+        got = rs.onesweep_pass_cuda(bits, vals, shift, hist, od)
+        again = rs.onesweep_pass_cuda(bits, vals, shift, hist, od)
+        _equal_or_raise(f"radix_onesweep {label} pass {p}", got[:2],
+                        rs.onesweep_pass_plain(bits, vals, shift,
+                                               rs.digit_bases(hist[p]),
+                                               out_dtype=od), again[:2])
+        counts = rs.rank_hist_plain(rs.as_i32_bits(bits), shift,
+                                    rs.TILE)[1]
+        look = got[2]
+        if not (torch.equal((look & 0xFFFFFFFF).to(torch.int32),
+                            rs.lookback_plain(counts))
+                and bool(((look >> 32) == 4 * p + 2).all())):
+            raise AssertionError(f"radix_onesweep {label} pass {p}: the "
+                                 f"look-back array != lookback_plain")
+        bits, vals = got[:2]
+    _sort_vs_torch(label, keys)
+    log(f"[radix] {label} {keys.shape[0]} keys ({rs.num_tiles(keys.shape[0])}"
+        f" tiles): radix_digit_hist and radix_onesweep bit-equal to their "
+        f"plain versions and on repeat on all 4 passes, the look-back "
+        f"prefixes == lookback_plain; the radix sort == "
         f"torch.sort(stable=True)")
-    return first
+
+
+def check_radix_stress(pair_keys) -> None:
+    """The look-back under load and the ragged edges: the 1M pairs sorted
+    50 times (every result identical), 2^26 random u32 keys (16,384
+    tiles), all-equal keys, all 0xFFFFFFFF, and n = 1, T - 1, T + 1 and
+    4,403,201 (T = 4,096 keys a tile), each == torch.sort(stable=True)."""
+    import torch
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    t0 = time.perf_counter()
+    obj = torch.arange(pair_keys.shape[0], dtype=torch.int32, device="cuda")
+    first = rs.radix_sort_pairs(pair_keys, obj)
+    for i in range(49):
+        _equal_or_raise(f"radix sort of the 1M pairs, repeat {i + 1}",
+                        rs.radix_sort_pairs(pair_keys, obj), first)
+    _sort_vs_torch("1M pairs", pair_keys)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    wide = torch.randint(0, 2 ** 32, (2 ** 26,), generator=g,
+                         device="cuda", dtype=torch.int64)
+    _sort_vs_torch("2^26 random", wide)
+    del wide
+    T = rs.TILE
+    n = pair_keys.shape[0]
+    cases = {"all equal": torch.full((n,), 0x01020304, device="cuda"),
+             "all 0xFFFFFFFF": torch.full((n,), 0xFFFFFFFF, device="cuda")}
+    more = torch.randint(0, 2 ** 32, (n + 1,), generator=g, device="cuda",
+                         dtype=torch.int64)
+    for m in (1, T - 1, T + 1):
+        cases[f"n={m}"] = more[:m]
+    cases[f"n={n + 1}"] = torch.cat([pair_keys, more[:1]])
+    for label, keys in cases.items():
+        _sort_vs_torch(label, keys.contiguous())
+    torch.cuda.empty_cache()
+    log(f"[radix] stress: the 1M pairs sorted 50 times, identical; 2^26 "
+        f"random keys ({rs.num_tiles(2 ** 26)} tiles), "
+        f"{', '.join(cases)} == torch.sort(stable=True) "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_array_kernels(errs: dict):
-    """K12 at a small shape and at both shapes the 1M engine gives it: the
-    scene's pair keys (each substep) and its home-cell codes over the
-    whole capacity, the inactive tail UNUSED (the Morton resort); and the
-    scene's candidate cells on the card against the CPU's.  Returns the
-    first pass's key bits at the pair keys' shape."""
+    """The radix kernels at a small shape and at both shapes the 1M engine
+    gives them: the scene's pair keys (each substep) and its home-cell
+    codes over the whole capacity, the inactive tail UNUSED (the Morton
+    resort); the stress sorts; and the scene's candidate cells on the card
+    against the CPU's.  Returns the pair keys."""
     from gpu_physics_engine_torch import Engine
     from gpu_physics_engine_torch.core import stepper
     from gpu_physics_engine_torch.ops import resort
@@ -1143,14 +1206,15 @@ def phase_array_kernels(errs: dict):
     cfg = _array_cfg(sort_impl="radix")
     e = Engine(cfg, seed=0, device="cuda")
     _, keys = _pair_keys(e.state, cfg)
-    big = check_radix("1M pairs", keys)
+    check_radix("1M pairs", keys)
     st = e.state
     check_radix("1M resort codes", resort.home_cell_codes(
         st.x, st.y, st.active_mask(), stepper.cell_size(cfg, st)))
+    check_radix_stress(keys)
     for name in RADIX:
         errs[name] = 0.0
     check_candidates("1M scene", e.state, cfg)
-    return big
+    return keys
 
 
 def check_candidates(label, state, cfg) -> None:
@@ -1221,7 +1285,14 @@ def phase_array_engine(make, windows, label, expect) -> dict:
     return {"launches": got, "win_ms": win_ms, "engine": e}
 
 
-RADIX = ("radix_rank_hist", "radix_offsets", "radix_scatter")
+RADIX = ("radix_digit_hist", "radix_onesweep")
+
+
+def _radix_expect(sorts: int) -> dict:
+    """The radix launches of ``sorts`` sorts: one histogram, four passes."""
+    return {"radix_digit_hist": sorts, "radix_onesweep": 4 * sorts}
+
+
 ARRAY_STATE = ("x", "y", "px", "py", "radius", "num_active",
                "steps_since_sort", "max_radius", "overflow_count")
 
@@ -1229,18 +1300,18 @@ ARRAY_STATE = ("x", "y", "px", "py", "radius", "num_active",
 def phase_array_paths(paths: dict) -> None:
     """The radix engine at 1M for 256 steps (128 free, 128 under the drag,
     the resort at step 240), the lax engine through the same steps from the
-    same seed (bit-equal, no K12 launch), then 64 steps each of the bucket
+    same seed (bit-equal, no radix launch), then 64 steps each of the bucket
     pipeline and the Jacobi solver."""
     import torch
     from gpu_physics_engine_torch import Engine
     windows = [(128, None), (128, CENTRE)]
     runs = {}
-    for impl, count in (("radix", 4 * 256 + 4), ("lax", 0)):
+    for impl, sorts in (("radix", 256 + 1), ("lax", 0)):
         label = f"1M-array-{impl}"
         runs[impl] = phase_array_engine(
             lambda: Engine(_array_cfg(sort_impl=impl), seed=0,
                            device="cuda"),
-            windows, label, dict.fromkeys(RADIX, count))
+            windows, label, _radix_expect(sorts))
         paths[label] = runs[impl]["launches"]
     a, b = runs["radix"]["engine"].state, runs["lax"]["engine"].state
     diff = [f for f in ARRAY_STATE
@@ -1257,7 +1328,7 @@ def phase_array_paths(paths: dict) -> None:
         run = phase_array_engine(
             lambda: Engine(_array_cfg(sort_impl="radix", **kw), seed=0,
                            device="cuda"),
-            [(64, None)], label, dict.fromkeys(RADIX, 0))
+            [(64, None)], label, _radix_expect(0))
         paths[label] = run["launches"]
         del run
         torch.cuda.empty_cache()
@@ -1296,7 +1367,7 @@ def _k1_bound(cfg, state):
     return _bound((5 + rplanes + 4) * S + 16, 5 * pairs + 25 * occ)
 
 
-def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
+def bounds(cfg, state, gs_cfg, gs_state, radix_keys) -> dict:
     """Per kernel (least ms, "bytes" or "operations"): each input read once,
     each output written once; operations counted from this run's data
     (5 flops per candidate pair's distance test, 25 per Verlet step, 9 per
@@ -1370,17 +1441,14 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_bits) -> dict:
     out["gs_colors_mega"] = out["gs_color_par"]
     out["relocate_mega"] = out["relocate_par"]
     out["relocate_one"] = out["relocate_pull"]
-    # K12: each key read once, each rank written once, one 256-bin
-    # histogram per 1024-key block; a handful of integer operations a key
-    nkeys = float(radix_bits.shape[0])
-    hist_bytes = nkeys / 1024 * 256 * 4
-    out["radix_rank_hist"] = _bound(8 * nkeys + hist_bytes, 0.0)
-    # the offsets read the histogram and write the offsets; the scatter
-    # reads key, payload and rank and one offset row a block (1 KiB) and
-    # writes key and payload (the kernel also reads the block's histogram
-    # row to stage in digit order; the function does not need it)
-    out["radix_offsets"] = _bound(2 * hist_bytes, 0.0)
-    out["radix_scatter"] = _bound(20 * nkeys + hist_bytes, 0.0)
+    # the radix sort: the histogram reads each int64 key once and writes
+    # [4, 256] i32; the pass as timed (pass 0) reads the int64 key, the
+    # payload and its histogram row and writes the u32 key and the payload
+    # (the look-back words are the kernel's scratch, not the function's);
+    # a handful of integer operations a key
+    nkeys = float(radix_keys.shape[0])
+    out["radix_digit_hist"] = _bound(8 * nkeys + 4096, 0.0)
+    out["radix_onesweep"] = _bound(20 * nkeys + 1024, 0.0)
     return out
 
 
@@ -1443,16 +1511,19 @@ def _par_runs(gs_cfg, gs_state) -> dict:
     return runs, list(ps.x.shape)
 
 
-def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
+def phase_times(cfg, state, gs_cfg, gs_state, radix_keys):
     """Every kernel against its plain version at the main paths' shapes:
     K1, K2, K3 at the 4M shape, K5 and K6 (one launch: a solve's four
     colors) at the 1M-GS shape, the parity kernels at its parity shape, on
     the engines' initial scenes (after a mouse drag most particles are
-    members of no cell, and K6 would have little to do), K12 (one pass) at
-    the 1M array scene's 4,403,200 pair keys.  Turns: plain, kernel,
-    kernel, plain.  Returns ({name: (kernel ms, plain ms)}, {name: library ms}):
-    for K12 the library call is torch.sort(stable=True) of the same pairs,
-    which does the whole sort that K12's four passes serve."""
+    members of no cell, and K6 would have little to do), the radix
+    histogram and one radix pass (pass 0: int64 keys in, each call with a
+    look-back state of its own) at the 1M array scene's 4,403,200 pair
+    keys (their kernels' device time: the calls are host-paced).  Turns:
+    plain, kernel, kernel, plain.  Returns ({name: (kernel ms, plain ms)},
+    {name: library ms}): for radix_onesweep the library call is
+    torch.sort(stable=True) of the same pairs, which does the whole sort
+    that the histogram and the four passes serve."""
     import torch
     from gpu_physics_engine_torch import StepParams
     from gpu_physics_engine_torch.ops import gs_kernels as gk
@@ -1485,19 +1556,17 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
     runs.update(par)
     shapes.update({name: par_shape for name in par})
     from gpu_physics_engine_torch.ops import radix_sort as rs
-    obj = torch.arange(radix_bits.shape[0], dtype=torch.int32,
-                       device="cuda")
-    rank, hist = rs.rank_hist_cuda(radix_bits, 0)
-    off = rs.digit_offsets_cuda(hist)
-    runs["radix_rank_hist"] = (lambda: rs.rank_hist_cuda(radix_bits, 0),
-                               lambda: rs.rank_hist_plain(radix_bits, 0), 1)
-    runs["radix_offsets"] = (lambda: rs.digit_offsets_cuda(hist),
-                             lambda: rs.digit_offsets_plain(hist), 1)
-    runs["radix_scatter"] = (
-        lambda: rs.scatter_cuda(radix_bits, obj, rank, hist, off, 0),
-        lambda: rs.scatter_plain(radix_bits, obj, rank, off, 0), 1)
+    keys = radix_keys
+    obj = torch.arange(keys.shape[0], dtype=torch.int32, device="cuda")
+    hist = rs.digit_hist_cuda(keys)
+    runs["radix_digit_hist"] = (lambda: rs.digit_hist_cuda(keys),
+                                lambda: rs.digit_hist_plain(keys), 1)
+    runs["radix_onesweep"] = (
+        lambda: rs.onesweep_pass_cuda(keys, obj, 0, hist, torch.int32),
+        lambda: rs.onesweep_pass_plain(keys, obj, 0, rs.digit_bases(hist[0]),
+                                       out_dtype=torch.int32), 1)
     for name in RADIX:
-        shapes[name] = list(radix_bits.shape)
+        shapes[name] = list(keys.shape)
     out = {}
     for name, (kern, plain, per) in runs.items():
         p1 = cuda_ms(plain, reps=2) / per
@@ -1507,10 +1576,17 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
         out[name] = (min(k1, k2), min(p1, p2))
         log(f"[time] {name} {shapes[name]}: kernel {k1:.4f} / {k2:.4f} ms, "
             f"plain {p1:.3f} / {p2:.3f} ms per launch")
+    # a radix wrapper's host work (allocation, the zeroed look-back state)
+    # outlasts its kernel, so back-to-back calls are paced by the host:
+    # the kernel's ms is its device time in a profiler window instead
+    for name in RADIX:
+        dev = kernel_device_ms(runs[name][0], 10)
+        ms = sum(v for k, v in dev.items() if f"{name}_kernel" in k)
+        log(f"[time] {name} {shapes[name]}: kernel device time {ms:.4f} ms "
+            f"a call (the call {out[name][0]:.4f} ms, host-paced)")
+        out[name] = (ms, out[name][1])
     # the sort the radix kernels serve: torch.sort of the pairs against the
-    # hand radix sort (4 passes of K12, radix_offsets and radix_scatter)
-    keys = rs.from_i32_bits(radix_bits)
-
+    # hand radix sort (the histogram and 4 passes)
     def lib_sort():
         sk, idx = torch.sort(keys, stable=True)
         return sk, obj[idx]
@@ -1518,10 +1594,10 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_bits):
     lib[1] = cuda_ms(lambda: rs.radix_sort_pairs(keys, obj), reps=10)
     lib[2] = cuda_ms(lambda: rs.radix_sort_pairs(keys, obj), reps=10)
     log(f"[time] sort of {keys.shape[0]} pairs: torch.sort(stable=True) "
-        f"{lib[0]:.4f} / {lib[3]:.4f} ms, the hand radix sort (4 passes of "
-        f"K12, radix_offsets, radix_scatter) {lib[1]:.4f} / {lib[2]:.4f} ms")
+        f"{lib[0]:.4f} / {lib[3]:.4f} ms, the hand radix sort (the "
+        f"histogram and 4 onesweep passes) {lib[1]:.4f} / {lib[2]:.4f} ms")
     torch.cuda.synchronize()
-    return out, {"radix_rank_hist": min(lib[0], lib[3])}
+    return out, {"radix_onesweep": min(lib[0], lib[3])}
 
 
 def cross_check(label, flat, other, what) -> None:
@@ -1572,13 +1648,12 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
      "gpu_physics_engine_tpu/ops/gs_pallas.py:1045", "1M-GS-mx"),
     ("gs_color_par[dec]", "gs_color_par", "csrc/gs_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_pallas.py:783", "1M-GS-dec"),
-    ("radix_rank_hist", "radix_rank_hist", "csrc/radix_kernels.cuh",
+    # the pass kernel replaces K12 and the XLA steps of _one_pass
+    # (:103-127); the histogram the digit-major half of its scan (:111)
+    ("radix_onesweep", "radix_onesweep", "csrc/radix_kernels.cuh",
      "gpu_physics_engine_tpu/ops/radix_sort.py:80", "1M-array-radix"),
-    # the two below replace XLA steps of _one_pass, not a pallas_call
-    ("radix_offsets", "radix_offsets", "csrc/radix_kernels.cuh",
+    ("radix_digit_hist", "radix_digit_hist", "csrc/radix_kernels.cuh",
      "gpu_physics_engine_tpu/ops/radix_sort.py:111", "1M-array-radix"),
-    ("radix_scatter", "radix_scatter", "csrc/radix_kernels.cuh",
-     "gpu_physics_engine_tpu/ops/radix_sort.py:114", "1M-array-radix"),
     ("gs_colors_mega", "gs_colors_mega", "csrc/gs_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_mega.py:503", "1M-GS-mega"),
     ("relocate_mega", "relocate_mega", "csrc/tiled_kernels.cuh",
@@ -2164,7 +2239,8 @@ def _resume_4m_spawn(saved, paths: dict) -> None:
 def phase_options(paths: dict, saved) -> None:
     """The options that raised before this slice, each on the card at full
     width: the fast solver at 1M (both packings, 256 steps with the resort
-    at step 240: K12 and the radix pass), with card == CPU at 10k; the band
+    at step 240: the histogram and the radix pass), with card == CPU at
+    10k; the band
     drain at 4M-GS beside the claim sweep; the hybrid sweep at 512k; the
     4M-spawn checkpoint resumed."""
     import shutil
@@ -2177,7 +2253,7 @@ def phase_options(paths: dict, saved) -> None:
             lambda: Engine(_array_cfg(solver="fast", sort_impl="radix",
                                       fast_pack_bf16=pack), seed=0,
                            device="cuda"),
-            [(128, None), (128, CENTRE)], label, dict.fromkeys(RADIX, 4))
+            [(128, None), (128, CENTRE)], label, _radix_expect(1))
         paths[label] = run["launches"]
         del run
         torch.cuda.empty_cache()
@@ -2725,8 +2801,7 @@ def phase_apps(smi: str, paths: dict, errs: dict) -> None:
     del e
     e = Engine(_array_cfg(sort_impl="radix"), device="cuda")
     e.run(4)
-    _breakdown("1M-array radix", phase_breakdown, e,
-               ("radix_rank_hist", "radix_offsets", "radix_scatter"))
+    _breakdown("1M-array radix", phase_breakdown, e, RADIX)
     del e
     torch.cuda.empty_cache()
     _web_app(paths)
@@ -2801,7 +2876,7 @@ def main() -> int:
     phase_gs_paths(paths, errs)
     phase_k4_path(paths)
     phase_render(smi, paths)
-    radix_bits = phase_array_kernels(errs)
+    radix_keys = phase_array_kernels(errs)
     phase_array_paths(paths)
     phase_options(paths, saved)
     run = phase_engine(
@@ -2815,8 +2890,8 @@ def main() -> int:
     phase_apps(smi, paths, errs)
 
     times, library = phase_times(big_cfg, big_state, gs_cfg, gs_state,
-                                 radix_bits)
-    bound = bounds(big_cfg, big_state, gs_cfg, gs_state, radix_bits)
+                                 radix_keys)
+    bound = bounds(big_cfg, big_state, gs_cfg, gs_state, radix_keys)
     times["collide_integrate[general]"] = spawn_times
     bound["collide_integrate[general]"] = _k1_bound(spawn_cfg, spawn_state)
     kernels = []

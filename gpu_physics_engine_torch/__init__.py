@@ -7,10 +7,11 @@ repository as the reference.  Module names mirror the JAX package's:
            (the tiled pipeline), Engine and stepper (the array pipelines:
            pipeline "sorted" or "bucket", solver "colored", "jacobi" or
            "fast")
-  ops/     grid.py, sort.py, radix_sort.py (the hand radix sort: each
-           pass is three CUDA kernels, the rank/histogram, the digit
-           offsets and the scatter), collision.py, fast_solve.py (the
-           sort + shift Jacobi solve), resort.py, spawn.py, morton.py, scan.py, integrate.py (the array
+  ops/     grid.py, sort.py, radix_sort.py (the hand radix sort: one
+           digit-histogram kernel a sort, then one CUDA kernel a pass,
+           rank, decoupled look-back and store), collision.py,
+           fast_solve.py (the sort + shift Jacobi solve), resort.py,
+           spawn.py, morton.py, scan.py, integrate.py (the array
            pipelines' stages), tiled.py (tile storage, plain tensor ops,
            sweeps, spawn inserts, the step), bigs.py (the big-particle
            overlay for spawns too large for the tiles),
@@ -49,7 +50,8 @@ versions:
     eng = make_engine(cfg, device="cpu")   # the array Engine
     eng.press_mouse((32.0, 16.0)); eng.run(20)
 
-On the card, drop ``device``: ``sort_impl="radix"`` then launches K12.
+On the card, drop ``device``: ``sort_impl="radix"`` then launches the
+radix sort's kernels.
 """
 
 from __future__ import annotations

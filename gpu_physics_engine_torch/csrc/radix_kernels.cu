@@ -3,61 +3,91 @@
 //
 // Every pointer is a device pointer; the launch goes on the caller's
 // stream and nothing here synchronises or allocates.  The function
-// returns cudaGetLastError() so that a refused launch is reported at the
-// call.
+// returns the first CUDA error of its calls (cudaGetLastError() after the
+// launch), so that a refused launch is reported at the call.
 #include <cuda_runtime.h>
 
 #include "radix_kernels.cuh"
 
 extern "C" {
 
-// K12: keys u32[nblocks * 1024] -> rank i32[nblocks * 1024] and hist
-// i32[nblocks, 256] of the digit (key >> shift) & 255.
-int gpe_radix_rank_hist(const void* keys, void* rank, void* hist, int nblocks,
-                        int shift, void* stream) {
-  gpe::radix_rank_hist_kernel<<<nblocks, gpe::kRadixBlock, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<int*>(rank),
-      static_cast<int*>(hist), shift);
-  return (int)cudaGetLastError();
+// Bytes of the sort's scratch for `ntiles` tiles of kSweepTile keys: the
+// digit histogram, the tile counters and the look-back array (below 2^31
+// for any n < 2^31; ops/radix_sort.scratch_words mirrors it).
+int gpe_radix_scratch_bytes(int ntiles) {
+  return (int)(gpe::kLookOffset + (long long)ntiles * gpe::kRadixBins *
+                                      sizeof(unsigned long long));
 }
 
-// radix_offsets: hist i32[nblocks, 256] -> offset i32[nblocks, 256], the
-// exclusive scan in (digit, block) order; part is scratch i32[nchunks,
-// 256], nchunks = ceil(nblocks / kOffsetRows).  Three launches.
-int gpe_radix_offsets(const void* hist, void* part, void* offset, int nblocks,
-                      void* stream) {
-  if (nblocks < 1) return (int)cudaErrorInvalidValue;
+// Zero the scratch for `ntiles` tiles (ntiles 0: the histogram and the
+// counters only), then radix_digit_hist: keys i64[n] (u32 values) ->
+// scratch's hist i32[4][256].
+int gpe_radix_digit_hist(const void* keys, void* scratch, int n, int ntiles,
+                         void* stream) {
+  if (n < 1 || ntiles < 0) return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int nchunks = (nblocks + gpe::kOffsetRows - 1) / gpe::kOffsetRows;
-  const auto* h = static_cast<const int*>(hist);
-  auto* p = static_cast<int*>(part);
-  gpe::radix_chunk_sums_kernel<<<nchunks, gpe::kRadixBins, 0, s>>>(h, p,
-                                                                   nblocks);
-  cudaError_t rc = cudaGetLastError();
+  cudaError_t rc = cudaMemsetAsync(scratch, 0,
+                                   gpe_radix_scratch_bytes(ntiles), s);
   if (rc != cudaSuccess) return (int)rc;
-  gpe::radix_chunk_base_kernel<<<1, gpe::kRadixBins * gpe::kBaseSplit, 0,
-                                 s>>>(p, nchunks);
-  rc = cudaGetLastError();
+  int dev = 0, sms = 0;
+  rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return (int)rc;
-  gpe::radix_offsets_kernel<<<nchunks, gpe::kRadixBins, 0, s>>>(
-      h, p, static_cast<int*>(offset), nblocks);
+  rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return (int)rc;
+  // one segment of kHistSegment keys a warp and round
+  const long long per =
+      (long long)gpe::kHistThreads / 32 * gpe::kHistSegment;
+  const long long want = (n + per - 1) / per;
+  const int grid = (int)(want < sms ? want : sms);
+  gpe::radix_digit_hist_kernel<<<grid, gpe::kHistThreads, 0, s>>>(
+      static_cast<const long long*>(keys), static_cast<int*>(scratch), n);
   return (int)cudaGetLastError();
 }
 
-// radix_scatter: keys u32 and vals i32 [nblocks * 1024] with their ranks,
-// histograms and offsets -> okeys, ovals at offset[block][digit] + rank.
-int gpe_radix_scatter(const void* keys, const void* vals, const void* rank,
-                      const void* hist, const void* offset, void* okeys,
-                      void* ovals, int nblocks, int shift, void* stream) {
-  if (nblocks < 1) return (int)cudaErrorInvalidValue;
-  const int grid = (nblocks + gpe::kScatterBlocks - 1) / gpe::kScatterBlocks;
-  gpe::radix_scatter_kernel<<<grid, gpe::kRadixBlock, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<const int*>(vals),
-      static_cast<const int*>(rank), static_cast<const int*>(hist),
-      static_cast<const int*>(offset), static_cast<uint32_t*>(okeys),
-      static_cast<int*>(ovals), shift, nblocks);
+// radix_onesweep, the pass on the digit at `shift`: keys (u32 bits, or
+// i64 u32 values when in64) and vals i32 [n] -> okeys (u32 bits, or i64
+// when out64) and ovals [n], stably sorted by the digit.  Reads the pass's
+// histogram row and advances its tile counter and the look-back array in
+// `scratch` (zeroed by gpe_radix_digit_hist for these n).
+int gpe_radix_onesweep(const void* keys, const void* vals, void* okeys,
+                       void* ovals, void* scratch, int n, int shift, int in64,
+                       int out64, void* stream) {
+  if (n < 1 || shift < 0 || shift > 24 || shift % 8)
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int ntiles = (n + gpe::kSweepTile - 1) / gpe::kSweepTile;
+  const int pass = shift / 8;
+  int* hist = static_cast<int*>(scratch) + pass * gpe::kRadixBins;
+  int* counter = static_cast<int*>(scratch) +
+                 gpe::kRadixPasses * gpe::kRadixBins + pass;
+  auto* look = reinterpret_cast<unsigned long long*>(
+      static_cast<char*>(scratch) + gpe::kLookOffset);
+  const auto* v = static_cast<const int*>(vals);
+  auto* ov = static_cast<int*>(ovals);
+  if (in64 && out64)
+    gpe::radix_onesweep_kernel<long long, long long>
+        <<<ntiles, gpe::kSweepThreads, 0, s>>>(
+            static_cast<const long long*>(keys), v,
+            static_cast<long long*>(okeys), ov, hist, counter, look, n,
+            shift);
+  else if (in64)
+    gpe::radix_onesweep_kernel<long long, uint32_t>
+        <<<ntiles, gpe::kSweepThreads, 0, s>>>(
+            static_cast<const long long*>(keys), v,
+            static_cast<uint32_t*>(okeys), ov, hist, counter, look, n,
+            shift);
+  else if (out64)
+    gpe::radix_onesweep_kernel<uint32_t, long long>
+        <<<ntiles, gpe::kSweepThreads, 0, s>>>(
+            static_cast<const uint32_t*>(keys), v,
+            static_cast<long long*>(okeys), ov, hist, counter, look, n,
+            shift);
+  else
+    gpe::radix_onesweep_kernel<uint32_t, uint32_t>
+        <<<ntiles, gpe::kSweepThreads, 0, s>>>(
+            static_cast<const uint32_t*>(keys), v,
+            static_cast<uint32_t*>(okeys), ov, hist, counter, look, n,
+            shift);
   return (int)cudaGetLastError();
 }
 

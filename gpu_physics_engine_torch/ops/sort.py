@@ -6,9 +6,10 @@ unsigned and the UNUSED sentinel 0xFFFFFFFF sinks to the end.
   * ``impl="lax"``: ``torch.sort(stable=True)``, the counterpart of the
     JAX package's ``jax.lax.sort(is_stable=True)`` (a library sort on
     both sides);
-  * ``impl="radix"``: the hand LSD radix sort of ops/radix_sort, each of
-    whose passes is three CUDA kernels: K12 (ranks and histograms),
-    ``radix_offsets`` and ``radix_scatter``.
+  * ``impl="radix"``: the hand LSD radix sort of ops/radix_sort: one
+    CUDA kernel counts the four digit histograms, then each pass is one
+    CUDA kernel (``radix_onesweep``: stable ranks, a decoupled look-back
+    for the tile's offsets, and the store).
 
 Both are stable, so equal cell ids keep ascending object order, and their
 outputs are equal.

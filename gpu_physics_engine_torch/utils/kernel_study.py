@@ -1,5 +1,6 @@
 """Time K1, K2, K5 and K6 against variants of their input or of their
-build, and the radix sort's pieces against torch.sort, on the card.
+build, and the radix sort (its kernels, the parent's) against torch.sort,
+on the card.
 
     python -m gpu_physics_engine_torch.utils.kernel_study [--k1] [--k2]
         [--k5] [--other-lib PATH] [--k6 [--parent DIR]] [--radix]
@@ -63,12 +64,15 @@ call):
   and spills from ptxas.
 * ``--radix``: the array Engine's 1M scene (the README's example) and its
   4,403,200 pair keys: ``torch.sort(stable=True)`` of the keys with the
-  payload gathered, the hand ``radix_sort_pairs``, and its pieces (one
-  pass each of K12, ``radix_offsets`` and ``radix_scatter``, and the
-  int64 <-> int32 conversions), then the device time of each kernel of
-  the hand sort from a torch.profiler window over 10 sorts (isolated
-  pieces are paced by the host where a launch is shorter than its
-  enqueue); the hand sort is checked equal to torch.sort first.
+  payload gathered and the hand ``radix_sort_pairs`` (one
+  ``radix_digit_hist_kernel`` and four ``radix_onesweep_kernel``
+  launches), in turns, each checked equal to torch.sort first; with
+  ``--other-lib PATH`` (the parent commit's build, e.g. from an unpacked
+  ``git archive`` under ``.archive_check/``) also the parent's sort, its
+  three kernels a pass called through that build (``parent_radix_sort``);
+  then the device time of each kernel of each sort from a torch.profiler
+  window over 10 sorts (the hand sort's passes apart: pass 0 reads int64
+  keys, pass 3 writes them).
 
 Without a CUDA device it exits non-zero.
 """
@@ -76,6 +80,7 @@ Without a CUDA device it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -601,7 +606,64 @@ def k6_study(parent=None) -> dict:
     return out
 
 
-def radix_study() -> dict:
+# The parent commit's radix pass (three kernels a pass: the rank and
+# histogram of 1024-key blocks, the digit offsets, the scatter), called
+# through an earlier build of the library given with --other-lib, so that
+# --radix can time it in turns with this tree's sort in one process.
+PARENT_RADIX = {"gpe_radix_rank_hist": 3 * [ctypes.c_void_p]
+                + 2 * [ctypes.c_int] + [ctypes.c_void_p],
+                "gpe_radix_offsets": 3 * [ctypes.c_void_p]
+                + [ctypes.c_int, ctypes.c_void_p],
+                "gpe_radix_scatter": 7 * [ctypes.c_void_p]
+                + 2 * [ctypes.c_int] + [ctypes.c_void_p]}
+
+
+def parent_radix_sort(lib):
+    """The parent's ``radix_sort_pairs`` on the card through ``lib``'s
+    entry points: keys to int32 bits padded to 1024-key blocks with
+    0xFFFFFFFF, 4 passes of 3 launches, back to int64."""
+    import torch
+    for name, argtypes in PARENT_RADIX.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+
+    def sort(keys, payload):
+        n, block = keys.shape[0], 1024
+        bits = keys.to(torch.int32)
+        pad = -n % block
+        if pad:
+            bits = torch.cat([bits, bits.new_full((pad,), -1)])
+            payload = torch.cat([payload, payload.new_zeros(pad)])
+        nb = bits.shape[0] // block
+        rank = torch.empty_like(bits)
+        hist = torch.empty((nb, 256), dtype=torch.int32, device=keys.device)
+        offset = torch.empty_like(hist)
+        part = torch.empty((-(-nb // 32), 256), dtype=torch.int32,
+                           device=keys.device)
+        bufs = [(torch.empty_like(bits), torch.empty_like(payload))
+                for _ in range(2)]
+        s = torch.cuda.current_stream().cuda_stream
+        for p in range(4):
+            ok, ov = bufs[p % 2]
+            rcs = (lib.gpe_radix_rank_hist(bits.data_ptr(), rank.data_ptr(),
+                                           hist.data_ptr(), nb, 8 * p, s),
+                   lib.gpe_radix_offsets(hist.data_ptr(), part.data_ptr(),
+                                         offset.data_ptr(), nb, s),
+                   lib.gpe_radix_scatter(
+                       bits.data_ptr(), payload.data_ptr(), rank.data_ptr(),
+                       hist.data_ptr(), offset.data_ptr(), ok.data_ptr(),
+                       ov.data_ptr(), nb, 8 * p, s))
+            if any(rcs):
+                raise RuntimeError(f"parent radix pass {p}: CUDA errors {rcs}")
+            bits, payload = ok, ov
+        return bits[:n].to(torch.int64) & 0xFFFFFFFF, payload[:n]
+    return sort
+
+
+def radix_study(other=None) -> dict:
+    """The hand sort, its kernels and ``torch.sort`` on the 1M scene's pair
+    keys; with ``other`` (the parent's build) the parent's sort too, in
+    turns (torch.sort, this, parent, parent, this, torch.sort)."""
     import torch
     from gpu_physics_engine_torch import Engine, SimConfig
     from gpu_physics_engine_torch.core import stepper
@@ -619,26 +681,27 @@ def radix_study() -> dict:
         sk, idx = torch.sort(keys, stable=True)
         return sk, obj[idx]
 
-    sk, sv = rs.radix_sort_pairs(keys, obj)
-    wk, wv = lib_sort()
-    if not (torch.equal(sk, wk) and torch.equal(sv, wv)):
-        raise AssertionError("radix sort != torch.sort(stable=True)")
-    bits = rs.as_i32_bits(keys)  # n is a BLOCK multiple here: no padding
-    rank, hist = rs.rank_hist_cuda(bits, 0)
-    offset = rs.digit_offsets_cuda(hist)
-    out = {"study": "radix", "keys": n, "blocks": n // rs.BLOCK}
-    for name, fn in (
-            ("torch_sort", lib_sort),
-            ("radix_sort_pairs", lambda: rs.radix_sort_pairs(keys, obj)),
-            ("rank_hist", lambda: rs.rank_hist_cuda(bits, 0)),
-            ("radix_offsets", lambda: rs.digit_offsets_cuda(hist)),
-            ("radix_scatter", lambda: rs.scatter_cuda(bits, obj, rank, hist,
-                                                      offset, 0)),
-            ("as_i32_bits", lambda: rs.as_i32_bits(keys)),
-            ("from_i32_bits", lambda: rs.from_i32_bits(bits))):
-        out[name] = [cuda_ms(fn), cuda_ms(fn)]
-    out["in_sort_device_ms"] = kernel_device_ms(lambda: rs.radix_sort_pairs(
-        keys, obj), 10)
+    def hand_sort():
+        return rs.radix_sort_pairs(keys, obj)
+
+    sorts = {"torch_sort": lib_sort, "radix_sort_pairs": hand_sort}
+    if other is not None:
+        parent = parent_radix_sort(other)
+        sorts["parent_sort"] = lambda: parent(keys, obj)
+    want = lib_sort()
+    for name, fn in sorts.items():
+        got = fn()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise AssertionError(f"{name} != torch.sort(stable=True)")
+    out = {"study": "radix", "keys": n, "tiles": rs.num_tiles(n)}
+    order = list(sorts)
+    rows = {name: [] for name in order}
+    for name in order + order[::-1]:
+        rows[name].append(cuda_ms(sorts[name]))
+    out["sorts_ms"] = rows
+    for name, fn in sorts.items():
+        out[f"{name}_device_ms"] = kernel_device_ms(fn, 10)
     return out
 
 
@@ -671,7 +734,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k5", action="store_true")
     ap.add_argument("--other-lib", default=None,
                     help="with --k2 and --k5: time the kernels through "
-                         "this build of the kernel library too, in turns")
+                         "this build of the kernel library too, in turns; "
+                         "with --radix: the parent commit's build, whose "
+                         "three-kernel sort is timed in turns")
     ap.add_argument("--k6", action="store_true")
     ap.add_argument("--parent", default=None,
                     help="with --k6: a checkout of the parent commit, whose "
@@ -696,7 +761,7 @@ def main(argv=None) -> int:
     if args.k6:
         print(json.dumps(k6_study(args.parent)), flush=True)
     if args.radix:
-        print(json.dumps(radix_study()), flush=True)
+        print(json.dumps(radix_study(other)), flush=True)
     return 0
 
 

@@ -1,7 +1,7 @@
 """The port's array-pipeline stages (gpu_physics_engine_torch/ops: morton,
 scan, grid, collision, resort, spawn, integrate) against the JAX
-package's on the CPU, from the same numpy inputs (the radix sort and K12:
-tests/test_torch_array_sort.py).
+package's on the CPU, from the same numpy inputs (the radix sort and its
+pass's tile ranks: tests/test_torch_array_sort.py).
 
 Tolerances: integer outputs (cell ids, coords, pairs, ranks, histograms,
 occupant tables, bucket entries, permutations, counters) are exact.  The

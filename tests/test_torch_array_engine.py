@@ -124,7 +124,8 @@ def test_engine_matches_jax_engine(variant):
     if variant["solver"] == "fast":
         assert int(got["overflow_count"]) == 0
     # on the CPU the wrapper ran the plain version: no kernel launches
-    assert radix_sort.LAUNCHES["radix_rank_hist"] == 0
+    assert radix_sort.LAUNCHES["radix_onesweep"] == 0
+    assert radix_sort.LAUNCHES["radix_digit_hist"] == 0
 
 
 @pytest.mark.parametrize("pipeline", ["sorted", "bucket"])

@@ -1,16 +1,19 @@
 """The port's radix sort (gpu_physics_engine_torch/ops/radix_sort.py,
 ops/sort.py) against the JAX package's on the CPU.
 
-K12's plain version (``rank_hist_plain``, which the wrapper runs for a
-CPU tensor) is held to the JAX package's ``_rank_hist`` run in interpret
-mode, on about 3 blocks with duplicates and 0xFFFFFFFF sentinels, for all
-four digit shifts: ranks and histograms exact.  The plain digit-offset scan
-and scatter (the plain versions of ``radix_offsets`` and
-``radix_scatter``) are held to numpy on the same keys, one pass of the
-three to a stable numpy sort by the digit, and four passes to
+The tile-local ranks of the pass's plain version (``rank_hist_plain`` at
+``tile=1024``) are held to the JAX package's ``_rank_hist`` run in
+interpret mode, on about 3 blocks with duplicates and 0xFFFFFFFF
+sentinels, for all four digit shifts: ranks and histograms exact.  The
+plain histogram, digit-offset scan, look-back and scatter are held to
+numpy on the same keys; one pass (``onesweep_pass_plain``, what the CPU
+runs)
+to a stable numpy sort by the digit at ragged sizes around a tile, with
+all-equal keys and all sentinels; four passes to
 ``torch.sort(stable=True)``.  The whole radix sort is held to the JAX one
 and to ``torch.sort(stable=True)``.  The CUDA kernels are held to the
-plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
+plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py); here
+their wrappers refuse what the kernels do not take.
 """
 
 import jax.numpy as jnp
@@ -47,7 +50,7 @@ def test_rank_hist_plain_matches_jax_kernel(shift):
     jr, jh = jradix._rank_hist(jnp.asarray(keys), shift)
     bits = tradix.as_i32_bits(torch.from_numpy(keys.astype(np.int64)))
     assert bits.dtype == torch.int32
-    tr, th = tradix.rank_hist(bits, shift)
+    tr, th = tradix.rank_hist_plain(bits, shift, tile=1024)
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
     assert th.shape == (3, 256) and int(th.sum()) == len(keys)
@@ -79,14 +82,6 @@ def test_radix_sort_reverse_ramp_and_sentinels():
     assert tsort.argsort_u32(keys)[1].tolist() == perm.tolist()
 
 
-def test_rank_hist_cuda_refuses_cpu_tensors():
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tradix.rank_hist_cuda(torch.zeros(1024, dtype=torch.int32), 0)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tradix.rank_hist(torch.zeros(1024, dtype=torch.int32,
-                                     device="meta"), 0)
-
-
 def _np_digit_offsets(hist: np.ndarray) -> np.ndarray:
     """offset[b, d]: keys of all smaller digits, then digit d's keys of
     earlier blocks (the (digit, block) exclusive scan)."""
@@ -101,9 +96,14 @@ def _np_digit_offsets(hist: np.ndarray) -> np.ndarray:
 
 @pytest.mark.parametrize("shift", [0, 8, 16, 24])
 def test_digit_offsets_plain_matches_numpy(shift):
-    bits = tradix.as_i32_bits(torch.from_numpy(_rank_keys().astype(np.int64)))
-    _, hist = tradix.rank_hist(bits, shift)
-    off = tradix.digit_offsets(hist)
+    """The pass's offsets, the digit bases (the scan of the sort's
+    histogram row) plus each tile's exclusive prefix (``lookback_plain``
+    less the tile's count), equal numpy's (digit, tile) scan."""
+    keys = torch.from_numpy(_rank_keys().astype(np.int64))
+    bits = tradix.as_i32_bits(keys)
+    _, hist = tradix.rank_hist_plain(bits, shift)
+    bases = tradix.digit_bases(tradix.digit_hist_plain(keys)[shift // 8])
+    off = tradix.digit_offsets_plain(hist, bases)
     assert off.dtype == torch.int32 and off.shape == hist.shape
     np.testing.assert_array_equal(off.numpy(),
                                   _np_digit_offsets(hist.numpy()))
@@ -111,16 +111,19 @@ def test_digit_offsets_plain_matches_numpy(shift):
 
 @pytest.mark.parametrize("shift", [0, 8, 16, 24])
 def test_plain_pass_is_a_stable_sort_by_the_digit(shift):
-    """rank_hist, digit_offsets and scatter composed (``one_pass``) equal a
-    stable numpy sort of keys and payload by the digit at ``shift``, and
-    the scatter puts key i at offset[i // BLOCK, digit] + rank[i]."""
+    """rank_hist_plain, digit_offsets_plain and scatter_plain composed at
+    1024-key tiles equal a stable numpy sort of keys and payload by the
+    digit at ``shift``, the scatter putting key i at offset[i // 1024,
+    digit] + rank[i]; the pass the CPU runs (``onesweep_pass_plain``,
+    4096-key tiles, int64 keys in and out) equals it too."""
     keys = _rank_keys(seed=shift)
     bits = tradix.as_i32_bits(torch.from_numpy(keys.astype(np.int64)))
     vals = torch.from_numpy(np.random.default_rng(shift).integers(
         -2 ** 31, 2 ** 31, len(keys), dtype=np.int64).astype(np.int32))
-    rank, hist = tradix.rank_hist(bits, shift)
-    off = tradix.digit_offsets(hist)
-    sk, sv = tradix.scatter(bits, vals, rank, hist, off, shift)
+    rank, hist = tradix.rank_hist_plain(bits, shift)
+    bases = tradix.digit_bases(hist.sum(0))
+    off = tradix.digit_offsets_plain(hist, bases)
+    sk, sv = tradix.scatter_plain(bits, vals, rank, off, shift)
     digit = (keys >> shift) & 255
     dest = off.numpy()[np.arange(len(keys)) // tradix.BLOCK, digit] \
         + rank.numpy()
@@ -129,8 +132,10 @@ def test_plain_pass_is_a_stable_sort_by_the_digit(shift):
     order = np.argsort(digit, kind="stable")
     np.testing.assert_array_equal(sk.numpy(), bits.numpy()[order])
     np.testing.assert_array_equal(sv.numpy(), vals.numpy()[order])
-    pk, pv = tradix.one_pass(bits, vals, shift)
-    assert torch.equal(pk, sk) and torch.equal(pv, sv)
+    wide = torch.from_numpy(keys.astype(np.int64))
+    pk, pv = tradix.onesweep_pass_plain(wide, vals, shift, bases)
+    assert pk.dtype == torch.int64
+    assert torch.equal(pk, tradix.from_i32_bits(sk)) and torch.equal(pv, sv)
 
 
 @pytest.mark.parametrize("n", [1024, 3000, 5 * 1024 + 1])
@@ -153,21 +158,114 @@ def test_i32_bits_round_trip():
     np.testing.assert_array_equal(back.numpy(), u.astype(np.int64))
 
 
-def test_radix_pass_cuda_wrappers_refuse_other_tensors():
-    hist = torch.zeros((1, 256), dtype=torch.int32)
-    keys = torch.zeros(1024, dtype=torch.int32)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tradix.digit_offsets_cuda(hist)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tradix.scatter_cuda(keys, keys, keys, hist, hist, 0)
-    meta = dict(device="meta")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tradix.digit_offsets(torch.zeros((1, 256), dtype=torch.int32, **meta))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tradix.scatter(torch.zeros(1024, dtype=torch.int32, **meta), keys,
-                       keys, hist, hist, 0)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tradix.pass_work(keys, keys)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tradix.one_pass(torch.zeros(1024, dtype=torch.int32, **meta),
-                        torch.zeros(1024, dtype=torch.int32, **meta), 0)
+T = tradix.TILE
+
+
+def _kind_keys(kind: str, n: int, seed: int) -> np.ndarray:
+    if kind == "equal":
+        return np.full(n, 0x01020304, np.int64)
+    if kind == "sentinel":
+        return np.full(n, 0xFFFFFFFF, np.int64)
+    return _rank_keys(seed=seed, n=n).astype(np.int64)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "equal", "sentinel"])
+def test_digit_hist_plain_matches_bincount(kind):
+    keys = _kind_keys(kind, 3 * T + 17, seed=5)
+    hist = tradix.digit_hist_plain(torch.from_numpy(keys))
+    assert hist.dtype == torch.int32 and hist.shape == (4, 256)
+    for p in range(4):
+        np.testing.assert_array_equal(
+            hist[p].numpy(), np.bincount((keys >> 8 * p) & 255,
+                                         minlength=256))
+
+
+@pytest.mark.parametrize("n", [1, T - 1, T, T + 1, 3 * T + 17])
+@pytest.mark.parametrize("kind", ["mixed", "equal", "sentinel"])
+def test_onesweep_pass_plain_is_a_stable_partition(n, kind):
+    """Each pass, on the keys the earlier passes leave, is a stable
+    partition by its digit (numpy's stable argsort), int64 keys in on the
+    first pass and out on the last; the four compose to torch.sort."""
+    keys = torch.from_numpy(_kind_keys(kind, n, seed=n))
+    vals = torch.arange(n, dtype=torch.int32)
+    hist = tradix.digit_hist_plain(keys)
+    cur, cv = keys, vals
+    for p in range(4):
+        od = torch.int64 if p == 3 else torch.int32
+        ok, ov = tradix.onesweep_pass_plain(
+            cur, cv, 8 * p, tradix.digit_bases(hist[p]), out_dtype=od)
+        assert ok.dtype == od and ov.dtype == torch.int32
+        u = cur.numpy().astype(np.int64) & 0xFFFFFFFF
+        order = np.argsort((u >> 8 * p) & 255, kind="stable")
+        np.testing.assert_array_equal(ok.numpy().astype(np.int64)
+                                      & 0xFFFFFFFF, u[order])
+        np.testing.assert_array_equal(ov.numpy(), cv.numpy()[order])
+        cur, cv = ok, ov
+    wk, wi = torch.sort(keys, stable=True)
+    assert torch.equal(cur, wk) and torch.equal(cv, wi.to(torch.int32))
+
+
+def test_lookback_plain_equals_cumsum_over_tiles():
+    bits = tradix.as_i32_bits(torch.from_numpy(
+        _rank_keys(seed=9, n=5 * T + 3).astype(np.int64)))
+    _, hist = tradix.rank_hist_plain(bits, 8, tile=T)
+    assert hist.shape == (6, 256)
+    got = tradix.lookback_plain(hist)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.cumsum(hist.numpy(), 0))
+
+
+def _refusals(case):
+    """(callable, exception, message) triples of one refusal case."""
+    i32 = dict(dtype=torch.int32)
+    i64 = dict(dtype=torch.int64)
+    hist = torch.zeros((4, 256), **i32)
+    keys, vals = torch.zeros(T, **i64), torch.zeros(T, **i32)
+    meta = torch.zeros(T, device="meta", **i64)
+    meta_vals = torch.zeros(T, device="meta", **i32)
+    big = torch.empty(2 ** 31, device="meta", **i64)
+    return {
+        "cpu": [(lambda: tradix.digit_hist_cuda(keys), RuntimeError, "CUDA"),
+                (lambda: tradix.onesweep_pass_cuda(keys, vals, 0, hist),
+                 RuntimeError, "CUDA")],
+        "meta": [(lambda: tradix.digit_hist_cuda(meta), RuntimeError,
+                  "CUDA"),
+                 (lambda: tradix.onesweep_pass_cuda(meta, meta_vals, 0,
+                                                    hist.to("meta")),
+                  RuntimeError, "CUDA"),
+                 (lambda: tradix.radix_sort_pairs(meta, meta_vals),
+                  RuntimeError, "CUDA")],
+        "dtype": [(lambda: tradix.digit_hist_cuda(vals), ValueError,
+                   "keys"),
+                  (lambda: tradix.onesweep_pass_cuda(keys.float(), vals, 0,
+                                                     hist),
+                   ValueError, "keys"),
+                  (lambda: tradix.onesweep_pass_cuda(keys, keys, 0, hist),
+                   ValueError, "payload"),
+                  (lambda: tradix.onesweep_pass_cuda(keys, vals, 0,
+                                                     hist.long()),
+                   ValueError, "hist")],
+        "oversized": [(lambda: tradix.digit_hist_cuda(big), ValueError,
+                       "2\\*\\*31"),
+                      (lambda: tradix.radix_sort_pairs(
+                          big, torch.empty(2 ** 31, device="meta", **i32)),
+                       ValueError, "2\\*\\*31")],
+        "empty": [(lambda: tradix.digit_hist_cuda(keys[:0]), ValueError,
+                   "keys"),
+                  (lambda: tradix.onesweep_pass_cuda(keys[:0], vals[:0], 0,
+                                                     hist),
+                   ValueError, "keys")],
+        "shift": [(lambda: tradix.onesweep_pass_cuda(keys, vals, 4, hist),
+                   ValueError, "shift")],
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["cpu", "meta", "dtype", "oversized",
+                                  "empty", "shift"])
+def test_radix_cuda_wrappers_refuse(case):
+    """The kernels' wrappers refuse a tensor off the card (no fallback to
+    the plain version), keys or a payload of another type, no keys, 2**31
+    keys or more, and a shift that is no digit's."""
+    for fn, exc, msg in _refusals(case):
+        with pytest.raises(exc, match=msg):
+            fn()

@@ -14,10 +14,11 @@ grid smaller than one window and one several windows wide; the par engine
 equals the flat engine.  colors_mega bit for bit and equal to the par
 route's K6-par launch; relocate_mega and K4
 (K2's window) bit for bit, relocate_mega equal to K2-par, also at cap 32
-and on a ragged grid.  K12 (the radix sort's rank/histogram pass), the
-digit offsets and the scatter bit for bit on all four passes at 1, 3 and
-1,075 blocks, the radix sort equals torch.sort(stable=True), and the
-array Engine's radix run on the card equals its lax run bit for bit.  The
+and on a ragged grid.  The radix sort's digit histogram and its onesweep
+pass (rank, look-back, store) bit for bit on all four passes, from 1 key
+to about the 1M scene's pair count, the look-back prefixes too, the sort
+equal to torch.sort(stable=True) and on repeat, and the array Engine's
+radix run on the card equal to its lax run bit for bit.  The
 device compositor's frames on the card (full space and parity space)
 within one u8 of the CPU's, and render_run equal to run() there.  The
 big-particle overlay's coupling pass on the card equals the CPU's bit for
@@ -609,91 +610,107 @@ def _radix_keys(n=25_006, seed=12):
     return torch.from_numpy(keys & 0xFFFFFFFF)
 
 
-@pytest.mark.parametrize("shift", [0, 8, 16, 24])
-def test_k12_cuda_matches_plain(shift):
+def _radix_passes_match_plain(keys):
+    """The histogram, then each pass on the keys the earlier passes leave
+    (int64 in on pass 0, out on pass 3), bit-equal to the plain versions
+    and on repeat, the look-back array == lookback_plain, every word
+    flagged inclusive; returns the last pass's output."""
     from gpu_physics_engine_torch.ops import radix_sort as rs
-    keys = _radix_keys()
-    bits = rs.as_i32_bits(torch.cat([keys, keys.new_full(
-        (-len(keys) % rs.BLOCK,), 0xFFFFFFFF)])).cuda()
-    n0 = rs.LAUNCHES["radix_rank_hist"]
-    a = rs.rank_hist(bits, shift)
-    c = rs.rank_hist(bits, shift)
-    b = rs.rank_hist_plain(bits, shift)
-    torch.cuda.synchronize()
-    assert rs.LAUNCHES["radix_rank_hist"] == n0 + 2
-    for u, v, w in zip(a, b, c):
-        assert torch.equal(u, v) and torch.equal(u, w)
-
-
-@pytest.mark.parametrize("nblocks", [1, 3, 1075])
-def test_radix_offsets_and_scatter_match_plain(nblocks):
-    """radix_offsets and radix_scatter bit-equal to their plain versions
-    and on repeat on each of the four passes' real inputs (keys with
-    duplicates and 0xFFFFFFFF sentinels), the last pass sorted."""
-    from gpu_physics_engine_torch.ops import radix_sort as rs
-    rng = np.random.default_rng(nblocks)
-    keys = rng.integers(0, 2 ** 32, nblocks * rs.BLOCK, dtype=np.int64)
-    keys[rng.random(keys.size) < 0.3] = 7
-    keys[rng.random(keys.size) < 0.1] = 0xFFFFFFFF
-    bits = rs.as_i32_bits(torch.from_numpy(keys)).cuda()
-    vals = torch.arange(bits.shape[0], dtype=torch.int32, device="cuda")
-    n0 = dict(rs.LAUNCHES)
+    vals = torch.arange(keys.shape[0], dtype=torch.int32, device="cuda")
+    hist = rs.digit_hist_cuda(keys)
+    assert torch.equal(hist, rs.digit_hist_plain(keys))
+    assert torch.equal(hist, rs.digit_hist_cuda(keys))
+    bits = keys
     for p in range(4):
-        rank, hist = rs.rank_hist(bits, 8 * p)
-        off, off2 = rs.digit_offsets(hist), rs.digit_offsets(hist)
-        assert torch.equal(off, rs.digit_offsets_plain(hist))
-        assert torch.equal(off, off2)
-        got = rs.scatter(bits, vals, rank, hist, off, 8 * p)
-        again = rs.scatter(bits, vals, rank, hist, off, 8 * p)
-        want = rs.scatter_plain(bits, vals, rank, off, 8 * p)
+        od = torch.int64 if p == 3 else torch.int32
+        got = rs.onesweep_pass_cuda(bits, vals, 8 * p, hist, od)
+        again = rs.onesweep_pass_cuda(bits, vals, 8 * p, hist, od)
+        want = rs.onesweep_pass_plain(bits, vals, 8 * p,
+                                      rs.digit_bases(hist[p]), out_dtype=od)
         torch.cuda.synchronize()
         for u, v, w in zip(got, want, again):
             assert torch.equal(u, v) and torch.equal(u, w)
-        bits, vals = got
-    assert rs.LAUNCHES["radix_offsets"] == n0["radix_offsets"] + 8
-    assert rs.LAUNCHES["radix_scatter"] == n0["radix_scatter"] + 8
-    u = rs.from_i32_bits(bits)
-    assert bool((u[1:] >= u[:-1]).all())
+        counts = rs.rank_hist_plain(rs.as_i32_bits(bits), 8 * p, rs.TILE)[1]
+        look = got[2]
+        assert torch.equal((look & 0xFFFFFFFF).to(torch.int32),
+                           rs.lookback_plain(counts))
+        assert bool(((look >> 32) == 4 * p + 2).all())
+        bits, vals = got[:2]
+    return bits, vals
+
+
+@pytest.mark.parametrize("seed", [12, 13, 14, 15])
+def test_onesweep_cuda_matches_plain(seed):
+    """radix_digit_hist and radix_onesweep on the 25,006-key ramp (7
+    tiles, the last ragged): every pass bit-equal to its plain version."""
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    keys = _radix_keys(seed=seed).cuda()
+    n0 = dict(rs.LAUNCHES)
+    bits, _ = _radix_passes_match_plain(keys)
+    assert rs.LAUNCHES["radix_digit_hist"] == n0["radix_digit_hist"] + 2
+    assert rs.LAUNCHES["radix_onesweep"] == n0["radix_onesweep"] + 8
+    assert torch.equal(bits, torch.sort(keys)[0])
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 1075 * 4096 + 3])
+def test_radix_kernels_match_plain_at_sizes(n):
+    """Both kernels bit-equal to their plain versions at ragged sizes
+    around a tile and at about the 1M scene's pair count, on keys with
+    duplicates and 0xFFFFFFFF sentinels; the last pass sorted."""
+    from gpu_physics_engine_torch.ops import radix_sort as rs
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 2 ** 32, n, dtype=np.int64)
+    keys[rng.random(n) < 0.3] = 7
+    keys[rng.random(n) < 0.1] = 0xFFFFFFFF
+    keys = torch.from_numpy(keys).cuda()
+    bits, _ = _radix_passes_match_plain(keys)
+    assert bool((bits[1:] >= bits[:-1]).all())
     with pytest.raises(ValueError, match="payload"):
-        rs.scatter(bits, vals.to(torch.int64), rank, hist, off, 0)
+        rs.onesweep_pass_cuda(keys, keys, 0, rs.digit_hist_cuda(keys))
 
 
-def test_radix_one_pass_on_card_matches_plain():
-    """A pass on the card, with its own work tensors and with a sort's
-    (given once, reused), equals the plain pass; an int64 payload is
-    refused, not converted."""
+def test_onesweep_pass_on_card_matches_cpu():
+    """A pass on the card equals the plain pass on the CPU, each from the
+    CPU's histogram; an int64 payload is refused, not converted."""
     from gpu_physics_engine_torch.ops import radix_sort as rs
     keys = _radix_keys()
-    bits = rs.as_i32_bits(torch.cat([keys, keys.new_full(
-        (-len(keys) % rs.BLOCK,), 0xFFFFFFFF)])).cuda()
-    vals = torch.arange(bits.shape[0], dtype=torch.int32, device="cuda")
-    work = rs.pass_work(bits, vals)
+    vals = torch.arange(keys.shape[0], dtype=torch.int32)
+    hist = rs.digit_hist_plain(keys)
+    ck, cv = keys.cuda(), vals.cuda()
     for shift in (0, 8, 16, 24):
-        want = rs.one_pass(bits.cpu(), vals.cpu(), shift)
-        got = rs.one_pass(bits, vals, shift)
-        out = (torch.empty_like(bits), torch.empty_like(vals))
-        again = rs.one_pass(bits, vals, shift, work, out)
+        want = rs.onesweep_pass_plain(keys, vals, shift,
+                                      rs.digit_bases(hist[shift // 8]))
+        got = rs.onesweep_pass_cuda(ck, cv, shift, hist.cuda())
         torch.cuda.synchronize()
-        assert again[0] is out[0] and again[1] is out[1]
-        for u, v, w in zip(got, want, again):
-            assert torch.equal(u.cpu(), v) and torch.equal(u, w)
+        for u, v in zip(got, want):
+            assert torch.equal(u.cpu(), v)
     with pytest.raises(ValueError, match="payload"):
-        rs.one_pass(bits, vals.to(torch.int64), 0)
+        rs.onesweep_pass_cuda(ck, cv.to(torch.int64), 0, hist.cuda())
 
 
 def test_radix_sort_on_card_matches_torch_sort():
+    """The sort equals torch.sort(stable=True), and 20 repeats of it are
+    identical (the look-back decides nothing by timing)."""
     from gpu_physics_engine_torch.ops import radix_sort as rs
-    keys = _radix_keys().cuda()
-    vals = torch.arange(len(keys), dtype=torch.int32, device="cuda")
-    sk, sv = rs.radix_sort_pairs(keys, vals)
-    wk, wi = torch.sort(keys, stable=True)
-    torch.cuda.synchronize()
-    assert torch.equal(sk, wk) and torch.equal(sv, wi.to(torch.int32))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for keys in (_radix_keys().cuda(),
+                 torch.randint(0, 2 ** 32, (2 ** 22,), generator=g,
+                               device="cuda", dtype=torch.int64),
+                 torch.full((100_003,), 0xFFFFFFFF, device="cuda")):
+        vals = torch.arange(len(keys), dtype=torch.int32, device="cuda")
+        sk, sv = rs.radix_sort_pairs(keys, vals)
+        wk, wi = torch.sort(keys, stable=True)
+        torch.cuda.synchronize()
+        assert torch.equal(sk, wk) and torch.equal(sv, wi.to(torch.int32))
+        for _ in range(20):
+            ak, av = rs.radix_sort_pairs(keys, vals)
+            assert torch.equal(ak, sk) and torch.equal(av, sv)
 
 
 def test_array_engine_radix_equals_lax_on_card():
-    """The array Engine on the card: the radix run (K12) equals the lax run
-    bit for bit, and both stay close to the CPU run."""
+    """The array Engine on the card: the radix run (the histogram and the
+    onesweep pass) equals the lax run bit for bit, and both stay close to
+    the CPU run."""
     from gpu_physics_engine_torch import Engine
     from gpu_physics_engine_torch.ops import radix_sort as rs
     base = dict(max_particles=3000, initial_particles=3000,
@@ -706,13 +723,16 @@ def test_array_engine_radix_equals_lax_on_card():
     for dev, impl in (("cuda", "radix"), ("cuda", "lax"), ("cpu", "lax")):
         e = Engine.from_arrays(SimConfig(**base, sort_impl=impl), pos, rad,
                                device=dev)
-        n0 = rs.LAUNCHES["radix_rank_hist"]
+        n0 = dict(rs.LAUNCHES)
         e.press_mouse((48.0, 24.0))
         e.run(12)
-        runs[dev, impl] = (e.state, rs.LAUNCHES["radix_rank_hist"] - n0)
+        runs[dev, impl] = (e.state, {k: rs.LAUNCHES[k] - n0[k]
+                                     for k in n0})
     (a, na), (b, nb), (c, _) = (runs["cuda", "radix"], runs["cuda", "lax"],
                                 runs["cpu", "lax"])
-    assert na == 4 * 12 + 4 * 2 and nb == 0  # 4 passes per sort
+    # a sort a step and the resorts at steps 5 and 10: 4 passes a sort
+    assert na == {"radix_digit_hist": 14, "radix_onesweep": 56}
+    assert not any(nb.values())
     for f in ("x", "y", "px", "py", "overflow_count", "steps_since_sort"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert int(a.overflow_count) == int(c.overflow_count)
