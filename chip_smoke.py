@@ -150,6 +150,22 @@ non-zero with no result line:
      positive; the web app on make_tuned_engine(1_048_576) through
      ``make_server(port=0)``: the page, PNG frames, a move, a press and
      release and the key p, then 1,048,676 particles in /stats;
+  7c. the slab mesh (parallel/, phase_sharded), every slab on this card:
+     K1 (fused) and K3 on slab 1's halo-extended planes [8, 162, 1850]
+     and K2 at row0 160, 320 and 480 (global_rows 640) on jittered
+     slabs, each bit-equal to its plain version, twice; the 4M row on 4
+     slabs (ShardedTiledEngine) beside its TiledEngine twin built from
+     the same arrays: step 1 (an off-step on both) bit-equal per pid,
+     then 256 steps through the claim sweep at 240 (K1 4 a step, K2 4 a
+     relocating step; every pid kept, finite, inside), ms/step and idle
+     share beside the twin's, 16 steps under the sync-error mode, a
+     64-step mouse drag across a slab edge (nothing lost or doubled) and
+     8 unfused steps (K3); a 1,000-particle spawn on a slab edge of a
+     1M engine (tile_max_radius 1, the cap from the scene), the uniform
+     radius turned off; the multichip CLI at its defaults on 4 slabs;
+     ``halo.make_sharded_step`` at 1M for 16 steps with the radix resort
+     (nothing dropped); the sharded GS frame at 1M-GS on 4 slabs
+     bit-equal to the one-grid plain solve and to K5 + K6;
   8. kernel times at the main paths' shapes against their plain versions,
      with each kernel's bound on this card (and, for the radix pass, the
      time of torch.sort(stable=True) of the same pairs beside the whole
@@ -997,7 +1013,10 @@ def _check_engine(e, n, label) -> dict:
         raise AssertionError(f"{label}: {int((~inside).sum())} particles "
                              "outside [r, W-r] x [r, H-r]")
     speed = np.linalg.norm(e.velocities(), axis=1)
-    return {"stale_pct": float(tiled.stale_pair_fraction(e.state, cfg))
+    # a sharded engine's state is its list of slabs: the stale share of the
+    # slabs stacked on the card
+    state = e.gathered("cuda") if hasattr(e, "gathered") else e.state
+    return {"stale_pct": float(tiled.stale_pair_fraction(state, cfg))
             * 100.0, "speed_mean": float(speed.mean()),
             "speed_p99": float(np.percentile(speed, 99)),
             "tile": tiled.tile_geometry(cfg)[0]}
@@ -1367,6 +1386,16 @@ def _k1_bound(cfg, state):
     return _bound((5 + rplanes + 4) * S + 16, 5 * pairs + 25 * occ)
 
 
+def _k2_bound(state):
+    """K2's least time on ``state``: the pid plane read, x, y, px, py,
+    radius of the occupied slots read (an empty slot moves nothing), six
+    planes and the defer cells written; 10 flops a particle."""
+    cap, TY, TX = state.dims
+    occ = float((state.pid >= 0).sum())
+    return _bound(7 * cap * TY * TX * 4.0 + 20 * occ + TY * TX * 4.0,
+                  10 * occ)
+
+
 def bounds(cfg, state, gs_cfg, gs_state, radix_keys) -> dict:
     """Per kernel (least ms, "bytes" or "operations"): each input read once,
     each output written once; operations counted from this run's data
@@ -1388,9 +1417,7 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_keys) -> dict:
     out = {
         "collide_integrate": _k1_bound(cfg, state),
         "collide": _bound((3 + rplanes + 2) * S, 5 * pairs),
-        # the pid plane read, x, y, px, py, radius of occupied slots read
-        # (an empty slot moves nothing), six planes and defer written
-        "relocate_pull": _bound(7 * S + 20 * occ + TY * TX * 4.0, 10 * occ),
+        "relocate_pull": _k2_bound(state),
     }
     K = gs_cfg.max_occupancy
     gcap, GY, GX = gs_state.dims
@@ -1660,6 +1687,12 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
      "gpu_physics_engine_tpu/ops/gs_mega.py:443", "1M-GS-mega"),
     ("relocate_one", "relocate_one", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:1187", "4M-one"),
+    # the 4M engine on four slabs: K1 on the halo-extended slabs
+    # [8, 162, 1850], K2 at the slab row offsets 160, 320, 480
+    ("collide_integrate[slab]", "collide_integrate", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "4M-sharded"),
+    ("relocate_pull[row0]", "relocate_pull", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:945", "4M-sharded"),
 )
 
 FLAT_GS = ("gs_rank", "gs_color", "relocate_pull")
@@ -2809,6 +2842,403 @@ def phase_apps(smi: str, paths: dict, errs: dict) -> None:
     log(f"[apps] phase {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the slab mesh (parallel/): the 4M engine on four slabs of the card
+# ---------------------------------------------------------------------------
+
+SLABS = 4
+
+
+def _time_pair(name, shape, kern, plain) -> tuple:
+    """(kernel ms, plain ms) in turns: plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, reps=2)
+    k1 = cuda_ms(kern, reps=20)
+    k2 = cuda_ms(kern, reps=20)
+    p2 = cuda_ms(plain, reps=2)
+    log(f"[time] {name} {shape}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+        f"{p1:.3f} / {p2:.3f} ms per launch")
+    return min(k1, k2), min(p1, p2)
+
+
+def _slab_kernels(cfg, eng, errs: dict) -> dict:
+    """K1 (fused) and K3 on slab 1's halo-extended planes [8, 162, 1850],
+    whose halo rows hold slabs 0 and 2's live particles, and K2 at row0 =
+    160, 320 and 480 with global_rows 640 under the engine's match and
+    hysteresis on each slab jittered by 0.6 tile: each bit-equal to its
+    plain version, twice.  Returns {name: (kernel ms, plain ms, bound)}."""
+    import torch
+    from gpu_physics_engine_torch import StepParams
+    from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
+    from gpu_physics_engine_torch.parallel import tiled_shard as ts
+    t, TYp, _, rows = ts.sharded_tile_geometry(cfg, SLABS)
+    prm = StepParams.make(cfg.dt).as_tensor("cuda", 1.0 / cfg.substeps)
+    ext = ts.extended_slabs(eng.mesh, eng.state, fused=True)[1]
+    ext3 = ts.extended_slabs(eng.mesh, eng.state, fused=False)[1]
+    halo = [int((ext.pid[:, r] == 0).sum()) for r in (0, -1)]
+    if min(halo) == 0:
+        raise AssertionError(f"slab 1's halo rows hold {halo} particles")
+    a = tk.collide_integrate_cuda(ext, prm, cfg)
+    a2 = tk.collide_integrate_cuda(ext, prm, cfg)
+    b = tk.collide_integrate_plain(ext, prm, cfg)
+    c = tk.collide_cuda(ext3, cfg)
+    c2 = tk.collide_cuda(ext3, cfg)
+    d = tk.collide_plain(ext3, cfg)
+    torch.cuda.synchronize()
+    k1 = ("x", "y", "px", "py")
+    ok = (_same(a, b, k1), _same(a, a2, k1), _same(c, d, ("x", "y")),
+          _same(c, c2, ("x", "y")))
+    errs["collide_integrate[slab]"] = _max_err(a, b, k1)
+    errs["collide"] = max(errs.get("collide", 0.0), _max_err(c, d, ("x", "y")))
+    if not all(ok):
+        raise AssertionError(f"K1/K3 on the extended slab {list(ext.dims)}: "
+                             f"bit-equal, repeat (K1, K1, K3, K3) {ok}")
+    log(f"[sharded] K1 and K3 on slab 1's extended planes {list(ext.dims)} "
+        f"(halo rows: {halo[0]} and {halo[1]} live particles): bit-equal to "
+        "their plain versions, repeat bit-equal")
+    moved = {}
+    for i in range(1, SLABS):
+        row0 = i * rows
+        m = jittered(eng.state[i], 0.6 * t, seed=1)
+        a, da = tk.relocate_pull_cuda(m, cfg, row0=row0, global_rows=TYp)
+        a2, da2 = tk.relocate_pull_cuda(m, cfg, row0=row0, global_rows=TYp)
+        b, db = tk.relocate_pull_plain(m, cfg, row0=row0, global_rows=TYp)
+        torch.cuda.synchronize()
+        eq = _same(a, b, tiled.FIELDS) and torch.equal(da, db)
+        rep = _same(a, a2, tiled.FIELDS) and torch.equal(da, da2)
+        errs["relocate_pull[row0]"] = max(
+            errs.get("relocate_pull[row0]", 0.0),
+            _max_err(a, b, ("x", "y", "px", "py", "radius")))
+        kept = torch.equal(torch.sort(a.pid[a.pid >= 0]).values,
+                           torch.sort(m.pid[m.pid >= 0]).values)
+        if not (eq and rep and kept):
+            raise AssertionError(f"K2 at row0 {row0}: bit-equal {eq}, "
+                                 f"repeat {rep}, pids kept in the slab {kept}")
+        # the movers over the slab edge: left in place for the ship phase
+        dty, _ = tiled.step_offsets(
+            m.x, m.y, tiled._iota(m.dims, 1, "cuda") + row0,
+            tiled._iota(m.dims, 2, "cuda"), t=t,
+            delta=cfg.hysteresis_delta, gTY=TYp, gTX=m.dims[2])
+        edge = int(((m.pid[:, 0] >= 0) & (dty[:, 0] < 0)).sum()
+                   + ((m.pid[:, -1] >= 0) & (dty[:, -1] > 0)).sum())
+        log(f"[sharded] K2 at row0 {row0} (global_rows {TYp}) on "
+            f"{list(m.dims)} {cfg.tiled_match} hysteresis "
+            f"{cfg.hysteresis_delta:.3g}: bit-equal, repeat bit-equal, "
+            f"deferred {int(da.sum())}, {int((a.pid != m.pid).sum())} pid "
+            f"slots changed, {edge} movers over the slab edges kept")
+        moved[row0] = m
+    m = moved[2 * rows]
+    return {
+        "collide_integrate[slab]": _time_pair(
+            "collide_integrate[slab]", list(ext.dims),
+            lambda: tk.collide_integrate_cuda(ext, prm, cfg),
+            lambda: tk.collide_integrate_plain(ext, prm, cfg))
+        + (_k1_bound(cfg, ext),),
+        "relocate_pull[row0]": _time_pair(
+            f"relocate_pull[row0 {2 * rows}]", list(m.dims),
+            lambda: tk.relocate_pull_cuda(m, cfg, row0=2 * rows,
+                                          global_rows=TYp),
+            lambda: tk.relocate_pull_plain(m, cfg, row0=2 * rows,
+                                           global_rows=TYp))
+        + (_k2_bound(m),)}
+
+
+def _slab_owner(eng):
+    """The slab of every pid, by pid."""
+    import numpy as np
+    owner = np.full(eng.num_particles(), -1, np.int64)
+    for i, s in enumerate(eng.state):
+        pid = s.pid[s.pid >= 0].long().cpu().numpy()
+        owner[pid] = i
+    return owner
+
+
+def _sharded_4m(paths: dict, errs: dict) -> dict:
+    """The 4M engine on four slabs beside its TiledEngine twin."""
+    import numpy as np
+    import torch
+    from gpu_physics_engine_torch import make_tuned_engine
+    from gpu_physics_engine_torch.parallel import mesh as pm
+    from gpu_physics_engine_torch.parallel import tiled_shard as ts
+    from gpu_physics_engine_torch.utils.profiling import profile_run
+    n = 4_194_304
+    twin = make_tuned_engine(n, device="cuda")
+    cfg = twin.config
+    pid, pos, prev, rad = twin._export()
+    t0 = time.perf_counter()
+    eng = ts.ShardedTiledEngine(cfg, mesh=pm.make_mesh(SLABS, device="cuda"),
+                                initial_arrays=(pos, rad, pid, prev))
+    torch.cuda.synchronize()
+    t, TYp, TX, rows = ts.sharded_tile_geometry(cfg, SLABS)
+    log(f"[4M-sharded] {SLABS} slabs of {list(eng.state[0].dims)} on "
+        f"{[str(d) for d in eng.mesh.devices]} (grid {TYp} x {TX}, cap "
+        f"{cfg.tile_cap}, match {cfg.tiled_match}, interval "
+        f"{cfg.tiled_relocate_interval}, sweep every "
+        f"{eng._sweep_interval}); built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the sharded engine's relocate counter starts at 0 (as the JAX
+    # package's does), so its step 1 is an off-step: K1 on the extended
+    # slabs only.  The twin's step 1 is made one too: its relocate-first
+    # step would move the few particles where the host tiler's tile
+    # (f32 division) and K2's step rule (products) part, within an ulp of
+    # a tile edge.
+    twin._since_reloc = 0
+    twin.step()
+    eng.step()
+    got, want = eng._export(), twin._export()
+    for what, a, b in zip(("pid", "positions", "previous positions"),
+                          got[:3], want[:3]):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"4M-sharded step 1: {what} differ from "
+                                 "the TiledEngine twin's")
+    log(f"[4M-sharded] step 1: the pids, positions and previous positions "
+        f"of all {n} particles bit-equal to the TiledEngine twin's")
+    slab_runs = _slab_kernels(cfg, eng, errs)
+
+    steps = 256
+    relocating = [0]
+    inner = eng._step
+
+    def counted(state, p):
+        relocating[0] += 1
+        return inner(state, p)
+
+    eng._step = counted
+    reset_launches()
+    of0 = eng.per_chip_overflow
+    ms = cuda_ms(lambda: eng.run(steps), reps=1, warmup=0) / steps
+    torch.cuda.synchronize()
+    eng._step = inner
+    got = launches()
+    expect = {"collide_integrate": SLABS * steps,
+              "relocate_pull": SLABS * relocating[0], "collide": 0}
+    if (any(got[k] != v for k, v in expect.items())
+            or not steps // 2 - 8 <= relocating[0] <= steps // 2 + 8):
+        raise AssertionError(f"4M-sharded: launches {got}, expected "
+                             f"{expect} ({relocating[0]} relocating steps)")
+    paths["4M-sharded"] = got
+    q = _check_engine(eng, n, "4M-sharded")
+    log(f"[4M-sharded] {steps} steps through the claim sweep at step "
+        f"{eng._sweep_interval}: K1 {got['collide_integrate'] / steps:.0f} "
+        f"a step, K2 {got['relocate_pull']} over {relocating[0]} "
+        f"relocating steps ({SLABS} each); all {n} pids present, finite, "
+        f"inside the world; stale {q['stale_pct']:.4f}%; deferred per slab "
+        f"{(eng.per_chip_overflow - of0).tolist()}; {ms:.4f} ms/step "
+        "(CUDA events, the sweep included)")
+    twin.run(steps)
+    prof = {label: profile_run(e, 32) for label, e in (("sharded", eng),
+                                                       ("twin", twin))}
+    for label, r in prof.items():
+        log(f"[4M-sharded] {label}: {r['device_span_ms'] / 32:.4f} ms/step "
+            f"(CUDA events, 32 steps), device busy "
+            f"{r['device_busy_ms'] / 32:.4f} ms/step, idle share "
+            f"{r['idle_share']:.4f}, {r['device_launches'] / 32:.1f} "
+            f"launches a step, hand kernels {r['hand_kernel_ms'] / 32:.4f} "
+            "ms/step")
+    out = {"ms": {k: r["device_span_ms"] / 32 for k, r in prof.items()},
+           "idle": {k: r["idle_share"] for k, r in prof.items()}}
+    del twin
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.run(16)  # one window of non-sweep steps
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("[4M-sharded] 16 steps (one window) under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    # drag the mouse across the slab 0 / 1 edge (y = 159 tiles) for 64 steps
+    yb = (rows - 1) * t
+    owner0 = _slab_owner(eng)
+    of0 = eng.per_chip_overflow
+    eng.press_mouse((1524.0, yb - 60.0))
+    for k in range(8):
+        eng.move_mouse((1524.0, yb - 60.0 + 17.0 * k))
+        eng.run(8)
+    eng.release_mouse()
+    _check_engine(eng, n, "4M-sharded drag")
+    changed = int((_slab_owner(eng) != owner0).sum())
+    log(f"[4M-sharded] mouse dragged across the slab 0/1 edge (y {yb:.2f}) "
+        f"for 64 steps: {changed} particles changed slab, none lost or "
+        f"doubled (pids arange({n})); deferred per slab "
+        f"{(eng.per_chip_overflow - of0).tolist()}")
+
+    # the unfused route on the slabs: K3 on the extended slabs
+    eng.config = eng.config.replace(tiled_fuse_integrate=False)
+    eng._build()
+    reset_launches()
+    eng.run(8)
+    torch.cuda.synchronize()
+    got = launches()
+    if got["collide"] != SLABS * 8 or got["collide_integrate"]:
+        raise AssertionError(f"4M-sharded unfused: launches {got}")
+    paths["4M-sharded-unfused"] = got
+    _check_engine(eng, n, "4M-sharded unfused")
+    log(f"[4M-sharded] unfused (K3 + integrate) 8 steps: launches {got}")
+    del eng
+    torch.cuda.empty_cache()
+    out["slab_runs"] = slab_runs
+    return out
+
+
+def _sharded_spawn(paths: dict) -> None:
+    """A spawn on a slab edge: tuned_config(1_048_576)'s world and count
+    with tile_max_radius 1 and the cap sized from the scene, 4 slabs.  The
+    tiles are the reference's cells (edge 2.2 x the radius, as
+    TiledEngine's spawn re-tile sizes them): at the row's multiplier 4.4
+    the scene's cap would be 36, past the kernels' 32 slots."""
+    import numpy as np
+    import torch
+    from gpu_physics_engine_torch import tuned_config
+    from gpu_physics_engine_torch.parallel import mesh as pm
+    from gpu_physics_engine_torch.parallel import tiled_shard as ts
+    n = 1_048_576
+    e = ts.ShardedTiledEngine(
+        tuned_config(n, tile_max_radius=1.0, tile_multiplier=2.2,
+                     tile_cap=0),
+        mesh=pm.make_mesh(SLABS, device="cuda"), seed=0)
+    assert e.num_particles() == n and e.config.tiled_uniform_radius
+    e.run(16)
+    t, _, _, rows = ts.sharded_tile_geometry(e.config, SLABS)
+    yb = (2 * rows - 1) * t  # the slab 1 / 2 edge
+    step_before = e._step
+    of0 = int(e.state[0].overflow_count)
+    e.spawn_at((1524.0, yb), count=1000, verbose=False)
+    refused = int(e.state[0].overflow_count) - of0
+    if e.config.tiled_uniform_radius or e._step is step_before:
+        raise AssertionError("spawn: the uniform-radius fallback did not "
+                             "rebuild the step")
+    if e.num_particles() != n + 1000 - refused:
+        raise AssertionError(f"spawn: {e.num_particles()} particles, "
+                             f"{refused} refused")
+    reset_launches()
+    e.run(16)
+    torch.cuda.synchronize()
+    got = launches()
+    pid, pos, _, rad = e._export()
+    if (len(np.unique(pid)) != len(pid) or len(pid) != e.num_particles()
+            or pid.min() < 0 or pid.max() >= n + 1000
+            or not np.isfinite(pos).all()):
+        raise AssertionError("spawn: the pid set is not exact")
+    paths["1M-sharded-spawn"] = got
+    log(f"[1M-sharded-spawn] cap {e.config.tile_cap} (from the scene), "
+        f"tile edge {t:.2f}: spawn_at((1524, {yb:.1f})) of 1000 on the "
+        f"slab 1/2 edge: {e.num_particles()} particles ({refused} refused), "
+        f"radii {sorted(set(rad[pid >= n].tolist()))}, uniform radius off "
+        f"and the step rebuilt; 16 more steps, launches {got}")
+    del e
+    torch.cuda.empty_cache()
+
+
+def _halo_1m(paths: dict) -> None:
+    """parallel/halo.py at 1M on 4 slabs of the reference world."""
+    import numpy as np
+    import torch
+    from gpu_physics_engine_torch import SimConfig, StepParams
+    from gpu_physics_engine_torch.parallel import halo
+    from gpu_physics_engine_torch.parallel import mesh as pm
+    n = 1_048_576
+    # the slab-edge band is 2 cells (2.2 units) wide: 2.2 x 1048 x 0.33
+    # particles a unit^2 = about 760 a side, 2048 buffer slots; a step
+    # moves a particle well under a unit, 1024 migration slots
+    cfg = SimConfig(max_particles=n, initial_particles=n, sort_impl="radix",
+                    sort_interval_steps=8, halo_capacity=2048,
+                    migration_capacity=1024)
+    rng = np.random.default_rng(5)
+    pos = np.stack([rng.uniform(0.5, cfg.world_width - 0.5, n),
+                    rng.uniform(0.5, cfg.world_height - 0.5, n)],
+                   -1).astype(np.float32)
+    mesh = pm.make_mesh(SLABS, device="cuda")
+    slots = 278_528  # n / 4 and 6% room
+    st = halo.init_sharded(cfg, mesh, pos, np.full(n, 0.5, np.float32),
+                           slots_per_shard=slots)
+    step = halo.make_sharded_step(cfg, mesh)
+    p = StepParams.make(cfg.dt, mouse=(1524.0, 524.0), pressed=True)
+    reset_launches()
+
+    def run():
+        nonlocal st
+        for _ in range(16):
+            st = step(st, p)
+
+    ms = cuda_ms(run, reps=1, warmup=0) / 16
+    got = launches()
+    alive = int(halo.gather(st, "alive").sum())
+    dropped = int(halo.gather(st, "dropped").sum())
+    pos2, _ = halo.gather_alive(st)
+    if (dropped or alive != n or not np.isfinite(pos2).all()
+            or got["radix_digit_hist"] < SLABS
+            or got["radix_onesweep"] < 4 * SLABS):
+        raise AssertionError(f"halo-1M: alive {alive}, dropped {dropped}, "
+                             f"launches {got}")
+    paths["halo-1M-4"] = got
+    log(f"[halo-1M-4] {SLABS} slabs of {slots} slots, halo_capacity "
+        f"{cfg.halo_capacity}, migration_capacity "
+        f"{cfg.migration_capacity}: 16 steps, the resort at step 9 through "
+        f"the radix sort (radix_digit_hist {got['radix_digit_hist']}, "
+        f"radix_onesweep {got['radix_onesweep']}), alive {alive}, dropped "
+        f"{dropped}, finite; {ms:.3f} ms/step")
+    del st
+    torch.cuda.empty_cache()
+
+
+def _gs_shard_1m() -> None:
+    """parallel/gs_shard.py on gs_config(1_048_576) over 4 slabs: one
+    frame bit-equal to the single-grid plain solve and to K5 + K6."""
+    import torch
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import gs_kernels as gk, gs_tiled
+    from gpu_physics_engine_torch.parallel import gs_shard
+    from gpu_physics_engine_torch.parallel import mesh as pm
+    cfg = gs_config(1_048_576)
+    st = TiledEngine(cfg, seed=0, chunk=64, device="cuda").state
+    mesh = pm.make_mesh(SLABS, device="cuda")
+    plain = gs_tiled.gs_solve(st, cfg)
+    kern = gs_tiled.solve_frame(st, cfg, gk.rank_cuda, gk.colors_cuda)[0]
+    solve = gs_shard.make_sharded_gs_solve(cfg, mesh)
+    t0 = time.perf_counter()
+    out = pm.gather_tiles(solve(pm.shard_tiles(st, mesh)))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    TY = st.dims[1]
+    for label, ref in (("the plain gs_solve", plain), ("K5 + K6", kern)):
+        same = all(torch.equal(getattr(out, f)[:, :TY], getattr(ref, f))
+                   for f in ("x", "y", "pid"))
+        if not same or int(out.overflow_count) != int(ref.overflow_count):
+            raise AssertionError(f"gs-shard-1M: differs from {label}")
+    moved = int(((out.x[:, :TY] != st.x) & (st.pid >= 0)).sum())
+    bill = gs_shard.bytes_per_frame(cfg, SLABS)
+    log(f"[gs-shard-1M-GS-4] one frame on {SLABS} slabs of "
+        f"{[st.dims[0], TY // SLABS, st.dims[2]]} (+2 ghost rows a side): "
+        f"x, y, pid and overflow ({int(out.overflow_count)}) bit-equal to "
+        f"the plain gs_solve and to K5 + K6 on the card; {moved} particles "
+        f"moved; {secs:.2f} s (plain PyTorch); "
+        f"{bill['total_bytes_per_frame']} bytes a slab edge a frame in "
+        f"{bill['exchanges_per_frame']} exchanges")
+    torch.cuda.empty_cache()
+
+
+def phase_sharded(paths: dict, errs: dict) -> dict:
+    """The slab mesh on one card: the kernels at slab shapes, the 4M
+    engine on 4 slabs beside its twin, a spawn on a slab edge, the
+    multichip CLI, the halo step and the sharded GS frame."""
+    import torch
+    from gpu_physics_engine_torch.app import multichip
+    t0 = time.perf_counter()
+    out = _sharded_4m(paths, errs)
+    _sharded_spawn(paths)
+    s = multichip.main(["--devices", str(SLABS), "--summary-json"])
+    if (s["particles"] != 1_048_576 or not s["finite"]
+            or s["devices"] != SLABS):
+        raise AssertionError(f"multichip: {s}")
+    log(f"[multichip-1M-4] {json.dumps(s)}")
+    torch.cuda.empty_cache()
+    _halo_1m(paths)
+    _gs_shard_1m()
+    log(f"[sharded] phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2888,12 +3318,16 @@ def main() -> int:
     del run
     torch.cuda.empty_cache()
     phase_apps(smi, paths, errs)
+    sharded = phase_sharded(paths, errs)
 
     times, library = phase_times(big_cfg, big_state, gs_cfg, gs_state,
                                  radix_keys)
     bound = bounds(big_cfg, big_state, gs_cfg, gs_state, radix_keys)
     times["collide_integrate[general]"] = spawn_times
     bound["collide_integrate[general]"] = _k1_bound(spawn_cfg, spawn_state)
+    for name, (k_ms, p_ms, b) in sharded["slab_runs"].items():
+        times[name] = (k_ms, p_ms)
+        bound[name] = b
     kernels = []
     for name, counter, source, replaces, path in KERNELS:
         n = paths[path][counter]

@@ -45,15 +45,18 @@ def color_origin(color: int) -> Tuple[int, int]:
     return 1 - ((color - 1) >> 1), 1 - ((color - 1) & 1)
 
 
-def memberships(state: TileState, t: float) -> List[torch.Tensor]:
+def memberships(state: TileState, t: float,
+                row0: int = 0) -> List[torch.Tensor]:
     """Frozen membership masks, one bool [cap, TY, TX] per offset j: the
     particle in slot s of the tile at OFFS[j] from each cell is an
     occupant of that cell (its circle strictly overlaps the cell's box).
-    Every product and sum is rounded on its own, as the scalar model's."""
+    Every product and sum is rounded on its own, as the scalar model's.
+    ``row0`` is the global tile row of local row 0 (a slab of the
+    sharded solve, parallel/gs_shard.py)."""
     _, TY, TX = state.dims
     dev = state.device
     tf = f32(t)
-    ty = torch.arange(TY, dtype=_I32, device=dev).view(1, TY, 1)
+    ty = torch.arange(TY, dtype=_I32, device=dev).view(1, TY, 1) + row0
     tx = torch.arange(TX, dtype=_I32, device=dev).view(1, 1, TX)
     lox = (tx - 1).float() * tf
     loy = (ty - 1).float() * tf
@@ -175,13 +178,16 @@ def rank_plain(state: TileState, config: SimConfig):
     return src, rpid, gather(state.radius, idx, valid), count
 
 
-def color_plain_(x, y, src, rrad, config: SimConfig, color: int) -> None:
+def color_plain_(x, y, src, rrad, config: SimConfig, color: int,
+                 row0: int = 0) -> None:
     """Color pass ``color`` (1..4) in place on x, y [cap, TY, TX], as K6
     computes it: every cell of that color (every second row and column)
     sweeps its ranked occupants at their current positions and writes them
-    back to their source slots."""
+    back to their source slots.  ``row0`` is the global tile row of local
+    row 0: a cell's color follows its global row."""
     cap, TY, TX = x.shape
     ty0, tx0 = color_origin(color)
+    ty0 = (ty0 - row0) % 2
     sub = (slice(None), slice(ty0, None, 2), slice(tx0, None, 2))
     ty = torch.arange(ty0, TY, 2, device=x.device).view(1, -1, 1)
     tx = torch.arange(tx0, TX, 2, device=x.device).view(1, 1, -1)

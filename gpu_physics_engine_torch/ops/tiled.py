@@ -356,15 +356,19 @@ def integrate(state: TileState, params: StepParams, config: SimConfig,
 # ---------------------------------------------------------------------------
 
 def _nonzero_padded(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
-    """``jnp.nonzero(mask, size=size, fill_value=fill)``: ascending indices
-    of the set entries, cut to ``size`` and padded with ``fill`` (int64).
-    Synchronises with the device (the count decides the shape)."""
-    idx = torch.nonzero(mask).flatten()[:size]
-    pad = size - idx.shape[0]
-    if pad:
-        idx = torch.cat([idx, torch.full((pad,), fill, dtype=idx.dtype,
-                                         device=idx.device)])
-    return idx
+    """``jnp.nonzero(mask, size=size, fill_value=fill)`` of a 1-D mask:
+    ascending indices of the set entries, cut to ``size`` and padded with
+    ``fill`` (int64).  Each set entry's rank (a cumsum) scatters its index
+    into a [size + 1] buffer whose last entry takes the entries past
+    ``size`` and the unset ones, so the shape never depends on the count
+    and nothing is read back to the host."""
+    n = mask.shape[0]
+    rank = torch.cumsum(mask, 0, dtype=torch.int64) - 1
+    dst = torch.where(mask & (rank < size), rank, size)
+    out = torch.full((size + 1,), fill, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, dst, torch.arange(n, dtype=torch.int64,
+                                      device=mask.device))
+    return out[:size]
 
 
 def _insert_compacted(state: TileState, ty_t, tx_t, fields, live):
@@ -373,16 +377,19 @@ def _insert_compacted(state: TileState, ty_t, tx_t, fields, live):
     fields = (x, y, px, py, radius, pid), each [M].  Deterministic: per
     claim round the lowest entry index wins a tile's free slot k (a
     scatter-min into an ntiles+1 buffer whose last entry is the sentinel
-    that entries without a claim write to).  Returns (new state, placed
-    mask)."""
+    that entries without a claim write to).  The winners' fields scatter
+    into flat planes with one spare slot at the end, where every other
+    entry writes, so nothing is read back to the host.  Returns (new
+    state, placed mask)."""
     cap, TY, TX = state.dims
     ntiles = TY * TX
+    S = cap * ntiles
     dev = state.device
     m = ty_t.shape[0]
     tile_lin = (ty_t.long() * TX + tx_t.long())
     enc = torch.arange(m, dtype=torch.int64, device=dev)
 
-    flat = [a.reshape(-1).clone() for a in
+    flat = [torch.cat([a.reshape(-1), a.new_zeros(1)]) for a in
             (state.x, state.y, state.px, state.py, state.radius, state.pid)]
     placed = ~live
     for k in range(cap):
@@ -394,17 +401,27 @@ def _insert_compacted(state: TileState, ty_t, tx_t, fields, live):
             0, torch.where(can, tile_lin, torch.full_like(tile_lin, ntiles)),
             torch.where(can, enc, torch.full_like(enc, _BIG)), "amin")
         won = can & (claim[tile_lin] == enc)
-        dst = base + tile_lin[won]
+        dst = torch.where(won, base + tile_lin, S)
         for i in range(6):
-            flat[i][dst] = fields[i][won]
+            flat[i].scatter_(0, dst, fields[i])
         placed = placed | won
 
     shape = state.dims
     new_state = state.replace(
-        x=flat[0].view(shape), y=flat[1].view(shape),
-        px=flat[2].view(shape), py=flat[3].view(shape),
-        radius=flat[4].view(shape), pid=flat[5].view(shape))
+        x=flat[0][:S].view(shape), y=flat[1][:S].view(shape),
+        px=flat[2][:S].view(shape), py=flat[3][:S].view(shape),
+        radius=flat[4][:S].view(shape), pid=flat[5][:S].view(shape))
     return new_state, placed & live
+
+
+def vacate(state: TileState, idx: torch.Tensor,
+           ok: torch.Tensor) -> TileState:
+    """pid -1 at the flat slots ``idx`` (int64 [M]) where ``ok``; the
+    others write to a spare slot past the plane."""
+    S = state.pid.numel()
+    pid = torch.cat([state.pid.reshape(-1), state.pid.new_full((1,), _EMPTY)])
+    pid.scatter_(0, torch.where(ok, idx, S), _EMPTY)
+    return state.replace(pid=pid[:S].view(state.dims))
 
 
 def relocate(state: TileState, config: SimConfig, m_cap: int | None = None,
@@ -416,8 +433,8 @@ def relocate(state: TileState, config: SimConfig, m_cap: int | None = None,
     mover-tile scan start (the buffer-overflow compaction takes a prefix
     of flat tile order); ``delta`` > 0 applies the pull relocate's
     hysteresis band to the mover test.  Movers beyond the buffer or
-    without a free slot stay put and count in overflow_count.  Syncs with
-    the device once (the mover-tile count)."""
+    without a free slot stay put and count in overflow_count.  Nothing is
+    read back to the host."""
     t, TY, TX = tile_geometry(config)
     if m_cap is None:
         m_cap = config.mover_capacity
@@ -473,9 +490,7 @@ def relocate(state: TileState, config: SimConfig, m_cap: int | None = None,
     deferred = n_movers - torch.sum(live, dtype=_I32)
 
     new_state, placed = _insert_compacted(state, ty_t, tx_t, fields, live)
-    # vacate placed movers' old slots
-    pid_flat = new_state.pid.reshape(-1)
-    pid_flat[mov_idx[placed]] = _EMPTY
+    new_state = vacate(new_state, mov_idx, placed)  # placed movers' old slots
     not_placed = torch.sum(live & ~placed, dtype=_I32)
     return new_state.replace(
         overflow_count=state.overflow_count + deferred + not_placed)

@@ -174,6 +174,13 @@ def test_port_imports_and_steps_with_jax_blocked():
         "assert png.encode_png(img).startswith(b'\\x89PNG')\n"
         "assert 'sort_map' in profiling.phase_breakdown(a.config, a.state,\n"
         "    a.params(), repeats=1)\n"
+        "from gpu_physics_engine_torch.parallel import (gs_shard, halo,\n"
+        "    mesh, tiled_shard)\n"
+        "from gpu_physics_engine_torch.app import multichip\n"
+        "m = multichip.main(['--device', 'cpu', '--devices', '2',\n"
+        "    '--particles', '64', '--world', '16', '16', '--steps', '2',\n"
+        "    '--tile-cap', '4'])\n"
+        "assert m['particles'] == 64 and m['finite']\n"
         "assert not any(m == 'gpu_physics_engine_tpu' or\n"
         "    m.startswith('gpu_physics_engine_tpu.') for m in sys.modules)\n"
         "print('ok')\n")

@@ -28,7 +28,9 @@ The fast solver's engine (both packings), ``rebuild_band`` and
 checkpoint with an overlay loads on the card as on the CPU.  The apps
 layer: ``tile_stats`` (the tile map) on the card equals the CPU's bit for
 bit, ``Viewer.render_engine`` on the card is within one u8 of the CPU's,
-and the headless CLI runs a small world with ``--device cuda``.
+and the headless CLI runs a small world with ``--device cuda``.  The slab
+mesh: K2 at every slab's row offset and K1 and K3 on halo-extended slabs
+bit for bit, and the sharded engine on the card following the CPU's.
 """
 
 import numpy as np
@@ -992,3 +994,125 @@ def test_headless_cli_runs_on_card(tmp_path):
     import os
     assert sorted(os.listdir(out)) == ["frame_000000.png",
                                        "frame_000006.png"]
+
+
+# ---------------------------------------------------------------------------
+# the slab mesh: K2 at slab row offsets, K1 and K3 on halo-extended slabs,
+# the sharded engine card against CPU
+# ---------------------------------------------------------------------------
+
+def _slabs(cfg, st, n=4):
+    from gpu_physics_engine_torch.parallel import mesh as tmesh
+    mesh = tmesh.make_mesh(n, device="cuda")
+    return mesh, tmesh.shard_tiles(st, mesh)
+
+
+@pytest.mark.parametrize("match", ["flip", "flip2", "greedy"])
+@pytest.mark.parametrize("hysteresis", [0.0, -1.0])
+def test_k2_cuda_matches_plain_at_slab_row_offsets(match, hysteresis):
+    """K2 on each slab of a 4-slab cut (8 of 32 rows each, row0 = 0, 8,
+    16, 24, global_rows 32), the particles jittered by up to 1.2 units in
+    x and y: bit-equal to the plain version and on repeat; a mover across
+    the slab edge stays in its slab."""
+    cfg, st = _scene(match=match, hysteresis=hysteresis, cap=4, jitter=1.2)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    d = (torch.rand(st.y.shape, generator=g, device="cuda") - 0.5) * 2.4
+    st = st.replace(y=torch.where(st.pid >= 0, st.y + d, st.y))
+    _, slabs = _slabs(cfg, st)
+    TY = st.dims[1]
+    for i, s in enumerate(slabs):
+        row0 = i * s.dims[1]
+        a, da = tk.relocate_pull_cuda(s, cfg, row0=row0, global_rows=TY)
+        b, db = tk.relocate_pull_plain(s, cfg, row0=row0, global_rows=TY)
+        c, dc = tk.relocate_pull_cuda(s, cfg, row0=row0, global_rows=TY)
+        torch.cuda.synchronize()
+        for f in FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (i, f)
+            assert torch.equal(getattr(a, f), getattr(c, f)), (i, f)
+        assert torch.equal(da, db) and torch.equal(da, dc)
+        assert torch.equal(torch.sort(a.pid[a.pid >= 0]).values,
+                           torch.sort(s.pid[s.pid >= 0]).values)
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+def test_k1_k3_cuda_match_plain_on_halo_extended_slabs(uniform):
+    """K1 and K3 on each extended slab [cap, 8 + 2, TX] of a 4-slab cut:
+    the halo rows hold the neighbours' live particles (pid 0 as
+    occupancy), bit-equal to the plain versions and on repeat."""
+    from gpu_physics_engine_torch.parallel.tiled_shard import extended_slabs
+    cfg, st = _scene(uniform=uniform, jitter=0.0, gravity=(0.0, -9.8))
+    mesh, slabs = _slabs(cfg, st)
+    prm = StepParams.make(0.02, mouse=(30.0, 20.0), pressed=True).as_tensor(
+        "cuda")
+    for fused in (True, False):
+        for i, ext in enumerate(extended_slabs(mesh, slabs, fused)):
+            assert ext.dims[1] == slabs[i].dims[1] + 2
+            if 0 < i < 3:
+                assert bool((ext.pid[:, 0] == 0).any())  # live halo rows
+            if fused:
+                a = tk.collide_integrate_cuda(ext, prm, cfg)
+                b = tk.collide_integrate_plain(ext, prm, cfg)
+                c = tk.collide_integrate_cuda(ext, prm, cfg)
+                names = ("x", "y", "px", "py")
+            else:
+                a = tk.collide_cuda(ext, cfg)
+                b = tk.collide_plain(ext, cfg)
+                c = tk.collide_cuda(ext, cfg)
+                names = ("x", "y")
+            torch.cuda.synchronize()
+            for f in names:
+                assert torch.equal(getattr(a, f), getattr(b, f)), (i, f)
+                assert torch.equal(getattr(a, f), getattr(c, f)), (i, f)
+
+
+def test_sharded_engine_on_card_matches_cpu_engine():
+    """The sharded engine on 4 slabs of the card (K1 on the extended
+    slabs, the crossers shipped, K2 at the slab row offsets) against the
+    same engine on the CPU over an off-step and a relocating step with
+    the mouse pressed: pids exact, positions close (the plain sweep's
+    rsqrt rounds apart on the CPU, and the mouse amplifies that within
+    tens of steps); then 38 more steps on the card through the claim
+    sweep at 20: every pid kept, finite; K1 launched 4 times a step."""
+    from gpu_physics_engine_torch.parallel import mesh as tmesh
+    from gpu_physics_engine_torch.parallel.tiled_shard import (
+        ShardedTiledEngine)
+    cfg = SimConfig(max_particles=3000, initial_particles=3000,
+                    world_width=96.0, world_height=64.0, pipeline="tiled",
+                    tile_cap=6, tiled_relocate_interval=2,
+                    sort_interval_steps=20, tiled_uniform_radius=True,
+                    migration_capacity=8, gravity=(0.0, -40.0))
+    rng = np.random.default_rng(21)
+    pos = rng.uniform(0.6, [95.4, 63.4], (3000, 2)).astype(np.float32)
+    prev = (pos + rng.normal(0, 0.3, pos.shape)).astype(np.float32)
+    arr = (pos, np.full(3000, 0.5, np.float32), None, prev)
+    engines = [ShardedTiledEngine(cfg, mesh=tmesh.make_mesh(4, device=d),
+                                  initial_arrays=arr)
+               for d in ("cuda", "cpu")]
+    n0 = tk.LAUNCHES["collide_integrate"]
+    for e in engines:
+        e.press_mouse((48.0, 30.0))
+        e.run(2)
+    a, b = engines[0]._export(), engines[1]._export()
+    np.testing.assert_array_equal(a[0], np.arange(3000))
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_allclose(a[1], b[1], atol=1e-4, rtol=0)
+    card = engines[0]
+    card.run(38)
+    assert tk.LAUNCHES["collide_integrate"] == n0 + 4 * 40
+    pid, p, _, _ = card._export()
+    np.testing.assert_array_equal(pid, np.arange(3000))
+    assert np.isfinite(p).all() and card.num_particles() == 3000
+
+
+def test_kernels_refuse_caps_past_32():
+    """The claim bitsets are 32 bits wide: a cap-33 state on the card is
+    refused by K1, K3 and K2 (the CPU's plain versions take any cap)."""
+    cfg, st = _scene(cap=4, jitter=0.0)
+    wide = st.replace(**{f: torch.cat([getattr(st, f)] * 9)[:33]
+                         for f in FIELDS})
+    prm = StepParams.make(0.02).as_tensor("cuda")
+    for call in (lambda: tk.collide_integrate_cuda(wide, prm, cfg),
+                 lambda: tk.collide_cuda(wide, cfg),
+                 lambda: tk.relocate_pull_cuda(wide, cfg)):
+        with pytest.raises(ValueError, match="tile_cap 33 outside"):
+            call()
