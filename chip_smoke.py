@@ -16,8 +16,8 @@ non-zero with no result line:
      worlds, and a [6, 21, 39] grid that is no multiple of K1's 8 x 32
      region) and at the 4M [8, 640, 1850], 1M [6, 480, 1388] and 256k
      [9, 176, 506] shapes, bit-equal; K2 (pull relocate, one launch on a
-     shared-memory window; its window bytes == the Python mirror
-     at every cap) there, on the ragged grid and on a small scene at cap 32
+     shared-memory window; its window bytes, and K1's, == the Python
+     mirrors at every cap 1-64) there, on the ragged grid and on a small scene at cap 32
      (K2-par too), for flip / flip2 / greedy, hysteresis on and off, and
      at the GS shapes [4, 960, 2773] and [6, 960, 2773],
      bit-equal; K5 (GS rank) and K6 (GS color solve, one launch of the
@@ -166,6 +166,23 @@ non-zero with no result line:
      ``halo.make_sharded_step`` at 1M for 16 steps with the radix resort
      (nothing dropped); the sharded GS frame at 1M-GS on 4 slabs
      bit-equal to the one-grid plain solve and to K5 + K6;
+  7d. tile caps 33-64, the kernels' 64-bit mask instantiations
+     (phase_wide_caps): every kernel at caps 33, 48 and 64 on piles whose
+     tiles fill every slot, bit-equal to its plain version and on repeat
+     (K1 and K3, uniform and general radius, on a grid smaller than one
+     region, a ragged one and a halo-extended slab; K2 in every matching
+     mode with hysteresis on and off, K4, K2-par at origins 0 and -1 and
+     relocate_mega; K5 and K5-par with K 16, with and without a radius
+     plane; the K6 / K6-par windows for colors 1..4, with and without the
+     tail); the 1M engine with tiled_spawn="retile" (64 steps, then a
+     spawn re-tiles it past cap 32, then 128 steps: K1's general form
+     every step, K2 every 4th) and the 1M engine at the cap its scene
+     gives tile_max_radius 1 (128 steps, K1 uniform; K3's and K4's paths
+     on its scene), each with its launch counts, every pid kept, ms/step,
+     idle share and launches a step, and K1 and K2 bit-equal on its final
+     state; the 4M engine's re-tiling spawn refused (its scene's cap is
+     past 64) with the engine unchanged; the GS engine at cap 64 in the
+     flat, par and mega layouts, bit-equal to each other;
   8. kernel times at the main paths' shapes against their plain versions,
      with each kernel's bound on this card (and, for the radix pass, the
      time of torch.sort(stable=True) of the same pairs beside the whole
@@ -244,10 +261,11 @@ def phase_build() -> None:
 
 
 def check_window_formula() -> None:
-    """The shared-memory bytes of K2's, K5's and K6's windows, as the
+    """The shared-memory bytes of K1's, K2's, K5's and K6's windows, as the
     launches take them from csrc/, equal the Python mirrors
-    (``tiled_kernels.k2_window_bytes``, ``gs_kernels.rank_window_bytes``,
-    ``gs_kernels.colors_window_bytes``) at every cap 1-32 (K2 on both
+    (``tiled_kernels.k1_smem_bytes``, ``tiled_kernels.k2_window_bytes``,
+    ``gs_kernels.rank_window_bytes``, ``gs_kernels.colors_window_bytes``)
+    at every cap 1-64 (K1 with and without a radius plane; K2 on both
     layouts; K5, whose geometry is one for both, with and without a radius
     plane; K6, one geometry too, for 0-4 colors a launch)."""
     from gpu_physics_engine_torch.ops import _cuda, gs_kernels as gk
@@ -260,6 +278,9 @@ def check_window_formula() -> None:
                       lib.gpe_relocate_window_bytes(cap, int(par)))]
             pairs += [("K5", gk.rank_window_bytes(cap, uniform),
                        lib.gpe_gs_rank_window_bytes(cap, int(uniform)))
+                      for uniform in (False, True)]
+            pairs += [("K1", tk.k1_smem_bytes(cap, uniform),
+                       lib.gpe_collide_window_bytes(cap, int(uniform)))
                       for uniform in (False, True)]
             pairs += [("K6", gk.colors_window_bytes(cap, colors),
                        lib.gpe_gs_colors_window_bytes(cap, colors))
@@ -278,7 +299,8 @@ def check_window_formula() -> None:
                                  f"{got} B, mirror "
                                  f"{8 * rs.scratch_words(ntiles)} B")
     log(f"[window] bytes of the launches == the Python mirrors at caps "
-        f"1-{tk.MAX_CAP}: K2 most {most['K2', False]} B flat, "
+        f"1-{tk.MAX_CAP}: K1 most {most['K1', False]} B, K2 most "
+        f"{most['K2', False]} B flat, "
         f"{most['K2', True]} B parity; K5 most {most['K5', False]} B; K6 "
         f"most {most['K6', False]} B; the radix sort's scratch")
 
@@ -414,6 +436,40 @@ def _ragged_state(cap, uniform):
                               for f in tiled.FIELDS})
 
 
+def check_k1_k3(label, cfg, st, st_general, errs: dict) -> None:
+    """K1 and K3 against their plain versions on ``st`` under a uniform
+    radius and on ``st_general`` under the general one (the radius plane
+    read), the mouse pressed at the world's centre: bit-equal and
+    bit-equal on repeat."""
+    import torch
+    from gpu_physics_engine_torch import StepParams
+    from gpu_physics_engine_torch.ops import tiled_kernels as tk
+    prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
+                                         0.5 * cfg.world_height),
+                          pressed=True).as_tensor("cuda")
+    for uniform, s in ((True, st), (False, st_general)):
+        c = cfg.replace(tiled_uniform_radius=uniform)
+        runs = (("k1", "collide_integrate", ("x", "y", "px", "py"),
+                 lambda: tk.collide_integrate_cuda(s, prm, c),
+                 lambda: tk.collide_integrate_plain(s, prm, c)),
+                ("k3", "collide", ("x", "y"),
+                 lambda: tk.collide_cuda(s, c),
+                 lambda: tk.collide_plain(s, c)))
+        for tag, name, fields, kern, plain in runs:
+            a, a2, b = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            err = _max_err(a, b, fields)
+            same, rep = _same(a, b, fields), _same(a, a2, fields)
+            if not (same and rep and torch.equal(a.pid, b.pid)):
+                raise AssertionError(
+                    f"{tag} {label} uniform={uniform}: bit-equal "
+                    f"{same} (max err {err}), repeat {rep}")
+            errs[name] = max(errs.get(name, 0.0), err)
+            moved = int((a.x != s.x).sum())
+            log(f"[{tag}] {label} {list(s.dims)} uniform={uniform}: "
+                f"bit-equal and repeat bit-equal ({moved} slots moved)")
+
+
 def phase_jacobi_kernels(scenes, errs: dict) -> None:
     """K1, K3 and K2 against their plain versions on the card, at small
     shapes (box and circle worlds, a grid no multiple of K1's or K2's
@@ -421,9 +477,6 @@ def phase_jacobi_kernels(scenes, errs: dict) -> None:
     K1 and K3 bit-equal and bit-equal on repeat, uniform and general
     radius; K2 in every matching mode, and at cap 32; K2-par on the ragged
     grid and at cap 32."""
-    import torch
-    from gpu_physics_engine_torch import StepParams
-    from gpu_physics_engine_torch.ops import tiled_kernels as tk
     small_cfg, small_uniform = _small_state(4, uniform=True)
     _, small_mixed = _small_state(4, uniform=False)
     ragged_cfg, ragged_uniform = _ragged_state(6, uniform=True)
@@ -436,30 +489,7 @@ def phase_jacobi_kernels(scenes, errs: dict) -> None:
               ("ragged", ragged_cfg, ragged_uniform, ragged_mixed)] + [
         (label, cfg, st, st) for label, cfg, st in scenes]
     for label, cfg, st, st_general in shapes:
-        prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
-                                             0.5 * cfg.world_height),
-                              pressed=True).as_tensor("cuda")
-        for uniform, s in ((True, st), (False, st_general)):
-            c = cfg.replace(tiled_uniform_radius=uniform)
-            runs = (("k1", "collide_integrate", ("x", "y", "px", "py"),
-                     lambda: tk.collide_integrate_cuda(s, prm, c),
-                     lambda: tk.collide_integrate_plain(s, prm, c)),
-                    ("k3", "collide", ("x", "y"),
-                     lambda: tk.collide_cuda(s, c),
-                     lambda: tk.collide_plain(s, c)))
-            for tag, name, fields, kern, plain in runs:
-                a, a2, b = kern(), kern(), plain()
-                torch.cuda.synchronize()
-                err = _max_err(a, b, fields)
-                same, rep = _same(a, b, fields), _same(a, a2, fields)
-                if not (same and rep and torch.equal(a.pid, b.pid)):
-                    raise AssertionError(
-                        f"{tag} {label} uniform={uniform}: bit-equal "
-                        f"{same} (max err {err}), repeat {rep}")
-                errs[name] = max(errs.get(name, 0.0), err)
-                moved = int((a.x != s.x).sum())
-                log(f"[{tag}] {label} {list(s.dims)} uniform={uniform}: "
-                    f"bit-equal and repeat bit-equal ({moved} slots moved)")
+        check_k1_k3(label, cfg, st, st_general, errs)
         # K2: every matching mode, hysteresis off and auto
         if label != "small-circle":
             check_relocate(label, cfg, st, MODES, errs)
@@ -489,13 +519,16 @@ def _gs_small_state():
     return cfg, tiled.init_tiles(cfg, pos, rad, device="cuda")
 
 
-def _gs_ragged_state(cap, K, uniform, n=1500, world=(40.0, 30.0)):
+def _gs_ragged_state(cap, K, uniform, n=1500, world=(40.0, 30.0),
+                     jam_sd=2.0):
     """A small GS scene on a 40 x 30 world: TX 39 is no multiple of K5's
     32-wide flat region nor its parity sub-grids' 20 columns of one of
     32, nor of K6's regions, and at origin -1 DY 17 no multiple of two
     rows (TY itself is padded to a multiple of 8 by the tile geometry, as
     in the JAX package); a 20 x 12 world's [cap, 16, 21] grid is smaller
-    than one K6 window; mixed radii (or uniform) with a jammed cluster."""
+    than one K6 window; mixed radii (or uniform) with a jammed cluster
+    (of deviation ``jam_sd``: 0.6 fills every slot of its tiles at cap
+    64)."""
     import numpy as np
     from gpu_physics_engine_torch.core.tuned import gs_config
     from gpu_physics_engine_torch.ops import tiled
@@ -504,8 +537,8 @@ def _gs_ragged_state(cap, K, uniform, n=1500, world=(40.0, 30.0)):
                     max_occupancy=K, tiled_uniform_radius=uniform)
     rng = np.random.default_rng(cap)
     spread = rng.uniform(0.6, [w - 0.6, h - 0.6], (n - n // 3, 2))
-    jam = np.clip([w / 2, h / 2] + rng.normal(0.0, 2.0, (n // 3, 2)), 0.6,
-                  [w - 0.6, h - 0.6])
+    jam = np.clip([w / 2, h / 2] + rng.normal(0.0, jam_sd, (n // 3, 2)),
+                  0.6, [w - 0.6, h - 0.6])
     pos = np.concatenate([spread, jam]).astype(np.float32)
     rad = (np.full(n, cfg.initial_radius, np.float32) if uniform
            else rng.uniform(0.3, 0.5, n).astype(np.float32))
@@ -1396,29 +1429,50 @@ def _k2_bound(state):
                   10 * occ)
 
 
+def _k3_bound(cfg, state):
+    """K3's least time on ``state``: x, y, pid (and the radius plane under
+    a general radius) read, x, y written; 5 flops a candidate pair."""
+    cap, TY, TX = state.dims
+    n, box = _tile_counts(state)
+    pairs = float((n * box).sum()) - float(n.sum())
+    rplanes = 0 if cfg.tiled_uniform_radius else 1
+    return _bound((3 + rplanes + 2) * cap * TY * TX * 4.0, 5 * pairs)
+
+
 def bounds(cfg, state, gs_cfg, gs_state, radix_keys) -> dict:
     """Per kernel (least ms, "bytes" or "operations"): each input read once,
     each output written once; operations counted from this run's data
     (5 flops per candidate pair's distance test, 25 per Verlet step, 9 per
-    membership test, 8 per GS pair).  The parity kernels at the 1M-GS
-    scene's parity shape: the same counts, no radius plane (uniform).  The
-    GS colors per solve: K6 and K6-mx/dec the four colors, K6-par and
-    colors_mega the four colors and the Verlet tail."""
+    membership test, 8 per GS pair).  The GS kernels: ``gs_bounds``."""
+    out = {
+        "collide_integrate": _k1_bound(cfg, state),
+        "collide": _k3_bound(cfg, state),
+        "relocate_pull": _k2_bound(state),
+        "relocate_one": _k2_bound(state),
+    }
+    out.update(gs_bounds(gs_cfg, gs_state))
+    # the radix sort: the histogram reads each int64 key once and writes
+    # [4, 256] i32; the pass as timed (pass 0) reads the int64 key, the
+    # payload and its histogram row and writes the u32 key and the payload
+    # (the look-back words are the kernel's scratch, not the function's);
+    # a handful of integer operations a key
+    nkeys = float(radix_keys.shape[0])
+    out["radix_digit_hist"] = _bound(8 * nkeys + 4096, 0.0)
+    out["radix_onesweep"] = _bound(20 * nkeys + 1024, 0.0)
+    return out
+
+
+def gs_bounds(gs_cfg, gs_state) -> dict:
+    """The GS kernels' least times on ``gs_state``, as ``bounds`` counts.
+    The parity kernels at the scene's parity shape: the same counts, no
+    radius plane (uniform).  The GS colors per solve: K6 and K6-mx/dec the
+    four colors, K6-par and colors_mega the four colors and the Verlet
+    tail."""
     import torch
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import gs_parity as gp
     from gpu_physics_engine_torch.ops import gs_tiled as gt
-    cap, TY, TX = state.dims
-    S = cap * TY * TX * 4.0  # bytes of one plane
-    n, box = _tile_counts(state)
-    occ = float(n.sum())
-    pairs = float((n * box).sum()) - occ  # occupied (slot, candidate) pairs
-    rplanes = 0 if cfg.tiled_uniform_radius else 1
-    out = {
-        "collide_integrate": _k1_bound(cfg, state),
-        "collide": _bound((3 + rplanes + 2) * S, 5 * pairs),
-        "relocate_pull": _k2_bound(state),
-    }
+    out = {}
     K = gs_cfg.max_occupancy
     gcap, GY, GX = gs_state.dims
     gocc = float((gs_state.pid >= 0).sum())
@@ -1464,24 +1518,16 @@ def bounds(cfg, state, gs_cfg, gs_state, radix_keys) -> dict:
     # slots are read and written; empty slots keep their values
     out["gs_verlet"] = _bound(P + 32 * gocc, 25 * gocc)
     # the fused kernels compute the same functions: colors_mega the par
-    # route's solve, relocate_mega K2-par's, K4 K2's (at 4M)
+    # route's solve, relocate_mega K2-par's
     out["gs_colors_mega"] = out["gs_color_par"]
     out["relocate_mega"] = out["relocate_par"]
-    out["relocate_one"] = out["relocate_pull"]
-    # the radix sort: the histogram reads each int64 key once and writes
-    # [4, 256] i32; the pass as timed (pass 0) reads the int64 key, the
-    # payload and its histogram row and writes the u32 key and the payload
-    # (the look-back words are the kernel's scratch, not the function's);
-    # a handful of integer operations a key
-    nkeys = float(radix_keys.shape[0])
-    out["radix_digit_hist"] = _bound(8 * nkeys + 4096, 0.0)
-    out["radix_onesweep"] = _bound(20 * nkeys + 1024, 0.0)
     return out
 
 
 def _par_runs(gs_cfg, gs_state) -> dict:
     """The parity kernels' timing runs at the 1M-GS scene's parity shape:
-    name -> (kernel, plain, launches per call).  K6-par's window runs a
+    name -> (kernel, plain, launches per call[, the tensors the calls
+    update in place]).  K6-par's window runs a
     solve on the par layout (K5-par's tables, the Verlet tail fused, mouse
     pressed) and on the mx and dec layouts (K5's tables relayouted); the
     tail's row is the window with no color; the relocate on a jittered
@@ -1510,24 +1556,31 @@ def _par_runs(gs_cfg, gs_state) -> dict:
     m = ps.replace(**{f: getattr(ps, f).clone()
                       for f in ("x", "y", "px", "py")})
     par = (src, rrad)
+
+    def mega_plain():  # as the kernel: new x, y; the tail's px, py in place
+        out = m.replace(x=m.x.clone(), y=m.y.clone())
+        gm.colors_mega_plain(out, src, rrad, cfg, prm)
+        return out
+
     runs = {
         "gs_rank_par": (lambda: gp.rank_par_cuda(ps, cfg),
                         lambda: gp.rank_par_plain(ps, cfg), 1),
         "gs_colors_mega": (
             lambda: gm.colors_mega_cuda(m, src, rrad, cfg, prm),
-            lambda: gm.colors_mega_plain(m, src, rrad, cfg, prm), 1),
+            mega_plain, 1, (m.px, m.py)),
         "relocate_mega": (lambda: gm.relocate_mega_cuda(far, cfg),
                           lambda: gm.relocate_mega_plain(far, cfg), 1),
         # the par route's solve: four colors and the tail, no radius table
         "gs_color_par": (
             colors(gp.colors_par_cuda, ps.geo, par, tail=tail, uniform=True),
-            colors(gp.colors_par_plain, ps.geo, par, tail=tail), 1),
+            colors(gp.colors_par_plain, ps.geo, par, tail=tail), 1,
+            tail[:2]),
         "relocate_par": (lambda: gp.relocate_par_cuda(far, cfg),
                          lambda: gp.relocate_par_plain(far, cfg), 1),
         # the window with no color: the tail alone
         "gs_verlet": (
             colors(gp.colors_par_cuda, ps.geo, par, 0, tail, uniform=True),
-            colors(gp.colors_par_plain, ps.geo, par, 0, tail), 1),
+            colors(gp.colors_par_plain, ps.geo, par, 0, tail), 1, tail[:2]),
     }
     for name, origin in (("mx", 0), ("dec", -1)):
         geo = gp.ParityGeometry(*gs_state.dims[1:], origin)
@@ -1595,7 +1648,7 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_keys):
     for name in RADIX:
         shapes[name] = list(keys.shape)
     out = {}
-    for name, (kern, plain, per) in runs.items():
+    for name, (kern, plain, per, *_) in runs.items():
         p1 = cuda_ms(plain, reps=2) / per
         k1 = cuda_ms(kern, reps=20) / per
         k2 = cuda_ms(kern, reps=20) / per
@@ -1693,6 +1746,38 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "4M-sharded"),
     ("relocate_pull[row0]", "relocate_pull", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:945", "4M-sharded"),
+    # caps 33-64, the kernels' 64-bit mask instantiations: the 1M engine
+    # re-tiled by a radius-3 spawn (K1's general form) and the 1M engine at
+    # the scene's cap for radius 1 (K1 uniform; K3 and K4 on its scene)
+    ("collide_integrate[retile]", "collide_integrate",
+     "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "1M-retile"),
+    ("relocate_pull[retile]", "relocate_pull", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:945", "1M-retile"),
+    ("collide_integrate[cap36]", "collide_integrate",
+     "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "1M-cap36"),
+    ("relocate_pull[cap36]", "relocate_pull", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:945", "1M-cap36"),
+    ("collide[cap36]", "collide", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:455", "1M-cap36-unfused"),
+    ("relocate_one[cap36]", "relocate_one", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:1187", "1M-cap36-one"),
+    # the GS engine at cap 64 (set by hand) in its three layouts
+    ("gs_rank[cap64]", "gs_rank", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_pallas.py:467", "GS-cap64"),
+    ("gs_color[cap64]", "gs_color", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_pallas.py:543", "GS-cap64"),
+    ("gs_rank_par[cap64]", "gs_rank_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:275", "GS-cap64-par"),
+    ("gs_color_par[cap64]", "gs_color_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:433", "GS-cap64-par"),
+    ("relocate_par[cap64]", "relocate_par", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:689", "GS-cap64-par"),
+    ("gs_colors_mega[cap64]", "gs_colors_mega", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_mega.py:503", "GS-cap64-mega"),
+    ("relocate_mega[cap64]", "relocate_mega", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_mega.py:443", "GS-cap64-mega"),
 )
 
 FLAT_GS = ("gs_rank", "gs_color", "relocate_pull")
@@ -2849,12 +2934,60 @@ def phase_apps(smi: str, paths: dict, errs: dict) -> None:
 SLABS = 4
 
 
-def _time_pair(name, shape, kern, plain) -> tuple:
-    """(kernel ms, plain ms) in turns: plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain, reps=2)
+def _tensors(r) -> tuple:
+    """The tensors of a wrapper's result: a tensor, a state (its tensor
+    fields) or a tuple of these."""
+    import dataclasses
+    import torch
+    if r is None:
+        return ()
+    if isinstance(r, torch.Tensor):
+        return (r,)
+    if isinstance(r, (tuple, list)):
+        return tuple(t for v in r for t in _tensors(v))
+    return tuple(v for f in dataclasses.fields(r)
+                 if isinstance(v := getattr(r, f.name), torch.Tensor))
+
+
+def _held(what, kern, plain, keep=()) -> float:
+    """``kern`` twice and ``plain`` once, as they are timed, each from the
+    same values of ``keep`` (the tensors the calls update in place:
+    restored before each call and after the last); their results and
+    ``keep`` bit-equal (``_equal_or_raise``).  Returns the largest
+    absolute difference of the kernel's result from the plain one's."""
+    saved = [t.clone() for t in keep]
+
+    def restore():
+        for t, v in zip(keep, saved):
+            t.copy_(v)
+
+    outs = []
+    for fn in (kern, kern, plain):
+        restore()
+        outs.append(tuple(t.clone() for t in _tensors(fn()) + tuple(keep)))
+    restore()
+    got, again, want = outs
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} tensors from the kernel, "
+                             f"{len(want)} from the plain version")
+    _equal_or_raise(what, got, want, again)
+    return max((float((u.double() - v.double()).abs().max())
+                for u, v in zip(got, want) if u.numel()), default=0.0)
+
+
+def _time_pair(name, shape, kern, plain, plain_reps=2, errs=None,
+               keep=()) -> tuple:
+    """(kernel ms, plain ms) in turns: plain, kernel, kernel, plain
+    (``plain_reps`` 1: one plain call a turn, no warm-up).  With ``errs``
+    the two are first held bit-equal on these inputs (``_held``, with
+    ``keep``) and ``errs[name]`` is the measured error."""
+    if errs is not None:
+        errs[name] = _held(name, kern, plain, keep)
+    light = dict(reps=1, warmup=0) if plain_reps == 1 else dict(reps=2)
+    p1 = cuda_ms(plain, **light)
     k1 = cuda_ms(kern, reps=20)
     k2 = cuda_ms(kern, reps=20)
-    p2 = cuda_ms(plain, reps=2)
+    p2 = cuda_ms(plain, **light)
     log(f"[time] {name} {shape}: kernel {k1:.4f} / {k2:.4f} ms, plain "
         f"{p1:.3f} / {p2:.3f} ms per launch")
     return min(k1, k2), min(p1, p2)
@@ -3239,6 +3372,428 @@ def phase_sharded(paths: dict, errs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tile caps 33-64: the kernels' 64-bit mask instantiations
+# ---------------------------------------------------------------------------
+
+WIDE_CAPS = (33, 48, 64)
+RETILE_N = 1_048_576
+GS64 = (262_144, (1524.0, 524.0))  # the 1M-GS density on a quarter world
+
+
+def _pile_state(cap, uniform, world, cut, centre=None):
+    """A small scene at ``cap`` on a ``world`` = (width, height) world: 0.6
+    particles a unit area spread over it and a pile of 4 x cap at
+    ``centre`` (default the world's centre) whose tiles fill every slot,
+    past slot 32; ``cut`` of the empty rows above the world dropped (one
+    stays as the ring), so TY is no multiple of any region.  Mixed radii
+    unless ``uniform``."""
+    import numpy as np
+    from gpu_physics_engine_torch import SimConfig
+    from gpu_physics_engine_torch.ops import tiled
+    w, h = world
+    spread, pile = int(0.6 * w * h), 4 * cap
+    n = spread + pile
+    cfg = SimConfig(max_particles=n, initial_particles=n, world_width=w,
+                    world_height=h, pipeline="tiled", tile_cap=cap,
+                    tiled_uniform_radius=uniform, gravity=(0.0, -9.8))
+    rng = np.random.default_rng(cap)
+    hi = [w - 0.6, h - 0.6]
+    pos = np.concatenate([
+        rng.uniform(0.6, hi, (spread, 2)),
+        np.clip((centre or (w / 2, h / 2)) + rng.normal(0.0, 1.0, (pile, 2)),
+                0.6, hi)]).astype(np.float32)
+    rad = (np.full(n, 0.5, np.float32) if uniform
+           else rng.uniform(0.3, 0.5, n).astype(np.float32))
+    prev = (pos + rng.normal(0, 0.05, pos.shape)).astype(np.float32)
+    st = tiled.init_tiles(cfg, pos, rad, previous_positions=prev,
+                          device="cuda")
+    if int((st.pid >= 0).sum(0).max()) != cap:
+        raise AssertionError(f"cap {cap} pile: no tile fills every slot")
+    if cut:
+        ty = st.dims[1] - cut
+        if bool((st.pid[:, ty - 1:] >= 0).any()):
+            raise AssertionError("pile scene: particles in the rows cut")
+        st = st.replace(**{f: getattr(st, f)[:, :ty].contiguous()
+                           for f in tiled.FIELDS})
+    return cfg, st
+
+
+def _slab_wide(cap, errs: dict) -> None:
+    """K1 (fused) and K3 at ``cap`` on slab 1's halo-extended planes of a
+    two-slab mesh on this card, the pile on the slab edge (full tiles in
+    its lower halo row), uniform and general radius: bit-equal and on
+    repeat."""
+    from gpu_physics_engine_torch.ops import tiled
+    from gpu_physics_engine_torch.parallel import tiled_shard as ts
+    from gpu_physics_engine_torch.parallel.mesh import make_mesh
+    world = (80.0, 33.0)
+    base, _ = _pile_state(cap, False, world, 0)
+    t, _, _, rows = ts.sharded_tile_geometry(base, 2)
+    cfg, st = _pile_state(cap, False, world, 0,
+                          centre=(40.0, (rows - 1) * t))
+    pid, pos, prev, rad = tiled.export_particles(st)
+    mesh = make_mesh(2, device="cuda")
+    slabs = ts.init_sharded_tiles(cfg, mesh, pos, rad, pids=pid,
+                                  previous_positions=prev)
+    ext = ts.extended_slabs(mesh, slabs, fused=True)[1]
+    full = int(((ext.pid[:, 0] >= 0).sum(0) == cap).sum())
+    if full == 0:
+        raise AssertionError(f"cap {cap} slab: no full tile in the halo")
+    check_k1_k3(f"cap{cap}-slab", cfg, ext, ext, errs)
+    log(f"[caps] cap {cap}: K1 and K3 on slab 1's halo-extended planes "
+        f"{list(ext.dims)} ({full} full tiles in its lower halo row) "
+        "bit-equal "
+        "and repeat bit-equal")
+
+
+def _wide_kernels(errs: dict) -> None:
+    """The kernels' 64-bit mask instantiations against their plain
+    versions, bit-equal and on repeat, at caps 33, 48 and 64, on pile
+    scenes whose tiles fill every slot: K1 and K3 (uniform and general
+    radius) on a grid smaller than one region (12 x 5 world: [cap, 8, 8])
+    and on a ragged one ([cap, 21, 39]), and on a halo-extended slab; there
+    K2 in every matching mode with hysteresis on and off, and K4; on the
+    ragged grid K2-par (origins 0 and -1, one launch and one per parity)
+    and relocate_mega (== K2-par), each matching mode under the config's
+    hysteresis; K5 and K5-par (K 16, with and without a radius plane) and
+    K6's window flat and K6-par's at origins 0 and -1 (colors 1..c, with
+    and without the tail) on a 40 x 30 GS scene whose cluster fills every
+    slot of its tiles."""
+    from gpu_physics_engine_torch.ops import tiled
+    matches = [(m, -1.0) for m in ("flip", "flip2", "greedy")]
+    for cap in WIDE_CAPS:
+        for shape, world, cut in (("small", (12.0, 5.0), 0),
+                                  ("ragged", (80.0, 33.0), 3)):
+            label = f"cap{cap}-{shape}"
+            cfg, st_u = _pile_state(cap, True, world, cut)
+            _, st_g = _pile_state(cap, False, world, cut)
+            check_k1_k3(label, cfg, st_u, st_g, errs)
+            gcfg = cfg.replace(tiled_uniform_radius=False)
+            check_relocate(label, gcfg, st_g, MODES, errs)
+            check_relocate_one(label, gcfg, st_g, errs)
+            if shape == "ragged":
+                check_relocate_par(label, gcfg, st_g, matches, errs)
+                log(f"[mega] {label}: "
+                    + check_relocate_mega(label, cfg, st_u, matches, errs))
+        _slab_wide(cap, errs)
+        for uniform in (False, True):
+            gcfg, gst = _gs_ragged_state(cap, 16, uniform, 3000,
+                                         (40.0, 30.0), jam_sd=0.6)
+            if int((gst.pid >= 0).sum(0).max()) != cap:
+                raise AssertionError(f"cap {cap} GS: no tile fills up")
+            gst = jittered(gst, 0.3 * tiled.tile_geometry(gcfg)[0],
+                           seed=cap)
+            check_rank(f"cap{cap}-K16", gcfg, gst, errs)
+            check_window(f"cap{cap}-K16", gcfg, gst, errs)
+
+
+def _wide_path(label, e, n, steps, expect, paths, errs, key, smi) -> dict:
+    """8 warm-up steps of ``e`` (cap past 32), then ``steps`` steps with
+    the launch counts zeroed just before, which must equal ``expect`` just
+    after; every pid kept, finite, inside the world; ms/step (CUDA
+    events), the idle share and launches a step over 8 more steps
+    (``profile_run``); then K2 (the engine's match and hysteresis) on the
+    final state against its plain version, twice, bit-equal.  Returns the
+    time rows {name[key]: (kernel ms, plain ms, bound)} of K1 on the final
+    state and K2 on it jittered by 0.3 tile, each held bit-equal, twice,
+    to its plain version on those inputs first."""
+    import torch
+    from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
+    from gpu_physics_engine_torch.utils.profiling import profile_run
+    cfg = e.config
+    if not tk.NARROW_CAP < cfg.tile_cap <= tk.MAX_CAP:
+        raise AssertionError(f"{label}: cap {cfg.tile_cap} is not in "
+                             f"{tk.NARROW_CAP + 1}..{tk.MAX_CAP}")
+    # 8 warm-up steps first: the first launches of the engine's kernels
+    # at this cap (and their shared-memory set-up) stay out of the window
+    warm = cuda_ms(lambda: e.run(8), reps=1, warmup=0) / 8
+    reset_launches()
+    ms = cuda_ms(lambda: e.run(steps), reps=1, warmup=0) / steps
+    torch.cuda.synchronize()
+    got = launches()
+    bad = {k: (got[k], v) for k, v in expect.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, expected) {bad}")
+    paths[label] = got
+    q = _check_engine(e, n, label)
+
+    def per_launch(prof, tag):
+        rows = [k for k in prof["kernels"] if tag in k["name"]]
+        calls = sum(k["calls"] for k in rows)
+        return sum(k["ms"] for k in rows) / max(1, calls), calls
+
+    # a profiler window that lost kernel records (it has happened on the
+    # card machine) would understate the busy time: take the window again
+    # until it holds every K1 launch of its 8 steps and no more busy time
+    # than its span, at most three times, else fail.  Each window's two
+    # passes (16 steps) start clear of the periodic sweep, which runs at a
+    # step's start when the step count is a multiple of its interval.
+    iv = e._sweep_interval
+    for tries in range(1, 4):
+        k = e._steps_done % iv if iv else 1
+        if iv and (k == 0 or k + 16 > iv):
+            e.run(iv - k + 1 if k else 1)  # the sweep, then one step
+        prof = profile_run(e, 8)
+        k1_ms, k1_n = per_launch(prof, "collide_integrate_kernel")
+        if k1_n == 8 * cfg.substeps and prof["idle_share"] >= 0.0:
+            break
+    else:
+        raise AssertionError(f"{label}: three profiler windows of 8 steps, "
+                             f"the last with {k1_n} of {8 * cfg.substeps} "
+                             f"K1 launches, idle share "
+                             f"{prof['idle_share']:.4f}")
+    k2_ms, k2_n = per_launch(prof, "relocate_window_kernel")
+    log(f"[{label}] cap {cfg.tile_cap} x {list(e.state.dims[1:])} (tile "
+        f"edge {tiled.tile_geometry(cfg)[0]:.3f}) match {cfg.tiled_match} "
+        f"uniform radius {cfg.tiled_uniform_radius}: {steps} steps, "
+        f"launches {got}; all {n} pids present, finite, inside the world; "
+        f"stale {q['stale_pct']:.4f}%; {ms:.4f} ms/step (CUDA events over "
+        f"the {steps} steps, after 8 warm-up steps at {warm:.4f} ms/step)")
+    log(f"[{label}] ({smi}) 8 more steps: {prof['device_span_ms'] / 8:.4f} "
+        f"ms/step (CUDA events), device busy "
+        f"{prof['device_busy_ms'] / 8:.4f} ms/step, idle share "
+        f"{prof['idle_share']:.4f}, {prof['device_launches'] / 8:.2f} "
+        f"launches a step; K1 {k1_ms:.4f} ms a launch ({k1_n}), K2 "
+        f"{k2_ms:.4f} ms a launch ({k2_n}) in the step (profiler window "
+        f"{tries} of 3)")
+    st = e.state
+    prm = e.params().as_tensor("cuda", 1.0 / cfg.substeps)
+    check_relocate(f"{label} in-step", cfg, st,
+                   [(cfg.tiled_match, cfg.tiled_hysteresis)], errs, jitter=0)
+    moved = jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=2)
+    dims = list(st.dims)
+    return {
+        f"collide_integrate[{key}]": _time_pair(
+            f"collide_integrate[{key}]", dims,
+            lambda: tk.collide_integrate_cuda(st, prm, cfg),
+            lambda: tk.collide_integrate_plain(st, prm, cfg), plain_reps=1,
+            errs=errs)
+        + (_k1_bound(cfg, st),),
+        f"relocate_pull[{key}]": _time_pair(
+            f"relocate_pull[{key}]", dims,
+            lambda: tk.relocate_pull_cuda(moved, cfg),
+            lambda: tk.relocate_pull_plain(moved, cfg), plain_reps=1,
+            errs=errs)
+        + (_k2_bound(moved),)}
+
+
+def _retile_1m(smi, paths, errs) -> dict:
+    """The 1M engine with tiled_spawn="retile": 64 steps, then
+    ``spawn_at`` (100 particles of radius 1-3) re-tiles for radius 3 at
+    the scene's cap, past 32; then 128 steps (K1's general form every
+    step, K2 every 4th) through ``_wide_path``, with the re-tile's host
+    seconds."""
+    import torch
+    from gpu_physics_engine_torch import make_tuned_engine
+    n = RETILE_N
+    e = make_tuned_engine(n, tiled_spawn="retile", device="cuda")
+    e.run(64)
+    cap0, dims0 = e.config.tile_cap, list(e.state.dims)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e.spawn_at(CENTRE, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if e.num_particles() != n + 100 or e.config.tiled_uniform_radius:
+        raise AssertionError(f"1M-retile: {e.num_particles()} particles, "
+                             f"uniform radius {e.config.tiled_uniform_radius}")
+    log(f"[1M-retile] 64 steps at {dims0}, then spawn_at({CENTRE}) of 100 "
+        f"particles of radius 1-3: re-tiled to {list(e.state.dims)} (tile "
+        f"edge {e.cell_size():.3f}, the cap from the scene), "
+        f"tiled_uniform_radius off, {n + 100} particles; the spawn with its "
+        f"re-tile took {secs:.2f} s on the host (cap was {cap0})")
+    return _wide_path("1M-retile", e, n + 100, 128,
+                      {"collide_integrate": 128, "relocate_pull": 32,
+                       "collide": 0}, paths, errs, "retile", smi)
+
+
+def _cap36_1m(smi, paths, errs) -> dict:
+    """The 1M engine with tile_max_radius 1 and the cap from the scene
+    (tile_cap=0): 128 steps through ``_wide_path`` (K1's uniform form);
+    then K3's path (the same engine unfused, 16 steps) and K4's (the
+    engine's state, 16 steps of K1 with ``relocate_one`` every 4th), each
+    with its launch counts, and K3's and K4's time rows on the final
+    state (K4's on it jittered by 0.3 tile), each held bit-equal, twice,
+    to its plain version on those inputs first."""
+    import torch
+    from gpu_physics_engine_torch import make_tuned_engine
+    from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
+    n = RETILE_N
+    t0 = time.perf_counter()
+    e = make_tuned_engine(n, tile_max_radius=1.0, tile_cap=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[1M-cap36] make_tuned_engine({n}, tile_max_radius=1.0, "
+        f"tile_cap=0): cap {e.config.tile_cap} x {list(e.state.dims[1:])} "
+        f"from the scene, built in {time.perf_counter() - t0:.2f} s")
+    rows = _wide_path("1M-cap36", e, n, 128,
+                      {"collide_integrate": 128, "relocate_pull": 32,
+                       "collide": 0}, paths, errs, "cap36", smi)
+    cfg, st = e.config, e.state
+    # K3: the same scene unfused
+    u = make_tuned_engine(n, tile_max_radius=1.0, tile_cap=0, device="cuda",
+                          tiled_fuse_integrate=False)
+    reset_launches()
+    u.run(16)
+    torch.cuda.synchronize()
+    got = launches()
+    want = {"collide": 16, "relocate_pull": 4, "collide_integrate": 0}
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"1M-cap36-unfused: launches {got}, "
+                             f"expected {want}")
+    paths["1M-cap36-unfused"] = got
+    _check_engine(u, n, "1M-cap36-unfused")
+    del u
+    # K4: relocate_one every 4th step and K1, from the engine's state
+    prm = e.params().as_tensor("cuda", 1.0 / cfg.substeps)
+    s = st
+    reset_launches()
+    for i in range(16):
+        if i % 4 == 0:
+            s = tk.relocate_one(s, cfg)
+        s = tk.collide_integrate(s, prm, cfg)
+    torch.cuda.synchronize()
+    got = launches()
+    if got["relocate_one"] != 4 or got["collide_integrate"] != 16:
+        raise AssertionError(f"1M-cap36-one: launches {got}")
+    paths["1M-cap36-one"] = got
+    if int((s.pid >= 0).sum()) != n:
+        raise AssertionError("1M-cap36-one: particles lost")
+    log(f"[1M-cap36] K3's path (unfused, 16 steps) and K4's (16 steps of "
+        f"K1, relocate_one every 4th): launches {paths['1M-cap36-unfused']}"
+        f" and {got}; all {n} pids kept")
+    check_relocate_one("1M-cap36", cfg, st, errs)
+    moved = jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=2)
+    dims = list(st.dims)
+    rows["collide[cap36]"] = _time_pair(
+        "collide[cap36]", dims, lambda: tk.collide_cuda(st, cfg),
+        lambda: tk.collide_plain(st, cfg), plain_reps=1, errs=errs) + (
+            _k3_bound(cfg, st),)
+    rows["relocate_one[cap36]"] = _time_pair(
+        "relocate_one[cap36]", dims, lambda: tk.relocate_one_cuda(moved, cfg),
+        lambda: tk.relocate_one_plain(moved, cfg), plain_reps=1,
+        errs=errs) + (_k2_bound(moved),)
+    return rows
+
+
+def _refused_4m() -> None:
+    """The 4M engine with tiled_spawn="retile": ``spawn_at`` must raise,
+    naming the scene's cap (past 64) and the limit 64, and leave the
+    engine as it was (config, planes, particles); it then steps on at its
+    cap with every particle."""
+    import re
+    import torch
+    from gpu_physics_engine_torch import make_tuned_engine
+    n = 4_194_304
+    e = make_tuned_engine(n, tiled_spawn="retile", device="cuda")
+    cfg, dims = e.config, e.state.dims
+    before = {f: getattr(e.state, f).clone() for f in ("x", "y", "pid")}
+    try:
+        e.spawn_at(CENTRE, verbose=False)
+    except ValueError as err:
+        msg = str(err)
+    else:
+        raise AssertionError("4M-retile: the spawn past cap 64 was not "
+                             "refused")
+    m = re.match(r"tile_cap (\d+) outside 1\.\.64", msg)
+    if m is None or int(m.group(1)) <= 64:
+        raise AssertionError(f"4M-retile: refused with {msg!r}")
+    same = all(torch.equal(v, getattr(e.state, f)) for f, v in
+               before.items())
+    if (e.config != cfg or e.state.dims != dims or not same
+            or e.num_particles() != n):
+        raise AssertionError("4M-retile: the refused spawn changed the "
+                             "engine")
+    e.run(16)
+    _check_engine(e, n, "4M-retile refused")
+    log(f"[4M-retile] spawn_at refused before any change: {msg!r}; the "
+        f"engine stepped on 16 steps at cap {e.config.tile_cap} x "
+        f"{list(e.state.dims[1:])} with all {n} pids, finite, inside")
+
+
+def _gs_cap64(paths, errs) -> dict:
+    """The GS engine at cap 64 (tile_cap set by hand: no tuned GS row
+    reaches past 32) on 262,144 particles over a 1524 x 524 world (the
+    1M-GS scene's density): one flat frame from the seeded scene, then 16
+    steps in the flat, par and mega layouts from that state, each with its
+    launch counts (K5, K6, K2 / K5-par, K6-par, K2-par / K5-par,
+    colors_mega, relocate_mega), the three final states bit-equal.
+    Returns the time rows {name[cap64]: (kernel ms, plain ms, bound)} of
+    K5 and K6 (flat) and the parity kernels on the seeded frame's state,
+    each held bit-equal, twice, to its plain version on those inputs
+    first."""
+    import torch
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import gs_kernels as gk, tiled
+    n, (w, h) = GS64
+
+    def cfg_of(layout):
+        kw = dict(world_width=w, world_height=h, tile_cap=64)
+        if layout == "mega":
+            return gs_config(n, gs_layout="par", gs_colors_mega=True,
+                             gs_relocate_mega=True, **kw)
+        return gs_config(n, gs_layout=layout, **kw)
+
+    flat = cfg_of("flat")
+    seed = TiledEngine(flat, seed=0, chunk=64, device="cuda")
+    start = tiled.tiled_step_fn(seed.state, seed.params(), flat)
+    del seed
+    runs = {}
+    for layout in ("flat", "par", "mega"):
+        tag = "GS-cap64" if layout == "flat" else f"GS-cap64-{layout}"
+        runs[layout] = phase_engine(
+            lambda: TiledEngine(cfg_of(layout), chunk=64,
+                                initial_state=_clone(start)),
+            n, [(16, None)], tag, _gs_expect(16, layout))
+        paths[tag] = runs[layout]["launches"]
+    for layout in ("par", "mega"):
+        cross_check("GS-cap64", runs["flat"]["engine"],
+                    runs[layout]["engine"], layout)
+    del runs
+    torch.cuda.empty_cache()
+    cfg, st = flat, start
+    src, _, rrad, _ = gk.rank_cuda(st, cfg)
+    b = gs_bounds(cfg, st)
+    timed = {
+        "gs_rank": (lambda: gk.rank_cuda(st, cfg),
+                    lambda: gk.rank_plain(st, cfg), ()),
+        "gs_color": (lambda: gk.colors_cuda(st.x, st.y, src, rrad, cfg),
+                     lambda: gk.colors_plain(st.x, st.y, src, rrad, cfg),
+                     ())}
+    par, _ = _par_runs(cfg, st)
+    for name in ("gs_rank_par", "gs_color_par", "relocate_par",
+                 "gs_colors_mega", "relocate_mega"):
+        kern, plain, _, *keep = par[name]
+        timed[name] = (kern, plain, keep[0] if keep else ())
+    rows = {}
+    for name, (kern, plain, keep) in timed.items():
+        rows[f"{name}[cap64]"] = _time_pair(
+            f"{name}[cap64]", list(st.dims), kern, plain, plain_reps=1,
+            errs=errs, keep=keep) + (b[name],)
+    return rows
+
+
+def phase_wide_caps(smi: str, paths: dict, errs: dict) -> dict:
+    """Tile caps 33-64 on the card (the kernels' 64-bit mask
+    instantiations): ``check_window_formula`` (run first, in main) holds
+    the window bytes at every cap 1-64; ``_wide_kernels`` holds every
+    kernel at caps 33, 48 and 64; then the engine paths past cap 32:
+    1M-retile, 1M-cap36 (with K3's and K4's paths), the refused 4M
+    re-tile and the GS engine at cap 64.  Returns their time rows."""
+    import torch
+    _wide_kernels(errs)
+    rows = _retile_1m(smi, paths, errs)
+    torch.cuda.empty_cache()
+    rows.update(_cap36_1m(smi, paths, errs))
+    torch.cuda.empty_cache()
+    _refused_4m()
+    torch.cuda.empty_cache()
+    rows.update(_gs_cap64(paths, errs))
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3319,13 +3874,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_apps(smi, paths, errs)
     sharded = phase_sharded(paths, errs)
+    wide = phase_wide_caps(smi, paths, errs)
 
     times, library = phase_times(big_cfg, big_state, gs_cfg, gs_state,
                                  radix_keys)
     bound = bounds(big_cfg, big_state, gs_cfg, gs_state, radix_keys)
     times["collide_integrate[general]"] = spawn_times
     bound["collide_integrate[general]"] = _k1_bound(spawn_cfg, spawn_state)
-    for name, (k_ms, p_ms, b) in sharded["slab_runs"].items():
+    for name, (k_ms, p_ms, b) in list(sharded["slab_runs"].items()) + list(
+            wide.items()):
         times[name] = (k_ms, p_ms)
         bound[name] = b
     kernels = []

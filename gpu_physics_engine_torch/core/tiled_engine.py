@@ -56,6 +56,8 @@ import torch
 from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.core.state import ParamCache, StepParams
 from gpu_physics_engine_torch.ops import bigs, gs_parity, tiled
+from gpu_physics_engine_torch.ops.tiled_kernels import (check_card_cap,
+                                                        grown_cap)
 from gpu_physics_engine_torch.ops.spawn import ring_burst
 from gpu_physics_engine_torch.render import colormap, rasterizer
 from gpu_physics_engine_torch.render import device as render
@@ -110,11 +112,14 @@ class TiledEngine:
             if config.tile_cap == 0:
                 self.config = config = config.replace(
                     tile_cap=_auto_cap(config, positions))
+            check_card_cap(config.tile_cap, self.device)
             initial_state = tiled.init_tiles(config, positions, radii,
                                              device=self.device)
-        elif config.tile_cap == 0:
-            self.config = config = config.replace(
-                tile_cap=int(initial_state.dims[0]))
+        else:
+            check_card_cap(initial_state.dims[0], self.device)
+            if config.tile_cap == 0:
+                self.config = config = config.replace(
+                    tile_cap=int(initial_state.dims[0]))
         self.state = initial_state
         if config.tiled_uniform_radius:
             # the uniform-radius sweep never reads the radius planes; a
@@ -351,7 +356,8 @@ class TiledEngine:
     def _watchdog(self):
         """Detect a growing stale-pair population at run() boundaries and
         escalate: forced exact sweep -> hysteresis off -> +1 slot capacity
-        (repeatable, with a futility check).  Each escalation prints and
+        (repeatable, with a futility check; held at the card's limit, cap 64
+        on a CUDA device, where the sweep still runs).  Each escalation prints and
         increments ``watchdog_events``."""
         cfg = self.config
         if not cfg.tiled_watchdog:
@@ -377,10 +383,12 @@ class TiledEngine:
                   "the last retile): structural jam — holding at "
                   "forced-sweep containment")
             self._wd_level = 1
+        new_cap = grown_cap(cfg.tile_cap, self.device)
         act = {1: "forced exact sweep",
                2: "hysteresis off",
-               3: f"tile_cap {cfg.tile_cap} -> {cfg.tile_cap + 1}"}[
-                   self._wd_level]
+               3: (f"tile_cap {cfg.tile_cap} -> {new_cap}" if new_cap else
+                   f"tile_cap held at {cfg.tile_cap}, the card's limit: "
+                   "forced exact sweep")}[self._wd_level]
         why = (f"growing (was {prev:.2f}%)" if growing
                else f"past the {4.0 * bound:.0f}% runaway ceiling "
                     f"(flat, was {prev:.2f}%)")
@@ -390,8 +398,9 @@ class TiledEngine:
             self.config = self.config.replace(tiled_hysteresis=0.0)
             self._configure()
         if self._wd_level >= 3:
-            self._retile_cap(self.config.tile_cap + 1)
-            self._wd_retile_pct = pct
+            if new_cap is not None:
+                self._retile_cap(new_cap)
+                self._wd_retile_pct = pct
             self._wd_level = 2  # cap growth is repeatable
         # drain with the strongest sweep there is: the rebuild when the
         # hybrid is configured, else the configured sweep, then the bands
@@ -409,11 +418,13 @@ class TiledEngine:
     def _retile_as(self, config: SimConfig) -> None:
         """Re-tile every tile particle under ``config`` (positions,
         previous positions, pids and the overflow count carried; the
-        overlay is untouched)."""
+        overlay is untouched).  A cap the card cannot take raises first,
+        and the engine stays as it was."""
         pids, pos, prev, radii = tiled.export_particles(self.state)
         overflow = int(self.state.overflow_count)
         if config.tile_cap == 0:
             config = config.replace(tile_cap=_auto_cap(config, pos))
+        check_card_cap(config.tile_cap, self.device)
         self.config = config
         self.state = tiled.init_tiles(config, pos, radii, pids=pids,
                                       previous_positions=prev,
@@ -436,7 +447,8 @@ class TiledEngine:
 
     def _maybe_grow_cap(self, steps: int, overflow_before: int):
         """config.tiled_auto_cap_pct: re-tile with +1 slot capacity when the
-        deferred population over the finished run() window exceeds it."""
+        deferred population over the finished run() window exceeds it (on
+        a CUDA device not past cap 64: the cap is held there)."""
         pct_bound = self.config.tiled_auto_cap_pct
         if not pct_bound or steps <= 0:
             return
@@ -445,10 +457,14 @@ class TiledEngine:
         pct = delta / steps / n * 100.0 * max(
             1, self.config.tiled_relocate_interval)
         if pct > pct_bound:
+            cap = self.config.tile_cap
+            new_cap = grown_cap(cap, self.device)
             print(f"[tiled] deferred population {pct:.2f}%/step > "
-                  f"{pct_bound}%: growing tile_cap "
-                  f"{self.config.tile_cap} -> {self.config.tile_cap + 1}")
-            self._retile_cap(self.config.tile_cap + 1)
+                  f"{pct_bound}%: " + (
+                      f"growing tile_cap {cap} -> {new_cap}" if new_cap else
+                      f"tile_cap held at {cap}, the card's limit"))
+            if new_cap is not None:
+                self._retile_cap(new_cap)
 
     @classmethod
     def from_arrays(cls, config: SimConfig, positions, radii, device=None,
@@ -459,6 +475,7 @@ class TiledEngine:
         if config.tile_cap == 0:
             config = config.replace(tile_cap=_auto_cap(
                 config, np.asarray(positions, np.float32).reshape(-1, 2)))
+        check_card_cap(config.tile_cap, device)
         st = tiled.init_tiles(config, positions, radii, device=device, **kw)
         return cls(config, initial_state=st)
 
@@ -711,6 +728,8 @@ class TiledEngine:
             config = peek_tiled_config(path)
         if config_overrides:
             config = config.replace(**config_overrides)
+        device = default_device(device)
+        check_card_cap(config.tile_cap, device)
         state, _ = load_tiled_checkpoint(path, config=config, device=device)
         eng = cls(config, seed=seed, initial_state=state)
         stored = load_tiled_bigs(path)

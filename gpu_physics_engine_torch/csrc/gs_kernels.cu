@@ -11,29 +11,31 @@
 
 namespace {
 
-// K5's grid: one block per region of kRankRows x kRankCols full-space
-// tiles (on ParLayout half as many cells of each sub-grid per axis).
-dim3 rank_grid(const gpe::FlatLayout& l) {
-  constexpr int RY = gpe::kRankRows, RX = gpe::kRankCols;
+// K5's grid: one block per region of kRankRows x rank_cols full-space
+// tiles of the cap's class (on ParLayout half as many cells of each
+// sub-grid per axis).
+dim3 rank_grid(const gpe::FlatLayout& l, bool wide) {
+  const int RY = gpe::kRankRows, RX = gpe::rank_cols(wide);
   return dim3((l.TX + RX - 1) / RX, (l.TY + RY - 1) / RY);
 }
-dim3 rank_grid(const gpe::ParLayout& l) {
-  constexpr int SY = gpe::kRankRows / 2, SX = gpe::kRankCols / 2;
+dim3 rank_grid(const gpe::ParLayout& l, bool wide) {
+  const int SY = gpe::kRankRows / 2, SX = gpe::rank_cols(wide) / 2;
   return dim3((l.DX + SX - 1) / SX, (l.DY + SY - 1) / SY);
 }
 
-template <int KMAX, class L, bool MASK>
+template <int KMAX, class M, class L, bool MASK>
 int launch_rank_k(const float* x, const float* y, const float* rad,
                   const int* pid, int* src, int* rpid, float* rrad,
                   int* count, int cap, const L& lay, int np, int K, float t,
                   float r0, cudaStream_t s) {
+  constexpr bool wide = sizeof(M) == 8;
   const int smem = gpe::rank_window_bytes(cap, rad == nullptr);
   // past the default 48 KB from cap 8 to 12, by layout and radius
   const cudaError_t rc =
-      gpe::allow_smem(gpe::gs_rank_kernel<KMAX, L, MASK>, smem);
+      gpe::allow_smem(gpe::gs_rank_kernel<KMAX, M, L, MASK>, smem);
   if (rc != cudaSuccess) return (int)rc;
-  gpe::gs_rank_kernel<KMAX, L, MASK>
-      <<<rank_grid(lay), gpe::kRankThreads, smem, s>>>(
+  gpe::gs_rank_kernel<KMAX, M, L, MASK>
+      <<<rank_grid(lay, wide), gpe::rank_threads(wide), smem, s>>>(
           x, y, rad, pid, src, rpid, rrad, count, cap, lay, np, K, t, r0);
   return (int)cudaGetLastError();
 }
@@ -46,8 +48,16 @@ int launch_rank(const void* x, const void* y, const void* rad,
   if (K < 1 || K > gpe::kGsMaxK || cap < 1 || cap > gpe::kMaxCap ||
       lay.TY < 1 || lay.TX < 1)
     return (int)cudaErrorInvalidValue;
-  auto* launch = K <= 8 ? &launch_rank_k<8, L, MASK>
-                        : &launch_rank_k<16, L, MASK>;
+  // the K-deep list's registers by K, the mask word by cap
+  using Fn = int (*)(const float*, const float*, const float*, const int*,
+                     int*, int*, float*, int*, int, const L&, int, int, float,
+                     float, cudaStream_t);
+  static constexpr Fn table[2][2] = {
+      {&launch_rank_k<8, unsigned, L, MASK>,
+       &launch_rank_k<8, gpe::Mask64, L, MASK>},
+      {&launch_rank_k<16, unsigned, L, MASK>,
+       &launch_rank_k<16, gpe::Mask64, L, MASK>}};
+  const Fn launch = table[K <= 8 ? 0 : 1][cap > gpe::kNarrowCap ? 1 : 0];
   return launch(static_cast<const float*>(x), static_cast<const float*>(y),
                 static_cast<const float*>(rad), static_cast<const int*>(pid),
                 static_cast<int*>(src), static_cast<int*>(rpid),
@@ -82,11 +92,13 @@ int launch_window_k(const gpe::GsWindowArgs& a, const L& lay,
 template <class L>
 int launch_window(const gpe::GsWindowArgs& a, const L& lay, void* stream) {
   using Fn = int (*)(const gpe::GsWindowArgs&, const L&, cudaStream_t);
-  static constexpr Fn table[2][4] = {
+  static constexpr Fn table[2][gpe::kGsWinClasses] = {
       {&launch_window_k<8, 0, L>, &launch_window_k<8, 1, L>,
-       &launch_window_k<8, 2, L>, &launch_window_k<8, 3, L>},
+       &launch_window_k<8, 2, L>, &launch_window_k<8, 3, L>,
+       &launch_window_k<8, 4, L>},
       {&launch_window_k<16, 0, L>, &launch_window_k<16, 1, L>,
-       &launch_window_k<16, 2, L>, &launch_window_k<16, 3, L>}};
+       &launch_window_k<16, 2, L>, &launch_window_k<16, 3, L>,
+       &launch_window_k<16, 4, L>}};
   return table[a.K <= 8 ? 0 : 1][gpe::gs_window_class(a.cap)](
       a, lay, static_cast<cudaStream_t>(stream));
 }
@@ -96,7 +108,7 @@ int launch_window(const gpe::GsWindowArgs& a, const L& lay, void* stream) {
 extern "C" {
 
 // K5: src/rpid int32 [K, TY, TX], rrad float [K, TY, TX], count int32
-// [TY, TX].  1 <= K <= 16, 1 <= cap <= 32.
+// [TY, TX].  1 <= K <= 16, 1 <= cap <= 64.
 int gpe_gs_rank(const void* x, const void* y, const void* rad,
                 const void* pid, void* src, void* rpid, void* rrad,
                 void* count, int cap, int TY, int TX, int K, float t,
@@ -138,7 +150,7 @@ int gpe_gs_rank_window_bytes(int cap, int uniform) {
 // par != 0: fields [4, cap, DY, DX], tables [4, K, DY, DX] with the given
 // origin.  rrad may be null: every valid rank has radius r0.  With integ,
 // pid, prm (device float[4]) and consts (host float[kVerletNumConsts] in
-// VerletConsts order) are read.  1 <= K <= 16, 1 <= cap <= 32.
+// VerletConsts order) are read.  1 <= K <= 16, 1 <= cap <= 64.
 int gpe_gs_colors_window(const void* x, const void* y, void* px, void* py,
                          const void* pid, const void* src, const void* rrad,
                          const void* prm, void* ox, void* oy, int cap,

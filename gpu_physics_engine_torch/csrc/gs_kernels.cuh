@@ -56,9 +56,9 @@ constexpr float kGsMinDist = 1e-4f;  // f32 rounding of MIN_DISTANCE
 // 0.096 ms at the 1M-GS shape [4, 960, 2773] with K = 8 on an H100 at
 // 3.35 TB/s, three quarters of it the table writes.
 //
-// One block owns a region of kRankRows x kRankCols full-space tiles (on
-// ParLayout 2 x 32 sub-grid cells of each parity, indexed in full space as
-// K2's window is) and works in two phases with one barrier:
+// One block owns a region of kRankRows x rank_cols full-space tiles (on
+// ParLayout 2 x rank_cols/2 sub-grid cells of each parity, indexed in
+// full space as K2's window is) and works in two phases with one barrier:
 //
 //  1. stage: the threads take the tiles of the window (the region and a
 //     one-tile ring, the only halo the rank reads), neighbouring threads
@@ -91,44 +91,65 @@ constexpr float kGsMinDist = 1e-4f;  // f32 rounding of MIN_DISTANCE
 // MASK (the parity layouts, as _rank_kernel_par): border and pad cells
 // keep the fill tables and count 0.  rad == nullptr: every occupant has
 // the uniform radius r0 (the parity state drops the radius planes).
-constexpr int kRankRows = 4;   // full-space tile rows of a region
-constexpr int kRankCols = 64;  // full-space tile columns of a region
-constexpr int kRankThreads = kRankRows * kRankCols;  // a thread per cell
-constexpr int kRankWinX = kRankCols + 2;
-constexpr int kRankWinTiles = (kRankRows + 2) * kRankWinX;
+//
+// The mask word M is unsigned for caps up to 32, with a region of 4 x 64
+// tiles, and Mask64 for caps 33-64, with a region of 4 x 32 (the 4 x 64
+// window would need 408,672 bytes at cap 64 with a radius plane; 4 x 32
+// needs 210,528).  A thread per region cell in either class.
+constexpr int kRankRows = 4;  // full-space tile rows of a region
+__host__ __device__ constexpr int rank_cols(bool wide) {  // full-space cols
+  return wide ? 32 : 64;
+}
+__host__ __device__ constexpr int rank_threads(bool wide) {
+  return kRankRows * rank_cols(wide);  // a thread per cell
+}
+__host__ __device__ constexpr int rank_win_x(bool wide) {
+  return rank_cols(wide) + 2;
+}
+__host__ __device__ constexpr int rank_win_tiles(bool wide) {
+  return (kRankRows + 2) * rank_win_x(wide);
+}
 
 // Dynamic shared memory of one block: per window tile and slot pid and
 // x, y (float2) (and radius unless uniform), and a mask per window tile.
 __host__ __device__ constexpr int rank_window_bytes(int cap, bool uniform) {
-  return kRankWinTiles * (cap * (uniform ? 12 : 16) + 4);
+  return rank_win_tiles(cap > kNarrowCap) *
+         (cap * (uniform ? 12 : 16) + mask_bytes(cap));
 }
-// Every cap fits a block (204,336 bytes at cap 32 with a radius plane).
-static_assert(rank_window_bytes(kMaxCap, false) <= kSmemLimit, "K5 window");
+// Every cap fits a block (204,336 bytes at cap 32 and 210,528 at cap 64,
+// with a radius plane).
+static_assert(rank_window_bytes(kNarrowCap, false) <= kSmemLimit, "K5");
+static_assert(rank_window_bytes(kMaxCap, false) <= kSmemLimit, "K5 wide");
+static_assert(rank_win_tiles(true) % 2 == 0, "the 64-bit masks' alignment");
 
 // The region's first full tile (ty0, tx0): (ty0 - o, tx0 - o) is even on
 // ParLayout, so region row ry holds parity row (ry & 1).
+template <bool W>
 __device__ __forceinline__ void rank_origin(const FlatLayout&, int* ty0,
                                             int* tx0) {
   *ty0 = kRankRows * (int)blockIdx.y;
-  *tx0 = kRankCols * (int)blockIdx.x;
+  *tx0 = rank_cols(W) * (int)blockIdx.x;
 }
+template <bool W>
 __device__ __forceinline__ void rank_origin(const ParLayout& l, int* ty0,
                                             int* tx0) {
   *ty0 = kRankRows * (int)blockIdx.y + l.o;
-  *tx0 = kRankCols * (int)blockIdx.x + l.o;
+  *tx0 = rank_cols(W) * (int)blockIdx.x + l.o;
 }
 
 // Window tile i of the stage: row-major on FlatLayout; on ParLayout by
 // parity class of (wy, wx), each class row-major, so that neighbouring
 // threads read neighbouring words of one sub-grid.
+template <bool W>
 __device__ __forceinline__ void rank_window_tile(const FlatLayout&, int i,
                                                  int* wy, int* wx) {
-  *wy = i / kRankWinX;
-  *wx = i - *wy * kRankWinX;
+  *wy = i / rank_win_x(W);
+  *wx = i - *wy * rank_win_x(W);
 }
+template <bool W>
 __device__ __forceinline__ void rank_window_tile(const ParLayout&, int i,
                                                  int* wy, int* wx) {
-  constexpr int SX = kRankWinX / 2;
+  constexpr int SX = rank_win_x(W) / 2;
   constexpr int A = (kRankRows + 2) / 2 * SX;
   const int q = i / A, r = i - q * A;
   const int cy = r / SX;
@@ -137,14 +158,16 @@ __device__ __forceinline__ void rank_window_tile(const ParLayout&, int i,
 }
 
 // Region cell r of the launch's parities, in region coordinates.
+template <bool W>
 __device__ __forceinline__ void rank_region_tile(const FlatLayout&, int r,
                                                  int* ry, int* rx) {
-  *ry = r / kRankCols;
-  *rx = r - *ry * kRankCols;
+  *ry = r / rank_cols(W);
+  *rx = r - *ry * rank_cols(W);
 }
+template <bool W>
 __device__ __forceinline__ void rank_region_tile(const ParLayout& l, int r,
                                                  int* ry, int* rx) {
-  constexpr int SX = kRankCols / 2;
+  constexpr int SX = rank_cols(W) / 2;
   constexpr int A = kRankRows / 2 * SX;
   const int pl = r / A, q = r - pl * A, p = l.p0 + pl;
   const int cy = q / SX;
@@ -153,11 +176,13 @@ __device__ __forceinline__ void rank_region_tile(const ParLayout& l, int r,
 }
 
 // Region cells ranked by a launch over np parities (FlatLayout: all).
+template <bool W>
 __device__ __forceinline__ int rank_cells(const FlatLayout&, int) {
-  return kRankThreads;
+  return rank_threads(W);
 }
+template <bool W>
 __device__ __forceinline__ int rank_cells(const ParLayout&, int np) {
-  return np * (kRankThreads / 4);
+  return np * (rank_threads(W) / 4);
 }
 
 // Whether full tile (ty, tx) of a region has a storage cell (ParLayout:
@@ -171,36 +196,39 @@ __device__ __forceinline__ bool rank_stored(const ParLayout& l, int ty,
   return ((ty - l.o) >> 1) < l.DY && ((tx - l.o) >> 1) < l.DX;
 }
 
-template <int KMAX, class L, bool MASK>
-__global__ void __launch_bounds__(kRankThreads, KMAX <= 8 ? 5 : 1) gs_rank_kernel(
+template <int KMAX, class M, class L, bool MASK>
+__global__ void __launch_bounds__(rank_threads(sizeof(M) == 8),
+                                  sizeof(M) == 8 ? 1 : (KMAX <= 8 ? 5 : 1))
+    gs_rank_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ rad, const int* __restrict__ pid,
     int* __restrict__ src, int* __restrict__ rpid, float* __restrict__ rrad,
     int* __restrict__ count, int cap, L lay, int np, int K, float t,
     float r0) {
-  constexpr int WX = kRankWinX, Wn = kRankWinTiles;
+  constexpr bool kWide = sizeof(M) == 8;
+  constexpr int WX = rank_win_x(kWide), Wn = rank_win_tiles(kWide);
+  constexpr int kT = rank_threads(kWide), kSB = slot_bits<M>();
   extern __shared__ __align__(16) unsigned char rank_smem[];
   float2* wxy = reinterpret_cast<float2*>(rank_smem);  // [cap][window]
   int* wpid = reinterpret_cast<int*>(wxy + cap * Wn);  // [cap][window]
   float* wr = reinterpret_cast<float*>(wpid + cap * Wn);
-  uint32_t* wmask = reinterpret_cast<uint32_t*>(
-      wr + (rad ? cap * Wn : 0));                       // [window]
+  M* wmask = reinterpret_cast<M*>(wr + (rad ? cap * Wn : 0));  // [window]
   const int TY = lay.TY, TX = lay.TX;
   int ty0, tx0;
-  rank_origin(lay, &ty0, &tx0);
+  rank_origin<kWide>(lay, &ty0, &tx0);
 
   // 1. stage the window: a thread takes window tiles tid, tid + T, ...;
   // every pid of its tiles is loaded before any is used, then the
   // occupants' x, y (radius), so a block waits for two loads, not 2 x kPer
-  constexpr int kPer = (Wn + kRankThreads - 1) / kRankThreads;
+  constexpr int kPer = (Wn + kT - 1) / kT;
   int sty[kPer], stx[kPer], sw[kPer];  // sw: window index, -1 past it
   bool in[kPer];                       // the tile lies in the grid
-  uint32_t occ[kPer];
+  M occ[kPer];
 #pragma unroll
   for (int u = 0; u < kPer; ++u) {
-    const int i = threadIdx.x + u * kRankThreads;
+    const int i = threadIdx.x + u * kT;
     int wy = 0, wx = 0;
-    if (i < Wn) rank_window_tile(lay, i, &wy, &wx);
+    if (i < Wn) rank_window_tile<kWide>(lay, i, &wy, &wx);
     sty[u] = ty0 - 1 + wy;
     stx[u] = tx0 - 1 + wx;
     sw[u] = i < Wn ? wy * WX + wx : -1;
@@ -223,7 +251,7 @@ __global__ void __launch_bounds__(kRankThreads, KMAX <= 8 ? 5 : 1) gs_rank_kerne
       for (int kk = 0; kk < 4; ++kk)
         if (in[u] && k0 + kk < cap) {
           wpid[(k0 + kk) * Wn + sw[u]] = p[u][kk];
-          occ[u] |= (uint32_t)(p[u][kk] >= 0) << (k0 + kk);
+          occ[u] |= (M)(p[u][kk] >= 0) << (k0 + kk);
         }
   }
   for (int k0 = 0; k0 < cap; k0 += 4) {
@@ -245,9 +273,9 @@ __global__ void __launch_bounds__(kRankThreads, KMAX <= 8 ? 5 : 1) gs_rank_kerne
   __syncthreads();
 
   // 2. rank and write a region cell of the launch's parities per thread
-  if ((int)threadIdx.x >= rank_cells(lay, np)) return;
+  if ((int)threadIdx.x >= rank_cells<kWide>(lay, np)) return;
   int ry, rx;
-  rank_region_tile(lay, threadIdx.x, &ry, &rx);
+  rank_region_tile<kWide>(lay, threadIdx.x, &ry, &rx);
   const int ty = ty0 + ry, tx = tx0 + rx;
   if (!rank_stored(lay, ty, tx)) return;
   const bool live = !MASK || (ty >= 1 && ty <= TY - 2 && tx >= 1 &&
@@ -257,7 +285,7 @@ __global__ void __launch_bounds__(kRankThreads, KMAX <= 8 ? 5 : 1) gs_rank_kerne
   const float hix = __fadd_rn(lox, t);
   const float hiy = __fadd_rn(loy, t);
 
-  // the list holds pid and (j << 5 | s); a member's radius is read back
+  // the list holds pid and (j << kSB | s); a member's radius is read back
   // from the window when the tables are written (fewer live registers)
   int kp[KMAX], kc[KMAX];
 #pragma unroll
@@ -269,8 +297,8 @@ __global__ void __launch_bounds__(kRankThreads, KMAX <= 8 ? 5 : 1) gs_rank_kerne
   const int wc = (ry + 1) * WX + rx + 1;
   for (int j = 0; j < (live ? 9 : 0); ++j) {
     const int w = wc + (j / 3 - 1) * WX + (j % 3 - 1);
-    for (uint32_t m = wmask[w]; m; m &= m - 1u) {
-      const int s = __ffs((int)m) - 1;
+    for (M m = wmask[w]; m; m &= m - 1u) {
+      const int s = mask_low(m);
       const int i = s * Wn + w;
       const float2 c = wxy[i];
       const float r = rad ? wr[i] : r0;
@@ -281,7 +309,7 @@ __global__ void __launch_bounds__(kRankThreads, KMAX <= 8 ? 5 : 1) gs_rank_kerne
       const float d2 = __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
       if (!(d2 < __fmul_rn(r, r))) continue;
       ++members;
-      int cp = wpid[i], cc = (j << 5) | s;
+      int cp = wpid[i], cc = (j << kSB) | s;
 #pragma unroll
       for (int q = 0; q < KMAX; ++q) {
         if (cp < kp[q]) {
@@ -299,7 +327,7 @@ __global__ void __launch_bounds__(kRankThreads, KMAX <= 8 ? 5 : 1) gs_rank_kerne
   for (int q = 0; q < KMAX; ++q) {
     if (q < K) {
       const int o = lay.at(q, K, ty, tx);
-      const int c = kc[q], j = c >> 5, s = c & 31;
+      const int c = kc[q], j = c >> kSB, s = c & ((1 << kSB) - 1);
       src[o] = c >= 0 ? j * cap + s : -1;
       rpid[o] = kp[q];
       rrad[o] = c < 0 ? 0.0f
@@ -386,7 +414,8 @@ __global__ void __launch_bounds__(kRankThreads, KMAX <= 8 ? 5 : 1) gs_rank_kerne
 #ifndef GPE_GSW_MINB  // resident blocks an SM the launch bounds ask, K <= 8
 #define GPE_GSW_MINB 2
 #endif
-// RY, RX of the regions of the classes cap <= 4, 8, 16, 32
+// RY, RX of the regions of the classes cap <= 4, 8, 16, 32 (caps 33-64:
+// 4 x 6, fixed in gs_window_side)
 #ifndef GPE_GSW_RY0
 #define GPE_GSW_RY0 32
 #endif
@@ -416,14 +445,16 @@ constexpr int kGsWinMaxColors = 4;
 constexpr int kGsWinMaxHalo = 2 * kGsWinMaxColors;
 // Region class of a cap, and its region's sides (device code calls them
 // with a constant class only).
+constexpr int kGsWinClasses = 5;
 constexpr int gs_window_class(int cap) {
-  return cap <= 4 ? 0 : cap <= 8 ? 1 : cap <= 16 ? 2 : 3;
+  return cap <= 4 ? 0 : cap <= 8 ? 1 : cap <= 16 ? 2 : cap <= 32 ? 3 : 4;
 }
 __host__ __device__ constexpr int gs_window_side(int cls, int axis) {
-  constexpr int sides[4][2] = {{GPE_GSW_RY0, GPE_GSW_RX0},
-                               {GPE_GSW_RY1, GPE_GSW_RX1},
-                               {GPE_GSW_RY2, GPE_GSW_RX2},
-                               {GPE_GSW_RY3, GPE_GSW_RX3}};
+  constexpr int sides[kGsWinClasses][2] = {{GPE_GSW_RY0, GPE_GSW_RX0},
+                                           {GPE_GSW_RY1, GPE_GSW_RX1},
+                                           {GPE_GSW_RY2, GPE_GSW_RX2},
+                                           {GPE_GSW_RY3, GPE_GSW_RX3},
+                                           {4, 6}};  // one block an SM
   return sides[cls][axis];
 }
 __host__ __device__ constexpr int gs_window_ry(int cls) {
@@ -445,8 +476,9 @@ static_assert(gs_window_bytes(4, kGsWinMaxColors) <= kSmemLimit, "cap 4");
 static_assert(gs_window_bytes(8, kGsWinMaxColors) <= kSmemLimit, "cap 8");
 static_assert(gs_window_bytes(16, kGsWinMaxColors) <= kSmemLimit, "cap 16");
 static_assert(gs_window_bytes(32, kGsWinMaxColors) <= kSmemLimit, "cap 32");
+static_assert(gs_window_bytes(64, kGsWinMaxColors) <= kSmemLimit, "cap 64");
 constexpr bool gs_window_even(int cls) {
-  return cls == 4 || (gs_window_ry(cls) % 2 == 0 &&
+  return cls == kGsWinClasses || (gs_window_ry(cls) % 2 == 0 &&
                       gs_window_rx(cls) % 2 == 0 && gs_window_even(cls + 1));
 }
 static_assert(gs_window_even(0), "regions need even sides");

@@ -22,10 +22,17 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace gpe {
 
-constexpr int kMaxCap = 32;  // slots of a tile: per-tile slot masks are 32 bits
+// Slots of a tile.  The kernels keep a mask of a tile's slots in one word,
+// a template parameter: 32 bits (unsigned) up to cap 32 (kNarrowCap), 64
+// bits (Mask64) for caps 33-64, each its own instantiation, so the caps up
+// to 32 run the 32-bit code.
+using Mask64 = unsigned long long;
+constexpr int kMaxCap = 64;
+constexpr int kNarrowCap = 32;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block, sm_90
 
 // Raise a kernel's limit of dynamic shared memory where a launch needs
@@ -37,6 +44,29 @@ cudaError_t allow_smem(Kernel* kernel, int smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// The mask word's operations for either width (Mask64 is unsigned long
+// long, the type of the 64-bit atomics): the lowest set bit's index and
+// the number of set bits.
+__device__ __forceinline__ int mask_low(unsigned m) {
+  return __ffs((int)m) - 1;
+}
+__device__ __forceinline__ int mask_low(unsigned long long m) {
+  return __ffsll((long long)m) - 1;
+}
+__device__ __forceinline__ int mask_count(unsigned m) { return __popc(m); }
+__device__ __forceinline__ int mask_count(unsigned long long m) {
+  return __popcll(m);
+}
+// Bits a slot index takes in a packed (index << bits | slot) code.
+template <class M>
+__host__ __device__ constexpr int slot_bits() {
+  return sizeof(M) == 8 ? 6 : 5;
+}
+// The mask word's bytes at cap, as the launches size shared memory.
+__host__ __device__ constexpr int mask_bytes(int cap) {
+  return cap > kNarrowCap ? 8 : 4;
 }
 
 struct FlatLayout {

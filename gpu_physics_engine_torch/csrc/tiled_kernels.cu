@@ -11,9 +11,29 @@
 
 namespace {
 
-// K1 / K3: one block of kK1Tiles threads per kK1RegionY x kK1RegionX tiles,
-// with the window's shared memory sized from cap (past 48 KB from cap 10
-// uniform, cap 8 general).
+// K1 / K3: one block of kK1Threads threads per k1_rows x k1_cols tiles of
+// the mask word M's class, with the window's shared memory sized from cap
+// (past 48 KB from cap 10 uniform, cap 8 general).
+template <class M, bool UNIFORM, bool CIRCLE, bool INTEGRATE>
+int launch_k1_m(const float* x, const float* y, const float* px,
+                const float* py, const float* rad, const int* pid,
+                const float* prm, float* ox, float* oy, float* opx,
+                float* opy, int cap, int TY, int TX, const gpe::K1Consts& c,
+                cudaStream_t s) {
+  constexpr bool wide = sizeof(M) == 8;
+  const dim3 grid((TX + gpe::k1_cols(wide) - 1) / gpe::k1_cols(wide),
+                  (TY + gpe::k1_rows(wide) - 1) / gpe::k1_rows(wide));
+  const int smem = gpe::k1_smem_bytes(cap, UNIFORM);
+  const cudaError_t rc = gpe::allow_smem(
+      gpe::collide_integrate_kernel<M, UNIFORM, CIRCLE, INTEGRATE>, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  gpe::collide_integrate_kernel<M, UNIFORM, CIRCLE, INTEGRATE>
+      <<<grid, gpe::kK1Threads, smem, s>>>(x, y, px, py, rad, pid, prm, ox,
+                                           oy, opx, opy, cap, TY, TX, c);
+  return (int)cudaGetLastError();
+}
+
+// The cap's mask word: 32 bits up to cap 32, 64 bits for caps 33-64.
 template <bool UNIFORM, bool CIRCLE, bool INTEGRATE = true>
 int launch_k1(const float* x, const float* y, const float* px,
               const float* py, const float* rad, const int* pid,
@@ -22,16 +42,11 @@ int launch_k1(const float* x, const float* y, const float* px,
               cudaStream_t s) {
   if (cap < 1 || cap > gpe::kMaxCap || TY < 1 || TX < 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((TX + gpe::kK1RegionX - 1) / gpe::kK1RegionX,
-                  (TY + gpe::kK1RegionY - 1) / gpe::kK1RegionY);
-  const int smem = gpe::k1_smem_bytes(cap, UNIFORM);
-  const cudaError_t rc = gpe::allow_smem(
-      gpe::collide_integrate_kernel<UNIFORM, CIRCLE, INTEGRATE>, smem);
-  if (rc != cudaSuccess) return (int)rc;
-  gpe::collide_integrate_kernel<UNIFORM, CIRCLE, INTEGRATE>
-      <<<grid, gpe::kK1Tiles, smem, s>>>(x, y, px, py, rad, pid, prm, ox, oy,
-                                         opx, opy, cap, TY, TX, c);
-  return (int)cudaGetLastError();
+  auto* launch = cap > gpe::kNarrowCap
+                     ? &launch_k1_m<gpe::Mask64, UNIFORM, CIRCLE, INTEGRATE>
+                     : &launch_k1_m<unsigned, UNIFORM, CIRCLE, INTEGRATE>;
+  return launch(x, y, px, py, rad, pid, prm, ox, oy, opx, opy, cap, TY, TX,
+                c, s);
 }
 
 // The relocate window's grid: one block per region, 8 x 64 tiles on
@@ -46,24 +61,21 @@ dim3 window_grid(const gpe::ParLayout& l) {
 }
 
 // One launch of the relocate window (K2, K2-par, K4, relocate_mega), with
-// the step rule H: one block of k2_threads per region, shared memory sized
-// from cap (past 48 KB at every cap: 53,568 bytes at cap 1, 85,312 at cap
-// 32, on either layout).
-template <class L, class H>
-int launch_window(const void* x, const void* y, const void* px,
-                  const void* py, const void* rad, const void* pid, void* ox,
-                  void* oy, void* opx, void* opy, void* orad, void* opid,
-                  void* defer, int cap, const L& lay, int p0, int np,
-                  int row0, int gTY, int gTX, int match, const H& home,
-                  void* stream) {
-  if (cap < 1 || cap > gpe::kMaxCap || match < gpe::kFlip ||
-      match > gpe::kGreedy || (rad == nullptr) != (orad == nullptr))
-    return (int)cudaErrorInvalidValue;
+// the step rule H and the mask word M: one block of k2_threads per region,
+// shared memory sized from cap (past 48 KB at every cap: 53,568 bytes at
+// cap 1, 85,312 at cap 32, 168,576 at cap 64, on either layout).
+template <class M, class L, class H>
+int launch_window_m(const void* x, const void* y, const void* px,
+                    const void* py, const void* rad, const void* pid,
+                    void* ox, void* oy, void* opx, void* opy, void* orad,
+                    void* opid, void* defer, int cap, const L& lay, int p0,
+                    int np, int row0, int gTY, int gTX, int match,
+                    const H& home, void* stream) {
   const int smem = gpe::k2_window_bytes(cap, gpe::k2_par<L>());
   const cudaError_t rc =
-      gpe::allow_smem(gpe::relocate_window_kernel<L, H>, smem);
+      gpe::allow_smem(gpe::relocate_window_kernel<M, L, H>, smem);
   if (rc != cudaSuccess) return (int)rc;
-  gpe::relocate_window_kernel<L, H>
+  gpe::relocate_window_kernel<M, L, H>
       <<<window_grid(lay), gpe::k2_threads<L>(), smem,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(x), static_cast<const float*>(y),
@@ -75,6 +87,22 @@ int launch_window(const void* x, const void* y, const void* px,
           static_cast<int*>(defer), cap, lay, p0, np, row0, gTY, gTX, match,
           home);
   return (int)cudaGetLastError();
+}
+
+template <class L, class H>
+int launch_window(const void* x, const void* y, const void* px,
+                  const void* py, const void* rad, const void* pid, void* ox,
+                  void* oy, void* opx, void* opy, void* orad, void* opid,
+                  void* defer, int cap, const L& lay, int p0, int np,
+                  int row0, int gTY, int gTX, int match, const H& home,
+                  void* stream) {
+  if (cap < 1 || cap > gpe::kMaxCap || match < gpe::kFlip ||
+      match > gpe::kGreedy || (rad == nullptr) != (orad == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto* launch = cap > gpe::kNarrowCap ? &launch_window_m<gpe::Mask64, L, H>
+                                       : &launch_window_m<unsigned, L, H>;
+  return launch(x, y, px, py, rad, pid, ox, oy, opx, opy, orad, opid, defer,
+                cap, lay, p0, np, row0, gTY, gTX, match, home, stream);
 }
 
 gpe::K1Consts k1_consts(const void* consts) {
@@ -176,6 +204,12 @@ int gpe_relocate_par(const void* x, const void* y, const void* px,
 // take them.
 int gpe_relocate_window_bytes(int cap, int par) {
   return gpe::k2_window_bytes(cap, par != 0);
+}
+
+// K1's (and K3's) shared-memory bytes at cap, with or without the radius
+// plane, as the launches above take them.
+int gpe_collide_window_bytes(int cap, int uniform) {
+  return gpe::k1_smem_bytes(cap, uniform != 0);
 }
 
 // K4: the relocate window on [cap, TY, TX] with flip matching, no

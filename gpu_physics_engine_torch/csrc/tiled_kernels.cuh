@@ -74,7 +74,7 @@ struct K1Consts {
 };
 constexpr int kK1NumConsts = 14;
 
-// One block owns a region of kK1RegionY x kK1RegionX tiles and works in
+// One block owns a region of k1_rows x k1_cols tiles (below) and works in
 // three phases, with a barrier between them:
 //
 //  1. stage: the region and a one-tile ring (the window) go to shared
@@ -109,73 +109,96 @@ constexpr int kK1NumConsts = 14;
 // K3 (collide_pallas, tiled_pallas.py:455, kernel _collide_band_kernel
 // :355) is this kernel with INTEGRATE = false: it writes x + acc_x, y +
 // acc_y for every slot and stops; px, py, prm, opx and opy are unused.
-constexpr int kK1RegionY = 8;   // tile rows of one block's region
-constexpr int kK1RegionX = 32;  // tile columns: a warp writes one row
-constexpr int kK1Tiles = kK1RegionY * kK1RegionX;  // = threads per block
-constexpr int kK1WinX = kK1RegionX + 2;
-constexpr int kK1WinTiles = (kK1RegionY + 2) * kK1WinX;
+//
+// The mask word M is unsigned for caps up to 32, with a region of 8 x 32
+// tiles and a thread per tile, and Mask64 for caps 33-64, with a region of
+// 4 x 16 tiles and four threads a tile (the 8 x 32 window would need
+// 427 KB at cap 64, 4 x 32 still 240 KB; 4 x 16 needs 124,768 bytes with a
+// radius plane).  The particle list packs (region tile, slot) into u16:
+// (255 << 5 | 31) and (63 << 6 | 63) both fit.
+constexpr int kK1Threads = 256;  // a block's threads, either class
+__host__ __device__ constexpr int k1_rows(bool wide) {  // region tile rows
+  return wide ? 4 : 8;
+}
+__host__ __device__ constexpr int k1_cols(bool wide) {  // region columns:
+  return wide ? 16 : 32;  // a warp writes one row of the narrow region
+}
+__host__ __device__ constexpr int k1_win_tiles(bool wide) {
+  return (k1_rows(wide) + 2) * (k1_cols(wide) + 2);
+}
 
 // Dynamic shared memory of one block: window x/y (float2) [cap][window],
 // the sums (float2) [cap][region], window radius [cap][window] (general
 // radius only), occupancy masks [window], the particle list (u16)
-// [cap * region].  213,840 bytes at cap 32 (kMaxCap), general radius.
+// [cap * region].  213,840 bytes at cap 32, general radius; 124,768 at
+// cap 64 (kMaxCap).
 __host__ __device__ constexpr int k1_smem_bytes(int cap, bool uniform) {
-  return kK1WinTiles * cap * 8 + kK1Tiles * cap * 8 +
-         (uniform ? 0 : kK1WinTiles * cap * 4) + kK1WinTiles * 4 +
-         kK1Tiles * cap * 2;
+  return k1_win_tiles(cap > kNarrowCap) * (cap * (uniform ? 8 : 12) +
+                                           mask_bytes(cap)) +
+         k1_rows(cap > kNarrowCap) * k1_cols(cap > kNarrowCap) * cap * 10;
 }
+static_assert(k1_smem_bytes(kNarrowCap, false) <= kSmemLimit, "K1 window");
+static_assert(k1_smem_bytes(kMaxCap, false) <= kSmemLimit, "K1 wide window");
+static_assert(k1_win_tiles(true) % 2 == 0, "the 64-bit masks' alignment");
 
-template <bool UNIFORM, bool CIRCLE, bool INTEGRATE = true>
-__global__ void __launch_bounds__(kK1Tiles) collide_integrate_kernel(
+template <class M, bool UNIFORM, bool CIRCLE, bool INTEGRATE = true>
+__global__ void __launch_bounds__(kK1Threads) collide_integrate_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ rad, const int* __restrict__ pid,
     const float* __restrict__ prm, float* __restrict__ ox,
     float* __restrict__ oy, float* __restrict__ opx,
     float* __restrict__ opy, int cap, int TY, int TX, K1Consts c) {
+  constexpr bool kWide = sizeof(M) == 8;
+  constexpr int kRY = k1_rows(kWide), kRX = k1_cols(kWide);
+  constexpr int kTiles = kRY * kRX, kWinX = kRX + 2;
+  constexpr int kWinTiles = k1_win_tiles(kWide);
+  constexpr int kT = kK1Threads, kSB = slot_bits<M>();
   extern __shared__ __align__(16) unsigned char k1_smem[];
   float2* wxy = reinterpret_cast<float2*>(k1_smem);  // [cap][window]
-  float2* acc = wxy + cap * kK1WinTiles;              // [cap][region]
-  float* wr = reinterpret_cast<float*>(acc + cap * kK1Tiles);
-  unsigned* wmask =
-      reinterpret_cast<unsigned*>(wr + (UNIFORM ? 0 : cap * kK1WinTiles));
+  float2* acc = wxy + cap * kWinTiles;                // [cap][region]
+  float* wr = reinterpret_cast<float*>(acc + cap * kTiles);
+  M* wmask = reinterpret_cast<M*>(wr + (UNIFORM ? 0 : cap * kWinTiles));
   unsigned short* plist =
-      reinterpret_cast<unsigned short*>(wmask + kK1WinTiles);
-  __shared__ int warp_total[kK1Tiles / 32];
+      reinterpret_cast<unsigned short*>(wmask + kWinTiles);
+  __shared__ int warp_total[kT / 32];
 
   const int ntiles = TY * TX;
-  const int by = kK1RegionY * (int)blockIdx.y;
-  const int bx = kK1RegionX * (int)blockIdx.x;
+  const int by = kRY * (int)blockIdx.y;
+  const int bx = kRX * (int)blockIdx.x;
   const int tid = threadIdx.x;
 
   // 1. stage the window
-  for (int w = tid; w < kK1WinTiles; w += kK1Tiles) wmask[w] = 0u;
+  for (int w = tid; w < kWinTiles; w += kT) wmask[w] = 0u;
   __syncthreads();
   // x, y (and radius) are read whatever the pid: with a few occupied
   // slots in every 32-byte sector the empty ones cost no extra sector, and
   // all loads of an iteration then go out together
 #pragma unroll 4
-  for (int i = tid; i < cap * kK1WinTiles; i += kK1Tiles) {
-    const int k = i / kK1WinTiles;
-    const int w = i - k * kK1WinTiles;
-    const int wy = w / kK1WinX;
+  for (int i = tid; i < cap * kWinTiles; i += kT) {
+    const int k = i / kWinTiles;
+    const int w = i - k * kWinTiles;
+    const int wy = w / kWinX;
     const int ty = by - 1 + wy;
-    const int tx = bx - 1 + (w - wy * kK1WinX);
+    const int tx = bx - 1 + (w - wy * kWinX);
     if (ty < 0 || ty >= TY || tx < 0 || tx >= TX) continue;
     const int g = k * ntiles + ty * TX + tx;
     const int p = pid[g];
     wxy[i] = make_float2(x[g], y[g]);
     if (!UNIFORM) wr[i] = rad[g];
-    if (p >= 0) atomicOr(&wmask[w], 1u << k);  // an OR: any order
+    if (p >= 0) atomicOr(&wmask[w], M(1) << k);  // an OR: any order
   }
   __syncthreads();
 
   // 2a. list the region's occupied slots: thread tid owns region tile tid
+  // (a thread past the region's tiles owns none)
   {
-    const int ly = tid / kK1RegionX;
-    const int lx = tid - ly * kK1RegionX;
-    const unsigned own = wmask[(ly + 1) * kK1WinX + lx + 1];
-    const int cnt = __popc(own);
+    const int ly = tid / kRX;
+    const int lx = tid - ly * kRX;
+    const M own = (kT == kTiles || tid < kTiles)
+                      ? wmask[(ly + 1) * kWinX + lx + 1]
+                      : M(0);
+    const int cnt = mask_count(own);
     const int lane = tid & 31, warp = tid >> 5;
     int inc = cnt;
 #pragma unroll
@@ -187,31 +210,31 @@ __global__ void __launch_bounds__(kK1Tiles) collide_integrate_kernel(
     __syncthreads();
     int pos = inc - cnt;
     for (int w = 0; w < warp; ++w) pos += warp_total[w];
-    for (unsigned m = own; m; m &= m - 1u)
-      plist[pos++] = (unsigned short)((tid << 5) | (__ffs(m) - 1));
+    for (M m = own; m; m &= m - 1u)
+      plist[pos++] = (unsigned short)((tid << kSB) | mask_low(m));
   }
   int total = 0;
 #pragma unroll
-  for (int w = 0; w < kK1Tiles / 32; ++w) total += warp_total[w];
+  for (int w = 0; w < kT / 32; ++w) total += warp_total[w];
   __syncthreads();
 
   // 2b. the sweep, one listed particle per thread at a time
-  for (int e = tid; e < total; e += kK1Tiles) {
+  for (int e = tid; e < total; e += kT) {
     const int code = plist[e];
-    const int lt = code >> 5, k = code & 31;
-    const int ly = lt / kK1RegionX;
-    const int wc = (ly + 1) * kK1WinX + (lt - ly * kK1RegionX) + 1;
-    const float2 pm = wxy[k * kK1WinTiles + wc];
+    const int lt = code >> kSB, k = code & ((1 << kSB) - 1);
+    const int ly = lt / kRX;
+    const int wc = (ly + 1) * kWinX + (lt - ly * kRX) + 1;
+    const float2 pm = wxy[k * kWinTiles + wc];
     const float xm = pm.x, ym = pm.y;
-    const float rm = UNIFORM ? c.r0 : wr[k * kK1WinTiles + wc];
+    const float rm = UNIFORM ? c.r0 : wr[k * kWinTiles + wc];
     float ax = 0.0f, ay = 0.0f;
     for (int dy = -1; dy <= 1; ++dy) {
       for (int dx = -1; dx <= 1; ++dx) {
-        const int w = wc + dy * kK1WinX + dx;
-        unsigned m = wmask[w];
-        if (dy == 0 && dx == 0) m &= ~(1u << k);
+        const int w = wc + dy * kWinX + dx;
+        M m = wmask[w];
+        if (dy == 0 && dx == 0) m &= ~(M(1) << k);
         for (; m; m &= m - 1u) {
-          const int j = (__ffs(m) - 1) * kK1WinTiles + w;
+          const int j = mask_low(m) * kWinTiles + w;
           const float2 q = wxy[j];
           const float ddx = xm - q.x;
           const float ddy = ym - q.y;
@@ -241,22 +264,22 @@ __global__ void __launch_bounds__(kK1Tiles) collide_integrate_kernel(
         }
       }
     }
-    acc[k * kK1Tiles + lt] = make_float2(ax, ay);
+    acc[k * kTiles + lt] = make_float2(ax, ay);
   }
   __syncthreads();
 
   // 3. write every slot of the region
 #pragma unroll 4
-  for (int i = tid; i < cap * kK1Tiles; i += kK1Tiles) {
-    const int k = i / kK1Tiles;
-    const int lt = i - k * kK1Tiles;
-    const int ly = lt / kK1RegionX;
-    const int lx = lt - ly * kK1RegionX;
+  for (int i = tid; i < cap * kTiles; i += kT) {
+    const int k = i / kTiles;
+    const int lt = i - k * kTiles;
+    const int ly = lt / kRX;
+    const int lx = lt - ly * kRX;
     const int ty = by + ly, tx = bx + lx;
     if (ty >= TY || tx >= TX) continue;
     const int g = k * ntiles + ty * TX + tx;
-    const int wi = k * kK1WinTiles + (ly + 1) * kK1WinX + lx + 1;
-    const bool occ = (wmask[(ly + 1) * kK1WinX + lx + 1] >> k) & 1u;
+    const int wi = k * kWinTiles + (ly + 1) * kWinX + lx + 1;
+    const bool occ = (wmask[(ly + 1) * kWinX + lx + 1] >> k) & 1u;
     const float2 a = occ ? acc[i] : make_float2(0.0f, 0.0f);
     const float2 p = wxy[wi];  // the slot's x, y, staged in phase 1
     const float cx = p.x + a.x;
@@ -377,10 +400,10 @@ struct DivHome {
 //   flip2:  code = e + 8*rule (s = cap-1-k for rule 0, k for 1)
 //   greedy: code = e*cap + s
 // claimed[e] ends as the slots of neighbour e that this tile took.
-template <class F, class W>
-__device__ __forceinline__ void match_claims(const uint32_t (&claims)[8],
+template <class M, class F, class W>
+__device__ __forceinline__ void match_claims(const M (&claims)[8],
                                              int cap, int match, F is_free,
-                                             W write, uint32_t (&claimed)[8]) {
+                                             W write, M (&claimed)[8]) {
 #pragma unroll
   for (int e = 0; e < 8; ++e) claimed[e] = 0;
   for (int k = 0; k < cap; ++k) {
@@ -394,7 +417,7 @@ __device__ __forceinline__ void match_claims(const uint32_t (&claims)[8],
             code = e;
             ce = e;
             cs = s;
-            claimed[e] |= 1u << s;
+            claimed[e] |= M(1) << s;
           }
         }
       } else if (match == kFlip2) {
@@ -406,20 +429,20 @@ __device__ __forceinline__ void match_claims(const uint32_t (&claims)[8],
               code = e + 8 * rule;
               ce = e;
               cs = s;
-              claimed[e] |= 1u << s;
+              claimed[e] |= M(1) << s;
             }
           }
         }
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          const uint32_t avail = claims[e] & ~claimed[e];
+          const M avail = claims[e] & ~claimed[e];
           if (code < 0 && avail) {
-            const int s = __ffs((int)avail) - 1;  // lowest free source slot
+            const int s = mask_low(avail);  // lowest free source slot
             code = e * cap + s;
             ce = e;
             cs = s;
-            claimed[e] |= 1u << s;
+            claimed[e] |= M(1) << s;
           }
         }
       }
@@ -493,15 +516,18 @@ constexpr unsigned short kNoSource = 0xFFFF;
 constexpr int kOwnTile = 8;  // source code e for the tile itself
 
 // Dynamic shared memory of one block: occupancy and eight direction masks
-// per window tile, eight taken masks per planned tile, the output count
-// and the source codes (u16) [cap] per region tile.
+// per window tile, eight taken masks per planned tile (each mask a 32-bit
+// word up to cap 32, 64-bit past it), the output count and the source
+// codes (u16) [cap] per region tile.
 __host__ __device__ constexpr int k2_window_bytes(int cap, bool par) {
   const int ry = par ? 2 * kK2RowsPar : kK2RowsFlat;
   const int rx = par ? 2 * kK2WidthPar : kK2WidthFlat;
-  return 36 * (ry + 4) * (rx + 4) + 32 * (ry + 2) * (rx + 2) +
+  return mask_bytes(cap) *
+             (9 * (ry + 4) * (rx + 4) + 8 * (ry + 2) * (rx + 2)) +
          (4 + 2 * cap) * ry * rx;
 }
-// Every cap fits a block (85,312 bytes at cap 32 on either layout).
+// Every cap fits a block (85,312 bytes at cap 32, 168,576 at cap 64, on
+// either layout).
 static_assert(k2_window_bytes(kMaxCap, false) <= kSmemLimit, "K2 window");
 static_assert(k2_window_bytes(kMaxCap, true) <= kSmemLimit, "K2-par window");
 
@@ -582,7 +608,7 @@ __device__ __forceinline__ bool k2_stored(const ParLayout& l, int ty,
   return q >= 0 && r >= 0 && (q >> 1) < l.DY && (r >> 1) < l.DX;
 }
 
-template <class L, class H>
+template <class M, class L, class H>
 __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ px, const float* __restrict__ py,
@@ -597,9 +623,10 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
   const int Rn = b.RY * b.RX;            // region cells, all parities
   constexpr bool par = k2_par<L>();
   const int Ra = np * k2_rows(par) * k2_width(par);  // region cells applied
-  uint32_t* occm = reinterpret_cast<uint32_t*>(k2_smem);  // [window]
-  uint32_t* dirm = occm + Wn;                             // [8][window]
-  uint32_t* taken = dirm + 8 * Wn;                        // [8][planned]
+  constexpr int kSB = slot_bits<M>();  // a source code: (e << kSB) | slot
+  M* occm = reinterpret_cast<M*>(k2_smem);  // [window]
+  M* dirm = occm + Wn;                      // [8][window]
+  M* taken = dirm + 8 * Wn;                 // [8][planned]
   int* nout = reinterpret_cast<int*>(taken + 8 * Pn);     // [region]
   unsigned short* src =
       reinterpret_cast<unsigned short*>(nout + Rn);       // [cap][region]
@@ -611,7 +638,7 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
     int wy, wx;
     k2_window_tile(lay, b, i, &wy, &wx);
     const int ty = wy0 + wy, tx = wx0 + wx;
-    uint32_t occ = 0, d[8];
+    M occ = 0, d[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) d[e] = 0;
     if (ty >= 0 && ty < TY && tx >= 0 && tx < TX) {
@@ -619,16 +646,16 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
       // slot planes are mostly empty, and their sectors are never fetched
 #pragma unroll 8
       for (int k = 0; k < cap; ++k)
-        occ |= (uint32_t)(pid[lay.at(k, cap, ty, tx)] >= 0) << k;
+        occ |= (M)(pid[lay.at(k, cap, ty, tx)] >= 0) << k;
 #pragma unroll 4
-      for (uint32_t m = occ; m; m &= m - 1u) {
-        const int k = __ffs((int)m) - 1;
+      for (M m = occ; m; m &= m - 1u) {
+        const int k = mask_low(m);
         const int g = lay.at(k, cap, ty, tx);
         int dty, dtx;
         home(x[g], y[g], ty + row0, tx, &dty, &dtx);
         const int c = (dty | dtx) ? nbr_index(dty, dtx) : -1;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) d[e] |= (uint32_t)(c == e) << k;
+        for (int e = 0; e < 8; ++e) d[e] |= (M)(c == e) << k;
       }
     }
     const int w = wy * b.WX + wx;
@@ -639,7 +666,7 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
   __syncthreads();
 
   // 2. plan the region and its ring
-  const uint32_t all = cap == 32 ? 0xFFFFFFFFu : (1u << cap) - 1u;
+  const M all = cap == 8 * (int)sizeof(M) ? ~M(0) : (M(1) << cap) - 1u;
   for (int i = threadIdx.x; i < Pn; i += blockDim.x) {
     const int wy = i / PX + 1, wx = i - (wy - 1) * PX + 1;
     const int ty = wy0 + wy, tx = wx0 + wx;
@@ -652,7 +679,7 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
     const bool interior = ty >= 0 && ty <= TY - 1 && my_ty >= 1 &&
                           my_ty <= gTY - 2 && tx >= 1 && tx <= gTX - 2;
     // neighbour e's slots hopping to me: its direction 7 - e
-    uint32_t claims[8], any = 0;
+    M claims[8], any = 0;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       claims[e] = interior
@@ -660,15 +687,15 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
                       : 0u;
       any |= claims[e];
     }
-    uint32_t took[8];
+    M took[8];
     if (any) {
-      const uint32_t freem = ~occm[w] & all;
+      const M freem = ~occm[w] & all;
       match_claims(
           claims, cap, match, [&](int k) { return (freem >> k) & 1u; },
           [&](int k, int code, int e, int s) {
             if (r >= 0)
               src[k * Ra + r] =
-                  code >= 0 ? (unsigned short)((e << 5) | s) : kNoSource;
+                  code >= 0 ? (unsigned short)((e << kSB) | s) : kNoSource;
           },
           took);
     } else {  // no claims (most tiles): no matching
@@ -688,8 +715,8 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
     k2_region_tile(lay, b, p0, r, &ry, &rx);
     const int wy = ry + 2, wx = rx + 2, ty = b.ty0 + ry, tx = b.tx0 + rx;
     const int w = wy * b.WX + wx;
-    const uint32_t occ = occm[w];
-    uint32_t gone = 0, movers = 0;
+    const M occ = occm[w];
+    M gone = 0, movers = 0;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       // the neighbour at -offset(e) took my slots through its mask e
@@ -698,12 +725,12 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
       const int tr = ty + nbr_dy(e);
       if (tr >= 0 && tr <= TY - 1) movers |= dirm[e * Wn + w];
     }
-    const uint32_t keep = occ & ~gone;
+    const M keep = occ & ~gone;
     int j = 0;
     for (int k = 0; k < cap; ++k) {  // in place: j <= k
       unsigned short c = kNoSource;
       if ((keep >> k) & 1u) {
-        c = (unsigned short)((kOwnTile << 5) | k);
+        c = (unsigned short)((kOwnTile << kSB) | k);
       } else if (!((occ >> k) & 1u)) {
         c = src[k * Ra + r];
       }
@@ -711,7 +738,7 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
     }
     nout[r] = j;
     if (k2_stored(lay, ty, tx))
-      defer[lay.at(0, 1, ty, tx)] = __popc(movers & ~gone);
+      defer[lay.at(0, 1, ty, tx)] = mask_count(movers & ~gone);
   }
   __syncthreads();
 
@@ -727,7 +754,7 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
       const int o = lay.at(j, cap, ty, tx);
       if (j < nout[r]) {
         const int c = src[j * Ra + r];
-        const int e = c >> 5, s = c & 31;
+        const int e = c >> kSB, s = c & ((1 << kSB) - 1);
         const int g = e == kOwnTile
                           ? lay.at(s, cap, ty, tx)
                           : lay.at(s, cap, ty + nbr_dy(e), tx + nbr_dx(e));

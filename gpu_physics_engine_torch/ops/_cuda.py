@@ -39,6 +39,7 @@ _SIGNATURES = {
     "gpe_collide": [_P] * 6 + [_I] * 4 + [_P, _P],
     "gpe_relocate_pull": [_P] * 13 + [_I] * 7 + [_F, _F, _P],
     "gpe_relocate_window_bytes": [_I, _I],
+    "gpe_collide_window_bytes": [_I, _I],
     "gpe_gs_rank": [_P] * 8 + [_I] * 4 + [_F, _P],
     "gpe_gs_rank_par": [_P] * 8 + [_I] * 9 + [_F, _F, _P],
     "gpe_gs_rank_window_bytes": [_I, _I],

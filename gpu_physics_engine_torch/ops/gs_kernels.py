@@ -19,8 +19,8 @@ K5 ``rank`` replaces ``_rank_full``
   and 0.27 GB written, 0.096 ms at 3.35 TB/s (0.130 counting every slot's
   four fields).  Its arithmetic (a box clip and a distance per candidate)
   is far below the card's f32 rate.
-  Design: one block per 4 x 64 cells (``gs_rank_kernel`` in
-  csrc/gs_kernels.cuh) stages the region and a one-tile ring in shared
+  Design: one block per 4 x 64 cells (4 x 32 past cap 32, with 64-bit
+  slot masks; ``gs_rank_kernel`` in csrc/gs_kernels.cuh) stages the region and a one-tile ring in shared
   memory: each pid read once, and the occupants' x, y, radius, coalesced
   along tx, with a mask of the occupied slots per tile.  A thread per cell
   then walks only the occupied candidates of its 9 window tiles, tests
@@ -41,7 +41,8 @@ K6 ``colors`` replaces ``gs_solve_pallas_flat`` (gs_pallas.py:543;
   data).
   Design: one launch of ``gs_colors_window_kernel`` on FlatLayout per
   solve, for colors 1..4 (csrc/gs_kernels.cuh).  A block stages x and y of
-  every slot of its region (32 x 48 tiles at cap <= 4) and an 8-tile halo
+  every slot of its region (32 x 48 tiles at cap <= 4, down to 4 x 6 at
+  caps 33-64) and an 8-tile halo
   in shared memory, runs the four colors there with a barrier between
   them (a thread per cell: its K source codes loaded as one batch, the
   sweep in registers with the __f*_rn intrinsics, written back to shared
@@ -68,25 +69,32 @@ from gpu_physics_engine_torch.ops.gs_tiled import (  # the plain versions
     colors_plain, rank_plain, solve_frame)
 from gpu_physics_engine_torch.ops.integrate import f32
 from gpu_physics_engine_torch.ops.tiled import TileState, tile_geometry
-from gpu_physics_engine_torch.ops.tiled_kernels import (MAX_CAP,
+from gpu_physics_engine_torch.ops.tiled_kernels import (MAX_CAP, NARROW_CAP,
                                                         _check_cuda_state,
-                                                        _ptrs, _stream)
+                                                        _ptrs, _stream,
+                                                        mask_bytes)
 
 LAUNCHES = {"gs_rank": 0, "gs_color": 0}
 
 MAX_K = 16  # the kernels keep K occupants per cell in registers
 
-# K5's window (csrc/gs_kernels.cuh kRankRows, kRankCols,
-# rank_window_bytes): a block ranks RANK_REGION = (rows, columns)
-# full-space tiles on either layout (on the parity layout rows/2 x
-# columns/2 cells of each sub-grid)
-RANK_REGION = (4, 64)
+# K5's window (csrc/gs_kernels.cuh kRankRows, rank_cols,
+# rank_window_bytes): a block ranks RANK_REGIONS[cap > NARROW_CAP] = (rows,
+# columns) full-space tiles on either layout (on the parity layout rows/2
+# x columns/2 cells of each sub-grid)
+RANK_REGIONS = {False: (4, 64), True: (4, 32)}
 
 
-# K6's window (csrc/gs_kernels.cuh kGsWinRegions, gs_window_bytes): the
+def rank_region(cap: int):
+    """The (rows, columns) region of K5's window at ``cap``."""
+    return RANK_REGIONS[cap > NARROW_CAP]
+
+
+# K6's window (csrc/gs_kernels.cuh gs_window_side, gs_window_bytes): the
 # region (rows, columns) of full-space tiles a block owns, by the largest
 # cap of its class
-WINDOW_REGIONS = ((4, (32, 48)), (8, (32, 32)), (16, (8, 32)), (32, (8, 16)))
+WINDOW_REGIONS = ((4, (32, 48)), (8, (32, 32)), (16, (8, 32)), (32, (8, 16)),
+                  (64, (4, 6)))
 
 
 def window_region(cap: int):
@@ -105,8 +113,9 @@ def rank_window_bytes(cap: int, uniform: bool) -> int:
     """Shared memory of one K5 block: per tile of the window (the region
     and a one-tile ring) cap slots of pid, x and y (and radius unless
     ``uniform``), and an occupancy mask."""
-    rows, cols = RANK_REGION
-    return (rows + 2) * (cols + 2) * (cap * (12 if uniform else 16) + 4)
+    rows, cols = rank_region(cap)
+    return (rows + 2) * (cols + 2) * (cap * (12 if uniform else 16)
+                                      + mask_bytes(cap))
 
 
 def reset_launches() -> None:

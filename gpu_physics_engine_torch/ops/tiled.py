@@ -130,14 +130,17 @@ def _tile_of(x: torch.Tensor, y: torch.Tensor, tile_edge: float):
 
 def init_tiles(config: SimConfig, positions, radii, pids=None,
                previous_positions=None, device=None) -> TileState:
-    """Host-side construction from particle arrays.
+    """Host-side construction from particle arrays: the JAX package's
+    native binning pass (``gpe_bin_tiles``, ops/native/tiler.cpp), so the
+    layout equals JAX ``init_tiles`` on its default path slot for slot.
 
-    A stable sort by tile gives each particle its rank in its tile; the
-    ones past ``tile_cap`` spill, in ascending particle order, to the
-    nearest tile with room (rings widening out to the whole grid; the
-    spill pass is C++, ops/native/tiler.cpp, for a dense pile's spills).
-    This is the JAX package's numpy path, whose layout equals its native
-    tiler's."""
+    A particle's home tile is floor(x * (1/t)) + 1 with an f32 reciprocal
+    (which can differ from ``x // t`` within an ulp of a tile edge).
+    Natives take their home's next slot in ascending particle order; the
+    ones past ``tile_cap`` then spill, in ascending particle order, to the
+    nearest interior tile with room (rings widening out to the whole
+    grid).  Particles with no room anywhere are dropped and counted in
+    overflow_count."""
     t, TY, TX = tile_geometry(config)
     cap = config.tile_cap
     device = torch.device(device or "cpu")
@@ -156,64 +159,43 @@ def init_tiles(config: SimConfig, positions, radii, pids=None,
     if pids is None:
         pids = np.arange(n, dtype=np.int32)
     pids = np.ascontiguousarray(pids, np.int32)
+    rows = {"positions": len(positions),
+            "previous_positions": len(previous_positions),
+            "pids": pids.size}
+    if pids.ndim != 1 or any(v != n for v in rows.values()):
+        raise ValueError(f"init_tiles: {n} radii, but {rows} (each needs "
+                         f"{n} rows, pids one dimension)")
 
     shape = (cap, TY, TX)
-    size = cap * TY * TX
-    ty = np.clip((positions[:, 1] // t).astype(np.int64) + 1, 1, TY - 2)
-    tx = np.clip((positions[:, 0] // t).astype(np.int64) + 1, 1, TX - 2)
-    tile = ty * TX + tx
-    order = np.argsort(tile, kind="stable")
-    tile_sorted = tile[order]
-    first = np.concatenate([[0], np.nonzero(np.diff(tile_sorted))[0] + 1])
-    run_start = np.zeros(n, np.int64)
-    run_start[first[first < n]] = first[first < n]
-    run_start = np.maximum.accumulate(run_start)
-    slot = np.arange(n, dtype=np.int64) - run_start
+    planes = [np.zeros(shape, np.float32) for _ in range(5)]
+    pid = np.full(shape, -1, np.int32)
+    dropped = int(_tiler().gpe_bin_tiles(
+        positions, previous_positions, radii, pids, n, f32(t), cap, TY, TX,
+        *planes, pid))
 
-    keep = slot < cap
-    flat = [slot[keep] * (TY * TX) + tile_sorted[keep]]
-    src = [order[keep]]
+    def dev(a):
+        return torch.from_numpy(a).to(device)
 
-    fill = np.bincount(tile, minlength=TY * TX)
-    np.minimum(fill, cap, out=fill)
-    spilled = np.sort(order[~keep])  # ascending particle order
-    dest = np.full(len(spilled), -1, np.int64)
-    if len(spilled):
-        _tiler().gpe_spill_tiles(
-            np.ascontiguousarray(ty[spilled]),
-            np.ascontiguousarray(tx[spilled]), len(spilled), fill, cap, TY,
-            TX, dest)
-    placed = dest >= 0
-    dropped = int((~placed).sum())
-    flat = np.concatenate(flat + [dest[placed]])
-    src = np.concatenate(src + [spilled[placed]])
-
-    def place(vals, fill_value=0.0, dtype=np.float32):
-        a = np.full(size, fill_value, dtype)
-        a[flat] = vals[src]
-        return torch.from_numpy(a.reshape(shape)).to(device)
-
-    return TileState(
-        x=place(positions[:, 0]), y=place(positions[:, 1]),
-        px=place(previous_positions[:, 0]), py=place(previous_positions[:, 1]),
-        radius=place(radii),
-        pid=place(pids, fill_value=-1, dtype=np.int32),
-        num_active=_scalar(n - dropped, device),
-        overflow_count=_scalar(dropped, device))
+    x, y, px, py, r = (dev(a) for a in planes)
+    return TileState(x=x, y=y, px=px, py=py, radius=r, pid=dev(pid),
+                     num_active=_scalar(n - dropped, device),
+                     overflow_count=_scalar(dropped, device))
 
 
 @functools.lru_cache(maxsize=None)
 def _tiler():
-    """The spill pass of ``init_tiles`` (ops/native/tiler.cpp), built with
-    g++ at first use."""
+    """``init_tiles``' binning pass (ops/native/tiler.cpp), built with g++
+    at first use."""
     import ctypes
     from gpu_physics_engine_torch.ops import _native
     lib = _native.load(_native.PKG / "ops" / "native" / "tiler.cpp")
-    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-    lib.gpe_spill_tiles.argtypes = [i64p, i64p, ctypes.c_int64, i64p,
-                                    ctypes.c_int32, ctypes.c_int32,
-                                    ctypes.c_int32, i64p]
-    lib.gpe_spill_tiles.restype = ctypes.c_int64
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    lib.gpe_bin_tiles.argtypes = [
+        f32p, f32p, f32p, i32p, ctypes.c_int64, ctypes.c_float,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        f32p, f32p, f32p, f32p, f32p, i32p]
+    lib.gpe_bin_tiles.restype = ctypes.c_int64
     return lib
 
 

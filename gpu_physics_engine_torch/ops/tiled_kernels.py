@@ -13,8 +13,9 @@ K1 ``collide_integrate`` replaces ``collide_integrate_pallas``
   x, y, px, py, pid and writes x, y, px, py: 0.34 GB, 0.10 ms at 3.35
   TB/s.  Read from device memory by a thread per (slot, tile), the 9 x CAP
   candidates would cost ~8 GB of L1/L2 traffic for that.
-  Design: one block per 8 x 32 tiles stages its region and a one-tile
-  ring in shared memory (each plane read once, coalesced), deals its
+  Design: one block per 8 x 32 tiles (4 x 16 past cap 32, where the slot
+  masks are 64-bit words) stages its region and a one-tile ring in
+  shared memory (each plane read once, coalesced), deals its
   occupied particles to its threads, and each particle gathers its own
   half of every pair from shared memory in the plain version's order
   (dy, dx, k), so it owns its output and equals the plain version bit for
@@ -92,7 +93,56 @@ from gpu_physics_engine_torch.ops.tiled import (FIELDS, MIN_DISTANCE,
 LAUNCHES = {"collide_integrate": 0, "relocate_pull": 0, "collide": 0,
             "relocate_one": 0}
 
-MAX_CAP = 32  # the kernels' claim bitsets are 32 bits wide
+# The card's kernels keep a mask of a tile's slots in one word: 32 bits up
+# to NARROW_CAP, 64 bits past it (csrc/layout.cuh kMaxCap, kNarrowCap), so
+# a CUDA state holds at most MAX_CAP slots a tile.  The plain versions take
+# any cap.
+MAX_CAP = 64
+NARROW_CAP = 32
+
+
+def check_card_cap(cap: int, device) -> None:
+    """Refuse a tile_cap that the card's kernels cannot take on ``device``:
+    on a CUDA device a cap outside 1..MAX_CAP raises ValueError naming the
+    limit; on any other device every cap passes (the plain versions run
+    there).  The engines call it where they choose a cap, before any state
+    changes."""
+    if torch.device(device).type == "cuda" and not 1 <= int(cap) <= MAX_CAP:
+        raise ValueError(
+            f"tile_cap {cap} outside 1..{MAX_CAP}: the CUDA kernels keep a "
+            f"tile's slots in one 64-bit mask, so a tile holds at most "
+            f"{MAX_CAP} particles on the card")
+
+
+def grown_cap(cap: int, device):
+    """The cap a growth step (the watchdog's level 3, ``tiled_auto_cap_pct``)
+    takes from ``cap`` on ``device``: cap + 1, or None on a CUDA device
+    at MAX_CAP, where the engine holds its cap and keeps its sweeps."""
+    if torch.device(device).type == "cuda" and int(cap) >= MAX_CAP:
+        return None
+    return int(cap) + 1
+
+
+def mask_bytes(cap: int) -> int:
+    """Bytes of the kernels' slot-mask word at ``cap``."""
+    return 8 if cap > NARROW_CAP else 4
+
+
+# K1's window (csrc/tiled_kernels.cuh k1_rows, k1_cols, k1_smem_bytes): a
+# block's region is K1_REGION[cap > NARROW_CAP] = (rows, columns) tiles
+K1_REGION = {False: (8, 32), True: (4, 16)}
+
+
+def k1_smem_bytes(cap: int, uniform: bool) -> int:
+    """Shared memory of one K1 (or K3) block: per window tile (the region
+    and a one-tile ring) cap slots of x, y (and radius unless ``uniform``)
+    and a mask; per region tile cap sums (x, y) and cap u16 list
+    entries."""
+    rows, cols = K1_REGION[cap > NARROW_CAP]
+    win = (rows + 2) * (cols + 2)
+    return (win * (cap * (8 if uniform else 12) + mask_bytes(cap))
+            + rows * cols * cap * 10)
+
 
 # K2's window (csrc/tiled_kernels.cuh k2_window_bytes): a block's region is
 # K2_REGION[par] = (rows, columns) storage cells (on the parity layout, of
@@ -107,7 +157,8 @@ def k2_window_bytes(cap: int, par: bool) -> int:
     output count and cap u16 source codes per region tile."""
     rows, cols = K2_REGION[par]
     ry, rx = (2 * rows, 2 * cols) if par else (rows, cols)
-    return (36 * (ry + 4) * (rx + 4) + 32 * (ry + 2) * (rx + 2)
+    return (mask_bytes(cap) * (9 * (ry + 4) * (rx + 4)
+                               + 8 * (ry + 2) * (rx + 2))
             + (4 + 2 * cap) * ry * rx)
 
 
@@ -127,8 +178,7 @@ def _check_cuda_state(state: TileState, what: str) -> None:
         raise RuntimeError(f"{what}: the CUDA kernel needs CUDA tensors, "
                            f"got {state.device}")
     cap, TY, TX = state.dims
-    if not 1 <= cap <= MAX_CAP:
-        raise ValueError(f"{what}: tile_cap {cap} outside 1..{MAX_CAP}")
+    check_card_cap(cap, state.device)
     if cap * TY * TX >= 2 ** 31:
         raise ValueError(f"{what}: {cap}x{TY}x{TX} slots overflow int32")
     for name in FIELDS:

@@ -50,6 +50,7 @@ from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.core.state import ParamCache, StepParams
 from gpu_physics_engine_torch.ops import tiled
 from gpu_physics_engine_torch.ops.tiled import TileState, _iota, _tile_of
+from gpu_physics_engine_torch.ops.tiled_kernels import check_card_cap
 from gpu_physics_engine_torch.parallel.mesh import (Mesh, gather_tiles,
                                                     make_mesh, shard_tiles)
 from gpu_physics_engine_torch.utils.timer import FrameTimer
@@ -451,6 +452,8 @@ class ShardedTiledEngine:
             radii = np.full(n, config.initial_radius, np.float32)
         if config.tile_cap == 0:
             config = config.replace(tile_cap=_auto_cap(config, positions))
+        for d in self.mesh.devices:
+            check_card_cap(config.tile_cap, d)
         if (config.tiled_uniform_radius
                 and not np.all(radii == np.float32(config.initial_radius))):
             print("[tiled] mixed radii in initial arrays: disabling "

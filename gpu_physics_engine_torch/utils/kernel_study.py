@@ -41,10 +41,11 @@ call):
   at 3.35 TB/s) and whether the kernel equals its plain version bit for
   bit.
 * ``--other-lib PATH`` (another build of the kernel library, such as an
-  earlier commit's ``_build/*.so``): with ``--k2`` and ``--k5`` every
-  kernel above is also timed through that build in one process on the
-  same inputs, in turns (this build, the other, the other, this): their
-  entry points are the same in both, so a difference is the kernels'.
+  earlier commit's ``_build/*.so``): with ``--k1``, ``--k2`` and ``--k5``
+  every kernel above is also timed through that build in one process on
+  the same inputs, in turns (this build, the other, the other, this):
+  their entry points are the same in both, so a difference is the
+  kernels'.
 * ``--k6``: K6's color window (``gs_colors_window_kernel``) on the 1M-GS
   and 4M-GS scenes, one solve through each route: "flat" (``colors_cuda``
   on K5's tables), "par" (``colors_par_cuda`` with the Verlet tail, no
@@ -88,7 +89,7 @@ import sys
 from gpu_physics_engine_torch.utils.profiling import cuda_ms
 
 
-def k1_study(particles: int) -> dict:
+def k1_study(particles: int, other=None) -> dict:
     import torch
     from gpu_physics_engine_torch import StepParams, make_tuned_engine
     from gpu_physics_engine_torch.ops import tiled_kernels as tk
@@ -117,7 +118,7 @@ def k1_study(particles: int) -> dict:
              lambda: tk.collide_integrate_cuda(st, prm, no_pairs)),
             ("k1_empty", lambda: tk.collide_integrate_cuda(empty, prm, cfg)),
             ("k3", lambda: tk.collide_cuda(st, cfg))):
-        out[name] = [cuda_ms(fn), cuda_ms(fn)]
+        out[name] = _turns(lambda f: [cuda_ms(f), cuda_ms(f)], fn, other)
     return out
 
 
@@ -733,7 +734,8 @@ def main(argv=None) -> int:
     ap.add_argument("--k2", action="store_true")
     ap.add_argument("--k5", action="store_true")
     ap.add_argument("--other-lib", default=None,
-                    help="with --k2 and --k5: time the kernels through "
+                    help="with --k1, --k2 and --k5: time the kernels "
+                         "through "
                          "this build of the kernel library too, in turns; "
                          "with --radix: the parent commit's build, whose "
                          "three-kernel sort is timed in turns")
@@ -751,9 +753,9 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    if args.k1:
-        print(json.dumps(k1_study(args.particles)), flush=True)
     other = _other_library(args.other_lib) if args.other_lib else None
+    if args.k1:
+        print(json.dumps(k1_study(args.particles, other)), flush=True)
     if args.k2:
         print(json.dumps(k2_study(args.particles, other)), flush=True)
     if args.k5:

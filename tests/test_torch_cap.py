@@ -1,0 +1,159 @@
+"""Tile caps past 32 (the card's kernels keep a tile's slots in a 64-bit
+mask from cap 33 to 64) on the CPU, where no CUDA kernel runs.
+
+  * ``tiled_kernels.check_card_cap``: caps 1-64 pass on a CUDA device, 65
+    and past raise naming the limit 64; on the CPU every cap passes.
+  * K1's plain version at cap 48 against the JAX package's collide and
+    integrate (its jnp path: the interpret-mode Pallas kernels compile for
+    minutes at that cap) on a pile whose tiles fill every slot, within
+    1e-5 world units, pid exact.
+  * A re-tiling spawn whose scene-sized cap passes 64 is refused on the
+    card before the engine changes: the engine keeps its cap, its config
+    and its particles (the card stood in for by the engine's device; the
+    refusal comes before any tensor work).  On the CPU the same spawn
+    re-tiles past 64.
+
+The CUDA kernels at caps 33-64 are held to their plain versions on the
+card (tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gpu_physics_engine_tpu.core.state import StepParams as JParams
+from gpu_physics_engine_tpu.ops import tiled as jt
+from gpu_physics_engine_torch import SimConfig, StepParams as TParams
+from gpu_physics_engine_torch import TiledEngine
+from gpu_physics_engine_torch.ops import tiled_kernels as tk
+from test_torch_tiled import assert_same, both_states, cfgs
+
+
+@pytest.mark.parametrize("cap", [1, 32, 33, 48, 64])
+def test_card_takes_caps_up_to_64(cap):
+    tk.check_card_cap(cap, torch.device("cuda"))
+    tk.check_card_cap(cap, "cuda:0")
+    tk.check_card_cap(cap, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("cap", [65, 140, 0])
+def test_card_refuses_caps_outside_1_to_64(cap):
+    with pytest.raises(ValueError, match=f"tile_cap {cap} outside 1..64"):
+        tk.check_card_cap(cap, torch.device("cuda"))
+    tk.check_card_cap(cap, torch.device("cpu"))  # the plain versions: any
+
+
+def _pile(cap, n, seed):
+    """``n`` particles in a pile on a 16 x 16 world at ``cap``: the densest
+    tiles fill every slot, past slot 32."""
+    jcfg, tcfg = cfgs(tile_cap=cap, world_width=16.0, world_height=16.0,
+                      max_particles=n, initial_particles=n,
+                      gravity=(0.0, -9.8))
+    rng = np.random.default_rng(seed)
+    pos = np.clip(np.array([8.0, 8.0]) + rng.normal(0, 1.5, (n, 2)), 0.6,
+                  15.4).astype(np.float32)
+    rad = rng.uniform(0.2, 0.3, n).astype(np.float32)
+    prev = (pos + rng.normal(0, 0.05, pos.shape)).astype(np.float32)
+    return jcfg, tcfg, pos, rad, prev
+
+
+def test_k1_plain_at_cap_48_matches_jax():
+    jcfg, tcfg, pos, rad, prev = _pile(48, 1200, 5)
+    a, b = both_states(jcfg, tcfg, pos, rad, prev)
+    assert int((b.pid >= 0).sum(0).max()) == 48
+    pa = JParams.make(0.02, mouse=(5.0, 9.0), pressed=True)
+    pb = TParams.make(0.02, mouse=(5.0, 9.0), pressed=True)
+    ja = jt.integrate(jt.collide(a, jcfg), pa, jcfg)
+    tb = tk.collide_integrate(b, pb.as_tensor("cpu"), tcfg)
+    assert_same(ja, tb, atol=1e-5)
+    assert tk.LAUNCHES["collide_integrate"] == 0  # CPU: no kernel launch
+
+
+def test_retile_spawn_past_64_is_refused_on_the_card():
+    cfg = SimConfig(max_particles=4200, initial_particles=4096,
+                    world_width=64.0, world_height=64.0, pipeline="tiled",
+                    tile_cap=0, tiled_spawn="retile")
+    e = TiledEngine(cfg, seed=0, device="cpu")
+    e.run(2)
+    before = (e.config, e.state.dims, e._export(), e._next_pid)
+    e.device = torch.device("cuda")  # the card, as check_card_cap sees it
+    with pytest.raises(ValueError, match=r"outside 1\.\.64"):
+        e.spawn_at((32.0, 32.0))
+    assert (e.config, e.state.dims, e._next_pid) == (
+        before[0], before[1], before[3])
+    for u, v in zip(e._export(), before[2]):
+        np.testing.assert_array_equal(u, v)
+    e.device = torch.device("cpu")  # the plain versions take any cap
+    e.spawn_at((32.0, 32.0), verbose=False)
+    assert e.config.tile_cap > 64 and e.num_particles() == 4196
+    e.run(2)
+    assert np.isfinite(e.positions()).all()
+
+
+@pytest.mark.parametrize("cap, device, want", [
+    (1, "cuda", 2), (33, "cuda", 34), (63, "cuda", 64), (64, "cuda", None),
+    (64, "cpu", 65), (140, "cpu", 141)])
+def test_growth_stops_at_64_on_the_card(cap, device, want):
+    assert tk.grown_cap(cap, torch.device(device)) == want
+
+
+def _jammed_engine(**kw):
+    cfg = SimConfig(max_particles=600, initial_particles=600,
+                    world_width=24.0, world_height=24.0, pipeline="tiled",
+                    tile_cap=64, tiled_hysteresis=0.0, **kw)
+    return TiledEngine(cfg, seed=0, device="cpu")
+
+
+def _held(e, grow):
+    """Run ``grow`` with the engine seen as on the card: the cap, config
+    and particles stay; on the CPU the same growth takes cap 65."""
+    before = (e.config, e.state.dims, e._export())
+    e.device = torch.device("cuda")
+    grow(e)
+    assert (e.config, e.state.dims) == before[:2]
+    for u, v in zip(e._export(), before[2]):
+        np.testing.assert_array_equal(u, v)
+    e.device = torch.device("cpu")
+    grow(e)
+    assert e.config.tile_cap == 65 and e.state.dims[0] == 65
+
+
+def test_auto_cap_growth_holds_at_64_on_the_card():
+    e = _jammed_engine(tiled_auto_cap_pct=0.01)
+    # a deferred population far past the bound over a 4-step window
+    _held(e, lambda e: e._maybe_grow_cap(4, int(e.state.overflow_count)
+                                         - 10_000))
+
+
+def test_watchdog_level_3_holds_at_64_on_the_card(monkeypatch):
+    from gpu_physics_engine_torch.ops import tiled
+    e = _jammed_engine(tiled_watchdog=True, tiled_watchdog_pct=1.0)
+    stale = iter([10.0, 20.0, 40.0, 80.0, 1.0, 2.0])
+    monkeypatch.setattr(tiled, "stale_pair_fraction",
+                        lambda st, cfg: next(stale) / 100.0)
+    e._wd_prev, e._wd_level, e._wd_retile_pct = 5.0, 2, None
+
+    def level_3(e):
+        events = e.watchdog_events
+        e._watchdog()
+        assert e.watchdog_events == events + 1 and e._wd_level == 2
+        e._wd_prev = 5.0
+    _held(e, level_3)
+
+
+@pytest.mark.parametrize("bad", ["positions", "previous_positions", "pids",
+                                 "pids_2d"])
+def test_init_tiles_refuses_arrays_of_other_lengths(bad):
+    from gpu_physics_engine_torch.ops import tiled
+    cfg = SimConfig(max_particles=8, initial_particles=8, world_width=16.0,
+                    world_height=16.0, pipeline="tiled", tile_cap=4)
+    rng = np.random.default_rng(0)
+    args = dict(positions=rng.uniform(1, 15, (8, 2)),
+                previous_positions=rng.uniform(1, 15, (8, 2)),
+                pids=np.arange(8))
+    if bad == "pids_2d":
+        args["pids"] = np.arange(8).reshape(2, 4)
+    else:
+        args[bad] = args[bad][:-1]
+    with pytest.raises(ValueError, match="8 radii"):
+        tiled.init_tiles(cfg, radii=np.full(8, 0.5, np.float32), **args)

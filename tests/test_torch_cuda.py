@@ -6,15 +6,16 @@ repository's conftest imports jax).  Without a CUDA device every test here
 skips.  K1 and K3 equal their plain versions bit for bit at every cap
 the engine can reach, in box and circle worlds, on grids smaller than one
 shared-memory region and not a multiple of it; K2 and K2-par bit for bit
-up to cap 32 and on a ragged grid, K5 and K5-par (the rank's window)
-bit for bit up to cap 32 with K 16, on a ragged grid, at both parity
+up to cap 64 and on a ragged grid, K5 and K5-par (the rank's window)
+bit for bit up to cap 64 with K 16, on a ragged grid, at both parity
 origins, K6's window (colors 1..c for each c, with and without the Verlet
-tail) bit for bit on the flat and the parity layouts, up to cap 32, on a
+tail) bit for bit on the flat and the parity layouts, up to cap 64, on a
 grid smaller than one window and one several windows wide; the par engine
 equals the flat engine.  colors_mega bit for bit and equal to the par
 route's K6-par launch; relocate_mega and K4
-(K2's window) bit for bit, relocate_mega equal to K2-par, also at cap 32
-and on a ragged grid.  The radix sort's digit histogram and its onesweep
+(K2's window) bit for bit, relocate_mega equal to K2-par, also at caps 32
+and 64 and on a ragged grid.  Past cap 64 the kernels refuse.  The radix
+sort's digit histogram and its onesweep
 pass (rank, look-back, store) bit for bit on all four passes, from 1 key
 to about the 1M scene's pair count, the look-back prefixes too, the sort
 equal to torch.sort(stable=True) and on repeat, and the array Engine's
@@ -56,6 +57,9 @@ def _scene(match="greedy", hysteresis=0.0, cap=4, uniform=True, n=500,
                     tiled_uniform_radius=uniform, **kw)
     rng = np.random.default_rng(cap)
     pos = rng.uniform(0.6, 63.4, (n, 2)).astype(np.float32)
+    if cap > 32:  # a pile: its tiles fill every slot, past slot 32
+        pos[: n // 2] = np.clip([32.0, 32.0] + rng.normal(
+            0, 1.0, (n // 2, 2)), 0.6, 63.4)
     rad = (np.full(n, 0.5, np.float32) if uniform
            else rng.uniform(0.3, 0.5, n).astype(np.float32))
     prev = (pos + rng.normal(0, 0.05, pos.shape)).astype(np.float32)
@@ -87,13 +91,14 @@ def test_k1_cuda_matches_plain(uniform, world):
 
 @pytest.mark.parametrize("match", ["flip", "flip2", "greedy"])
 @pytest.mark.parametrize("hysteresis", [0.0, -1.0])
-@pytest.mark.parametrize("cap", [4, 8, 32])
+@pytest.mark.parametrize("cap", [4, 8, 32, 48, 64])
 @pytest.mark.parametrize("shape", ["square", "ragged"])
 def test_k2_cuda_matches_plain(match, hysteresis, cap, shape):
     """K2 on its shared-memory window: bit-equal to the plain version and
-    on repeat, nothing lost, up to cap 32 (the largest window), on a 64 x 64
-    world and on a grid whose TY and TX are no multiples of the region
-    ("ragged": 21 x 39 at cap 6)."""
+    on repeat, nothing lost, up to cap 32 (the 32-bit masks' largest
+    window) and at caps 48 and 64 (64-bit masks, on piles whose tiles fill
+    every slot), on a 64 x 64 world and on a grid whose TY and TX are no
+    multiples of the region ("ragged": 21 x 39 at cap 6)."""
     if shape == "square":
         cfg, st = _scene(match=match, hysteresis=hysteresis, cap=cap)
     else:
@@ -136,8 +141,12 @@ def _window_scene(cap, uniform, world, width, height, cut):
     """A scene at ``cap`` in a ``width`` x ``height`` world, jittered off
     home; ``cut`` drops that many of the empty rows above the world, so TY
     is no multiple of 8 (one empty row stays, as the ring).  Density 0.6
-    per unit area, less at small caps (the tiles must hold the scene)."""
+    per unit area, less at small caps (the tiles must hold the scene); past
+    cap 32 also a pile of 4 x cap particles, whose tiles fill every
+    slot."""
     n = int(width * height * min(0.6, 0.12 * cap))
+    pile = 4 * cap if cap > 32 else 0  # past cap 32: tiles fill every slot
+    n += pile
     cfg = SimConfig(max_particles=n, initial_particles=n, world_width=width,
                     world_height=height, pipeline="tiled", tile_cap=cap,
                     tiled_uniform_radius=uniform, world_shape=world,
@@ -145,10 +154,15 @@ def _window_scene(cap, uniform, world, width, height, cut):
     rng = np.random.default_rng(cap)
     pos = np.stack([rng.uniform(0.6, width - 0.6, n),
                     rng.uniform(0.6, height - 0.6, n)], -1).astype(np.float32)
+    if pile:
+        pos[:pile] = np.clip([width / 2, height / 2] + rng.normal(
+            0, 1.0, (pile, 2)), 0.6, [width - 0.6, height - 0.6])
     rad = (np.full(n, 0.5, np.float32) if uniform
            else rng.uniform(0.3, 0.5, n).astype(np.float32))
     prev = (pos + rng.normal(0, 0.05, pos.shape)).astype(np.float32)
     st = tt.init_tiles(cfg, pos, rad, previous_positions=prev, device="cuda")
+    if pile:
+        assert int((st.pid >= 0).sum(0).max()) == cap
     if cut:
         rows = (st.pid >= 0).any(0).any(1).nonzero().max().item() + 2
         assert st.dims[1] - rows >= cut
@@ -161,16 +175,17 @@ def _window_scene(cap, uniform, world, width, height, cut):
                            y=torch.where(occ, st.y - d, st.y))
 
 
-@pytest.mark.parametrize("cap", [2, 6, 9, 10, 16, 32])
+@pytest.mark.parametrize("cap", [2, 6, 9, 10, 16, 32, 48, 64])
 @pytest.mark.parametrize("shape", ["small", "ragged", "wide"])
 @pytest.mark.parametrize("uniform", [True, False])
 @pytest.mark.parametrize("world", ["box", "circle"])
 def test_k1_k3_window_matches_plain(cap, shape, uniform, world):
     """K1 and K3 on the shared-memory window: bit-equal to the plain
     versions and on repeat at caps from 2 to kMaxCap (past the tuned rows:
-    the watchdog grows cap), on a grid smaller than one 8 x 32 region
-    ("small"), one whose TY and TX are no multiples of it ("ragged") and
-    one several regions wide ("wide")."""
+    the watchdog grows cap; past 32 the 64-bit masks on a 4 x 16 region),
+    on a grid smaller than one 8 x 32 region ("small"), one whose TY and
+    TX are no multiples of it ("ragged") and one several regions wide
+    ("wide")."""
     width, height, cut = {"small": (12.0, 5.0, 0), "ragged": (80.0, 33.0, 3),
                           "wide": (150.0, 40.0, 0)}[shape]
     cfg, st = _window_scene(cap, uniform, world, width, height, cut)
@@ -194,16 +209,17 @@ def test_k1_k3_window_matches_plain(cap, shape, uniform, world):
 
 def _gs_scene(cap, K, seed, width=40.0):
     """Mixed radii over a ``width`` x 30 world plus a jammed cluster (cells
-    past K), stored up to a third of a tile off home as after the pull
-    relocate."""
+    past K; past cap 32 so tight that its tiles fill every slot), stored
+    up to a third of a tile off home as after the pull relocate."""
     from gpu_physics_engine_torch.core.tuned import gs_config
     cfg = gs_config(1500, world_width=width, world_height=30.0,
                     tile_cap=cap, max_occupancy=K)
     rng = np.random.default_rng(seed)
     hi = [width - 0.6, 29.4]
+    spread = 2.0 if cap <= 32 else 0.6
     pos = np.concatenate([rng.uniform(0.6, hi, (1000, 2)),
                           np.clip([width / 2, 15.0]
-                                  + rng.normal(0, 2.0, (500, 2)), 0.6,
+                                  + rng.normal(0, spread, (500, 2)), 0.6,
                                   hi)]).astype(np.float32)
     rad = rng.uniform(0.3, 0.5, 1500).astype(np.float32)
     st = tt.init_tiles(cfg, pos, rad, device="cuda")
@@ -237,13 +253,15 @@ def test_gs_kernels_match_plain(cap, K):
     assert int((a.x != st.x).sum()) > 0
 
 
-@pytest.mark.parametrize("cap, K", [(2, 3), (4, 8), (32, 16)])
+@pytest.mark.parametrize("cap, K", [(2, 3), (4, 8), (32, 16), (48, 16),
+                                    (64, 16)])
 @pytest.mark.parametrize("width", [40.0, 150.0])
 @pytest.mark.parametrize("uniform", [False, True])
 def test_rank_window_matches_plain(cap, K, width, uniform):
     """K5 and K5-par on the rank's shared-memory window: the tables
     bit-equal to the plain versions and on repeat, up to cap 32 with K 16
-    (the largest window), on a ragged grid (width 40) and one several
+    (the 32-bit masks' largest window) and at caps 48 and 64 (64-bit
+    masks on a 4 x 32 region), on a ragged grid (width 40) and one several
     regions wide (TX 39 and 139: no multiple of the 64-column region), with
     and without a radius plane; K5-par at origins 0 and -1, in one launch
     over all parities and in one per parity."""
@@ -322,13 +340,15 @@ def _window_cases(cfg, st, layout, prm):
 
 
 @pytest.mark.parametrize("cap, K, width", [(2, 3, 20.0), (4, 8, 40.0),
-                                           (6, 8, 150.0), (32, 16, 40.0)])
+                                           (6, 8, 150.0), (32, 16, 40.0),
+                                           (48, 16, 150.0), (64, 16, 40.0)])
 @pytest.mark.parametrize("layout", [None, 0, -1])
 def test_colors_window_matches_plain(cap, K, width, layout):
     """K6's window kernel: colors 1..c for each c, with and without the
     Verlet tail, bit-equal to the plain passes and on repeat, on a grid
     smaller than one window (width 20 and 40: TX 21 and 39), one several
-    regions wide (150: TX 139), at cap 32 with K 16, general and uniform
+    regions wide (150: TX 139), at cap 32 with K 16 and past it (caps 48
+    and 64: the fifth region class), general and uniform
     radius, flat and parity (origins 0 and -1); its shared-memory bytes
     equal the Python mirror."""
     from gpu_physics_engine_torch.ops import _cuda
@@ -449,13 +469,13 @@ def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
 
 
 @pytest.mark.parametrize("cap, shape", [(2, "square"), (32, "square"),
-                                        (6, "ragged")])
+                                        (6, "ragged"), (64, "square")])
 @pytest.mark.parametrize("match", ["flip", "flip2", "greedy"])
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("origin", [0, -1])
 def test_relocate_par_window_matches_plain(cap, shape, match, fused, origin):
     """K2-par on its shared-memory window: bit-equal to its plain version
-    and on repeat, none lost, at cap 2 and cap 32 (the largest window) and
+    and on repeat, none lost, at cap 2, cap 32 and cap 64 (64-bit masks) and
     on the ragged 21 x 39 grid, in one launch over all parities and in one
     per parity, for both origins; relocate_mega (the same window over all
     four parities, one launch) equal to both."""
@@ -564,7 +584,7 @@ def test_fused_gs_kernels_match_plain(cap, K, uniform, origin):
 
 @pytest.mark.parametrize("uniform, cap, shape", [
     (False, 4, "square"), (True, 4, "square"), (True, 32, "square"),
-    (True, 6, "ragged")])
+    (True, 6, "ragged"), (True, 64, "square")])
 def test_k4_cuda_matches_plain(uniform, cap, shape):
     """K4 (K2's window with K4's step rule) bit-equal to its plain version,
     whatever the config's matching and hysteresis, and to K2 under flip
@@ -1104,15 +1124,15 @@ def test_sharded_engine_on_card_matches_cpu_engine():
     assert np.isfinite(p).all() and card.num_particles() == 3000
 
 
-def test_kernels_refuse_caps_past_32():
-    """The claim bitsets are 32 bits wide: a cap-33 state on the card is
-    refused by K1, K3 and K2 (the CPU's plain versions take any cap)."""
+def test_kernels_refuse_caps_past_64():
+    """The slot masks are at most 64 bits wide: a cap-65 state on the card
+    is refused by K1, K3 and K2 (the CPU's plain versions take any cap)."""
     cfg, st = _scene(cap=4, jitter=0.0)
-    wide = st.replace(**{f: torch.cat([getattr(st, f)] * 9)[:33]
+    wide = st.replace(**{f: torch.cat([getattr(st, f)] * 17)[:65]
                          for f in FIELDS})
     prm = StepParams.make(0.02).as_tensor("cuda")
     for call in (lambda: tk.collide_integrate_cuda(wide, prm, cfg),
                  lambda: tk.collide_cuda(wide, cfg),
                  lambda: tk.relocate_pull_cuda(wide, cfg)):
-        with pytest.raises(ValueError, match="tile_cap 33 outside"):
+        with pytest.raises(ValueError, match="tile_cap 65 outside 1..64"):
             call()

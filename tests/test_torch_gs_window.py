@@ -3,7 +3,7 @@ where no CUDA kernel runs.
 
   * The bytes of a block, through the Python mirror
     ``gpu_physics_engine_torch.ops.gs_kernels.colors_window_bytes``, fit the
-    card's 232,448 at every cap up to 32 and every number of colors up to
+    card's 232,448 at every cap up to 64 and every number of colors up to
     four (one geometry serves both layouts; chip_smoke.py holds the mirror
     equal to the launcher's own number on the card).
   * A model of the kernel's algorithm in torch equals the plain color
@@ -44,8 +44,8 @@ def test_colors_window_fits_a_block_at_every_cap():
             assert gk.colors_window_bytes(cap, colors) <= SMEM, (cap, colors)
     # at each class's largest cap, a whole solve: (rows + 16) x (columns +
     # 16) tiles of cap slots of x and y
-    assert [gk.colors_window_bytes(c) for c in (4, 8, 16, 32)] == [
-        98_304, 147_456, 147_456, 196_608]
+    assert [gk.colors_window_bytes(c) for c in (4, 8, 16, 32, 64)] == [
+        98_304, 147_456, 147_456, 196_608, 225_280]
     assert gk.colors_window_bytes(6) == 110_592  # the 4M-GS cap
     assert gk.colors_window_bytes(4, 0) == 32 * 48 * 4 * 8  # the region
 

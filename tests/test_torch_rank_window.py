@@ -3,7 +3,7 @@ CPU, where no CUDA kernel runs.
 
   * The bytes of a block, through the Python mirror
     ``gpu_physics_engine_torch.ops.gs_kernels.rank_window_bytes``, fit the
-    card's 232,448 at every cap up to 32, with and without a radius plane
+    card's 232,448 at every cap up to 64, with and without a radius plane
     (one geometry serves both layouts; chip_smoke.py holds the mirror equal
     to the launches' own numbers on the card).
   * A model of the kernel's walk in numpy equals the plain rank bit for
@@ -38,11 +38,14 @@ BIG = int(gp.BIGPID)  # the rank's fill pid
 def test_rank_window_fits_a_block_at_every_cap(uniform):
     for cap in range(1, gk.MAX_CAP + 1):
         assert gk.rank_window_bytes(cap, uniform) <= SMEM, cap
-    assert gk.rank_window_bytes(gk.MAX_CAP, uniform) == (
+    assert gk.rank_window_bytes(32, uniform) == (
         153_648 if uniform else 204_336)
+    # past cap 32 the region is 4 x 32 tiles, the masks 64-bit words
+    assert gk.rank_window_bytes(gk.MAX_CAP, uniform) == (
+        158_304 if uniform else 210_528)
     # a slot costs 12 bytes (pid, x, y), 16 with a radius plane, per
     # window tile (the region and a one-tile ring)
-    rows, cols = gk.RANK_REGION
+    rows, cols = gk.rank_region(8)
     assert (gk.rank_window_bytes(9, uniform)
             - gk.rank_window_bytes(8, uniform)) == (12 if uniform else 16) * (
                 (rows + 2) * (cols + 2))
@@ -78,7 +81,7 @@ def _launch(x, y, rad, pid, K, t, r0, origin, parities, out, written):
     and masking border cells.  Writes ``out`` and counts ``written``."""
     cap, TY, TX = pid.shape
     par = origin is not None
-    RY, RX = gk.RANK_REGION
+    RY, RX = gk.rank_region(cap)
     o = origin or 0
     if par:
         DY, DX = (TY - o + 1) // 2, (TX - o + 1) // 2

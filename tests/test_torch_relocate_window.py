@@ -16,7 +16,9 @@ from gpu_physics_engine_torch.ops import tiled_kernels as tk
 def test_window_fits_a_block_at_every_cap(par):
     for cap in range(1, tk.MAX_CAP + 1):
         assert tk.k2_window_bytes(cap, par) <= 232_448, cap
-    assert tk.k2_window_bytes(tk.MAX_CAP, par) == 85_312
+    assert tk.k2_window_bytes(32, par) == 85_312
+    # past cap 32 the masks are 64-bit words
+    assert tk.k2_window_bytes(tk.MAX_CAP, par) == 168_576
     # the bytes grow with cap: two bytes a region tile per slot
     rows, cols = tk.K2_REGION[par]
     tiles = rows * cols * (4 if par else 1)

@@ -103,11 +103,33 @@ def test_tile_geometry_matches(kw):
     assert jt.tile_geometry(jcfg) == tt.tile_geometry(tcfg)
 
 
-@pytest.mark.parametrize("case", ["random", "spill", "pids_prev", "pile"])
+@pytest.mark.parametrize("case", ["random", "spill", "pids_prev", "pile",
+                                  "tile_edge"])
 def test_init_tiles_matches_native_tiler(case):
-    """The port's tiler (numpy, its spill pass in C++) lays particles out
-    exactly as the JAX package's native tiler does, spills included."""
-    if case == "random":
+    """The port's tiler (its binning pass in C++) lays particles out
+    exactly as the JAX package's native tiler does, spills included, and
+    particles within an ulp of a tile edge bin by its rule."""
+    assert jt._load_native_tiler() is not None  # JAX's default path
+    if case == "tile_edge":
+        # probes at every f32 multiple k * t inside the world and one ulp
+        # either side, on both axes, then a clump over them that spills
+        jcfg, tcfg = cfgs(tile_cap=4)
+        t = np.float32(tt.tile_geometry(tcfg)[0])
+        rng = np.random.default_rng(8)
+        edges = np.float32(np.arange(1, int(63.0 / t) + 1)) * t
+        probes = np.concatenate([np.nextafter(edges, np.float32(0.0)),
+                                 edges, np.nextafter(edges, np.float32(64.0))])
+        other = rng.uniform(0.6, 63.4, probes.shape).astype(np.float32)
+        pos = np.concatenate([
+            np.stack([probes, other], -1), np.stack([other, probes], -1),
+            np.array([30.0, 30.0], np.float32) + rng.normal(0, 3.0, (150, 2))
+        ]).astype(np.float32)
+        inv = np.float32(1.0) / t
+        assert (np.floor(probes * inv) != probes // t).any()  # rules part
+        a, b = both_states(jcfg, tcfg, pos, np.full(len(pos), 0.3,
+                                                    np.float32))
+        assert int(b.num_active) == len(pos)
+    elif case == "random":
         jcfg, tcfg = cfgs(tile_cap=4)
         pos, rad, prev = scene(300, 1)
         both_states(jcfg, tcfg, pos, rad, prev)
