@@ -17,7 +17,7 @@ non-zero with no result line:
      region) and at the 4M [8, 640, 1850], 1M [6, 480, 1388] and 256k
      [9, 176, 506] shapes, bit-equal; K2 (pull relocate, one launch on a
      shared-memory window; its window bytes, and K1's, == the Python
-     mirrors at every cap 1-64) there, on the ragged grid and on a small scene at cap 32
+     mirrors at every cap 1-256) there, on the ragged grid and on a small scene at cap 32
      (K2-par too), for flip / flip2 / greedy, hysteresis on and off, and
      at the GS shapes [4, 960, 2773] and [6, 960, 2773],
      bit-equal; K5 (GS rank) and K6 (GS color solve, one launch of the
@@ -166,23 +166,33 @@ non-zero with no result line:
      ``halo.make_sharded_step`` at 1M for 16 steps with the radix resort
      (nothing dropped); the sharded GS frame at 1M-GS on 4 slabs
      bit-equal to the one-grid plain solve and to K5 + K6;
-  7d. tile caps 33-64, the kernels' 64-bit mask instantiations
-     (phase_wide_caps): every kernel at caps 33, 48 and 64 on piles whose
+  7d. tile caps 33-256 and K past 16 (phase_wide_caps): the kernels'
+     64-bit (caps 33-64) and four-word (65-256) mask instantiations,
+     every kernel at caps 33, 48, 64, 65, 128, 140 and 256 on piles whose
      tiles fill every slot, bit-equal to its plain version and on repeat
      (K1 and K3, uniform and general radius, on a grid smaller than one
      region, a ragged one and a halo-extended slab; K2 in every matching
-     mode with hysteresis on and off, K4, K2-par at origins 0 and -1 and
-     relocate_mega; K5 and K5-par with K 16, with and without a radius
-     plane; the K6 / K6-par windows for colors 1..4, with and without the
-     tail); the 1M engine with tiled_spawn="retile" (64 steps, then a
-     spawn re-tiles it past cap 32, then 128 steps: K1's general form
-     every step, K2 every 4th) and the 1M engine at the cap its scene
-     gives tile_max_radius 1 (128 steps, K1 uniform; K3's and K4's paths
-     on its scene), each with its launch counts, every pid kept, ms/step,
-     idle share and launches a step, and K1 and K2 bit-equal on its final
-     state; the 4M engine's re-tiling spawn refused (its scene's cap is
-     past 64) with the engine unchanged; the GS engine at cap 64 in the
-     flat, par and mega layouts, bit-equal to each other;
+     mode (past cap 64 greedy on the small grid), K4, K2-par at origins 0
+     and -1 and relocate_mega; K5 and K5-par with K 16, with and without a
+     radius plane; the K6 / K6-par windows for colors 1..4, with and
+     without the tail, past cap 64 a launch a color); K5, K5-par and the
+     windows at K 17, 32 and 64 (cap 16) and K 64 at cap 140; the 1M
+     engine with tiled_spawn="retile" (64 steps, then a spawn re-tiles it
+     past cap 32, then 128 steps: K1's general form every step, K2 every
+     4th) and the 1M engine at the cap its scene gives tile_max_radius 1
+     (128 steps, K1 uniform; K3's and K4's paths on its scene); the 4M
+     engine with tiled_spawn="retile": a spawn on the seeded scene
+     re-tiles it to cap 140 [140, 168, 464] (after 64 steps the scene
+     gives 108), 128 steps (K1's general form, K2 every 2nd);
+     JAX's spawn-ready 1M tiling (tile_max_radius 3: cap 144 [144, 88,
+     233]), a spawn into its tiles, 128 steps; each with its launch counts,
+     every pid kept, ms/step, idle share and launches a step (a profiler
+     window that holds every K1 launch, else fail), and K1 and K2
+     bit-equal on its final state
+     (K2 also jittered; at cap 140 K2 on a band of 32 tile rows); the GS
+     engine at cap 64, at cap 128 and at K 32 (cap 16) in the
+     flat, par and mega layouts, bit-equal to each other, each kernel
+     timed on its state;
   8. kernel times at the main paths' shapes against their plain versions,
      with each kernel's bound on this card (and, for the radix pass, the
      time of torch.sort(stable=True) of the same pairs beside the whole
@@ -207,6 +217,9 @@ from gpu_physics_engine_torch.utils.profiling import cuda_ms
 # H100 SXM data-sheet peaks (dense): device memory bytes/s and f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
+# seconds a profiler window keeps its kernels clear of its ends, one a try
+# (utils/profiling.kernel_window)
+PADS = (0.5, 2.0, 5.0)
 PEAK_F32 = 67e12
 
 
@@ -265,9 +278,10 @@ def check_window_formula() -> None:
     launches take them from csrc/, equal the Python mirrors
     (``tiled_kernels.k1_smem_bytes``, ``tiled_kernels.k2_window_bytes``,
     ``gs_kernels.rank_window_bytes``, ``gs_kernels.colors_window_bytes``)
-    at every cap 1-64 (K1 with and without a radius plane; K2 on both
+    at every cap 1-256 (K1 with and without a radius plane; K2 on both
     layouts; K5, whose geometry is one for both, with and without a radius
-    plane; K6, one geometry too, for 0-4 colors a launch)."""
+    plane, at every K 1-64; K6, one geometry too, for 0-4 colors a
+    launch)."""
     from gpu_physics_engine_torch.ops import _cuda, gs_kernels as gk
     from gpu_physics_engine_torch.ops import tiled_kernels as tk
     lib = _cuda.library()
@@ -276,9 +290,10 @@ def check_window_formula() -> None:
         for cap in range(1, tk.MAX_CAP + 1):
             pairs = [("K2", tk.k2_window_bytes(cap, par),
                       lib.gpe_relocate_window_bytes(cap, int(par)))]
-            pairs += [("K5", gk.rank_window_bytes(cap, uniform),
-                       lib.gpe_gs_rank_window_bytes(cap, int(uniform)))
-                      for uniform in (False, True)]
+            pairs += [("K5", gk.rank_window_bytes(cap, uniform, K),
+                       lib.gpe_gs_rank_window_bytes(cap, int(uniform), K))
+                      for uniform in (False, True)
+                      for K in range(1, gk.MAX_K + 1)]
             pairs += [("K1", tk.k1_smem_bytes(cap, uniform),
                        lib.gpe_collide_window_bytes(cap, int(uniform)))
                       for uniform in (False, True)]
@@ -299,8 +314,8 @@ def check_window_formula() -> None:
                                  f"{got} B, mirror "
                                  f"{8 * rs.scratch_words(ntiles)} B")
     log(f"[window] bytes of the launches == the Python mirrors at caps "
-        f"1-{tk.MAX_CAP}: K1 most {most['K1', False]} B, K2 most "
-        f"{most['K2', False]} B flat, "
+        f"1-{tk.MAX_CAP} (K5 at K 1-{gk.MAX_K}): K1 most "
+        f"{most['K1', False]} B, K2 most {most['K2', False]} B flat, "
         f"{most['K2', True]} B parity; K5 most {most['K5', False]} B; K6 "
         f"most {most['K6', False]} B; the radix sort's scratch")
 
@@ -694,7 +709,8 @@ def _equal_or_raise(what, got, want, again=None) -> None:
 def _colors_lockstep(what, fields, tables, cfg, geo, errs, key, prm=None,
                      uniform=False) -> int:
     """K6's window against the plain passes from the same inputs: colors
-    1..c for c = 1..4 and, with ``prm`` (uniform radius, box world), the
+    1..c for c = 1..4 (past K 16, where the plain sweep's K^2/2 pairs are
+    slow, c = 1 and 4) and, with ``prm`` (uniform radius, box world), the
     Verlet tail alone and after each c; bit-equal and bit-equal on repeat.
     ``fields`` = (x, y, px, py, pid) and ``tables`` = (src, rrad) in the
     layout of ``geo`` (None: flat); ``uniform``: the kernel reads no radius
@@ -707,7 +723,7 @@ def _colors_lockstep(what, fields, tables, cfg, geo, errs, key, prm=None,
     grid = (tuple(x.shape[1:]) + (0, 0, 0, 0) if geo is None
             else gp._geo_args(geo) + (1,))
     moved, tails = 0, (False, True) if prm is not None else (False,)
-    for c1 in range(5):
+    for c1 in range(5) if cfg.max_occupancy <= 16 else (0, 1, 4):
         for tail in tails:
             if c1 == 0 and not tail:
                 continue
@@ -1658,12 +1674,24 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_keys):
             f"plain {p1:.3f} / {p2:.3f} ms per launch")
     # a radix wrapper's host work (allocation, the zeroed look-back state)
     # outlasts its kernel, so back-to-back calls are paced by the host:
-    # the kernel's ms is its device time in a profiler window instead
+    # the kernel's ms is its device time in a profiler window instead,
+    # taken again with a wider pad until the window holds all 10 of its
+    # records, at most three times, else fail
     for name in RADIX:
-        dev = kernel_device_ms(runs[name][0], 10)
-        ms = sum(v for k, v in dev.items() if f"{name}_kernel" in k)
+        for pad in PADS:
+            n = {}
+            dev = kernel_device_ms(runs[name][0], 10, counts=n, pad_s=pad)
+            ms = sum(v for k, v in dev.items() if f"{name}_kernel" in k)
+            got = sum(v for k, v in n.items() if f"{name}_kernel" in k)
+            if got == 10:
+                break
+        else:
+            raise AssertionError(
+                f"{name}: three profiler windows (pads {PADS} s) held "
+                f"{got} of 10 kernel records: device time not measured")
         log(f"[time] {name} {shapes[name]}: kernel device time {ms:.4f} ms "
-            f"a call (the call {out[name][0]:.4f} ms, host-paced)")
+            f"a call (10 records, profiler window pad {pad} s; the call "
+            f"{out[name][0]:.4f} ms, host-paced)")
         out[name] = (ms, out[name][1])
     # the sort the radix kernels serve: torch.sort of the pairs against the
     # hand radix sort (the histogram and 4 passes)
@@ -1778,6 +1806,49 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
      "gpu_physics_engine_tpu/ops/gs_mega.py:503", "GS-cap64-mega"),
     ("relocate_mega[cap64]", "relocate_mega", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_mega.py:443", "GS-cap64-mega"),
+    # caps 65-256, the four-word mask instantiations: the 4M engine
+    # re-tiled by a radius-3 spawn (cap 140) and JAX's spawn-ready 1M
+    # tiling (cap 144), both K1's general form
+    ("collide_integrate[cap140]", "collide_integrate",
+     "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "4M-retile"),
+    ("relocate_pull[cap140]", "relocate_pull", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:945", "4M-retile"),
+    ("collide_integrate[cap144]", "collide_integrate",
+     "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "1M-spawn-ready"),
+    ("relocate_pull[cap144]", "relocate_pull", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:945", "1M-spawn-ready"),
+    # the GS engine at cap 128 (set by hand) in its three layouts
+    ("gs_rank[cap128]", "gs_rank", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_pallas.py:467", "GS-cap128"),
+    ("gs_color[cap128]", "gs_color", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_pallas.py:543", "GS-cap128"),
+    ("gs_rank_par[cap128]", "gs_rank_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:275", "GS-cap128-par"),
+    ("gs_color_par[cap128]", "gs_color_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:433", "GS-cap128-par"),
+    ("relocate_par[cap128]", "relocate_par", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:689", "GS-cap128-par"),
+    ("gs_colors_mega[cap128]", "gs_colors_mega", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_mega.py:503", "GS-cap128-mega"),
+    ("relocate_mega[cap128]", "relocate_mega", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_mega.py:443", "GS-cap128-mega"),
+    # the GS engine at K 32 (cap 16) (set by hand) in its three layouts
+    ("gs_rank[K32]", "gs_rank", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_pallas.py:467", "GS-K32"),
+    ("gs_color[K32]", "gs_color", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_pallas.py:543", "GS-K32"),
+    ("gs_rank_par[K32]", "gs_rank_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:275", "GS-K32-par"),
+    ("gs_color_par[K32]", "gs_color_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:433", "GS-K32-par"),
+    ("relocate_par[K32]", "relocate_par", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:689", "GS-K32-par"),
+    ("gs_colors_mega[K32]", "gs_colors_mega", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_mega.py:503", "GS-K32-mega"),
+    ("relocate_mega[K32]", "relocate_mega", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_mega.py:443", "GS-K32-mega"),
 )
 
 FLAT_GS = ("gs_rank", "gs_color", "relocate_pull")
@@ -2705,14 +2776,12 @@ def _tile_stats_probe(e, label) -> None:
     scene's state: device ms (CUDA events, 20 calls), the launches and
     device time of one call (torch.profiler, CUDA activity), and its bound
     (x, y, px, py and pid read once, the two [TY, TX] maps written)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from gpu_physics_engine_torch.render.tilemap import tile_stats
-    from gpu_physics_engine_torch.utils.profiling import _device_us
+    from gpu_physics_engine_torch.utils.profiling import (_device_us,
+                                                          kernel_window)
     ms = cuda_ms(lambda: tile_stats(e.state))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with kernel_window() as prof:
         tile_stats(e.state)
-        torch.cuda.synchronize()
     rows = [r for r in prof.key_averages() if _device_us(r) > 0]
     cap, TY, TX = e.state.dims
     nbytes = 5 * 4 * cap * TY * TX + 2 * 4 * TY * TX
@@ -2777,8 +2846,8 @@ def _web_app(paths: dict) -> None:
     least 5 PNG frames, a move, a press and release and the key p (a
     spawn burst of radius 1-3 into the overlay, splatted on the host);
     /stats then shows the frames advanced and 1,048,676 particles.  The
-    app's frames/s is read over 120 frames before the spawn and 120
-    after, while a client fetches /frame.png back to back as the page
+    app's frames/s is read over WEB_FRAMES frames before the spawn and as
+    many after, while a client fetches /frame.png back to back as the page
     does (wall clock: the sim thread's step, frame, PNG and count)."""
     import http.client
     import threading
@@ -2801,7 +2870,7 @@ def _web_app(paths: dict) -> None:
             time.sleep(0.05)
         return cond()
 
-    def rate(label, frames=120, seconds=120.0):
+    def rate(label, frames=WEB_FRAMES, seconds=120.0):
         f0, t0, fetched = app.stats()["frame"], time.perf_counter(), 0
         while app.stats()["frame"] < f0 + frames:
             if time.perf_counter() - t0 > seconds:
@@ -2870,11 +2939,15 @@ def _web_app(paths: dict) -> None:
         if got[k] <= 0:
             raise AssertionError(f"web: {k} not launched ({got})")
     log(f"[apps] web: {before:.3f} frames/s before the spawn, {after:.3f} "
-        f"after (120 frames each); PNG {min(sizes)}-{max(sizes)} B; after "
+        f"after ({WEB_FRAMES} frames each); PNG {min(sizes)}-{max(sizes)} "
+        f"B; after "
         f"the spawn {stats} (the app's own fps average); overlay "
         f"{int(e.big.num_active) if e.big is not None else 0} bigs; "
         f"launches {got['collide_integrate']} K1, {got['relocate_pull']} K2")
     paths["1M-web"] = got
+
+
+WEB_FRAMES = 60  # frames a web frames/s reading is taken over
 
 
 def phase_apps(smi: str, paths: dict, errs: dict) -> None:
@@ -2949,12 +3022,15 @@ def _tensors(r) -> tuple:
                  if isinstance(v := getattr(r, f.name), torch.Tensor))
 
 
-def _held(what, kern, plain, keep=()) -> float:
+def _held(what, kern, plain, keep=(), timed=None) -> float:
     """``kern`` twice and ``plain`` once, as they are timed, each from the
     same values of ``keep`` (the tensors the calls update in place:
     restored before each call and after the last); their results and
     ``keep`` bit-equal (``_equal_or_raise``).  Returns the largest
-    absolute difference of the kernel's result from the plain one's."""
+    absolute difference of the kernel's result from the plain one's.
+    ``timed`` (a dict): its "plain_ms" becomes the plain call's time (CUDA
+    events)."""
+    import torch
     saved = [t.clone() for t in keep]
 
     def restore():
@@ -2964,7 +3040,15 @@ def _held(what, kern, plain, keep=()) -> float:
     outs = []
     for fn in (kern, kern, plain):
         restore()
-        outs.append(tuple(t.clone() for t in _tensors(fn()) + tuple(keep)))
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        r = fn()
+        t1.record()
+        outs.append(tuple(t.clone() for t in _tensors(r) + tuple(keep)))
+    t1.synchronize()
+    if timed is not None:
+        timed["plain_ms"] = t0.elapsed_time(t1)
     restore()
     got, again, want = outs
     if len(got) != len(want):
@@ -2978,11 +3062,21 @@ def _held(what, kern, plain, keep=()) -> float:
 def _time_pair(name, shape, kern, plain, plain_reps=2, errs=None,
                keep=()) -> tuple:
     """(kernel ms, plain ms) in turns: plain, kernel, kernel, plain
-    (``plain_reps`` 1: one plain call a turn, no warm-up).  With ``errs``
-    the two are first held bit-equal on these inputs (``_held``, with
-    ``keep``) and ``errs[name]`` is the measured error."""
+    (``plain_reps`` 1: one plain call a turn, no warm-up; 0, with
+    ``errs``: the plain call of the hold, timed, and no other: a plain
+    version that takes tens of seconds).  With ``errs`` the two are first
+    held bit-equal on these inputs (``_held``, with ``keep``) and
+    ``errs[name]`` is the measured error."""
+    timed = {}
     if errs is not None:
-        errs[name] = _held(name, kern, plain, keep)
+        errs[name] = _held(name, kern, plain, keep, timed)
+    if plain_reps == 0:
+        k1 = cuda_ms(kern, reps=20)
+        k2 = cuda_ms(kern, reps=20)
+        p1 = p2 = timed["plain_ms"]
+        log(f"[time] {name} {shape}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+            f"{p1:.3f} ms (the hold's call)")
+        return min(k1, k2), p1
     light = dict(reps=1, warmup=0) if plain_reps == 1 else dict(reps=2)
     p1 = cuda_ms(plain, **light)
     k1 = cuda_ms(kern, reps=20)
@@ -3376,23 +3470,23 @@ def phase_sharded(paths: dict, errs: dict) -> dict:
 # tile caps 33-64: the kernels' 64-bit mask instantiations
 # ---------------------------------------------------------------------------
 
-WIDE_CAPS = (33, 48, 64)
+WIDE_CAPS = (33, 48, 64, 65, 128, 140, 256)
 RETILE_N = 1_048_576
 GS64 = (262_144, (1524.0, 524.0))  # the 1M-GS density on a quarter world
 
 
 def _pile_state(cap, uniform, world, cut, centre=None):
     """A small scene at ``cap`` on a ``world`` = (width, height) world: 0.6
-    particles a unit area spread over it and a pile of 4 x cap at
-    ``centre`` (default the world's centre) whose tiles fill every slot,
-    past slot 32; ``cut`` of the empty rows above the world dropped (one
-    stays as the ring), so TY is no multiple of any region.  Mixed radii
-    unless ``uniform``."""
+    particles a unit area spread over it and a pile of 4 x cap (8 x cap
+    past cap 64) at ``centre`` (default the world's centre) whose tiles
+    fill every slot, past slot 32; ``cut`` of the empty rows above the
+    world dropped (one stays as the ring), so TY is no multiple of any
+    region.  Mixed radii unless ``uniform``."""
     import numpy as np
     from gpu_physics_engine_torch import SimConfig
     from gpu_physics_engine_torch.ops import tiled
     w, h = world
-    spread, pile = int(0.6 * w * h), 4 * cap
+    spread, pile = int(0.6 * w * h), (4 if cap <= 64 else 8) * cap
     n = spread + pile
     cfg = SimConfig(max_particles=n, initial_particles=n, world_width=w,
                     world_height=h, pipeline="tiled", tile_cap=cap,
@@ -3448,20 +3542,29 @@ def _slab_wide(cap, errs: dict) -> None:
 
 
 def _wide_kernels(errs: dict) -> None:
-    """The kernels' 64-bit mask instantiations against their plain
-    versions, bit-equal and on repeat, at caps 33, 48 and 64, on pile
-    scenes whose tiles fill every slot: K1 and K3 (uniform and general
-    radius) on a grid smaller than one region (12 x 5 world: [cap, 8, 8])
-    and on a ragged one ([cap, 21, 39]), and on a halo-extended slab; there
-    K2 in every matching mode with hysteresis on and off, and K4; on the
-    ragged grid K2-par (origins 0 and -1, one launch and one per parity)
-    and relocate_mega (== K2-par), each matching mode under the config's
-    hysteresis; K5 and K5-par (K 16, with and without a radius plane) and
-    K6's window flat and K6-par's at origins 0 and -1 (colors 1..c, with
-    and without the tail) on a 40 x 30 GS scene whose cluster fills every
-    slot of its tiles."""
+    """The kernels' 64-bit and four-word mask instantiations against their
+    plain versions, bit-equal and on repeat, at caps 33, 48, 64, 65, 128,
+    140 and 256, on pile scenes whose tiles fill every slot: K1 and K3
+    (uniform and general radius) on a grid smaller than one region (12 x 5
+    world: [cap, 8, 8]) and on a ragged one ([cap, 21, 39]), and on a
+    halo-extended slab; there K2 in every matching mode with hysteresis on
+    and off, and K4; on the ragged grid K2-par (origins 0 and -1, one
+    launch and one per parity) and relocate_mega (== K2-par), each matching
+    mode under the config's hysteresis; K5 and K5-par (K 16, with and
+    without a radius plane) and K6's window flat and K6-par's at origins 0
+    and -1 (colors 1..c, with and without the tail) on a 40 x 30 GS scene
+    whose cluster fills every slot of its tiles.  The greedy matching's
+    plain version takes cap^2 x 8 Python steps (about 22 s a call at cap
+    140, 65 s at 256), so past cap 64 K2 runs greedy on the small grid at
+    caps 65 and 140 (the four-word masks' words 0-2), and K2-par and
+    relocate_mega flip and flip2 (their greedy past cap 64:
+    tests/test_torch_cuda.py at cap 65); flip and flip2 run everywhere.
+    Then K past 16 (the sel rank, the colors' ranks past the registers):
+    K5, K5-par and the windows at K 17 (with and without a radius plane),
+    32 and 64 at cap 16, and at K 64 at cap 140 (uniform radius)."""
     from gpu_physics_engine_torch.ops import tiled
     matches = [(m, -1.0) for m in ("flip", "flip2", "greedy")]
+    no_greedy = [(m, h) for m, h in MODES if m != "greedy"]
     for cap in WIDE_CAPS:
         for shape, world, cut in (("small", (12.0, 5.0), 0),
                                   ("ragged", (80.0, 33.0), 3)):
@@ -3470,12 +3573,19 @@ def _wide_kernels(errs: dict) -> None:
             _, st_g = _pile_state(cap, False, world, cut)
             check_k1_k3(label, cfg, st_u, st_g, errs)
             gcfg = cfg.replace(tiled_uniform_radius=False)
-            check_relocate(label, gcfg, st_g, MODES, errs)
+            if cap <= 64 or shape == "small" and cap == 65:
+                modes = MODES
+            elif shape == "small" and cap == 140:
+                modes = no_greedy + [("greedy", -1.0)]
+            else:
+                modes = no_greedy
+            check_relocate(label, gcfg, st_g, modes, errs)
             check_relocate_one(label, gcfg, st_g, errs)
             if shape == "ragged":
-                check_relocate_par(label, gcfg, st_g, matches, errs)
+                par = matches if cap <= 64 else matches[:2]
+                check_relocate_par(label, gcfg, st_g, par, errs)
                 log(f"[mega] {label}: "
-                    + check_relocate_mega(label, cfg, st_u, matches, errs))
+                    + check_relocate_mega(label, cfg, st_u, par, errs))
         _slab_wide(cap, errs)
         for uniform in (False, True):
             gcfg, gst = _gs_ragged_state(cap, 16, uniform, 3000,
@@ -3486,18 +3596,34 @@ def _wide_kernels(errs: dict) -> None:
                            seed=cap)
             check_rank(f"cap{cap}-K16", gcfg, gst, errs)
             check_window(f"cap{cap}-K16", gcfg, gst, errs)
+    for cap, K, radii in ((16, 17, (False, True)), (16, 32, (True,)),
+                          (16, 64, (True,)), (140, 64, (True,))):
+        for uniform in radii:
+            gcfg, gst = _gs_ragged_state(cap, K, uniform, 3000,
+                                         (40.0, 30.0), jam_sd=0.6)
+            gst = jittered(gst, 0.3 * tiled.tile_geometry(gcfg)[0],
+                           seed=K)
+            check_rank(f"cap{cap}-K{K}", gcfg, gst, errs)
+            check_window(f"cap{cap}-K{K}", gcfg, gst, errs)
 
 
-def _wide_path(label, e, n, steps, expect, paths, errs, key, smi) -> dict:
+def _wide_path(label, e, n, steps, expect, paths, errs, key, smi,
+               band=None) -> dict:
     """8 warm-up steps of ``e`` (cap past 32), then ``steps`` steps with
     the launch counts zeroed just before, which must equal ``expect`` just
     after; every pid kept, finite, inside the world; ms/step (CUDA
     events), the idle share and launches a step over 8 more steps
-    (``profile_run``); then K2 (the engine's match and hysteresis) on the
-    final state against its plain version, twice, bit-equal.  Returns the
-    time rows {name[key]: (kernel ms, plain ms, bound)} of K1 on the final
-    state and K2 on it jittered by 0.3 tile, each held bit-equal, twice,
-    to its plain version on those inputs first."""
+    (``profile_run``, a window that holds every K1 launch, else fail);
+    then
+    up to cap 64 K2 (the engine's match and hysteresis) on the final state
+    against its plain version, twice, bit-equal.  Returns the time rows
+    {name[key]: (kernel ms, plain ms, bound)} of K1 on the final state and
+    K2 on it jittered by 0.3 tile, each held bit-equal, twice, to its plain
+    version on those inputs first (past cap 64 the plain K2's time is its
+    call in the hold: the greedy plan's plain version takes 20 s a call
+    there).  ``band`` = (row0, row1): K2's plain comparison and its time row
+    take those tile rows of the state, and K2's time on the whole state is
+    logged beside."""
     import torch
     from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
     from gpu_physics_engine_torch.utils.profiling import profile_run
@@ -3523,27 +3649,27 @@ def _wide_path(label, e, n, steps, expect, paths, errs, key, smi) -> dict:
         calls = sum(k["calls"] for k in rows)
         return sum(k["ms"] for k in rows) / max(1, calls), calls
 
-    # a profiler window that lost kernel records (it has happened on the
-    # card machine) would understate the busy time: take the window again
-    # until it holds every K1 launch of its 8 steps and no more busy time
-    # than its span, at most three times, else fail.  Each window's two
-    # passes (16 steps) start clear of the periodic sweep, which runs at a
-    # step's start when the step count is a multiple of its interval.
+    # a profiler window that lost kernel records would understate the busy
+    # time: take the window again, with a wider pad (kernel_window), until
+    # it holds every K1 launch of its 8 steps and no more busy time than
+    # its span, at most three times, else fail.  Each window's two passes
+    # (16 steps) start clear of the periodic sweep, which runs at a step's
+    # start when the step count is a multiple of its interval.
     iv = e._sweep_interval
-    for tries in range(1, 4):
+    for tries, pad in enumerate(PADS, 1):
         k = e._steps_done % iv if iv else 1
         if iv and (k == 0 or k + 16 > iv):
             e.run(iv - k + 1 if k else 1)  # the sweep, then one step
-        prof = profile_run(e, 8)
+        prof = profile_run(e, 8, pad_s=pad)
         k1_ms, k1_n = per_launch(prof, "collide_integrate_kernel")
         if k1_n == 8 * cfg.substeps and prof["idle_share"] >= 0.0:
+            k2_ms, k2_n = per_launch(prof, "relocate_window_kernel")
             break
     else:
-        raise AssertionError(f"{label}: three profiler windows of 8 steps, "
-                             f"the last with {k1_n} of {8 * cfg.substeps} "
-                             f"K1 launches, idle share "
-                             f"{prof['idle_share']:.4f}")
-    k2_ms, k2_n = per_launch(prof, "relocate_window_kernel")
+        raise AssertionError(
+            f"{label}: three profiler windows of 8 steps (pads {PADS} s), "
+            f"the last with {k1_n} of {8 * cfg.substeps} K1 launches, idle "
+            f"share {prof['idle_share']:.4f}")
     log(f"[{label}] cap {cfg.tile_cap} x {list(e.state.dims[1:])} (tile "
         f"edge {tiled.tile_geometry(cfg)[0]:.3f}) match {cfg.tiled_match} "
         f"uniform radius {cfg.tiled_uniform_radius}: {steps} steps, "
@@ -3556,13 +3682,24 @@ def _wide_path(label, e, n, steps, expect, paths, errs, key, smi) -> dict:
         f"{prof['idle_share']:.4f}, {prof['device_launches'] / 8:.2f} "
         f"launches a step; K1 {k1_ms:.4f} ms a launch ({k1_n}), K2 "
         f"{k2_ms:.4f} ms a launch ({k2_n}) in the step (profiler window "
-        f"{tries} of 3)")
+        f"{tries} of 3, pad {pad} s)")
     st = e.state
     prm = e.params().as_tensor("cuda", 1.0 / cfg.substeps)
-    check_relocate(f"{label} in-step", cfg, st,
-                   [(cfg.tiled_match, cfg.tiled_hysteresis)], errs, jitter=0)
     moved = jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=2)
     dims = list(st.dims)
+    if band is not None:
+        whole = cuda_ms(lambda: tk.relocate_pull_cuda(moved, cfg), reps=20)
+        log(f"[{label}] K2 on the whole jittered state {dims}: {whole:.4f} "
+            f"ms a launch; its plain comparisons on tile rows {band[0]}-"
+            f"{band[1] - 1}")
+        st, moved = (s.replace(**{f: getattr(s, f)[:, band[0]:band[1]]
+                                  .contiguous() for f in tiled.FIELDS})
+                     for s in (st, moved))
+    if cfg.tile_cap <= tk.WIDE_CAP:  # past it the hold below is K2's
+        check_relocate(f"{label} in-step", cfg, st,
+                       [(cfg.tiled_match, cfg.tiled_hysteresis)], errs,
+                       jitter=0)
+    st = e.state
     return {
         f"collide_integrate[{key}]": _time_pair(
             f"collide_integrate[{key}]", dims,
@@ -3571,10 +3708,10 @@ def _wide_path(label, e, n, steps, expect, paths, errs, key, smi) -> dict:
             errs=errs)
         + (_k1_bound(cfg, st),),
         f"relocate_pull[{key}]": _time_pair(
-            f"relocate_pull[{key}]", dims,
+            f"relocate_pull[{key}]", list(moved.dims),
             lambda: tk.relocate_pull_cuda(moved, cfg),
-            lambda: tk.relocate_pull_plain(moved, cfg), plain_reps=1,
-            errs=errs)
+            lambda: tk.relocate_pull_plain(moved, cfg),
+            plain_reps=0 if cfg.tile_cap > tk.WIDE_CAP else 1, errs=errs)
         + (_k2_bound(moved),)}
 
 
@@ -3676,52 +3813,86 @@ def _cap36_1m(smi, paths, errs) -> dict:
     return rows
 
 
-def _refused_4m() -> None:
-    """The 4M engine with tiled_spawn="retile": ``spawn_at`` must raise,
-    naming the scene's cap (past 64) and the limit 64, and leave the
-    engine as it was (config, planes, particles); it then steps on at its
-    cap with every particle."""
-    import re
+def _retile_4m(smi, paths, errs) -> dict:
+    """The 4M engine with tiled_spawn="retile": ``spawn_at`` on the seeded
+    scene re-tiles for radius 3 at the cap the scene gives (``_auto_cap``
+    on the exported particles: 140 on [140, 168, 464]; after 64 steps the
+    scene gives 108), then ``_wide_path`` (K1's general form every step,
+    K2 every 2nd), K2's plain comparisons on a band of tile rows through
+    the spawn."""
     import torch
     from gpu_physics_engine_torch import make_tuned_engine
+    from gpu_physics_engine_torch.core.tiled_engine import _auto_cap
+    from gpu_physics_engine_torch.ops import tiled
     n = 4_194_304
     e = make_tuned_engine(n, tiled_spawn="retile", device="cuda")
-    cfg, dims = e.config, e.state.dims
-    before = {f: getattr(e.state, f).clone() for f in ("x", "y", "pid")}
-    try:
-        e.spawn_at(CENTRE, verbose=False)
-    except ValueError as err:
-        msg = str(err)
-    else:
-        raise AssertionError("4M-retile: the spawn past cap 64 was not "
-                             "refused")
-    m = re.match(r"tile_cap (\d+) outside 1\.\.64", msg)
-    if m is None or int(m.group(1)) <= 64:
-        raise AssertionError(f"4M-retile: refused with {msg!r}")
-    same = all(torch.equal(v, getattr(e.state, f)) for f, v in
-               before.items())
-    if (e.config != cfg or e.state.dims != dims or not same
-            or e.num_particles() != n):
-        raise AssertionError("4M-retile: the refused spawn changed the "
-                             "engine")
-    e.run(16)
-    _check_engine(e, n, "4M-retile refused")
-    log(f"[4M-retile] spawn_at refused before any change: {msg!r}; the "
-        f"engine stepped on 16 steps at cap {e.config.tile_cap} x "
-        f"{list(e.state.dims[1:])} with all {n} pids, finite, inside")
+    cap0, dims0 = e.config.tile_cap, list(e.state.dims)
+    pos = tiled.export_particles(e.state)[1]
+    want = _auto_cap(e.config.replace(tile_max_radius=3.0,
+                                      tile_multiplier=2.2, tile_cap=0), pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e.spawn_at(CENTRE, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    dims = list(e.state.dims)
+    if (e.num_particles() != n + 100 or e.config.tiled_uniform_radius
+            or dims != [want, 168, 464] or want != 140):
+        raise AssertionError(f"4M-retile: {e.num_particles()} particles, "
+                             f"dims {dims}, _auto_cap {want}, uniform "
+                             f"radius {e.config.tiled_uniform_radius}")
+    log(f"[4M-retile] the seeded scene at {dims0}, spawn_at({CENTRE}) of 100 "
+        f"particles of radius 1-3: re-tiled to {dims} (tile edge "
+        f"{e.cell_size():.3f}; _auto_cap of the exported scene {want}), "
+        f"tiled_uniform_radius off, {n + 100} particles; the spawn with its "
+        f"re-tile took {secs:.2f} s on the host (cap was {cap0})")
+    row = int(CENTRE[1] / e.cell_size()) + 1
+    return _wide_path("4M-retile", e, n + 100, 128,
+                      {"collide_integrate": 128, "relocate_pull": 64,
+                       "collide": 0}, paths, errs, "cap140", smi,
+                      band=(row - 16, row + 16))
 
 
-def _gs_cap64(paths, errs) -> dict:
-    """The GS engine at cap 64 (tile_cap set by hand: no tuned GS row
-    reaches past 32) on 262,144 particles over a 1524 x 524 world (the
-    1M-GS scene's density): one flat frame from the seeded scene, then 16
-    steps in the flat, par and mega layouts from that state, each with its
-    launch counts (K5, K6, K2 / K5-par, K6-par, K2-par / K5-par,
-    colors_mega, relocate_mega), the three final states bit-equal.
-    Returns the time rows {name[cap64]: (kernel ms, plain ms, bound)} of
-    K5 and K6 (flat) and the parity kernels on the seeded frame's state,
-    each held bit-equal, twice, to its plain version on those inputs
-    first."""
+def _spawn_ready_1m(smi, paths, errs) -> dict:
+    """JAX's spawn-ready 1M tiling: make_tuned_engine(1_048_576,
+    tile_max_radius=3.0, tile_cap=0) (the cap from the scene: 144), a
+    spawn whose radii 1-3 fit its tiles (into the tiles, K1's general form
+    from there), then ``_wide_path``."""
+    import torch
+    from gpu_physics_engine_torch import make_tuned_engine
+    n = RETILE_N
+    t0 = time.perf_counter()
+    e = make_tuned_engine(n, tile_max_radius=3.0, tile_cap=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[1M-spawn-ready] make_tuned_engine({n}, tile_max_radius=3.0, "
+        f"tile_cap=0): cap {e.config.tile_cap} x {list(e.state.dims[1:])} "
+        f"from the scene, built in {time.perf_counter() - t0:.2f} s")
+    dims = list(e.state.dims)
+    e.spawn_at(CENTRE, verbose=False)
+    if (e.num_particles() != n + 100 or list(e.state.dims) != dims
+            or e.big is not None and int(e.big.num_active)):
+        raise AssertionError(f"1M-spawn-ready: the spawn went elsewhere "
+                             f"than the tiles ({e.num_particles()} "
+                             f"particles, dims {list(e.state.dims)})")
+    log(f"[1M-spawn-ready] spawn_at({CENTRE}): 100 particles of radius 1-3 "
+        f"into the tiles, tiled_uniform_radius "
+        f"{e.config.tiled_uniform_radius}")
+    return _wide_path("1M-spawn-ready", e, n + 100, 128,
+                      {"collide_integrate": 128, "relocate_pull": 32,
+                       "collide": 0}, paths, errs, "cap144", smi)
+
+
+def _gs_wide(tag, key, cap, K, paths, errs) -> dict:
+    """The GS engine at ``cap`` with max_occupancy ``K`` (both set by hand:
+    no tuned GS row reaches past cap 32 or K 8) on 262,144 particles over a
+    1524 x 524 world (the 1M-GS scene's density): one flat frame from the
+    seeded scene, then 16 steps in the flat, par and mega layouts from that
+    state (``tag``, ``tag``-par, ``tag``-mega), each with its launch counts
+    (K5, K6, K2 / K5-par, K6-par, K2-par / K5-par, colors_mega,
+    relocate_mega), the three final states bit-equal.  Returns the time
+    rows {name[key]: (kernel ms, plain ms, bound)} of K5 and K6 (flat) and
+    the parity kernels on the seeded frame's state, each held bit-equal,
+    twice, to its plain version on those inputs first."""
     import torch
     from gpu_physics_engine_torch import TiledEngine
     from gpu_physics_engine_torch.core.tuned import gs_config
@@ -3729,7 +3900,8 @@ def _gs_cap64(paths, errs) -> dict:
     n, (w, h) = GS64
 
     def cfg_of(layout):
-        kw = dict(world_width=w, world_height=h, tile_cap=64)
+        kw = dict(world_width=w, world_height=h, tile_cap=cap,
+                  max_occupancy=K)
         if layout == "mega":
             return gs_config(n, gs_layout="par", gs_colors_mega=True,
                              gs_relocate_mega=True, **kw)
@@ -3741,15 +3913,15 @@ def _gs_cap64(paths, errs) -> dict:
     del seed
     runs = {}
     for layout in ("flat", "par", "mega"):
-        tag = "GS-cap64" if layout == "flat" else f"GS-cap64-{layout}"
+        name = tag if layout == "flat" else f"{tag}-{layout}"
         runs[layout] = phase_engine(
             lambda: TiledEngine(cfg_of(layout), chunk=64,
                                 initial_state=_clone(start)),
-            n, [(16, None)], tag, _gs_expect(16, layout))
-        paths[tag] = runs[layout]["launches"]
+            n, [(16, None)], name, _gs_expect(16, layout))
+        paths[name] = runs[layout]["launches"]
     for layout in ("par", "mega"):
-        cross_check("GS-cap64", runs["flat"]["engine"],
-                    runs[layout]["engine"], layout)
+        cross_check(tag, runs["flat"]["engine"], runs[layout]["engine"],
+                    layout)
     del runs
     torch.cuda.empty_cache()
     cfg, st = flat, start
@@ -3768,29 +3940,40 @@ def _gs_cap64(paths, errs) -> dict:
         timed[name] = (kern, plain, keep[0] if keep else ())
     rows = {}
     for name, (kern, plain, keep) in timed.items():
-        rows[f"{name}[cap64]"] = _time_pair(
-            f"{name}[cap64]", list(st.dims), kern, plain, plain_reps=1,
+        rows[f"{name}[{key}]"] = _time_pair(
+            f"{name}[{key}]", list(st.dims), kern, plain, plain_reps=1,
             errs=errs, keep=keep) + (b[name],)
     return rows
 
 
 def phase_wide_caps(smi: str, paths: dict, errs: dict) -> dict:
-    """Tile caps 33-64 on the card (the kernels' 64-bit mask
-    instantiations): ``check_window_formula`` (run first, in main) holds
-    the window bytes at every cap 1-64; ``_wide_kernels`` holds every
-    kernel at caps 33, 48 and 64; then the engine paths past cap 32:
-    1M-retile, 1M-cap36 (with K3's and K4's paths), the refused 4M
-    re-tile and the GS engine at cap 64.  Returns their time rows."""
+    """Tile caps 33-256 and K past 16 on the card (the kernels' 64-bit and
+    four-word mask instantiations, the sel rank, the colors' deep ranks and
+    their one-color schedule): ``check_window_formula`` (run first, in
+    main) holds the window bytes at every cap 1-256 and K 1-64;
+    ``_wide_kernels`` holds every kernel at caps 33-256 and K 17-64; then
+    the engine paths past cap 32: 1M-retile, 1M-cap36 (with K3's and K4's
+    paths), 4M-retile (cap 140), 1M-spawn-ready (cap 144), and the GS
+    engine at cap 64, at cap 128 and at K 32.  Returns their time rows."""
     import torch
+    t0 = time.perf_counter()
     _wide_kernels(errs)
-    rows = _retile_1m(smi, paths, errs)
-    torch.cuda.empty_cache()
-    rows.update(_cap36_1m(smi, paths, errs))
-    torch.cuda.empty_cache()
-    _refused_4m()
-    torch.cuda.empty_cache()
-    rows.update(_gs_cap64(paths, errs))
-    torch.cuda.empty_cache()
+    log(f"[caps] the kernels at caps 33-256 and K 17-64: "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows = {}
+    for path in (_retile_1m, _cap36_1m, _retile_4m, _spawn_ready_1m):
+        t1 = time.perf_counter()
+        rows.update(path(smi, paths, errs))
+        torch.cuda.empty_cache()
+        log(f"[caps] {path.__name__}: {time.perf_counter() - t1:.1f} s")
+    for tag, key, cap, K in (("GS-cap64", "cap64", 64, 8),
+                             ("GS-cap128", "cap128", 128, 8),
+                             ("GS-K32", "K32", 16, 32)):
+        t1 = time.perf_counter()
+        rows.update(_gs_wide(tag, key, cap, K, paths, errs))
+        torch.cuda.empty_cache()
+        log(f"[caps] {tag}: {time.perf_counter() - t1:.1f} s")
+    log(f"[caps] phase {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -3803,9 +3986,15 @@ def main() -> int:
     from gpu_physics_engine_torch import TiledEngine, make_tuned_engine
     from gpu_physics_engine_torch.core.tuned import gs_config
 
+    t0 = time.perf_counter()
+
+    def clock(what):  # seconds since the start, after each phase
+        log(f"[clock] {what}: {time.perf_counter() - t0:.1f} s")
+
     smi = phase_environment()
     phase_build()
     check_window_formula()
+    clock("build, window bytes")
 
     errs: dict = {}
     jacobi = []
@@ -3820,6 +4009,7 @@ def main() -> int:
     big_cfg, big_state = jacobi[0][1:]
     del jacobi
     phase_tile_division(big_cfg, big_state)
+    clock("Jacobi kernels, tile division")
 
     gs = []
     for label, n in (("1M-GS", 1_048_576), ("4M-GS", 4_194_304)):
@@ -3829,6 +4019,7 @@ def main() -> int:
     phase_gs_kernels(gs, errs)
     phase_par_kernels(gs, errs)
     phase_fused_kernels(gs, big_cfg, big_state, errs)
+    clock("GS, parity and fused kernels")
     gs_cfg, gs_state = gs[0][1:]
     del gs
     torch.cuda.empty_cache()
@@ -3857,13 +4048,18 @@ def main() -> int:
         check_relocate(f"{label} in-step", run["engine"].config,
                        run["engine"].state, MODES, errs, jitter=0)
         del run
+    clock("Jacobi paths, spawn")
 
     phase_gs_paths(paths, errs)
+    clock("GS paths")
     phase_k4_path(paths)
     phase_render(smi, paths)
+    clock("K4 path, render")
     radix_keys = phase_array_kernels(errs)
     phase_array_paths(paths)
+    clock("array kernels and paths")
     phase_options(paths, saved)
+    clock("options")
     run = phase_engine(
         lambda: make_tuned_engine(4_194_304, device="cuda",
                                   tiled_fuse_integrate=False),
@@ -3873,8 +4069,11 @@ def main() -> int:
     del run
     torch.cuda.empty_cache()
     phase_apps(smi, paths, errs)
+    clock("unfused, apps")
     sharded = phase_sharded(paths, errs)
+    clock("sharded")
     wide = phase_wide_caps(smi, paths, errs)
+    clock("caps")
 
     times, library = phase_times(big_cfg, big_state, gs_cfg, gs_state,
                                  radix_keys)
@@ -3897,6 +4096,7 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": times[name][0],
             "plain_ms": times[name][1], "bound_ms": bound[name][0],
             "bound_by": bound[name][1], "library_ms": library.get(name)})
+    clock("times, bounds")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

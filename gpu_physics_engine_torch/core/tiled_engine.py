@@ -55,7 +55,7 @@ import torch
 
 from gpu_physics_engine_torch.core.config import SimConfig
 from gpu_physics_engine_torch.core.state import ParamCache, StepParams
-from gpu_physics_engine_torch.ops import bigs, gs_parity, tiled
+from gpu_physics_engine_torch.ops import bigs, gs_kernels, gs_parity, tiled
 from gpu_physics_engine_torch.ops.tiled_kernels import (check_card_cap,
                                                         grown_cap)
 from gpu_physics_engine_torch.ops.spawn import ring_burst
@@ -101,6 +101,8 @@ class TiledEngine:
         else:
             self.device = default_device(device)
         self.config = config
+        if config.tiled_solver == "gs":
+            gs_kernels.check_card_k(config.max_occupancy, self.device)
         self._gen = torch.Generator().manual_seed(int(seed))
         if initial_state is None:
             n = config.initial_particles
@@ -356,8 +358,8 @@ class TiledEngine:
     def _watchdog(self):
         """Detect a growing stale-pair population at run() boundaries and
         escalate: forced exact sweep -> hysteresis off -> +1 slot capacity
-        (repeatable, with a futility check; held at the card's limit, cap 64
-        on a CUDA device, where the sweep still runs).  Each escalation prints and
+        (repeatable, with a futility check; held at the card's limit, cap
+        256 on a CUDA device, where the sweep still runs).  Each escalation prints and
         increments ``watchdog_events``."""
         cfg = self.config
         if not cfg.tiled_watchdog:
@@ -448,7 +450,7 @@ class TiledEngine:
     def _maybe_grow_cap(self, steps: int, overflow_before: int):
         """config.tiled_auto_cap_pct: re-tile with +1 slot capacity when the
         deferred population over the finished run() window exceeds it (on
-        a CUDA device not past cap 64: the cap is held there)."""
+        a CUDA device not past cap 256: the cap is held there)."""
         pct_bound = self.config.tiled_auto_cap_pct
         if not pct_bound or steps <= 0:
             return

@@ -40,6 +40,31 @@ int launch_rank_k(const float* x, const float* y, const float* rad,
   return (int)cudaGetLastError();
 }
 
+// The sel kernel's grid and launch (K past 16 or cap past 64).
+dim3 sel_grid(const gpe::FlatLayout& l, int cls) {
+  const int RY = gpe::sel_rows(cls), RX = gpe::sel_cols(cls);
+  return dim3((l.TX + RX - 1) / RX, (l.TY + RY - 1) / RY);
+}
+dim3 sel_grid(const gpe::ParLayout& l, int cls) {
+  const int SY = gpe::sel_rows(cls) / 2, SX = gpe::sel_cols(cls) / 2;
+  return dim3((l.DX + SX - 1) / SX, (l.DY + SY - 1) / SY);
+}
+
+template <class M, class L, bool MASK>
+int launch_sel(const float* x, const float* y, const float* rad,
+               const int* pid, int* src, int* rpid, float* rrad, int* count,
+               int cap, const L& lay, int np, int K, float t, float r0,
+               cudaStream_t s) {
+  const int smem = gpe::rank_bytes(cap, rad == nullptr, K);
+  const cudaError_t rc =
+      gpe::allow_smem(gpe::gs_rank_sel_kernel<M, L, MASK>, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  gpe::gs_rank_sel_kernel<M, L, MASK>
+      <<<sel_grid(lay, gpe::mask_class<M>()), gpe::kSelThreads, smem, s>>>(
+          x, y, rad, pid, src, rpid, rrad, count, cap, lay, np, K, t, r0);
+  return (int)cudaGetLastError();
+}
+
 template <class L, bool MASK>
 int launch_rank(const void* x, const void* y, const void* rad,
                 const void* pid, void* src, void* rpid, void* rrad,
@@ -48,7 +73,8 @@ int launch_rank(const void* x, const void* y, const void* rad,
   if (K < 1 || K > gpe::kGsMaxK || cap < 1 || cap > gpe::kMaxCap ||
       lay.TY < 1 || lay.TX < 1)
     return (int)cudaErrorInvalidValue;
-  // the K-deep list's registers by K, the mask word by cap
+  // the K-deep list's registers by K, the mask word by cap; past K 16 or
+  // cap 64 the sel kernel, the mask word by cap
   using Fn = int (*)(const float*, const float*, const float*, const int*,
                      int*, int*, float*, int*, int, const L&, int, int, float,
                      float, cudaStream_t);
@@ -57,7 +83,12 @@ int launch_rank(const void* x, const void* y, const void* rad,
        &launch_rank_k<8, gpe::Mask64, L, MASK>},
       {&launch_rank_k<16, unsigned, L, MASK>,
        &launch_rank_k<16, gpe::Mask64, L, MASK>}};
-  const Fn launch = table[K <= 8 ? 0 : 1][cap > gpe::kNarrowCap ? 1 : 0];
+  static constexpr Fn sel[3] = {&launch_sel<unsigned, L, MASK>,
+                                &launch_sel<gpe::Mask64, L, MASK>,
+                                &launch_sel<gpe::Mask256, L, MASK>};
+  const Fn launch = gpe::rank_sel(cap, K)
+                        ? sel[gpe::cap_class(cap)]
+                        : table[K <= 8 ? 0 : 1][cap > gpe::kNarrowCap ? 1 : 0];
   return launch(static_cast<const float*>(x), static_cast<const float*>(y),
                 static_cast<const float*>(rad), static_cast<const int*>(pid),
                 static_cast<int*>(src), static_cast<int*>(rpid),
@@ -89,18 +120,76 @@ int launch_window_k(const gpe::GsWindowArgs& a, const L& lay,
   return (int)cudaGetLastError();
 }
 
+// gs_colors_span_kernel at class CLS over colors c0 .. a.c1.
+template <int KMAX, int CLS, class L>
+int launch_span_k(const gpe::GsWindowArgs& a, const L& lay, int c0,
+                  cudaStream_t s) {
+  const int smem = gpe::gs_window_bytes(a.cap, a.c1 >= c0 ? a.c1 - c0 + 1
+                                                           : 0);
+  const cudaError_t rc =
+      gpe::allow_smem(gpe::gs_colors_span_kernel<KMAX, CLS, L>, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  gpe::gs_colors_span_kernel<KMAX, CLS, L>
+      <<<window_grid(lay, gpe::gs_window_ry(CLS), gpe::gs_window_rx(CLS)),
+         gpe::kGsWinThreads, smem, s>>>(a, lay, c0);
+  return (int)cudaGetLastError();
+}
+
+// K past 16 at caps up to 64: the span kernel over the whole solve.
+template <int CLS, class L>
+int launch_deep_k(const gpe::GsWindowArgs& a, const L& lay, cudaStream_t s) {
+  return launch_span_k<gpe::kGsMaxK, CLS, L>(a, lay, 1, s);
+}
+
+// Caps past 64 (class 5): colors 1 .. c1 a launch each (no color: one
+// launch, the copy and the tail), through the scratch planes (sx, sy) so
+// that the last launch writes (ox, oy); only the last runs the tail.
+template <int KMAX, class L>
+int launch_one_k(const gpe::GsWindowArgs& a, const L& lay, float* sx,
+                 float* sy, cudaStream_t s) {
+  const int n = a.c1 > 0 ? a.c1 : 1;
+  if (n > 1 && (!sx || !sy)) return (int)cudaErrorInvalidValue;
+  gpe::GsWindowArgs b = a;
+  for (int c = 1; c <= n; ++c) {
+    float* ox = (n - c) % 2 == 0 ? a.ox : sx;
+    float* oy = (n - c) % 2 == 0 ? a.oy : sy;
+    b.ox = ox;
+    b.oy = oy;
+    b.c1 = a.c1 > 0 ? c : 0;
+    b.integ = a.integ && c == n;
+    const int rc =
+        launch_span_k<KMAX, gpe::kGsOneClass, L>(b, lay, a.c1 > 0 ? c : 1, s);
+    if (rc != 0) return rc;
+    b.x = ox;
+    b.y = oy;
+  }
+  return (int)cudaSuccess;
+}
+
 template <class L>
-int launch_window(const gpe::GsWindowArgs& a, const L& lay, void* stream) {
+int launch_window(const gpe::GsWindowArgs& a, const L& lay, float* sx,
+                  float* sy, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int cls = gpe::gs_window_class(a.cap);
+  if (cls == gpe::kGsOneClass) {
+    using One = int (*)(const gpe::GsWindowArgs&, const L&, float*, float*,
+                        cudaStream_t);
+    static constexpr One one[3] = {&launch_one_k<8, L>, &launch_one_k<16, L>,
+                                   &launch_one_k<gpe::kGsMaxK, L>};
+    return one[a.K <= 8 ? 0 : a.K <= gpe::kGsRegK ? 1 : 2](a, lay, sx, sy,
+                                                           st);
+  }
   using Fn = int (*)(const gpe::GsWindowArgs&, const L&, cudaStream_t);
-  static constexpr Fn table[2][gpe::kGsWinClasses] = {
+  static constexpr Fn table[3][gpe::kGsWinClasses] = {
       {&launch_window_k<8, 0, L>, &launch_window_k<8, 1, L>,
        &launch_window_k<8, 2, L>, &launch_window_k<8, 3, L>,
        &launch_window_k<8, 4, L>},
       {&launch_window_k<16, 0, L>, &launch_window_k<16, 1, L>,
        &launch_window_k<16, 2, L>, &launch_window_k<16, 3, L>,
-       &launch_window_k<16, 4, L>}};
-  return table[a.K <= 8 ? 0 : 1][gpe::gs_window_class(a.cap)](
-      a, lay, static_cast<cudaStream_t>(stream));
+       &launch_window_k<16, 4, L>},
+      {&launch_deep_k<0, L>, &launch_deep_k<1, L>, &launch_deep_k<2, L>,
+       &launch_deep_k<3, L>, &launch_deep_k<4, L>}};
+  return table[a.K <= 8 ? 0 : a.K <= gpe::kGsRegK ? 1 : 2][cls](a, lay, st);
 }
 
 }  // namespace
@@ -108,7 +197,7 @@ int launch_window(const gpe::GsWindowArgs& a, const L& lay, void* stream) {
 extern "C" {
 
 // K5: src/rpid int32 [K, TY, TX], rrad float [K, TY, TX], count int32
-// [TY, TX].  1 <= K <= 16, 1 <= cap <= 64.
+// [TY, TX].  1 <= K <= 64, 1 <= cap <= 256.
 int gpe_gs_rank(const void* x, const void* y, const void* rad,
                 const void* pid, void* src, void* rpid, void* rrad,
                 void* count, int cap, int TY, int TX, int K, float t,
@@ -136,10 +225,10 @@ int gpe_gs_rank_par(const void* x, const void* y, const void* rad,
                                            stream);
 }
 
-// K5's shared-memory bytes at cap, with or without a radius plane, as the
-// launches above take them (either layout).
-int gpe_gs_rank_window_bytes(int cap, int uniform) {
-  return gpe::rank_window_bytes(cap, uniform != 0);
+// K5's shared-memory bytes at (cap, K), with or without a radius plane, as
+// the launches above take them (either layout).
+int gpe_gs_rank_window_bytes(int cap, int uniform, int K) {
+  return gpe::rank_bytes(cap, uniform != 0, K);
 }
 
 // K6, K6-par (K6-mx, K6-dec) and colors_mega: colors 1..c1 (0 <= c1 <=
@@ -150,13 +239,16 @@ int gpe_gs_rank_window_bytes(int cap, int uniform) {
 // par != 0: fields [4, cap, DY, DX], tables [4, K, DY, DX] with the given
 // origin.  rrad may be null: every valid rank has radius r0.  With integ,
 // pid, prm (device float[4]) and consts (host float[kVerletNumConsts] in
-// VerletConsts order) are read.  1 <= K <= 16, 1 <= cap <= 64.
+// VerletConsts order) are read.  1 <= K <= 64, 1 <= cap <= 256.  Past cap
+// 64 with two colors or more, sx and sy are scratch planes shaped as ox
+// (a launch a color, in turns through them); otherwise they may be null.
 int gpe_gs_colors_window(const void* x, const void* y, void* px, void* py,
                          const void* pid, const void* src, const void* rrad,
-                         const void* prm, void* ox, void* oy, int cap,
-                         int TY, int TX, int DY, int DX, int origin, int par,
-                         int K, int c1, float r0, float stiffness,
-                         int integ, const void* consts, void* stream) {
+                         const void* prm, void* ox, void* oy, void* sx,
+                         void* sy, int cap, int TY, int TX, int DY, int DX,
+                         int origin, int par, int K, int c1, float r0,
+                         float stiffness, int integ, const void* consts,
+                         void* stream) {
   if (K < 1 || K > gpe::kGsMaxK || cap < 1 || cap > gpe::kMaxCap ||
       c1 < 0 || c1 > gpe::kGsWinMaxColors || TY < 1 ||
       TX < 1 || (par && (DY < 1 || DX < 1)) ||
@@ -183,10 +275,12 @@ int gpe_gs_colors_window(const void* x, const void* y, void* px, void* py,
     const float* f = static_cast<const float*>(consts);
     a.vc = gpe::VerletConsts{f[0], f[1], f[2], f[3], f[4], f[5]};
   }
+  auto* fx = static_cast<float*>(sx);
+  auto* fy = static_cast<float*>(sy);
   if (par)
-    return launch_window(a, gpe::ParLayout{TY, TX, DY, DX, origin, 0},
-                         stream);
-  return launch_window(a, gpe::FlatLayout{TY, TX}, stream);
+    return launch_window(a, gpe::ParLayout{TY, TX, DY, DX, origin, 0}, fx,
+                         fy, stream);
+  return launch_window(a, gpe::FlatLayout{TY, TX}, fx, fy, stream);
 }
 
 // The window's shared-memory bytes at cap for a launch of `colors` colors,

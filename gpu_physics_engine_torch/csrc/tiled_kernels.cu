@@ -13,16 +13,17 @@ namespace {
 
 // K1 / K3: one block of kK1Threads threads per k1_rows x k1_cols tiles of
 // the mask word M's class, with the window's shared memory sized from cap
-// (past 48 KB from cap 10 uniform, cap 8 general).
+// (past 48 KB from cap 10 uniform, cap 8 general, and at every cap past
+// 32).
 template <class M, bool UNIFORM, bool CIRCLE, bool INTEGRATE>
 int launch_k1_m(const float* x, const float* y, const float* px,
                 const float* py, const float* rad, const int* pid,
                 const float* prm, float* ox, float* oy, float* opx,
                 float* opy, int cap, int TY, int TX, const gpe::K1Consts& c,
                 cudaStream_t s) {
-  constexpr bool wide = sizeof(M) == 8;
-  const dim3 grid((TX + gpe::k1_cols(wide) - 1) / gpe::k1_cols(wide),
-                  (TY + gpe::k1_rows(wide) - 1) / gpe::k1_rows(wide));
+  constexpr int cls = gpe::mask_class<M>();
+  const dim3 grid((TX + gpe::k1_cols(cls) - 1) / gpe::k1_cols(cls),
+                  (TY + gpe::k1_rows(cls) - 1) / gpe::k1_rows(cls));
   const int smem = gpe::k1_smem_bytes(cap, UNIFORM);
   const cudaError_t rc = gpe::allow_smem(
       gpe::collide_integrate_kernel<M, UNIFORM, CIRCLE, INTEGRATE>, smem);
@@ -33,7 +34,8 @@ int launch_k1_m(const float* x, const float* y, const float* px,
   return (int)cudaGetLastError();
 }
 
-// The cap's mask word: 32 bits up to cap 32, 64 bits for caps 33-64.
+// The cap's mask word: 32 bits up to cap 32, 64 bits for caps 33-64,
+// four 64-bit words for caps 65-256.
 template <bool UNIFORM, bool CIRCLE, bool INTEGRATE = true>
 int launch_k1(const float* x, const float* y, const float* px,
               const float* py, const float* rad, const int* pid,
@@ -42,28 +44,35 @@ int launch_k1(const float* x, const float* y, const float* px,
               cudaStream_t s) {
   if (cap < 1 || cap > gpe::kMaxCap || TY < 1 || TX < 1)
     return (int)cudaErrorInvalidValue;
-  auto* launch = cap > gpe::kNarrowCap
-                     ? &launch_k1_m<gpe::Mask64, UNIFORM, CIRCLE, INTEGRATE>
-                     : &launch_k1_m<unsigned, UNIFORM, CIRCLE, INTEGRATE>;
+  auto* launch =
+      cap > gpe::kWideCap
+          ? &launch_k1_m<gpe::Mask256, UNIFORM, CIRCLE, INTEGRATE>
+      : cap > gpe::kNarrowCap
+          ? &launch_k1_m<gpe::Mask64, UNIFORM, CIRCLE, INTEGRATE>
+          : &launch_k1_m<unsigned, UNIFORM, CIRCLE, INTEGRATE>;
   return launch(x, y, px, py, rad, pid, prm, ox, oy, opx, opy, cap, TY, TX,
                 c, s);
 }
 
-// The relocate window's grid: one block per region, 8 x 64 tiles on
-// FlatLayout, 4 x 32 cells of each sub-grid on ParLayout.
+// The relocate window's grid: one block per region of class C, 8 x 64
+// tiles on FlatLayout, 4 x 32 cells of each sub-grid on ParLayout (past cap
+// 64: 4 x 16 and 2 x 8).
+template <int C>
 dim3 window_grid(const gpe::FlatLayout& l) {
-  return dim3((l.TX + gpe::kK2WidthFlat - 1) / gpe::kK2WidthFlat,
-              (l.TY + gpe::kK2RowsFlat - 1) / gpe::kK2RowsFlat);
+  constexpr int R = gpe::k2_rows(false, C), W = gpe::k2_width(false, C);
+  return dim3((l.TX + W - 1) / W, (l.TY + R - 1) / R);
 }
+template <int C>
 dim3 window_grid(const gpe::ParLayout& l) {
-  return dim3((l.DX + gpe::kK2WidthPar - 1) / gpe::kK2WidthPar,
-              (l.DY + gpe::kK2RowsPar - 1) / gpe::kK2RowsPar);
+  constexpr int R = gpe::k2_rows(true, C), W = gpe::k2_width(true, C);
+  return dim3((l.DX + W - 1) / W, (l.DY + R - 1) / R);
 }
 
 // One launch of the relocate window (K2, K2-par, K4, relocate_mega), with
 // the step rule H and the mask word M: one block of k2_threads per region,
 // shared memory sized from cap (past 48 KB at every cap: 53,568 bytes at
-// cap 1, 85,312 at cap 32, 168,576 at cap 64, on either layout).
+// cap 1, 85,312 at cap 32, 168,576 at cap 64, 106,752 at cap 256, on
+// either layout).
 template <class M, class L, class H>
 int launch_window_m(const void* x, const void* y, const void* px,
                     const void* py, const void* rad, const void* pid,
@@ -75,8 +84,9 @@ int launch_window_m(const void* x, const void* y, const void* px,
   const cudaError_t rc =
       gpe::allow_smem(gpe::relocate_window_kernel<M, L, H>, smem);
   if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid = window_grid<gpe::mask_class<M>()>(lay);
   gpe::relocate_window_kernel<M, L, H>
-      <<<window_grid(lay), gpe::k2_threads<L>(), smem,
+      <<<grid, gpe::k2_threads<M, L>(), smem,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(x), static_cast<const float*>(y),
           static_cast<const float*>(px), static_cast<const float*>(py),
@@ -99,8 +109,9 @@ int launch_window(const void* x, const void* y, const void* px,
   if (cap < 1 || cap > gpe::kMaxCap || match < gpe::kFlip ||
       match > gpe::kGreedy || (rad == nullptr) != (orad == nullptr))
     return (int)cudaErrorInvalidValue;
-  auto* launch = cap > gpe::kNarrowCap ? &launch_window_m<gpe::Mask64, L, H>
-                                       : &launch_window_m<unsigned, L, H>;
+  auto* launch = cap > gpe::kWideCap     ? &launch_window_m<gpe::Mask256, L, H>
+                 : cap > gpe::kNarrowCap ? &launch_window_m<gpe::Mask64, L, H>
+                                         : &launch_window_m<unsigned, L, H>;
   return launch(x, y, px, py, rad, pid, ox, oy, opx, opy, orad, opid, defer,
                 cap, lay, p0, np, row0, gTY, gTX, match, home, stream);
 }

@@ -111,35 +111,40 @@ constexpr int kK1NumConsts = 14;
 // acc_y for every slot and stops; px, py, prm, opx and opy are unused.
 //
 // The mask word M is unsigned for caps up to 32, with a region of 8 x 32
-// tiles and a thread per tile, and Mask64 for caps 33-64, with a region of
+// tiles and a thread per tile; Mask64 for caps 33-64, with a region of
 // 4 x 16 tiles and four threads a tile (the 8 x 32 window would need
 // 427 KB at cap 64, 4 x 32 still 240 KB; 4 x 16 needs 124,768 bytes with a
-// radius plane).  The particle list packs (region tile, slot) into u16:
-// (255 << 5 | 31) and (63 << 6 | 63) both fit.
-constexpr int kK1Threads = 256;  // a block's threads, either class
-__host__ __device__ constexpr int k1_rows(bool wide) {  // region tile rows
-  return wide ? 4 : 8;
+// radius plane); Mask256 for caps 65-256, with a region of 2 x 8 tiles
+// (165,120 bytes at cap 256 with a radius plane; 4 x 8 would need
+// 268,800), whose 16 tiles list their occupants and whose 256 threads
+// share the sweep.  The particle list packs (region tile, slot) into u16:
+// (255 << 5 | 31), (63 << 6 | 63) and (15 << 8 | 255) all fit.
+constexpr int kK1Threads = 256;  // a block's threads, every class
+__host__ __device__ constexpr int k1_rows(int cls) {  // region tile rows
+  return cls == 0 ? 8 : cls == 1 ? 4 : 2;
 }
-__host__ __device__ constexpr int k1_cols(bool wide) {  // region columns:
-  return wide ? 16 : 32;  // a warp writes one row of the narrow region
-}
-__host__ __device__ constexpr int k1_win_tiles(bool wide) {
-  return (k1_rows(wide) + 2) * (k1_cols(wide) + 2);
+__host__ __device__ constexpr int k1_cols(int cls) {  // region columns:
+  return cls == 0 ? 32 : cls == 1 ? 16 : 8;  // a warp writes one row of
+}                                           // the narrow region
+__host__ __device__ constexpr int k1_win_tiles(int cls) {
+  return (k1_rows(cls) + 2) * (k1_cols(cls) + 2);
 }
 
 // Dynamic shared memory of one block: window x/y (float2) [cap][window],
 // the sums (float2) [cap][region], window radius [cap][window] (general
 // radius only), occupancy masks [window], the particle list (u16)
 // [cap * region].  213,840 bytes at cap 32, general radius; 124,768 at
-// cap 64 (kMaxCap).
+// cap 64; 165,120 at cap 256 (kMaxCap).
 __host__ __device__ constexpr int k1_smem_bytes(int cap, bool uniform) {
-  return k1_win_tiles(cap > kNarrowCap) * (cap * (uniform ? 8 : 12) +
-                                           mask_bytes(cap)) +
-         k1_rows(cap > kNarrowCap) * k1_cols(cap > kNarrowCap) * cap * 10;
+  return k1_win_tiles(cap_class(cap)) * (cap * (uniform ? 8 : 12) +
+                                         mask_bytes(cap)) +
+         k1_rows(cap_class(cap)) * k1_cols(cap_class(cap)) * cap * 10;
 }
 static_assert(k1_smem_bytes(kNarrowCap, false) <= kSmemLimit, "K1 window");
-static_assert(k1_smem_bytes(kMaxCap, false) <= kSmemLimit, "K1 wide window");
-static_assert(k1_win_tiles(true) % 2 == 0, "the 64-bit masks' alignment");
+static_assert(k1_smem_bytes(kWideCap, false) <= kSmemLimit, "K1 wide window");
+static_assert(k1_smem_bytes(kMaxCap, false) <= kSmemLimit, "K1 256 window");
+static_assert(k1_win_tiles(1) % 2 == 0 && k1_win_tiles(2) % 2 == 0,
+              "the 64-bit mask words' alignment");
 
 template <class M, bool UNIFORM, bool CIRCLE, bool INTEGRATE = true>
 __global__ void __launch_bounds__(kK1Threads) collide_integrate_kernel(
@@ -149,10 +154,10 @@ __global__ void __launch_bounds__(kK1Threads) collide_integrate_kernel(
     const float* __restrict__ prm, float* __restrict__ ox,
     float* __restrict__ oy, float* __restrict__ opx,
     float* __restrict__ opy, int cap, int TY, int TX, K1Consts c) {
-  constexpr bool kWide = sizeof(M) == 8;
-  constexpr int kRY = k1_rows(kWide), kRX = k1_cols(kWide);
+  constexpr int kCls = mask_class<M>();
+  constexpr int kRY = k1_rows(kCls), kRX = k1_cols(kCls);
   constexpr int kTiles = kRY * kRX, kWinX = kRX + 2;
-  constexpr int kWinTiles = k1_win_tiles(kWide);
+  constexpr int kWinTiles = k1_win_tiles(kCls);
   constexpr int kT = kK1Threads, kSB = slot_bits<M>();
   extern __shared__ __align__(16) unsigned char k1_smem[];
   float2* wxy = reinterpret_cast<float2*>(k1_smem);  // [cap][window]
@@ -494,58 +499,72 @@ __device__ __forceinline__ void match_claims(const M (&claims)[8],
 // half the card's rate) and 32 sub-grid cells wide on ParLayout (wider took
 // 15% longer there).  Threads: one per region tile on FlatLayout (512),
 // half that on ParLayout (256; 512 took 6% longer at 1M-GS par).
+//
+// The mask word M sets the class: 32 and 64 bits (caps up to 64) take the
+// regions above; Mask256 (caps 65-256) a region of 4 x 16 tiles (on
+// ParLayout 2 x 8 cells of each sub-grid: the full-space 4 x 16), 106,752
+// bytes at cap 256 on either layout (8 x 64 would need 404 KB, 4 x 32
+// 201 KB), and 128 threads a block, so that its per-thread masks (a
+// planned tile's eight claims and eight taken masks of four words each)
+// have 255 registers to live in.  A source code (e << 8) | slot stays
+// below kNoSource.
 constexpr int kK2WidthFlat = 64;
 constexpr int kK2WidthPar = 32;
 constexpr int kK2RowsFlat = 8;  // region rows, flat
 constexpr int kK2RowsPar = 4;   // region rows of each parity, parity
-__host__ __device__ constexpr int k2_width(bool par) {
-  return par ? kK2WidthPar : kK2WidthFlat;
+__host__ __device__ constexpr int k2_width(bool par, int cls) {
+  return cls == 2 ? (par ? 8 : 16) : (par ? kK2WidthPar : kK2WidthFlat);
 }
-__host__ __device__ constexpr int k2_rows(bool par) {
-  return par ? kK2RowsPar : kK2RowsFlat;
+__host__ __device__ constexpr int k2_rows(bool par, int cls) {
+  return cls == 2 ? (par ? 2 : 4) : (par ? kK2RowsPar : kK2RowsFlat);
 }
 template <class L>
 __host__ __device__ constexpr bool k2_par() {
   return std::is_same<L, ParLayout>::value;
 }
-template <class L>
+template <class M, class L>
 __host__ __device__ constexpr int k2_threads() {
-  return k2_par<L>() ? 256 : 512;
+  return mask_class<M>() == 2 ? 128 : k2_par<L>() ? 256 : 512;
 }
 constexpr unsigned short kNoSource = 0xFFFF;
 constexpr int kOwnTile = 8;  // source code e for the tile itself
 
 // Dynamic shared memory of one block: occupancy and eight direction masks
 // per window tile, eight taken masks per planned tile (each mask a 32-bit
-// word up to cap 32, 64-bit past it), the output count and the source
-// codes (u16) [cap] per region tile.
+// word up to cap 32, 64-bit to cap 64, four 64-bit words past it), the
+// output count and the source codes (u16) [cap] per region tile.
 __host__ __device__ constexpr int k2_window_bytes(int cap, bool par) {
-  const int ry = par ? 2 * kK2RowsPar : kK2RowsFlat;
-  const int rx = par ? 2 * kK2WidthPar : kK2WidthFlat;
+  const int cls = cap_class(cap);
+  const int ry = (par ? 2 : 1) * k2_rows(par, cls);
+  const int rx = (par ? 2 : 1) * k2_width(par, cls);
   return mask_bytes(cap) *
              (9 * (ry + 4) * (rx + 4) + 8 * (ry + 2) * (rx + 2)) +
          (4 + 2 * cap) * ry * rx;
 }
-// Every cap fits a block (85,312 bytes at cap 32, 168,576 at cap 64, on
-// either layout).
-static_assert(k2_window_bytes(kMaxCap, false) <= kSmemLimit, "K2 window");
-static_assert(k2_window_bytes(kMaxCap, true) <= kSmemLimit, "K2-par window");
+// Every cap fits a block (85,312 bytes at cap 32, 168,576 at cap 64,
+// 106,752 at cap 256, on either layout).
+static_assert(k2_window_bytes(kWideCap, false) <= kSmemLimit, "K2 window");
+static_assert(k2_window_bytes(kWideCap, true) <= kSmemLimit, "K2-par window");
+static_assert(k2_window_bytes(kMaxCap, false) <= kSmemLimit, "K2 256");
+static_assert(k2_window_bytes(kMaxCap, true) <= kSmemLimit, "K2-par 256");
+static_assert((kOwnTile << slot_bits<Mask256>()) + kMaxCap - 1 < kNoSource,
+              "a source code stays below kNoSource");
 
-// Full-space geometry of a block: region RY x RX from full tile (ty0, tx0),
-// window (RY + 4) x (RX + 4) from (ty0 - 2, tx0 - 2).
+// Full-space geometry of a block of class C: region RY x RX from full tile
+// (ty0, tx0), window (RY + 4) x (RX + 4) from (ty0 - 2, tx0 - 2).
 struct K2Box {
   int RY, RX, WY, WX, ty0, tx0;
 };
+template <int C>
 __device__ __forceinline__ K2Box k2_box(const FlatLayout&) {
-  constexpr int R = kK2RowsFlat;
-  return K2Box{R, kK2WidthFlat, R + 4, kK2WidthFlat + 4,
-               R * (int)blockIdx.y, kK2WidthFlat * (int)blockIdx.x};
+  constexpr int R = k2_rows(false, C), W = k2_width(false, C);
+  return K2Box{R, W, R + 4, W + 4, R * (int)blockIdx.y, W * (int)blockIdx.x};
 }
+template <int C>
 __device__ __forceinline__ K2Box k2_box(const ParLayout& l) {
-  constexpr int R = 2 * kK2RowsPar;
-  return K2Box{R, 2 * kK2WidthPar, R + 4, 2 * kK2WidthPar + 4,
-               R * (int)blockIdx.y + l.o,
-               2 * kK2WidthPar * (int)blockIdx.x + l.o};
+  constexpr int R = 2 * k2_rows(true, C), W = 2 * k2_width(true, C);
+  return K2Box{R, W, R + 4, W + 4, R * (int)blockIdx.y + l.o,
+               W * (int)blockIdx.x + l.o};
 }
 
 // Window tile i of the stage, in window coordinates: row-major on
@@ -569,32 +588,38 @@ __device__ __forceinline__ void k2_window_tile(const ParLayout&,
 
 // Region cell r of the applied parities (p0 .. p0 + np - 1), in region
 // coordinates, and back (-1 for a tile of a parity not applied).
+template <int C>
 __device__ __forceinline__ void k2_region_tile(const FlatLayout&,
                                                const K2Box&, int, int r,
                                                int* ry, int* rx) {
-  *ry = r / kK2WidthFlat;
-  *rx = r - *ry * kK2WidthFlat;
+  constexpr int W = k2_width(false, C);
+  *ry = r / W;
+  *rx = r - *ry * W;
 }
+template <int C>
 __device__ __forceinline__ void k2_region_tile(const ParLayout&,
                                                const K2Box& b, int p0, int r,
                                                int* ry, int* rx) {
-  const int A = (b.RY / 2) * kK2WidthPar;
+  constexpr int W = k2_width(true, C);
+  const int A = (b.RY / 2) * W;
   const int pl = r / A, q = r - pl * A, p = p0 + pl;
-  const int cy = q / kK2WidthPar;
+  const int cy = q / W;
   *ry = 2 * cy + (p >> 1);
-  *rx = 2 * (q - cy * kK2WidthPar) + (p & 1);
+  *rx = 2 * (q - cy * W) + (p & 1);
 }
+template <int C>
 __device__ __forceinline__ int k2_region_index(const FlatLayout&,
                                                const K2Box&, int, int,
                                                int ry, int rx) {
-  return ry * kK2WidthFlat + rx;
+  return ry * k2_width(false, C) + rx;
 }
+template <int C>
 __device__ __forceinline__ int k2_region_index(const ParLayout&,
                                                const K2Box& b, int p0, int np,
                                                int ry, int rx) {
   const int pl = (((ry & 1) << 1) | (rx & 1)) - p0;
   if (pl < 0 || pl >= np) return -1;
-  return (pl * (b.RY / 2) + (ry >> 1)) * kK2WidthPar + (rx >> 1);
+  return (pl * (b.RY / 2) + (ry >> 1)) * k2_width(true, C) + (rx >> 1);
 }
 
 // Whether full tile (ty, tx) has a storage cell (ParLayout: pad cells too).
@@ -609,7 +634,7 @@ __device__ __forceinline__ bool k2_stored(const ParLayout& l, int ty,
 }
 
 template <class M, class L, class H>
-__global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
+__global__ void __launch_bounds__(k2_threads<M, L>()) relocate_window_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ rad, const int* __restrict__ pid,
@@ -618,11 +643,12 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
     int* __restrict__ opid, int* __restrict__ defer, int cap, L lay, int p0,
     int np, int row0, int gTY, int gTX, int match, H home) {
   extern __shared__ __align__(16) unsigned char k2_smem[];
-  const K2Box b = k2_box(lay);
+  constexpr int kCls = mask_class<M>();
+  const K2Box b = k2_box<kCls>(lay);
   const int Wn = b.WY * b.WX, PX = b.WX - 2, Pn = (b.WY - 2) * PX;
   const int Rn = b.RY * b.RX;            // region cells, all parities
   constexpr bool par = k2_par<L>();
-  const int Ra = np * k2_rows(par) * k2_width(par);  // region cells applied
+  const int Ra = np * k2_rows(par, kCls) * k2_width(par, kCls);  // applied
   constexpr int kSB = slot_bits<M>();  // a source code: (e << kSB) | slot
   M* occm = reinterpret_cast<M*>(k2_smem);  // [window]
   M* dirm = occm + Wn;                      // [8][window]
@@ -673,7 +699,7 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
     const int w = wy * b.WX + wx;
     const int ry = wy - 2, rx = wx - 2;
     const int r = ry >= 0 && ry < b.RY && rx >= 0 && rx < b.RX
-                      ? k2_region_index(lay, b, p0, np, ry, rx)
+                      ? k2_region_index<kCls>(lay, b, p0, np, ry, rx)
                       : -1;
     const int my_ty = ty + row0;
     const bool interior = ty >= 0 && ty <= TY - 1 && my_ty >= 1 &&
@@ -712,7 +738,7 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
   // 3. apply: who leaves, who is deferred, the outputs in slot order
   for (int r = threadIdx.x; r < Ra; r += blockDim.x) {
     int ry, rx;
-    k2_region_tile(lay, b, p0, r, &ry, &rx);
+    k2_region_tile<kCls>(lay, b, p0, r, &ry, &rx);
     const int wy = ry + 2, wx = rx + 2, ty = b.ty0 + ry, tx = b.tx0 + rx;
     const int w = wy * b.WX + wx;
     const M occ = occm[w];
@@ -748,7 +774,7 @@ __global__ void __launch_bounds__(k2_threads<L>()) relocate_window_kernel(
 #pragma unroll 2
   for (int i = threadIdx.x; i < cap * Ra; i += blockDim.x) {
     int ry, rx;
-    k2_region_tile(lay, b, p0, r, &ry, &rx);
+    k2_region_tile<kCls>(lay, b, p0, r, &ry, &rx);
     const int ty = b.ty0 + ry, tx = b.tx0 + rx;
     if (k2_stored(lay, ty, tx)) {
       const int o = lay.at(j, cap, ty, tx);

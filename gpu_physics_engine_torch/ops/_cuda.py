@@ -42,14 +42,14 @@ _SIGNATURES = {
     "gpe_collide_window_bytes": [_I, _I],
     "gpe_gs_rank": [_P] * 8 + [_I] * 4 + [_F, _P],
     "gpe_gs_rank_par": [_P] * 8 + [_I] * 9 + [_F, _F, _P],
-    "gpe_gs_rank_window_bytes": [_I, _I],
+    "gpe_gs_rank_window_bytes": [_I, _I, _I],
     "gpe_relocate_par": [_P] * 13 + [_I] * 9 + [_F, _F, _P],
     "gpe_radix_scratch_bytes": [_I],
     "gpe_radix_digit_hist": [_P] * 2 + [_I] * 2 + [_P],
     "gpe_radix_onesweep": [_P] * 5 + [_I] * 4 + [_P],
     "gpe_relocate_one": [_P] * 13 + [_I] * 6 + [_F, _P],
     "gpe_relocate_mega": [_P] * 13 + [_I] * 7 + [_F, _F, _P],
-    "gpe_gs_colors_window": [_P] * 10 + [_I] * 9 + [_F, _F, _I, _P, _P],
+    "gpe_gs_colors_window": [_P] * 12 + [_I] * 9 + [_F, _F, _I, _P, _P],
     "gpe_gs_colors_window_bytes": [_I, _I],
 }
 

@@ -29,7 +29,12 @@ K5 ``rank`` replaces ``_rank_full``
   the visiting order cannot change the tables, and gs_rank "minloop",
   "net" and "auto" all run this kernel.  The tables and the count are
   written by the same thread, a warp per 32 cells of a row, coalesced.
-  Its times: PERF.md and ``utils/kernel_study.py --k5``.
+  Past K 16 (the list would not fit the registers) or cap 64 (the window
+  leaves a region of 2 x 8 cells), ``gs_rank_sel_kernel`` instead spreads
+  a cell over threads: a mask of its members per neighbour tile, then each
+  member's rank counted as the members with a smaller pid, written where
+  below K; the same tables.  Its times: PERF.md and
+  ``utils/kernel_study.py --k5``.
 
 K6 ``colors`` replaces ``gs_solve_pallas_flat`` (gs_pallas.py:543;
 ``_solve_kernel`` :390 with ``_sweep`` :77, and ``_apply_kernel`` :431).
@@ -53,7 +58,12 @@ K6 ``colors`` replaces ``gs_solve_pallas_flat`` (gs_pallas.py:543;
   read the region's inputs.  Cells of one color are particle-disjoint
   (cell edge >= 2 r_max), so every slot has at most one writer per color.
   The tables are read from device memory once, by the color that sweeps
-  the cell.  The sweeps (the halo makes 1.5x as many cells) and the copy
+  the cell.  Past K 16 ``gs_colors_span_kernel`` takes the solve, a
+  cell's ranks in local memory and its pairs in loops that are not
+  unrolled (``gs_color_cell_deep``).  Past cap 64 no whole-solve window
+  fits a block, and the span kernel runs a color a launch (6 x 6 tiles
+  and a 2-tile halo), the four launches passing the planes in turns
+  through two scratch planes; the same cells, pairs and f32 order.  The sweeps (the halo makes 1.5x as many cells) and the copy
   of every empty slot set its time, not the bound's bytes: it is slower
   than the per-color kernel it replaced (PERF.md;
   ``utils/kernel_study.py --k6``).
@@ -69,32 +79,44 @@ from gpu_physics_engine_torch.ops.gs_tiled import (  # the plain versions
     colors_plain, rank_plain, solve_frame)
 from gpu_physics_engine_torch.ops.integrate import f32
 from gpu_physics_engine_torch.ops.tiled import TileState, tile_geometry
-from gpu_physics_engine_torch.ops.tiled_kernels import (MAX_CAP, NARROW_CAP,
+from gpu_physics_engine_torch.ops.tiled_kernels import (MAX_CAP, WIDE_CAP,
                                                         _check_cuda_state,
                                                         _ptrs, _stream,
+                                                        cap_class,
                                                         mask_bytes)
 
 LAUNCHES = {"gs_rank": 0, "gs_color": 0}
 
-MAX_K = 16  # the kernels keep K occupants per cell in registers
+MAX_K = 64  # csrc/gs_kernels.cuh kGsMaxK
+REG_K = 16  # up to this K the kernels keep a cell's ranks in registers
 
-# K5's window (csrc/gs_kernels.cuh kRankRows, rank_cols,
-# rank_window_bytes): a block ranks RANK_REGIONS[cap > NARROW_CAP] = (rows,
-# columns) full-space tiles on either layout (on the parity layout rows/2
-# x columns/2 cells of each sub-grid)
-RANK_REGIONS = {False: (4, 64), True: (4, 32)}
+# K5's windows (csrc/gs_kernels.cuh kRankRows, rank_cols, sel_rows,
+# sel_cols, rank_bytes): a block ranks (rows, columns) full-space tiles on
+# either layout (on the parity layout rows/2 x columns/2 cells of each
+# sub-grid): RANK_REGIONS[cap_class(cap)] for gs_rank_kernel (K up to
+# REG_K, caps up to WIDE_CAP), SEL_REGIONS[cap_class(cap)] for
+# gs_rank_sel_kernel (past either)
+RANK_REGIONS = ((4, 64), (4, 32))
+SEL_REGIONS = ((4, 64), (4, 32), (2, 8))
 
 
-def rank_region(cap: int):
-    """The (rows, columns) region of K5's window at ``cap``."""
-    return RANK_REGIONS[cap > NARROW_CAP]
+def rank_sel(cap: int, K: int) -> bool:
+    """Whether K5 at (cap, K) runs gs_rank_sel_kernel."""
+    return cap > WIDE_CAP or K > REG_K
+
+
+def rank_region(cap: int, K: int = 8):
+    """The (rows, columns) region of K5's window at ``cap`` and ``K``."""
+    if rank_sel(cap, K):
+        return SEL_REGIONS[cap_class(cap)]
+    return RANK_REGIONS[cap_class(cap)]
 
 
 # K6's window (csrc/gs_kernels.cuh gs_window_side, gs_window_bytes): the
 # region (rows, columns) of full-space tiles a block owns, by the largest
-# cap of its class
+# cap of its class; past WIDE_CAP a launch runs one color
 WINDOW_REGIONS = ((4, (32, 48)), (8, (32, 32)), (16, (8, 32)), (32, (8, 16)),
-                  (64, (4, 6)))
+                  (64, (4, 6)), (MAX_CAP, (6, 6)))
 
 
 def window_region(cap: int):
@@ -104,23 +126,41 @@ def window_region(cap: int):
 
 def colors_window_bytes(cap: int, colors: int = 4) -> int:
     """Shared memory of one K6 window block: x and y of every slot of the
-    region and a halo of two tiles per color on every side."""
+    region and a halo of two tiles per color of the launch on every side
+    (past WIDE_CAP a launch runs one color of the ``colors``)."""
     rows, cols = window_region(cap)
+    if cap > WIDE_CAP:
+        colors = min(colors, 1)
     return (rows + 4 * colors) * (cols + 4 * colors) * cap * 8
 
 
-def rank_window_bytes(cap: int, uniform: bool) -> int:
+def rank_window_bytes(cap: int, uniform: bool, K: int = 8) -> int:
     """Shared memory of one K5 block: per tile of the window (the region
     and a one-tile ring) cap slots of pid, x and y (and radius unless
-    ``uniform``), and an occupancy mask."""
-    rows, cols = rank_region(cap)
-    return (rows + 2) * (cols + 2) * (cap * (12 if uniform else 16)
-                                      + mask_bytes(cap))
+    ``uniform``), and an occupancy mask; past REG_K or WIDE_CAP also nine
+    member masks per region cell."""
+    rows, cols = rank_region(cap, K)
+    win = (rows + 2) * (cols + 2) * (cap * (12 if uniform else 16)
+                                     + mask_bytes(cap))
+    if rank_sel(cap, K):
+        win += rows * cols * 9 * mask_bytes(cap)
+    return win
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def check_card_k(K: int, device) -> None:
+    """Refuse a max_occupancy that the card's GS kernels cannot take on
+    ``device``: on a CUDA device a K outside 1..MAX_K raises ValueError
+    naming the limit; on any other device every K passes (the plain
+    versions run there).  TiledEngine calls it where the GS config is
+    chosen, before any state exists."""
+    if torch.device(device).type == "cuda" and not 1 <= int(K) <= MAX_K:
+        raise ValueError(f"max_occupancy {K} outside 1..{MAX_K}: the CUDA "
+                         f"GS kernels rank at most {MAX_K} occupants a cell")
 
 
 def _check_k(K: int, cap: int, what: str) -> None:
@@ -209,6 +249,9 @@ def window_cuda(what: str, x, y, src, rrad, config: SimConfig, grid,
     Returns the new (x, y)."""
     cap, K = int(x.shape[-3]), config.max_occupancy
     ox, oy = torch.empty_like(x), torch.empty_like(y)
+    sx = sy = None  # past WIDE_CAP a launch a color, in turns through these
+    if cap > WIDE_CAP and c1 > 1:
+        sx, sy = torch.empty_like(x), torch.empty_like(y)
     px = py = pid = prm = None
     if tail is not None:
         px, py, pid, prm = tail
@@ -217,7 +260,8 @@ def window_cuda(what: str, x, y, src, rrad, config: SimConfig, grid,
     with torch.cuda.device(x.device):
         rc = lib.gpe_gs_colors_window(
             *_ptrs(x, y), ptr(px), ptr(py), ptr(pid), src.data_ptr(),
-            ptr(rrad), ptr(prm), *_ptrs(ox, oy), cap, *grid, K, int(c1),
+            ptr(rrad), ptr(prm), *_ptrs(ox, oy), ptr(sx), ptr(sy), cap,
+            *grid, K, int(c1),
             f32(r0), f32(config.stiffness), int(tail is not None),
             None if consts is None else consts.ctypes.data,
             _stream(x.device))

@@ -14,13 +14,14 @@ K1 ``collide_integrate`` replaces ``collide_integrate_pallas``
   TB/s.  Read from device memory by a thread per (slot, tile), the 9 x CAP
   candidates would cost ~8 GB of L1/L2 traffic for that.
   Design: one block per 8 x 32 tiles (4 x 16 past cap 32, where the slot
-  masks are 64-bit words) stages its region and a one-tile ring in
-  shared memory (each plane read once, coalesced), deals its
-  occupied particles to its threads, and each particle gathers its own
-  half of every pair from shared memory in the plain version's order
-  (dy, dx, k), so it owns its output and equals the plain version bit for
-  bit: no atomics, no carry between blocks (the TPU Newton form's
-  band-seam carry needs sequential grid steps, which CUDA blocks are not).
+  masks are 64-bit words; 2 x 8 past cap 64, four-word masks) stages its
+  region and a one-tile ring in shared memory (each plane read once,
+  coalesced), deals its occupied particles to its threads, and each
+  particle gathers its own half of every pair from shared memory in the
+  plain version's order (dy, dx, k), so it owns its output and equals the
+  plain version bit for bit: no atomics, no carry between blocks (the TPU
+  Newton form's band-seam carry needs sequential grid steps, which CUDA
+  blocks are not).
   The write phase runs Verlet per slot, coalesced, reading [dt, mx, my,
   pressed] from device memory, so a step never syncs with the host.
   Its times, and what bounds it now: PERF.md (the kernel table) and
@@ -44,11 +45,11 @@ K2 ``relocate_pull`` replaces ``relocate_pallas``
   shape [8, 640, 1850] with 4,194,304 particles 0.35 GB, 0.106 ms on an
   H100 at 3.35 TB/s (chip_smoke.py ``bounds``).
   Design: one launch, ``relocate_window_kernel`` (csrc/tiled_kernels.cuh).
-  A block owns 8 x 64 tiles and stages the region and a two-tile halo:
-  per tile a mask of its occupied slots and one of the slots hopping in
-  each direction, each particle's step computed once (the plan of the
-  two launches it replaced computed it 8 times) and each plane read once,
-  coalesced.  It plans the region and a one-tile ring in shared memory
+  A block owns 8 x 64 tiles (4 x 16 past cap 64) and stages the region
+  and a two-tile halo: per tile a mask of its occupied slots and one of
+  the slots hopping in each direction, each particle's step computed once
+  (the plan of the two launches it replaced computed it 8 times) and each
+  plane read once, coalesced.  It plans the region and a one-tile ring in shared memory
   (the matching of ``_plan_choose`` on register masks), applies the region
   (leavers, deferrals, the outputs in slot order), and writes a thread
   per (output slot, tile), coalesced, with the zero fill in the same
@@ -93,11 +94,12 @@ from gpu_physics_engine_torch.ops.tiled import (FIELDS, MIN_DISTANCE,
 LAUNCHES = {"collide_integrate": 0, "relocate_pull": 0, "collide": 0,
             "relocate_one": 0}
 
-# The card's kernels keep a mask of a tile's slots in one word: 32 bits up
-# to NARROW_CAP, 64 bits past it (csrc/layout.cuh kMaxCap, kNarrowCap), so
-# a CUDA state holds at most MAX_CAP slots a tile.  The plain versions take
-# any cap.
-MAX_CAP = 64
+# The card's kernels keep a mask of a tile's slots: one 32-bit word up to
+# NARROW_CAP, one 64-bit word up to WIDE_CAP, four 64-bit words past it
+# (csrc/layout.cuh kMaxCap, kWideCap, kNarrowCap), so a CUDA state holds at
+# most MAX_CAP slots a tile.  The plain versions take any cap.
+MAX_CAP = 256
+WIDE_CAP = 64
 NARROW_CAP = 32
 
 
@@ -110,8 +112,8 @@ def check_card_cap(cap: int, device) -> None:
     if torch.device(device).type == "cuda" and not 1 <= int(cap) <= MAX_CAP:
         raise ValueError(
             f"tile_cap {cap} outside 1..{MAX_CAP}: the CUDA kernels keep a "
-            f"tile's slots in one 64-bit mask, so a tile holds at most "
-            f"{MAX_CAP} particles on the card")
+            f"tile's slots in a mask of four 64-bit words, so a tile holds "
+            f"at most {MAX_CAP} particles on the card")
 
 
 def grown_cap(cap: int, device):
@@ -123,14 +125,20 @@ def grown_cap(cap: int, device):
     return int(cap) + 1
 
 
+def cap_class(cap: int) -> int:
+    """The kernels' mask class at ``cap`` (csrc/layout.cuh cap_class): 0 up
+    to NARROW_CAP, 1 up to WIDE_CAP, 2 past it."""
+    return 0 if cap <= NARROW_CAP else 1 if cap <= WIDE_CAP else 2
+
+
 def mask_bytes(cap: int) -> int:
-    """Bytes of the kernels' slot-mask word at ``cap``."""
-    return 8 if cap > NARROW_CAP else 4
+    """Bytes of the kernels' slot mask at ``cap``."""
+    return (4, 8, 32)[cap_class(cap)]
 
 
 # K1's window (csrc/tiled_kernels.cuh k1_rows, k1_cols, k1_smem_bytes): a
-# block's region is K1_REGION[cap > NARROW_CAP] = (rows, columns) tiles
-K1_REGION = {False: (8, 32), True: (4, 16)}
+# block's region is K1_REGION[cap_class(cap)] = (rows, columns) tiles
+K1_REGION = ((8, 32), (4, 16), (2, 8))
 
 
 def k1_smem_bytes(cap: int, uniform: bool) -> int:
@@ -138,16 +146,18 @@ def k1_smem_bytes(cap: int, uniform: bool) -> int:
     and a one-tile ring) cap slots of x, y (and radius unless ``uniform``)
     and a mask; per region tile cap sums (x, y) and cap u16 list
     entries."""
-    rows, cols = K1_REGION[cap > NARROW_CAP]
+    rows, cols = K1_REGION[cap_class(cap)]
     win = (rows + 2) * (cols + 2)
     return (win * (cap * (8 if uniform else 12) + mask_bytes(cap))
             + rows * cols * cap * 10)
 
 
-# K2's window (csrc/tiled_kernels.cuh k2_window_bytes): a block's region is
-# K2_REGION[par] = (rows, columns) storage cells (on the parity layout, of
-# each of the four sub-grids); keyed by par (False: flat, True: parity)
-K2_REGION = {False: (8, 64), True: (4, 32)}
+# K2's window (csrc/tiled_kernels.cuh k2_rows, k2_width, k2_window_bytes): a
+# block's region is K2_REGION[par][cap_class(cap)] = (rows, columns)
+# storage cells (on the parity layout, of each of the four sub-grids); keyed
+# by par (False: flat, True: parity)
+K2_REGION = {False: ((8, 64), (8, 64), (4, 16)),
+             True: ((4, 32), (4, 32), (2, 8))}
 
 
 def k2_window_bytes(cap: int, par: bool) -> int:
@@ -155,7 +165,7 @@ def k2_window_bytes(cap: int, par: bool) -> int:
     per window tile (the region and a two-tile full-space halo), eight
     taken masks per planned tile (the region and a one-tile ring), and an
     output count and cap u16 source codes per region tile."""
-    rows, cols = K2_REGION[par]
+    rows, cols = K2_REGION[par][cap_class(cap)]
     ry, rx = (2 * rows, 2 * cols) if par else (rows, cols)
     return (mask_bytes(cap) * (9 * (ry + 4) * (rx + 4)
                                + 8 * (ry + 2) * (rx + 2))

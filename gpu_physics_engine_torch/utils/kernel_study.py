@@ -75,7 +75,15 @@ call):
   window over 10 sorts (the hand sort's passes apart: pass 0 reads int64
   keys, pass 3 writes them).
 
-Without a CUDA device it exits non-zero.
+* ``--sass DIR`` (a checkout of another commit, e.g. an unpacked ``git
+  archive`` of the parent in a git-ignored directory): this tree's kernel
+  library and one built from DIR's ``gpu_physics_engine_torch/csrc``,
+  their SASS (``cuobjdump -sass``, each line's tokens) compared function
+  by function: every kernel instantiation both builds hold is listed as
+  identical or not, and those only one holds are counted.  Needs no
+  card, only nvcc.
+
+Without a CUDA device it exits non-zero (``--sass`` alone excepted).
 """
 
 from __future__ import annotations
@@ -706,23 +714,82 @@ def radix_study(other=None) -> dict:
     return out
 
 
-def kernel_device_ms(fn, reps: int) -> dict:
+def _sass_functions(lib: str) -> dict:
+    """{mangled kernel name: its SASS text} of a built library."""
+    import os
+    import re
+    from gpu_physics_engine_torch.ops import _cuda
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out, name, body = {}, None, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            if name:
+                out[name] = "\n".join(body)
+            name, body = m.group(1), []
+        elif name and line.strip() and not line.lstrip().startswith(
+                ("....", ".section", "Fatbin", "code for", "arch =",
+                 "host =", "compile_size", "=====")):
+            # cuobjdump pads its columns to the widest instruction of the
+            # whole dump: compare the tokens, not the padding
+            body.append(" ".join(line.split()))
+    if name:
+        out[name] = "\n".join(body)
+    return out
+
+
+def sass_study(other_tree: str) -> dict:
+    """This tree's kernels against ``other_tree``'s, SASS for SASS (the
+    first lines that differ, where they do)."""
+    import os
+    from gpu_physics_engine_torch.ops import _cuda
+    mine = _sass_functions(_cuda.build()["path"])
+    out_dir = os.path.join(_cuda.BUILD_DIR, "sass_other")
+    theirs = _sass_functions(_build_from(
+        os.path.join(other_tree, "gpu_physics_engine_torch", "csrc"),
+        out_dir, patch=False))
+    both = sorted(set(mine) & set(theirs))
+    same = [f for f in both if mine[f] == theirs[f]]
+    diffs = {}
+    for f in both:
+        if mine[f] != theirs[f]:
+            a, b = theirs[f].splitlines(), mine[f].splitlines()
+            i = next((i for i, (u, v) in enumerate(zip(a, b)) if u != v),
+                     min(len(a), len(b)))
+            diffs[f] = {"lines": len(b), "other_lines": len(a),
+                        "first_difference": i, "other": a[i:i + 8],
+                        "this": b[i:i + 8]}
+    return {"study": "sass", "common": len(both), "identical": len(same),
+            "differ": diffs,
+            "only_this": len(set(mine) - set(theirs)),
+            "only_other": sorted(set(theirs) - set(mine)),
+            "identical_names": same}
+
+
+def kernel_device_ms(fn, reps: int, counts: dict | None = None,
+                     pad_s: float | None = None) -> dict:
     """Device ms per call of ``fn`` for each kernel it launches (a
-    torch.profiler window over ``reps`` calls, CUDA activity only)."""
+    torch.profiler window over ``reps`` calls, CUDA activity only:
+    ``profiling.kernel_window``, ``pad_s`` its default where None).
+    ``counts``, where given, gets each kernel's number of records."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from gpu_physics_engine_torch.utils.profiling import _device_us
+    from gpu_physics_engine_torch.utils.profiling import (PAD_S, _device_us,
+                                                          kernel_window)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with kernel_window(PAD_S if pad_s is None else pad_s) as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
     rows = {}
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us > 0:
-            rows[evt.key.split("(")[0][:60]] = us / 1e3 / reps
+            name = evt.key.split("(")[0][:60]
+            rows[name] = us / 1e3 / reps
+            if counts is not None:
+                counts[name] = evt.count
     rows["total"] = sum(rows.values())
     return rows
 
@@ -746,7 +813,15 @@ def main(argv=None) -> int:
                          "and timed in turns")
     ap.add_argument("--radix", action="store_true")
     ap.add_argument("--particles", type=int, default=4_194_304)
+    ap.add_argument("--sass", default=None,
+                    help="another checkout whose kernels' SASS is compared "
+                         "with this tree's, function by function")
     args = ap.parse_args(argv)
+    if args.sass:
+        print(json.dumps(sass_study(args.sass)), flush=True)
+    if args.sass and not (args.k1 or args.k2 or args.k5 or args.k6
+                          or args.radix):
+        return 0
     if not torch.cuda.is_available():
         print("kernel_study: no CUDA device", file=sys.stderr)
         return 2

@@ -21,6 +21,10 @@ size and ``couple_bigs`` ms a pass.
 in place of ``run``, and adds ``render_only``:
 the same profile of ``--steps`` frames drawn as ``render_run`` draws them,
 with no step (per frame: device ms, launches, the largest PyTorch ops).
+``--clock-probe N`` runs ``clock_probe`` (N rounds of windows of
+``--steps`` steps at pads 0 and ``PAD_S``) in place of ``profile_run``:
+how far the profiler's kernel times stray from the host's clock, and how
+many records a window keeps.
 ``--array`` profiles the array
 Engine (core/engine.py) with ``--particles`` in 1.1x as many slots, the
 README's default world, and ``--pipeline``, ``--solver`` and
@@ -250,17 +254,78 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+# seconds that a kernel window keeps its launches clear of each end of the
+# profiler's capture window (``kernel_window``)
+PAD_S = 0.5
+
+
+@contextlib.contextmanager
+def kernel_window(pad_s: float = PAD_S):
+    """torch.profiler over CUDA activity only, around the block, with the
+    block's kernels kept ``pad_s`` seconds clear of both ends of the
+    capture window: the host sleeps that long after the profiler starts,
+    and again after the block's work has synchronised.  The profiler
+    drops every kernel record whose timestamp, converted to the host's
+    clock, falls outside the capture window, and on the H100's machine
+    the converted times stray from the host's clock by milliseconds
+    (``clock_probe`` measures it); late in ``chip_smoke.py``'s 15-minute
+    run, unpadded windows of 8 steps of 11 ms and of 10 calls of 0.04 ms
+    lost every record of their kernels.  Yields the profiler; read it
+    after the block."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+
+
+def clock_probe(engine, steps: int, windows: int,
+                pads=(0.0, PAD_S)) -> List[dict]:
+    """How far the profiler's kernel times stray from the host's clock:
+    ``windows`` rounds of one ``kernel_window`` per pad of ``pads`` over
+    ``engine.run(steps)``, each after 64 unprofiled steps, a copy of the
+    positions to the host and a second's sleep.  Per window: the pad, the
+    device records kept, the first record's start less the host's time
+    just before the first launch, and the last record's end less the
+    host's time just after the synchronise (ms).  A negative start means
+    that the converted times run early; records converted to before the
+    capture window are dropped (fewer records at pad 0)."""
+    import torch
+    rows = []
+    for w in range(windows):
+        for pad in pads:
+            engine.run(64)
+            engine.positions()
+            time.sleep(1.0)
+            with kernel_window(pad) as prof:
+                t0 = time.time_ns()
+                engine.run(steps)
+                torch.cuda.synchronize()
+                t1 = time.time_ns()
+            dev = [e for e in prof.profiler.kineto_results.events()
+                   if "CUDA" in str(e.device_type())]
+            rows.append({
+                "window": w, "pad_s": pad, "records": len(dev),
+                "first_start_ms": min(((e.start_ns() - t0) / 1e6
+                                       for e in dev), default=None),
+                "last_end_ms": max(((e.end_ns() - t1) / 1e6 for e in dev),
+                                   default=None)})
+    return rows
+
+
 def profile_run(engine, steps: int, trace: str | None = None,
-                advance=None) -> dict:
+                advance=None, pad_s: float = PAD_S) -> dict:
     """Two passes of ``advance(steps)`` (default ``engine.run``): one
     timed with CUDA events and
     no profiler (its span is the window's device time; the profiler's own
     host overhead would inflate a host-bound window), then one under
-    torch.profiler tracing CUDA activity only, for the device time of each
+    torch.profiler tracing CUDA activity only (``kernel_window`` with
+    ``pad_s``), for the device time of each
     kernel.  idle share = 1 - busy / span.  Pick windows that do not cross
     a periodic sweep, so both passes do the same work.  Times in ms."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     advance = advance or engine.run
     cuda = engine.device.type == "cuda"
@@ -281,9 +346,8 @@ def profile_run(engine, steps: int, trace: str | None = None,
                 "idle_share": None, "kernels": []}
     span = start.elapsed_time(end)
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with torch.cuda.device(engine.device), kernel_window(pad_s) as prof:
         advance(steps)
-        torch.cuda.synchronize(engine.device)
     if trace:
         prof.export_chrome_trace(trace)
     kernels = sorted(((e.key, _device_us(e) / 1e3, e.count)
@@ -409,6 +473,10 @@ def main(argv=None) -> dict:
                          "per mechanism")
     ap.add_argument("--every", type=int, default=480,
                     help="steps per window of the sweep study")
+    ap.add_argument("--clock-probe", type=int, default=0,
+                    help="after the warm-up, this many rounds of "
+                         "clock_probe (--steps a window) in place of "
+                         "profile_run")
     args = ap.parse_args(argv)
     if args.sweeps:
         return sweep_study(args)
@@ -439,6 +507,10 @@ def main(argv=None) -> dict:
                           advance=engine.render_run)
         out["render_only"] = _short(profile_run(
             engine, args.steps, advance=frames_only(engine)))
+    elif args.clock_probe:
+        engine.run(args.warmup)
+        out = {"clock_probe": clock_probe(engine, args.steps,
+                                          args.clock_probe)}
     else:
         engine.run(args.warmup)
         out = profile_run(engine, args.steps, args.trace)
@@ -458,7 +530,7 @@ def main(argv=None) -> dict:
         out.update(solver=cfg.tiled_solver, gs_layout=cfg.gs_layout,
                    mega=cfg.gs_colors_mega and cfg.gs_relocate_mega,
                    render=args.render)
-    print(json.dumps(_short(out)))
+    print(json.dumps(_short(out) if "kernels" in out else out))
     return out
 
 

@@ -1,19 +1,24 @@
 """Tile caps past 32 (the card's kernels keep a tile's slots in a 64-bit
-mask from cap 33 to 64) on the CPU, where no CUDA kernel runs.
+mask from cap 33 to 64, and in four 64-bit words from 65 to 256) on the
+CPU, where no CUDA kernel runs.
 
-  * ``tiled_kernels.check_card_cap``: caps 1-64 pass on a CUDA device, 65
-    and past raise naming the limit 64; on the CPU every cap passes.
+  * ``tiled_kernels.check_card_cap``: caps 1-256 pass on a CUDA device,
+    0 and 257 and past raise naming the limit 256; on the CPU every cap
+    passes.  (Test names that say 64 date from the 64-slot limit.)
+  * ``tiled_kernels.grown_cap``: the watchdog's and ``tiled_auto_cap_pct``'s
+    growth holds at 256 on the card and grows on past it on the CPU.
   * K1's plain version at cap 48 against the JAX package's collide and
     integrate (its jnp path: the interpret-mode Pallas kernels compile for
     minutes at that cap) on a pile whose tiles fill every slot, within
     1e-5 world units, pid exact.
-  * A re-tiling spawn whose scene-sized cap passes 64 is refused on the
-    card before the engine changes: the engine keeps its cap, its config
-    and its particles (the card stood in for by the engine's device; the
-    refusal comes before any tensor work).  On the CPU the same spawn
-    re-tiles past 64.
+  * A re-tiling spawn whose scene-sized cap passes 64 is taken on the card
+    (its cap passes the card's check); one whose cap passes 256 is refused
+    on the card before the engine changes: the engine keeps its cap, its
+    config and its particles (the card stood in for by the engine's
+    device; the refusal comes before any tensor work).  On the CPU the same
+    spawn re-tiles past 256.
 
-The CUDA kernels at caps 33-64 are held to their plain versions on the
+The CUDA kernels at caps 33-256 are held to their plain versions on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -29,16 +34,20 @@ from gpu_physics_engine_torch.ops import tiled_kernels as tk
 from test_torch_tiled import assert_same, both_states, cfgs
 
 
-@pytest.mark.parametrize("cap", [1, 32, 33, 48, 64])
+@pytest.mark.parametrize("cap", [1, 32, 33, 48, 64, 65, 140, 144, 256])
 def test_card_takes_caps_up_to_64(cap):
+    """The card takes caps 1-256 (the name dates from the 64-slot
+    limit)."""
     tk.check_card_cap(cap, torch.device("cuda"))
     tk.check_card_cap(cap, "cuda:0")
     tk.check_card_cap(cap, torch.device("cpu"))
 
 
-@pytest.mark.parametrize("cap", [65, 140, 0])
+@pytest.mark.parametrize("cap", [257, 300, 0, -1])
 def test_card_refuses_caps_outside_1_to_64(cap):
-    with pytest.raises(ValueError, match=f"tile_cap {cap} outside 1..64"):
+    """The card refuses caps 0 and past 256, naming the limit; the CPU
+    takes them (the name dates from the 64-slot limit)."""
+    with pytest.raises(ValueError, match=f"tile_cap {cap} outside 1..256"):
         tk.check_card_cap(cap, torch.device("cuda"))
     tk.check_card_cap(cap, torch.device("cpu"))  # the plain versions: any
 
@@ -69,44 +78,59 @@ def test_k1_plain_at_cap_48_matches_jax():
     assert tk.LAUNCHES["collide_integrate"] == 0  # CPU: no kernel launch
 
 
-def test_retile_spawn_past_64_is_refused_on_the_card():
-    cfg = SimConfig(max_particles=4200, initial_particles=4096,
-                    world_width=64.0, world_height=64.0, pipeline="tiled",
+def _retile_engine(n, world):
+    """A CPU engine of ``n`` particles on a ``world`` x ``world`` world with
+    tiled_spawn="retile" and the cap from its scene, after 2 steps."""
+    cfg = SimConfig(max_particles=n + 100, initial_particles=n,
+                    world_width=world, world_height=world, pipeline="tiled",
                     tile_cap=0, tiled_spawn="retile")
     e = TiledEngine(cfg, seed=0, device="cpu")
     e.run(2)
+    return e
+
+
+def test_retile_spawn_past_64_is_refused_on_the_card():
+    """Past 64 the card takes the re-tile; past 256 it refuses it (the
+    name dates from the 64-slot limit)."""
+    e = _retile_engine(4096, 64.0)
+    e.spawn_at((32.0, 32.0), verbose=False)
+    assert 64 < e.config.tile_cap <= 256 and e.num_particles() == 4196
+    tk.check_card_cap(e.config.tile_cap, torch.device("cuda"))  # taken
+    e = _retile_engine(1200, 16.0)  # the radius-3 tiles hold ~200 each
     before = (e.config, e.state.dims, e._export(), e._next_pid)
     e.device = torch.device("cuda")  # the card, as check_card_cap sees it
-    with pytest.raises(ValueError, match=r"outside 1\.\.64"):
-        e.spawn_at((32.0, 32.0))
+    with pytest.raises(ValueError, match=r"outside 1\.\.256"):
+        e.spawn_at((8.0, 8.0))
     assert (e.config, e.state.dims, e._next_pid) == (
         before[0], before[1], before[3])
     for u, v in zip(e._export(), before[2]):
         np.testing.assert_array_equal(u, v)
     e.device = torch.device("cpu")  # the plain versions take any cap
-    e.spawn_at((32.0, 32.0), verbose=False)
-    assert e.config.tile_cap > 64 and e.num_particles() == 4196
+    e.spawn_at((8.0, 8.0), verbose=False)
+    assert e.config.tile_cap > 256 and e.num_particles() == 1300
     e.run(2)
     assert np.isfinite(e.positions()).all()
 
 
 @pytest.mark.parametrize("cap, device, want", [
-    (1, "cuda", 2), (33, "cuda", 34), (63, "cuda", 64), (64, "cuda", None),
-    (64, "cpu", 65), (140, "cpu", 141)])
+    (1, "cuda", 2), (64, "cuda", 65), (140, "cuda", 141), (255, "cuda", 256),
+    (256, "cuda", None), (256, "cpu", 257), (300, "cpu", 301)])
 def test_growth_stops_at_64_on_the_card(cap, device, want):
+    """One slot of growth up to 256 on the card, none past it; the CPU
+    grows on (the name dates from the 64-slot limit)."""
     assert tk.grown_cap(cap, torch.device(device)) == want
 
 
 def _jammed_engine(**kw):
-    cfg = SimConfig(max_particles=600, initial_particles=600,
-                    world_width=24.0, world_height=24.0, pipeline="tiled",
-                    tile_cap=64, tiled_hysteresis=0.0, **kw)
+    cfg = SimConfig(max_particles=150, initial_particles=150,
+                    world_width=12.0, world_height=12.0, pipeline="tiled",
+                    tile_cap=256, tiled_hysteresis=0.0, **kw)
     return TiledEngine(cfg, seed=0, device="cpu")
 
 
 def _held(e, grow):
     """Run ``grow`` with the engine seen as on the card: the cap, config
-    and particles stay; on the CPU the same growth takes cap 65."""
+    and particles stay; on the CPU the same growth takes cap 257."""
     before = (e.config, e.state.dims, e._export())
     e.device = torch.device("cuda")
     grow(e)
@@ -115,10 +139,12 @@ def _held(e, grow):
         np.testing.assert_array_equal(u, v)
     e.device = torch.device("cpu")
     grow(e)
-    assert e.config.tile_cap == 65 and e.state.dims[0] == 65
+    assert e.config.tile_cap == 257 and e.state.dims[0] == 257
 
 
 def test_auto_cap_growth_holds_at_64_on_the_card():
+    """tiled_auto_cap_pct's growth holds at 256 on the card (the name dates
+    from the 64-slot limit)."""
     e = _jammed_engine(tiled_auto_cap_pct=0.01)
     # a deferred population far past the bound over a 4-step window
     _held(e, lambda e: e._maybe_grow_cap(4, int(e.state.overflow_count)
@@ -126,6 +152,8 @@ def test_auto_cap_growth_holds_at_64_on_the_card():
 
 
 def test_watchdog_level_3_holds_at_64_on_the_card(monkeypatch):
+    """The watchdog's level 3 holds at cap 256 on the card (the name dates
+    from the 64-slot limit)."""
     from gpu_physics_engine_torch.ops import tiled
     e = _jammed_engine(tiled_watchdog=True, tiled_watchdog_pct=1.0)
     stale = iter([10.0, 20.0, 40.0, 80.0, 1.0, 2.0])

@@ -6,16 +6,17 @@ repository's conftest imports jax).  Without a CUDA device every test here
 skips.  K1 and K3 equal their plain versions bit for bit at every cap
 the engine can reach, in box and circle worlds, on grids smaller than one
 shared-memory region and not a multiple of it; K2 and K2-par bit for bit
-up to cap 64 and on a ragged grid, K5 and K5-par (the rank's window)
-bit for bit up to cap 64 with K 16, on a ragged grid, at both parity
+up to cap 256 and on a ragged grid, K5 and K5-par (the rank's window)
+bit for bit up to cap 256 and K 64, on a ragged grid, at both parity
 origins, K6's window (colors 1..c for each c, with and without the Verlet
-tail) bit for bit on the flat and the parity layouts, up to cap 64, on a
+tail) bit for bit on the flat and the parity layouts, up to cap 256 and
+K 64, on a
 grid smaller than one window and one several windows wide; the par engine
 equals the flat engine.  colors_mega bit for bit and equal to the par
 route's K6-par launch; relocate_mega and K4
 (K2's window) bit for bit, relocate_mega equal to K2-par, also at caps 32
-and 64 and on a ragged grid.  Past cap 64 the kernels refuse.  The radix
-sort's digit histogram and its onesweep
+and 64 and on a ragged grid.  Past cap 256 and K 64 the kernels refuse.
+The radix sort's digit histogram and its onesweep
 pass (rank, look-back, store) bit for bit on all four passes, from 1 key
 to about the 1M scene's pair count, the look-back prefixes too, the sort
 equal to torch.sort(stable=True) and on repeat, and the array Engine's
@@ -55,11 +56,15 @@ def _scene(match="greedy", hysteresis=0.0, cap=4, uniform=True, n=500,
                     world_height=64.0, pipeline="tiled", tile_cap=cap,
                     tiled_match=match, tiled_hysteresis=hysteresis,
                     tiled_uniform_radius=uniform, **kw)
+    pile = n // 2 if cap <= 64 else 8 * cap
+    if cap > 64:
+        n += pile
+        cfg = cfg.replace(max_particles=n, initial_particles=n)
     rng = np.random.default_rng(cap)
     pos = rng.uniform(0.6, 63.4, (n, 2)).astype(np.float32)
     if cap > 32:  # a pile: its tiles fill every slot, past slot 32
-        pos[: n // 2] = np.clip([32.0, 32.0] + rng.normal(
-            0, 1.0, (n // 2, 2)), 0.6, 63.4)
+        pos[:pile] = np.clip([32.0, 32.0] + rng.normal(
+            0, 1.0, (pile, 2)), 0.6, 63.4)
     rad = (np.full(n, 0.5, np.float32) if uniform
            else rng.uniform(0.3, 0.5, n).astype(np.float32))
     prev = (pos + rng.normal(0, 0.05, pos.shape)).astype(np.float32)
@@ -89,16 +94,22 @@ def test_k1_cuda_matches_plain(uniform, world):
     assert torch.equal(a.pid, b.pid)
 
 
-@pytest.mark.parametrize("match", ["flip", "flip2", "greedy"])
-@pytest.mark.parametrize("hysteresis", [0.0, -1.0])
-@pytest.mark.parametrize("cap", [4, 8, 32, 48, 64])
-@pytest.mark.parametrize("shape", ["square", "ragged"])
+# greedy's plain matching takes cap^2 x 8 Python steps (about 20 s a call
+# at cap 128 and 65 s at 256 on the card), so it runs up to cap 65 here
+# and at cap 256 once (the fourth mask word, slots 192-255), on the square
+# grid; chip_smoke.py holds it at caps 65 and 140 on K2's small grid
+@pytest.mark.parametrize("match, hysteresis, cap, shape", [
+    (m, h, c, sh) for sh in ("square", "ragged")
+    for c in (4, 8, 32, 48, 64, 65, 128, 256) for h in (0.0, -1.0)
+    for m in ("flip", "flip2", "greedy")
+    if m != "greedy" or c <= 65 or (c, h, sh) == (256, 0.0, "square")])
 def test_k2_cuda_matches_plain(match, hysteresis, cap, shape):
     """K2 on its shared-memory window: bit-equal to the plain version and
     on repeat, nothing lost, up to cap 32 (the 32-bit masks' largest
-    window) and at caps 48 and 64 (64-bit masks, on piles whose tiles fill
-    every slot), on a 64 x 64 world and on a grid whose TY and TX are no
-    multiples of the region ("ragged": 21 x 39 at cap 6)."""
+    window), at caps 48 and 64 (64-bit masks) and 65-256 (four-word masks
+    on a 4 x 16 region), on piles whose tiles fill every slot, on a 64 x 64
+    world and on a grid whose TY and TX are no multiples of the region
+    ("ragged": 21 x 39 at cap 6)."""
     if shape == "square":
         cfg, st = _scene(match=match, hysteresis=hysteresis, cap=cap)
     else:
@@ -143,9 +154,10 @@ def _window_scene(cap, uniform, world, width, height, cut):
     is no multiple of 8 (one empty row stays, as the ring).  Density 0.6
     per unit area, less at small caps (the tiles must hold the scene); past
     cap 32 also a pile of 4 x cap particles, whose tiles fill every
-    slot."""
+    slot (8 x cap past cap 64)."""
     n = int(width * height * min(0.6, 0.12 * cap))
-    pile = 4 * cap if cap > 32 else 0  # past cap 32: tiles fill every slot
+    # past cap 32 a pile whose tiles fill every slot
+    pile = 0 if cap <= 32 else 4 * cap if cap <= 64 else 8 * cap
     n += pile
     cfg = SimConfig(max_particles=n, initial_particles=n, world_width=width,
                     world_height=height, pipeline="tiled", tile_cap=cap,
@@ -175,14 +187,15 @@ def _window_scene(cap, uniform, world, width, height, cut):
                            y=torch.where(occ, st.y - d, st.y))
 
 
-@pytest.mark.parametrize("cap", [2, 6, 9, 10, 16, 32, 48, 64])
+@pytest.mark.parametrize("cap", [2, 6, 9, 10, 16, 32, 48, 64, 65, 128, 256])
 @pytest.mark.parametrize("shape", ["small", "ragged", "wide"])
 @pytest.mark.parametrize("uniform", [True, False])
 @pytest.mark.parametrize("world", ["box", "circle"])
 def test_k1_k3_window_matches_plain(cap, shape, uniform, world):
     """K1 and K3 on the shared-memory window: bit-equal to the plain
     versions and on repeat at caps from 2 to kMaxCap (past the tuned rows:
-    the watchdog grows cap; past 32 the 64-bit masks on a 4 x 16 region),
+    the watchdog grows cap; past 32 the 64-bit masks on a 4 x 16 region,
+    past 64 four-word masks on a 2 x 8 region),
     on a grid smaller than one 8 x 32 region ("small"), one whose TY and
     TX are no multiples of it ("ragged") and one several regions wide
     ("wide")."""
@@ -230,6 +243,30 @@ def _gs_scene(cap, K, seed, width=40.0):
                            y=torch.where(occ, st.y - d, st.y))
 
 
+def _crowd_cell(st, cfg):
+    """``st`` with every particle of the first block of 3 x 3 full tiles
+    (row by row) moved into the middle tile's box, on a 9 x 9 grid of
+    0.05 tile steps: that tile's cell has 9 x cap members."""
+    t = tt.tile_geometry(cfg)[0]
+    full = (st.pid >= 0).all(0).float()[None, None]
+    block = torch.nn.functional.conv2d(full, torch.ones(1, 1, 3, 3,
+                                                        device=full.device))
+    hits = (block[0, 0] == 9).nonzero()
+    assert len(hits), "the jam fills no block of 3 x 3 tiles"
+    ty, tx = (int(v) + 1 for v in hits[0])
+    cap = st.dims[0]
+    k = torch.arange(9 * cap, device=st.x.device, dtype=torch.float32)
+    ox = ((k % 9) - 4) * 0.05 * t
+    oy = ((k // 9 % 9) - 4) * 0.05 * t
+    x, y = st.x.clone(), st.y.clone()
+    for j, (dy, dx) in enumerate((a, b) for a in (-1, 0, 1)
+                                 for b in (-1, 0, 1)):
+        s = slice(j * cap, (j + 1) * cap)
+        x[:, ty + dy, tx + dx] = (tx - 0.5) * t + ox[s]
+        y[:, ty + dy, tx + dx] = (ty - 0.5) * t + oy[s]
+    return st.replace(x=x, y=y)
+
+
 @pytest.mark.parametrize("cap, K", [(4, 8), (6, 12), (2, 3)])
 def test_gs_kernels_match_plain(cap, K):
     """K5's rank tables and K6's four colors (one window launch)
@@ -254,20 +291,25 @@ def test_gs_kernels_match_plain(cap, K):
 
 
 @pytest.mark.parametrize("cap, K", [(2, 3), (4, 8), (32, 16), (48, 16),
-                                    (64, 16)])
+                                    (64, 16), (65, 16), (128, 32), (256, 64),
+                                    (16, 17), (16, 32), (8, 64), (32, 64)])
 @pytest.mark.parametrize("width", [40.0, 150.0])
 @pytest.mark.parametrize("uniform", [False, True])
 def test_rank_window_matches_plain(cap, K, width, uniform):
     """K5 and K5-par on the rank's shared-memory window: the tables
     bit-equal to the plain versions and on repeat, up to cap 32 with K 16
     (the 32-bit masks' largest window) and at caps 48 and 64 (64-bit
-    masks on a 4 x 32 region), on a ragged grid (width 40) and one several
+    masks on a 4 x 32 region); past cap 64 or K 16 the selection kernel
+    (caps 65-256 on a 2 x 8 region, K 17-64), on a ragged grid (width 40)
+    and one several
     regions wide (TX 39 and 139: no multiple of the 64-column region), with
     and without a radius plane; K5-par at origins 0 and -1, in one launch
     over all parities and in one per parity."""
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import gs_parity as gp
     cfg, st = _gs_scene(cap, K, seed=cap + K, width=width)
+    if K > 4 * cap:  # the jam alone fills no cell past K there
+        st = _crowd_cell(st, cfg)
     cfg = cfg.replace(tiled_uniform_radius=uniform)
     if uniform:
         st = st.replace(radius=torch.where(st.pid >= 0, 0.5, 0.0))
@@ -293,11 +335,12 @@ def test_rank_window_matches_plain(cap, K, width, uniform):
                 assert torch.equal(u, w), (origin, fused)
 
 
-def _window_cases(cfg, st, layout, prm):
+def _window_cases(cfg, st, layout, prm, colors=(0, 1, 2, 3, 4)):
     """(label, kernel, plain) of K6's window on ``st``: colors 1..c for
-    each c, and with a uniform radius the Verlet tail alone and after each
-    c; flat (layout None, through ``window_cuda``) or parity at that
-    origin.  Each call returns (x, y, px, py) from clones of px, py."""
+    each c of ``colors``, and with a uniform radius the Verlet tail alone
+    and after each c; flat (layout None, through ``window_cuda``) or parity
+    at that origin.  Each call returns (x, y, px, py) from clones of px,
+    py."""
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import gs_parity as gp
     uniform = cfg.tiled_uniform_radius
@@ -311,7 +354,7 @@ def _window_cases(cfg, st, layout, prm):
         x, y, px, py, pid, geo = ps.x, ps.y, ps.px, ps.py, ps.pid, ps.geo
         grid = gp._geo_args(geo) + (1,)
     cases = []
-    for c1 in (0, 1, 2, 3, 4):
+    for c1 in colors:
         for tail in ((False, True) if uniform else (False,)):
             if c1 == 0 and not tail:
                 continue
@@ -341,14 +384,18 @@ def _window_cases(cfg, st, layout, prm):
 
 @pytest.mark.parametrize("cap, K, width", [(2, 3, 20.0), (4, 8, 40.0),
                                            (6, 8, 150.0), (32, 16, 40.0),
-                                           (48, 16, 150.0), (64, 16, 40.0)])
+                                           (48, 16, 150.0), (64, 16, 40.0),
+                                           (65, 16, 40.0), (128, 32, 150.0),
+                                           (256, 64, 40.0), (16, 32, 40.0),
+                                           (8, 64, 150.0)])
 @pytest.mark.parametrize("layout", [None, 0, -1])
 def test_colors_window_matches_plain(cap, K, width, layout):
     """K6's window kernel: colors 1..c for each c, with and without the
     Verlet tail, bit-equal to the plain passes and on repeat, on a grid
     smaller than one window (width 20 and 40: TX 21 and 39), one several
     regions wide (150: TX 139), at cap 32 with K 16 and past it (caps 48
-    and 64: the fifth region class), general and uniform
+    and 64: the fifth region class; caps 65-256: a launch a color), at K
+    32 and 64 (the ranks past the registers), general and uniform
     radius, flat and parity (origins 0 and -1); its shared-memory bytes
     equal the Python mirror."""
     from gpu_physics_engine_torch.ops import _cuda
@@ -362,7 +409,10 @@ def test_colors_window_matches_plain(cap, K, width, layout):
         s = st
         if uniform:
             s = st.replace(radius=torch.where(st.pid >= 0, 0.5, 0.0))
-        for label, kern, plain in _window_cases(c, s, layout, prm):
+        # K 32 and 64: the plain sweep's K^2/2 pairs are slow, so colors
+        # 1 and 1..4 (and the tail alone and after them)
+        colors = (0, 1, 2, 3, 4) if K <= 16 else (0, 1, 4)
+        for label, kern, plain in _window_cases(c, s, layout, prm, colors):
             a, b, again = kern(), plain(), kern()
             torch.cuda.synchronize()
             for u, v, w in zip(a, b, again):
@@ -418,7 +468,9 @@ def test_engine_on_card_matches_cpu_engine():
         np.testing.assert_allclose(a[f], b[f], atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("cap, K, uniform", [(4, 8, True), (2, 3, False)])
+@pytest.mark.parametrize("cap, K, uniform", [(4, 8, True), (2, 3, False),
+                                             (65, 32, True),
+                                             (256, 64, False)])
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("origin", [0, -1])
 def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
@@ -468,15 +520,18 @@ def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
                 assert torch.equal(u, v), c1
 
 
-@pytest.mark.parametrize("cap, shape", [(2, "square"), (32, "square"),
-                                        (6, "ragged"), (64, "square")])
-@pytest.mark.parametrize("match", ["flip", "flip2", "greedy"])
+@pytest.mark.parametrize("cap, shape, match", [
+    (c, sh, m) for c, sh in ((2, "square"), (32, "square"), (6, "ragged"),
+                             (64, "square"), (65, "square"), (128, "square"),
+                             (256, "square"))
+    for m in ("flip", "flip2", "greedy") if m != "greedy" or c <= 65])
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("origin", [0, -1])
 def test_relocate_par_window_matches_plain(cap, shape, match, fused, origin):
     """K2-par on its shared-memory window: bit-equal to its plain version
-    and on repeat, none lost, at cap 2, cap 32 and cap 64 (64-bit masks) and
-    on the ragged 21 x 39 grid, in one launch over all parities and in one
+    and on repeat, none lost, at cap 2, cap 32 and cap 64 (64-bit masks),
+    at caps 65, 128 and 256 (four-word masks) and on the ragged 21 x 39
+    grid, in one launch over all parities and in one
     per parity, for both origins; relocate_mega (the same window over all
     four parities, one launch) equal to both."""
     from gpu_physics_engine_torch.ops import gs_mega as gm
@@ -537,7 +592,8 @@ def test_par_engine_on_card_matches_flat_engine_on_card():
                            getattr(engines[1].state, f)), f
 
 
-@pytest.mark.parametrize("cap, K, uniform", [(4, 8, True), (2, 3, False)])
+@pytest.mark.parametrize("cap, K, uniform", [(4, 8, True), (2, 3, False),
+                                             (128, 32, True)])
 @pytest.mark.parametrize("origin", [0, -1])
 def test_fused_gs_kernels_match_plain(cap, K, uniform, origin):
     """colors_mega (with and without the Verlet tail) and relocate_mega
@@ -584,7 +640,8 @@ def test_fused_gs_kernels_match_plain(cap, K, uniform, origin):
 
 @pytest.mark.parametrize("uniform, cap, shape", [
     (False, 4, "square"), (True, 4, "square"), (True, 32, "square"),
-    (True, 6, "ragged"), (True, 64, "square")])
+    (True, 6, "ragged"), (True, 64, "square"), (True, 128, "square"),
+    (False, 256, "square")])
 def test_k4_cuda_matches_plain(uniform, cap, shape):
     """K4 (K2's window with K4's step rule) bit-equal to its plain version,
     whatever the config's matching and hysteresis, and to K2 under flip
@@ -1125,14 +1182,25 @@ def test_sharded_engine_on_card_matches_cpu_engine():
 
 
 def test_kernels_refuse_caps_past_64():
-    """The slot masks are at most 64 bits wide: a cap-65 state on the card
-    is refused by K1, K3 and K2 (the CPU's plain versions take any cap)."""
+    """The slot masks are at most four 64-bit words: a cap-257 state on
+    the card is refused by K1, K3, K2 and K5, and K 65 by K5 and K6 (the
+    CPU's plain versions take any cap and K).  (The name dates from the
+    64-slot limit.)"""
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
     cfg, st = _scene(cap=4, jitter=0.0)
-    wide = st.replace(**{f: torch.cat([getattr(st, f)] * 17)[:65]
+    wide = st.replace(**{f: torch.cat([getattr(st, f)] * 65)[:257]
                          for f in FIELDS})
     prm = StepParams.make(0.02).as_tensor("cuda")
     for call in (lambda: tk.collide_integrate_cuda(wide, prm, cfg),
                  lambda: tk.collide_cuda(wide, cfg),
-                 lambda: tk.relocate_pull_cuda(wide, cfg)):
-        with pytest.raises(ValueError, match="tile_cap 65 outside 1..64"):
+                 lambda: tk.relocate_pull_cuda(wide, cfg),
+                 lambda: gk.rank_cuda(wide, cfg)):
+        with pytest.raises(ValueError, match="tile_cap 257 outside 1..256"):
             call()
+    deep = cfg.replace(max_occupancy=65)
+    with pytest.raises(ValueError, match="max_occupancy 65 outside 1..64"):
+        gk.rank_cuda(st, deep)
+    src = torch.zeros((65,) + tuple(st.dims[1:]), dtype=torch.int32,
+                      device="cuda")
+    with pytest.raises(ValueError, match="max_occupancy 65 outside 1..64"):
+        gk.colors_cuda(st.x, st.y, src, src.float(), deep)

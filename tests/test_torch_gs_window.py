@@ -3,8 +3,8 @@ where no CUDA kernel runs.
 
   * The bytes of a block, through the Python mirror
     ``gpu_physics_engine_torch.ops.gs_kernels.colors_window_bytes``, fit the
-    card's 232,448 at every cap up to 64 and every number of colors up to
-    four (one geometry serves both layouts; chip_smoke.py holds the mirror
+    card's 232,448 at every cap up to 256 and every number of colors up
+    to four (one geometry serves both layouts; chip_smoke.py holds the mirror
     equal to the launcher's own number on the card).
   * A model of the kernel's algorithm in torch equals the plain color
     passes (``color_plain_`` / ``color_par_plain_``, then ``verlet_plain_``)
@@ -18,6 +18,9 @@ where no CUDA kernel runs.
     exactly one block.  Regions of 4 x 6 tiles make many blocks.
   * The same model with a halo two tiles smaller differs from the plain
     passes on that scene: the halo is needed.
+  * Past cap 64 (``gs_colors_span_kernel``'s one-color launches): four
+    launches of the model, one color each on 6 x 6 regions with a 2-tile
+    halo, each reading the last one's planes, equal the plain passes.
 
 The CUDA kernel is held to the plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
@@ -47,6 +50,8 @@ def test_colors_window_fits_a_block_at_every_cap():
     assert [gk.colors_window_bytes(c) for c in (4, 8, 16, 32, 64)] == [
         98_304, 147_456, 147_456, 196_608, 225_280]
     assert gk.colors_window_bytes(6) == 110_592  # the 4M-GS cap
+    # past cap 64 a launch runs one color: (6 + 4) x (6 + 4) tiles
+    assert gk.colors_window_bytes(gk.MAX_CAP) == 10 * 10 * 256 * 8
     assert gk.colors_window_bytes(4, 0) == 32 * 48 * 4 * 8  # the region
 
 
@@ -73,17 +78,20 @@ def _scene(uniform):
 
 
 def _window_model(x, y, src, rrad, cfg, c1, origin=None, halo=None,
-                  tail=None):
+                  tail=None, c0=1, region=REGION):
     """The window kernel's algorithm on full-space planes x, y [cap, TY,
     TX] with full-space tables src, rrad [K, TY, TX]: colors 1..c1, then
     with ``tail`` = (px, py, pid, prm) the Verlet step of the region's
     occupied slots (px, py in place).  origin None: the flat grid of
     REGION-sized blocks; else the parity layout's grid at that origin.
     ``halo``: tiles staged on every side (the kernel's: 2 * c1).  Returns
-    the new (x, y)."""
+    the new (x, y).  ``c0``: the launch's first color (the span kernel's
+    one-color launches past cap 64: c0 = c1, on ``region`` (6, 6)); the
+    k-th color of the launch, c0 + k, at inset 2k + 1."""
     cap, TY, TX = x.shape
-    RY, RX = REGION
-    H = 2 * c1 if halo is None else halo
+    RY, RX = region
+    nc = max(c1 - c0 + 1, 0)
+    H = 2 * nc if halo is None else halo
     o = origin or 0
     if origin is None:
         nby, nbx = -(-TY // RY), -(-TX // RX)
@@ -106,13 +114,13 @@ def _window_model(x, y, src, rrad, cfg, c1, origin=None, halo=None,
                 w[:, gy0 - wy0:gy1 - wy0, gx0 - wx0:gx1 - wx0] = \
                     plane[:, gy0:gy1, gx0:gx1]
             # 2. the k-th color: cells at least 2k + 1 inside inner edges
-            for k in range(c1):
+            for k in range(nc):
                 m = 2 * k + 1
                 ylo = wy0 + m if wy0 > 0 else 0
                 yhi = wy0 + WY - m if wy0 + WY < TY else TY
                 xlo = wx0 + m if wx0 > 0 else 0
                 xhi = wx0 + WX - m if wx0 + WX < TX else TX
-                cy0, cx0 = gt.color_origin(k + 1)
+                cy0, cx0 = gt.color_origin(c0 + k)
                 ty = torch.arange(ylo + (cy0 - ylo) % 2, yhi, 2)
                 tx = torch.arange(xlo + (cx0 - xlo) % 2, xhi, 2)
                 if not (len(ty) and len(tx)):
@@ -222,3 +230,27 @@ def test_window_model_needs_its_halo(layout):
     assert not torch.equal(got[0], want[0])
     ok = _window_model(st.x, st.y, src, rrad, cfg, 4, layout, halo=8)
     assert torch.equal(ok[0], want[0])
+
+
+@pytest.mark.parametrize("layout, uniform, tail", [
+    (None, False, False), (0, True, True), (-1, True, True)])
+def test_one_color_launches_match_plain_colors(layout, uniform, tail):
+    """Past cap 64 a solve is four launches of one color each, on 6 x 6
+    regions with a 2-tile halo, each reading the last one's planes (the
+    Verlet step in the last): the same x, y as the plain passes."""
+    cfg, st, src, rrad, geo, prm = _inputs(layout, uniform)
+    tails = [None, None]
+    if tail:
+        tails = [(st.px.clone(), st.py.clone(), st.pid, prm)
+                 for _ in range(2)]
+    x, y = st.x, st.y
+    for c in (1, 2, 3, 4):
+        x, y = _window_model(x, y, src, rrad, cfg, c, layout,
+                             tail=tails[0] if c == 4 else None, c0=c,
+                             region=gk.window_region(gk.MAX_CAP))
+    want = _plain(cfg, st, src, rrad, geo, 4, tails[1])
+    assert torch.equal(x, want[0]) and torch.equal(y, want[1])
+    if tail:
+        for u, v in zip(tails[0][:2], tails[1][:2]):
+            assert torch.equal(u, v)
+    assert int((x != st.x).sum()) > 0

@@ -3,7 +3,8 @@ CPU, where no CUDA kernel runs.
 
   * The bytes of a block, through the Python mirror
     ``gpu_physics_engine_torch.ops.gs_kernels.rank_window_bytes``, fit the
-    card's 232,448 at every cap up to 64, with and without a radius plane
+    card's 232,448 at every cap up to 256 and K up to 64, with and without
+    a radius plane
     (one geometry serves both layouts; chip_smoke.py holds the mirror equal
     to the launches' own numbers on the card).
   * A model of the kernel's walk in numpy equals the plain rank bit for
@@ -41,8 +42,15 @@ def test_rank_window_fits_a_block_at_every_cap(uniform):
     assert gk.rank_window_bytes(32, uniform) == (
         153_648 if uniform else 204_336)
     # past cap 32 the region is 4 x 32 tiles, the masks 64-bit words
-    assert gk.rank_window_bytes(gk.MAX_CAP, uniform) == (
+    assert gk.rank_window_bytes(64, uniform) == (
         158_304 if uniform else 210_528)
+    # past cap 64 (or K 16) the selection kernel: 2 x 8 tiles, four-word
+    # masks and nine member masks per region cell
+    assert gk.rank_window_bytes(gk.MAX_CAP, uniform, gk.MAX_K) == (
+        128_768 if uniform else 169_728)
+    for K in range(1, gk.MAX_K + 1):
+        for cap in range(1, gk.MAX_CAP + 1, 5):
+            assert gk.rank_window_bytes(cap, uniform, K) <= SMEM, (cap, K)
     # a slot costs 12 bytes (pid, x, y), 16 with a radius plane, per
     # window tile (the region and a one-tile ring)
     rows, cols = gk.rank_region(8)

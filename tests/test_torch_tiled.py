@@ -104,13 +104,23 @@ def test_tile_geometry_matches(kw):
 
 
 @pytest.mark.parametrize("case", ["random", "spill", "pids_prev", "pile",
-                                  "tile_edge"])
+                                  "tile_edge", "cap140"])
 def test_init_tiles_matches_native_tiler(case):
     """The port's tiler (its binning pass in C++) lays particles out
     exactly as the JAX package's native tiler does, spills included, and
-    particles within an ulp of a tile edge bin by its rule."""
+    particles within an ulp of a tile edge bin by its rule; at cap 140 (the
+    4M re-tiling spawn's cap) a pile fills tiles past slot 64 and spills."""
     assert jt._load_native_tiler() is not None  # JAX's default path
-    if case == "tile_edge":
+    if case == "cap140":
+        jcfg, tcfg = cfgs(tile_cap=140, world_width=16.0, world_height=16.0,
+                          max_particles=3000, initial_particles=3000)
+        rng = np.random.default_rng(14)
+        pos = np.clip(np.array([8.0, 8.0]) + rng.normal(0, 1.2, (3000, 2)),
+                      0.6, 15.4).astype(np.float32)
+        a, b = both_states(jcfg, tcfg, pos, np.full(3000, 0.3, np.float32))
+        assert int((b.pid >= 0).sum(0).max()) == 140  # full tiles
+        assert int(b.num_active) == 3000
+    elif case == "tile_edge":
         # probes at every f32 multiple k * t inside the world and one ulp
         # either side, on both axes, then a clump over them that spills
         jcfg, tcfg = cfgs(tile_cap=4)

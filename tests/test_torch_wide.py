@@ -1,0 +1,107 @@
+"""The port's limits past the card's old ones, on the CPU, where no CUDA
+kernel runs: K past 16 against the JAX package, and the kernels' shared
+memory at every cap and K the card takes.
+
+  * ``gs_kernels.check_card_k``: K 1-64 pass on a CUDA device, 0 and 65
+    raise naming the limit 64 (TiledEngine calls it for a GS config); on
+    the CPU every K passes.
+  * The Python mirrors of the kernels' shared memory
+    (``tiled_kernels.k1_smem_bytes``, ``k2_window_bytes``,
+    ``gs_kernels.rank_window_bytes``, ``colors_window_bytes``) stay within
+    a block's 232,448 bytes at every cap 1-256 and K 1-64 (chip_smoke.py
+    holds them equal to the launches' own numbers on the card).
+  * ``gs_kernels.rank_plain`` at K 20 (past the register list's 16) equals
+    the JAX package's ``_select_occupants`` exactly, and one solve through
+    ``rank_plain`` and ``colors_plain`` at K 20 equals the JAX package's
+    jnp ``gs_solve`` bit for bit, on a jammed scene at cap 4 whose cells
+    hold more than 20 members.
+
+The CUDA kernels at K 17-64 and caps 65-256 are held to these plain
+versions on the card (tests/test_torch_cuda.py, chip_smoke.py).  The JAX
+functions run op by op (no jit): compiled whole at K 20, the solve's
+unrolled 190 pairs a color took past 15 minutes on this CPU; op by op each
+primitive is exact, as under jit with the package's no-contract guard.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from gpu_physics_engine_tpu.ops.gs_tiled import (_memberships,
+                                                 _select_occupants)
+from gpu_physics_engine_tpu.ops.gs_tiled import gs_solve as j_gs_solve
+from gpu_physics_engine_torch.ops import gs_kernels as gk
+from gpu_physics_engine_torch.ops import gs_tiled as gt
+from gpu_physics_engine_torch.ops import tiled as tt
+from gpu_physics_engine_torch.ops import tiled_kernels as tk
+from test_torch_gs import gs_cfgs, gs_scene
+from test_torch_tiled import assert_same, both_states
+
+SMEM = 232_448  # dynamic shared memory of a block on an H100
+K = 20
+
+
+@pytest.mark.parametrize("k, taken", [(1, True), (16, True), (17, True),
+                                      (64, True), (65, False), (0, False)])
+def test_card_takes_k_up_to_64(k, taken):
+    if taken:
+        gk.check_card_k(k, torch.device("cuda"))
+    else:
+        with pytest.raises(ValueError, match=f"max_occupancy {k} outside "
+                                             "1..64"):
+            gk.check_card_k(k, "cuda:0")
+    gk.check_card_k(k, torch.device("cpu"))  # the plain versions: any K
+
+
+@pytest.mark.parametrize("mirror", ["k1", "k2", "rank", "colors"])
+def test_kernel_windows_fit_a_block_at_every_cap_and_k(mirror):
+    for cap in range(1, tk.MAX_CAP + 1):
+        if mirror == "k1":
+            got = [tk.k1_smem_bytes(cap, u) for u in (False, True)]
+        elif mirror == "k2":
+            got = [tk.k2_window_bytes(cap, p) for p in (False, True)]
+        elif mirror == "rank":
+            got = [gk.rank_window_bytes(cap, u, k) for u in (False, True)
+                   for k in range(1, gk.MAX_K + 1)]
+        else:
+            got = [gk.colors_window_bytes(cap, c) for c in range(5)]
+        assert max(got) <= SMEM, (mirror, cap)
+    assert (tk.MAX_CAP, gk.MAX_K) == (256, 64)
+
+
+@functools.lru_cache(maxsize=None)
+def _jammed():
+    """The jammed scene at cap 4, K 20 in both packages."""
+    jcfg, tcfg = gs_cfgs(180, cap=4, K=K)  # cells of up to 20 members
+    pos, rad = gs_scene("jammed", 180, seed=2)
+    return jcfg, tcfg, both_states(jcfg, tcfg, pos, rad)
+
+
+def test_rank_plain_at_k20_matches_select_occupants():
+    jcfg, tcfg, (a, b) = _jammed()
+    t, TY, TX = tt.tile_geometry(tcfg)
+    ox, oy, orad, opid, over = _select_occupants(a, _memberships(a, t), K)
+    src, rpid, rrad, count = gk.rank_plain(b, tcfg)
+    assert src.shape == (K, TY, TX)
+    assert int(count.max()) > 16  # ranks past the register list's depth
+    ty = torch.arange(TY).view(1, TY, 1)
+    tx = torch.arange(TX).view(1, 1, TX)
+    idx, valid = gt.source_index(src, tcfg.tile_cap, TY, TX, ty, tx)
+    for q in range(K):
+        np.testing.assert_array_equal(
+            gt.gather(b.x, idx, valid)[q].numpy(), np.asarray(ox[q]))
+        np.testing.assert_array_equal(
+            gt.gather(b.y, idx, valid)[q].numpy(), np.asarray(oy[q]))
+        np.testing.assert_array_equal(rrad[q].numpy(), np.asarray(orad[q]))
+        np.testing.assert_array_equal(rpid[q].numpy(), np.asarray(opid[q]))
+    assert int(torch.clamp(count - K, min=0).sum()) == int(over)
+
+
+def test_solve_plain_at_k20_bitmatches_jax():
+    jcfg, tcfg, (a, b) = _jammed()
+    want = j_gs_solve(a, jcfg)
+    got = gt.solve_frame(b, tcfg, gk.rank_plain, gk.colors_plain)[0]
+    assert_same(want, got)  # x, y bit-equal; overflow_count exact
+    assert int((got.x != b.x).sum()) > 0
