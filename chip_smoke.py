@@ -17,7 +17,8 @@ non-zero with no result line:
      region) and at the 4M [8, 640, 1850], 1M [6, 480, 1388] and 256k
      [9, 176, 506] shapes, bit-equal; K2 (pull relocate, one launch on a
      shared-memory window; its window bytes, and K1's, == the Python
-     mirrors at every cap 1-256) there, on the ragged grid and on a small scene at cap 32
+     mirrors at every cap 1-256 and past it to 4,096) there, on the
+     ragged grid and on a small scene at cap 32
      (K2-par too), for flip / flip2 / greedy, hysteresis on and off, and
      at the GS shapes [4, 960, 2773] and [6, 960, 2773],
      bit-equal; K5 (GS rank) and K6 (GS color solve, one launch of the
@@ -166,17 +167,22 @@ non-zero with no result line:
      ``halo.make_sharded_step`` at 1M for 16 steps with the radix resort
      (nothing dropped); the sharded GS frame at 1M-GS on 4 slabs
      bit-equal to the one-grid plain solve and to K5 + K6;
-  7d. tile caps 33-256 and K past 16 (phase_wide_caps): the kernels'
-     64-bit (caps 33-64) and four-word (65-256) mask instantiations,
-     every kernel at caps 33, 48, 64, 65, 128, 140 and 256 on piles whose
-     tiles fill every slot, bit-equal to its plain version and on repeat
-     (K1 and K3, uniform and general radius, on a grid smaller than one
-     region, a ragged one and a halo-extended slab; K2 in every matching
-     mode (past cap 64 greedy on the small grid), K4, K2-par at origins 0
-     and -1 and relocate_mega; K5 and K5-par with K 16, with and without a
-     radius plane; the K6 / K6-par windows for colors 1..4, with and
-     without the tail, past cap 64 a launch a color); K5, K5-par and the
-     windows at K 17, 32 and 64 (cap 16) and K 64 at cap 140; the 1M
+  7d. tile caps past 32 and K past 16 (phase_wide_caps): the kernels'
+     64-bit mask instantiations (caps 33-64), K1's and the relocate
+     window's kernels without a mask (past 64: the packed K1, its window
+     also streamed; the warp relocate, at cap 4,096 on device scratch), the
+     GS kernels' four-word class (65-256) and the GS kernels without a
+     window (past cap 256 or K 64): every kernel at caps 33, 65, 140, 257,
+     312 and 520 on piles whose tiles fill every slot, bit-equal
+     to its plain version and on repeat (K1 and K3, uniform and general
+     radius, on a grid smaller than one region, a ragged one and a
+     halo-extended slab; K2 in every matching mode, K4, K2-par at origins
+     0 and -1 and relocate_mega; K5 and K5-par with K 16, with and without
+     a radius plane; the K6 / K6-par windows for colors 1..4, with and
+     without the tail); K5, K5-par and the windows at K 17, 32 and 64
+     (cap 16) and K 64 at cap 140; at K 80 and 128 (cap 16, a crowded
+     cell of 144 members) K5, K5-par, K6 and K6-par; an engine's cap
+     grown from 256 to 257 by ``_maybe_grow_cap``, 8 steps there; the 1M
      engine with tiled_spawn="retile" (64 steps, then a spawn re-tiles it
      past cap 32, then 128 steps: K1's general form every step, K2 every
      4th) and the 1M engine at the cap its scene gives tile_max_radius 1
@@ -185,12 +191,13 @@ non-zero with no result line:
      re-tiles it to cap 140 [140, 168, 464] (after 64 steps the scene
      gives 108), 128 steps (K1's general form, K2 every 2nd);
      JAX's spawn-ready 1M tiling (tile_max_radius 3: cap 144 [144, 88,
-     233]), a spawn into its tiles, 128 steps; each with its launch counts,
+     233]) and the 1M engine tiled for radius 5 (cap 312 [312, 56, 141]),
+     a spawn into their tiles, 128 steps; each with its launch counts,
      every pid kept, ms/step, idle share and launches a step (a profiler
      window that holds every K1 launch, else fail), and K1 and K2
      bit-equal on its final state
      (K2 also jittered; at cap 140 K2 on a band of 32 tile rows); the GS
-     engine at cap 64, at cap 128 and at K 32 (cap 16) in the
+     engine at caps 64, 128 and 312 and at K 32 (cap 16) in the
      flat, par and mega layouts, bit-equal to each other, each kernel
      timed on its state;
   8. kernel times at the main paths' shapes against their plain versions,
@@ -273,27 +280,32 @@ def phase_build() -> None:
         log(f"[build] {ln}")
 
 
+FORMULA_CAPS = tuple(range(1, 257)) + (257, 300, 312, 520, 1000, 1913,
+                                       2000, 4096)
+FORMULA_KS = tuple(range(1, 65)) + (65, 80, 128, 256)
+
+
 def check_window_formula() -> None:
     """The shared-memory bytes of K1's, K2's, K5's and K6's windows, as the
     launches take them from csrc/, equal the Python mirrors
     (``tiled_kernels.k1_smem_bytes``, ``tiled_kernels.k2_window_bytes``,
     ``gs_kernels.rank_window_bytes``, ``gs_kernels.colors_window_bytes``)
-    at every cap 1-256 (K1 with and without a radius plane; K2 on both
-    layouts; K5, whose geometry is one for both, with and without a radius
-    plane, at every K 1-64; K6, one geometry too, for 0-4 colors a
-    launch)."""
+    at every cap 1-256 and at caps past it up to 4,096 (K1 with and
+    without a radius plane; K2 on both layouts; K5, whose geometry is one
+    for both, with and without a radius plane, at every K 1-64 and at K
+    65, 80, 128 and 256; K6, one geometry too, for 0-4 colors a launch)."""
     from gpu_physics_engine_torch.ops import _cuda, gs_kernels as gk
     from gpu_physics_engine_torch.ops import tiled_kernels as tk
     lib = _cuda.library()
     most = {}
     for par in (False, True):
-        for cap in range(1, tk.MAX_CAP + 1):
+        for cap in FORMULA_CAPS:
             pairs = [("K2", tk.k2_window_bytes(cap, par),
                       lib.gpe_relocate_window_bytes(cap, int(par)))]
             pairs += [("K5", gk.rank_window_bytes(cap, uniform, K),
                        lib.gpe_gs_rank_window_bytes(cap, int(uniform), K))
                       for uniform in (False, True)
-                      for K in range(1, gk.MAX_K + 1)]
+                      for K in FORMULA_KS]
             pairs += [("K1", tk.k1_smem_bytes(cap, uniform),
                        lib.gpe_collide_window_bytes(cap, int(uniform)))
                       for uniform in (False, True)]
@@ -314,10 +326,11 @@ def check_window_formula() -> None:
                                  f"{got} B, mirror "
                                  f"{8 * rs.scratch_words(ntiles)} B")
     log(f"[window] bytes of the launches == the Python mirrors at caps "
-        f"1-{tk.MAX_CAP} (K5 at K 1-{gk.MAX_K}): K1 most "
-        f"{most['K1', False]} B, K2 most {most['K2', False]} B flat, "
-        f"{most['K2', True]} B parity; K5 most {most['K5', False]} B; K6 "
-        f"most {most['K6', False]} B; the radix sort's scratch")
+        f"1-256 and {FORMULA_CAPS[256:]} (K5 at K 1-64 and "
+        f"{FORMULA_KS[64:]}): K1 most {most['K1', False]} B, K2 most "
+        f"{most['K2', False]} B flat, {most['K2', True]} B parity; K5 most "
+        f"{most['K5', False]} B; K6 most {most['K6', False]} B; the radix "
+        f"sort's scratch")
 
 
 def _clone(state):
@@ -1806,9 +1819,9 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
      "gpu_physics_engine_tpu/ops/gs_mega.py:503", "GS-cap64-mega"),
     ("relocate_mega[cap64]", "relocate_mega", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_mega.py:443", "GS-cap64-mega"),
-    # caps 65-256, the four-word mask instantiations: the 4M engine
-    # re-tiled by a radius-3 spawn (cap 140) and JAX's spawn-ready 1M
-    # tiling (cap 144), both K1's general form
+    # past cap 64, K1's and the relocate window's kernels without a mask:
+    # the 4M engine re-tiled by a radius-3 spawn (cap 140) and JAX's
+    # spawn-ready 1M tiling (cap 144), both K1's general form
     ("collide_integrate[cap140]", "collide_integrate",
      "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "4M-retile"),
@@ -1834,6 +1847,28 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
      "gpu_physics_engine_tpu/ops/gs_mega.py:503", "GS-cap128-mega"),
     ("relocate_mega[cap128]", "relocate_mega", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_mega.py:443", "GS-cap128-mega"),
+    # the tuned 1M engine with tiles for radius-5 particles (cap 312 from
+    # the scene), K1's general form after a spawn into its tiles
+    ("collide_integrate[cap312]", "collide_integrate",
+     "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "1M-r5-cap312"),
+    ("relocate_pull[cap312]", "relocate_pull", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/tiled_pallas.py:945", "1M-r5-cap312"),
+    # the GS engine at cap 312 (set by hand): the kernels without a window
+    ("gs_rank[cap312]", "gs_rank", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_pallas.py:467", "GS-cap312"),
+    ("gs_color[cap312]", "gs_color", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_pallas.py:543", "GS-cap312"),
+    ("gs_rank_par[cap312]", "gs_rank_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:275", "GS-cap312-par"),
+    ("gs_color_par[cap312]", "gs_color_par", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:433", "GS-cap312-par"),
+    ("relocate_par[cap312]", "relocate_par", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_parity.py:689", "GS-cap312-par"),
+    ("gs_colors_mega[cap312]", "gs_colors_mega", "csrc/gs_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_mega.py:503", "GS-cap312-mega"),
+    ("relocate_mega[cap312]", "relocate_mega", "csrc/tiled_kernels.cuh",
+     "gpu_physics_engine_tpu/ops/gs_mega.py:443", "GS-cap312-mega"),
     # the GS engine at K 32 (cap 16) (set by hand) in its three layouts
     ("gs_rank[K32]", "gs_rank", "csrc/gs_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_pallas.py:467", "GS-K32"),
@@ -3022,15 +3057,12 @@ def _tensors(r) -> tuple:
                  if isinstance(v := getattr(r, f.name), torch.Tensor))
 
 
-def _held(what, kern, plain, keep=(), timed=None) -> float:
+def _held(what, kern, plain, keep=()) -> float:
     """``kern`` twice and ``plain`` once, as they are timed, each from the
     same values of ``keep`` (the tensors the calls update in place:
     restored before each call and after the last); their results and
     ``keep`` bit-equal (``_equal_or_raise``).  Returns the largest
-    absolute difference of the kernel's result from the plain one's.
-    ``timed`` (a dict): its "plain_ms" becomes the plain call's time (CUDA
-    events)."""
-    import torch
+    absolute difference of the kernel's result from the plain one's."""
     saved = [t.clone() for t in keep]
 
     def restore():
@@ -3040,15 +3072,8 @@ def _held(what, kern, plain, keep=(), timed=None) -> float:
     outs = []
     for fn in (kern, kern, plain):
         restore()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
         r = fn()
-        t1.record()
         outs.append(tuple(t.clone() for t in _tensors(r) + tuple(keep)))
-    t1.synchronize()
-    if timed is not None:
-        timed["plain_ms"] = t0.elapsed_time(t1)
     restore()
     got, again, want = outs
     if len(got) != len(want):
@@ -3062,21 +3087,11 @@ def _held(what, kern, plain, keep=(), timed=None) -> float:
 def _time_pair(name, shape, kern, plain, plain_reps=2, errs=None,
                keep=()) -> tuple:
     """(kernel ms, plain ms) in turns: plain, kernel, kernel, plain
-    (``plain_reps`` 1: one plain call a turn, no warm-up; 0, with
-    ``errs``: the plain call of the hold, timed, and no other: a plain
-    version that takes tens of seconds).  With ``errs`` the two are first
-    held bit-equal on these inputs (``_held``, with ``keep``) and
-    ``errs[name]`` is the measured error."""
-    timed = {}
+    (``plain_reps`` 1: one plain call a turn, no warm-up).  With ``errs``
+    the two are first held bit-equal on these inputs (``_held``, with
+    ``keep``) and ``errs[name]`` is the measured error."""
     if errs is not None:
-        errs[name] = _held(name, kern, plain, keep, timed)
-    if plain_reps == 0:
-        k1 = cuda_ms(kern, reps=20)
-        k2 = cuda_ms(kern, reps=20)
-        p1 = p2 = timed["plain_ms"]
-        log(f"[time] {name} {shape}: kernel {k1:.4f} / {k2:.4f} ms, plain "
-            f"{p1:.3f} ms (the hold's call)")
-        return min(k1, k2), p1
+        errs[name] = _held(name, kern, plain, keep)
     light = dict(reps=1, warmup=0) if plain_reps == 1 else dict(reps=2)
     p1 = cuda_ms(plain, **light)
     k1 = cuda_ms(kern, reps=20)
@@ -3467,10 +3482,14 @@ def phase_sharded(paths: dict, errs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# tile caps 33-64: the kernels' 64-bit mask instantiations
+# tile caps past 32: the 64-bit mask instantiations (33-64), K1's and the
+# relocate window's kernels without a mask (past 64), the GS kernels
+# without a window (past cap 256 or K 64)
 # ---------------------------------------------------------------------------
 
-WIDE_CAPS = (33, 48, 64, 65, 128, 140, 256)
+WIDE_CAPS = (33, 65, 140, 257, 312, 520)
+SLAB_CAPS = (33, 140, 312)  # K1 and K3 on a halo-extended slab too
+DEEP_KS = (80, 128)
 RETILE_N = 1_048_576
 GS64 = (262_144, (1524.0, 524.0))  # the 1M-GS density on a quarter world
 
@@ -3541,31 +3560,92 @@ def _slab_wide(cap, errs: dict) -> None:
         "and repeat bit-equal")
 
 
-def _wide_kernels(errs: dict) -> None:
-    """The kernels' 64-bit and four-word mask instantiations against their
-    plain versions, bit-equal and on repeat, at caps 33, 48, 64, 65, 128,
-    140 and 256, on pile scenes whose tiles fill every slot: K1 and K3
-    (uniform and general radius) on a grid smaller than one region (12 x 5
-    world: [cap, 8, 8]) and on a ragged one ([cap, 21, 39]), and on a
-    halo-extended slab; there K2 in every matching mode with hysteresis on
-    and off, and K4; on the ragged grid K2-par (origins 0 and -1, one
-    launch and one per parity) and relocate_mega (== K2-par), each matching
-    mode under the config's hysteresis; K5 and K5-par (K 16, with and
-    without a radius plane) and K6's window flat and K6-par's at origins 0
-    and -1 (colors 1..c, with and without the tail) on a 40 x 30 GS scene
-    whose cluster fills every slot of its tiles.  The greedy matching's
-    plain version takes cap^2 x 8 Python steps (about 22 s a call at cap
-    140, 65 s at 256), so past cap 64 K2 runs greedy on the small grid at
-    caps 65 and 140 (the four-word masks' words 0-2), and K2-par and
-    relocate_mega flip and flip2 (their greedy past cap 64:
-    tests/test_torch_cuda.py at cap 65); flip and flip2 run everywhere.
-    Then K past 16 (the sel rank, the colors' ranks past the registers):
-    K5, K5-par and the windows at K 17 (with and without a radius plane),
-    32 and 64 at cap 16, and at K 64 at cap 140 (uniform radius)."""
+def _crowd_cell(st, cfg):
+    """``st`` with every particle of the first block of 3 x 3 full tiles
+    (row by row) moved into the middle tile's box, on a 9 x 9 grid of 0.05
+    tile steps: that tile's cell has 9 x cap members (past any K the scene
+    reaches otherwise)."""
+    import torch
     from gpu_physics_engine_torch.ops import tiled
+    t = tiled.tile_geometry(cfg)[0]
+    full = (st.pid >= 0).all(0).float()[None, None]
+    block = torch.nn.functional.conv2d(full, torch.ones(1, 1, 3, 3,
+                                                        device=full.device))
+    hits = (block[0, 0] == 9).nonzero()
+    if not len(hits):
+        raise AssertionError("the jam fills no block of 3 x 3 tiles")
+    ty, tx = (int(v) + 1 for v in hits[0])
+    cap = st.dims[0]
+    k = torch.arange(9 * cap, device=st.x.device, dtype=torch.float32)
+    ox = ((k % 9) - 4) * 0.05 * t
+    oy = ((k // 9 % 9) - 4) * 0.05 * t
+    x, y = st.x.clone(), st.y.clone()
+    for j, (dy, dx) in enumerate((a, b) for a in (-1, 0, 1)
+                                 for b in (-1, 0, 1)):
+        sl = slice(j * cap, (j + 1) * cap)
+        x[:, ty + dy, tx + dx] = (tx - 0.5) * t + ox[sl]
+        y[:, ty + dy, tx + dx] = (ty - 0.5) * t + oy[sl]
+    return st.replace(x=x, y=y)
+
+
+def _deep_colors(label, cfg, st, errs: dict) -> None:
+    """Past K 64 (the solve without a window): K6 flat, and K6-par at
+    origin 0 (with the Verlet tail under a uniform radius), a whole solve
+    each against the plain passes, bit-equal and on repeat (the plain
+    sweep's K^2/2 pairs a color are slow: one solve a layout)."""
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    src, _, rrad, _ = gk.rank_cuda(st, cfg)
+    a, a2 = (gk.colors_cuda(st.x, st.y, src, rrad, cfg) for _ in range(2))
+    _equal_or_raise(f"K6 {label}", a, gk.colors_plain(st.x, st.y, src, rrad,
+                                                      cfg), a2)
+    ps = gp.to_parity_state(st, cfg, 0)
+    psrc, _, prrad, _ = gp.rank_par_cuda(ps, cfg)
+    prm = _prm(cfg)
+    runs = []
+    for _ in range(3):
+        q, r = ps.px.clone(), ps.py.clone()
+        runs.append((q, r, None if prm is None else (q, r, ps.pid, prm)))
+    got = [gp.colors_par_cuda(ps.x, ps.y, psrc, prrad, cfg, ps.geo, 4, t,
+                              uniform=ps.radius is None) + (q, r)
+           for q, r, t in runs[:2]]
+    q, r, t = runs[2]
+    want = gp.colors_par_plain(ps.x, ps.y, psrc, prrad, cfg, ps.geo, 4, t)
+    _equal_or_raise(f"K6-par {label}", got[0], want + (q, r), got[1])
+    errs["gs_color"] = errs["gs_color_par"] = 0.0
+
+
+def _wide_kernels(errs: dict) -> None:
+    """The kernels past cap 32 against their plain versions, bit-equal and
+    on repeat, at caps 33 (64-bit masks), 65, 140 (K1 and the relocate
+    window without a mask; the GS kernels' four-word class), 257, 312 and
+    520 (the GS kernels without a window), on pile scenes whose tiles fill
+    every slot: K1 and K3 (uniform and general radius) on a grid smaller
+    than one region (12 x 5 world: [cap, 8, 8]) and on a ragged one ([cap,
+    21, 39]), and on a halo-extended slab (caps 33, 140 and 312); there K2
+    in every matching mode with hysteresis on and off (past cap 256 on the
+    small grid under the config's hysteresis), and K4; on the ragged grid
+    K2-par (origins 0 and -1, one launch and one per parity) and
+    relocate_mega (== K2-par) in every matching mode; K1 through the packed
+    kernel under a plan whose buffer makes the window stream (two plans:
+    four and one tiles a block) at caps 140 and 520; K2 and K4 at cap
+    4,096 (their arrays in device scratch: no region fits a block; K2-par
+    and relocate_mega there: tests/test_torch_cuda.py); K5 and K5-par (K
+    16, with and without a radius plane) and K6's window flat and K6-par's
+    at origins 0 and -1 (colors 1..c, with and without the tail) on a 40 x
+    30 GS scene whose cluster fills the slots of its tiles.  Then K past
+    16 (the sel rank, the colors' ranks past the registers): K5, K5-par and
+    the windows at K 17 (with and without a radius plane), 32 and 64 at cap
+    16, and at K 64 at cap 140 (uniform radius); and past K 64 (the list
+    rank, the solve without a window) at K 80 and 128 at cap 16 on a
+    crowded cell (9 x cap members): K5 and K5-par, K6 flat and K6-par."""
+    from gpu_physics_engine_torch import StepParams
+    from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
+    from gpu_physics_engine_torch.utils.kernel_study import (
+        collide_integrate_pack_cuda)
     matches = [(m, -1.0) for m in ("flip", "flip2", "greedy")]
-    no_greedy = [(m, h) for m, h in MODES if m != "greedy"]
     for cap in WIDE_CAPS:
+        t0 = time.perf_counter()
         for shape, world, cut in (("small", (12.0, 5.0), 0),
                                   ("ragged", (80.0, 33.0), 3)):
             label = f"cap{cap}-{shape}"
@@ -3573,29 +3653,53 @@ def _wide_kernels(errs: dict) -> None:
             _, st_g = _pile_state(cap, False, world, cut)
             check_k1_k3(label, cfg, st_u, st_g, errs)
             gcfg = cfg.replace(tiled_uniform_radius=False)
-            if cap <= 64 or shape == "small" and cap == 65:
-                modes = MODES
-            elif shape == "small" and cap == 140:
-                modes = no_greedy + [("greedy", -1.0)]
-            else:
-                modes = no_greedy
-            check_relocate(label, gcfg, st_g, modes, errs)
+            # past cap 256 the small grid under the config's hysteresis
+            # only (the ragged grid takes both)
+            check_relocate(label, gcfg, st_g, matches if cap > 256 and
+                           shape == "small" else MODES, errs)
             check_relocate_one(label, gcfg, st_g, errs)
             if shape == "ragged":
-                par = matches if cap <= 64 else matches[:2]
-                check_relocate_par(label, gcfg, st_g, par, errs)
+                check_relocate_par(label, gcfg, st_g, matches, errs)
                 log(f"[mega] {label}: "
-                    + check_relocate_mega(label, cfg, st_u, par, errs))
-        _slab_wide(cap, errs)
+                    + check_relocate_mega(label, cfg, st_u, matches, errs))
+            if shape == "ragged" and cap in (140, 520):
+                prm = StepParams.make(0.02, mouse=(30.0, 20.0), pressed=True
+                                      ).as_tensor("cuda")
+                want = tk.collide_integrate_plain(st_g, prm, gcfg)
+                fields = ("x", "y", "px", "py")
+                for plan in ((4, 8, 12 * 256 + 1024 + 24 * 40),
+                             (1, 1, 12 * 256 + 512 + 24 * 3)):
+                    got = [collide_integrate_pack_cuda(st_g, prm, gcfg, plan)
+                           for _ in range(2)]
+                    _equal_or_raise(
+                        f"K1 {label} streaming plan {plan}",
+                        tuple(getattr(got[0], f) for f in fields),
+                        tuple(getattr(want, f) for f in fields),
+                        tuple(getattr(got[1], f) for f in fields))
+                log(f"[caps] {label}: K1's packed kernel with the window "
+                    f"streamed (plans of 40 and 3 occupants) bit-equal and "
+                    f"repeat bit-equal")
+        if cap in SLAB_CAPS:
+            _slab_wide(cap, errs)
         for uniform in (False, True):
             gcfg, gst = _gs_ragged_state(cap, 16, uniform, 3000,
                                          (40.0, 30.0), jam_sd=0.6)
-            if int((gst.pid >= 0).sum(0).max()) != cap:
-                raise AssertionError(f"cap {cap} GS: no tile fills up")
+            if int((gst.pid >= 0).sum(0).max()) < min(cap, 300):
+                raise AssertionError(f"cap {cap} GS: no tile holds "
+                                     f"{min(cap, 300)}")
             gst = jittered(gst, 0.3 * tiled.tile_geometry(gcfg)[0],
                            seed=cap)
             check_rank(f"cap{cap}-K16", gcfg, gst, errs)
             check_window(f"cap{cap}-K16", gcfg, gst, errs)
+        log(f"[caps] cap {cap}: every kernel, {time.perf_counter() - t0:.1f}"
+            " s")
+    t0 = time.perf_counter()
+    cfg, st = _pile_state(4096, False, (12.0, 5.0), 0)
+    if tk.k2_window_bytes(4096, False) != 0:
+        raise AssertionError("K2 at cap 4,096 runs in shared memory")
+    check_relocate("cap4096-scratch", cfg, st,
+                   [("flip", 0.0), ("greedy", -1.0)], errs)
+    check_relocate_one("cap4096-scratch", cfg, st, errs)
     for cap, K, radii in ((16, 17, (False, True)), (16, 32, (True,)),
                           (16, 64, (True,)), (140, 64, (True,))):
         for uniform in radii:
@@ -3605,6 +3709,17 @@ def _wide_kernels(errs: dict) -> None:
                            seed=K)
             check_rank(f"cap{cap}-K{K}", gcfg, gst, errs)
             check_window(f"cap{cap}-K{K}", gcfg, gst, errs)
+    for K, uniform in zip(DEEP_KS, (False, True)):
+        gcfg, gst = _gs_ragged_state(16, K, uniform, 3000, (40.0, 30.0),
+                                     jam_sd=0.6)
+        gst = _crowd_cell(jittered(gst, 0.3 * tiled.tile_geometry(gcfg)[0],
+                                   seed=K), gcfg)
+        check_rank(f"cap16-K{K}-crowd", gcfg, gst, errs)
+        _deep_colors(f"cap16-K{K}-crowd", gcfg, gst, errs)
+        log(f"[k6] cap16-K{K}-crowd uniform={uniform}: K6 flat and K6-par "
+            f"(origin 0{_tails(gcfg)}) a whole solve bit-equal and repeat "
+            f"bit-equal")
+    log(f"[caps] cap 4,096 and K 17-128: {time.perf_counter() - t0:.1f} s")
 
 
 def _wide_path(label, e, n, steps, expect, paths, errs, key, smi,
@@ -3614,23 +3729,21 @@ def _wide_path(label, e, n, steps, expect, paths, errs, key, smi,
     after; every pid kept, finite, inside the world; ms/step (CUDA
     events), the idle share and launches a step over 8 more steps
     (``profile_run``, a window that holds every K1 launch, else fail);
-    then
-    up to cap 64 K2 (the engine's match and hysteresis) on the final state
+    then K2 (the engine's match and hysteresis) on the final state
     against its plain version, twice, bit-equal.  Returns the time rows
     {name[key]: (kernel ms, plain ms, bound)} of K1 on the final state and
     K2 on it jittered by 0.3 tile, each held bit-equal, twice, to its plain
-    version on those inputs first (past cap 64 the plain K2's time is its
-    call in the hold: the greedy plan's plain version takes 20 s a call
-    there).  ``band`` = (row0, row1): K2's plain comparison and its time row
+    version on those inputs first.  ``band`` = (row0, row1): K2's plain
+    comparison and its time row
     take those tile rows of the state, and K2's time on the whole state is
     logged beside."""
     import torch
     from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
     from gpu_physics_engine_torch.utils.profiling import profile_run
     cfg = e.config
-    if not tk.NARROW_CAP < cfg.tile_cap <= tk.MAX_CAP:
-        raise AssertionError(f"{label}: cap {cfg.tile_cap} is not in "
-                             f"{tk.NARROW_CAP + 1}..{tk.MAX_CAP}")
+    if cfg.tile_cap <= tk.NARROW_CAP:
+        raise AssertionError(f"{label}: cap {cfg.tile_cap} is not past "
+                             f"{tk.NARROW_CAP}")
     # 8 warm-up steps first: the first launches of the engine's kernels
     # at this cap (and their shared-memory set-up) stay out of the window
     warm = cuda_ms(lambda: e.run(8), reps=1, warmup=0) / 8
@@ -3661,9 +3774,11 @@ def _wide_path(label, e, n, steps, expect, paths, errs, key, smi,
         if iv and (k == 0 or k + 16 > iv):
             e.run(iv - k + 1 if k else 1)  # the sweep, then one step
         prof = profile_run(e, 8, pad_s=pad)
-        k1_ms, k1_n = per_launch(prof, "collide_integrate_kernel")
+        # K1: collide_integrate_kernel (the masks) or _pack_kernel; K2:
+        # relocate_window_kernel (the masks) or relocate_warp_kernel
+        k1_ms, k1_n = per_launch(prof, "gpe::collide_integrate")
         if k1_n == 8 * cfg.substeps and prof["idle_share"] >= 0.0:
-            k2_ms, k2_n = per_launch(prof, "relocate_window_kernel")
+            k2_ms, k2_n = per_launch(prof, "gpe::relocate_w")
             break
     else:
         raise AssertionError(
@@ -3695,10 +3810,8 @@ def _wide_path(label, e, n, steps, expect, paths, errs, key, smi,
         st, moved = (s.replace(**{f: getattr(s, f)[:, band[0]:band[1]]
                                   .contiguous() for f in tiled.FIELDS})
                      for s in (st, moved))
-    if cfg.tile_cap <= tk.WIDE_CAP:  # past it the hold below is K2's
-        check_relocate(f"{label} in-step", cfg, st,
-                       [(cfg.tiled_match, cfg.tiled_hysteresis)], errs,
-                       jitter=0)
+    check_relocate(f"{label} in-step", cfg, st,
+                   [(cfg.tiled_match, cfg.tiled_hysteresis)], errs, jitter=0)
     st = e.state
     return {
         f"collide_integrate[{key}]": _time_pair(
@@ -3710,8 +3823,8 @@ def _wide_path(label, e, n, steps, expect, paths, errs, key, smi,
         f"relocate_pull[{key}]": _time_pair(
             f"relocate_pull[{key}]", list(moved.dims),
             lambda: tk.relocate_pull_cuda(moved, cfg),
-            lambda: tk.relocate_pull_plain(moved, cfg),
-            plain_reps=0 if cfg.tile_cap > tk.WIDE_CAP else 1, errs=errs)
+            lambda: tk.relocate_pull_plain(moved, cfg), plain_reps=1,
+            errs=errs)
         + (_k2_bound(moved),)}
 
 
@@ -3882,6 +3995,71 @@ def _spawn_ready_1m(smi, paths, errs) -> dict:
                        "collide": 0}, paths, errs, "cap144", smi)
 
 
+def _r5_cap312(smi, paths, errs) -> dict:
+    """The tuned 1M engine with tiles for radius-5 particles:
+    make_tuned_engine(1_048_576, tile_max_radius=5.0, tile_cap=0) (the cap
+    from the seeded scene: 312 on [312, 56, 141]), a spawn whose radii 1-3
+    fit its tiles (into the tiles, K1's general form from there), then
+    ``_wide_path``."""
+    import torch
+    from gpu_physics_engine_torch import make_tuned_engine
+    n = RETILE_N
+    t0 = time.perf_counter()
+    e = make_tuned_engine(n, tile_max_radius=5.0, tile_cap=0, device="cuda")
+    torch.cuda.synchronize()
+    dims = list(e.state.dims)
+    log(f"[1M-r5-cap312] make_tuned_engine({n}, tile_max_radius=5.0, "
+        f"tile_cap=0): cap {dims[0]} x {dims[1:]} from the scene, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if dims != [312, 56, 141]:
+        raise AssertionError(f"1M-r5-cap312: dims {dims}, not [312, 56, 141]")
+    e.spawn_at(CENTRE, verbose=False)
+    if (e.num_particles() != n + 100 or list(e.state.dims) != dims
+            or e.big is not None and int(e.big.num_active)
+            or e.config.tiled_uniform_radius):
+        raise AssertionError(f"1M-r5-cap312: the spawn went elsewhere than "
+                             f"the tiles ({e.num_particles()} particles, "
+                             f"dims {list(e.state.dims)})")
+    log(f"[1M-r5-cap312] spawn_at({CENTRE}): 100 particles of radius 1-3 "
+        f"into the tiles, tiled_uniform_radius off")
+    return _wide_path("1M-r5-cap312", e, n + 100, 128,
+                      {"collide_integrate": 128, "relocate_pull": 32,
+                       "collide": 0}, paths, errs, "cap312", smi)
+
+
+def _growth_257(paths) -> None:
+    """Capacity growth on the card past 256, as in the JAX package: an
+    engine at cap 256 whose deferred population passes
+    ``tiled_auto_cap_pct`` grows to 257 through ``_maybe_grow_cap``, then
+    runs 8 steps there (K1 and K2 at cap 257), every pid kept."""
+    import torch
+    from gpu_physics_engine_torch import SimConfig, TiledEngine
+    n = 20_000
+    cfg = SimConfig(max_particles=n, initial_particles=n, world_width=96.0,
+                    world_height=64.0, pipeline="tiled", tile_cap=256,
+                    tiled_auto_cap_pct=50.0, tiled_relocate_interval=2)
+    e = TiledEngine(cfg, seed=0, device="cuda")
+    # a deferred population of 2,500% a step over a 4-step window: past
+    # the bound (a run's own deferrals stay far below it)
+    e._maybe_grow_cap(4, int(e.state.overflow_count) - 1_000_000)
+    if e.config.tile_cap != 257 or e.state.dims[0] != 257:
+        raise AssertionError(f"growth: cap {e.config.tile_cap}, dims "
+                             f"{list(e.state.dims)}")
+    reset_launches()
+    e.run(8)
+    torch.cuda.synchronize()
+    got = launches()
+    if (got["collide_integrate"] != 8 * cfg.substeps
+            or got["relocate_pull"] < 1 or e.config.tile_cap != 257):
+        raise AssertionError(f"growth-257: launches {got}, cap "
+                             f"{e.config.tile_cap}")
+    paths["growth-257"] = got
+    _check_engine(e, n, "growth-257")
+    log(f"[growth-257] cap 256 -> {e.config.tile_cap} through "
+        f"_maybe_grow_cap on the card ({list(e.state.dims)}); 8 steps "
+        f"there, launches {got}; all {n} pids kept")
+
+
 def _gs_wide(tag, key, cap, K, paths, errs) -> dict:
     """The GS engine at ``cap`` with max_occupancy ``K`` (both set by hand:
     no tuned GS row reaches past cap 32 or K 8) on 262,144 particles over a
@@ -3947,28 +4125,34 @@ def _gs_wide(tag, key, cap, K, paths, errs) -> dict:
 
 
 def phase_wide_caps(smi: str, paths: dict, errs: dict) -> dict:
-    """Tile caps 33-256 and K past 16 on the card (the kernels' 64-bit and
-    four-word mask instantiations, the sel rank, the colors' deep ranks and
-    their one-color schedule): ``check_window_formula`` (run first, in
-    main) holds the window bytes at every cap 1-256 and K 1-64;
-    ``_wide_kernels`` holds every kernel at caps 33-256 and K 17-64; then
-    the engine paths past cap 32: 1M-retile, 1M-cap36 (with K3's and K4's
-    paths), 4M-retile (cap 140), 1M-spawn-ready (cap 144), and the GS
-    engine at cap 64, at cap 128 and at K 32.  Returns their time rows."""
+    """Tile caps past 32 and K past 16 on the card (the 64-bit mask
+    instantiations, K1's and the relocate window's kernels without a mask,
+    the sel rank, the colors' deep ranks and one-color schedule, the GS
+    kernels without a window): ``check_window_formula`` (run first, in
+    main) holds the window bytes at every cap 1-256 and past it to 4,096;
+    ``_wide_kernels`` holds every kernel at caps 33-520 (K2 at 4,096) and
+    K 17-128; ``_growth_257`` grows an engine past 256; then the engine
+    paths past cap 32: 1M-retile, 1M-cap36 (with K3's and K4's paths),
+    4M-retile (cap 140), 1M-spawn-ready (cap 144), 1M-r5-cap312 (cap 312),
+    and the GS engine at cap 64, 128 and 312 and at K 32.  Returns their
+    time rows."""
     import torch
     t0 = time.perf_counter()
     _wide_kernels(errs)
-    log(f"[caps] the kernels at caps 33-256 and K 17-64: "
+    log(f"[caps] the kernels at caps 33-4,096 and K 17-128: "
         f"{time.perf_counter() - t0:.1f} s")
+    _growth_257(paths)
     rows = {}
-    for path in (_retile_1m, _cap36_1m, _retile_4m, _spawn_ready_1m):
+    for path in (_retile_1m, _cap36_1m, _retile_4m, _spawn_ready_1m,
+                 _r5_cap312):
         t1 = time.perf_counter()
         rows.update(path(smi, paths, errs))
         torch.cuda.empty_cache()
         log(f"[caps] {path.__name__}: {time.perf_counter() - t1:.1f} s")
     for tag, key, cap, K in (("GS-cap64", "cap64", 64, 8),
                              ("GS-cap128", "cap128", 128, 8),
-                             ("GS-K32", "K32", 16, 32)):
+                             ("GS-K32", "K32", 16, 32),
+                             ("GS-cap312", "cap312", 312, 8)):
         t1 = time.perf_counter()
         rows.update(_gs_wide(tag, key, cap, K, paths, errs))
         torch.cuda.empty_cache()

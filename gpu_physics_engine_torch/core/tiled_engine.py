@@ -74,6 +74,13 @@ def _auto_cap(config: SimConfig, positions) -> int:
     return max(8, int(-(-1.5 * occ // 4)) * 4)
 
 
+def _tiles(config: SimConfig) -> int:
+    """TY x TX tiles of ``config``'s grid: the slot count check_card_cap
+    holds (cap x tiles) before a state is built."""
+    _, TY, TX = tiled.tile_geometry(config)
+    return TY * TX
+
+
 def default_device(device=None) -> torch.device:
     """``device`` as given; else the CUDA card.  Without a card, no device
     or a CUDA one is a RuntimeError: the engine never falls back to the
@@ -114,14 +121,14 @@ class TiledEngine:
             if config.tile_cap == 0:
                 self.config = config = config.replace(
                     tile_cap=_auto_cap(config, positions))
-            check_card_cap(config.tile_cap, self.device)
+            check_card_cap(config.tile_cap, self.device, _tiles(config))
             initial_state = tiled.init_tiles(config, positions, radii,
                                              device=self.device)
         else:
-            check_card_cap(initial_state.dims[0], self.device)
+            cap, TY, TX = initial_state.dims
+            check_card_cap(cap, self.device, TY * TX)
             if config.tile_cap == 0:
-                self.config = config = config.replace(
-                    tile_cap=int(initial_state.dims[0]))
+                self.config = config = config.replace(tile_cap=int(cap))
         self.state = initial_state
         if config.tiled_uniform_radius:
             # the uniform-radius sweep never reads the radius planes; a
@@ -358,8 +365,7 @@ class TiledEngine:
     def _watchdog(self):
         """Detect a growing stale-pair population at run() boundaries and
         escalate: forced exact sweep -> hysteresis off -> +1 slot capacity
-        (repeatable, with a futility check; held at the card's limit, cap
-        256 on a CUDA device, where the sweep still runs).  Each escalation prints and
+        (repeatable, with a futility check).  Each escalation prints and
         increments ``watchdog_events``."""
         cfg = self.config
         if not cfg.tiled_watchdog:
@@ -388,9 +394,7 @@ class TiledEngine:
         new_cap = grown_cap(cfg.tile_cap, self.device)
         act = {1: "forced exact sweep",
                2: "hysteresis off",
-               3: (f"tile_cap {cfg.tile_cap} -> {new_cap}" if new_cap else
-                   f"tile_cap held at {cfg.tile_cap}, the card's limit: "
-                   "forced exact sweep")}[self._wd_level]
+               3: f"tile_cap {cfg.tile_cap} -> {new_cap}"}[self._wd_level]
         why = (f"growing (was {prev:.2f}%)" if growing
                else f"past the {4.0 * bound:.0f}% runaway ceiling "
                     f"(flat, was {prev:.2f}%)")
@@ -400,9 +404,8 @@ class TiledEngine:
             self.config = self.config.replace(tiled_hysteresis=0.0)
             self._configure()
         if self._wd_level >= 3:
-            if new_cap is not None:
-                self._retile_cap(new_cap)
-                self._wd_retile_pct = pct
+            self._retile_cap(new_cap)
+            self._wd_retile_pct = pct  # futility check at the next trip
             self._wd_level = 2  # cap growth is repeatable
         # drain with the strongest sweep there is: the rebuild when the
         # hybrid is configured, else the configured sweep, then the bands
@@ -420,13 +423,13 @@ class TiledEngine:
     def _retile_as(self, config: SimConfig) -> None:
         """Re-tile every tile particle under ``config`` (positions,
         previous positions, pids and the overflow count carried; the
-        overlay is untouched).  A cap the card cannot take raises first,
-        and the engine stays as it was."""
+        overlay is untouched).  A cap no state can hold (its slots past the
+        int32 index) raises first, and the engine stays as it was."""
         pids, pos, prev, radii = tiled.export_particles(self.state)
         overflow = int(self.state.overflow_count)
         if config.tile_cap == 0:
             config = config.replace(tile_cap=_auto_cap(config, pos))
-        check_card_cap(config.tile_cap, self.device)
+        check_card_cap(config.tile_cap, self.device, _tiles(config))
         self.config = config
         self.state = tiled.init_tiles(config, pos, radii, pids=pids,
                                       previous_positions=prev,
@@ -449,8 +452,7 @@ class TiledEngine:
 
     def _maybe_grow_cap(self, steps: int, overflow_before: int):
         """config.tiled_auto_cap_pct: re-tile with +1 slot capacity when the
-        deferred population over the finished run() window exceeds it (on
-        a CUDA device not past cap 256: the cap is held there)."""
+        deferred population over the finished run() window exceeds it."""
         pct_bound = self.config.tiled_auto_cap_pct
         if not pct_bound or steps <= 0:
             return
@@ -462,11 +464,8 @@ class TiledEngine:
             cap = self.config.tile_cap
             new_cap = grown_cap(cap, self.device)
             print(f"[tiled] deferred population {pct:.2f}%/step > "
-                  f"{pct_bound}%: " + (
-                      f"growing tile_cap {cap} -> {new_cap}" if new_cap else
-                      f"tile_cap held at {cap}, the card's limit"))
-            if new_cap is not None:
-                self._retile_cap(new_cap)
+                  f"{pct_bound}%: growing tile_cap {cap} -> {new_cap}")
+            self._retile_cap(new_cap)
 
     @classmethod
     def from_arrays(cls, config: SimConfig, positions, radii, device=None,
@@ -477,7 +476,7 @@ class TiledEngine:
         if config.tile_cap == 0:
             config = config.replace(tile_cap=_auto_cap(
                 config, np.asarray(positions, np.float32).reshape(-1, 2)))
-        check_card_cap(config.tile_cap, device)
+        check_card_cap(config.tile_cap, device, _tiles(config))
         st = tiled.init_tiles(config, positions, radii, device=device, **kw)
         return cls(config, initial_state=st)
 
@@ -731,7 +730,7 @@ class TiledEngine:
         if config_overrides:
             config = config.replace(**config_overrides)
         device = default_device(device)
-        check_card_cap(config.tile_cap, device)
+        check_card_cap(config.tile_cap, device, _tiles(config))
         state, _ = load_tiled_checkpoint(path, config=config, device=device)
         eng = cls(config, seed=seed, initial_state=state)
         stored = load_tiled_bigs(path)

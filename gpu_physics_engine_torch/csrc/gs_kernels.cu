@@ -70,9 +70,15 @@ int launch_rank(const void* x, const void* y, const void* rad,
                 const void* pid, void* src, void* rpid, void* rrad,
                 void* count, int cap, const L& lay, int np, int K, float t,
                 float r0, void* stream) {
-  if (K < 1 || K > gpe::kGsMaxK || cap < 1 || cap > gpe::kMaxCap ||
-      lay.TY < 1 || lay.TX < 1)
+  if (K < 1 || cap < 1 || lay.TY < 1 || lay.TX < 1)
     return (int)cudaErrorInvalidValue;
+  if (gpe::gs_simple(cap, K))
+    return gpe::launch_rank_list(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const float*>(rad), static_cast<const int*>(pid),
+        static_cast<int*>(src), static_cast<int*>(rpid),
+        static_cast<float*>(rrad), static_cast<int*>(count), cap, lay, np, K,
+        t, r0, static_cast<cudaStream_t>(stream));
   // the K-deep list's registers by K, the mask word by cap; past K 16 or
   // cap 64 the sel kernel, the mask word by cap
   using Fn = int (*)(const float*, const float*, const float*, const int*,
@@ -170,6 +176,7 @@ template <class L>
 int launch_window(const gpe::GsWindowArgs& a, const L& lay, float* sx,
                   float* sy, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
+  if (gpe::gs_simple(a.cap, a.K)) return gpe::launch_color_cells(a, lay, st);
   const int cls = gpe::gs_window_class(a.cap);
   if (cls == gpe::kGsOneClass) {
     using One = int (*)(const gpe::GsWindowArgs&, const L&, float*, float*,
@@ -197,7 +204,7 @@ int launch_window(const gpe::GsWindowArgs& a, const L& lay, float* sx,
 extern "C" {
 
 // K5: src/rpid int32 [K, TY, TX], rrad float [K, TY, TX], count int32
-// [TY, TX].  1 <= K <= 64, 1 <= cap <= 256.
+// [TY, TX].  Any K >= 1 and cap >= 1 (past 64 and 256 the list kernel).
 int gpe_gs_rank(const void* x, const void* y, const void* rad,
                 const void* pid, void* src, void* rpid, void* rrad,
                 void* count, int cap, int TY, int TX, int K, float t,
@@ -228,7 +235,8 @@ int gpe_gs_rank_par(const void* x, const void* y, const void* rad,
 // K5's shared-memory bytes at (cap, K), with or without a radius plane, as
 // the launches above take them (either layout).
 int gpe_gs_rank_window_bytes(int cap, int uniform, int K) {
-  return gpe::rank_bytes(cap, uniform != 0, K);
+  return gpe::gs_simple(cap, K) ? gpe::gs_list_bytes()
+                                : gpe::rank_bytes(cap, uniform != 0, K);
 }
 
 // K6, K6-par (K6-mx, K6-dec) and colors_mega: colors 1..c1 (0 <= c1 <=
@@ -239,9 +247,11 @@ int gpe_gs_rank_window_bytes(int cap, int uniform, int K) {
 // par != 0: fields [4, cap, DY, DX], tables [4, K, DY, DX] with the given
 // origin.  rrad may be null: every valid rank has radius r0.  With integ,
 // pid, prm (device float[4]) and consts (host float[kVerletNumConsts] in
-// VerletConsts order) are read.  1 <= K <= 64, 1 <= cap <= 256.  Past cap
-// 64 with two colors or more, sx and sy are scratch planes shaped as ox
-// (a launch a color, in turns through them); otherwise they may be null.
+// VerletConsts order) are read.  Any K >= 1 and cap >= 1.  At caps 65-256
+// and K up to 64 with two colors or more, sx and sy are scratch planes
+// shaped as ox (a launch a color, in turns through them); otherwise they
+// may be null.  Past cap 256 or K 64: a copy, a launch a color in place on
+// the outputs, and the tail.
 int gpe_gs_colors_window(const void* x, const void* y, void* px, void* py,
                          const void* pid, const void* src, const void* rrad,
                          const void* prm, void* ox, void* oy, void* sx,
@@ -249,8 +259,7 @@ int gpe_gs_colors_window(const void* x, const void* y, void* px, void* py,
                          int origin, int par, int K, int c1, float r0,
                          float stiffness, int integ, const void* consts,
                          void* stream) {
-  if (K < 1 || K > gpe::kGsMaxK || cap < 1 || cap > gpe::kMaxCap ||
-      c1 < 0 || c1 > gpe::kGsWinMaxColors || TY < 1 ||
+  if (K < 1 || cap < 1 || c1 < 0 || c1 > gpe::kGsWinMaxColors || TY < 1 ||
       TX < 1 || (par && (DY < 1 || DX < 1)) ||
       (integ && (!px || !py || !pid || !prm || !consts)))
     return (int)cudaErrorInvalidValue;
@@ -286,7 +295,7 @@ int gpe_gs_colors_window(const void* x, const void* y, void* px, void* py,
 // The window's shared-memory bytes at cap for a launch of `colors` colors,
 // as the launches above take them (either layout).
 int gpe_gs_colors_window_bytes(int cap, int colors) {
-  return gpe::gs_window_bytes(cap, colors);
+  return cap > gpe::kFourWordCap ? 0 : gpe::gs_window_bytes(cap, colors);
 }
 
 }  // extern "C"

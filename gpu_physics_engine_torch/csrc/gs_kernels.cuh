@@ -33,8 +33,20 @@
 
 namespace gpe {
 
-constexpr int kGsMaxK = 64;
+constexpr int kGsMaxK = 64;  // K up to this: the window kernels below
 constexpr int kGsRegK = 16;  // K up to this: the K ranks in registers
+// Past cap 256 or K 64 the rank and the solve take the kernels without a
+// window (csrc/gs_simple.cuh).
+__host__ __device__ constexpr bool gs_simple(int cap, int K) {
+  return cap > kFourWordCap || K > kGsMaxK;
+}
+// Its rank's block: a warp a cell, each warp's member list (pid, source
+// code, radius) of kGsListCap entries in shared memory.
+constexpr int kGsListThreads = 256;
+constexpr int kGsListCap = 512;
+__host__ __device__ constexpr int gs_list_bytes() {
+  return kGsListThreads / 32 * kGsListCap * 12;
+}
 constexpr int kBigPid = 0x7FFFFFFF;
 constexpr float kGsMinDist = 1e-4f;  // f32 rounding of MIN_DISTANCE
 
@@ -393,7 +405,8 @@ __host__ __device__ constexpr int rank_bytes(int cap, bool uniform, int K) {
 }
 static_assert(rank_bytes(kNarrowCap, false, kGsMaxK) <= kSmemLimit, "sel 32");
 static_assert(rank_bytes(kWideCap, false, kGsMaxK) <= kSmemLimit, "sel 64");
-static_assert(rank_bytes(kMaxCap, false, kGsMaxK) <= kSmemLimit, "sel 256");
+static_assert(rank_bytes(kFourWordCap, false, kGsMaxK) <= kSmemLimit,
+              "sel 256");
 static_assert(sel_win_tiles(0) % 2 == 0 && sel_win_tiles(1) % 2 == 0 &&
                   sel_win_tiles(2) % 2 == 0,
               "the 64-bit mask words' alignment");
@@ -726,7 +739,7 @@ static_assert(gs_window_bytes(8, kGsWinMaxColors) <= kSmemLimit, "cap 8");
 static_assert(gs_window_bytes(16, kGsWinMaxColors) <= kSmemLimit, "cap 16");
 static_assert(gs_window_bytes(32, kGsWinMaxColors) <= kSmemLimit, "cap 32");
 static_assert(gs_window_bytes(64, kGsWinMaxColors) <= kSmemLimit, "cap 64");
-static_assert(gs_window_bytes(kMaxCap, kGsWinMaxColors) <= kSmemLimit,
+static_assert(gs_window_bytes(kFourWordCap, kGsWinMaxColors) <= kSmemLimit,
               "cap 256");
 constexpr bool gs_window_even(int cls) {
   return cls > kGsOneClass || (gs_window_ry(cls) % 2 == 0 &&
@@ -1263,5 +1276,24 @@ __global__ void __launch_bounds__(kGsWinThreads, 1)
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// Past cap 256 or K 64: the launchers of csrc/gs_simple.cuh's kernels
+// (gs_simple.cu), called by gs_kernels.cu's entry points: K5 on the list
+// kernel over the launch's cells, and colors 1..a.c1 (then, with a.integ,
+// the tail) on a.ox, a.oy after a copy of a.x, a.y.  Each returns
+// cudaGetLastError() or the first error.
+int launch_rank_list(const float* x, const float* y, const float* rad,
+                     const int* pid, int* src, int* rpid, float* rrad,
+                     int* count, int cap, const FlatLayout& lay, int np,
+                     int K, float t, float r0, cudaStream_t s);
+int launch_rank_list(const float* x, const float* y, const float* rad,
+                     const int* pid, int* src, int* rpid, float* rrad,
+                     int* count, int cap, const ParLayout& lay, int np,
+                     int K, float t, float r0, cudaStream_t s);
+int launch_color_cells(const GsWindowArgs& a, const FlatLayout& lay,
+                       cudaStream_t s);
+int launch_color_cells(const GsWindowArgs& a, const ParLayout& lay,
+                       cudaStream_t s);
 
 }  // namespace gpe

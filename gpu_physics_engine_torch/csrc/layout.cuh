@@ -26,13 +26,15 @@
 
 namespace gpe {
 
-// Slots of a tile.  The kernels keep a mask of a tile's slots in one word,
-// a template parameter: 32 bits (unsigned) up to cap 32 (kNarrowCap), 64
-// bits (Mask64) for caps 33-64 (kWideCap), and four 64-bit words
-// (Mask256) for caps 65-256 (kMaxCap), each its own instantiation, so the
-// caps up to 64 run the code they ran before the four-word class existed.
+// Slots of a tile.  The mask kernels keep a mask of a tile's slots in one
+// word, a template parameter: 32 bits (unsigned) up to cap 32 (kNarrowCap),
+// 64 bits (Mask64) for caps 33-64 (kWideCap), each its own instantiation;
+// the GS rank's selection kernel also four 64-bit words (Mask256) for caps
+// 65-256 (kFourWordCap).  Past cap 64 K1 and the relocate window keep no
+// mask as wide as the cap (csrc/tiled_kernels.cuh), and past cap 256 the
+// GS kernels neither (csrc/gs_simple.cuh): no kernel has a largest cap.
 using Mask64 = unsigned long long;
-constexpr int kMaxCap = 256;
+constexpr int kFourWordCap = 256;
 constexpr int kWideCap = 64;
 constexpr int kNarrowCap = 32;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block, sm_90

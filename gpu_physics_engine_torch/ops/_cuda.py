@@ -36,19 +36,23 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "gpe_collide_integrate": [_P] * 11 + [_I] * 5 + [_P, _P],
+    "gpe_collide_integrate_pack": [_P] * 11 + [_I] * 5 + [_P, _P]
+    + [_I] * 3,
     "gpe_collide": [_P] * 6 + [_I] * 4 + [_P, _P],
-    "gpe_relocate_pull": [_P] * 13 + [_I] * 7 + [_F, _F, _P],
+    "gpe_relocate_pull": [_P] * 13 + [_I] * 7 + [_F, _F, _P, _P],
+    "gpe_relocate_pull_warp": [_P] * 13 + [_I] * 7 + [_F, _F, _P, _P],
     "gpe_relocate_window_bytes": [_I, _I],
+    "gpe_relocate_scratch_bytes": [_I] * 4,
     "gpe_collide_window_bytes": [_I, _I],
     "gpe_gs_rank": [_P] * 8 + [_I] * 4 + [_F, _P],
     "gpe_gs_rank_par": [_P] * 8 + [_I] * 9 + [_F, _F, _P],
     "gpe_gs_rank_window_bytes": [_I, _I, _I],
-    "gpe_relocate_par": [_P] * 13 + [_I] * 9 + [_F, _F, _P],
+    "gpe_relocate_par": [_P] * 13 + [_I] * 9 + [_F, _F, _P, _P],
     "gpe_radix_scratch_bytes": [_I],
     "gpe_radix_digit_hist": [_P] * 2 + [_I] * 2 + [_P],
     "gpe_radix_onesweep": [_P] * 5 + [_I] * 4 + [_P],
-    "gpe_relocate_one": [_P] * 13 + [_I] * 6 + [_F, _P],
-    "gpe_relocate_mega": [_P] * 13 + [_I] * 7 + [_F, _F, _P],
+    "gpe_relocate_one": [_P] * 13 + [_I] * 6 + [_F, _P, _P],
+    "gpe_relocate_mega": [_P] * 13 + [_I] * 7 + [_F, _F, _P, _P],
     "gpe_gs_colors_window": [_P] * 12 + [_I] * 9 + [_F, _F, _I, _P, _P],
     "gpe_gs_colors_window_bytes": [_I, _I],
 }
@@ -124,6 +128,10 @@ def build(defines=()) -> dict:
             "log": log}
 
 
+# entry points that return other than a cudaError_t or an int count
+_RESTYPES = {"gpe_relocate_scratch_bytes": ctypes.c_longlong}
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
@@ -131,7 +139,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

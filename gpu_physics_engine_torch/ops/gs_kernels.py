@@ -33,8 +33,11 @@ K5 ``rank`` replaces ``_rank_full``
   leaves a region of 2 x 8 cells), ``gs_rank_sel_kernel`` instead spreads
   a cell over threads: a mask of its members per neighbour tile, then each
   member's rank counted as the members with a smaller pid, written where
-  below K; the same tables.  Its times: PERF.md and
-  ``utils/kernel_study.py --k5``.
+  below K; the same tables.  Past cap 256 or K 64 (``simple``; the
+  four-word masks run out) ``gs_rank_list_kernel`` takes a cell a warp:
+  its members compacted into a list in shared memory by ballot prefix
+  counts, each ranked by counting the listed pids below its own.  Its
+  times: PERF.md and ``utils/kernel_study.py --k5``.
 
 K6 ``colors`` replaces ``gs_solve_pallas_flat`` (gs_pallas.py:543;
 ``_solve_kernel`` :390 with ``_sweep`` :77, and ``_apply_kernel`` :431).
@@ -63,7 +66,12 @@ K6 ``colors`` replaces ``gs_solve_pallas_flat`` (gs_pallas.py:543;
   unrolled (``gs_color_cell_deep``).  Past cap 64 no whole-solve window
   fits a block, and the span kernel runs a color a launch (6 x 6 tiles
   and a 2-tile halo), the four launches passing the planes in turns
-  through two scratch planes; the same cells, pairs and f32 order.  The sweeps (the halo makes 1.5x as many cells) and the copy
+  through two scratch planes; the same cells, pairs and f32 order.  Past
+  cap 256 or K 64 no window is staged: x and y are copied to the outputs
+  and ``gs_color_cells_kernel`` runs a color a launch on them in place, a
+  thread a cell reading its ranks' slots and radii from the tables as the
+  sweep uses them, then the tail over every slot.  The sweeps (the halo
+  makes 1.5x as many cells) and the copy
   of every empty slot set its time, not the bound's bytes: it is slower
   than the per-color kernel it replaced (PERF.md;
   ``utils/kernel_study.py --k6``).
@@ -79,7 +87,8 @@ from gpu_physics_engine_torch.ops.gs_tiled import (  # the plain versions
     colors_plain, rank_plain, solve_frame)
 from gpu_physics_engine_torch.ops.integrate import f32
 from gpu_physics_engine_torch.ops.tiled import TileState, tile_geometry
-from gpu_physics_engine_torch.ops.tiled_kernels import (MAX_CAP, WIDE_CAP,
+from gpu_physics_engine_torch.ops.tiled_kernels import (SLOTS_LIMIT,
+                                                        WIDE_CAP,
                                                         _check_cuda_state,
                                                         _ptrs, _stream,
                                                         cap_class,
@@ -87,8 +96,17 @@ from gpu_physics_engine_torch.ops.tiled_kernels import (MAX_CAP, WIDE_CAP,
 
 LAUNCHES = {"gs_rank": 0, "gs_color": 0}
 
-MAX_K = 64  # csrc/gs_kernels.cuh kGsMaxK
 REG_K = 16  # up to this K the kernels keep a cell's ranks in registers
+SPAN_K = 64  # csrc/gs_kernels.cuh kGsMaxK: up to it the window kernels
+SPAN_CAP = 256  # csrc/layout.cuh kFourWordCap: up to it the window kernels
+LIST_BYTES = 8 * 512 * 12  # gs_list_bytes: 8 warps' lists of 512 members
+
+
+def simple(cap: int, K: int) -> bool:
+    """Whether (cap, K) takes the kernels without a window (gs_simple):
+    the list rank and a color a launch on the outputs in place."""
+    return cap > SPAN_CAP or K > SPAN_K
+
 
 # K5's windows (csrc/gs_kernels.cuh kRankRows, rank_cols, sel_rows,
 # sel_cols, rank_bytes): a block ranks (rows, columns) full-space tiles on
@@ -116,18 +134,22 @@ def rank_region(cap: int, K: int = 8):
 # region (rows, columns) of full-space tiles a block owns, by the largest
 # cap of its class; past WIDE_CAP a launch runs one color
 WINDOW_REGIONS = ((4, (32, 48)), (8, (32, 32)), (16, (8, 32)), (32, (8, 16)),
-                  (64, (4, 6)), (MAX_CAP, (6, 6)))
+                  (64, (4, 6)), (SPAN_CAP, (6, 6)))
 
 
 def window_region(cap: int):
-    """The (rows, columns) region of K6's window at ``cap``."""
-    return next(r for top, r in WINDOW_REGIONS if cap <= top)
+    """The (rows, columns) region of K6's window at ``cap`` (None past
+    SPAN_CAP: no window)."""
+    return next((r for top, r in WINDOW_REGIONS if cap <= top), None)
 
 
-def colors_window_bytes(cap: int, colors: int = 4) -> int:
+def colors_window_bytes(cap: int, colors: int = 4, K: int = 8) -> int:
     """Shared memory of one K6 window block: x and y of every slot of the
     region and a halo of two tiles per color of the launch on every side
-    (past WIDE_CAP a launch runs one color of the ``colors``)."""
+    (past WIDE_CAP a launch runs one color of the ``colors``); none past
+    SPAN_CAP or SPAN_K."""
+    if simple(cap, K):
+        return 0
     rows, cols = window_region(cap)
     if cap > WIDE_CAP:
         colors = min(colors, 1)
@@ -138,7 +160,10 @@ def rank_window_bytes(cap: int, uniform: bool, K: int = 8) -> int:
     """Shared memory of one K5 block: per tile of the window (the region
     and a one-tile ring) cap slots of pid, x and y (and radius unless
     ``uniform``), and an occupancy mask; past REG_K or WIDE_CAP also nine
-    member masks per region cell."""
+    member masks per region cell; past SPAN_CAP or SPAN_K the list
+    kernel's member lists."""
+    if simple(cap, K):
+        return LIST_BYTES
     rows, cols = rank_region(cap, K)
     win = (rows + 2) * (cols + 2) * (cap * (12 if uniform else 16)
                                      + mask_bytes(cap))
@@ -152,22 +177,24 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def check_card_k(K: int, device) -> None:
-    """Refuse a max_occupancy that the card's GS kernels cannot take on
-    ``device``: on a CUDA device a K outside 1..MAX_K raises ValueError
-    naming the limit; on any other device every K passes (the plain
-    versions run there).  TiledEngine calls it where the GS config is
-    chosen, before any state exists."""
-    if torch.device(device).type == "cuda" and not 1 <= int(K) <= MAX_K:
-        raise ValueError(f"max_occupancy {K} outside 1..{MAX_K}: the CUDA "
-                         f"GS kernels rank at most {MAX_K} occupants a cell")
+def check_card_k(K: int, device, tiles: int = 1) -> None:
+    """Refuse a max_occupancy that no table can hold: on a CUDA device a K
+    below 1, or one whose ``tiles`` cells pass the int32 index (K x TY x
+    TX < 2^31), raises ValueError naming the limit; on any other device
+    every K passes.  TiledEngine calls it where the GS config is chosen,
+    before any state exists."""
+    if torch.device(device).type == "cuda" and (
+            int(K) < 1 or int(K) * max(1, int(tiles)) >= SLOTS_LIMIT):
+        raise ValueError(f"max_occupancy {K} outside 1 <= K and K x "
+                         f"{max(1, int(tiles))} cells < 2^31: the GS "
+                         "tables index as int32")
 
 
 def _check_k(K: int, cap: int, what: str) -> None:
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"{what}: max_occupancy {K} outside 1..{MAX_K}")
-    if not 1 <= cap <= MAX_CAP:
-        raise ValueError(f"{what}: tile_cap {cap} outside 1..{MAX_CAP}")
+    if K < 1:
+        raise ValueError(f"{what}: max_occupancy {K} below 1")
+    if cap < 1:
+        raise ValueError(f"{what}: tile_cap {cap} below 1")
 
 
 # ---------------------------------------------------------------------------
@@ -249,8 +276,8 @@ def window_cuda(what: str, x, y, src, rrad, config: SimConfig, grid,
     Returns the new (x, y)."""
     cap, K = int(x.shape[-3]), config.max_occupancy
     ox, oy = torch.empty_like(x), torch.empty_like(y)
-    sx = sy = None  # past WIDE_CAP a launch a color, in turns through these
-    if cap > WIDE_CAP and c1 > 1:
+    sx = sy = None  # caps 65-256: a launch a color, in turns through these
+    if cap > WIDE_CAP and c1 > 1 and not simple(cap, K):
         sx, sy = torch.empty_like(x), torch.empty_like(y)
     px = py = pid = prm = None
     if tail is not None:

@@ -56,7 +56,7 @@ from gpu_physics_engine_torch.ops import gs_parity as gp
 from gpu_physics_engine_torch.ops.integrate import f32
 from gpu_physics_engine_torch.ops.tiled import tile_geometry
 from gpu_physics_engine_torch.ops.tiled_kernels import (_MATCH_CODE, _ptrs,
-                                                        _stream,
+                                                        _stream, k2_scratch,
                                                         resolve_match)
 
 LAUNCHES = {"gs_colors_mega": 0, "relocate_mega": 0}
@@ -152,6 +152,7 @@ def relocate_mega_cuda(ps: gp.ParityState, config: SimConfig
     orad = None if ps.radius is None else torch.empty_like(ps.radius)
     opid = torch.empty_like(ps.pid)
     defer = torch.empty((4, geo.DY, geo.DX), dtype=_I32, device=dev)
+    scratch = k2_scratch(cap, geo.DY, geo.DX, True, dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = lib.gpe_relocate_mega(
@@ -159,7 +160,7 @@ def relocate_mega_cuda(ps: gp.ParityState, config: SimConfig
             *_ptrs(ps.pid, *outs), gp._ptr(orad), *_ptrs(opid, defer), cap,
             *gp._geo_args(geo), _MATCH_CODE[match],
             f32(tile_geometry(config)[0]), f32(config.hysteresis_delta),
-            _stream(dev))
+            _stream(dev), gp._ptr(scratch))
     _cuda.check(rc, "relocate mega")
     LAUNCHES["relocate_mega"] += 1
     return ps.replace(x=outs[0], y=outs[1], px=outs[2], py=outs[3],

@@ -95,7 +95,8 @@ from gpu_physics_engine_torch.ops.gs_tiled import (BIGPID, color_plain_,
 from gpu_physics_engine_torch.ops.integrate import f32, verlet_integrate
 from gpu_physics_engine_torch.ops.tiled import TileState, tile_geometry
 from gpu_physics_engine_torch.ops.tiled_kernels import (
-    MAX_CAP, _MATCH_CODE, _ptrs, _stream, relocate_pull_plain, resolve_match)
+    _MATCH_CODE, _ptr, _ptrs, _stream, k2_scratch, relocate_pull_plain,
+    resolve_match)
 
 PARS = ((0, 0), (0, 1), (1, 0), (1, 1))  # p = 2 * row parity + col parity
 LAUNCHES = {"gs_rank_par": 0, "gs_color_par": 0, "relocate_par": 0,
@@ -248,10 +249,6 @@ def _groups(fused: bool):
     return [(0, 4)] if fused else [(p, 1) for p in range(4)]
 
 
-def _ptr(a: Optional[torch.Tensor]):
-    return None if a is None else a.data_ptr()
-
-
 def _check_cuda(what: str, device: torch.device, **tensors) -> None:
     """Every tensor a contiguous one of its expected dtype and shape on
     ``device``, a CUDA device; the slots index as int32."""
@@ -272,8 +269,8 @@ def _check_cuda(what: str, device: torch.device, **tensors) -> None:
 
 def _check_par_state(ps: ParityState, what: str) -> None:
     cap, geo = ps.cap, ps.geo
-    if not 1 <= cap <= MAX_CAP:
-        raise ValueError(f"{what}: tile_cap {cap} outside 1..{MAX_CAP}")
+    if cap < 1:
+        raise ValueError(f"{what}: tile_cap {cap} below 1")
     shape = (4, cap, geo.DY, geo.DX)
     f = torch.float32
     planes = dict(x=(ps.x, f, shape), y=(ps.y, f, shape),
@@ -477,6 +474,7 @@ def relocate_par_cuda(ps: ParityState, config: SimConfig
     opid = torch.empty_like(ps.pid)
     defer = torch.empty((4, geo.DY, geo.DX), dtype=_I32, device=dev)
     groups = _groups(par_fused(config, dev))
+    scratch = k2_scratch(cap, geo.DY, geo.DX, True, dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         for p0, n in groups:  # each reads the inputs only
@@ -484,7 +482,7 @@ def relocate_par_cuda(ps: ParityState, config: SimConfig
                 *_ptrs(ps.x, ps.y, ps.px, ps.py), _ptr(ps.radius),
                 *_ptrs(ps.pid, *outs), _ptr(orad), *_ptrs(opid, defer), cap,
                 *_geo_args(geo), p0, n, _MATCH_CODE[match], f32(t),
-                f32(delta), _stream(dev))
+                f32(delta), _stream(dev), _ptr(scratch))
             _cuda.check(rc, "relocate par")
     LAUNCHES["relocate_par"] += len(groups)
     return ps.replace(x=outs[0], y=outs[1], px=outs[2], py=outs[3],

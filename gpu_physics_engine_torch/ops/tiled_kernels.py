@@ -14,14 +14,17 @@ K1 ``collide_integrate`` replaces ``collide_integrate_pallas``
   TB/s.  Read from device memory by a thread per (slot, tile), the 9 x CAP
   candidates would cost ~8 GB of L1/L2 traffic for that.
   Design: one block per 8 x 32 tiles (4 x 16 past cap 32, where the slot
-  masks are 64-bit words; 2 x 8 past cap 64, four-word masks) stages its
-  region and a one-tile ring in shared memory (each plane read once,
-  coalesced), deals its occupied particles to its threads, and each
-  particle gathers its own half of every pair from shared memory in the
-  plain version's order (dy, dx, k), so it owns its output and equals the
-  plain version bit for bit: no atomics, no carry between blocks (the TPU
-  Newton form's band-seam carry needs sequential grid steps, which CUDA
-  blocks are not).
+  masks are 64-bit words) stages its region and a one-tile ring in shared
+  memory (each plane read once, coalesced), deals its occupied particles
+  to its threads, and each particle gathers its own half of every pair
+  from shared memory in the plain version's order (dy, dx, k), so it owns
+  its output and equals the plain version bit for bit: no atomics, no
+  carry between blocks (the TPU Newton form's band-seam carry needs
+  sequential grid steps, which CUDA blocks are not).  Past cap 64
+  ``collide_integrate_pack_kernel`` keeps no slot mask: it packs the
+  window's occupants per tile (counts and prefixes from 32-slot words),
+  sizes shared memory by occupants, not slots (K1_PACK), and streams a
+  window whose occupants do not fit, tile by tile in (dy, dx) order.
   The write phase runs Verlet per slot, coalesced, reading [dt, mx, my,
   pressed] from device memory, so a step never syncs with the host.
   Its times, and what bounds it now: PERF.md (the kernel table) and
@@ -45,18 +48,23 @@ K2 ``relocate_pull`` replaces ``relocate_pallas``
   shape [8, 640, 1850] with 4,194,304 particles 0.35 GB, 0.106 ms on an
   H100 at 3.35 TB/s (chip_smoke.py ``bounds``).
   Design: one launch, ``relocate_window_kernel`` (csrc/tiled_kernels.cuh).
-  A block owns 8 x 64 tiles (4 x 16 past cap 64) and stages the region
-  and a two-tile halo: per tile a mask of its occupied slots and one of
-  the slots hopping in each direction, each particle's step computed once
-  (the plan of the two launches it replaced computed it 8 times) and each
-  plane read once, coalesced.  It plans the region and a one-tile ring in shared memory
-  (the matching of ``_plan_choose`` on register masks), applies the region
-  (leavers, deferrals, the outputs in slot order), and writes a thread
-  per (output slot, tile), coalesced, with the zero fill in the same
-  pass.  The plan never goes through device memory.  Built with
-  -fmad=false so the tile-boundary decisions equal the plain version's
-  bit for bit.  Its times, what bounds it now, and the two-launch variant
-  it was chosen over: PERF.md and ``utils/kernel_study.py --k2``.
+  A block owns 8 x 64 tiles and stages the region and a two-tile halo: per
+  tile a mask of its occupied slots and one of the slots hopping in each
+  direction, each particle's step computed once (the plan of the two
+  launches it replaced computed it 8 times) and each plane read once,
+  coalesced.  It plans the region and a one-tile ring in shared memory (the
+  matching of ``_plan_choose`` on register masks), applies the region
+  (leavers, deferrals, the outputs in slot order), and writes a thread per
+  (output slot, tile), coalesced, with the zero fill in the same pass.  The
+  plan never goes through device memory.  Past cap 64
+  ``relocate_warp_kernel`` plans a tile per warp, its slots in chunks of 32
+  lanes (each matching mode by lanes; greedy as two ballot-word merges),
+  with a byte per slot and 32-bit words in shared memory, on a region
+  chosen by cap (``k2_warp_region``; past the smallest one, device
+  scratch).  Built with -fmad=false so the tile-boundary decisions equal the
+  plain version's bit for bit.  Its times, what bounds it now, and the
+  two-launch variant it was chosen over: PERF.md and
+  ``utils/kernel_study.py --k2``.
 
 K4 ``relocate_one`` replaces ``relocate_pallas_one``
 (gpu_physics_engine_tpu/ops/tiled_pallas.py:1187; kernel
@@ -94,82 +102,134 @@ from gpu_physics_engine_torch.ops.tiled import (FIELDS, MIN_DISTANCE,
 LAUNCHES = {"collide_integrate": 0, "relocate_pull": 0, "collide": 0,
             "relocate_one": 0}
 
-# The card's kernels keep a mask of a tile's slots: one 32-bit word up to
-# NARROW_CAP, one 64-bit word up to WIDE_CAP, four 64-bit words past it
-# (csrc/layout.cuh kMaxCap, kWideCap, kNarrowCap), so a CUDA state holds at
-# most MAX_CAP slots a tile.  The plain versions take any cap.
-MAX_CAP = 256
+# The card's mask kernels keep a mask of a tile's slots: one 32-bit word up
+# to NARROW_CAP, one 64-bit word up to WIDE_CAP (csrc/layout.cuh kWideCap,
+# kNarrowCap); past WIDE_CAP K1 and the relocate window keep no mask.  No
+# kernel has a largest cap: a CUDA state is limited only by its int32 slot
+# count and the card's memory, as the plain versions are.
 WIDE_CAP = 64
 NARROW_CAP = 32
+SLOTS_LIMIT = 2 ** 31  # cap x TY x TX slots index as int32
 
 
-def check_card_cap(cap: int, device) -> None:
-    """Refuse a tile_cap that the card's kernels cannot take on ``device``:
-    on a CUDA device a cap outside 1..MAX_CAP raises ValueError naming the
-    limit; on any other device every cap passes (the plain versions run
-    there).  The engines call it where they choose a cap, before any state
-    changes."""
-    if torch.device(device).type == "cuda" and not 1 <= int(cap) <= MAX_CAP:
+def check_card_cap(cap: int, device, tiles: int = 1) -> None:
+    """Refuse a tile_cap that no state can hold: on a CUDA device a cap
+    below 1, or one whose ``tiles`` tiles pass the int32 slot count
+    (cap x TY x TX < 2^31, as both packages index), raises ValueError
+    naming the limit; on any other device every cap passes.  The engines
+    call it with their grid's TY x TX where they choose a cap, before a
+    state is built or changed (a sharded engine with a halo-extended
+    slab's); every launch holds its state to it again
+    (``_check_cuda_state``)."""
+    if torch.device(device).type != "cuda":
+        return
+    if int(cap) < 1 or int(cap) * max(1, int(tiles)) >= SLOTS_LIMIT:
         raise ValueError(
-            f"tile_cap {cap} outside 1..{MAX_CAP}: the CUDA kernels keep a "
-            f"tile's slots in a mask of four 64-bit words, so a tile holds "
-            f"at most {MAX_CAP} particles on the card")
+            f"tile_cap {cap} outside 1 <= cap and cap x {max(1, int(tiles))}"
+            f" tiles < 2^31: the kernels index slots as int32")
 
 
-def grown_cap(cap: int, device):
+def grown_cap(cap: int, device) -> int:
     """The cap a growth step (the watchdog's level 3, ``tiled_auto_cap_pct``)
-    takes from ``cap`` on ``device``: cap + 1, or None on a CUDA device
-    at MAX_CAP, where the engine holds its cap and keeps its sweeps."""
-    if torch.device(device).type == "cuda" and int(cap) >= MAX_CAP:
-        return None
+    takes from ``cap`` on ``device``: cap + 1 on the card as on the CPU, as
+    in the JAX package.  No device stops growth short of the int32 slot
+    index, which the re-tile holds with its grid (``check_card_cap``)."""
+    del device  # the same on every device
     return int(cap) + 1
 
 
 def cap_class(cap: int) -> int:
-    """The kernels' mask class at ``cap`` (csrc/layout.cuh cap_class): 0 up
-    to NARROW_CAP, 1 up to WIDE_CAP, 2 past it."""
+    """The kernels' class at ``cap`` (csrc/layout.cuh cap_class): 0 up to
+    NARROW_CAP, 1 up to WIDE_CAP, 2 past it (K1 and the relocate window
+    without a mask; the GS selection rank's four-word masks)."""
     return 0 if cap <= NARROW_CAP else 1 if cap <= WIDE_CAP else 2
 
 
 def mask_bytes(cap: int) -> int:
-    """Bytes of the kernels' slot mask at ``cap``."""
+    """Bytes of the mask kernels' slot mask at ``cap``."""
     return (4, 8, 32)[cap_class(cap)]
 
 
-# K1's window (csrc/tiled_kernels.cuh k1_rows, k1_cols, k1_smem_bytes): a
-# block's region is K1_REGION[cap_class(cap)] = (rows, columns) tiles
-K1_REGION = ((8, 32), (4, 16), (2, 8))
+# K1's window (csrc/tiled_kernels.cuh k1_rows, k1_cols, k1_mask_bytes): a
+# block's region is K1_REGION[cap_class(cap)] = (rows, columns) tiles up
+# to WIDE_CAP; past it the packed kernel's plan K1_PACK (k1_pack_plan:
+# rows, columns, shared bytes of a block whatever the cap)
+K1_REGION = ((8, 32), (4, 16))
+K1_PACK = (2, 8, 49_152)
 
 
 def k1_smem_bytes(cap: int, uniform: bool) -> int:
-    """Shared memory of one K1 (or K3) block: per window tile (the region
-    and a one-tile ring) cap slots of x, y (and radius unless ``uniform``)
-    and a mask; per region tile cap sums (x, y) and cap u16 list
-    entries."""
+    """Shared memory of one K1 (or K3) block: up to WIDE_CAP per window
+    tile (the region and a one-tile ring) cap slots of x, y (and radius
+    unless ``uniform``) and a mask, per region tile cap sums (x, y) and
+    cap u16 list entries; past it the packed kernel's fixed bytes."""
+    if cap > WIDE_CAP:
+        return K1_PACK[2]
     rows, cols = K1_REGION[cap_class(cap)]
     win = (rows + 2) * (cols + 2)
     return (win * (cap * (8 if uniform else 12) + mask_bytes(cap))
             + rows * cols * cap * 10)
 
 
-# K2's window (csrc/tiled_kernels.cuh k2_rows, k2_width, k2_window_bytes): a
-# block's region is K2_REGION[par][cap_class(cap)] = (rows, columns)
-# storage cells (on the parity layout, of each of the four sub-grids); keyed
-# by par (False: flat, True: parity)
-K2_REGION = {False: ((8, 64), (8, 64), (4, 16)),
-             True: ((4, 32), (4, 32), (2, 8))}
+# K2's window (csrc/tiled_kernels.cuh k2_rows, k2_width, k2_mask_bytes): up
+# to WIDE_CAP a block's region is K2_REGION[par] = (rows, columns) storage
+# cells (on the parity layout, of each of the four sub-grids); past it the
+# warp kernel's full-space region (k2_warp_region)
+K2_REGION = {False: (8, 64), True: (4, 32)}
+K2_WARP_REGIONS = ((4, 16), (2, 16), (2, 8), (2, 4), (2, 2))
+K2_WARP_BUDGET = 113_664  # a region's bytes: two blocks an SM
+SMEM_LIMIT = 232_448  # dynamic shared memory of a block, sm_90
+
+
+def k2_warp_bytes(cap: int, rows: int, cols: int) -> int:
+    """Bytes of one warp-kernel block's arrays (csrc/tiled_kernels.cuh
+    k2_warp_bytes): per window tile (the region and a two-tile halo) its
+    direction bits, taken words and a direction byte a slot, per region
+    tile cap source codes and an output count."""
+    nch = (cap + 31) // 32
+    win = (rows + 4) * (cols + 4)
+    return (4 * win * (1 + nch) + 4 * cap * ((rows * cols) | 1)
+            + 4 * rows * cols + win * (32 * nch + 4))
+
+
+def k2_warp_region(cap: int):
+    """(rows, columns, in shared memory) of the warp kernel at ``cap``: the
+    largest region of K2_WARP_REGIONS whose arrays fit K2_WARP_BUDGET (the
+    smallest where it fits a block), else (4, 16) on device scratch."""
+    for i, (ry, rx) in enumerate(K2_WARP_REGIONS):
+        b = k2_warp_bytes(cap, ry, rx)
+        if b <= K2_WARP_BUDGET or (i == len(K2_WARP_REGIONS) - 1
+                                   and b <= SMEM_LIMIT):
+            return ry, rx, True
+    return 4, 16, False
 
 
 def k2_window_bytes(cap: int, par: bool) -> int:
-    """Shared memory of one K2 block: occupancy and eight direction masks
-    per window tile (the region and a two-tile full-space halo), eight
-    taken masks per planned tile (the region and a one-tile ring), and an
-    output count and cap u16 source codes per region tile."""
-    rows, cols = K2_REGION[par][cap_class(cap)]
+    """Shared memory of one K2 block.  Up to WIDE_CAP: occupancy and eight
+    direction masks per window tile (the region and a two-tile full-space
+    halo), eight taken masks per planned tile (the region and a one-tile
+    ring), and an output count and cap u16 source codes per region tile.
+    Past it the warp kernel's arrays at its region, or 0 where they go to
+    device scratch (``k2_scratch``)."""
+    if cap > WIDE_CAP:
+        ry, rx, smem = k2_warp_region(cap)
+        return k2_warp_bytes(cap, ry, rx) if smem else 0
+    rows, cols = K2_REGION[par]
     ry, rx = (2 * rows, 2 * cols) if par else (rows, cols)
     return (mask_bytes(cap) * (9 * (ry + 4) * (rx + 4)
                                + 8 * (ry + 2) * (rx + 2))
             + (4 + 2 * cap) * ry * rx)
+
+
+def k2_scratch(cap: int, rows: int, cols: int, par: bool, device):
+    """The device scratch a relocate launch at ``cap`` on ``rows`` x
+    ``cols`` storage cells (on the parity layout DY x DX of each sub-grid)
+    needs, sized by the library itself (``gpe_relocate_scratch_bytes``:
+    the warp kernel's region, arrays and grid); None where its arrays fit
+    shared memory."""
+    n = _cuda.library().gpe_relocate_scratch_bytes(cap, rows, cols,
+                                                    int(par))
+    return torch.empty(n, dtype=torch.uint8, device=device) if n else None
 
 
 # fixed claim priority: the first matching neighbour wins a free slot
@@ -188,9 +248,7 @@ def _check_cuda_state(state: TileState, what: str) -> None:
         raise RuntimeError(f"{what}: the CUDA kernel needs CUDA tensors, "
                            f"got {state.device}")
     cap, TY, TX = state.dims
-    check_card_cap(cap, state.device)
-    if cap * TY * TX >= 2 ** 31:
-        raise ValueError(f"{what}: {cap}x{TY}x{TX} slots overflow int32")
+    check_card_cap(cap, state.device, TY * TX)
     for name in FIELDS:
         a = getattr(state, name)
         want = torch.int32 if name == "pid" else torch.float32
@@ -206,6 +264,11 @@ def _check_cuda_state(state: TileState, what: str) -> None:
 def _ptrs(*tensors) -> list:
     """Device addresses, passed to the C entry points as void*."""
     return [a.data_ptr() for a in tensors]
+
+
+def _ptr(a):
+    """A tensor's device address, or None (a null void*) for None."""
+    return None if a is None else a.data_ptr()
 
 
 def _stream(device: torch.device) -> int:
@@ -358,12 +421,13 @@ def relocate_pull_cuda(state: TileState, config: SimConfig, row0: int = 0,
     outs = [torch.empty_like(state.x) for _ in range(5)]
     opid = torch.empty_like(state.pid)
     defer = torch.empty((TY, TX), dtype=torch.int32, device=state.device)
+    scratch = k2_scratch(cap, TY, TX, False, state.device)
     lib = _cuda.library()
     with torch.cuda.device(state.device):
         rc = lib.gpe_relocate_pull(
             *_ptrs(*(getattr(state, f) for f in FIELDS), *outs, opid, defer),
             cap, TY, TX, int(row0), gTY, TX, _MATCH_CODE[match], f32(t),
-            f32(delta), _stream(state.device))
+            f32(delta), _stream(state.device), _ptr(scratch))
     _cuda.check(rc, "relocate_pull")
     LAUNCHES["relocate_pull"] += 1
     return _relocated(state, outs, opid, defer), defer
@@ -425,27 +489,40 @@ def _plan_plain(state: TileState, match: str, offsets, row0: int,
             c = claims[e].flip(0)
             chosen = torch.where(c & (chosen < 0),
                                  torch.full_like(chosen, e), chosen)
-    else:
+    elif match == "flip2":
         claimed = torch.zeros_like(claims)
         for k in range(cap):
             chosen_k = chosen[k]
-            if match == "flip2":
-                order = [(e, s, e + 8 * rule)
-                         for rule, s in ((0, cap - 1 - k), (1, k))
-                         for e in range(8)]
-            else:  # greedy
-                order = [(e, s, e * cap + s)
-                         for e in range(8) for s in range(cap)]
-            for e, s, code in order:
-                take = (free[k] & claims[e, s] & ~claimed[e, s]
-                        & (chosen_k < 0))
-                chosen_k = torch.where(take, torch.full_like(chosen_k, code),
-                                       chosen_k)
-                claimed[e, s] |= take
+            for rule, s in ((0, cap - 1 - k), (1, k)):
+                for e in range(8):
+                    take = (free[k] & claims[e, s] & ~claimed[e, s]
+                            & (chosen_k < 0))
+                    chosen_k = torch.where(
+                        take, torch.full_like(chosen_k, e + 8 * rule),
+                        chosen_k)
+                    claimed[e, s] |= take
             chosen[k] = chosen_k
+    else:
+        chosen = _greedy_plain(claims, free)
     interior = ((my_ty >= 1) & (my_ty <= gTY - 2) & (my_tx >= 1)
                 & (my_tx <= TX - 2) & (my_row <= TY - 1))
     return torch.where(free & interior, chosen, torch.full_like(chosen, -1))
+
+
+def _greedy_plain(claims: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
+    """Greedy matching (``_plan_choose``'s greedy loop) by prefix counts:
+    the free slots of a tile, ascending, take its movers in (neighbour,
+    slot) order, the i-th free slot the i-th mover; i32 [cap, TY, TX] of
+    codes e * cap + s, -1 where none.  ``claims`` [8, cap, TY, TX],
+    ``free`` [cap, TY, TX]."""
+    cap, TY, TX = free.shape
+    movers = claims.reshape(8 * cap, TY * TX).t()  # (e, s) order
+    seen = torch.cumsum(movers, dim=1, dtype=torch.int32)  # movers <= m
+    rank = (torch.cumsum(free, dim=0, dtype=torch.int32) - 1).reshape(
+        cap, TY * TX).t()  # a free slot's place among the free, ascending
+    m = torch.searchsorted(seen.contiguous(), rank.contiguous(), right=True)
+    take = free.reshape(cap, TY * TX).t() & (rank < seen[:, -1:])
+    return torch.where(take, m.to(torch.int32), -1).t().reshape(cap, TY, TX)
 
 
 def relocate_pull_plain(state: TileState, config: SimConfig, row0: int = 0,
@@ -563,12 +640,13 @@ def relocate_one_cuda(state: TileState, config: SimConfig, row0: int = 0,
     outs = [torch.empty_like(state.x) for _ in range(5)]
     opid = torch.empty_like(state.pid)
     defer = torch.empty((TY, TX), dtype=torch.int32, device=state.device)
+    scratch = k2_scratch(cap, TY, TX, False, state.device)
     lib = _cuda.library()
     with torch.cuda.device(state.device):
         rc = lib.gpe_relocate_one(
             *_ptrs(*(getattr(state, f) for f in FIELDS), *outs, opid, defer),
             cap, TY, TX, int(row0), gTY, TX, f32(tile_geometry(config)[0]),
-            _stream(state.device))
+            _stream(state.device), _ptr(scratch))
     _cuda.check(rc, "relocate_one")
     LAUNCHES["relocate_one"] += 1
     return _relocated(state, outs, opid, defer), defer

@@ -452,8 +452,9 @@ class ShardedTiledEngine:
             radii = np.full(n, config.initial_radius, np.float32)
         if config.tile_cap == 0:
             config = config.replace(tile_cap=_auto_cap(config, positions))
-        for d in self.mesh.devices:
-            check_card_cap(config.tile_cap, d)
+        _, _, TX, rows = sharded_tile_geometry(config, self.mesh.size)
+        for d in self.mesh.devices:  # a halo-extended slab a device
+            check_card_cap(config.tile_cap, d, (rows + 2) * TX)
         if (config.tiled_uniform_radius
                 and not np.all(radii == np.float32(config.initial_radius))):
             print("[tiled] mixed radii in initial arrays: disabling "

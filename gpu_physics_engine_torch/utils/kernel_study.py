@@ -75,6 +75,22 @@ call):
   window over 10 sorts (the hand sort's passes apart: pass 0 reads int64
   keys, pass 3 writes them).
 
+* ``--wide``: the wide-cap states the engine paths reach (4M-retile, cap
+  140; 1M-spawn-ready, cap 144; 1M-retile, cap 52; 1M-cap36; 1M-r5-cap312,
+  cap 312; each after its spawn and 8 steps; GS-cap128's parity state):
+  K1 on each, this build's default and its packed kernel under the plans
+  of ``K1_PLANS`` (region, shared bytes), in turns (in order,
+  then in reverse), and K2 (K2-par and relocate_mega on GS-cap128) on
+  each jittered by 0.3 tile; with ``--other-lib PATH`` (the parent's
+  build) every kernel of this build also through that one, in turns;
+  each of this build's kernels bit-equal to its plain version first.
+* ``--steps``: ms/step of the 4M engine (``make_tuned_engine``) and the
+  1M-GS engine in the par layout, 64-step ``run()`` windows (CUDA events)
+  after 16 warm-up steps; with ``--other-lib PATH`` through that build
+  too, in turns (this, the other, the other, this, twice).
+* ``--ptxas [DIR]``: the registers, stack frame and spills ptxas reports
+  for this tree's K1, relocate and GS kernels (and, with DIR, another
+  checkout's: e.g. the parent's four-word instantiations).  Needs no card.
 * ``--sass DIR`` (a checkout of another commit, e.g. an unpacked ``git
   archive`` of the parent in a git-ignored directory): this tree's kernel
   library and one built from DIR's ``gpu_physics_engine_torch/csrc``,
@@ -208,6 +224,12 @@ def _same(a, b, fields) -> bool:
     import torch
     return all(torch.equal(getattr(a[0], f), getattr(b[0], f))
                for f in fields) and torch.equal(a[1], b[1])
+
+
+def _equal(a, b, fields) -> bool:
+    """Two states' ``fields`` bit-equal."""
+    import torch
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
 
 
 def k2_study(particles: int, other=None) -> dict:
@@ -368,10 +390,11 @@ _PARENT_SIGNATURES = {
 }
 
 
-def _build_from(csrc: str, out_dir: str, patch: bool) -> str:
+def _build_from(csrc: str, out_dir: str, patch: bool,
+                want_log: bool = False) -> str:
     """Build the kernel library from another tree's ``csrc`` into
     ``out_dir`` (with ``patch``: the parent's K6 with batched loads).
-    Returns the library's path."""
+    Returns the library's path (``want_log``: nvcc's output)."""
     import os
     import shutil
     from pathlib import Path
@@ -394,11 +417,11 @@ def _build_from(csrc: str, out_dir: str, patch: bool) -> str:
     nvcc = _cuda._nvcc()
     cus = sorted(src.glob("*.cu"))
     objs = [os.path.join(out_dir, c.stem + ".o") for c in cus]
-    _cuda._run_all([nvcc, *_cuda.NVCC_FLAGS, "-c", str(c), "-o", o]
-                   for c, o in zip(cus, objs))
+    log = _cuda._run_all([nvcc, *_cuda.NVCC_FLAGS, "-c", str(c), "-o", o]
+                         for c, o in zip(cus, objs))
     so = os.path.join(out_dir, "lib.so")
     _cuda._run_all([[nvcc, *_cuda.ARCH, "-shared", "-o", so, *objs]])
-    return so
+    return log if want_log else so
 
 
 def _window_ptxas(log: str) -> dict:
@@ -417,6 +440,232 @@ def _window_ptxas(log: str) -> dict:
                 name, "")
         elif name and "spill" in line:
             out[name] = out.get(name, "") + line.strip()
+    return out
+
+
+PTXAS_KERNELS = ("collide_integrate", "relocate_window", "relocate_warp",
+                 "gs_rank", "gs_color", "gs_verlet")
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: "registers, shared, ...; stack frame, spill
+    stores, spill loads"} of every kernel of PTXAS_KERNELS in an nvcc
+    -Xptxas -v log."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if any(k in m.group(1)
+                                     for k in PTXAS_KERNELS) else None
+        elif name and ("Used" in line or "spill" in line):
+            out[name] = (out.get(name, "") + " "
+                         + line.split(":", 2)[-1].strip()).strip()
+    return out
+
+
+def ptxas_study(other_tree=None) -> dict:
+    """This build's ptxas report (and ``other_tree``'s, built apart)."""
+    import os
+    from gpu_physics_engine_torch.ops import _cuda
+    so = _cuda.library_path()
+    if so.exists():
+        so.unlink()  # rebuilt, so that the log holds ptxas's report
+    out = {"study": "ptxas", "this": ptxas_report(_cuda.build()["log"])}
+    if other_tree:
+        log = _build_from(os.path.join(other_tree, "gpu_physics_engine_torch",
+                                       "csrc"),
+                          os.path.join(_cuda.BUILD_DIR, "ptxas_other"),
+                          patch=False, want_log=True)
+        out["other"] = ptxas_report(log)
+    return out
+
+
+def collide_integrate_pack_cuda(state, prm, config, plan):
+    """K1 through the packed kernel (csrc/tiled_kernels.cuh
+    collide_integrate_pack_kernel) at any cap under ``plan`` = (rows,
+    columns, shared bytes): the studies' variants, and the stream's
+    checks (a plan whose buffer holds too few occupants).  Not a launch
+    of the engine's: LAUNCHES is not counted."""
+    import torch
+    from gpu_physics_engine_torch.ops import _cuda, tiled_kernels as tk
+    tk._check_cuda_state(state, "collide_integrate_pack")
+    cap, TY, TX = state.dims
+    outs = [torch.empty_like(state.x) for _ in range(4)]
+    consts = tk._k1_consts(config)
+    with torch.cuda.device(state.device):
+        rc = _cuda.library().gpe_collide_integrate_pack(
+            *tk._ptrs(*(getattr(state, f) for f in tk.FIELDS), prm, *outs),
+            cap, TY, TX, int(config.tiled_uniform_radius),
+            int(config.world_shape == "circle"), consts.ctypes.data,
+            tk._stream(state.device), *plan)
+    _cuda.check(rc, "collide_integrate_pack")
+    return state.replace(x=outs[0], y=outs[1], px=outs[2], py=outs[3])
+
+
+def relocate_pull_warp_cuda(state, config):
+    """K2 through the warp kernel (csrc/tiled_kernels.cuh
+    relocate_warp_kernel) at any cap: the studies' comparison with the
+    mask kernel at caps up to 64.  Returns (state, defer); LAUNCHES is not
+    counted."""
+    import torch
+    from gpu_physics_engine_torch.ops import _cuda, tiled_kernels as tk
+    from gpu_physics_engine_torch.ops.integrate import f32
+    tk._check_cuda_state(state, "relocate_pull_warp")
+    cap, TY, TX = state.dims
+    match, t, delta, gTY = tk._k2_args(state, config, None)
+    outs = [torch.empty_like(state.x) for _ in range(5)]
+    opid = torch.empty_like(state.pid)
+    defer = torch.empty((TY, TX), dtype=torch.int32, device=state.device)
+    scratch = tk.k2_scratch(cap, TY, TX, False, state.device)
+    with torch.cuda.device(state.device):
+        rc = _cuda.library().gpe_relocate_pull_warp(
+            *tk._ptrs(*(getattr(state, f) for f in tk.FIELDS), *outs, opid,
+                      defer), cap, TY, TX, 0, gTY, TX,
+            tk._MATCH_CODE[match], f32(t), f32(delta),
+            tk._stream(state.device), tk._ptr(scratch))
+    _cuda.check(rc, "relocate_pull_warp")
+    return tk._relocated(state, outs, opid, defer), defer
+
+
+# the packed K1's plans timed by --wide: (rows, columns, shared bytes)
+K1_PLANS = ((2, 8, 49_152), (4, 8, 65_536), (2, 16, 65_536),
+            (4, 8, 98_304), (2, 16, 98_304), (4, 16, 98_304))
+
+def _wide_states() -> dict:
+    """name -> (config, state) of the wide-cap engine paths: each engine
+    after its spawn (or as built) and 8 steps."""
+    import torch
+    from gpu_physics_engine_torch import make_tuned_engine
+    centre = (1524.0, 524.0)
+    out = {}
+    for name, n, kw, pre, spawn in (
+            ("4M-retile", 4_194_304, dict(tiled_spawn="retile"), 0, True),
+            ("1M-spawn-ready", 1_048_576,
+             dict(tile_max_radius=3.0, tile_cap=0), 0, True),
+            ("1M-retile", 1_048_576, dict(tiled_spawn="retile"), 64, True),
+            ("1M-cap36", 1_048_576, dict(tile_max_radius=1.0, tile_cap=0),
+             0, False),
+            ("1M-r5-cap312", 1_048_576,
+             dict(tile_max_radius=5.0, tile_cap=0), 0, True)):
+        e = make_tuned_engine(n, device="cuda", **kw)
+        e.run(pre)
+        if spawn:
+            e.spawn_at(centre, verbose=False)
+        e.run(8)
+        out[name] = (e.config, e.state)
+        del e
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gs_cap128():
+    """GS-cap128's parity state: 262,144 particles on 1524 x 524 at cap
+    128, K 8, one flat frame from the seeded scene, then the par layout
+    jittered by 0.3 tile (chip_smoke.py's K2-par time row)."""
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    from gpu_physics_engine_torch.ops import gs_parity as gp, tiled
+    cfg = gs_config(262_144, world_width=1524.0, world_height=524.0,
+                    tile_cap=128, max_occupancy=8)
+    seed = TiledEngine(cfg, seed=0, chunk=64, device="cuda")
+    st = tiled.tiled_step_fn(seed.state, seed.params(), cfg)
+    return cfg, gp.to_parity_state(jittered(
+        st, 0.3 * tiled.tile_geometry(cfg)[0], seed=2), cfg)
+
+
+def step_study(other=None) -> dict:
+    """ms/step of the 4M and 1M-GS par engines, this build and ``other``
+    in turns."""
+    import torch
+    from gpu_physics_engine_torch import TiledEngine, make_tuned_engine
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    out = {"study": "steps"}
+    for name, make in (
+            ("4M", lambda: make_tuned_engine(4_194_304, device="cuda")),
+            ("1M-GS-par", lambda: TiledEngine(
+                gs_config(1_048_576, gs_layout="par"), seed=0, chunk=64,
+                device="cuda"))):
+        e = make()
+        e.run(16)
+
+        def window(e=e):
+            return cuda_ms(lambda: e.run(64), reps=1, warmup=0) / 64
+        order = [("this", window)]
+        if other is not None:
+            order.append(("other", _through(other, window)))
+        turns = order + order[::-1]
+        out[name] = {k: [] for k, _ in order}
+        for k, fn in turns + turns:
+            out[name][k].append(fn())
+        del e
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide_study(other=None) -> dict:
+    import torch
+    from gpu_physics_engine_torch import StepParams
+    from gpu_physics_engine_torch.ops import gs_mega as gm
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
+    out = {"study": "wide"}
+    for name, (cfg, st) in _wide_states().items():
+        # the parent's kernels refuse caps past 256: this build alone there
+        theirs = other if st.dims[0] <= 256 else None
+        prm = StepParams.make(cfg.dt).as_tensor("cuda", 1.0 / cfg.substeps)
+        moved = jittered(st, 0.3 * tiled.tile_geometry(cfg)[0], seed=2)
+        a, b = tk.collide_integrate_cuda(st, prm, cfg), \
+            tk.collide_integrate_plain(st, prm, cfg)
+        k2, k2p = tk.relocate_pull_cuda(moved, cfg), \
+            tk.relocate_pull_plain(moved, cfg)
+        row = {"dims": list(st.dims), "match": tk.resolve_match(
+                   cfg, *st.dims),
+               "k1_bit_equal": _equal(a, b, ("x", "y", "px", "py")),
+               "k2_bit_equal": _same(k2, k2p, tiled.FIELDS),
+               "k1": _turns(lambda f: [cuda_ms(f), cuda_ms(f)],
+                            lambda: tk.collide_integrate_cuda(st, prm, cfg),
+                            theirs),
+               "k2": _turns(lambda f: [cuda_ms(f), cuda_ms(f)],
+                            lambda: tk.relocate_pull_cuda(moved, cfg),
+                            theirs)}
+        plans = {}
+        for plan in K1_PLANS + K1_PLANS[::-1]:
+            def fn(plan=plan):
+                return collide_integrate_pack_cuda(st, prm, cfg, plan)
+            if plan not in plans:
+                c = fn()
+                plans[plan] = {"bit_equal": _equal(c, b, ("x", "y", "px",
+                                                           "py")), "ms": []}
+            plans[plan]["ms"].append(cuda_ms(fn))
+        row["k1_plans"] = {"x".join(map(str, p)): v for p, v in plans.items()}
+        if st.dims[0] <= tk.WIDE_CAP:  # the warp kernel beside the masks
+            w = relocate_pull_warp_cuda(moved, cfg)
+            fns = (lambda: tk.relocate_pull_cuda(moved, cfg),
+                   lambda: relocate_pull_warp_cuda(moved, cfg))
+            ms = [[], []]
+            for i in (0, 1, 1, 0):
+                ms[i].append(cuda_ms(fns[i]))
+            row["k2_mask_vs_warp"] = {"warp_bit_equal": _same(w, k2p,
+                                                              tiled.FIELDS),
+                                      "mask_ms": ms[0], "warp_ms": ms[1]}
+        out[name] = row
+        print(json.dumps({name: row}), flush=True)
+        del a, b, k2, k2p
+        torch.cuda.empty_cache()
+    cfg, ps = _gs_cap128()
+    a, b = gp.relocate_par_cuda(ps, cfg), gp.relocate_par_plain(ps, cfg)
+    m = gm.relocate_mega_cuda(ps, cfg)
+    f = ("x", "y", "px", "py", "pid", "overflow_count")
+    out["GS-cap128"] = {
+        "dims": list(ps.x.shape),
+        "bit_equal": _same(a, b, f) and _same(m, b, f),
+        "k2_par": _turns(lambda f: [cuda_ms(f), cuda_ms(f)],
+                         lambda: gp.relocate_par_cuda(ps, cfg), other),
+        "relocate_mega": _turns(lambda f: [cuda_ms(f), cuda_ms(f)],
+                                lambda: gm.relocate_mega_cuda(ps, cfg),
+                                other)}
+    print(json.dumps({"GS-cap128": out["GS-cap128"]}), flush=True)
     return out
 
 
@@ -816,11 +1065,19 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", default=None,
                     help="another checkout whose kernels' SASS is compared "
                          "with this tree's, function by function")
+    ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--steps", action="store_true")
+    ap.add_argument("--ptxas", nargs="?", const="", default=None,
+                    help="ptxas's registers and spills of this tree's "
+                         "kernels (and of another checkout's)")
     args = ap.parse_args(argv)
+    if args.ptxas is not None:
+        print(json.dumps(ptxas_study(args.ptxas or None)), flush=True)
     if args.sass:
         print(json.dumps(sass_study(args.sass)), flush=True)
-    if args.sass and not (args.k1 or args.k2 or args.k5 or args.k6
-                          or args.radix):
+    if (args.sass or args.ptxas is not None) and not (
+            args.k1 or args.k2 or args.k5 or args.k6 or args.radix
+            or args.wide or args.steps):
         return 0
     if not torch.cuda.is_available():
         print("kernel_study: no CUDA device", file=sys.stderr)
@@ -839,6 +1096,10 @@ def main(argv=None) -> int:
         print(json.dumps(k6_study(args.parent)), flush=True)
     if args.radix:
         print(json.dumps(radix_study(other)), flush=True)
+    if args.wide:
+        print(json.dumps(wide_study(other)), flush=True)
+    if args.steps:
+        print(json.dumps(step_study(other)), flush=True)
     return 0
 
 

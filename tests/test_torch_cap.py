@@ -1,24 +1,25 @@
-"""Tile caps past 32 (the card's kernels keep a tile's slots in a 64-bit
-mask from cap 33 to 64, and in four 64-bit words from 65 to 256) on the
-CPU, where no CUDA kernel runs.
+"""Tile caps past 32 on the CPU, where no CUDA kernel runs (the card's
+kernels keep a tile's slots in a 64-bit mask from cap 33 to 64, and past
+64 keep no mask at all: no kernel has a largest cap).
 
-  * ``tiled_kernels.check_card_cap``: caps 1-256 pass on a CUDA device,
-    0 and 257 and past raise naming the limit 256; on the CPU every cap
-    passes.  (Test names that say 64 date from the 64-slot limit.)
+  * ``tiled_kernels.check_card_cap``: every cap from 1 passes on a CUDA
+    device, 257 and 300 included; 0 and below, and a cap whose slots pass
+    the int32 index, raise naming the limit; on the CPU every cap passes.
+    (Test names that say 64 date from the 64-slot limit.)
   * ``tiled_kernels.grown_cap``: the watchdog's and ``tiled_auto_cap_pct``'s
-    growth holds at 256 on the card and grows on past it on the CPU.
+    growth takes cap + 1 on the card as on the CPU, past 256 too.
   * K1's plain version at cap 48 against the JAX package's collide and
     integrate (its jnp path: the interpret-mode Pallas kernels compile for
     minutes at that cap) on a pile whose tiles fill every slot, within
     1e-5 world units, pid exact.
-  * A re-tiling spawn whose scene-sized cap passes 64 is taken on the card
-    (its cap passes the card's check); one whose cap passes 256 is refused
-    on the card before the engine changes: the engine keeps its cap, its
-    config and its particles (the card stood in for by the engine's
-    device; the refusal comes before any tensor work).  On the CPU the same
-    spawn re-tiles past 256.
+  * A re-tiling spawn whose scene-sized cap passes 64, and one whose cap
+    passes 256, are taken on the card as on the CPU (their caps pass the
+    card's check); one whose slots would pass the int32 index is refused
+    before the engine changes.  The growth steps of the watchdog and of
+    ``tiled_auto_cap_pct`` take cap 257 on the card (the card stood in for
+    by the engine's device, the state built on the CPU).
 
-The CUDA kernels at caps 33-256 are held to their plain versions on the
+The CUDA kernels at caps past 32 are held to their plain versions on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -36,8 +37,8 @@ from test_torch_tiled import assert_same, both_states, cfgs
 
 @pytest.mark.parametrize("cap", [1, 32, 33, 48, 64, 65, 140, 144, 256])
 def test_card_takes_caps_up_to_64(cap):
-    """The card takes caps 1-256 (the name dates from the 64-slot
-    limit)."""
+    """The card takes caps 1-256, as every cap from 1 (the name dates from
+    the 64-slot limit)."""
     tk.check_card_cap(cap, torch.device("cuda"))
     tk.check_card_cap(cap, "cuda:0")
     tk.check_card_cap(cap, torch.device("cpu"))
@@ -45,11 +46,22 @@ def test_card_takes_caps_up_to_64(cap):
 
 @pytest.mark.parametrize("cap", [257, 300, 0, -1])
 def test_card_refuses_caps_outside_1_to_64(cap):
-    """The card refuses caps 0 and past 256, naming the limit; the CPU
-    takes them (the name dates from the 64-slot limit)."""
-    with pytest.raises(ValueError, match=f"tile_cap {cap} outside 1..256"):
+    """The card takes caps 257 and 300 (no kernel has a largest cap) and
+    refuses caps 0 and below, naming the limit; the CPU takes every cap
+    (the name dates from the 64-slot limit)."""
+    if cap >= 1:
         tk.check_card_cap(cap, torch.device("cuda"))
+        tk.check_card_cap(cap, "cuda:0", 168 * 464)  # the 4M re-tile's grid
+    else:
+        with pytest.raises(ValueError, match=f"tile_cap {cap} outside 1 <= "
+                                             "cap"):
+            tk.check_card_cap(cap, torch.device("cuda"))
     tk.check_card_cap(cap, torch.device("cpu"))  # the plain versions: any
+    # the only limit past 1: the int32 slot count, cap x TY x TX < 2^31
+    tiles = 168 * 464
+    tk.check_card_cap(2 ** 31 // tiles, "cuda", tiles)
+    with pytest.raises(ValueError, match="2\\^31"):
+        tk.check_card_cap(2 ** 31 // tiles + 1, "cuda", tiles)
 
 
 def _pile(cap, n, seed):
@@ -90,34 +102,36 @@ def _retile_engine(n, world):
 
 
 def test_retile_spawn_past_64_is_refused_on_the_card():
-    """Past 64 the card takes the re-tile; past 256 it refuses it (the
-    name dates from the 64-slot limit)."""
+    """Past 64 and past 256 the card takes the re-tile, as the CPU does;
+    a re-tile whose slots would pass the int32 index is refused before
+    the engine changes (the name dates from the 64-slot limit)."""
     e = _retile_engine(4096, 64.0)
     e.spawn_at((32.0, 32.0), verbose=False)
     assert 64 < e.config.tile_cap <= 256 and e.num_particles() == 4196
     tk.check_card_cap(e.config.tile_cap, torch.device("cuda"))  # taken
     e = _retile_engine(1200, 16.0)  # the radius-3 tiles hold ~200 each
+    e.spawn_at((8.0, 8.0), verbose=False)
+    assert e.config.tile_cap > 256 and e.num_particles() == 1300
+    tk.check_card_cap(e.config.tile_cap, torch.device("cuda"),
+                      e.state.dims[1] * e.state.dims[2])  # taken
+    e.run(2)
+    assert np.isfinite(e.positions()).all()
     before = (e.config, e.state.dims, e._export(), e._next_pid)
     e.device = torch.device("cuda")  # the card, as check_card_cap sees it
-    with pytest.raises(ValueError, match=r"outside 1\.\.256"):
-        e.spawn_at((8.0, 8.0))
+    with pytest.raises(ValueError, match="2\\^31"):
+        e._retile_cap(2 ** 31)  # past the int32 slot index on any grid
     assert (e.config, e.state.dims, e._next_pid) == (
         before[0], before[1], before[3])
     for u, v in zip(e._export(), before[2]):
         np.testing.assert_array_equal(u, v)
-    e.device = torch.device("cpu")  # the plain versions take any cap
-    e.spawn_at((8.0, 8.0), verbose=False)
-    assert e.config.tile_cap > 256 and e.num_particles() == 1300
-    e.run(2)
-    assert np.isfinite(e.positions()).all()
 
 
 @pytest.mark.parametrize("cap, device, want", [
     (1, "cuda", 2), (64, "cuda", 65), (140, "cuda", 141), (255, "cuda", 256),
-    (256, "cuda", None), (256, "cpu", 257), (300, "cpu", 301)])
+    (256, "cuda", 257), (256, "cpu", 257), (300, "cpu", 301)])
 def test_growth_stops_at_64_on_the_card(cap, device, want):
-    """One slot of growth up to 256 on the card, none past it; the CPU
-    grows on (the name dates from the 64-slot limit)."""
+    """One slot of growth on the card as on the CPU, past 256 too (the
+    name dates from the 64-slot limit, which held it)."""
     assert tk.grown_cap(cap, torch.device(device)) == want
 
 
@@ -128,32 +142,37 @@ def _jammed_engine(**kw):
     return TiledEngine(cfg, seed=0, device="cpu")
 
 
-def _held(e, grow):
-    """Run ``grow`` with the engine seen as on the card: the cap, config
-    and particles stay; on the CPU the same growth takes cap 257."""
-    before = (e.config, e.state.dims, e._export())
+def _held(e, grow, monkeypatch):
+    """Run ``grow`` with the engine seen as on the card (the card stood in
+    for by the engine's device: the re-tile is asked for the card and
+    built on the CPU): the cap grows to 257, as on the CPU."""
+    from gpu_physics_engine_torch.core import tiled_engine as te
+    asked, init = [], te.tiled.init_tiles
+
+    def on_cpu(*args, device=None, **kw):
+        asked.append(torch.device(device).type)
+        return init(*args, device="cpu", **kw)
+    monkeypatch.setattr(te.tiled, "init_tiles", on_cpu)
+    n = e.num_particles()
     e.device = torch.device("cuda")
     grow(e)
-    assert (e.config, e.state.dims) == before[:2]
-    for u, v in zip(e._export(), before[2]):
-        np.testing.assert_array_equal(u, v)
-    e.device = torch.device("cpu")
-    grow(e)
+    assert asked == ["cuda"]
     assert e.config.tile_cap == 257 and e.state.dims[0] == 257
+    assert e.num_particles() == n
 
 
-def test_auto_cap_growth_holds_at_64_on_the_card():
-    """tiled_auto_cap_pct's growth holds at 256 on the card (the name dates
-    from the 64-slot limit)."""
+def test_auto_cap_growth_holds_at_64_on_the_card(monkeypatch):
+    """tiled_auto_cap_pct's growth takes cap 257 on the card (the name
+    dates from the 64-slot limit, which held it)."""
     e = _jammed_engine(tiled_auto_cap_pct=0.01)
     # a deferred population far past the bound over a 4-step window
     _held(e, lambda e: e._maybe_grow_cap(4, int(e.state.overflow_count)
-                                         - 10_000))
+                                         - 10_000), monkeypatch)
 
 
 def test_watchdog_level_3_holds_at_64_on_the_card(monkeypatch):
-    """The watchdog's level 3 holds at cap 256 on the card (the name dates
-    from the 64-slot limit)."""
+    """The watchdog's level 3 grows cap 256 to 257 on the card (the name
+    dates from the 64-slot limit, which held it)."""
     from gpu_physics_engine_torch.ops import tiled
     e = _jammed_engine(tiled_watchdog=True, tiled_watchdog_pct=1.0)
     stale = iter([10.0, 20.0, 40.0, 80.0, 1.0, 2.0])
@@ -165,8 +184,7 @@ def test_watchdog_level_3_holds_at_64_on_the_card(monkeypatch):
         events = e.watchdog_events
         e._watchdog()
         assert e.watchdog_events == events + 1 and e._wd_level == 2
-        e._wd_prev = 5.0
-    _held(e, level_3)
+    _held(e, level_3, monkeypatch)
 
 
 @pytest.mark.parametrize("bad", ["positions", "previous_positions", "pids",

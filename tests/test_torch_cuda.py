@@ -5,17 +5,20 @@ Imports torch and the port only, so it also runs where jax is absent:
 repository's conftest imports jax).  Without a CUDA device every test here
 skips.  K1 and K3 equal their plain versions bit for bit at every cap
 the engine can reach, in box and circle worlds, on grids smaller than one
-shared-memory region and not a multiple of it; K2 and K2-par bit for bit
-up to cap 256 and on a ragged grid, K5 and K5-par (the rank's window)
-bit for bit up to cap 256 and K 64, on a ragged grid, at both parity
-origins, K6's window (colors 1..c for each c, with and without the Verlet
-tail) bit for bit on the flat and the parity layouts, up to cap 256 and
-K 64, on a
-grid smaller than one window and one several windows wide; the par engine
-equals the flat engine.  colors_mega bit for bit and equal to the par
-route's K6-par launch; relocate_mega and K4
-(K2's window) bit for bit, relocate_mega equal to K2-par, also at caps 32
-and 64 and on a ragged grid.  Past cap 256 and K 64 the kernels refuse.
+shared-memory region and not a multiple of it (past cap 64 the packed
+kernel, to cap 520); K2 and K2-par bit for bit at caps 2-520 in every
+matching mode (past cap 64 the warp kernel; at cap 4,096 on device
+scratch) and on a ragged grid, K5 and K5-par (the rank's window) bit for
+bit up to cap 520 and K 128 (past cap 256 or K 64 the list rank), on a
+ragged grid, at both parity origins, K6's window (colors 1..c for each c,
+with and without the Verlet tail) bit for bit on the flat and the parity
+layouts, up to cap 520 and K 128 (past cap 256 or K 64 the solve without
+a window), on a grid smaller than one window and one several windows
+wide; the par engine equals the flat engine.  colors_mega bit for bit and
+equal to the par route's K6-par launch; relocate_mega and K4 (K2's
+window) bit for bit, relocate_mega equal to K2-par, also at caps 32, 64
+and past and on a ragged grid.  Only a cap below 1, or slots past the
+int32 index, are refused.
 The radix sort's digit histogram and its onesweep
 pass (rank, look-back, store) bit for bit on all four passes, from 1 key
 to about the 1M scene's pair count, the look-back prefixes too, the sort
@@ -94,22 +97,17 @@ def test_k1_cuda_matches_plain(uniform, world):
     assert torch.equal(a.pid, b.pid)
 
 
-# greedy's plain matching takes cap^2 x 8 Python steps (about 20 s a call
-# at cap 128 and 65 s at 256 on the card), so it runs up to cap 65 here
-# and at cap 256 once (the fourth mask word, slots 192-255), on the square
-# grid; chip_smoke.py holds it at caps 65 and 140 on K2's small grid
 @pytest.mark.parametrize("match, hysteresis, cap, shape", [
     (m, h, c, sh) for sh in ("square", "ragged")
-    for c in (4, 8, 32, 48, 64, 65, 128, 256) for h in (0.0, -1.0)
-    for m in ("flip", "flip2", "greedy")
-    if m != "greedy" or c <= 65 or (c, h, sh) == (256, 0.0, "square")])
+    for c in (4, 8, 32, 48, 64, 65, 128, 256, 257, 312, 520)
+    for h in (0.0, -1.0) for m in ("flip", "flip2", "greedy")])
 def test_k2_cuda_matches_plain(match, hysteresis, cap, shape):
     """K2 on its shared-memory window: bit-equal to the plain version and
     on repeat, nothing lost, up to cap 32 (the 32-bit masks' largest
-    window), at caps 48 and 64 (64-bit masks) and 65-256 (four-word masks
-    on a 4 x 16 region), on piles whose tiles fill every slot, on a 64 x 64
-    world and on a grid whose TY and TX are no multiples of the region
-    ("ragged": 21 x 39 at cap 6)."""
+    window), at caps 48 and 64 (64-bit masks) and 65-520 (the warp kernel
+    on a region chosen by cap), on piles whose tiles fill every slot, on a
+    64 x 64 world and on a grid whose TY and TX are no multiples of the
+    region ("ragged": 21 x 39 at cap 6)."""
     if shape == "square":
         cfg, st = _scene(match=match, hysteresis=hysteresis, cap=cap)
     else:
@@ -187,15 +185,16 @@ def _window_scene(cap, uniform, world, width, height, cut):
                            y=torch.where(occ, st.y - d, st.y))
 
 
-@pytest.mark.parametrize("cap", [2, 6, 9, 10, 16, 32, 48, 64, 65, 128, 256])
+@pytest.mark.parametrize("cap", [2, 6, 9, 10, 16, 32, 48, 64, 65, 128, 256,
+                                 257, 312, 520])
 @pytest.mark.parametrize("shape", ["small", "ragged", "wide"])
 @pytest.mark.parametrize("uniform", [True, False])
 @pytest.mark.parametrize("world", ["box", "circle"])
 def test_k1_k3_window_matches_plain(cap, shape, uniform, world):
     """K1 and K3 on the shared-memory window: bit-equal to the plain
-    versions and on repeat at caps from 2 to kMaxCap (past the tuned rows:
+    versions and on repeat at caps from 2 to 520 (past the tuned rows:
     the watchdog grows cap; past 32 the 64-bit masks on a 4 x 16 region,
-    past 64 four-word masks on a 2 x 8 region),
+    past 64 the packed kernel, which keeps no mask),
     on a grid smaller than one 8 x 32 region ("small"), one whose TY and
     TX are no multiples of it ("ragged") and one several regions wide
     ("wide")."""
@@ -292,7 +291,9 @@ def test_gs_kernels_match_plain(cap, K):
 
 @pytest.mark.parametrize("cap, K", [(2, 3), (4, 8), (32, 16), (48, 16),
                                     (64, 16), (65, 16), (128, 32), (256, 64),
-                                    (16, 17), (16, 32), (8, 64), (32, 64)])
+                                    (16, 17), (16, 32), (8, 64), (32, 64),
+                                    (257, 16), (312, 8), (520, 8), (16, 80),
+                                    (16, 128)])
 @pytest.mark.parametrize("width", [40.0, 150.0])
 @pytest.mark.parametrize("uniform", [False, True])
 def test_rank_window_matches_plain(cap, K, width, uniform):
@@ -300,7 +301,9 @@ def test_rank_window_matches_plain(cap, K, width, uniform):
     bit-equal to the plain versions and on repeat, up to cap 32 with K 16
     (the 32-bit masks' largest window) and at caps 48 and 64 (64-bit
     masks on a 4 x 32 region); past cap 64 or K 16 the selection kernel
-    (caps 65-256 on a 2 x 8 region, K 17-64), on a ragged grid (width 40)
+    (caps 65-256 on a 2 x 8 region, K 17-64); past cap 256 or K 64 the
+    list kernel (K 80 and 128 on a crowded cell), on a ragged grid (width
+    40)
     and one several
     regions wide (TX 39 and 139: no multiple of the 64-column region), with
     and without a radius plane; K5-par at origins 0 and -1, in one launch
@@ -387,7 +390,9 @@ def _window_cases(cfg, st, layout, prm, colors=(0, 1, 2, 3, 4)):
                                            (48, 16, 150.0), (64, 16, 40.0),
                                            (65, 16, 40.0), (128, 32, 150.0),
                                            (256, 64, 40.0), (16, 32, 40.0),
-                                           (8, 64, 150.0)])
+                                           (8, 64, 150.0), (257, 8, 40.0),
+                                           (312, 16, 150.0), (520, 8, 40.0),
+                                           (16, 80, 40.0)])
 @pytest.mark.parametrize("layout", [None, 0, -1])
 def test_colors_window_matches_plain(cap, K, width, layout):
     """K6's window kernel: colors 1..c for each c, with and without the
@@ -396,8 +401,9 @@ def test_colors_window_matches_plain(cap, K, width, layout):
     regions wide (150: TX 139), at cap 32 with K 16 and past it (caps 48
     and 64: the fifth region class; caps 65-256: a launch a color), at K
     32 and 64 (the ranks past the registers), general and uniform
-    radius, flat and parity (origins 0 and -1); its shared-memory bytes
-    equal the Python mirror."""
+    radius, flat and parity (origins 0 and -1); past cap 256 or K 64 (caps
+    257, 312, 520, K 80) the solve without a window; its shared-memory
+    bytes equal the Python mirror."""
     from gpu_physics_engine_torch.ops import _cuda
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     cfg, st = _gs_scene(cap, K, seed=cap + 50, width=width)
@@ -409,9 +415,10 @@ def test_colors_window_matches_plain(cap, K, width, layout):
         s = st
         if uniform:
             s = st.replace(radius=torch.where(st.pid >= 0, 0.5, 0.0))
-        # K 32 and 64: the plain sweep's K^2/2 pairs are slow, so colors
-        # 1 and 1..4 (and the tail alone and after them)
-        colors = (0, 1, 2, 3, 4) if K <= 16 else (0, 1, 4)
+        # past K 16 the plain sweep's K^2/2 pairs are slow: colors 1 and
+        # 1..4 (and the tail alone and after them); past K 64 1..4
+        colors = (0, 1, 2, 3, 4) if K <= 16 else (0, 1, 4) if K <= 64 \
+            else (4,)
         for label, kern, plain in _window_cases(c, s, layout, prm, colors):
             a, b, again = kern(), plain(), kern()
             torch.cuda.synchronize()
@@ -421,6 +428,24 @@ def test_colors_window_matches_plain(cap, K, width, layout):
     for colors in range(5):
         assert _cuda.library().gpe_gs_colors_window_bytes(cap, colors) \
             == gk.colors_window_bytes(cap, colors)
+
+
+def test_colors_past_k64_match_plain():
+    """K6 at K 128 (the solve without a window) on a crowded cell of 144
+    members, flat, uniform radius: the four colors and the Verlet tail
+    bit-equal to the plain passes and on repeat."""
+    cfg, st = _gs_scene(16, 128, seed=7)
+    st = _crowd_cell(st, cfg).replace(px=st.x - 0.01, py=st.y + 0.02)
+    cfg = cfg.replace(tiled_uniform_radius=True)
+    st = st.replace(radius=torch.where(st.pid >= 0, 0.5, 0.0))
+    prm = StepParams.make(0.02, mouse=(20.0, 15.0), pressed=True
+                          ).as_tensor("cuda")
+    for label, kern, plain in _window_cases(cfg, st, None, prm, (4,)):
+        a, b, again = kern(), plain(), kern()
+        torch.cuda.synchronize()
+        for u, v, w in zip(a, b, again):
+            assert torch.equal(u, v), label
+            assert torch.equal(u, w), label
 
 
 def test_gs_engine_on_card_matches_cpu_engine():
@@ -470,7 +495,8 @@ def test_engine_on_card_matches_cpu_engine():
 
 @pytest.mark.parametrize("cap, K, uniform", [(4, 8, True), (2, 3, False),
                                              (65, 32, True),
-                                             (256, 64, False)])
+                                             (256, 64, False),
+                                             (312, 8, True)])
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("origin", [0, -1])
 def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
@@ -523,8 +549,9 @@ def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
 @pytest.mark.parametrize("cap, shape, match", [
     (c, sh, m) for c, sh in ((2, "square"), (32, "square"), (6, "ragged"),
                              (64, "square"), (65, "square"), (128, "square"),
-                             (256, "square"))
-    for m in ("flip", "flip2", "greedy") if m != "greedy" or c <= 65])
+                             (256, "square"), (257, "square"),
+                             (312, "ragged"), (520, "square"))
+    for m in ("flip", "flip2", "greedy")])
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("origin", [0, -1])
 def test_relocate_par_window_matches_plain(cap, shape, match, fused, origin):
@@ -567,6 +594,56 @@ def test_relocate_par_window_matches_plain(cap, shape, match, fused, origin):
     assert torch.equal(da, dm)
 
 
+@pytest.mark.parametrize("par", [False, True])
+def test_relocate_on_device_scratch_matches_plain(par):
+    """At cap 4,096 no region of the warp relocate fits a block, so its
+    arrays go to device scratch, sized by the library
+    (``gpe_relocate_scratch_bytes``) for the layout's grid: K2 and K4 on
+    the flat layout, K2-par (one launch and one per parity) and
+    relocate_mega on the parity layout at both origins, on the ragged
+    grid whose pile fills a tile: bit-equal to the plain versions and on
+    repeat, none lost."""
+    from gpu_physics_engine_torch.ops import gs_mega as gm
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.ops import _cuda
+    cap = 4096
+    cfg, st = _window_scene(cap, False, "box", 80.0, 33.0, 3)
+    assert tk.k2_window_bytes(cap, par) == 0  # no region fits a block
+    g = torch.Generator(device="cuda").manual_seed(9)
+    d = (torch.rand(st.x.shape, generator=g, device="cuda") - 0.5) * 1.4
+    st = st.replace(y=torch.where(st.pid >= 0, st.y + d, st.y))
+    n_live = int((st.pid >= 0).sum())
+    if not par:
+        assert _cuda.library().gpe_relocate_scratch_bytes(
+            cap, *st.dims[1:], 0) > 0
+        runs = [(tk.relocate_pull_cuda, tk.relocate_pull_plain, st,
+                 cfg.replace(tiled_match=m)) for m in ("flip", "greedy")]
+        runs.append((tk.relocate_one_cuda, tk.relocate_one_plain, st, cfg))
+        fields = FIELDS + ("overflow_count",)
+    else:
+        runs = []
+        for origin in (0, -1):
+            ps = gp.to_parity_state(st, cfg, origin)
+            assert _cuda.library().gpe_relocate_scratch_bytes(
+                cap, *ps.x.shape[2:], 1) > 0
+            runs += [(gp.relocate_par_cuda, gp.relocate_par_plain, ps,
+                      cfg.replace(gs_par_fused=f)) for f in (True, False)]
+            runs.append((gm.relocate_mega_cuda, gp.relocate_par_plain, ps,
+                         cfg))
+        fields = ("x", "y", "px", "py", "pid", "radius", "overflow_count")
+    for kern, plain, s0, c in runs:
+        a, da = kern(s0, c)
+        b, db = plain(s0, c)
+        a2, da2 = kern(s0, c)
+        torch.cuda.synchronize()
+        for f in fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (kern, f)
+            assert torch.equal(getattr(a, f), getattr(a2, f)), (kern, f)
+        assert torch.equal(da, db) and torch.equal(da, da2)
+        assert int((a.pid >= 0).sum()) == n_live
+        assert not torch.equal(a.pid, s0.pid)  # particles moved
+
+
 def test_par_engine_on_card_matches_flat_engine_on_card():
     """The par engine (K2-par, K5-par, K6-par, the Verlet tail) and the flat
     engine (K2, K5, K6, the plain integrate) on the card, mouse pressed:
@@ -593,7 +670,8 @@ def test_par_engine_on_card_matches_flat_engine_on_card():
 
 
 @pytest.mark.parametrize("cap, K, uniform", [(4, 8, True), (2, 3, False),
-                                             (128, 32, True)])
+                                             (128, 32, True), (312, 8, True),
+                                             (16, 80, True)])
 @pytest.mark.parametrize("origin", [0, -1])
 def test_fused_gs_kernels_match_plain(cap, K, uniform, origin):
     """colors_mega (with and without the Verlet tail) and relocate_mega
@@ -641,7 +719,7 @@ def test_fused_gs_kernels_match_plain(cap, K, uniform, origin):
 @pytest.mark.parametrize("uniform, cap, shape", [
     (False, 4, "square"), (True, 4, "square"), (True, 32, "square"),
     (True, 6, "ragged"), (True, 64, "square"), (True, 128, "square"),
-    (False, 256, "square")])
+    (False, 256, "square"), (False, 312, "square"), (True, 520, "ragged")])
 def test_k4_cuda_matches_plain(uniform, cap, shape):
     """K4 (K2's window with K4's step rule) bit-equal to its plain version,
     whatever the config's matching and hysteresis, and to K2 under flip
@@ -1182,25 +1260,37 @@ def test_sharded_engine_on_card_matches_cpu_engine():
 
 
 def test_kernels_refuse_caps_past_64():
-    """The slot masks are at most four 64-bit words: a cap-257 state on
-    the card is refused by K1, K3, K2 and K5, and K 65 by K5 and K6 (the
-    CPU's plain versions take any cap and K).  (The name dates from the
-    64-slot limit.)"""
+    """No kernel has a largest cap or K: a cap-257 state on the card is
+    taken by K1, K3, K2, K4 and K5, each bit-equal to its plain version,
+    and K 65 by K5 and K6; a state whose slots pass the int32 index is
+    refused before any launch, naming the limit.  (The name dates from the
+    64-slot limit, which refused them.)"""
     from gpu_physics_engine_torch.ops import gs_kernels as gk
-    cfg, st = _scene(cap=4, jitter=0.0)
-    wide = st.replace(**{f: torch.cat([getattr(st, f)] * 65)[:257]
-                         for f in FIELDS})
+    cfg, st = _window_scene(257, False, "box", 12.0, 5.0, 0)
     prm = StepParams.make(0.02).as_tensor("cuda")
-    for call in (lambda: tk.collide_integrate_cuda(wide, prm, cfg),
-                 lambda: tk.collide_cuda(wide, cfg),
-                 lambda: tk.relocate_pull_cuda(wide, cfg),
-                 lambda: gk.rank_cuda(wide, cfg)):
-        with pytest.raises(ValueError, match="tile_cap 257 outside 1..256"):
-            call()
-    deep = cfg.replace(max_occupancy=65)
-    with pytest.raises(ValueError, match="max_occupancy 65 outside 1..64"):
-        gk.rank_cuda(st, deep)
-    src = torch.zeros((65,) + tuple(st.dims[1:]), dtype=torch.int32,
-                      device="cuda")
-    with pytest.raises(ValueError, match="max_occupancy 65 outside 1..64"):
-        gk.colors_cuda(st.x, st.y, src, src.float(), deep)
+    for kern, plain, fields in (
+            (lambda: tk.collide_integrate_cuda(st, prm, cfg),
+             lambda: tk.collide_integrate_plain(st, prm, cfg),
+             ("x", "y", "px", "py")),
+            (lambda: tk.collide_cuda(st, cfg), lambda: tk.collide_plain(
+                st, cfg), ("x", "y")),
+            (lambda: tk.relocate_pull_cuda(st, cfg)[0],
+             lambda: tk.relocate_pull_plain(st, cfg)[0], FIELDS),
+            (lambda: tk.relocate_one_cuda(st, cfg)[0],
+             lambda: tk.relocate_one_plain(st, cfg)[0], FIELDS)):
+        a, b = kern(), plain()
+        for f in fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for u, v in zip(gk.rank_cuda(st, cfg), gk.rank_plain(st, cfg)):
+        assert torch.equal(u, v)
+    gcfg, gst = _gs_scene(4, 65, seed=3)
+    a, b = gk.rank_cuda(gst, gcfg), gk.rank_plain(gst, gcfg)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    x, y = gk.colors_cuda(gst.x, gst.y, a[0], a[2], gcfg, 1)
+    xp, yp = gk.colors_plain(gst.x, gst.y, b[0], b[2], gcfg, 1)
+    assert torch.equal(x, xp) and torch.equal(y, yp)
+    huge = st.replace(**{f: getattr(st, f)[:1].expand(2 ** 31 // 64 + 1, 8,
+                                                       8) for f in FIELDS})
+    with pytest.raises(ValueError, match="2\\^31"):
+        tk.collide_integrate_cuda(huge, prm, cfg)

@@ -5,7 +5,8 @@ where no CUDA kernel runs.
     ``gpu_physics_engine_torch.ops.gs_kernels.colors_window_bytes``, fit the
     card's 232,448 at every cap up to 256 and every number of colors up
     to four (one geometry serves both layouts; chip_smoke.py holds the mirror
-    equal to the launcher's own number on the card).
+    equal to the launcher's own number on the card); past cap 256 or K 64
+    the solve stages no window and takes none.
   * A model of the kernel's algorithm in torch equals the plain color
     passes (``color_plain_`` / ``color_par_plain_``, then ``verlet_plain_``)
     bit for bit on a jammed scene with its storage off home: blocks over
@@ -42,16 +43,17 @@ REGION = (4, 6)  # a few tiles, so that the scene spans many blocks
 
 
 def test_colors_window_fits_a_block_at_every_cap():
-    for cap in range(1, gk.MAX_CAP + 1):
+    for cap in range(1, 4097):
         for colors in range(5):
             assert gk.colors_window_bytes(cap, colors) <= SMEM, (cap, colors)
+    assert gk.colors_window_bytes(257) == gk.colors_window_bytes(4, 4, 65) == 0
     # at each class's largest cap, a whole solve: (rows + 16) x (columns +
     # 16) tiles of cap slots of x and y
     assert [gk.colors_window_bytes(c) for c in (4, 8, 16, 32, 64)] == [
         98_304, 147_456, 147_456, 196_608, 225_280]
     assert gk.colors_window_bytes(6) == 110_592  # the 4M-GS cap
     # past cap 64 a launch runs one color: (6 + 4) x (6 + 4) tiles
-    assert gk.colors_window_bytes(gk.MAX_CAP) == 10 * 10 * 256 * 8
+    assert gk.colors_window_bytes(gk.SPAN_CAP) == 10 * 10 * 256 * 8
     assert gk.colors_window_bytes(4, 0) == 32 * 48 * 4 * 8  # the region
 
 
@@ -247,7 +249,7 @@ def test_one_color_launches_match_plain_colors(layout, uniform, tail):
     for c in (1, 2, 3, 4):
         x, y = _window_model(x, y, src, rrad, cfg, c, layout,
                              tail=tails[0] if c == 4 else None, c0=c,
-                             region=gk.window_region(gk.MAX_CAP))
+                             region=gk.window_region(gk.SPAN_CAP))
     want = _plain(cfg, st, src, rrad, geo, 4, tails[1])
     assert torch.equal(x, want[0]) and torch.equal(y, want[1])
     if tail:

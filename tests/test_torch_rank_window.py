@@ -3,8 +3,9 @@ CPU, where no CUDA kernel runs.
 
   * The bytes of a block, through the Python mirror
     ``gpu_physics_engine_torch.ops.gs_kernels.rank_window_bytes``, fit the
-    card's 232,448 at every cap up to 256 and K up to 64, with and without
-    a radius plane
+    card's 232,448 at every cap up to 4,096 and K up to 256 (past cap 256
+    or K 64 the list kernel's fixed member lists), with and without a
+    radius plane
     (one geometry serves both layouts; chip_smoke.py holds the mirror equal
     to the launches' own numbers on the card).
   * A model of the kernel's walk in numpy equals the plain rank bit for
@@ -37,7 +38,7 @@ BIG = int(gp.BIGPID)  # the rank's fill pid
 
 @pytest.mark.parametrize("uniform", [False, True])
 def test_rank_window_fits_a_block_at_every_cap(uniform):
-    for cap in range(1, gk.MAX_CAP + 1):
+    for cap in range(1, 4097):
         assert gk.rank_window_bytes(cap, uniform) <= SMEM, cap
     assert gk.rank_window_bytes(32, uniform) == (
         153_648 if uniform else 204_336)
@@ -46,10 +47,14 @@ def test_rank_window_fits_a_block_at_every_cap(uniform):
         158_304 if uniform else 210_528)
     # past cap 64 (or K 16) the selection kernel: 2 x 8 tiles, four-word
     # masks and nine member masks per region cell
-    assert gk.rank_window_bytes(gk.MAX_CAP, uniform, gk.MAX_K) == (
+    assert gk.rank_window_bytes(gk.SPAN_CAP, uniform, gk.SPAN_K) == (
         128_768 if uniform else 169_728)
-    for K in range(1, gk.MAX_K + 1):
-        for cap in range(1, gk.MAX_CAP + 1, 5):
+    # past cap 256 or K 64 the list kernel: 8 warps' lists of 512 members
+    # (pid, source code, radius), whatever the cap and K
+    assert gk.rank_window_bytes(257, uniform) == 8 * 512 * 12
+    assert gk.rank_window_bytes(4, uniform, 65) == 8 * 512 * 12
+    for K in range(1, 257):
+        for cap in range(1, 4097, 97):
             assert gk.rank_window_bytes(cap, uniform, K) <= SMEM, (cap, K)
     # a slot costs 12 bytes (pid, x, y), 16 with a radius plane, per
     # window tile (the region and a one-tile ring)

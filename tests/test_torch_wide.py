@@ -2,22 +2,25 @@
 kernel runs: K past 16 against the JAX package, and the kernels' shared
 memory at every cap and K the card takes.
 
-  * ``gs_kernels.check_card_k``: K 1-64 pass on a CUDA device, 0 and 65
-    raise naming the limit 64 (TiledEngine calls it for a GS config); on
-    the CPU every K passes.
+  * ``gs_kernels.check_card_k``: every K from 1 passes on a CUDA device,
+    65 included; 0, and a K whose tables pass the int32 index, raise
+    naming the limit (TiledEngine calls it for a GS config); on the CPU
+    every K passes.
   * The Python mirrors of the kernels' shared memory
     (``tiled_kernels.k1_smem_bytes``, ``k2_window_bytes``,
-    ``gs_kernels.rank_window_bytes``, ``colors_window_bytes``) stay within
-    a block's 232,448 bytes at every cap 1-256 and K 1-64 (chip_smoke.py
-    holds them equal to the launches' own numbers on the card).
+    ``gs_kernels.rank_window_bytes``, ``colors_window_bytes``), which past
+    cap 64 (K1, the relocate window) and past cap 256 or K 64 (the GS
+    kernels) follow the kernels that keep no mask, stay within a block's
+    232,448 bytes at every cap 1-4,096 and K 1-256 (chip_smoke.py holds
+    them equal to the launches' own numbers on the card).
   * ``gs_kernels.rank_plain`` at K 20 (past the register list's 16) equals
     the JAX package's ``_select_occupants`` exactly, and one solve through
     ``rank_plain`` and ``colors_plain`` at K 20 equals the JAX package's
     jnp ``gs_solve`` bit for bit, on a jammed scene at cap 4 whose cells
     hold more than 20 members.
 
-The CUDA kernels at K 17-64 and caps 65-256 are held to these plain
-versions on the card (tests/test_torch_cuda.py, chip_smoke.py).  The JAX
+The CUDA kernels past K 16 and cap 64 are held to these plain versions on
+the card (tests/test_torch_cuda.py, chip_smoke.py).  The JAX
 functions run op by op (no jit): compiled whole at K 20, the solve's
 unrolled 190 pairs a color took past 15 minutes on this CPU; op by op each
 primitive is exact, as under jit with the package's no-contract guard.
@@ -44,31 +47,42 @@ K = 20
 
 
 @pytest.mark.parametrize("k, taken", [(1, True), (16, True), (17, True),
-                                      (64, True), (65, False), (0, False)])
+                                      (64, True), (65, True), (0, False)])
 def test_card_takes_k_up_to_64(k, taken):
+    """The card takes every K from 1, 65 included (the name dates from the
+    64-rank limit); it refuses 0, and a K whose tables pass the int32
+    index."""
     if taken:
         gk.check_card_k(k, torch.device("cuda"))
+        gk.check_card_k(k, "cuda:0", 960 * 2773)  # the 1M-GS grid
     else:
-        with pytest.raises(ValueError, match=f"max_occupancy {k} outside "
-                                             "1..64"):
+        with pytest.raises(ValueError, match=f"max_occupancy {k} outside 1 "
+                                             "<= K"):
             gk.check_card_k(k, "cuda:0")
     gk.check_card_k(k, torch.device("cpu"))  # the plain versions: any K
+    cells = 960 * 2773
+    with pytest.raises(ValueError, match="2\\^31"):
+        gk.check_card_k(2 ** 31 // cells + 1, "cuda", cells)
 
 
 @pytest.mark.parametrize("mirror", ["k1", "k2", "rank", "colors"])
 def test_kernel_windows_fit_a_block_at_every_cap_and_k(mirror):
-    for cap in range(1, tk.MAX_CAP + 1):
+    ks = (1, 8, 16, 17, 64, 65, 80, 128, 256)
+    for cap in range(1, 4097):
         if mirror == "k1":
             got = [tk.k1_smem_bytes(cap, u) for u in (False, True)]
         elif mirror == "k2":
             got = [tk.k2_window_bytes(cap, p) for p in (False, True)]
         elif mirror == "rank":
             got = [gk.rank_window_bytes(cap, u, k) for u in (False, True)
-                   for k in range(1, gk.MAX_K + 1)]
+                   for k in (range(1, 257) if cap % 97 == 1 else ks)]
         else:
-            got = [gk.colors_window_bytes(cap, c) for c in range(5)]
+            got = [gk.colors_window_bytes(cap, c, k) for c in range(5)
+                   for k in ks]
         assert max(got) <= SMEM, (mirror, cap)
-    assert (tk.MAX_CAP, gk.MAX_K) == (256, 64)
+    # past these the kernels that keep no mask: K1 and the relocate window
+    # past cap 64, the GS kernels past cap 256 or K 64
+    assert (tk.WIDE_CAP, gk.SPAN_CAP, gk.SPAN_K) == (64, 256, 64)
 
 
 @functools.lru_cache(maxsize=None)
