@@ -171,17 +171,18 @@ non-zero with no result line:
      64-bit mask instantiations (caps 33-64), K1's and the relocate
      window's kernels without a mask (past 64: the packed K1, its window
      also streamed; the warp relocate, at cap 4,096 on device scratch), the
-     GS kernels' four-word class (65-256) and the GS kernels without a
-     window (past cap 256 or K 64): every kernel at caps 33, 65, 140, 257,
-     312 and 520 on piles whose tiles fill every slot, bit-equal
-     to its plain version and on repeat (K1 and K3, uniform and general
-     radius, on a grid smaller than one region, a ragged one and a
-     halo-extended slab; K2 in every matching mode, K4, K2-par at origins
-     0 and -1 and relocate_mega; K5 and K5-par with K 16, with and without
-     a radius plane; the K6 / K6-par windows for colors 1..4, with and
-     without the tail); K5, K5-par and the windows at K 17, 32 and 64
-     (cap 16) and K 64 at cap 140; at K 80 and 128 (cap 16, a crowded
-     cell of 144 members) K5, K5-par, K6 and K6-par; an engine's cap
+     GS kernels past cap 64 or K 16 (the packed rank, also with its
+     windows streamed, and the ranked-slot solve): every kernel at caps
+     33, 65, 140, 257, 312 and 520 (the GS kernels also at 128 and 256) on
+     piles whose tiles fill every slot, bit-equal to its plain version and
+     on repeat (K1 and K3, uniform and general radius, on a grid smaller
+     than one region, a ragged one and a halo-extended slab; K2 in every
+     matching mode, K4, K2-par at origins 0 and -1 and relocate_mega; K5
+     and K5-par with K 16, with and without a radius plane; K6 / K6-par
+     for colors 1..4, with and without the tail, and colors_mega); K5,
+     K5-par and K6 at K 17, 32 and 64 (cap 16) and K 64 at cap 140; at K
+     80 and 128 (cap 16, a crowded cell of 144 members) K5, K5-par, K6 and
+     K6-par; an engine's cap
      grown from 256 to 257 by ``_maybe_grow_cap``, 8 steps there; the 1M
      engine with tiled_spawn="retile" (64 steps, then a spawn re-tiles it
      past cap 32, then 128 steps: K1's general form every step, K2 every
@@ -198,8 +199,8 @@ non-zero with no result line:
      bit-equal on its final state
      (K2 also jittered; at cap 140 K2 on a band of 32 tile rows); the GS
      engine at caps 64, 128 and 312 and at K 32 (cap 16) in the
-     flat, par and mega layouts, bit-equal to each other, each kernel
-     timed on its state;
+     flat, par and mega layouts (48 steps each past cap 64 or K 16),
+     bit-equal to each other, each kernel timed on its state;
   8. kernel times at the main paths' shapes against their plain versions,
      with each kernel's bound on this card (and, for the radix pass, the
      time of torch.sort(stable=True) of the same pairs beside the whole
@@ -293,7 +294,9 @@ def check_window_formula() -> None:
     at every cap 1-256 and at caps past it up to 4,096 (K1 with and
     without a radius plane; K2 on both layouts; K5, whose geometry is one
     for both, with and without a radius plane, at every K 1-64 and at K
-    65, 80, 128 and 256; K6, one geometry too, for 0-4 colors a launch)."""
+    65, 80, 128 and 256; K6, one geometry too, for 0-4 colors a launch),
+    and the GS kernels each (cap, K) takes (``gpe_gs_route``) those the
+    Python routes name (``gs_kernels.rank_kernel``, ``color_kernel``)."""
     from gpu_physics_engine_torch.ops import _cuda, gs_kernels as gk
     from gpu_physics_engine_torch.ops import tiled_kernels as tk
     lib = _cuda.library()
@@ -312,6 +315,11 @@ def check_window_formula() -> None:
             pairs += [("K6", gk.colors_window_bytes(cap, colors),
                        lib.gpe_gs_colors_window_bytes(cap, colors))
                       for colors in range(5)]
+            pairs += [("GS route", (gk.rank_kernel(cap, K)
+                                    == "gs_rank_pack_kernel")
+                       + 2 * (gk.color_kernel(cap, K)
+                              == "gs_colors_ranked_kernel"),
+                       lib.gpe_gs_route(cap, K)) for K in FORMULA_KS]
             for what, want, got in pairs:
                 if got != want:
                     raise AssertionError(
@@ -330,7 +338,9 @@ def check_window_formula() -> None:
         f"{FORMULA_KS[64:]}): K1 most {most['K1', False]} B, K2 most "
         f"{most['K2', False]} B flat, {most['K2', True]} B parity; K5 most "
         f"{most['K5', False]} B; K6 most {most['K6', False]} B; the radix "
-        f"sort's scratch")
+        f"sort's scratch; the GS routes (packed rank and ranked solve past "
+        f"cap 64 or K 16; their plan {lib.gpe_gs_rank_pack_bytes(0, 0)} B, "
+        f"{lib.gpe_gs_rank_pack_bytes(1, 0)} B without a radius plane)")
 
 
 def _clone(state):
@@ -590,28 +600,46 @@ def _tails(cfg) -> str:
 
 
 def check_window(label, cfg, st, errs: dict) -> None:
-    """K6's window on ``st`` with its own rank's tables, flat and on the
+    """K6 on ``st`` with its own rank's tables (and count), flat and on the
     parity layout at origins 0 and -1 (no radius table read where the
     parity state drops the radius plane, as the par route does):
-    ``_colors_lockstep`` on each."""
+    ``_colors_lockstep`` on each; under a uniform radius also colors_mega
+    with the tail on each parity state: bit-equal to their plain
+    versions."""
     from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_mega as gm
     from gpu_physics_engine_torch.ops import gs_parity as gp
-    src, _, rrad, _ = gk.rank_cuda(st, cfg)
+    src, _, rrad, count = gk.rank_cuda(st, cfg)
     _colors_lockstep(f"K6 {label}", (st.x, st.y, st.px, st.py, st.pid),
-                     (src, rrad), cfg, None, errs, "gs_color", _prm(cfg))
-    shapes = []
+                     (src, rrad, count), cfg, None, errs, "gs_color",
+                     _prm(cfg))
+    shapes, prm = [], _prm(cfg)
     for origin in (0, -1):
         ps = gp.to_parity_state(st, cfg, origin)
         shapes.append(list(ps.x.shape))
-        psrc, _, prrad, _ = gp.rank_par_cuda(ps, cfg)
+        psrc, _, prrad, pcount = gp.rank_par_cuda(ps, cfg)
         _colors_lockstep(f"K6-par {label} origin={origin}",
-                         (ps.x, ps.y, ps.px, ps.py, ps.pid), (psrc, prrad),
-                         cfg, ps.geo, errs, "gs_color_par", _prm(cfg),
-                         uniform=ps.radius is None)
+                         (ps.x, ps.y, ps.px, ps.py, ps.pid),
+                         (psrc, prrad, pcount), cfg, ps.geo, errs,
+                         "gs_color_par", prm, uniform=ps.radius is None)
+        if prm is not None:
+            m = [ps.replace(px=ps.px.clone(), py=ps.py.clone())
+                 for _ in range(3)]
+            got = [gm.colors_mega_cuda(q, psrc, prrad, cfg, prm, pcount)
+                   for q in m[:2]]
+            want = m[2].replace(x=ps.x.clone(), y=ps.y.clone())
+            gm.colors_mega_plain(want, psrc, prrad, cfg, prm)
+            fields = ("x", "y", "px", "py")
+            _equal_or_raise(f"colors_mega {label} origin={origin}",
+                            tuple(getattr(got[0], f) for f in fields),
+                            tuple(getattr(want, f) for f in fields),
+                            tuple(getattr(got[1], f) for f in fields))
     log(f"[k6] {label} {list(st.dims)} and {shapes} K={cfg.max_occupancy} "
-        f"uniform={cfg.tiled_uniform_radius}: K6's window, colors 1..c (c = "
-        f"1..4{_tails(cfg)}), flat and parity (origins 0 and -1) bit-equal "
-        f"and repeat bit-equal")
+        f"uniform={cfg.tiled_uniform_radius}: "
+        f"{gk.color_kernel(st.dims[0], cfg.max_occupancy)}, colors 1..c (c "
+        f"= 1..4{_tails(cfg)}), flat and parity (origins 0 and -1)"
+        f"{', colors_mega' if prm is not None else ''} bit-equal and "
+        f"repeat bit-equal")
 
 
 def check_rank(label, cfg, st, errs: dict) -> None:
@@ -676,7 +704,7 @@ def phase_gs_kernels(scenes, errs: dict) -> None:
         frame = int(ka.overflow_count) - int(st.overflow_count)
         moved = _colors_lockstep(
             f"K6 {label}", (st.x, st.y, st.px, st.py, st.pid),
-            (ta[0], ta[2]), cfg, None, errs, "gs_color", _prm(cfg))
+            (ta[0], ta[2], ta[3]), cfg, None, errs, "gs_color", _prm(cfg))
         log(f"[k5/k6] {label} {list(st.dims)} K={cfg.max_occupancy}: rank "
             f"tables, x, y, overflow bit-equal and repeat bit-equal; K6's "
             f"window colors 1..c (c = 1..4{_tails(cfg)}) too; clamp "
@@ -725,14 +753,14 @@ def _colors_lockstep(what, fields, tables, cfg, geo, errs, key, prm=None,
     1..c for c = 1..4 (past K 16, where the plain sweep's K^2/2 pairs are
     slow, c = 1 and 4) and, with ``prm`` (uniform radius, box world), the
     Verlet tail alone and after each c; bit-equal and bit-equal on repeat.
-    ``fields`` = (x, y, px, py, pid) and ``tables`` = (src, rrad) in the
-    layout of ``geo`` (None: flat); ``uniform``: the kernel reads no radius
+    ``fields`` = (x, y, px, py, pid) and ``tables`` = (src, rrad, count) in
+    the layout of ``geo`` (None: flat); ``uniform``: the kernel reads no radius
     table, as on the par route.  Returns the number of slots the four
     colors moved."""
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import gs_parity as gp
     x, y, px, py, pid = fields
-    src, rrad = tables
+    src, rrad, count = tables
     grid = (tuple(x.shape[1:]) + (0, 0, 0, 0) if geo is None
             else gp._geo_args(geo) + (1,))
     moved, tails = 0, (False, True) if prm is not None else (False,)
@@ -747,7 +775,7 @@ def _colors_lockstep(what, fields, tables, cfg, geo, errs, key, prm=None,
             got = [gk.window_cuda(what, x, y, src, None if uniform else rrad,
                                   cfg, grid, c1, t,
                                   gp._verlet_consts(cfg) if tail else None,
-                                  cfg.initial_radius) + (q, r)
+                                  cfg.initial_radius, count) + (q, r)
                    for q, r, t in runs[:2]]
             q, r, t = runs[2]
             if geo is None:
@@ -801,13 +829,13 @@ def phase_par_kernels(scenes, errs: dict) -> None:
             src, _, rrad, count = ta
             moved = _colors_lockstep(
                 f"K6-par {label} origin={origin}",
-                (ps.x, ps.y, ps.px, ps.py, ps.pid), (src, rrad), cfg,
+                (ps.x, ps.y, ps.px, ps.py, ps.pid), (src, rrad, count), cfg,
                 ps.geo, errs, "gs_color_par", prm, uniform=ps.radius is None)
         dims = list(ps.x.shape)
         errs["gs_rank_par"] = 0.0
         if prm is not None:  # the par route's tail is this launch's
             errs["gs_verlet"] = 0.0
-        fsrc, _, frrad, _ = gk.rank_cuda(st, cfg)
+        fsrc, _, frrad, fcount = gk.rank_cuda(st, cfg)
         for name, origin in (("mx", 0), ("dec", -1)):
             geo = gp.ParityGeometry(*st.dims[1:], origin)
             to = lambda a, fill: gp.to_parity(a, geo, fill)  # noqa: E731
@@ -815,8 +843,8 @@ def phase_par_kernels(scenes, errs: dict) -> None:
                 f"K6-{name} {label}", (to(st.x, 0.0), to(st.y, 0.0),
                                        to(st.px, 0.0), to(st.py, 0.0),
                                        to(st.pid, -1)),
-                (to(fsrc, -1), to(frrad, 0.0)), cfg, geo, errs,
-                f"gs_color_par[{name}]")
+                (to(fsrc, -1), to(frrad, 0.0), to(fcount[None], 0)[:, 0]),
+                cfg, geo, errs, f"gs_color_par[{name}]")
             c = cfg.replace(gs_layout=name)
             got, want = gp.gs_solve_layout(st, c), gk.gs_solve_flat(st, c)
             _equal_or_raise(f"{name} solve {label} vs flat",
@@ -1570,8 +1598,8 @@ def _par_runs(gs_cfg, gs_state) -> dict:
     ps = gp.to_parity_state(gs_state, cfg)
     far = gp.to_parity_state(jittered(
         gs_state, 0.3 * tiled.tile_geometry(cfg)[0], seed=2), cfg)
-    src, _, rrad, _ = gp.rank_par_cuda(ps, cfg)
-    fsrc, _, frrad, _ = gk.rank_cuda(gs_state, cfg)
+    src, _, rrad, count = gp.rank_par_cuda(ps, cfg)
+    fsrc, _, frrad, fcount = gk.rank_cuda(gs_state, cfg)
     prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
                                          0.5 * cfg.world_height),
                           pressed=True).as_tensor("cuda")
@@ -1595,27 +1623,30 @@ def _par_runs(gs_cfg, gs_state) -> dict:
         "gs_rank_par": (lambda: gp.rank_par_cuda(ps, cfg),
                         lambda: gp.rank_par_plain(ps, cfg), 1),
         "gs_colors_mega": (
-            lambda: gm.colors_mega_cuda(m, src, rrad, cfg, prm),
+            lambda: gm.colors_mega_cuda(m, src, rrad, cfg, prm, count),
             mega_plain, 1, (m.px, m.py)),
         "relocate_mega": (lambda: gm.relocate_mega_cuda(far, cfg),
                           lambda: gm.relocate_mega_plain(far, cfg), 1),
         # the par route's solve: four colors and the tail, no radius table
         "gs_color_par": (
-            colors(gp.colors_par_cuda, ps.geo, par, tail=tail, uniform=True),
+            colors(gp.colors_par_cuda, ps.geo, par, tail=tail, uniform=True,
+                   count=count),
             colors(gp.colors_par_plain, ps.geo, par, tail=tail), 1,
             tail[:2]),
         "relocate_par": (lambda: gp.relocate_par_cuda(far, cfg),
                          lambda: gp.relocate_par_plain(far, cfg), 1),
         # the window with no color: the tail alone
         "gs_verlet": (
-            colors(gp.colors_par_cuda, ps.geo, par, 0, tail, uniform=True),
+            colors(gp.colors_par_cuda, ps.geo, par, 0, tail, uniform=True,
+                   count=count),
             colors(gp.colors_par_plain, ps.geo, par, 0, tail), 1, tail[:2]),
     }
     for name, origin in (("mx", 0), ("dec", -1)):
         geo = gp.ParityGeometry(*gs_state.dims[1:], origin)
         tables = (gp.to_parity(fsrc, geo, -1), gp.to_parity(frrad, geo, 0.0))
         runs[f"gs_color_par[{name}]"] = (
-            colors(gp.colors_par_cuda, geo, tables),
+            colors(gp.colors_par_cuda, geo, tables,
+                   count=gp.to_parity(fcount[None], geo, 0)[:, 0]),
             colors(gp.colors_par_plain, geo, tables), 1)
     return runs, list(ps.x.shape)
 
@@ -1639,10 +1670,11 @@ def phase_times(cfg, state, gs_cfg, gs_state, radix_keys):
     from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
     prm = StepParams.make(cfg.dt).as_tensor("cuda")
     moved = jittered(state, 0.3 * tiled.tile_geometry(cfg)[0], seed=2)
-    src, _, rrad, _ = gk.rank_cuda(gs_state, gs_cfg)
+    src, _, rrad, count = gk.rank_cuda(gs_state, gs_cfg)
 
     def colors(fn):
-        return lambda: fn(gs_state.x, gs_state.y, src, rrad, gs_cfg)
+        return lambda: fn(gs_state.x, gs_state.y, src, rrad, gs_cfg,
+                          count=count)
 
     runs = {  # name: (kernel, plain, launches per call)
         "collide_integrate": (lambda: tk.collide_integrate_cuda(state, prm,
@@ -1832,18 +1864,19 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "1M-spawn-ready"),
     ("relocate_pull[cap144]", "relocate_pull", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:945", "1M-spawn-ready"),
-    # the GS engine at cap 128 (set by hand) in its three layouts
-    ("gs_rank[cap128]", "gs_rank", "csrc/gs_kernels.cuh",
+    # the GS engine at cap 128 (set by hand) in its three layouts: the
+    # packed rank and the ranked-slot solve
+    ("gs_rank_pack[cap128]", "gs_rank_pack", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_pallas.py:467", "GS-cap128"),
-    ("gs_color[cap128]", "gs_color", "csrc/gs_kernels.cuh",
+    ("gs_color_ranked[cap128]", "gs_color_ranked", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_pallas.py:543", "GS-cap128"),
-    ("gs_rank_par[cap128]", "gs_rank_par", "csrc/gs_kernels.cuh",
+    ("gs_rank_pack_par[cap128]", "gs_rank_pack", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_parity.py:275", "GS-cap128-par"),
-    ("gs_color_par[cap128]", "gs_color_par", "csrc/gs_kernels.cuh",
+    ("gs_color_ranked_par[cap128]", "gs_color_ranked", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_parity.py:433", "GS-cap128-par"),
     ("relocate_par[cap128]", "relocate_par", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_parity.py:689", "GS-cap128-par"),
-    ("gs_colors_mega[cap128]", "gs_colors_mega", "csrc/gs_kernels.cuh",
+    ("gs_color_ranked_mega[cap128]", "gs_color_ranked", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_mega.py:503", "GS-cap128-mega"),
     ("relocate_mega[cap128]", "relocate_mega", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_mega.py:443", "GS-cap128-mega"),
@@ -1854,33 +1887,35 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:524", "1M-r5-cap312"),
     ("relocate_pull[cap312]", "relocate_pull", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/tiled_pallas.py:945", "1M-r5-cap312"),
-    # the GS engine at cap 312 (set by hand): the kernels without a window
-    ("gs_rank[cap312]", "gs_rank", "csrc/gs_kernels.cuh",
+    # the GS engine at cap 312 (set by hand): the packed rank and the
+    # ranked-slot solve
+    ("gs_rank_pack[cap312]", "gs_rank_pack", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_pallas.py:467", "GS-cap312"),
-    ("gs_color[cap312]", "gs_color", "csrc/gs_kernels.cuh",
+    ("gs_color_ranked[cap312]", "gs_color_ranked", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_pallas.py:543", "GS-cap312"),
-    ("gs_rank_par[cap312]", "gs_rank_par", "csrc/gs_kernels.cuh",
+    ("gs_rank_pack_par[cap312]", "gs_rank_pack", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_parity.py:275", "GS-cap312-par"),
-    ("gs_color_par[cap312]", "gs_color_par", "csrc/gs_kernels.cuh",
+    ("gs_color_ranked_par[cap312]", "gs_color_ranked", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_parity.py:433", "GS-cap312-par"),
     ("relocate_par[cap312]", "relocate_par", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_parity.py:689", "GS-cap312-par"),
-    ("gs_colors_mega[cap312]", "gs_colors_mega", "csrc/gs_kernels.cuh",
+    ("gs_color_ranked_mega[cap312]", "gs_color_ranked", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_mega.py:503", "GS-cap312-mega"),
     ("relocate_mega[cap312]", "relocate_mega", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_mega.py:443", "GS-cap312-mega"),
-    # the GS engine at K 32 (cap 16) (set by hand) in its three layouts
-    ("gs_rank[K32]", "gs_rank", "csrc/gs_kernels.cuh",
+    # the GS engine at K 32 (cap 16) (set by hand) in its three layouts:
+    # the packed rank and the ranked-slot solve
+    ("gs_rank_pack[K32]", "gs_rank_pack", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_pallas.py:467", "GS-K32"),
-    ("gs_color[K32]", "gs_color", "csrc/gs_kernels.cuh",
+    ("gs_color_ranked[K32]", "gs_color_ranked", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_pallas.py:543", "GS-K32"),
-    ("gs_rank_par[K32]", "gs_rank_par", "csrc/gs_kernels.cuh",
+    ("gs_rank_pack_par[K32]", "gs_rank_pack", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_parity.py:275", "GS-K32-par"),
-    ("gs_color_par[K32]", "gs_color_par", "csrc/gs_kernels.cuh",
+    ("gs_color_ranked_par[K32]", "gs_color_ranked", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_parity.py:433", "GS-K32-par"),
     ("relocate_par[K32]", "relocate_par", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_parity.py:689", "GS-K32-par"),
-    ("gs_colors_mega[K32]", "gs_colors_mega", "csrc/gs_kernels.cuh",
+    ("gs_color_ranked_mega[K32]", "gs_color_ranked", "csrc/gs_simple.cuh",
      "gpu_physics_engine_tpu/ops/gs_mega.py:503", "GS-K32-mega"),
     ("relocate_mega[K32]", "relocate_mega", "csrc/tiled_kernels.cuh",
      "gpu_physics_engine_tpu/ops/gs_mega.py:443", "GS-K32-mega"),
@@ -1889,20 +1924,27 @@ KERNELS = (  # name, launch counter, source, the TPU kernel it replaces,
 FLAT_GS = ("gs_rank", "gs_color", "relocate_pull")
 PAR_GS = ("gs_rank_par", "gs_color_par", "relocate_par", "gs_verlet")
 MEGA_GS = ("gs_colors_mega", "relocate_mega")
+# past cap 64 or K 16, beside the wrappers' counts: the packed rank's and
+# the ranked-slot solve's launches
+RANKED_GS = ("gs_rank_pack", "gs_color_ranked")
 
 
-def _gs_expect(steps: int, layout: str) -> dict:
+def _gs_expect(steps: int, layout: str, ranked: bool = False) -> dict:
     """Launch counts of ``steps`` GS steps (one substep each) in ``layout``
-    ("mega": par with gs_colors_mega and gs_relocate_mega)."""
+    ("mega": par with gs_colors_mega and gs_relocate_mega); ``ranked``: a
+    config past cap 64 or K 16, whose rank and solve take the packed and
+    the ranked-slot kernels (else those launch no time)."""
     per = {"flat": dict(gs_rank=1, gs_color=1, relocate_pull=1),
            "par": dict(gs_rank_par=1, gs_color_par=1, relocate_par=1,
                        gs_verlet=1),
            "mega": dict(gs_rank_par=1, gs_colors_mega=1, relocate_mega=1),
            "mx": dict(gs_rank=1, gs_color_par=1, relocate_pull=1)}
     per["dec"] = per["mx"]
-    want = {k: 0 for k in FLAT_GS + PAR_GS + MEGA_GS + ("collide_integrate",
-                                                       "relocate_one")}
+    want = {k: 0 for k in FLAT_GS + PAR_GS + MEGA_GS + RANKED_GS
+            + ("collide_integrate", "relocate_one")}
     want.update({k: v * steps for k, v in per[layout].items()})
+    if ranked:
+        want.update({k: steps for k in RANKED_GS})
     return want
 
 
@@ -3488,6 +3530,9 @@ def phase_sharded(paths: dict, errs: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 WIDE_CAPS = (33, 65, 140, 257, 312, 520)
+# the GS rank and solve: the window kernels' widest class, and past it the
+# packed rank and the ranked-slot solve either side of caps 128 and 256
+GS_CAPS = (33, 65, 128, 140, 256, 257, 312, 520)
 SLAB_CAPS = (33, 140, 312)  # K1 and K3 on a halo-extended slab too
 DEEP_KS = (80, 128)
 RETILE_N = 1_048_576
@@ -3588,6 +3633,25 @@ def _crowd_cell(st, cfg):
     return st.replace(x=x, y=y)
 
 
+def _rank_streamed(label, cfg, st) -> None:
+    """K5 and K5-par (origin 0, all parities) through the packed kernel
+    with buffers of 8 and 256 occupants, so that the windows around the
+    scene's full tiles (and, at 8, nearly every window) stream: bit-equal
+    to the plain versions."""
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.utils.kernel_study import rank_pack_cuda
+    ps = gp.to_parity_state(st, cfg, 0)
+    want, pwant = gk.rank_plain(st, cfg), gp.rank_par_plain(ps, cfg)
+    for entries in (8, 256):
+        _equal_or_raise(f"K5 {label} streamed ({entries} entries)",
+                        rank_pack_cuda(st, cfg, entries), want)
+        _equal_or_raise(f"K5-par {label} streamed ({entries} entries)",
+                        rank_pack_cuda(ps, cfg, entries), pwant)
+    log(f"[k5] {label}: the packed rank with buffers of 8 and 256 "
+        "occupants (windows streamed), flat and parity, bit-equal")
+
+
 def _deep_colors(label, cfg, st, errs: dict) -> None:
     """Past K 64 (the solve without a window): K6 flat, and K6-par at
     origin 0 (with the Verlet tail under a uniform radius), a whole solve
@@ -3595,20 +3659,21 @@ def _deep_colors(label, cfg, st, errs: dict) -> None:
     sweep's K^2/2 pairs a color are slow: one solve a layout)."""
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     from gpu_physics_engine_torch.ops import gs_parity as gp
-    src, _, rrad, _ = gk.rank_cuda(st, cfg)
-    a, a2 = (gk.colors_cuda(st.x, st.y, src, rrad, cfg) for _ in range(2))
+    src, _, rrad, count = gk.rank_cuda(st, cfg)
+    a, a2 = (gk.colors_cuda(st.x, st.y, src, rrad, cfg, count=count)
+             for _ in range(2))
     _equal_or_raise(f"K6 {label}", a, gk.colors_plain(st.x, st.y, src, rrad,
                                                       cfg), a2)
     ps = gp.to_parity_state(st, cfg, 0)
-    psrc, _, prrad, _ = gp.rank_par_cuda(ps, cfg)
+    psrc, _, prrad, pcount = gp.rank_par_cuda(ps, cfg)
     prm = _prm(cfg)
     runs = []
     for _ in range(3):
         q, r = ps.px.clone(), ps.py.clone()
         runs.append((q, r, None if prm is None else (q, r, ps.pid, prm)))
     got = [gp.colors_par_cuda(ps.x, ps.y, psrc, prrad, cfg, ps.geo, 4, t,
-                              uniform=ps.radius is None) + (q, r)
-           for q, r, t in runs[:2]]
+                              uniform=ps.radius is None, count=pcount)
+           + (q, r) for q, r, t in runs[:2]]
     q, r, t = runs[2]
     want = gp.colors_par_plain(ps.x, ps.y, psrc, prrad, cfg, ps.geo, 4, t)
     _equal_or_raise(f"K6-par {label}", got[0], want + (q, r), got[1])
@@ -3618,27 +3683,28 @@ def _deep_colors(label, cfg, st, errs: dict) -> None:
 def _wide_kernels(errs: dict) -> None:
     """The kernels past cap 32 against their plain versions, bit-equal and
     on repeat, at caps 33 (64-bit masks), 65, 140 (K1 and the relocate
-    window without a mask; the GS kernels' four-word class), 257, 312 and
-    520 (the GS kernels without a window), on pile scenes whose tiles fill
-    every slot: K1 and K3 (uniform and general radius) on a grid smaller
-    than one region (12 x 5 world: [cap, 8, 8]) and on a ragged one ([cap,
-    21, 39]), and on a halo-extended slab (caps 33, 140 and 312); there K2
-    in every matching mode with hysteresis on and off (past cap 256 on the
-    small grid under the config's hysteresis), and K4; on the ragged grid
-    K2-par (origins 0 and -1, one launch and one per parity) and
-    relocate_mega (== K2-par) in every matching mode; K1 through the packed
-    kernel under a plan whose buffer makes the window stream (two plans:
-    four and one tiles a block) at caps 140 and 520; K2 and K4 at cap
-    4,096 (their arrays in device scratch: no region fits a block; K2-par
-    and relocate_mega there: tests/test_torch_cuda.py); K5 and K5-par (K
-    16, with and without a radius plane) and K6's window flat and K6-par's
-    at origins 0 and -1 (colors 1..c, with and without the tail) on a 40 x
-    30 GS scene whose cluster fills the slots of its tiles.  Then K past
-    16 (the sel rank, the colors' ranks past the registers): K5, K5-par and
-    the windows at K 17 (with and without a radius plane), 32 and 64 at cap
-    16, and at K 64 at cap 140 (uniform radius); and past K 64 (the list
-    rank, the solve without a window) at K 80 and 128 at cap 16 on a
-    crowded cell (9 x cap members): K5 and K5-par, K6 flat and K6-par."""
+    window without a mask), 257, 312 and 520, on pile scenes whose tiles
+    fill every slot: K1 and K3 (uniform and general radius) on a grid
+    smaller than one region (12 x 5 world: [cap, 8, 8]) and on a ragged one
+    ([cap, 21, 39]), and on a halo-extended slab (caps 33, 140 and 312);
+    there K2 in every matching mode with hysteresis on and off (past cap
+    256 on the small grid under the config's hysteresis), and K4; on the
+    ragged grid K2-par (origins 0 and -1, one launch and one per parity)
+    and relocate_mega (== K2-par) in every matching mode; K1 through the
+    packed kernel under a plan whose buffer makes the window stream (two
+    plans: four and one tiles a block) at caps 140 and 520; K2 and K4 at
+    cap 4,096 (their arrays in device scratch: no region fits a block;
+    K2-par and relocate_mega there: tests/test_torch_cuda.py).  The GS
+    kernels at caps 33 (the window kernels' widest class), 65, 128, 140,
+    256, 257, 312 and 520 (the packed rank and the ranked-slot solve): K5
+    and K5-par (K 16, with and without a radius plane), K6 flat and K6-par
+    at origins 0 and -1 (colors 1..c, with and without the tail) and
+    colors_mega, on a 40 x 30 GS scene whose cluster fills the slots of
+    its tiles, and the packed rank with its windows streamed.  Then K past
+    16: K5, K5-par and K6 at K 17 (with and without a radius plane), 32 and
+    64 at cap 16, and at K 64 at cap 140 (uniform radius); and at K 80 and
+    128 at cap 16 on a crowded cell (9 x cap members): K5 and K5-par, K6
+    flat and K6-par."""
     from gpu_physics_engine_torch import StepParams
     from gpu_physics_engine_torch.ops import tiled, tiled_kernels as tk
     from gpu_physics_engine_torch.utils.kernel_study import (
@@ -3681,6 +3747,9 @@ def _wide_kernels(errs: dict) -> None:
                     f"repeat bit-equal")
         if cap in SLAB_CAPS:
             _slab_wide(cap, errs)
+        log(f"[caps] cap {cap}: K1-K4, {time.perf_counter() - t0:.1f} s")
+    for cap in GS_CAPS:
+        t0 = time.perf_counter()
         for uniform in (False, True):
             gcfg, gst = _gs_ragged_state(cap, 16, uniform, 3000,
                                          (40.0, 30.0), jam_sd=0.6)
@@ -3691,8 +3760,10 @@ def _wide_kernels(errs: dict) -> None:
                            seed=cap)
             check_rank(f"cap{cap}-K16", gcfg, gst, errs)
             check_window(f"cap{cap}-K16", gcfg, gst, errs)
-        log(f"[caps] cap {cap}: every kernel, {time.perf_counter() - t0:.1f}"
-            " s")
+            if cap > tk.WIDE_CAP:
+                _rank_streamed(f"cap{cap}-K16", gcfg, gst)
+        log(f"[caps] cap {cap}: the GS kernels, "
+            f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cfg, st = _pile_state(4096, False, (12.0, 5.0), 0)
     if tk.k2_window_bytes(4096, False) != 0:
@@ -4064,13 +4135,16 @@ def _gs_wide(tag, key, cap, K, paths, errs) -> dict:
     """The GS engine at ``cap`` with max_occupancy ``K`` (both set by hand:
     no tuned GS row reaches past cap 32 or K 8) on 262,144 particles over a
     1524 x 524 world (the 1M-GS scene's density): one flat frame from the
-    seeded scene, then 16 steps in the flat, par and mega layouts from that
-    state (``tag``, ``tag``-par, ``tag``-mega), each with its launch counts
-    (K5, K6, K2 / K5-par, K6-par, K2-par / K5-par, colors_mega,
-    relocate_mega), the three final states bit-equal.  Returns the time
-    rows {name[key]: (kernel ms, plain ms, bound)} of K5 and K6 (flat) and
-    the parity kernels on the seeded frame's state, each held bit-equal,
-    twice, to its plain version on those inputs first."""
+    seeded scene, then 16 steps (48 past cap 64 or K 16) in the flat, par
+    and mega layouts from that state (``tag``, ``tag``-par, ``tag``-mega),
+    each with its launch counts (K5, K6, K2 / K5-par, K6-par, K2-par /
+    K5-par, colors_mega, relocate_mega; past cap 64 or K 16 the packed
+    rank's and the ranked-slot solve's too), the three final states
+    bit-equal.  Returns the time rows {name[key]: (kernel ms, plain ms,
+    bound)} of K5 and K6 (flat) and the parity kernels on the seeded
+    frame's state, each held bit-equal, twice, to its plain version on
+    those inputs first; past cap 64 or K 16 the rank's and the solves'
+    rows are named by the new kernels (``WIDE_NAMES``)."""
     import torch
     from gpu_physics_engine_torch import TiledEngine
     from gpu_physics_engine_torch.core.tuned import gs_config
@@ -4089,13 +4163,15 @@ def _gs_wide(tag, key, cap, K, paths, errs) -> dict:
     seed = TiledEngine(flat, seed=0, chunk=64, device="cuda")
     start = tiled.tiled_step_fn(seed.state, seed.params(), flat)
     del seed
+    ranked = not gk.windowed(cap, K)
+    steps = 48 if ranked else 16
     runs = {}
     for layout in ("flat", "par", "mega"):
         name = tag if layout == "flat" else f"{tag}-{layout}"
         runs[layout] = phase_engine(
             lambda: TiledEngine(cfg_of(layout), chunk=64,
                                 initial_state=_clone(start)),
-            n, [(16, None)], name, _gs_expect(16, layout))
+            n, [(steps, None)], name, _gs_expect(steps, layout, ranked))
         paths[name] = runs[layout]["launches"]
     for layout in ("par", "mega"):
         cross_check(tag, runs["flat"]["engine"], runs[layout]["engine"],
@@ -4103,12 +4179,13 @@ def _gs_wide(tag, key, cap, K, paths, errs) -> dict:
     del runs
     torch.cuda.empty_cache()
     cfg, st = flat, start
-    src, _, rrad, _ = gk.rank_cuda(st, cfg)
+    src, _, rrad, count = gk.rank_cuda(st, cfg)
     b = gs_bounds(cfg, st)
     timed = {
         "gs_rank": (lambda: gk.rank_cuda(st, cfg),
                     lambda: gk.rank_plain(st, cfg), ()),
-        "gs_color": (lambda: gk.colors_cuda(st.x, st.y, src, rrad, cfg),
+        "gs_color": (lambda: gk.colors_cuda(st.x, st.y, src, rrad, cfg,
+                                            count=count),
                      lambda: gk.colors_plain(st.x, st.y, src, rrad, cfg),
                      ())}
     par, _ = _par_runs(cfg, st)
@@ -4118,17 +4195,26 @@ def _gs_wide(tag, key, cap, K, paths, errs) -> dict:
         timed[name] = (kern, plain, keep[0] if keep else ())
     rows = {}
     for name, (kern, plain, keep) in timed.items():
-        rows[f"{name}[{key}]"] = _time_pair(
-            f"{name}[{key}]", list(st.dims), kern, plain, plain_reps=1,
-            errs=errs, keep=keep) + (b[name],)
+        row = f"{WIDE_NAMES.get(name, name) if ranked else name}[{key}]"
+        rows[row] = _time_pair(row, list(st.dims), kern, plain,
+                               plain_reps=1, errs=errs, keep=keep) + (
+                                   b[name],)
     return rows
+
+
+# past cap 64 or K 16 the time rows and the kernels line name the GS rank
+# and solve by their kernels: the packed rank and the ranked-slot solve
+WIDE_NAMES = {"gs_rank": "gs_rank_pack", "gs_rank_par": "gs_rank_pack_par",
+              "gs_color": "gs_color_ranked",
+              "gs_color_par": "gs_color_ranked_par",
+              "gs_colors_mega": "gs_color_ranked_mega"}
 
 
 def phase_wide_caps(smi: str, paths: dict, errs: dict) -> dict:
     """Tile caps past 32 and K past 16 on the card (the 64-bit mask
     instantiations, K1's and the relocate window's kernels without a mask,
-    the sel rank, the colors' deep ranks and one-color schedule, the GS
-    kernels without a window): ``check_window_formula`` (run first, in
+    the packed GS rank and the ranked-slot solve): ``check_window_formula``
+    (run first, in
     main) holds the window bytes at every cap 1-256 and past it to 4,096;
     ``_wide_kernels`` holds every kernel at caps 33-520 (K2 at 4,096) and
     K 17-128; ``_growth_257`` grows an engine past 256; then the engine

@@ -40,31 +40,6 @@ int launch_rank_k(const float* x, const float* y, const float* rad,
   return (int)cudaGetLastError();
 }
 
-// The sel kernel's grid and launch (K past 16 or cap past 64).
-dim3 sel_grid(const gpe::FlatLayout& l, int cls) {
-  const int RY = gpe::sel_rows(cls), RX = gpe::sel_cols(cls);
-  return dim3((l.TX + RX - 1) / RX, (l.TY + RY - 1) / RY);
-}
-dim3 sel_grid(const gpe::ParLayout& l, int cls) {
-  const int SY = gpe::sel_rows(cls) / 2, SX = gpe::sel_cols(cls) / 2;
-  return dim3((l.DX + SX - 1) / SX, (l.DY + SY - 1) / SY);
-}
-
-template <class M, class L, bool MASK>
-int launch_sel(const float* x, const float* y, const float* rad,
-               const int* pid, int* src, int* rpid, float* rrad, int* count,
-               int cap, const L& lay, int np, int K, float t, float r0,
-               cudaStream_t s) {
-  const int smem = gpe::rank_bytes(cap, rad == nullptr, K);
-  const cudaError_t rc =
-      gpe::allow_smem(gpe::gs_rank_sel_kernel<M, L, MASK>, smem);
-  if (rc != cudaSuccess) return (int)rc;
-  gpe::gs_rank_sel_kernel<M, L, MASK>
-      <<<sel_grid(lay, gpe::mask_class<M>()), gpe::kSelThreads, smem, s>>>(
-          x, y, rad, pid, src, rpid, rrad, count, cap, lay, np, K, t, r0);
-  return (int)cudaGetLastError();
-}
-
 template <class L, bool MASK>
 int launch_rank(const void* x, const void* y, const void* rad,
                 const void* pid, void* src, void* rpid, void* rrad,
@@ -72,15 +47,14 @@ int launch_rank(const void* x, const void* y, const void* rad,
                 float r0, void* stream) {
   if (K < 1 || cap < 1 || lay.TY < 1 || lay.TX < 1)
     return (int)cudaErrorInvalidValue;
-  if (gpe::gs_simple(cap, K))
-    return gpe::launch_rank_list(
+  if (!gpe::gs_windowed(cap, K))
+    return gpe::launch_rank_pack(
         static_cast<const float*>(x), static_cast<const float*>(y),
         static_cast<const float*>(rad), static_cast<const int*>(pid),
         static_cast<int*>(src), static_cast<int*>(rpid),
         static_cast<float*>(rrad), static_cast<int*>(count), cap, lay, np, K,
-        t, r0, static_cast<cudaStream_t>(stream));
-  // the K-deep list's registers by K, the mask word by cap; past K 16 or
-  // cap 64 the sel kernel, the mask word by cap
+        t, r0, 0, static_cast<cudaStream_t>(stream));
+  // the K-deep list's registers by K, the mask word by cap
   using Fn = int (*)(const float*, const float*, const float*, const int*,
                      int*, int*, float*, int*, int, const L&, int, int, float,
                      float, cudaStream_t);
@@ -89,12 +63,7 @@ int launch_rank(const void* x, const void* y, const void* rad,
        &launch_rank_k<8, gpe::Mask64, L, MASK>},
       {&launch_rank_k<16, unsigned, L, MASK>,
        &launch_rank_k<16, gpe::Mask64, L, MASK>}};
-  static constexpr Fn sel[3] = {&launch_sel<unsigned, L, MASK>,
-                                &launch_sel<gpe::Mask64, L, MASK>,
-                                &launch_sel<gpe::Mask256, L, MASK>};
-  const Fn launch = gpe::rank_sel(cap, K)
-                        ? sel[gpe::cap_class(cap)]
-                        : table[K <= 8 ? 0 : 1][cap > gpe::kNarrowCap ? 1 : 0];
+  const Fn launch = table[K <= 8 ? 0 : 1][cap > gpe::kNarrowCap ? 1 : 0];
   return launch(static_cast<const float*>(x), static_cast<const float*>(y),
                 static_cast<const float*>(rad), static_cast<const int*>(pid),
                 static_cast<int*>(src), static_cast<int*>(rpid),
@@ -126,77 +95,21 @@ int launch_window_k(const gpe::GsWindowArgs& a, const L& lay,
   return (int)cudaGetLastError();
 }
 
-// gs_colors_span_kernel at class CLS over colors c0 .. a.c1.
-template <int KMAX, int CLS, class L>
-int launch_span_k(const gpe::GsWindowArgs& a, const L& lay, int c0,
-                  cudaStream_t s) {
-  const int smem = gpe::gs_window_bytes(a.cap, a.c1 >= c0 ? a.c1 - c0 + 1
-                                                           : 0);
-  const cudaError_t rc =
-      gpe::allow_smem(gpe::gs_colors_span_kernel<KMAX, CLS, L>, smem);
-  if (rc != cudaSuccess) return (int)rc;
-  gpe::gs_colors_span_kernel<KMAX, CLS, L>
-      <<<window_grid(lay, gpe::gs_window_ry(CLS), gpe::gs_window_rx(CLS)),
-         gpe::kGsWinThreads, smem, s>>>(a, lay, c0);
-  return (int)cudaGetLastError();
-}
-
-// K past 16 at caps up to 64: the span kernel over the whole solve.
-template <int CLS, class L>
-int launch_deep_k(const gpe::GsWindowArgs& a, const L& lay, cudaStream_t s) {
-  return launch_span_k<gpe::kGsMaxK, CLS, L>(a, lay, 1, s);
-}
-
-// Caps past 64 (class 5): colors 1 .. c1 a launch each (no color: one
-// launch, the copy and the tail), through the scratch planes (sx, sy) so
-// that the last launch writes (ox, oy); only the last runs the tail.
-template <int KMAX, class L>
-int launch_one_k(const gpe::GsWindowArgs& a, const L& lay, float* sx,
-                 float* sy, cudaStream_t s) {
-  const int n = a.c1 > 0 ? a.c1 : 1;
-  if (n > 1 && (!sx || !sy)) return (int)cudaErrorInvalidValue;
-  gpe::GsWindowArgs b = a;
-  for (int c = 1; c <= n; ++c) {
-    float* ox = (n - c) % 2 == 0 ? a.ox : sx;
-    float* oy = (n - c) % 2 == 0 ? a.oy : sy;
-    b.ox = ox;
-    b.oy = oy;
-    b.c1 = a.c1 > 0 ? c : 0;
-    b.integ = a.integ && c == n;
-    const int rc =
-        launch_span_k<KMAX, gpe::kGsOneClass, L>(b, lay, a.c1 > 0 ? c : 1, s);
-    if (rc != 0) return rc;
-    b.x = ox;
-    b.y = oy;
-  }
-  return (int)cudaSuccess;
-}
-
 template <class L>
-int launch_window(const gpe::GsWindowArgs& a, const L& lay, float* sx,
-                  float* sy, void* stream) {
+int launch_window(const gpe::GsWindowArgs& a, const int* count, const L& lay,
+                  void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  if (gpe::gs_simple(a.cap, a.K)) return gpe::launch_color_cells(a, lay, st);
-  const int cls = gpe::gs_window_class(a.cap);
-  if (cls == gpe::kGsOneClass) {
-    using One = int (*)(const gpe::GsWindowArgs&, const L&, float*, float*,
-                        cudaStream_t);
-    static constexpr One one[3] = {&launch_one_k<8, L>, &launch_one_k<16, L>,
-                                   &launch_one_k<gpe::kGsMaxK, L>};
-    return one[a.K <= 8 ? 0 : a.K <= gpe::kGsRegK ? 1 : 2](a, lay, sx, sy,
-                                                           st);
-  }
+  if (!gpe::gs_windowed(a.cap, a.K))
+    return gpe::launch_colors_ranked(a, count, lay, st);
   using Fn = int (*)(const gpe::GsWindowArgs&, const L&, cudaStream_t);
-  static constexpr Fn table[3][gpe::kGsWinClasses] = {
+  static constexpr Fn table[2][gpe::kGsWinClasses] = {
       {&launch_window_k<8, 0, L>, &launch_window_k<8, 1, L>,
        &launch_window_k<8, 2, L>, &launch_window_k<8, 3, L>,
        &launch_window_k<8, 4, L>},
       {&launch_window_k<16, 0, L>, &launch_window_k<16, 1, L>,
        &launch_window_k<16, 2, L>, &launch_window_k<16, 3, L>,
-       &launch_window_k<16, 4, L>},
-      {&launch_deep_k<0, L>, &launch_deep_k<1, L>, &launch_deep_k<2, L>,
-       &launch_deep_k<3, L>, &launch_deep_k<4, L>}};
-  return table[a.K <= 8 ? 0 : a.K <= gpe::kGsRegK ? 1 : 2][cls](a, lay, st);
+       &launch_window_k<16, 4, L>}};
+  return table[a.K <= 8 ? 0 : 1][gpe::gs_window_class(a.cap)](a, lay, st);
 }
 
 }  // namespace
@@ -204,7 +117,8 @@ int launch_window(const gpe::GsWindowArgs& a, const L& lay, float* sx,
 extern "C" {
 
 // K5: src/rpid int32 [K, TY, TX], rrad float [K, TY, TX], count int32
-// [TY, TX].  Any K >= 1 and cap >= 1 (past 64 and 256 the list kernel).
+// [TY, TX].  Any K >= 1 and cap >= 1 (past cap 64 or K 16 the packed
+// kernel).
 int gpe_gs_rank(const void* x, const void* y, const void* rad,
                 const void* pid, void* src, void* rpid, void* rrad,
                 void* count, int cap, int TY, int TX, int K, float t,
@@ -232,11 +146,12 @@ int gpe_gs_rank_par(const void* x, const void* y, const void* rad,
                                            stream);
 }
 
-// K5's shared-memory bytes at (cap, K), with or without a radius plane, as
-// the launches above take them (either layout).
+// K5's window bytes at (cap, K), with or without a radius plane, as the
+// launches above take them (either layout); 0 past the window
+// (gpe_gs_route): the packed kernel's plan is gpe_gs_rank_pack_bytes.
 int gpe_gs_rank_window_bytes(int cap, int uniform, int K) {
-  return gpe::gs_simple(cap, K) ? gpe::gs_list_bytes()
-                                : gpe::rank_bytes(cap, uniform != 0, K);
+  return gpe::gs_windowed(cap, K) ? gpe::rank_window_bytes(cap, uniform != 0)
+                                  : 0;
 }
 
 // K6, K6-par (K6-mx, K6-dec) and colors_mega: colors 1..c1 (0 <= c1 <=
@@ -247,15 +162,15 @@ int gpe_gs_rank_window_bytes(int cap, int uniform, int K) {
 // par != 0: fields [4, cap, DY, DX], tables [4, K, DY, DX] with the given
 // origin.  rrad may be null: every valid rank has radius r0.  With integ,
 // pid, prm (device float[4]) and consts (host float[kVerletNumConsts] in
-// VerletConsts order) are read.  Any K >= 1 and cap >= 1.  At caps 65-256
-// and K up to 64 with two colors or more, sx and sy are scratch planes
-// shaped as ox (a launch a color, in turns through them); otherwise they
-// may be null.  Past cap 256 or K 64: a copy, a launch a color in place on
-// the outputs, and the tail.
+// VerletConsts order) are read.  Any K >= 1 and cap >= 1.  Past cap 64 or
+// K 16 the ranked-slot solve: the copy, the colors on the ranked slots,
+// each cell's rank count read from `count` (K5's count table, shaped as
+// the tables without K; required there), and the tail; the window kernel
+// ignores `count`.
 int gpe_gs_colors_window(const void* x, const void* y, void* px, void* py,
                          const void* pid, const void* src, const void* rrad,
-                         const void* prm, void* ox, void* oy, void* sx,
-                         void* sy, int cap, int TY, int TX, int DY, int DX,
+                         const void* count, const void* prm, void* ox,
+                         void* oy, int cap, int TY, int TX, int DY, int DX,
                          int origin, int par, int K, int c1, float r0,
                          float stiffness, int integ, const void* consts,
                          void* stream) {
@@ -284,18 +199,18 @@ int gpe_gs_colors_window(const void* x, const void* y, void* px, void* py,
     const float* f = static_cast<const float*>(consts);
     a.vc = gpe::VerletConsts{f[0], f[1], f[2], f[3], f[4], f[5]};
   }
-  auto* fx = static_cast<float*>(sx);
-  auto* fy = static_cast<float*>(sy);
+  const auto* n = static_cast<const int*>(count);
   if (par)
-    return launch_window(a, gpe::ParLayout{TY, TX, DY, DX, origin, 0}, fx,
-                         fy, stream);
-  return launch_window(a, gpe::FlatLayout{TY, TX}, fx, fy, stream);
+    return launch_window(a, n, gpe::ParLayout{TY, TX, DY, DX, origin, 0},
+                         stream);
+  return launch_window(a, n, gpe::FlatLayout{TY, TX}, stream);
 }
 
 // The window's shared-memory bytes at cap for a launch of `colors` colors,
-// as the launches above take them (either layout).
+// as the launches above take them (either layout); 0 past cap 64 (the
+// ranked-slot solve stages nothing; past K 16 too).
 int gpe_gs_colors_window_bytes(int cap, int colors) {
-  return cap > gpe::kFourWordCap ? 0 : gpe::gs_window_bytes(cap, colors);
+  return cap > gpe::kWideCap ? 0 : gpe::gs_window_bytes(cap, colors);
 }
 
 }  // extern "C"

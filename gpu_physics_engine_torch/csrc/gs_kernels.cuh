@@ -33,19 +33,12 @@
 
 namespace gpe {
 
-constexpr int kGsMaxK = 64;  // K up to this: the window kernels below
 constexpr int kGsRegK = 16;  // K up to this: the K ranks in registers
-// Past cap 256 or K 64 the rank and the solve take the kernels without a
-// window (csrc/gs_simple.cuh).
-__host__ __device__ constexpr bool gs_simple(int cap, int K) {
-  return cap > kFourWordCap || K > kGsMaxK;
-}
-// Its rank's block: a warp a cell, each warp's member list (pid, source
-// code, radius) of kGsListCap entries in shared memory.
-constexpr int kGsListThreads = 256;
-constexpr int kGsListCap = 512;
-__host__ __device__ constexpr int gs_list_bytes() {
-  return kGsListThreads / 32 * kGsListCap * 12;
+// Up to cap 64 and K 16 the rank and the solve take the window kernels
+// below; past either, the packed rank and the ranked-slot solve
+// (csrc/gs_simple.cuh).
+__host__ __device__ constexpr bool gs_windowed(int cap, int K) {
+  return cap <= kWideCap && K <= kGsRegK;
 }
 constexpr int kBigPid = 0x7FFFFFFF;
 constexpr float kGsMinDist = 1e-4f;  // f32 rounding of MIN_DISTANCE
@@ -352,240 +345,6 @@ __global__ void __launch_bounds__(rank_threads(sizeof(M) == 8),
   count[lay.at(0, 1, ty, tx)] = members;
 }
 
-// K5 past cap 64 or past K 16 ("sel"): the same tables by another
-// selection.  gs_rank_kernel keeps a cell's K ranks in registers and
-// gives a cell one thread; past K 16 the list does not fit the registers,
-// and past cap 64 the window leaves a region of a few cells, so this
-// kernel spreads a cell over threads instead:
-//
-//  1. stage: a thread per (slot, window tile), slot-major (neighbouring
-//     threads on neighbouring storage words; on ParLayout a warp walks one
-//     parity class): pid, then x, y (radius) of an occupant, into shared
-//     memory, and its bit into the tile's mask (a shared-memory OR).
-//  2. members: a thread per (region cell, j): the occupied slots of window
-//     tile j of the cell that pass the clip-and-distance test of
-//     gs_rank_kernel (the same IEEE-rounded operations), as a mask.
-//  3. write: a thread per (region cell, j) takes each member of its mask
-//     and counts the cell's members with a smaller pid: that count is its
-//     rank, and a rank below K writes its table entry (pids are unique, so
-//     the ranks are 0 .. members - 1 in ascending pid order, the register
-//     list's order).  A thread per (rank q, region cell) writes the fill of
-//     every rank q at or past the cell's member count, and rank 0's thread
-//     the count.  Each entry has one writer.
-//
-// The rank costs members^2 comparisons a cell in shared memory, against the
-// register list's members x K; at the GS densities (a few members a cell)
-// both are small.  MASK and rad == nullptr as gs_rank_kernel.  Regions by
-// mask class: 4 x 64 tiles (caps up to 32), 4 x 32 (33-64), 2 x 8 (65-256:
-// 169,728 bytes at cap 256 with a radius plane; 4 x 8 would need
-// 256,896).
-constexpr int kSelThreads = 256;
-__host__ __device__ constexpr int sel_rows(int cls) { return cls == 2 ? 2 : 4; }
-__host__ __device__ constexpr int sel_cols(int cls) {
-  return cls == 0 ? 64 : cls == 1 ? 32 : 8;
-}
-__host__ __device__ constexpr int sel_win_tiles(int cls) {
-  return (sel_rows(cls) + 2) * (sel_cols(cls) + 2);
-}
-// Whether a launch at (cap, K) takes gs_rank_sel_kernel.
-__host__ __device__ constexpr bool rank_sel(int cap, int K) {
-  return cap > kWideCap || K > kGsRegK;
-}
-
-// Dynamic shared memory of one block of either rank kernel: per window tile
-// and slot pid and x, y (float2) (and radius unless uniform), and a mask
-// per window tile; the sel kernel also nine member masks per region cell.
-__host__ __device__ constexpr int rank_bytes(int cap, bool uniform, int K) {
-  return !rank_sel(cap, K)
-             ? rank_window_bytes(cap, uniform)
-             : sel_win_tiles(cap_class(cap)) *
-                       (cap * (uniform ? 12 : 16) + mask_bytes(cap)) +
-                   sel_rows(cap_class(cap)) * sel_cols(cap_class(cap)) * 9 *
-                       mask_bytes(cap);
-}
-static_assert(rank_bytes(kNarrowCap, false, kGsMaxK) <= kSmemLimit, "sel 32");
-static_assert(rank_bytes(kWideCap, false, kGsMaxK) <= kSmemLimit, "sel 64");
-static_assert(rank_bytes(kFourWordCap, false, kGsMaxK) <= kSmemLimit,
-              "sel 256");
-static_assert(sel_win_tiles(0) % 2 == 0 && sel_win_tiles(1) % 2 == 0 &&
-                  sel_win_tiles(2) % 2 == 0,
-              "the 64-bit mask words' alignment");
-
-template <int C>
-__device__ __forceinline__ void sel_origin(const FlatLayout&, int* ty0,
-                                           int* tx0) {
-  *ty0 = sel_rows(C) * (int)blockIdx.y;
-  *tx0 = sel_cols(C) * (int)blockIdx.x;
-}
-template <int C>
-__device__ __forceinline__ void sel_origin(const ParLayout& l, int* ty0,
-                                           int* tx0) {
-  *ty0 = sel_rows(C) * (int)blockIdx.y + l.o;
-  *tx0 = sel_cols(C) * (int)blockIdx.x + l.o;
-}
-// Window tile i (row-major; on ParLayout by parity class) and region cell
-// r of the launch's parities, as rank_window_tile and rank_region_tile.
-template <int C>
-__device__ __forceinline__ void sel_window_tile(const FlatLayout&, int i,
-                                                int* wy, int* wx) {
-  *wy = i / (sel_cols(C) + 2);
-  *wx = i - *wy * (sel_cols(C) + 2);
-}
-template <int C>
-__device__ __forceinline__ void sel_window_tile(const ParLayout&, int i,
-                                                int* wy, int* wx) {
-  constexpr int SX = (sel_cols(C) + 2) / 2;
-  constexpr int A = (sel_rows(C) + 2) / 2 * SX;
-  const int q = i / A, r = i - q * A;
-  const int cy = r / SX;
-  *wy = 2 * cy + (q >> 1);
-  *wx = 2 * (r - cy * SX) + (q & 1);
-}
-template <int C>
-__device__ __forceinline__ void sel_region_tile(const FlatLayout&, int r,
-                                                int* ry, int* rx) {
-  *ry = r / sel_cols(C);
-  *rx = r - *ry * sel_cols(C);
-}
-template <int C>
-__device__ __forceinline__ void sel_region_tile(const ParLayout& l, int r,
-                                                int* ry, int* rx) {
-  constexpr int SX = sel_cols(C) / 2;
-  constexpr int A = sel_rows(C) / 2 * SX;
-  const int pl = r / A, q = r - pl * A, p = l.p0 + pl;
-  const int cy = q / SX;
-  *ry = 2 * cy + (p >> 1);
-  *rx = 2 * (q - cy * SX) + (p & 1);
-}
-template <int C>
-__device__ __forceinline__ int sel_cells(const FlatLayout&, int) {
-  return sel_rows(C) * sel_cols(C);
-}
-template <int C>
-__device__ __forceinline__ int sel_cells(const ParLayout&, int np) {
-  return np * (sel_rows(C) * sel_cols(C) / 4);
-}
-
-template <class M, class L, bool MASK>
-__global__ void __launch_bounds__(kSelThreads) gs_rank_sel_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ rad, const int* __restrict__ pid,
-    int* __restrict__ src, int* __restrict__ rpid, float* __restrict__ rrad,
-    int* __restrict__ count, int cap, L lay, int np, int K, float t,
-    float r0) {
-  constexpr int C = mask_class<M>();
-  constexpr int WX = sel_cols(C) + 2, Wn = sel_win_tiles(C);
-  constexpr int T = kSelThreads;
-  extern __shared__ __align__(16) unsigned char sel_smem[];
-  float2* wxy = reinterpret_cast<float2*>(sel_smem);    // [cap][window]
-  int* wpid = reinterpret_cast<int*>(wxy + cap * Wn);   // [cap][window]
-  float* wr = reinterpret_cast<float*>(wpid + cap * Wn);
-  M* wmask = reinterpret_cast<M*>(wr + (rad ? cap * Wn : 0));  // [window]
-  M* memb = wmask + Wn;                                 // [cell][9]
-  const int TY = lay.TY, TX = lay.TX;
-  int ty0, tx0;
-  sel_origin<C>(lay, &ty0, &tx0);
-  const int cells = sel_cells<C>(lay, np);
-
-  // 1. stage
-  for (int w = threadIdx.x; w < Wn; w += T) wmask[w] = 0u;
-  __syncthreads();
-  for (int i = threadIdx.x; i < cap * Wn; i += T) {
-    const int k = i / Wn, v = i - k * Wn;
-    int wy, wx;
-    sel_window_tile<C>(lay, v, &wy, &wx);
-    const int ty = ty0 - 1 + wy, tx = tx0 - 1 + wx;
-    if (ty < 0 || ty >= TY || tx < 0 || tx >= TX) continue;
-    const int g = lay.at(k, cap, ty, tx);
-    const int p = pid[g];
-    if (p < 0) continue;
-    const int w = wy * WX + wx;
-    wpid[k * Wn + w] = p;
-    wxy[k * Wn + w] = make_float2(x[g], y[g]);
-    if (rad) wr[k * Wn + w] = rad[g];
-    atomicOr(&wmask[w], M(1) << k);  // an OR: any order
-  }
-  __syncthreads();
-
-  // 2. members of (cell r, window tile j of it)
-  for (int e = threadIdx.x; e < 9 * cells; e += T) {
-    const int r = e / 9, j = e - 9 * r;
-    int ry, rx;
-    sel_region_tile<C>(lay, r, &ry, &rx);
-    const int ty = ty0 + ry, tx = tx0 + rx;
-    const bool live = rank_stored(lay, ty, tx) &&
-                      (!MASK || (ty >= 1 && ty <= TY - 2 && tx >= 1 &&
-                                 tx <= TX - 2));
-    M mb = 0u;
-    if (live) {
-      const float lox = __fmul_rn((float)(tx - 1), t);
-      const float loy = __fmul_rn((float)(ty - 1), t);
-      const float hix = __fadd_rn(lox, t);
-      const float hiy = __fadd_rn(loy, t);
-      const int w = (ry + 1 + j / 3 - 1) * WX + rx + 1 + j % 3 - 1;
-      for (M m = wmask[w]; m; m &= m - 1u) {
-        const int s = mask_low(m);
-        const int i = s * Wn + w;
-        const float2 c = wxy[i];
-        const float rr = rad ? wr[i] : r0;
-        const float px = fminf(fmaxf(c.x, lox), hix);
-        const float py = fminf(fmaxf(c.y, loy), hiy);
-        const float ddx = __fsub_rn(c.x, px);
-        const float ddy = __fsub_rn(c.y, py);
-        const float d2 =
-            __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
-        if (d2 < __fmul_rn(rr, rr)) mb |= M(1) << s;
-      }
-    }
-    memb[9 * r + j] = mb;
-  }
-  __syncthreads();
-
-  // 3. the members' ranks and entries, the fills and the count
-  for (int e = threadIdx.x; e < 9 * cells; e += T) {
-    const int r = e / 9, j = e - 9 * r;
-    int ry, rx;
-    sel_region_tile<C>(lay, r, &ry, &rx);
-    const int ty = ty0 + ry, tx = tx0 + rx;
-    const int wc = (ry + 1) * WX + rx + 1;
-    const int w = wc + (j / 3 - 1) * WX + j % 3 - 1;
-    for (M m = memb[9 * r + j]; m; m &= m - 1u) {
-      const int s = mask_low(m);
-      const int p = wpid[s * Wn + w];
-      int q = 0;
-      for (int j2 = 0; j2 < 9; ++j2) {
-        const int w2 = wc + (j2 / 3 - 1) * WX + j2 % 3 - 1;
-        for (M m2 = memb[9 * r + j2]; m2; m2 &= m2 - 1u)
-          q += wpid[mask_low(m2) * Wn + w2] < p;
-      }
-      if (q < K) {
-        const int o = lay.at(q, K, ty, tx);
-        src[o] = j * cap + s;
-        rpid[o] = p;
-        rrad[o] = rad ? wr[s * Wn + w] : r0;
-      }
-    }
-  }
-  for (int e = threadIdx.x; e < K * cells; e += T) {
-    const int q = e / cells, r = e - q * cells;
-    int ry, rx;
-    sel_region_tile<C>(lay, r, &ry, &rx);
-    const int ty = ty0 + ry, tx = tx0 + rx;
-    if (!rank_stored(lay, ty, tx)) continue;
-    int n = 0;
-#pragma unroll
-    for (int j = 0; j < 9; ++j) n += mask_count(memb[9 * r + j]);
-    if (q >= n) {
-      const int o = lay.at(q, K, ty, tx);
-      src[o] = -1;
-      rpid[o] = kBigPid;
-      rrad[o] = 0.0f;
-    }
-    if (q == 0) count[lay.at(0, 1, ty, tx)] = n;
-  }
-}
-
-
 // ---------------------------------------------------------------------------
 // K6 (flat, mx, dec, par) and colors_mega: the color solve on a window.
 // ---------------------------------------------------------------------------
@@ -690,27 +449,18 @@ constexpr int kGsWinThreads = GPE_GSW_THREADS;
 constexpr int kGsWinMaxColors = 4;
 constexpr int kGsWinMaxHalo = 2 * kGsWinMaxColors;
 // Region class of a cap, and its region's sides (device code calls them
-// with a constant class only).  Classes 0-4 (caps up to 64) take a whole
-// solve a launch (gs_colors_window_kernel; past K 16 gs_colors_span_kernel);
-// class 5 (caps 65-256, kGsOneClass) gs_colors_span_kernel, a color a
-// launch.
+// with a constant class only): classes 0-4, caps up to 64, each a whole
+// solve a launch.
 constexpr int kGsWinClasses = 5;
-constexpr int kGsOneClass = 5;
 constexpr int gs_window_class(int cap) {
-  return cap <= 4    ? 0
-         : cap <= 8  ? 1
-         : cap <= 16 ? 2
-         : cap <= 32 ? 3
-         : cap <= 64 ? 4
-                     : kGsOneClass;
+  return cap <= 4 ? 0 : cap <= 8 ? 1 : cap <= 16 ? 2 : cap <= 32 ? 3 : 4;
 }
 __host__ __device__ constexpr int gs_window_side(int cls, int axis) {
-  constexpr int sides[kGsWinClasses + 1][2] = {{GPE_GSW_RY0, GPE_GSW_RX0},
-                                               {GPE_GSW_RY1, GPE_GSW_RX1},
-                                               {GPE_GSW_RY2, GPE_GSW_RX2},
-                                               {GPE_GSW_RY3, GPE_GSW_RX3},
-                                               {4, 6},   // one block an SM
-                                               {6, 6}};  // a color a launch
+  constexpr int sides[kGsWinClasses][2] = {{GPE_GSW_RY0, GPE_GSW_RX0},
+                                           {GPE_GSW_RY1, GPE_GSW_RX1},
+                                           {GPE_GSW_RY2, GPE_GSW_RX2},
+                                           {GPE_GSW_RY3, GPE_GSW_RX3},
+                                           {4, 6}};  // one block an SM
   return sides[cls][axis];
 }
 __host__ __device__ constexpr int gs_window_ry(int cls) {
@@ -721,16 +471,10 @@ __host__ __device__ constexpr int gs_window_rx(int cls) {
 }
 
 // Dynamic shared memory of one block: x, y (float2) of every slot of the
-// window, the region and a halo of 2 tiles per color of the launch (class
-// 5: one color a launch, whatever the solve's count).
+// window, the region and a halo of 2 tiles per color of the launch.
 constexpr int gs_window_bytes(int cap, int colors) {
-  return (gs_window_ry(gs_window_class(cap)) +
-          4 * (gs_window_class(cap) == kGsOneClass && colors > 1 ? 1
-                                                                 : colors)) *
-         (gs_window_rx(gs_window_class(cap)) +
-          4 * (gs_window_class(cap) == kGsOneClass && colors > 1 ? 1
-                                                                 : colors)) *
-         cap * 8;
+  return (gs_window_ry(gs_window_class(cap)) + 4 * colors) *
+         (gs_window_rx(gs_window_class(cap)) + 4 * colors) * cap * 8;
 }
 // Every class fits a block at its largest cap and a whole solve; regions
 // have even sides, so a ParLayout window keeps each sub-grid's parity.
@@ -739,11 +483,10 @@ static_assert(gs_window_bytes(8, kGsWinMaxColors) <= kSmemLimit, "cap 8");
 static_assert(gs_window_bytes(16, kGsWinMaxColors) <= kSmemLimit, "cap 16");
 static_assert(gs_window_bytes(32, kGsWinMaxColors) <= kSmemLimit, "cap 32");
 static_assert(gs_window_bytes(64, kGsWinMaxColors) <= kSmemLimit, "cap 64");
-static_assert(gs_window_bytes(kFourWordCap, kGsWinMaxColors) <= kSmemLimit,
-              "cap 256");
 constexpr bool gs_window_even(int cls) {
-  return cls > kGsOneClass || (gs_window_ry(cls) % 2 == 0 &&
-                      gs_window_rx(cls) % 2 == 0 && gs_window_even(cls + 1));
+  return cls >= kGsWinClasses ||
+         (gs_window_ry(cls) % 2 == 0 && gs_window_rx(cls) % 2 == 0 &&
+          gs_window_even(cls + 1));
 }
 static_assert(gs_window_even(0), "regions need even sides");
 
@@ -843,84 +586,6 @@ __device__ __forceinline__ GsColorCells gs_color_cells(int k, int wy0,
   g.ny = yhi > g.fy ? (yhi - g.fy + 1) >> 1 : 0;
   g.nx = xhi > g.fx ? (xhi - g.fx + 1) >> 1 : 0;
   return g;
-}
-
-// The cells of color c at least m tiles inside the window's inner edges:
-// gs_color_cells's rule for any color and inset, for gs_colors_span_kernel
-// (gs_colors_window_kernel keeps its own copy, so that its machine code is
-// the one it had before the span kernel existed).
-__device__ __forceinline__ GsColorCells gs_color_cells_at(int c, int m,
-                                                          int wy0, int wx0,
-                                                          int WY, int WX,
-                                                          int TY, int TX) {
-  const int pa = ((c - 1) >> 1) ^ 1, pb = ((c - 1) & 1) ^ 1;
-  const int ylo = wy0 > 0 ? wy0 + m : 0;
-  const int yhi = wy0 + WY < TY ? wy0 + WY - m : TY;
-  const int xlo = wx0 > 0 ? wx0 + m : 0;
-  const int xhi = wx0 + WX < TX ? wx0 + WX - m : TX;
-  GsColorCells g;
-  g.fy = ylo + ((pa - ylo) & 1);
-  g.fx = xlo + ((pb - xlo) & 1);
-  g.ny = yhi > g.fy ? (yhi - g.fy + 1) >> 1 : 0;
-  g.nx = xhi > g.fx ? (xhi - g.fx + 1) >> 1 : 0;
-  return g;
-}
-
-// A cell past K 16 (kGsRegK): the same ranks, pairs and f32 operations as
-// gs_color_cell below, in the same order, with the ranks' window index and
-// radius in a per-thread array (local memory: K 64 would need 320
-// registers) and loops that are not unrolled (K 64 has 2,016 pairs).
-template <class L>
-__device__ __forceinline__ void gs_color_cell_deep(float2* __restrict__ w,
-                                                   int WN, int WX, int wy0,
-                                                   int wx0,
-                                                   const GsWindowArgs& a,
-                                                   const L& lay, int ty,
-                                                   int tx) {
-  const int K = a.K, cap = a.cap;
-  int nv = 0;  // the valid ranks are a prefix
-  while (nv < K && __ldg(a.src + lay.at(nv, K, ty, tx)) >= 0) ++nv;
-  if (nv < 2) return;  // no pair: the members stay where they are
-  int wi[kGsMaxK];
-  float lr[kGsMaxK];
-  for (int q = 0; q < nv; ++q) {
-    const int code = __ldg(a.src + lay.at(q, K, ty, tx));
-    lr[q] = a.rrad ? __ldg(a.rrad + lay.at(q, K, ty, tx)) : a.r0;
-    const int j = code / cap;
-    const int s = code - j * cap;
-    wi[q] = s * WN + (ty + j / 3 - 1 - wy0) * WX + (tx + j % 3 - 1 - wx0);
-  }
-  // rank p lives in registers while it meets ranks p + 1 .. nv - 1 in
-  // shared memory: no other cell of this color touches them
-  for (int p = 0; p < nv - 1; ++p) {
-    float2 vp = w[wi[p]];
-    for (int b = p + 1; b < nv; ++b) {
-      float2 vb = w[wi[b]];
-      const float dx = __fsub_rn(vp.x, vb.x);
-      const float dy = __fsub_rn(vp.y, vb.y);
-      const float dist =
-          __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
-      const float rsum = __fadd_rn(lr[p], lr[b]);
-      if (__fmul_rn(rsum, rsum) > __fmul_rn(dist, dist) &&
-          dist > kGsMinDist) {
-        const float safe = fmaxf(dist, kGsMinDist);
-        const float pen = __fsub_rn(rsum, dist);
-        const float cxp =
-            __fmul_rn(__fmul_rn(__fdiv_rn(dx, safe), pen), a.stiffness);
-        const float cyp =
-            __fmul_rn(__fmul_rn(__fdiv_rn(dy, safe), pen), a.stiffness);
-        const float rs = fmaxf(rsum, kGsMinDist);
-        const float wa = __fdiv_rn(lr[b], rs);
-        const float wb = __fdiv_rn(lr[p], rs);
-        vp.x = __fadd_rn(vp.x, __fmul_rn(cxp, wa));
-        vp.y = __fadd_rn(vp.y, __fmul_rn(cyp, wa));
-        vb.x = __fsub_rn(vb.x, __fmul_rn(cxp, wb));
-        vb.y = __fsub_rn(vb.y, __fmul_rn(cyp, wb));
-        w[wi[b]] = vb;
-      }
-    }
-    w[wi[p]] = vp;
-  }
 }
 
 template <int KMAX, class L>
@@ -1148,152 +813,26 @@ __global__ void __launch_bounds__(kGsWinThreads, KMAX <= 8 ? GPE_GSW_MINB : 1)
   }
 }
 
-// gs_colors_span_kernel: the window kernel for the launches
-// gs_colors_window_kernel does not take, with the same phases, the same
-// cells and the same f32 operations in the same order:
-//
-//  * K past 16 at caps up to 64 (classes 0-4): colors 1 .. c1 of a solve
-//    in one launch (c0 = 1), each cell's ranks through gs_color_cell_deep.
-//  * Caps past 64 (class 5, kGsOneClass): the window of a whole solve (the
-//    region and an 8-tile halo) would not fit a block past cap 100 even
-//    for a region of one tile, so a launch runs one color, c0 = c1 (c1 = 0:
-//    none, the copy and the tail), on the region and a 2-tile halo, and
-//    the launcher runs colors 1 .. 4 as four launches, each reading the
-//    last one's planes (the halo argument above with n = 1).  Regions of
-//    6 x 6 tiles: 204,800 bytes at cap 256.
-//
-// A launch sweeps colors c0 .. c1 (n of them), the k-th at least 2k + 1
-// tiles inside the window's inner edges, on a halo of 2n tiles.
-template <int KMAX, int CLS, class L>
-__global__ void __launch_bounds__(kGsWinThreads, 1)
-    gs_colors_span_kernel(GsWindowArgs a, L lay, int c0) {
-  constexpr int RY = gs_window_ry(CLS), RX = gs_window_rx(CLS);
-  constexpr int T = kGsWinThreads;
-  constexpr int kHalo = CLS == kGsOneClass ? 2 : kGsWinMaxHalo;
-  constexpr int kPer = ((RY + 2 * kHalo) * (RX + 2 * kHalo) + T - 1) / T;
-  extern __shared__ __align__(16) unsigned char gs_span_smem[];
-  float2* w = reinterpret_cast<float2*>(gs_span_smem);  // [cap][window]
-  const int nc = a.c1 >= c0 ? a.c1 - c0 + 1 : 0;  // colors of this launch
-  const int H = 2 * nc;
-  const int WY = RY + 2 * H, WX = RX + 2 * H, WN = WY * WX;
-  int ty0, tx0;
-  gs_region_origin<RY, RX>(lay, &ty0, &tx0);
-  const int wy0 = ty0 - H, wx0 = tx0 - H;
-
-  // 1. stage: a thread takes window tiles tid, tid + T, ...; the loads of
-  // four slots of all its tiles are issued before any is stored
-  const int cap = a.cap;
-  int sat[kPer], sw[kPer];  // slot 0's storage offset (-1: none), window
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int i = threadIdx.x + u * T;
-    sat[u] = -1;
-    sw[u] = 0;
-    if (i < WN) {
-      int wy, wx;
-      gs_block_tile(lay, i, WY, WX, &wy, &wx);
-      if (gs_stored(lay, wy0 + wy, wx0 + wx)) {
-        sat[u] = lay.at(0, cap, wy0 + wy, wx0 + wx);
-        sw[u] = wy * WX + wx;
-      }
-    }
-  }
-  const int plane = lay.plane();  // storage offset from slot s to s + 1
-  for (int k0 = 0; k0 < cap; k0 += 4) {
-    float2 v[kPer][4];
-#pragma unroll
-    for (int u = 0; u < kPer; ++u)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        if (sat[u] >= 0 && k0 + kk < cap) {
-          const int g = sat[u] + (k0 + kk) * plane;
-          v[u][kk] = make_float2(__ldg(a.x + g), __ldg(a.y + g));
-        }
-#pragma unroll
-    for (int u = 0; u < kPer; ++u)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        if (sat[u] >= 0 && k0 + kk < cap) w[(k0 + kk) * WN + sw[u]] = v[u][kk];
-  }
-  __syncthreads();
-
-  // 2. colors c0 .. c1
-  for (int k = 0; k < nc; ++k) {
-    const GsColorCells g = gs_color_cells_at(c0 + k, 2 * k + 1, wy0, wx0,
-                                             WY, WX, lay.TY, lay.TX);
-    for (int i = threadIdx.x; i < g.ny * g.nx; i += T) {
-      const int cy = i / g.nx;
-      const int ty = g.fy + 2 * cy, tx = g.fx + 2 * (i - cy * g.nx);
-      if constexpr (KMAX > kGsRegK)  // the ranks past the registers
-        gs_color_cell_deep(w, WN, WX, wy0, wx0, a, lay, ty, tx);
-      else
-        gs_color_cell<KMAX>(w, WN, WX, wy0, wx0, a, lay, ty, tx);
-    }
-    __syncthreads();
-  }
-
-  // 3. write the region's stored tiles (the tail first where asked): a
-  // thread per (slot, region tile), four a round, as the whole-solve
-  // kernel writes them
-  constexpr int RN = RY * RX, U = 4;
-  for (int e0 = threadIdx.x; e0 < cap * RN; e0 += T * U) {
-    int g[U], t[U], p[U];
-    float2 q[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = e0 + u * T;
-      g[u] = -1;
-      t[u] = 0;
-      if (e < cap * RN) {
-        const int s = e / RN, i = e - s * RN;
-        int ry, rx;
-        gs_block_tile(lay, i, RY, RX, &ry, &rx);
-        if (gs_stored(lay, ty0 + ry, tx0 + rx)) {
-          g[u] = lay.at(s, cap, ty0 + ry, tx0 + rx);
-          t[u] = s * WN + (ry + H) * WX + rx + H;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      p[u] = -1;
-      if (a.integ && g[u] >= 0) {
-        p[u] = __ldg(a.pid + g[u]);
-        q[u] = make_float2(a.px[g[u]], a.py[g[u]]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (g[u] < 0) continue;
-      float2 v = w[t[u]];
-      if (p[u] >= 0) {
-        a.px[g[u]] = v.x;
-        a.py[g[u]] = v.y;
-        v = gs_verlet_slot(v.x, v.y, q[u].x, q[u].y, a.prm, a.vc);
-      }
-      a.ox[g[u]] = v.x;
-      a.oy[g[u]] = v.y;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Past cap 256 or K 64: the launchers of csrc/gs_simple.cuh's kernels
-// (gs_simple.cu), called by gs_kernels.cu's entry points: K5 on the list
-// kernel over the launch's cells, and colors 1..a.c1 (then, with a.integ,
-// the tail) on a.ox, a.oy after a copy of a.x, a.y.  Each returns
+// Past cap 64 or K 16: the launchers of csrc/gs_simple.cuh's kernels
+// (gs_simple.cu), called by gs_kernels.cu's entry points.  Each returns
 // cudaGetLastError() or the first error.
-int launch_rank_list(const float* x, const float* y, const float* rad,
+// ---------------------------------------------------------------------------
+// K5 on the packed kernel over the launch's cells, with a buffer of
+// `entries` occupants (0: the default plan's, or fewer: a study's plan).
+int launch_rank_pack(const float* x, const float* y, const float* rad,
                      const int* pid, int* src, int* rpid, float* rrad,
                      int* count, int cap, const FlatLayout& lay, int np,
-                     int K, float t, float r0, cudaStream_t s);
-int launch_rank_list(const float* x, const float* y, const float* rad,
+                     int K, float t, float r0, int entries, cudaStream_t s);
+int launch_rank_pack(const float* x, const float* y, const float* rad,
                      const int* pid, int* src, int* rpid, float* rrad,
                      int* count, int cap, const ParLayout& lay, int np,
-                     int K, float t, float r0, cudaStream_t s);
-int launch_color_cells(const GsWindowArgs& a, const FlatLayout& lay,
-                       cudaStream_t s);
-int launch_color_cells(const GsWindowArgs& a, const ParLayout& lay,
-                       cudaStream_t s);
+                     int K, float t, float r0, int entries, cudaStream_t s);
+// K6: the copy, colors 1..a.c1 and with a.integ the tail; count may be
+// null.
+int launch_colors_ranked(const GsWindowArgs& a, const int* count,
+                         const FlatLayout& lay, cudaStream_t s);
+int launch_colors_ranked(const GsWindowArgs& a, const int* count,
+                         const ParLayout& lay, cudaStream_t s);
 
 }  // namespace gpe

@@ -28,13 +28,11 @@ namespace gpe {
 
 // Slots of a tile.  The mask kernels keep a mask of a tile's slots in one
 // word, a template parameter: 32 bits (unsigned) up to cap 32 (kNarrowCap),
-// 64 bits (Mask64) for caps 33-64 (kWideCap), each its own instantiation;
-// the GS rank's selection kernel also four 64-bit words (Mask256) for caps
-// 65-256 (kFourWordCap).  Past cap 64 K1 and the relocate window keep no
-// mask as wide as the cap (csrc/tiled_kernels.cuh), and past cap 256 the
-// GS kernels neither (csrc/gs_simple.cuh): no kernel has a largest cap.
+// 64 bits (Mask64) for caps 33-64 (kWideCap), each its own instantiation.
+// Past cap 64 K1, the relocate window and the GS kernels keep no mask as
+// wide as the cap (csrc/tiled_kernels.cuh, csrc/gs_simple.cuh): no kernel
+// has a largest cap.
 using Mask64 = unsigned long long;
-constexpr int kFourWordCap = 256;
 constexpr int kWideCap = 64;
 constexpr int kNarrowCap = 32;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block, sm_90
@@ -50,120 +48,6 @@ cudaError_t allow_smem(Kernel* kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// A mask of N 64-bit words, word i holding slots 64 i .. 64 i + 63: the
-// operators the kernels apply to the one-word masks (and, or, not, shifts
-// by a slot index, "- 1u" to drop the lowest set bit, "& 1u" to test bit
-// 0), so one kernel source serves every width.  A shift or a word picked
-// by a slot index is a select over the words, never an indexed register
-// array (which would go to local memory).
-template <int N>
-struct MaskW {
-  unsigned long long w[N];
-  MaskW() = default;
-  __host__ __device__ constexpr MaskW(unsigned long long v) : w{v} {}
-  __device__ __forceinline__ explicit operator bool() const {
-    unsigned long long any = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) any |= w[i];
-    return any != 0;
-  }
-};
-using Mask256 = MaskW<4>;
-
-template <int N>
-__device__ __forceinline__ MaskW<N> operator&(const MaskW<N>& a,
-                                              const MaskW<N>& b) {
-  MaskW<N> o;
-#pragma unroll
-  for (int i = 0; i < N; ++i) o.w[i] = a.w[i] & b.w[i];
-  return o;
-}
-template <int N>
-__device__ __forceinline__ MaskW<N> operator|(const MaskW<N>& a,
-                                              const MaskW<N>& b) {
-  MaskW<N> o;
-#pragma unroll
-  for (int i = 0; i < N; ++i) o.w[i] = a.w[i] | b.w[i];
-  return o;
-}
-template <int N>
-__device__ __forceinline__ MaskW<N> operator~(const MaskW<N>& a) {
-  MaskW<N> o;
-#pragma unroll
-  for (int i = 0; i < N; ++i) o.w[i] = ~a.w[i];
-  return o;
-}
-template <int N>
-__device__ __forceinline__ MaskW<N>& operator&=(MaskW<N>& a,
-                                                const MaskW<N>& b) {
-  return a = a & b;
-}
-template <int N>
-__device__ __forceinline__ MaskW<N>& operator|=(MaskW<N>& a,
-                                                const MaskW<N>& b) {
-  return a = a | b;
-}
-// Bits 0-31 of the low word and b: "(m >> k) & 1u" tests bit k.
-template <int N>
-__device__ __forceinline__ unsigned operator&(const MaskW<N>& a, unsigned b) {
-  return (unsigned)a.w[0] & b;
-}
-// Shifts by 0 <= k < 64 N bits.
-template <int N>
-__device__ __forceinline__ MaskW<N> operator<<(const MaskW<N>& a, int k) {
-  const int q = k >> 6, r = k & 63;
-  MaskW<N> o;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    unsigned long long lo = 0, hi = 0;  // words i - q and i - q - 1
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      if (j == i - q) lo = a.w[j];
-      if (j == i - q - 1) hi = a.w[j];
-    }
-    o.w[i] = (lo << r) | (r ? hi >> (64 - r) : 0ull);
-  }
-  return o;
-}
-template <int N>
-__device__ __forceinline__ MaskW<N> operator>>(const MaskW<N>& a, int k) {
-  const int q = k >> 6, r = k & 63;
-  MaskW<N> o;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    unsigned long long lo = 0, hi = 0;  // words i + q and i + q + 1
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      if (j == i + q) lo = a.w[j];
-      if (j == i + q + 1) hi = a.w[j];
-    }
-    o.w[i] = (lo >> r) | (r ? hi << (64 - r) : 0ull);
-  }
-  return o;
-}
-// a - b with the borrow carried through the words ("m & (m - 1u)" drops
-// the lowest set bit).
-template <int N>
-__device__ __forceinline__ MaskW<N> operator-(const MaskW<N>& a, unsigned b) {
-  MaskW<N> o;
-  unsigned long long borrow = b;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    o.w[i] = a.w[i] - borrow;
-    borrow = a.w[i] < borrow ? 1ull : 0ull;
-  }
-  return o;
-}
-// The shared-memory OR of K1's stage, a word at a time (v holds one bit);
-// the built-in overloads stay visible beside it.
-using ::atomicOr;
-template <int N>
-__device__ __forceinline__ void atomicOr(MaskW<N>* p, const MaskW<N>& v) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (v.w[i]) ::atomicOr(&p->w[i], v.w[i]);
-}
-
 // The mask word's operations for every width (Mask64 is unsigned long
 // long, the type of the 64-bit atomics): the lowest set bit's index and
 // the number of set bits.
@@ -173,30 +57,15 @@ __device__ __forceinline__ int mask_low(unsigned m) {
 __device__ __forceinline__ int mask_low(unsigned long long m) {
   return __ffsll((long long)m) - 1;
 }
-template <int N>
-__device__ __forceinline__ int mask_low(const MaskW<N>& m) {
-  int low = -1;
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i)
-    if (m.w[i]) low = 64 * i + __ffsll((long long)m.w[i]) - 1;
-  return low;
-}
 __device__ __forceinline__ int mask_count(unsigned m) { return __popc(m); }
 __device__ __forceinline__ int mask_count(unsigned long long m) {
   return __popcll(m);
 }
-template <int N>
-__device__ __forceinline__ int mask_count(const MaskW<N>& m) {
-  int n = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) n += __popcll(m.w[i]);
-  return n;
-}
-// The width class of a mask type (0: 32 bits, 1: 64, 2: four words) and
-// of a cap: the kernels pick their regions by it.
+// The width class of a mask type (0: 32 bits, 1: 64) and of a cap (2:
+// past 64, no mask): the kernels pick their regions by it.
 template <class M>
 __host__ __device__ constexpr int mask_class() {
-  return sizeof(M) == 4 ? 0 : sizeof(M) == 8 ? 1 : 2;
+  return sizeof(M) == 4 ? 0 : 1;
 }
 __host__ __device__ constexpr int cap_class(int cap) {
   return cap <= kNarrowCap ? 0 : cap <= kWideCap ? 1 : 2;
@@ -204,7 +73,7 @@ __host__ __device__ constexpr int cap_class(int cap) {
 // Bits a slot index takes in a packed (index << bits | slot) code.
 template <class M>
 __host__ __device__ constexpr int slot_bits() {
-  return sizeof(M) == 4 ? 5 : sizeof(M) == 8 ? 6 : 8;
+  return sizeof(M) == 4 ? 5 : 6;
 }
 // The mask word's bytes at cap, as the launches size shared memory.
 __host__ __device__ constexpr int mask_bytes(int cap) {

@@ -41,6 +41,7 @@
 #include <type_traits>
 
 #include "layout.cuh"
+#include "pack.cuh"
 
 namespace gpe {
 
@@ -349,7 +350,8 @@ __global__ void __launch_bounds__(kK1Threads) collide_integrate_kernel(
 //     a bit per occupied slot, neighbouring threads on neighbouring tiles
 //     (coalesced along tx); the count is the words' popcounts.  A block scan
 //     of the counts in packed order (the region's tiles row-major, then the
-//     ring) gives each tile its first packed index.
+//     ring) gives each tile its first packed index (pack_word, block_scan:
+//     csrc/pack.cuh, shared with the GS rank's packed kernel).
 //  2. pack: the same thread reads the pid words again and writes each
 //     occupant's x, y (radius) and slot to its tile's next packed index: a
 //     tile's occupants are contiguous and ascending by slot, and the
@@ -414,30 +416,6 @@ __host__ __device__ constexpr bool k1_pack_ok(const K1PackPlan& p) {
          p.smem >= k1_pack_header(p.RY, p.RX) + 12 * kK1PackThreads + 24;
 }
 static_assert(k1_pack_ok(k1_pack_plan()), "K1's packed plan");
-
-// Exclusive prefix of v over the block's threads; *total gets the sum.  ws:
-// blockDim.x / 32 ints of shared memory.  Every thread of the block calls
-// it (it holds two barriers).
-__device__ __forceinline__ int block_scan(int v, int* ws, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(0xFFFFFFFFu, inc, d);
-    if (lane >= d) inc += u;
-  }
-  if (lane == 31) ws[warp] = inc;
-  __syncthreads();
-  int before = 0, all = 0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-    const int t = ws[w];
-    if (w < warp) before += t;
-    all += t;
-  }
-  __syncthreads();  // ws may be written again
-  *total = all;
-  return before + inc - v;
-}
 
 // The window tile (row-major index) of packed tile i: the region's tiles
 // row-major, then the ring: its top row, its sides row by row (left, then
@@ -548,19 +526,6 @@ __device__ __forceinline__ void k1_finish(
   opy[g] = cy;
 }
 
-// Bit b of the word: slot k0 + b of the tile at g0 is occupied.
-__device__ __forceinline__ unsigned k1p_word(const int* __restrict__ pid,
-                                             int cap, int ntiles, int g0,
-                                             int k0) {
-  unsigned bits = 0;
-#pragma unroll 8
-  for (int b = 0; b < 32; ++b) {
-    const int k = k0 + b;
-    if (k < cap && pid[k * ntiles + g0] >= 0) bits |= 1u << b;
-  }
-  return bits;
-}
-
 template <bool UNIFORM, bool CIRCLE, bool INTEGRATE = true>
 __global__ void __launch_bounds__(kK1PackThreads)
     collide_integrate_pack_kernel(
@@ -596,7 +561,7 @@ __global__ void __launch_bounds__(kK1PackThreads)
   int n_own = 0;
   if (in_own)
     for (int k0 = 0; k0 < cap; k0 += 32)
-      n_own += __popc(k1p_word(pid, cap, ntiles, g_own, k0));
+      n_own += __popc(pack_word(pid, cap, ntiles, g_own, k0));
   int total;
   const int first = block_scan(n_own, ws, &total);
   if (tid < WT) {
@@ -619,7 +584,7 @@ __global__ void __launch_bounds__(kK1PackThreads)
       float rmax = 0.0f;
       int pos = first;
       for (int k0 = 0; in_own && k0 < cap; k0 += 32) {
-        for (unsigned m = k1p_word(pid, cap, ntiles, g_own, k0); m;
+        for (unsigned m = pack_word(pid, cap, ntiles, g_own, k0); m;
              m &= m - 1u) {
           const int k = k0 + __ffs((int)m) - 1;
           const int g = k * ntiles + g_own;

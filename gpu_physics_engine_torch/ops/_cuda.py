@@ -53,8 +53,11 @@ _SIGNATURES = {
     "gpe_radix_onesweep": [_P] * 5 + [_I] * 4 + [_P],
     "gpe_relocate_one": [_P] * 13 + [_I] * 6 + [_F, _P, _P],
     "gpe_relocate_mega": [_P] * 13 + [_I] * 7 + [_F, _F, _P, _P],
-    "gpe_gs_colors_window": [_P] * 12 + [_I] * 9 + [_F, _F, _I, _P, _P],
+    "gpe_gs_colors_window": [_P] * 11 + [_I] * 9 + [_F, _F, _I, _P, _P],
     "gpe_gs_colors_window_bytes": [_I, _I],
+    "gpe_gs_route": [_I, _I],
+    "gpe_gs_rank_pack_bytes": [_I, _I],
+    "gpe_gs_rank_pack": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _P],
 }
 
 

@@ -30,14 +30,18 @@ K5 ``rank`` replaces ``_rank_full``
   "net" and "auto" all run this kernel.  The tables and the count are
   written by the same thread, a warp per 32 cells of a row, coalesced.
   Past K 16 (the list would not fit the registers) or cap 64 (the window
-  leaves a region of 2 x 8 cells), ``gs_rank_sel_kernel`` instead spreads
-  a cell over threads: a mask of its members per neighbour tile, then each
-  member's rank counted as the members with a smaller pid, written where
-  below K; the same tables.  Past cap 256 or K 64 (``simple``; the
-  four-word masks run out) ``gs_rank_list_kernel`` takes a cell a warp:
-  its members compacted into a list in shared memory by ballot prefix
-  counts, each ranked by counting the listed pids below its own.  Its
-  times: PERF.md and ``utils/kernel_study.py --k5``.
+  grows with the cap, and nearly every staged slot is empty), the packed
+  kernel ``gs_rank_pack_kernel`` (csrc/gs_simple.cuh; ``rank_kernel``
+  names the route): a block counts its window's occupants from the pid
+  plane a word of 32 slots at a time and packs them per tile in shared
+  memory (K1's packed kernel's counting and scan, csrc/pack.cuh); a cell
+  tests the 9 tiles' packed occupants and takes its ranks in rounds, each
+  the smallest member pid not yet taken (a thread a cell in a sparse
+  window, a warp a cell, each round a warp minimum, in a dense one),
+  over the tables' fill written first in one coalesced pass; a window
+  whose occupants pass the buffer streams from device memory.  The same
+  tables.  Its times: PERF.md and ``utils/kernel_study.py --k5
+  --gs-wide``.
 
 K6 ``colors`` replaces ``gs_solve_pallas_flat`` (gs_pallas.py:543;
 ``_solve_kernel`` :390 with ``_sweep`` :77, and ``_apply_kernel`` :431).
@@ -61,23 +65,23 @@ K6 ``colors`` replaces ``gs_solve_pallas_flat`` (gs_pallas.py:543;
   read the region's inputs.  Cells of one color are particle-disjoint
   (cell edge >= 2 r_max), so every slot has at most one writer per color.
   The tables are read from device memory once, by the color that sweeps
-  the cell.  Past K 16 ``gs_colors_span_kernel`` takes the solve, a
-  cell's ranks in local memory and its pairs in loops that are not
-  unrolled (``gs_color_cell_deep``).  Past cap 64 no whole-solve window
-  fits a block, and the span kernel runs a color a launch (6 x 6 tiles
-  and a 2-tile halo), the four launches passing the planes in turns
-  through two scratch planes; the same cells, pairs and f32 order.  Past
-  cap 256 or K 64 no window is staged: x and y are copied to the outputs
-  and ``gs_color_cells_kernel`` runs a color a launch on them in place, a
-  thread a cell reading its ranks' slots and radii from the tables as the
-  sweep uses them, then the tail over every slot.  The sweeps (the halo
-  makes 1.5x as many cells) and the copy
-  of every empty slot set its time, not the bound's bytes: it is slower
-  than the per-color kernel it replaced (PERF.md;
-  ``utils/kernel_study.py --k6``).
+  the cell.  Past cap 64 no whole-solve window fits a block, and past K
+  16 a cell's ranks leave the registers: there (``color_kernel``)
+  ``gs_colors_ranked_kernel`` (csrc/gs_simple.cuh) stages nothing.  x and
+  y are copied to the outputs in 16-byte words, then a launch a color
+  runs a thread a cell of the color on its ranked slots in place (n =
+  min(count, K) from K5's count table; up to 8 ranks in registers, past
+  that read from the tables as the sweep uses them), then, with the tail,
+  a launch over every slot: the same cells, pairs and f32 order.  Its
+  floor is the copy the out-of-place contract asks for (PERF.md;
+  ``utils/kernel_study.py --k6 --gs-wide``).  The sweeps (the halo makes
+  1.5x as many cells) and the copy of every empty slot set the window's
+  time, not the bound's bytes.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -94,82 +98,85 @@ from gpu_physics_engine_torch.ops.tiled_kernels import (SLOTS_LIMIT,
                                                         cap_class,
                                                         mask_bytes)
 
-LAUNCHES = {"gs_rank": 0, "gs_color": 0}
+LAUNCHES = {"gs_rank": 0, "gs_color": 0, "gs_rank_pack": 0,
+            "gs_color_ranked": 0}
 
-REG_K = 16  # up to this K the kernels keep a cell's ranks in registers
-SPAN_K = 64  # csrc/gs_kernels.cuh kGsMaxK: up to it the window kernels
-SPAN_CAP = 256  # csrc/layout.cuh kFourWordCap: up to it the window kernels
-LIST_BYTES = 8 * 512 * 12  # gs_list_bytes: 8 warps' lists of 512 members
+REG_K = 16  # up to this K the window kernels keep a cell's ranks in registers
 
 
-def simple(cap: int, K: int) -> bool:
-    """Whether (cap, K) takes the kernels without a window (gs_simple):
-    the list rank and a color a launch on the outputs in place."""
-    return cap > SPAN_CAP or K > SPAN_K
+def windowed(cap: int, K: int) -> bool:
+    """Whether (cap, K) takes the window kernels (csrc/gs_kernels.cuh
+    gs_windowed): caps up to WIDE_CAP and K up to REG_K.  Past either the
+    packed rank and the ranked-slot solve (csrc/gs_simple.cuh)."""
+    return cap <= WIDE_CAP and K <= REG_K
 
 
-# K5's windows (csrc/gs_kernels.cuh kRankRows, rank_cols, sel_rows,
-# sel_cols, rank_bytes): a block ranks (rows, columns) full-space tiles on
-# either layout (on the parity layout rows/2 x columns/2 cells of each
-# sub-grid): RANK_REGIONS[cap_class(cap)] for gs_rank_kernel (K up to
-# REG_K, caps up to WIDE_CAP), SEL_REGIONS[cap_class(cap)] for
-# gs_rank_sel_kernel (past either)
+def rank_kernel(cap: int, K: int) -> str:
+    """The kernel K5 (and K5-par) launches at (cap, K)."""
+    return "gs_rank_kernel" if windowed(cap, K) else "gs_rank_pack_kernel"
+
+
+def color_kernel(cap: int, K: int) -> str:
+    """The kernel K6 (K6-par, K6-mx/dec, colors_mega) launches at (cap,
+    K)."""
+    return ("gs_colors_window_kernel" if windowed(cap, K)
+            else "gs_colors_ranked_kernel")
+
+
+# K5's window (csrc/gs_kernels.cuh kRankRows, rank_cols): a block ranks
+# (rows, columns) full-space tiles on either layout (on the parity layout
+# rows/2 x columns/2 cells of each sub-grid), RANK_REGIONS[cap_class(cap)]
 RANK_REGIONS = ((4, 64), (4, 32))
-SEL_REGIONS = ((4, 64), (4, 32), (2, 8))
 
 
-def rank_sel(cap: int, K: int) -> bool:
-    """Whether K5 at (cap, K) runs gs_rank_sel_kernel."""
-    return cap > WIDE_CAP or K > REG_K
-
-
-def rank_region(cap: int, K: int = 8):
-    """The (rows, columns) region of K5's window at ``cap`` and ``K``."""
-    if rank_sel(cap, K):
-        return SEL_REGIONS[cap_class(cap)]
+def rank_region(cap: int):
+    """The (rows, columns) region of K5's window at ``cap`` (up to
+    WIDE_CAP)."""
     return RANK_REGIONS[cap_class(cap)]
 
 
 # K6's window (csrc/gs_kernels.cuh gs_window_side, gs_window_bytes): the
 # region (rows, columns) of full-space tiles a block owns, by the largest
-# cap of its class; past WIDE_CAP a launch runs one color
+# cap of its class
 WINDOW_REGIONS = ((4, (32, 48)), (8, (32, 32)), (16, (8, 32)), (32, (8, 16)),
-                  (64, (4, 6)), (SPAN_CAP, (6, 6)))
+                  (WIDE_CAP, (4, 6)))
 
 
 def window_region(cap: int):
     """The (rows, columns) region of K6's window at ``cap`` (None past
-    SPAN_CAP: no window)."""
+    WIDE_CAP: no window)."""
     return next((r for top, r in WINDOW_REGIONS if cap <= top), None)
 
 
 def colors_window_bytes(cap: int, colors: int = 4, K: int = 8) -> int:
     """Shared memory of one K6 window block: x and y of every slot of the
-    region and a halo of two tiles per color of the launch on every side
-    (past WIDE_CAP a launch runs one color of the ``colors``); none past
-    SPAN_CAP or SPAN_K."""
-    if simple(cap, K):
+    region and a halo of two tiles per color of the launch on every side;
+    0 past WIDE_CAP or REG_K (the ranked-slot solve stages nothing)."""
+    if not windowed(cap, K):
         return 0
     rows, cols = window_region(cap)
-    if cap > WIDE_CAP:
-        colors = min(colors, 1)
     return (rows + 4 * colors) * (cols + 4 * colors) * cap * 8
 
 
 def rank_window_bytes(cap: int, uniform: bool, K: int = 8) -> int:
-    """Shared memory of one K5 block: per tile of the window (the region
-    and a one-tile ring) cap slots of pid, x and y (and radius unless
-    ``uniform``), and an occupancy mask; past REG_K or WIDE_CAP also nine
-    member masks per region cell; past SPAN_CAP or SPAN_K the list
-    kernel's member lists."""
-    if simple(cap, K):
-        return LIST_BYTES
-    rows, cols = rank_region(cap, K)
-    win = (rows + 2) * (cols + 2) * (cap * (12 if uniform else 16)
-                                     + mask_bytes(cap))
-    if rank_sel(cap, K):
-        win += rows * cols * 9 * mask_bytes(cap)
-    return win
+    """Shared memory of one K5 window block: per tile of the window (the
+    region and a one-tile ring) cap slots of pid, x and y (and radius
+    unless ``uniform``), and an occupancy mask; 0 past WIDE_CAP or REG_K
+    (the packed kernel's plan is the library's own:
+    ``gpe_gs_rank_pack_bytes``)."""
+    if not windowed(cap, K):
+        return 0
+    rows, cols = rank_region(cap)
+    return (rows + 2) * (cols + 2) * (cap * (12 if uniform else 16)
+                                      + mask_bytes(cap))
+
+
+def count_route(cap: int, K: int, color: bool) -> None:
+    """Count a launch of the new kernels at (cap, K): K5's packed kernel
+    (``color`` False) or K6's ranked-slot solve in ``LAUNCHES``, beside the
+    wrapper's own count."""
+    if not windowed(cap, K):
+        LAUNCHES["gs_color_ranked" if color else "gs_rank_pack"] += 1
 
 
 def reset_launches() -> None:
@@ -230,6 +237,7 @@ def rank_cuda(state: TileState, config: SimConfig):
             cap, TY, TX, K, f32(tile_geometry(config)[0]), _stream(dev))
     _cuda.check(rc, "gs rank")
     LAUNCHES["gs_rank"] += 1
+    count_route(cap, K, color=False)
     return src, rpid, rrad, count
 
 
@@ -238,22 +246,28 @@ def rank_cuda(state: TileState, config: SimConfig):
 # ---------------------------------------------------------------------------
 
 def colors(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
-           rrad: torch.Tensor, config: SimConfig, c1: int = 4):
+           rrad: torch.Tensor, config: SimConfig, c1: int = 4,
+           count: Optional[torch.Tensor] = None):
     """Colors 1..c1 of one solve on x, y [cap, TY, TX]: every cell of each
     color sweeps its ranked occupants at their current positions.
-    Returns the new (x, y); x and y are not written."""
+    ``count``: K5's count table [TY, TX] beside the tables (the ranked-slot
+    solve past the window reads each cell's rank count from it, and needs
+    it).  Returns the new (x, y); x and y are not written."""
     if x.device.type == "cpu":
         return colors_plain(x, y, src, rrad, config, c1)
-    return colors_cuda(x, y, src, rrad, config, c1)
+    return colors_cuda(x, y, src, rrad, config, c1, count)
 
 
-def _check_color_args(x, y, src, rrad, K: int) -> None:
+def _check_color_args(x, y, src, rrad, K: int, count=None) -> None:
     cap, TY, TX = x.shape
     for name, a, dtype, shape in (
             ("x", x, torch.float32, (cap, TY, TX)),
             ("y", y, torch.float32, (cap, TY, TX)),
             ("src", src, torch.int32, (K, TY, TX)),
-            ("rrad", rrad, torch.float32, (K, TY, TX))):
+            ("rrad", rrad, torch.float32, (K, TY, TX)),
+            ("count", count, torch.int32, (TY, TX))):
+        if a is None:
+            continue
         if a.device.type != "cuda" or a.device != x.device:
             raise RuntimeError(f"gs color: {name} must be a CUDA tensor on "
                                f"{x.device}, got {a.device}")
@@ -267,18 +281,22 @@ def _check_color_args(x, y, src, rrad, K: int) -> None:
 
 
 def window_cuda(what: str, x, y, src, rrad, config: SimConfig, grid,
-                c1: int, tail=None, consts=None, r0: float = 0.0):
-    """One launch of the window kernel on checked CUDA tensors: colors
-    1..c1 of x, y, then with ``tail`` = (px, py, pid, prm) the Verlet step
-    (``consts``: the host float[6] of ``gs_parity._verlet_consts``; px, py
-    in place).  ``grid`` = (TY, TX, DY, DX, origin, par) with par 0 for
-    FlatLayout; ``rrad`` None: every valid rank has radius ``r0``.
+                c1: int, tail=None, consts=None, r0: float = 0.0,
+                count=None):
+    """One solve of K6 on checked CUDA tensors (the window kernel, or past
+    it the ranked-slot solve: ``color_kernel``): colors 1..c1 of x, y,
+    then with ``tail`` = (px, py, pid, prm) the Verlet step (``consts``:
+    the host float[6] of ``gs_parity._verlet_consts``; px, py in place).
+    ``grid`` = (TY, TX, DY, DX, origin, par) with par 0 for FlatLayout;
+    ``rrad`` None: every valid rank has radius ``r0``; ``count``: K5's
+    count table in the tables' layout, each cell's rank count, which the
+    ranked-slot solve needs (the window kernel reads none: None there).
     Returns the new (x, y)."""
     cap, K = int(x.shape[-3]), config.max_occupancy
+    if count is None and not windowed(cap, K):
+        raise ValueError(f"{what}: past cap {WIDE_CAP} or K {REG_K} the "
+                         "solve needs K5's count table (count=)")
     ox, oy = torch.empty_like(x), torch.empty_like(y)
-    sx = sy = None  # caps 65-256: a launch a color, in turns through these
-    if cap > WIDE_CAP and c1 > 1 and not simple(cap, K):
-        sx, sy = torch.empty_like(x), torch.empty_like(y)
     px = py = pid = prm = None
     if tail is not None:
         px, py, pid, prm = tail
@@ -287,26 +305,27 @@ def window_cuda(what: str, x, y, src, rrad, config: SimConfig, grid,
     with torch.cuda.device(x.device):
         rc = lib.gpe_gs_colors_window(
             *_ptrs(x, y), ptr(px), ptr(py), ptr(pid), src.data_ptr(),
-            ptr(rrad), ptr(prm), *_ptrs(ox, oy), ptr(sx), ptr(sy), cap,
-            *grid, K, int(c1),
-            f32(r0), f32(config.stiffness), int(tail is not None),
+            ptr(rrad), ptr(count), ptr(prm), *_ptrs(ox, oy), cap, *grid, K,
+            int(c1), f32(r0), f32(config.stiffness), int(tail is not None),
             None if consts is None else consts.ctypes.data,
             _stream(x.device))
     _cuda.check(rc, what)
+    count_route(cap, K, color=True)
     return ox, oy
 
 
-def colors_cuda(x, y, src, rrad, config: SimConfig, c1: int = 4):
-    """Launch K6 (the window, colors 1..c1) on x's CUDA device."""
+def colors_cuda(x, y, src, rrad, config: SimConfig, c1: int = 4,
+                count=None):
+    """Launch K6 (colors 1..c1) on x's CUDA device."""
     if x.device.type != "cuda":
         raise RuntimeError(f"gs color: the CUDA kernel needs CUDA tensors, "
                            f"got {x.device}")
     cap, TY, TX = x.shape
     K = config.max_occupancy
     _check_k(K, cap, "gs color")
-    _check_color_args(x, y, src, rrad, K)
+    _check_color_args(x, y, src, rrad, K, count)
     out = window_cuda("gs color", x, y, src, rrad, config,
-                      (TY, TX, 0, 0, 0, 0), c1)
+                      (TY, TX, 0, 0, 0, 0), c1, count=count)
     LAUNCHES["gs_color"] += 1
     return out
 

@@ -73,17 +73,18 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 def colors_mega(ps: gp.ParityState, src: torch.Tensor, rrad: torch.Tensor,
-                config: SimConfig, prm: Optional[torch.Tensor] = None
-                ) -> gp.ParityState:
+                config: SimConfig, prm: Optional[torch.Tensor] = None,
+                count: Optional[torch.Tensor] = None) -> gp.ParityState:
     """Colors 1..4 with the rank tables src, rrad [4, K, DY, DX]; with
     ``prm`` (f32[4], this substep's dt) the substep's Verlet step follows
-    (uniform radius, box world).  Returns the state with new x, y; ps.x
-    and ps.y are not written, ps.px and ps.py are (the tail)."""
+    (uniform radius, box world).  ``count``: K5-par's count table (the
+    ranked-slot solve's rank counts, which it needs past the window).  Returns the state with new x, y;
+    ps.x and ps.y are not written, ps.px and ps.py are (the tail)."""
     if ps.device.type == "cpu":
         out = ps.replace(x=ps.x.clone(), y=ps.y.clone())
         colors_mega_plain(out, src, rrad, config, prm)
         return out
-    return colors_mega_cuda(ps, src, rrad, config, prm)
+    return colors_mega_cuda(ps, src, rrad, config, prm, count)
 
 
 def colors_mega_plain(ps: gp.ParityState, src, rrad, config: SimConfig,
@@ -98,7 +99,7 @@ def colors_mega_plain(ps: gp.ParityState, src, rrad, config: SimConfig,
 
 
 def colors_mega_cuda(ps: gp.ParityState, src, rrad, config: SimConfig,
-                     prm=None) -> gp.ParityState:
+                     prm=None, count=None) -> gp.ParityState:
     """Launch the window on the state's CUDA device (without a radius
     plane in the state every valid rank has radius r0, and no radius
     table is read)."""
@@ -108,6 +109,9 @@ def colors_mega_cuda(ps: gp.ParityState, src, rrad, config: SimConfig,
     tables = (4, K, geo.DY, geo.DX)
     gp._check_cuda("gs colors mega", ps.device, src=(src, _I32, tables),
                    rrad=(rrad, torch.float32, tables))
+    if count is not None:
+        gp._check_cuda("gs colors mega", ps.device,
+                       count=(count, _I32, (4, geo.DY, geo.DX)))
     tail = consts = None
     if prm is not None:
         gp._check_fusable(config)
@@ -117,7 +121,8 @@ def colors_mega_cuda(ps: gp.ParityState, src, rrad, config: SimConfig,
     x, y = gs_kernels.window_cuda(
         "gs colors mega", ps.x, ps.y, src,
         None if ps.radius is None else rrad, config,
-        gp._geo_args(geo) + (1,), 4, tail, consts, config.initial_radius)
+        gp._geo_args(geo) + (1,), 4, tail, consts, config.initial_radius,
+        count)
     LAUNCHES["gs_colors_mega"] += 1
     return ps.replace(x=x, y=y)
 

@@ -40,6 +40,8 @@ K5-par ``rank_par`` replaces ``rank_parity``
   the fill tables and count 0 (``_rank_kernel_par``'s interior mask).
   ``gs_par_fused`` None/True: one launch over all four parities; False:
   one per parity, each staging the whole window and ranking its own cells.
+  Past cap 64 or K 16 K5's packed kernel on the parity layout (its
+  window's occupants packed per tile, a warp a cell; ``gs_kernels``).
 
 K6-par ``colors_par`` replaces the color passes of ``solve_parity``
 (gs_parity.py:433; ``_solve_dec_kernel`` and ``_apply_dec_kernel``), of
@@ -60,8 +62,11 @@ K6-par ``colors_par`` replaces the color passes of ``solve_parity``
   full space, a warp staging and writing one sub-grid row, and a color's
   cells of a block are contiguous in its sub-grid, so neighbouring
   threads read neighbouring table entries.  The mx and dec layouts run it
-  on K5's tables relayouted (origin 0 and -1).  ``LAUNCHES["gs_verlet"]``
-  counts the launches that ran the tail.
+  on K5's tables relayouted (origin 0 and -1).  Past cap 64 or K 16 the
+  ranked-slot solve on the parity layout (a copy, a launch a color on the
+  ranked slots, each cell's count from K5-par's count table, the tail over
+  every slot; ``gs_kernels``).  ``LAUNCHES["gs_verlet"]`` counts the
+  launches that ran the tail.
 
 K2-par ``relocate_par`` replaces ``relocate_parity``
 (gs_parity.py:689; ``_plan_kernel_par``/``_apply_kernel_par`` :539/:573 and
@@ -336,6 +341,7 @@ def rank_par_cuda(ps: ParityState, config: SimConfig):
                 _stream(dev))
             _cuda.check(rc, "gs rank par")
             LAUNCHES["gs_rank_par"] += 1
+            gs_kernels.count_route(ps.cap, K, color=False)
     return src, rpid, rrad, count
 
 
@@ -350,19 +356,22 @@ def _check_fusable(config: SimConfig) -> None:
 
 
 def colors_par(x, y, src, rrad, config: SimConfig, geo: ParityGeometry,
-               c1: int = 4, tail=None, uniform: bool = False):
+               c1: int = 4, tail=None, uniform: bool = False, count=None):
     """Colors 1..c1 of one solve on x, y [4, cap, DY, DX] with the tables
     src, rrad [4, K, DY, DX]; with ``tail`` = (px, py, pid, prm) the
     substep's Verlet step follows (``prm`` = f32[4] [dt * dt_scale,
     mouse_x, mouse_y, pressed]; px, py in place; uniform radius, box
     world).  ``uniform``: every valid rank of the tables has radius r0 (a
     state without a radius plane), so the kernel need not read rrad.
-    Returns the new (x, y); x and y are not written."""
+    ``count``: K5-par's count table [4, DY, DX] (the ranked-slot solve's
+    rank counts, which it needs past the window).  Returns the new (x, y);
+    x and y are not written."""
     if tail is not None:
         _check_fusable(config)
     if x.device.type == "cpu":
         return colors_par_plain(x, y, src, rrad, config, geo, c1, tail)
-    return colors_par_cuda(x, y, src, rrad, config, geo, c1, tail, uniform)
+    return colors_par_cuda(x, y, src, rrad, config, geo, c1, tail, uniform,
+                           count)
 
 
 def colors_par_plain(x, y, src, rrad, config: SimConfig,
@@ -409,15 +418,17 @@ def _verlet_consts(config: SimConfig) -> np.ndarray:
 
 
 def colors_par_cuda(x, y, src, rrad, config: SimConfig, geo: ParityGeometry,
-                    c1: int = 4, tail=None, uniform: bool = False):
-    """Launch K6-par (the window on the parity layout) on x's CUDA
-    device."""
+                    c1: int = 4, tail=None, uniform: bool = False,
+                    count=None):
+    """Launch K6-par (on the parity layout) on x's CUDA device."""
     cap, K = int(x.shape[1]), config.max_occupancy
     gs_kernels._check_k(K, cap, "gs color par")
     planes, tables = (4, cap, geo.DY, geo.DX), (4, K, geo.DY, geo.DX)
     f = torch.float32
     args = dict(x=(x, f, planes), y=(y, f, planes), src=(src, _I32, tables),
                 rrad=(rrad, f, tables))
+    if count is not None:
+        args.update(count=(count, _I32, (4, geo.DY, geo.DX)))
     consts = None
     if tail is not None:
         _check_fusable(config)
@@ -428,7 +439,8 @@ def colors_par_cuda(x, y, src, rrad, config: SimConfig, geo: ParityGeometry,
     _check_cuda("gs color par", x.device, **args)
     out = gs_kernels.window_cuda(
         "gs color par", x, y, src, None if uniform else rrad, config,
-        _geo_args(geo) + (1,), c1, tail, consts, config.initial_radius)
+        _geo_args(geo) + (1,), c1, tail, consts, config.initial_radius,
+        count)
     LAUNCHES["gs_color_par"] += 1
     if tail is not None:
         LAUNCHES["gs_verlet"] += 1
@@ -518,11 +530,11 @@ def solve_parity(ps: ParityState, config: SimConfig,
                          dtype=_I32)
     if config.gs_colors_mega and config.tiled_uniform_radius:
         from gpu_physics_engine_torch.ops import gs_mega  # imports this one
-        ps = gs_mega.colors_mega(ps, src, rrad, config, prm)
+        ps = gs_mega.colors_mega(ps, src, rrad, config, prm, count)
     else:
         tail = None if prm is None else (ps.px, ps.py, ps.pid, prm)
         x, y = colors_par(ps.x, ps.y, src, rrad, config, ps.geo, tail=tail,
-                          uniform=ps.radius is None)
+                          uniform=ps.radius is None, count=count)
         ps = ps.replace(x=x, y=y)
     return ps.replace(overflow_count=ps.overflow_count + overflow)
 
@@ -580,11 +592,14 @@ def gs_solve_sub(state: TileState, config: SimConfig,
     src, _, rrad, count = gs_kernels.rank(state, config)
     overflow = torch.sum(torch.clamp(count - config.max_occupancy, min=0),
                          dtype=_I32)
-    _, TY, TX = state.dims
+    cap, TY, TX = state.dims
     geo = ParityGeometry(TY, TX, origin)
+    # the ranked-slot solve past the window reads the count table
+    pcount = (None if gs_kernels.windowed(cap, config.max_occupancy)
+              else to_parity(count[None], geo, 0)[:, 0])
     x, y = colors_par(to_parity(state.x, geo, 0.0),
                       to_parity(state.y, geo, 0.0), to_parity(src, geo, -1),
-                      to_parity(rrad, geo, 0.0), config, geo)
+                      to_parity(rrad, geo, 0.0), config, geo, count=pcount)
     return state.replace(x=from_parity(x, geo), y=from_parity(y, geo),
                          overflow_count=state.overflow_count + overflow)
 

@@ -200,10 +200,12 @@ def color_plain_(x, y, src, rrad, config: SimConfig, color: int,
     y.view(-1)[dst] = torch.stack(ly)[valid]
 
 
-def colors_plain(x, y, src, rrad, config: SimConfig, c1: int = 4):
+def colors_plain(x, y, src, rrad, config: SimConfig, c1: int = 4,
+                 count=None):
     """Colors 1..c1 of one solve on copies of x, y [cap, TY, TX] (the
     inputs are not written), as K6 computes them: ``color_plain_`` per
-    color.  Returns the new (x, y)."""
+    color.  ``count`` (K5's count table, the kernels' rank counts) is not
+    read: the valid ranks are src's prefix.  Returns the new (x, y)."""
     x, y = x.clone(), y.clone()
     for c in range(1, c1 + 1):
         color_plain_(x, y, src, rrad, config, c)
@@ -222,7 +224,7 @@ def solve_frame(state: TileState, config: SimConfig, rank_fn,
     src, _, rrad, count = tables
     overflow = torch.sum(torch.clamp(count - config.max_occupancy, min=0),
                          dtype=_I32)
-    x, y = colors_fn(state.x, state.y, src, rrad, config)
+    x, y = colors_fn(state.x, state.y, src, rrad, config, count=count)
     return state.replace(x=x, y=y, overflow_count=state.overflow_count
                          + overflow), tables
 

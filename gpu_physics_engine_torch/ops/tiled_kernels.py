@@ -140,8 +140,8 @@ def grown_cap(cap: int, device) -> int:
 
 def cap_class(cap: int) -> int:
     """The kernels' class at ``cap`` (csrc/layout.cuh cap_class): 0 up to
-    NARROW_CAP, 1 up to WIDE_CAP, 2 past it (K1 and the relocate window
-    without a mask; the GS selection rank's four-word masks)."""
+    NARROW_CAP, 1 up to WIDE_CAP, 2 past it (K1, the relocate window and
+    the GS kernels without a mask)."""
     return 0 if cap <= NARROW_CAP else 1 if cap <= WIDE_CAP else 2
 
 

@@ -3,7 +3,8 @@ build, and the radix sort (its kernels, the parent's) against torch.sort,
 on the card.
 
     python -m gpu_physics_engine_torch.utils.kernel_study [--k1] [--k2]
-        [--k5] [--other-lib PATH] [--k6 [--parent DIR]] [--radix]
+        [--k5] [--other-lib PATH] [--k6 [--parent DIR]] [--gs-wide]
+        [--gs-dense] [--radix]
 
 prints the card's name and power limit, then one JSON line per study
 (isolated launches, CUDA events around 20 calls after a warm-up, ms per
@@ -63,6 +64,25 @@ call):
   batch ("parent_batched").  Per row the ms of a call (CUDA events, twice)
   and the device ms per kernel from the profiler; each build's registers
   and spills from ptxas.
+* ``--k5 --k6 --gs-wide`` (either or both): instead of the 1M-GS scenes,
+  the GS engine's wide cells (``GS_WIDE``: GS-cap128, GS-K32 and
+  GS-cap312, chip_smoke.py's states): K5 and K5-par (``--k5``), and K6
+  flat, K6-par with the tail and colors_mega, each with the rank's count
+  table (``--k6``); per row the ms of a call, with ``--other-lib PATH``
+  (the parent's build) through that build too in turns, whether it
+  equals this build's result bit for bit, and this build's device ms per
+  kernel; the bounds (the ranked work alone, and with the planes the
+  out-of-place solve writes); and the engines' ms/step in the flat, par
+  and mega layouts, in turns, with the device ms per kernel a step.  A
+  parent from before the ranked-slot solve is called with its scratch
+  planes (``_ScratchColors``).
+* ``--k5 --gs-dense``: the packed rank's two ways for a window of more
+  than 256 occupants (``GS_DENSE``: caps 128 at K 8 and 32, particles
+  spread at 1.5, 3 and 6 a tile, flat and parity): a warp a cell on the
+  occupants packed in shared memory (the default buffer) against a warp
+  a cell streamed from device memory (a buffer of 256 occupants); per
+  state the windows' occupants (how many take each way), the ms of a call
+  each, in turns, and whether the two are bit-equal.
 * ``--radix``: the array Engine's 1M scene (the README's example) and its
   4,403,200 pair keys: ``torch.sort(stable=True)`` of the keys with the
   payload gathered and the hand ``radix_sort_pairs`` (one
@@ -184,16 +204,53 @@ def _relocate_rows(fn, check) -> dict:
 
 def _other_library(path: str):
     """Another build of the kernel library, its entry points typed as this
-    tree's (those it has)."""
+    tree's (those it has).  A build from before the ranked-slot solve
+    (no ``gpe_gs_route``) takes K6's scratch planes instead of the count
+    table: ``_ScratchColors`` calls it with this tree's arguments."""
     import ctypes
     from gpu_physics_engine_torch.ops import _cuda
     lib = ctypes.CDLL(path)
+    old = not hasattr(lib, "gpe_gs_route")
     for name, argtypes in _cuda._SIGNATURES.items():
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    if old:
+        lib.gpe_gs_colors_window.argtypes = [ctypes.c_void_p] * 12 + [
+            ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_float,
+                                  ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p]
+        return _ScratchColors(lib)
     return lib
+
+
+class _ScratchColors:
+    """A library whose ``gpe_gs_colors_window`` takes two scratch planes
+    (sx, sy: its one-color launches at caps 65-256) where this tree's
+    takes the count table: the call with this tree's arguments allocates
+    them, as that tree's wrapper did, and drops the count."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def gpe_gs_colors_window(self, x, y, px, py, pid, src, rrad, count, prm,
+                             ox, oy, cap, TY, TX, DY, DX, origin, par, K,
+                             c1, r0, stiffness, integ, consts, stream):
+        import torch
+        sx = sy = None
+        if 64 < cap <= 256 and K <= 64 and c1 > 1:
+            n = 4 * cap * DY * DX if par else cap * TY * TX
+            sx, sy = (torch.empty(n, dtype=torch.float32, device="cuda")
+                      for _ in range(2))
+        ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
+        return self._lib.gpe_gs_colors_window(
+            x, y, px, py, pid, src, rrad, prm, ox, oy, ptr(sx), ptr(sy),
+            cap, TY, TX, DY, DX, origin, par, K, c1, r0, stiffness, integ,
+            consts, stream)
 
 
 def _through(lib, fn):
@@ -327,6 +384,259 @@ def k5_study(other=None) -> dict:
         del e, states, st, arg
         torch.cuda.empty_cache()
     return out
+
+
+# --k5/--k6 --gs-wide: the GS engine's wide cells, chip_smoke.py's
+# _gs_wide states: tag -> (cap, K)
+GS_WIDE = {"GS-cap128": (128, 8), "GS-K32": (16, 32), "GS-cap312": (312, 8)}
+
+
+def _gs_wide_config(cap: int, K: int, layout: str = "flat"):
+    """The GS config at ``cap`` and ``K`` on 262,144 particles over 1524 x
+    524 (the 1M-GS density) in ``layout`` ("mega": par with both fused
+    kernels), as chip_smoke.py's _gs_wide sets it."""
+    from gpu_physics_engine_torch.core.tuned import gs_config
+    kw = dict(world_width=1524.0, world_height=524.0, tile_cap=cap,
+              max_occupancy=K)
+    if layout == "mega":
+        return gs_config(262_144, gs_layout="par", gs_colors_mega=True,
+                         gs_relocate_mega=True, **kw)
+    return gs_config(262_144, gs_layout=layout, **kw)
+
+
+def _gs_wide_state(cap: int, K: int):
+    """(config, state): the flat GS engine at ``cap`` and ``K`` one flat
+    frame from the seeded scene, as chip_smoke.py's _gs_wide starts its
+    paths."""
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.ops import tiled
+    cfg = _gs_wide_config(cap, K)
+    seed = TiledEngine(cfg, seed=0, chunk=64, device="cuda")
+    return cfg, tiled.tiled_step_fn(seed.state, seed.params(), cfg)
+
+
+def _gs_wide_steps(cap: int, K: int, start, libs: dict) -> dict:
+    """Per layout (flat, par, mega) the engine from ``start`` after 8
+    steps: ms/step over 16-step windows (CUDA events) through this build
+    and each of ``libs``, in turns (in order, then in reverse), and this
+    build's device ms per kernel a step (the profiler, 8 steps)."""
+    import torch
+    from gpu_physics_engine_torch import TiledEngine
+    from gpu_physics_engine_torch.ops import tiled
+    out = {}
+    for layout in ("flat", "par", "mega"):
+        e = TiledEngine(_gs_wide_config(cap, K, layout), chunk=64,
+                        initial_state=start.replace(
+                            **{f: getattr(start, f).clone()
+                               for f in tiled.FIELDS}))
+        e.run(8)
+        fns = {"this": lambda: e.run(16)}
+        fns.update({k: _through(lib, fns["this"]) for k, lib in libs.items()})
+        order = list(fns)
+        ms = {k: [] for k in fns}
+        for k in order + order[::-1]:
+            ms[k].append(cuda_ms(fns[k], reps=1, warmup=0) / 16)
+        out[layout] = {"ms_per_step": ms,
+                       "device_ms_per_step": kernel_device_ms(
+                           lambda: e.run(1), 8)}
+        del e
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gs_wide_bounds(cfg, st, ps, count, pcount, src) -> dict:
+    """Least ms at 3.35 TB/s of the wide cells' GS functions: the ranks
+    (the pid plane and the occupants' x, y, radius read, the tables and the
+    count written) and the solves two ways: the ranked work alone (each
+    valid rank's code, and radius where a table is read; the named slots'
+    x, y read and written; on par and mega the tail's pid plane and the
+    occupants' px, py read and written too) and with the planes the
+    out-of-place contract writes (every slot's x, y read and ox, oy
+    written)."""
+    import torch
+    from gpu_physics_engine_torch.ops import gs_tiled as gt
+    K = cfg.max_occupancy
+    cap, TY, TX = st.dims
+    occ = int((st.pid >= 0).sum())
+    slots = float(st.pid.numel())
+    ranks = float(torch.clamp(count, max=K).sum())
+    pranks = float(torch.clamp(pcount, max=K).sum())
+    ty = torch.arange(TY, device=src.device).view(1, TY, 1)
+    tx = torch.arange(TX, device=src.device).view(1, 1, TX)
+    idx, valid = gt.source_index(src, cap, TY, TX, ty, tx)
+    named = float(torch.unique(idx[valid]).numel())
+    pslots = float(ps.pid.numel())
+    ms = lambda b: b / 3.35e12 * 1e3  # noqa: E731
+    tail = 4 * pslots + 16 * occ
+    return {
+        "rank": _rank_bound_ms(st.pid, occ, K, True),
+        "rank_par": _rank_bound_ms(ps.pid, occ, K, ps.radius is not None),
+        "color": {"ranked": ms(8 * ranks + 16 * named),
+                  "contract": ms(16 * slots + 8 * ranks)},
+        "color_par": {"ranked": ms(4 * pranks + 16 * named + tail),
+                      "contract": ms(16 * pslots + 4 * pranks + tail)},
+        "occupied": occ, "ranks": ranks, "named_slots": named}
+
+
+def gs_wide_study(others: dict, rank: bool = True, colors: bool = True
+                  ) -> dict:
+    """K5 and K5-par (``rank``) and K6 flat, K6-par with the tail and
+    colors_mega (``colors``, each with the rank's count table as the main
+    path passes it) on the GS_WIDE states: the ms of a call (CUDA events)
+    through this build and each of ``others`` ({name: library}, e.g. the
+    parent's build as "other"), in turns (in order, then in reverse);
+    whether each build's result equals this one's bit for bit (from fresh
+    copies of the tail's px, py); the device ms per kernel of this build
+    (the profiler); the bounds (``_gs_wide_bounds``); and the engines'
+    steps in the three layouts (``_gs_wide_steps``)."""
+    import torch
+    from gpu_physics_engine_torch import StepParams
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_mega as gm
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    libs = dict(others)
+    out = {"study": "gs_wide", "builds": ["this"] + list(libs)}
+    for tag, (cap, K) in GS_WIDE.items():
+        cfg, st = _gs_wide_state(cap, K)
+        ps = gp.to_parity_state(st, cfg)
+        src, _, rrad, count = gk.rank_cuda(st, cfg)
+        psrc, _, prrad, pcount = gp.rank_par_cuda(ps, cfg)
+        prm = StepParams.make(cfg.dt, mouse=(0.5 * cfg.world_width,
+                                             0.5 * cfg.world_height),
+                              pressed=True).as_tensor("cuda")
+        calls = {}  # name -> a factory of calls on fresh px, py
+        if rank:
+            calls["rank"] = lambda: lambda: gk.rank_cuda(st, cfg)
+            calls["rank_par"] = lambda: lambda: gp.rank_par_cuda(ps, cfg)
+        if colors:
+            calls["color"] = lambda: lambda: gk.colors_cuda(
+                st.x, st.y, src, rrad, cfg, count=count)
+
+            def par():
+                t = (ps.px.clone(), ps.py.clone(), ps.pid, prm)
+                return lambda: gp.colors_par_cuda(
+                    ps.x, ps.y, psrc, prrad, cfg, ps.geo, 4, t,
+                    uniform=ps.radius is None, count=pcount) + t[:2]
+
+            def mega():
+                m = ps.replace(px=ps.px.clone(), py=ps.py.clone())
+                return lambda: gm.colors_mega_cuda(m, psrc, prrad, cfg, prm,
+                                                   pcount)
+            calls["color_par"], calls["colors_mega"] = par, mega
+        rows = {}
+        for name, make in calls.items():
+            fns = {"this": make()}
+            for lname, lib in libs.items():
+                fns[lname] = _through(lib, make())
+            order = list(fns)
+            ms = {k: [] for k in fns}
+            for k in order + order[::-1]:
+                ms[k].append(cuda_ms(fns[k]))
+            ref = [t.clone() for t in _result_tensors(make()())]
+            equal = {k: all(torch.equal(u, v) for u, v in zip(
+                ref, _result_tensors(_through(libs[k], make())())))
+                for k in fns if k != "this"}
+            rows[name] = {"ms": ms, "equal_to_this": equal,
+                          "device_ms": kernel_device_ms(fns["this"], 10)}
+        steps = _gs_wide_steps(cap, K, st, libs)
+        out[tag] = {"cap": cap, "K": K, "dims": list(st.dims),
+                    "par_dims": list(ps.x.shape), "rows": rows,
+                    "steps": steps,
+                    "rank_kernel": gk.rank_kernel(cap, K),
+                    "color_kernel": gk.color_kernel(cap, K),
+                    "bounds_ms": _gs_wide_bounds(cfg, st, ps, count, pcount,
+                                                 src)}
+        del st, ps, src, rrad, count, psrc, prrad, pcount, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+# --k5 --gs-dense: the packed rank past 256 occupants a window, packed
+# or streamed; tag -> (cap, K), and the particles a tile
+GS_DENSE = {"cap128-K8": (128, 8), "cap128-K32": (128, 32)}
+GS_DENSE_FILL = (1.5, 3.0, 6.0)
+GS_PACK_THREAD_MAX = 256  # csrc/gs_simple.cuh kGsPackThreadMax
+
+
+def _gs_dense_state(cap: int, K: int, fill: float, seed: int):
+    """(config, state): GS_WIDE's config at ``cap`` and ``K`` (the
+    [480, 1388] grid) holding ``fill`` x TY x TX particles at seeded
+    uniform positions, so that a packed-rank window (8 x 32 tiles) holds
+    about 256 x ``fill`` occupants."""
+    import numpy as np
+    from gpu_physics_engine_torch.ops import tiled
+    cfg = _gs_wide_config(cap, K)
+    _, TY, TX = tiled.tile_geometry(cfg)
+    n = int(fill * TY * TX)
+    cfg = cfg.replace(max_particles=n, initial_particles=n)
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.6, [cfg.world_width - 0.6, cfg.world_height - 0.6],
+                      (n, 2)).astype(np.float32)
+    rad = np.full(n, cfg.initial_radius, np.float32)
+    return cfg, tiled.init_tiles(cfg, pos, rad, device="cuda")
+
+
+def _window_occupants(st):
+    """The occupants of each packed-rank block's window on the flat
+    layout: its 6 x 30 region and the one-tile ring."""
+    import torch
+    occ = (st.pid >= 0).sum(0).float()[None, None]
+    _, TY, TX = st.dims
+    by, bx = -(-TY // 6), -(-TX // 30)
+    occ = torch.nn.functional.pad(occ, (1, 30 * bx + 1 - TX,
+                                        1, 6 * by + 1 - TY))
+    return torch.nn.functional.avg_pool2d(occ, (8, 32), (6, 30)
+                                          ).flatten() * 256
+
+
+def gs_dense_study() -> dict:
+    """The packed rank's windows of more than 256 occupants ranked a warp
+    a cell on the packed occupants (the default buffer of 2,048) or
+    streamed from device memory (``rank_pack_cuda`` with a buffer of
+    GS_PACK_THREAD_MAX), on the GS_DENSE states, flat and parity (all
+    four parities): how many windows take each way, the ms of a call
+    (CUDA events) each in turns (in order, then in reverse), and whether
+    the two results are bit-equal."""
+    import torch
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    out = {"study": "gs_dense"}
+    for tag, (cap, K) in GS_DENSE.items():
+        for i, fill in enumerate(GS_DENSE_FILL):
+            cfg, st = _gs_dense_state(cap, K, fill, seed=i)
+            w = _window_occupants(st)
+            row = {"dims": list(st.dims), "occupied": int((st.pid >= 0).sum()),
+                   "windows": {
+                       "thread": int((w <= GS_PACK_THREAD_MAX).sum()),
+                       "packed_warp": int(((w > GS_PACK_THREAD_MAX)
+                                           & (w <= 2048)).sum()),
+                       "streamed": int((w > 2048).sum())},
+                   "max_window": int(w.max())}
+            ps = gp.to_parity_state(st, cfg)
+            for layout, s in (("flat", st), ("par", ps)):
+                fns = {"packed": lambda s=s: rank_pack_cuda(s, cfg, 0),
+                       "streamed": lambda s=s: rank_pack_cuda(
+                           s, cfg, GS_PACK_THREAD_MAX)}
+                order = list(fns)
+                ms = {k: [] for k in fns}
+                for k in order + order[::-1]:
+                    ms[k].append(cuda_ms(fns[k]))
+                equal = all(torch.equal(u, v) for u, v in zip(
+                    fns["packed"](), fns["streamed"]()))
+                row[layout] = {"ms": ms, "equal": equal}
+            out[f"{tag}-fill{fill}"] = row
+            del st, ps
+            torch.cuda.empty_cache()
+    return out
+
+
+def _result_tensors(r) -> list:
+    """The tensors of a wrapper's result (a tuple, or a state's fields)."""
+    import torch
+    if isinstance(r, torch.Tensor):
+        return [r]
+    if isinstance(r, (tuple, list)):
+        return [t for v in r for t in _result_tensors(v)]
+    return [getattr(r, f) for f in ("x", "y", "px", "py")]
 
 
 # --k6: the color window against the parent's kernels and its variants
@@ -501,6 +811,42 @@ def collide_integrate_pack_cuda(state, prm, config, plan):
             tk._stream(state.device), *plan)
     _cuda.check(rc, "collide_integrate_pack")
     return state.replace(x=outs[0], y=outs[1], px=outs[2], py=outs[3])
+
+
+def rank_pack_cuda(state, config, entries: int, p0: int = 0, np: int = 4):
+    """K5 (``state`` a TileState) or K5-par (a ParityState, parities p0 ..
+    p0 + np - 1) through the packed kernel (csrc/gs_simple.cuh
+    gs_rank_pack_kernel) at any cap and K with a buffer of ``entries``
+    occupants (0: the default plan's): the studies, and the checks that
+    make windows stream (a buffer too small for them).  Returns (src,
+    rpid, rrad, count) as the wrappers do; not a launch of the engine's:
+    LAUNCHES is not counted."""
+    import torch
+    from gpu_physics_engine_torch.ops import _cuda, tiled_kernels as tk
+    from gpu_physics_engine_torch.ops.integrate import f32
+    from gpu_physics_engine_torch.ops.tiled import tile_geometry
+    K, dev = config.max_occupancy, state.x.device
+    par = hasattr(state, "geo")
+    if par:
+        g = state.geo
+        cap, dims = state.cap, (g.TY, g.TX, g.DY, g.DX, g.origin)
+        tables = (4, K, g.DY, g.DX)
+    else:
+        cap, TY, TX = state.dims
+        dims, tables = (TY, TX, 0, 0, 0), (K, TY, TX)
+    src = torch.empty(tables, dtype=torch.int32, device=dev)
+    rpid = torch.empty_like(src)
+    rrad = torch.empty(tables, dtype=torch.float32, device=dev)
+    count = torch.empty((tables[0],) + tables[2:] if par else tables[1:],
+                        dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _cuda.library().gpe_gs_rank_pack(
+            state.x.data_ptr(), state.y.data_ptr(), tk._ptr(state.radius),
+            *tk._ptrs(state.pid, src, rpid, rrad, count), cap, *dims,
+            int(par), p0, np, K, f32(tile_geometry(config)[0]),
+            f32(config.initial_radius), int(entries), tk._stream(dev))
+    _cuda.check(rc, "gs_rank_pack")
+    return src, rpid, rrad, count
 
 
 def relocate_pull_warp_cuda(state, config):
@@ -1066,6 +1412,13 @@ def main(argv=None) -> int:
                     help="another checkout whose kernels' SASS is compared "
                          "with this tree's, function by function")
     ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--gs-wide", action="store_true",
+                    help="with --k5 and/or --k6: the rank and/or the solve "
+                         "on the GS-cap128, GS-K32 and GS-cap312 states "
+                         "instead, beside --other-lib's build, in turns")
+    ap.add_argument("--gs-dense", action="store_true",
+                    help="with --k5: the packed rank's windows past 256 "
+                         "occupants, packed or streamed, in turns")
     ap.add_argument("--steps", action="store_true")
     ap.add_argument("--ptxas", nargs="?", const="", default=None,
                     help="ptxas's registers and spills of this tree's "
@@ -1090,9 +1443,14 @@ def main(argv=None) -> int:
         print(json.dumps(k1_study(args.particles, other)), flush=True)
     if args.k2:
         print(json.dumps(k2_study(args.particles, other)), flush=True)
-    if args.k5:
+    if args.gs_wide:
+        print(json.dumps(gs_wide_study({} if other is None else {
+            "other": other}, args.k5, args.k6)), flush=True)
+    if args.gs_dense and args.k5:
+        print(json.dumps(gs_dense_study()), flush=True)
+    elif args.k5 and not args.gs_wide:
         print(json.dumps(k5_study(other)), flush=True)
-    if args.k6:
+    if args.k6 and not args.gs_wide:
         print(json.dumps(k6_study(args.parent)), flush=True)
     if args.radix:
         print(json.dumps(radix_study(other)), flush=True)

@@ -9,12 +9,12 @@ shared-memory region and not a multiple of it (past cap 64 the packed
 kernel, to cap 520); K2 and K2-par bit for bit at caps 2-520 in every
 matching mode (past cap 64 the warp kernel; at cap 4,096 on device
 scratch) and on a ragged grid, K5 and K5-par (the rank's window) bit for
-bit up to cap 520 and K 128 (past cap 256 or K 64 the list rank), on a
-ragged grid, at both parity origins, K6's window (colors 1..c for each c,
-with and without the Verlet tail) bit for bit on the flat and the parity
-layouts, up to cap 520 and K 128 (past cap 256 or K 64 the solve without
-a window), on a grid smaller than one window and one several windows
-wide; the par engine equals the flat engine.  colors_mega bit for bit and
+bit up to cap 520 and K 128 (past cap 64 or K 16 the packed rank, also
+with its windows streamed), on a ragged grid, at both parity origins,
+K6 (colors 1..c for each c, with and without the Verlet tail) bit for bit
+on the flat and the parity layouts, up to cap 520 and K 128 (past cap 64
+or K 16 the ranked-slot solve), on a grid smaller than one window and
+one several windows wide; the par engine equals the flat engine.  colors_mega bit for bit and
 equal to the par route's K6-par launch; relocate_mega and K4 (K2's
 window) bit for bit, relocate_mega equal to K2-par, also at caps 32, 64
 and past and on a ragged grid.  Only a cap below 1, or slots past the
@@ -300,10 +300,9 @@ def test_rank_window_matches_plain(cap, K, width, uniform):
     """K5 and K5-par on the rank's shared-memory window: the tables
     bit-equal to the plain versions and on repeat, up to cap 32 with K 16
     (the 32-bit masks' largest window) and at caps 48 and 64 (64-bit
-    masks on a 4 x 32 region); past cap 64 or K 16 the selection kernel
-    (caps 65-256 on a 2 x 8 region, K 17-64); past cap 256 or K 64 the
-    list kernel (K 80 and 128 on a crowded cell), on a ragged grid (width
-    40)
+    masks on a 4 x 32 region); past cap 64 or K 16 the packed kernel
+    (caps 65-520, K 17-128, K 80 and 128 on a crowded cell; its launches
+    counted as gs_rank_pack), on a ragged grid (width 40)
     and one several
     regions wide (TX 39 and 139: no multiple of the 64-column region), with
     and without a radius plane; K5-par at origins 0 and -1, in one launch
@@ -316,10 +315,12 @@ def test_rank_window_matches_plain(cap, K, width, uniform):
     cfg = cfg.replace(tiled_uniform_radius=uniform)
     if uniform:
         st = st.replace(radius=torch.where(st.pid >= 0, 0.5, 0.0))
-    n0 = gk.LAUNCHES["gs_rank"]
+    n0, p0 = gk.LAUNCHES["gs_rank"], gk.LAUNCHES["gs_rank_pack"]
     a, b, c = gk.rank(st, cfg), gk.rank_plain(st, cfg), gk.rank(st, cfg)
     torch.cuda.synchronize()
     assert gk.LAUNCHES["gs_rank"] == n0 + 2
+    assert gk.LAUNCHES["gs_rank_pack"] == p0 + (
+        0 if gk.windowed(cap, K) else 2)
     for u, v, w in zip(a, b, c):
         assert torch.equal(u, v) and torch.equal(u, w)
     assert int((a[3] - K).clamp(min=0).sum()) > 0  # the jam clamps
@@ -348,12 +349,12 @@ def _window_cases(cfg, st, layout, prm, colors=(0, 1, 2, 3, 4)):
     from gpu_physics_engine_torch.ops import gs_parity as gp
     uniform = cfg.tiled_uniform_radius
     if layout is None:
-        src, _, rrad, _ = gk.rank(st, cfg)
+        src, _, rrad, count = gk.rank(st, cfg)
         x, y, px, py, pid = st.x, st.y, st.px, st.py, st.pid
         geo, grid = None, tuple(st.dims[1:]) + (0, 0, 0, 0)
     else:
         ps = gp.to_parity_state(st, cfg, layout)
-        src, _, rrad, _ = gp.rank_par(ps, cfg)
+        src, _, rrad, count = gp.rank_par(ps, cfg)
         x, y, px, py, pid, geo = ps.x, ps.y, ps.px, ps.py, ps.pid, ps.geo
         grid = gp._geo_args(geo) + (1,)
     cases = []
@@ -367,7 +368,7 @@ def _window_cases(cfg, st, layout, prm, colors=(0, 1, 2, 3, 4)):
                 t = (q, r, pid, prm) if tail else None
                 out = gk.window_cuda(
                     "window", x, y, src, rrad, cfg, grid, c1, t,
-                    gp._verlet_consts(cfg) if tail else None)
+                    gp._verlet_consts(cfg) if tail else None, count=count)
                 return out + (q, r)
 
             def plain(c1=c1, tail=tail):
@@ -399,11 +400,10 @@ def test_colors_window_matches_plain(cap, K, width, layout):
     Verlet tail, bit-equal to the plain passes and on repeat, on a grid
     smaller than one window (width 20 and 40: TX 21 and 39), one several
     regions wide (150: TX 139), at cap 32 with K 16 and past it (caps 48
-    and 64: the fifth region class; caps 65-256: a launch a color), at K
-    32 and 64 (the ranks past the registers), general and uniform
-    radius, flat and parity (origins 0 and -1); past cap 256 or K 64 (caps
-    257, 312, 520, K 80) the solve without a window; its shared-memory
-    bytes equal the Python mirror."""
+    and 64: the fifth region class), general and uniform radius, flat and
+    parity (origins 0 and -1); past cap 64 or K 16 (caps 65-520, K 32-80)
+    the ranked-slot solve with the rank's count table; its shared-memory
+    bytes equal the Python mirror, and its route the library's."""
     from gpu_physics_engine_torch.ops import _cuda
     from gpu_physics_engine_torch.ops import gs_kernels as gk
     cfg, st = _gs_scene(cap, K, seed=cap + 50, width=width)
@@ -428,6 +428,8 @@ def test_colors_window_matches_plain(cap, K, width, layout):
     for colors in range(5):
         assert _cuda.library().gpe_gs_colors_window_bytes(cap, colors) \
             == gk.colors_window_bytes(cap, colors)
+    assert _cuda.library().gpe_gs_route(cap, K) == (
+        0 if gk.windowed(cap, K) else 3)
 
 
 def test_colors_past_k64_match_plain():
@@ -446,6 +448,36 @@ def test_colors_past_k64_match_plain():
         for u, v, w in zip(a, b, again):
             assert torch.equal(u, v), label
             assert torch.equal(u, w), label
+
+
+@pytest.mark.parametrize("cap, K", [(128, 8), (312, 16), (16, 80)])
+def test_packed_rank_streamed_matches_plain(cap, K):
+    """K5 and K5-par (origins 0 and -1, one launch and one per parity)
+    through the packed kernel with buffers of 8 and 256 occupants, so that
+    nearly every window, or those around the jam, streams from device
+    memory: bit-equal to the plain versions."""
+    from gpu_physics_engine_torch.ops import gs_kernels as gk
+    from gpu_physics_engine_torch.ops import gs_parity as gp
+    from gpu_physics_engine_torch.utils.kernel_study import rank_pack_cuda
+    cfg, st = _gs_scene(cap, K, seed=cap + K)
+    if K > 4 * cap:
+        st = _crowd_cell(st, cfg)
+    want = gk.rank_plain(st, cfg)
+    for entries in (8, 256):
+        for u, v in zip(rank_pack_cuda(st, cfg, entries), want):
+            assert torch.equal(u, v), entries
+        for origin in (0, -1):
+            ps = gp.to_parity_state(st, cfg, origin)
+            pwant = gp.rank_par_plain(ps, cfg)
+            for p0, n in ((0, 4), (2, 1)):
+                got = rank_pack_cuda(ps, cfg, entries, p0=p0, np=n)
+                torch.cuda.synchronize()
+                if n == 4:
+                    for u, v in zip(got, pwant):
+                        assert torch.equal(u, v), (entries, origin)
+                else:  # parity 2's cells alone
+                    assert torch.equal(got[0][2], pwant[0][2])
+                    assert torch.equal(got[3][2], pwant[3][2])
 
 
 def test_gs_engine_on_card_matches_cpu_engine():
@@ -517,7 +549,8 @@ def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
     for u, v in zip(ta, tb):
         assert torch.equal(u, v)
     for c1 in (1, 2, 3, 4):
-        xk, yk = gp.colors_par(ps.x, ps.y, ta[0], ta[2], cfg, ps.geo, c1)
+        xk, yk = gp.colors_par(ps.x, ps.y, ta[0], ta[2], cfg, ps.geo, c1,
+                               count=ta[3])
         xp, yp = gp.colors_par_plain(ps.x, ps.y, tb[0], tb[2], cfg, ps.geo,
                                      c1)
         assert torch.equal(xk, xp) and torch.equal(yk, yp), c1
@@ -539,7 +572,7 @@ def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
             k = [t.clone() for t in (ps.px, ps.py)]
             p = [t.clone() for t in k]
             got = gp.colors_par(ps.x, ps.y, ta[0], ta[2], cfg, ps.geo, c1,
-                                tail=(*k, ps.pid, prm))
+                                tail=(*k, ps.pid, prm), count=ta[3])
             want = gp.colors_par_plain(ps.x, ps.y, tb[0], tb[2], cfg,
                                        ps.geo, c1, tail=(*p, ps.pid, prm))
             for u, v in zip(tuple(got) + tuple(k), tuple(want) + tuple(p)):
@@ -557,7 +590,7 @@ def test_par_kernels_match_plain(cap, K, uniform, fused, origin):
 def test_relocate_par_window_matches_plain(cap, shape, match, fused, origin):
     """K2-par on its shared-memory window: bit-equal to its plain version
     and on repeat, none lost, at cap 2, cap 32 and cap 64 (64-bit masks),
-    at caps 65, 128 and 256 (four-word masks) and on the ragged 21 x 39
+    at caps 65, 128 and 256 (the warp kernel) and on the ragged 21 x 39
     grid, in one launch over all parities and in one
     per parity, for both origins; relocate_mega (the same window over all
     four parities, one launch) equal to both."""
@@ -684,7 +717,7 @@ def test_fused_gs_kernels_match_plain(cap, K, uniform, origin):
     if uniform:
         st = st.replace(radius=torch.where(st.pid >= 0, 0.5, 0.0))
     ps = gp.to_parity_state(st, cfg, origin)
-    src, _, rrad, _ = gp.rank_par(ps, cfg)
+    src, _, rrad, count = gp.rank_par(ps, cfg)
     prm = StepParams.make(0.02, mouse=(20.0, 15.0), pressed=True
                           ).as_tensor("cuda")
     for tail in ((None, prm) if uniform else (None,)):
@@ -692,13 +725,14 @@ def test_fused_gs_kernels_match_plain(cap, K, uniform, origin):
                               for f in ("x", "y", "px", "py")})
                 for _ in range(3)]
         n0 = gm.LAUNCHES["gs_colors_mega"]
-        runs[0] = gm.colors_mega(runs[0], src, rrad, cfg, tail)
+        runs[0] = gm.colors_mega(runs[0], src, rrad, cfg, tail, count)
         assert gm.LAUNCHES["gs_colors_mega"] == n0 + 1
         gm.colors_mega_plain(runs[1], src, rrad, cfg, tail)
         seq = runs[2]
         x, y = gp.colors_par_cuda(
             seq.x, seq.y, src, rrad, cfg, seq.geo,
-            tail=None if tail is None else (seq.px, seq.py, ps.pid, tail))
+            tail=None if tail is None else (seq.px, seq.py, ps.pid, tail),
+            count=count)
         runs[2] = seq.replace(x=x, y=y)
         for f in ("x", "y", "px", "py"):
             assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
@@ -1287,7 +1321,7 @@ def test_kernels_refuse_caps_past_64():
     a, b = gk.rank_cuda(gst, gcfg), gk.rank_plain(gst, gcfg)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
-    x, y = gk.colors_cuda(gst.x, gst.y, a[0], a[2], gcfg, 1)
+    x, y = gk.colors_cuda(gst.x, gst.y, a[0], a[2], gcfg, 1, count=a[3])
     xp, yp = gk.colors_plain(gst.x, gst.y, b[0], b[2], gcfg, 1)
     assert torch.equal(x, xp) and torch.equal(y, yp)
     huge = st.replace(**{f: getattr(st, f)[:1].expand(2 ** 31 // 64 + 1, 8,

@@ -112,7 +112,7 @@ def test_gs_solve_bitmatches_jax(kind, solve):
     assert_same(want, got)  # x, y bit-equal; overflow_count exact
     if kind == "jammed":
         assert int(got.overflow_count) > 0  # the clamp ran
-    assert gk.LAUNCHES == {"gs_rank": 0, "gs_color": 0}  # CPU: no kernel
+    assert gk.LAUNCHES == dict.fromkeys(gk.LAUNCHES, 0)  # CPU: no kernel
 
 
 @pytest.mark.parametrize("kind, K, n, seed", [("random", 6, 150, 5),
@@ -230,7 +230,7 @@ def test_gs_engine_matches_jax_engine(collide):
                                    err_msg=f)
     assert e.watchdog_events == wd
     assert e.num_particles() == 100
-    assert gk.LAUNCHES == {"gs_rank": 0, "gs_color": 0}
+    assert gk.LAUNCHES == dict.fromkeys(gk.LAUNCHES, 0)
 
 
 def test_gs_step_relocates_then_solves_then_integrates():

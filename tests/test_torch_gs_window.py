@@ -5,8 +5,8 @@ where no CUDA kernel runs.
     ``gpu_physics_engine_torch.ops.gs_kernels.colors_window_bytes``, fit the
     card's 232,448 at every cap up to 256 and every number of colors up
     to four (one geometry serves both layouts; chip_smoke.py holds the mirror
-    equal to the launcher's own number on the card); past cap 256 or K 64
-    the solve stages no window and takes none.
+    equal to the launcher's own number on the card); past cap 64 or K 16
+    the solve (``gs_colors_ranked_kernel``) stages no window and takes none.
   * A model of the kernel's algorithm in torch equals the plain color
     passes (``color_plain_`` / ``color_par_plain_``, then ``verlet_plain_``)
     bit for bit on a jammed scene with its storage off home: blocks over
@@ -19,9 +19,12 @@ where no CUDA kernel runs.
     exactly one block.  Regions of 4 x 6 tiles make many blocks.
   * The same model with a halo two tiles smaller differs from the plain
     passes on that scene: the halo is needed.
-  * Past cap 64 (``gs_colors_span_kernel``'s one-color launches): four
-    launches of the model, one color each on 6 x 6 regions with a 2-tile
-    halo, each reading the last one's planes, equal the plain passes.
+  * Past cap 64 or K 16 (``gs_colors_ranked_kernel``): a model of the
+    ranked-slot solve (x, y copied to the outputs, then a color at a time
+    a cell at a time in place on its ranked slots, its rank count from the
+    count table, up to a register depth in registers and past it read and
+    written pair by pair, then the Verlet step over every slot) equals the
+    plain passes.
 
 The CUDA kernel is held to the plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
@@ -46,14 +49,15 @@ def test_colors_window_fits_a_block_at_every_cap():
     for cap in range(1, 4097):
         for colors in range(5):
             assert gk.colors_window_bytes(cap, colors) <= SMEM, (cap, colors)
-    assert gk.colors_window_bytes(257) == gk.colors_window_bytes(4, 4, 65) == 0
+    assert gk.colors_window_bytes(65) == gk.colors_window_bytes(4, 4, 17) == 0
     # at each class's largest cap, a whole solve: (rows + 16) x (columns +
     # 16) tiles of cap slots of x and y
     assert [gk.colors_window_bytes(c) for c in (4, 8, 16, 32, 64)] == [
         98_304, 147_456, 147_456, 196_608, 225_280]
     assert gk.colors_window_bytes(6) == 110_592  # the 4M-GS cap
-    # past cap 64 a launch runs one color: (6 + 4) x (6 + 4) tiles
-    assert gk.colors_window_bytes(gk.SPAN_CAP) == 10 * 10 * 256 * 8
+    # the widest class (caps 33-64, K up to 16) is the last with a window
+    assert gk.colors_window_bytes(gk.WIDE_CAP, 4, gk.REG_K) == 225_280
+    assert gk.colors_window_bytes(gk.WIDE_CAP + 1, 0, 1) == 0
     assert gk.colors_window_bytes(4, 0) == 32 * 48 * 4 * 8  # the region
 
 
@@ -87,9 +91,8 @@ def _window_model(x, y, src, rrad, cfg, c1, origin=None, halo=None,
     occupied slots (px, py in place).  origin None: the flat grid of
     REGION-sized blocks; else the parity layout's grid at that origin.
     ``halo``: tiles staged on every side (the kernel's: 2 * c1).  Returns
-    the new (x, y).  ``c0``: the launch's first color (the span kernel's
-    one-color launches past cap 64: c0 = c1, on ``region`` (6, 6)); the
-    k-th color of the launch, c0 + k, at inset 2k + 1."""
+    the new (x, y).  ``c0``: the launch's first color; the k-th color of
+    the launch, c0 + k, at inset 2k + 1."""
     cap, TY, TX = x.shape
     RY, RX = region
     nc = max(c1 - c0 + 1, 0)
@@ -164,10 +167,11 @@ def _window_model(x, y, src, rrad, cfg, c1, origin=None, halo=None,
     return ox, oy
 
 
-def _inputs(layout, uniform):
+def _inputs(layout, uniform, with_count=False):
     """(config, state, full-space src, rrad, parity geometry or None, prm)
     of the jammed scene, the tables from the layout's plain rank (the
-    parity rank masks border cells)."""
+    parity rank masks border cells); ``with_count``: the full-space count
+    table too, last."""
     cfg, st = _scene(uniform)
     prm = StepParams.make(cfg.dt, mouse=(12.0, 8.0), pressed=True
                           ).as_tensor("cpu")
@@ -179,7 +183,10 @@ def _inputs(layout, uniform):
         src, _, rrad, count = gp.rank_par_plain(ps, cfg)
         geo = ps.geo
         src, rrad = gp.from_parity(src, geo), gp.from_parity(rrad, geo)
+        count = gp.from_parity(count[:, None], geo)[0]
     assert int((count - cfg.max_occupancy).clamp(min=0).sum()) > 0
+    if with_count:
+        return cfg, st, src, rrad, geo, prm, count
     return cfg, st, src, rrad, geo, prm
 
 
@@ -234,25 +241,80 @@ def test_window_model_needs_its_halo(layout):
     assert torch.equal(ok[0], want[0])
 
 
-@pytest.mark.parametrize("layout, uniform, tail", [
-    (None, False, False), (0, True, True), (-1, True, True)])
-def test_one_color_launches_match_plain_colors(layout, uniform, tail):
-    """Past cap 64 a solve is four launches of one color each, on 6 x 6
-    regions with a 2-tile halo, each reading the last one's planes (the
-    Verlet step in the last): the same x, y as the plain passes."""
-    cfg, st, src, rrad, geo, prm = _inputs(layout, uniform)
+def _ranked_model(x, y, src, rrad, count, cfg, c1, tail=None, regs=8):
+    """The ranked-slot solve on full-space planes x, y [cap, TY, TX] and
+    tables src, rrad [K, TY, TX], count [TY, TX]: x, y copied to the
+    outputs, then for each color 1..c1 each cell of the color in place on
+    the outputs: n = min(count, K) ranks (the valid prefix of src), done
+    at n < 2; up to ``regs`` ranks read into registers, swept, written
+    back; past it rank p held while ranks p + 1 .. n - 1 are read, swept
+    and written one pair at a time.  Then with ``tail`` = (px, py, pid,
+    prm) the Verlet step of every slot.  Returns the new (x, y)."""
+    cap, TY, TX = x.shape
+    K = src.shape[0]
+    ox, oy = x.clone().reshape(-1), y.clone().reshape(-1)
+    stiff = np.float32(cfg.stiffness)
+
+    def pair(p, b):
+        dxa, dya, dxb, dyb, hit = gt.pair_correction(
+            *p, *b, torch.tensor(stiff))
+        if bool(hit):
+            p = (p[0] + dxa, p[1] + dya, p[2])
+            b = (b[0] - dxb, b[1] - dyb, b[2])
+        return p, b
+
+    for c in range(1, c1 + 1):
+        cy0, cx0 = gt.color_origin(c)
+        for ty in range(cy0, TY, 2):
+            for tx in range(cx0, TX, 2):
+                n = min(int(count[ty, tx]), K)
+                assert (src[:n, ty, tx] >= 0).all()  # the count's prefix
+                assert n == K or int(src[n, ty, tx]) < 0
+                if n < 2:
+                    continue
+                codes = src[:n, ty, tx].long()
+                j, s = codes // cap, codes % cap
+                g = (s * TY + ty + j // 3 - 1) * TX + tx + j % 3 - 1
+                if n <= regs:
+                    v = [(ox[g[q]], oy[g[q]], rrad[q, ty, tx])
+                         for q in range(n)]
+                    for p in range(n - 1):
+                        for b in range(p + 1, n):
+                            v[p], v[b] = pair(v[p], v[b])
+                    for q in range(n):
+                        ox[g[q]], oy[g[q]] = v[q][0], v[q][1]
+                    continue
+                for p in range(n - 1):
+                    vp = (ox[g[p]], oy[g[p]], rrad[p, ty, tx])
+                    for b in range(p + 1, n):
+                        vb = (ox[g[b]], oy[g[b]], rrad[b, ty, tx])
+                        vp, vb = pair(vp, vb)
+                        ox[g[b]], oy[g[b]] = vb[0], vb[1]
+                    ox[g[p]], oy[g[p]] = vp[0], vp[1]
+    ox, oy = ox.reshape(x.shape), oy.reshape(y.shape)
+    if tail is not None:
+        gp.verlet_plain_(ox, oy, *tail, cfg)
+    return ox, oy
+
+
+@pytest.mark.parametrize("layout, uniform, tail, regs", [
+    (None, False, False, 8), (0, True, True, 8), (-1, True, True, 2)])
+def test_one_color_launches_match_plain_colors(layout, uniform, tail, regs):
+    """Past cap 64 or K 16 a solve is the copy, a launch a color on the
+    ranked slots in place (each cell's rank count from the count table;
+    ``regs`` 2: every cell of three ranks or more through the pair-by-pair
+    path) and the Verlet step: the same x, y as the plain passes."""
+    cfg, st, src, rrad, geo, prm, count = _inputs(layout, uniform, True)
     tails = [None, None]
     if tail:
         tails = [(st.px.clone(), st.py.clone(), st.pid, prm)
                  for _ in range(2)]
-    x, y = st.x, st.y
-    for c in (1, 2, 3, 4):
-        x, y = _window_model(x, y, src, rrad, cfg, c, layout,
-                             tail=tails[0] if c == 4 else None, c0=c,
-                             region=gk.window_region(gk.SPAN_CAP))
+    x, y = _ranked_model(st.x, st.y, src, rrad, count, cfg, 4, tails[0],
+                         regs)
     want = _plain(cfg, st, src, rrad, geo, 4, tails[1])
     assert torch.equal(x, want[0]) and torch.equal(y, want[1])
     if tail:
         for u, v in zip(tails[0][:2], tails[1][:2]):
             assert torch.equal(u, v)
     assert int((x != st.x).sum()) > 0
+    assert int(count.clamp(max=cfg.max_occupancy).max()) > regs or regs > 2

@@ -3,9 +3,9 @@ CPU, where no CUDA kernel runs.
 
   * The bytes of a block, through the Python mirror
     ``gpu_physics_engine_torch.ops.gs_kernels.rank_window_bytes``, fit the
-    card's 232,448 at every cap up to 4,096 and K up to 256 (past cap 256
-    or K 64 the list kernel's fixed member lists), with and without a
-    radius plane
+    card's 232,448 at every cap up to 4,096 and K up to 256 (past cap 64
+    or K 16 no window: the packed kernel's plan is the library's own), with
+    and without a radius plane
     (one geometry serves both layouts; chip_smoke.py holds the mirror equal
     to the launches' own numbers on the card).
   * A model of the kernel's walk in numpy equals the plain rank bit for
@@ -18,6 +18,13 @@ CPU, where no CUDA kernel runs.
     KMAX-deep list.  On the parity layout the border cells are masked,
     and every cell is written by exactly one block of one launch, in one
     launch over all parities and in one per parity.
+  * A model of the packed kernel (``gs_rank_pack_kernel``, past cap 64 or
+    K 16) equals the plain rank bit for bit on the same scene: blocks of
+    6 x 30 tiles and their one-tile ring, each window's occupants counted
+    and packed per tile in slot order, or, past the buffer, the window
+    streamed; per region cell the members of its 9 tiles and their ranks
+    in ascending pid order, the fill past them; flat, and on the parity
+    layout at both origins in one launch and in one per parity.
 
 The CUDA kernel is held to the plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
@@ -45,14 +52,11 @@ def test_rank_window_fits_a_block_at_every_cap(uniform):
     # past cap 32 the region is 4 x 32 tiles, the masks 64-bit words
     assert gk.rank_window_bytes(64, uniform) == (
         158_304 if uniform else 210_528)
-    # past cap 64 (or K 16) the selection kernel: 2 x 8 tiles, four-word
-    # masks and nine member masks per region cell
-    assert gk.rank_window_bytes(gk.SPAN_CAP, uniform, gk.SPAN_K) == (
-        128_768 if uniform else 169_728)
-    # past cap 256 or K 64 the list kernel: 8 warps' lists of 512 members
-    # (pid, source code, radius), whatever the cap and K
-    assert gk.rank_window_bytes(257, uniform) == 8 * 512 * 12
-    assert gk.rank_window_bytes(4, uniform, 65) == 8 * 512 * 12
+    # past cap 64 or K 16 the packed kernel: no window, whatever the cap
+    # and K (its plan: gpe_gs_rank_pack_bytes)
+    assert gk.rank_window_bytes(gk.WIDE_CAP, uniform, gk.REG_K) > 0
+    assert gk.rank_window_bytes(gk.WIDE_CAP + 1, uniform) == 0
+    assert gk.rank_window_bytes(4, uniform, gk.REG_K + 1) == 0
     for K in range(1, 257):
         for cap in range(1, 4097, 97):
             assert gk.rank_window_bytes(cap, uniform, K) <= SMEM, (cap, K)
@@ -200,3 +204,124 @@ def test_window_walk_model_matches_parity_rank(origin, fused):
         gp.from_parity(want[3][:, None], geo)[0]]
     for name, u, v in zip(("src", "rpid", "rrad", "count"), got, want):
         assert torch.equal(u, v), name
+
+
+PACK_REGION = (6, 30)  # csrc/gs_simple.cuh kGsPackRY, kGsPackRX
+
+
+def _pack_launch(x, y, rad, pid, K, t, r0, origin, parities, entries, out,
+                 written):
+    """One launch of the packed kernel's algorithm over its grid, on
+    full-space numpy planes [cap, TY, TX] (origin None: flat, else the
+    parity layout at that origin ranking ``parities`` and masking border
+    cells), a buffer of ``entries`` occupants.  Writes ``out``, counts
+    ``written`` and returns the blocks that streamed."""
+    cap, TY, TX = pid.shape
+    par = origin is not None
+    RY, RX = PACK_REGION
+    o = origin or 0
+    if par:
+        DY, DX = (TY - o + 1) // 2, (TX - o + 1) // 2
+        grid = (-(-DY // (RY // 2)), -(-DX // (RX // 2)))
+    else:
+        grid = (-(-TY // RY), -(-TX // RX))
+    f = np.float32
+    streamed = 0
+    for by in range(grid[0]):
+        for bx in range(grid[1]):
+            ty0, tx0 = RY * by + o, RX * bx + o
+            # 1, 2. count and pack each window tile's occupants, by slot
+            packed, total = {}, 0
+            for wy in range(RY + 2):
+                for wx in range(RX + 2):
+                    ty, tx = ty0 - 1 + wy, tx0 - 1 + wx
+                    occ = []
+                    if 0 <= ty < TY and 0 <= tx < TX:
+                        occ = [k for k in range(cap) if pid[k, ty, tx] >= 0]
+                    packed[wy, wx] = occ
+                    total += len(occ)
+            stream = total > entries
+            streamed += stream
+            # 3, 4. rank a region cell of the launch's parities, the fill
+            for ry in range(RY):
+                for rx in range(RX):
+                    ty, tx = ty0 + ry, tx0 + rx
+                    if par and 2 * (ry & 1) + (rx & 1) not in parities:
+                        continue
+                    if not (0 <= ty < TY and 0 <= tx < TX):
+                        continue  # a pad cell (the fill) or past the grid
+                    live = not par or (1 <= ty <= TY - 2
+                                       and 1 <= tx <= TX - 2)
+                    lox = f(tx - 1) * f(t)
+                    loy = f(ty - 1) * f(t)
+                    hix, hiy = lox + f(t), loy + f(t)
+                    members = []  # (pid, source code, radius)
+                    for j in range(9 if live else 0):
+                        cy, cx = ty + j // 3 - 1, tx + j % 3 - 1
+                        if stream:  # every slot from device memory
+                            slots = [k for k in range(cap)
+                                     if 0 <= cy < TY and 0 <= cx < TX
+                                     and pid[k, cy, cx] >= 0]
+                        else:
+                            slots = packed[ry + 1 + j // 3 - 1,
+                                           rx + 1 + j % 3 - 1]
+                        for s in slots:
+                            px = min(max(x[s, cy, cx], lox), hix)
+                            py = min(max(y[s, cy, cx], loy), hiy)
+                            ddx, ddy = x[s, cy, cx] - px, y[s, cy, cx] - py
+                            d2 = ddx * ddx + ddy * ddy
+                            r = f(r0) if rad is None else rad[s, cy, cx]
+                            if d2 < r * r:
+                                members.append((int(pid[s, cy, cx]),
+                                                j * cap + s, r))
+                    # the rounds: each the smallest pid not yet taken
+                    ranks = sorted(members)[:K]
+                    ranks += [(BIG, -1, f(0))] * (K - len(ranks))
+                    src, rpid, rrad, count = out
+                    rpid[:, ty, tx], src[:, ty, tx], rrad[:, ty, tx] = zip(
+                        *ranks)
+                    count[ty, tx] = len(members)
+                    written[ty, tx] += 1
+    return streamed
+
+
+def _pack_model(st, cfg, origin, fused, entries):
+    """The packed kernel's tables in full space, and the blocks that
+    streamed."""
+    cap, TY, TX = st.dims
+    K = cfg.max_occupancy
+    out = (np.zeros((K, TY, TX), np.int32), np.zeros((K, TY, TX), np.int32),
+           np.zeros((K, TY, TX), np.float32), np.zeros((TY, TX), np.int32))
+    written = np.zeros((TY, TX), np.int32)
+    rad = None if cfg.tiled_uniform_radius else st.radius.numpy()
+    groups = [(0, 1, 2, 3)] if fused else [(p,) for p in range(4)]
+    streamed = 0
+    for parities in groups:
+        streamed += _pack_launch(
+            st.x.numpy(), st.y.numpy(), rad, st.pid.numpy(), K,
+            tt.tile_geometry(cfg)[0], cfg.initial_radius, origin, parities,
+            entries, out, written)
+    assert (written == 1).all()  # every cell by one block of one launch
+    return [torch.from_numpy(a) for a in out], streamed
+
+
+@pytest.mark.parametrize("origin, fused, uniform", [
+    (None, True, False), (None, True, True), (0, True, True),
+    (-1, False, True)])
+def test_packed_rank_model_matches_plain_rank(origin, fused, uniform):
+    """Buffers of 12 occupants: the scene's windows both pack and
+    stream."""
+    cfg, st = _scene(uniform)
+    got, streamed = _pack_model(st, cfg, origin, fused, entries=12)
+    if origin is None:
+        want = gk.rank_plain(st, cfg)
+    else:
+        ps = gp.to_parity_state(st, cfg, origin)
+        want = gp.rank_par_plain(ps, cfg)
+        want = [gp.from_parity(a, ps.geo) for a in want[:3]] + [
+            gp.from_parity(want[3][:, None], ps.geo)[0]]
+    for name, u, v in zip(("src", "rpid", "rrad", "count"), got, want):
+        assert torch.equal(u, v), name
+    blocks = -(-st.dims[1] // PACK_REGION[0]) * -(-st.dims[2]
+                                                 // PACK_REGION[1])
+    assert 0 < streamed < blocks * (1 if fused else 4)

@@ -9,10 +9,14 @@ memory at every cap and K the card takes.
   * The Python mirrors of the kernels' shared memory
     (``tiled_kernels.k1_smem_bytes``, ``k2_window_bytes``,
     ``gs_kernels.rank_window_bytes``, ``colors_window_bytes``), which past
-    cap 64 (K1, the relocate window) and past cap 256 or K 64 (the GS
-    kernels) follow the kernels that keep no mask, stay within a block's
+    cap 64 (K1, the relocate window; the GS kernels, and past K 16 too)
+    follow the kernels that keep no mask, stay within a block's
     232,448 bytes at every cap 1-4,096 and K 1-256 (chip_smoke.py holds
     them equal to the launches' own numbers on the card).
+  * The GS routes: which kernels (``gs_kernels.rank_kernel``,
+    ``color_kernel``) take each (cap, K) either side of cap 64 and 256 and
+    of K 16 and 64 (chip_smoke.py holds them equal to the library's
+    ``gpe_gs_route`` on the card).
   * ``gs_kernels.rank_plain`` at K 20 (past the register list's 16) equals
     the JAX package's ``_select_occupants`` exactly, and one solve through
     ``rank_plain`` and ``colors_plain`` at K 20 equals the JAX package's
@@ -81,8 +85,41 @@ def test_kernel_windows_fit_a_block_at_every_cap_and_k(mirror):
                    for k in ks]
         assert max(got) <= SMEM, (mirror, cap)
     # past these the kernels that keep no mask: K1 and the relocate window
-    # past cap 64, the GS kernels past cap 256 or K 64
-    assert (tk.WIDE_CAP, gk.SPAN_CAP, gk.SPAN_K) == (64, 256, 64)
+    # past cap 64, the GS kernels past cap 64 or K 16 (no window at all)
+    assert (tk.WIDE_CAP, gk.REG_K) == (64, 16)
+    assert gk.rank_window_bytes(65, False) == gk.colors_window_bytes(65) == 0
+
+
+@pytest.mark.parametrize("cap, K, windowed", [
+    (1, 1, True), (32, 8, True), (64, 16, True), (33, 9, True),
+    (65, 8, False), (64, 17, False), (128, 8, False), (256, 16, False),
+    (257, 8, False), (312, 8, False), (16, 32, False), (16, 64, False),
+    (16, 65, False), (4, 128, False), (520, 80, False)])
+def test_gs_routes_by_cap_and_k(cap, K, windowed):
+    """Up to cap 64 and K 16 the window kernels take K5 and K6; past either
+    the packed rank and the ranked-slot solve, whatever the cap and K (no
+    class past cap 256 or K 64 any more), and neither stages a window."""
+    assert gk.windowed(cap, K) is windowed
+    assert gk.rank_kernel(cap, K) == ("gs_rank_kernel" if windowed
+                                      else "gs_rank_pack_kernel")
+    assert gk.color_kernel(cap, K) == ("gs_colors_window_kernel" if windowed
+                                       else "gs_colors_ranked_kernel")
+    assert (gk.rank_window_bytes(cap, True, K) > 0) is windowed
+    assert (gk.colors_window_bytes(cap, 4, K) > 0) is windowed
+
+
+@pytest.mark.parametrize("cap, K", [(65, 8), (64, 17), (312, 8),
+                                    (16, 80)])
+def test_ranked_solve_needs_the_count_table(cap, K):
+    """Past cap 64 or K 16 the solve takes each cell's rank count from
+    K5's count table alone: a launch without it is refused before the
+    library is loaded."""
+    cfg = gs_cfgs(8, cap=cap, K=K)[1]
+    x = torch.zeros((cap, 8, 8))
+    src = torch.full((K, 8, 8), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="count table"):
+        gk.window_cuda("gs color", x, x, src, None, cfg,
+                       (8, 8, 0, 0, 0, 0), 4)
 
 
 @functools.lru_cache(maxsize=None)
